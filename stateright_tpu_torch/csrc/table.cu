@@ -1,0 +1,157 @@
+// Visited-table dedup for one BFS wave: first occurrence within the wave,
+// then insert-or-test against the open-addressing table, on Hopper.
+//
+// Replaces the Pallas kernel stateright_tpu/tpu/pallas_table.py
+// ::dedup_and_insert_pallas (body _kernel with fuse_local=True, and
+// _probe_claim). It computes the same function: new_mask, cand_mask and
+// both counts are equal bit for bit to the plain version
+// (stateright_tpu_torch/engine.py::dedup_and_insert), and the table equals
+// it as a set. Only the slot layout depends on which atomicCAS wins, and
+// the slot layout carries no meaning.
+//
+// What bounds it on an H100: memory latency and 32-byte sectors, not
+// bandwidth or arithmetic. The function reads the S fingerprints (8 B
+// each), writes two byte masks, and touches about one sector per candidate
+// in the visited table, a dependent random access each. Its own scratch
+// table (12 B a slot, m >= 2S slots) is neither input nor output and can
+// stay in L2, so the bound leaves it out. The TPU kernel staged the table
+// in VMEM and claimed in batched probe rounds (gather, claim-scatter,
+// re-gather), because a TPU has no fine-grained atomics. Here the table
+// stays in HBM and a claim is one 64-bit atomicCAS, so a row resolves in
+// one walk with no extra rounds, and the table size is not bounded by
+// on-chip memory. At a full-width 2pc wave (S = 851,968 against 2^27
+// slots, 30% full, 665,165 candidates) that bound is 29,804,960 B over
+// 3.35 TB/s = 0.0089 ms; this kernel takes about 0.16 ms, some 18x the
+// bound (chip_smoke.py; NVIDIA H100 80GB HBM3, power limit 700 W).
+//
+// Local first occurrence: each valid row claims or finds its fingerprint's
+// scratch slot with atomicCAS, then atomicMin's its row index into the
+// slot. After the launch boundary, a row is a candidate iff the slot holds
+// its own index: the earliest row by construction, never whichever thread
+// arrived first.
+//
+// Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
+//        -Xcompiler -fPIC (stateright_tpu_torch/_build.py); the wrapper and
+// the plain version are in stateright_tpu_torch/table.py.
+
+#include <cstdint>
+#include <cuda_runtime.h>
+
+namespace {
+
+typedef unsigned long long u64;
+
+constexpr u64 kSentinel = ~0ull;
+constexpr u64 kTableMix = 0x9E3779B97F4A7C15ull;
+constexpr u64 kStepMix = 0xC2B2AE3D27D4EB4Full;
+constexpr int kThreads = 256;
+
+__device__ __forceinline__ void slot_hash(u64 fp, int bits, u64* home,
+                                          u64* step) {
+  const int shift = 64 - bits;
+  *home = (fp * kTableMix) >> shift;
+  *step = ((fp * kStepMix) >> shift) | 1ull;
+}
+
+// Pass 1: every valid row finds or claims its fingerprint's slot in the
+// scratch table (m = 2^m_bits >= 2n slots, so a free slot always exists)
+// and lowers the slot's row to its own index.
+__global__ void local_claim(const u64* __restrict__ fps, long long n,
+                            u64* keys, int* rows, int* __restrict__ slot_of,
+                            int m_bits) {
+  const long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const u64 fp = fps[i];
+  if (fp == kSentinel) return;
+  const u64 mask = (1ull << m_bits) - 1;
+  u64 h, step;
+  slot_hash(fp, m_bits, &h, &step);
+  for (u64 t = 0; t <= mask; ++t) {
+    const u64 old = atomicCAS(&keys[h], kSentinel, fp);
+    if (old == kSentinel || old == fp) {
+      atomicMin(&rows[h], (int)i);
+      slot_of[i] = (int)h;
+      return;
+    }
+    h = (h + step) & mask;
+  }
+}
+
+// Pass 2: a row is a candidate iff it holds its slot's least row; each
+// candidate walks the visited table by double hashing. Its own key means
+// seen; the sentinel means try to claim with atomicCAS (a loser to the
+// same key is seen, a loser to another key walks on); any other key means
+// walk on. A walk of `capacity` slots that finds neither is a full table:
+// counts[2] flags it for the engine, which stops at the dispatch end.
+__global__ void probe_claim(const u64* __restrict__ fps, long long n,
+                            const int* __restrict__ rows,
+                            const int* __restrict__ slot_of, u64* table,
+                            int c_bits, bool* __restrict__ new_mask,
+                            bool* __restrict__ cand_mask, int* counts) {
+  const long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+  bool cand = false, is_new = false, unresolved = false;
+  if (i < n) {
+    const u64 fp = fps[i];
+    cand = fp != kSentinel && rows[slot_of[i]] == (int)i;
+    if (cand) {
+      const u64 mask = (1ull << c_bits) - 1;
+      u64 idx, step;
+      slot_hash(fp, c_bits, &idx, &step);
+      unresolved = true;
+      for (u64 t = 0; t <= mask; ++t) {
+        const u64 cur = __ldcg(&table[idx]);
+        if (cur == fp) {
+          unresolved = false;
+          break;
+        }
+        if (cur == kSentinel) {
+          const u64 old = atomicCAS(&table[idx], kSentinel, fp);
+          if (old == kSentinel || old == fp) {
+            is_new = old == kSentinel;
+            unresolved = false;
+            break;
+          }
+        }
+        idx = (idx + step) & mask;
+      }
+    }
+    new_mask[i] = is_new;
+    cand_mask[i] = cand;
+  }
+  // Warp-aggregated counts: one atomic per warp, not per row.
+  const unsigned n_new = __popc(__ballot_sync(0xffffffffu, is_new));
+  const unsigned n_cand = __popc(__ballot_sync(0xffffffffu, cand));
+  const unsigned n_bad = __popc(__ballot_sync(0xffffffffu, unresolved));
+  if ((threadIdx.x & 31) == 0) {
+    if (n_new) atomicAdd(&counts[0], (int)n_new);
+    if (n_cand) atomicAdd(&counts[1], (int)n_cand);
+    if (n_bad) atomicAdd(&counts[2], (int)n_bad);
+  }
+}
+
+}  // namespace
+
+// fps int64[n] (uint64 bit patterns), table int64[2^c_bits] (updated in
+// place), scratch keys int64[2^m_bits] (all sentinel) and rows
+// int32[2^m_bits] (all INT32_MAX), slot_of int32[n], masks bool[n], counts
+// int32[3] (zeroed): new, candidates, unresolved. Launches on `stream`
+// and does not synchronise. Returns cudaGetLastError().
+extern "C" int sr_dedup_and_insert(const void* fps, long long n, void* table,
+                                   int c_bits, void* keys, void* rows,
+                                   void* slot_of, int m_bits, void* new_mask,
+                                   void* cand_mask, void* counts,
+                                   void* stream) {
+  if (n > 0) {
+    const cudaStream_t s = static_cast<cudaStream_t>(stream);
+    const unsigned blocks = (unsigned)((n + kThreads - 1) / kThreads);
+    local_claim<<<blocks, kThreads, 0, s>>>(
+        static_cast<const u64*>(fps), n, static_cast<u64*>(keys),
+        static_cast<int*>(rows), static_cast<int*>(slot_of), m_bits);
+    probe_claim<<<blocks, kThreads, 0, s>>>(
+        static_cast<const u64*>(fps), n, static_cast<const int*>(rows),
+        static_cast<const int*>(slot_of), static_cast<u64*>(table), c_bits,
+        static_cast<bool*>(new_mask), static_cast<bool*>(cand_mask),
+        static_cast<int*>(counts));
+  }
+  return (int)cudaGetLastError();
+}

@@ -1,0 +1,87 @@
+"""``DeviceModel``: the contract a model meets to run on the port's engine.
+
+The port's copy of ``stateright_tpu/tpu/device_model.py``, batch-first:
+every device function takes a whole batch of rows, because the engine
+and its kernels work on batches, never on one state at a time.
+
+- A state is encoded as ``state_width`` uint32 lanes; on the device a
+  batch of them is ``int64[B, W]`` (lane values in ``[0, 2^32)``, see
+  ``hashing``). The encoding must be injective.
+- ``step(rows[B, W]) -> (succ[B, F, W], valid[B, F])``, with
+  ``F = max_fanout``. Slot ``f`` is the f-th action in the order the
+  reference model enumerates actions, so the BFS visits states in the
+  reference's level order. Invalid slots may hold anything.
+- ``device_properties()`` maps property names to predicates
+  ``rows[B, W] -> bool[B]``.
+
+Every device function must be synchronisation-free (no ``.item()``, no
+boolean-mask indexing, no ``nonzero``): the engine runs several waves
+per host round trip and reads nothing back in between.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Dict, List, Optional
+
+import numpy as np
+import torch
+
+__all__ = ["DeviceModel"]
+
+
+class DeviceModel:
+    """The device form of a :class:`~stateright_tpu_torch.model.Model`."""
+
+    #: number of uint32 lanes per encoded state
+    state_width: int
+    #: static maximum number of actions per state
+    max_fanout: int
+    #: lane that must stay 0 in every generated state; a nonzero value
+    #: makes the engine raise (an encoding capacity was exceeded). None
+    #: disables the check.
+    error_lane: Optional[int] = None
+
+    # -- Host-side codec -------------------------------------------------
+
+    def encode(self, state) -> np.ndarray:
+        """Encodes a host state as ``uint32[state_width]`` (injective)."""
+        raise NotImplementedError
+
+    def decode(self, vec: np.ndarray):
+        """Decodes an encoded state back to the host representation."""
+        raise NotImplementedError
+
+    def action_names(self) -> List:
+        """The label of each of the ``max_fanout`` action slots, for
+        paths and reports."""
+        return list(range(self.max_fanout))
+
+    # -- Device-side (batch-first torch functions) -----------------------
+
+    def step(self, rows: torch.Tensor):
+        """``int64[B, W] -> (int64[B, F, W], bool[B, F])``."""
+        raise NotImplementedError
+
+    def device_properties(self) -> Dict[str, Callable]:
+        """Predicates ``int64[B, W] -> bool[B]`` keyed by property name."""
+        return {}
+
+    def lane_bits(self):
+        """Per-lane bit widths of the encoding for the packed storage
+        rows (``packing``): one spec per lane, an int ``b`` or a
+        ``(b, sentinel)`` pair. ``None`` means 32 bits per lane (rows are
+        then stored unpacked). A value wider than its declared lane
+        would be truncated, so the widths are part of the contract."""
+        return None
+
+    def boundary(self, rows: torch.Tensor) -> Optional[torch.Tensor]:
+        """``int64[N, W] -> bool[N]``: which successors lie inside the
+        checked space. ``None`` (the default) means all of them."""
+        return None
+
+    def representative(self, rows: torch.Tensor) -> Optional[torch.Tensor]:
+        """``int64[N, W] -> int64[N, W]``: the canonical member of each
+        row's symmetry class. Dedup uses its fingerprint when the
+        builder enables symmetry; paths keep the original rows'
+        fingerprints. ``None`` means symmetry is unsupported."""
+        return None

@@ -1,0 +1,187 @@
+"""The stage functions of one BFS wave, as plain torch ops.
+
+The port's copy of the wave building blocks of
+``stateright_tpu/tpu/engine.py``: property evaluation, expansion,
+fingerprinting, the two dedup levels and compaction. The dedup functions
+here (``first_occurrence_candidates``, ``global_insert`` and their
+composition ``dedup_and_insert``) are the plain version of the CUDA
+kernel in ``table.py`` and the reference it is held to; the engine
+reaches them only through ``table.dedup_and_insert``, which takes them
+for CPU tensors alone.
+
+Hash constants and slot/step functions equal the reference's, so a table
+built by either side is a valid probe structure for the other.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .hashing import SENTINEL, SENTINEL_U64, device_fp64
+
+__all__ = ["eval_properties", "expand_frontier", "fingerprint_successors",
+           "compaction_order", "TABLE_MIX", "STEP_MIX", "slot_hash",
+           "host_table_insert", "scratch_slots", "first_occurrence_candidates",
+           "global_insert", "dedup_and_insert"]
+
+# Fibonacci mixing constant (2^64 / golden ratio): the HIGH bits of
+# fp * TABLE_MIX pick the home slot. STEP_MIX makes the odd double-hashing
+# step, so each key walks its own sequence through the power-of-two table.
+TABLE_MIX = 0x9E3779B97F4A7C15
+STEP_MIX = 0xC2B2AE3D27D4EB4F
+
+
+def _signed(c: int) -> int:
+    return c - (1 << 64) if c >> 63 else c
+
+
+def eval_properties(prop_fns, rows: torch.Tensor):
+    """Each property predicate over the batch (at "pop time")."""
+    return [fn(rows) for fn in prop_fns]
+
+
+def expand_frontier(dm, rows: torch.Tensor, valid: torch.Tensor):
+    """Successors with boundary pruning: ``(succ_flat [B*F, W],
+    valid_flat [B*F], succ_count (int64), terminal [B])``; a terminal
+    row has no successor inside the boundary."""
+    succ, sv = dm.step(rows)
+    sv = sv & valid[:, None]
+    b, f, w = succ.shape
+    succ_flat = succ.reshape(b * f, w)
+    inside = dm.boundary(succ_flat)
+    if inside is not None:
+        sv = sv & inside.reshape(b, f)
+    terminal = valid & ~sv.any(dim=1)
+    return succ_flat, sv.reshape(b * f), sv.sum(dtype=torch.int64), terminal
+
+
+def fingerprint_successors(dm, succ_flat: torch.Tensor,
+                           valid_flat: torch.Tensor, use_sym: bool):
+    """``(dedup_fps, path_fps)``: under symmetry, dedup by the
+    representative's fingerprint but continue paths with the original
+    row's. Invalid rows carry the sentinel."""
+    path_fps = device_fp64(succ_flat)
+    dedup_fps = (device_fp64(dm.representative(succ_flat)) if use_sym
+                 else path_fps)
+    dedup_fps = torch.where(valid_flat, dedup_fps,
+                            torch.full_like(dedup_fps, SENTINEL))
+    return dedup_fps, path_fps
+
+
+def compaction_order(mask: torch.Tensor) -> torch.Tensor:
+    """Indices that bring ``mask``'s True rows to the front, both halves
+    in their original order (a stable argsort of ~mask, by two prefix
+    sums)."""
+    n = mask.shape[0]
+    kept = torch.cumsum(mask, 0) - 1
+    dropped = torch.cumsum(~mask, 0) - 1
+    slot = torch.where(mask, kept, kept[-1] + 1 + dropped)
+    rows = torch.arange(n, dtype=torch.int64, device=mask.device)
+    return torch.empty_like(rows).scatter_(0, slot, rows)
+
+
+def slot_hash(fps: torch.Tensor, capacity: int):
+    """``(home, step)`` of each fingerprint in a power-of-two table: the
+    high bits of fp*TABLE_MIX, and an odd step from fp*STEP_MIX (a
+    logical right shift, done as an arithmetic one plus a mask)."""
+    bits = capacity.bit_length() - 1
+    shift, mask = 64 - bits, capacity - 1
+    home = ((fps * _signed(TABLE_MIX)) >> shift) & mask
+    step = (((fps * _signed(STEP_MIX)) >> shift) & mask) | 1
+    return home, step
+
+
+def host_table_insert(table: np.ndarray, fps: np.ndarray) -> None:
+    """Inserts uint64 fingerprints into a host copy of the table with the
+    same slot and step functions (for seeding)."""
+    if not len(fps):
+        return
+    capacity = len(table)
+    mask = np.int64(capacity - 1)
+    shift = np.uint64(64 - (capacity.bit_length() - 1))
+    fps = fps.astype(np.uint64)
+    with np.errstate(over="ignore"):
+        idx = ((fps * np.uint64(TABLE_MIX)) >> shift).astype(np.int64)
+        step = ((fps * np.uint64(STEP_MIX)) >> shift).astype(np.int64) | 1
+    pending = np.ones(len(fps), bool)
+    while pending.any():
+        cur = table[idx]
+        found = pending & (cur == fps)
+        empty = pending & (cur == SENTINEL_U64)
+        table[idx[empty]] = fps[empty]
+        won = empty & (table[idx] == fps)
+        pending &= ~(found | won)
+        idx = np.where(pending, (idx + step) & mask, idx)
+
+
+def scratch_slots(n: int) -> int:
+    """Slots of the first-occurrence scratch table for ``n`` rows: a
+    power of two of at least ``2n`` (and 16), as in the reference."""
+    return 1 << max((n - 1).bit_length() + 1, 4)
+
+
+def first_occurrence_candidates(fps: torch.Tensor) -> torch.Tensor:
+    """True at the EARLIEST row of each non-sentinel fingerprint (the
+    BFS enqueue order). A scratch table of ``m >= 2n`` slots; each round
+    a scatter-min of the row index resolves one whole fp group per
+    contended slot, and unresolved groups advance by their odd step.
+    Synchronises once a round: the plain version, not for the card's
+    dispatch."""
+    n = fps.shape[0]
+    first = torch.zeros(n, dtype=torch.bool, device=fps.device)
+    if n == 0:
+        return first
+    m = scratch_slots(n)
+    h, step = slot_hash(fps, m)
+    rows = torch.arange(n, dtype=torch.int64, device=fps.device)
+    pending = fps != SENTINEL
+    while bool(pending.any()):
+        # slot m is the drop slot for rows that already resolved
+        scratch = torch.full((m + 1,), n, dtype=torch.int64,
+                             device=fps.device)
+        scratch.scatter_reduce_(0, torch.where(pending, h, m), rows,
+                                reduce="amin")
+        winner_row = scratch[h]
+        winner_fp = fps[winner_row.clamp(max=n - 1)]
+        same = pending & (winner_fp == fps)
+        first |= same & (winner_row == rows)
+        pending &= ~same
+        h = torch.where(pending, (h + step) & (m - 1), h)
+    return first
+
+
+def global_insert(fps: torch.Tensor, candidate: torch.Tensor,
+                  table: torch.Tensor):
+    """Insert-or-test of distinct candidates against the open-addressing
+    table, IN PLACE: ``(new_mask, full)``. Each round a pending row
+    reads its slot: its own fp means seen, the sentinel means claim it
+    (scatter, then re-read to see which of two racing keys won), any
+    other key means advance. After ``capacity`` rounds a still-pending
+    row has seen every slot taken: ``full`` is then True."""
+    capacity = table.shape[0]
+    idx, step = slot_hash(fps, capacity)
+    pending = candidate.clone()
+    is_new = torch.zeros_like(candidate)
+    for _ in range(capacity):
+        if not bool(pending.any()):
+            break
+        cur = table[idx]
+        found = pending & (cur == fps)
+        empty = pending & (cur == SENTINEL)
+        table[idx[empty]] = fps[empty]
+        won = empty & (table[idx] == fps)
+        is_new |= won
+        pending &= ~(found | won)
+        idx = torch.where(pending, (idx + step) & (capacity - 1), idx)
+    return is_new, pending.any()
+
+
+def dedup_and_insert(fps: torch.Tensor, table: torch.Tensor):
+    """The plain dedup: first occurrence within the wave, then the table
+    probe. Updates ``table`` in place and returns ``(new_mask, cand_mask,
+    new_count, cand_count, full)``, the counts as int32 tensors."""
+    cand = first_occurrence_candidates(fps)
+    new_mask, full = global_insert(fps, cand, table)
+    return (new_mask, cand, new_mask.sum(dtype=torch.int32),
+            cand.sum(dtype=torch.int32), full)

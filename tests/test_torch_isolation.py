@@ -1,0 +1,65 @@
+"""The port stands alone: it imports neither JAX nor the JAX package.
+
+An AST scan of every file of ``stateright_tpu_torch/``; a fresh
+interpreter that checks 2pc at 3 RMs through the port on the CPU and
+then finds neither ``jax`` nor ``stateright_tpu`` loaded; and the entry
+point's default device, which is CUDA and raises on a box without one.
+"""
+
+import ast
+import os
+import subprocess
+import sys
+
+import pytest
+import torch
+
+from stateright_tpu_torch.models.twopc import TwoPhaseSys
+
+_REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+_PKG = os.path.join(_REPO, "stateright_tpu_torch")
+_BANNED = ("jax", "jaxlib", "stateright_tpu", "examples", "two_phase_commit")
+
+
+def _imports(path):
+    tree = ast.parse(open(path).read(), path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
+def test_no_file_of_the_port_imports_jax_or_the_jax_package():
+    files = [os.path.join(d, f) for d, _, fs in os.walk(_PKG)
+             for f in fs if f.endswith(".py")]
+    assert len(files) >= 12
+    for path in files + [os.path.join(_REPO, "chip_smoke.py")]:
+        for name in _imports(path):
+            assert name.split(".")[0] not in _BANNED, (path, name)
+
+
+def test_a_cpu_check_loads_neither_jax_nor_the_jax_package():
+    code = (
+        "import sys, torch\n"
+        "torch.set_num_threads(2)\n"
+        "from stateright_tpu_torch.models.twopc import TwoPhaseSys\n"
+        "c = TwoPhaseSys(3).checker().spawn_cuda_bfs(device='cpu').join()\n"
+        "assert (c.unique_state_count(), c.state_count()) == (288, 1146)\n"
+        "c.assert_properties()\n"
+        "bad = [m for m in sys.modules\n"
+        "       if m.split('.')[0] in ('jax', 'jaxlib', 'stateright_tpu')]\n"
+        "assert not bad, bad\n"
+        "print('ok')\n")
+    env = dict(os.environ, PYTHONPATH=_REPO)
+    out = subprocess.run([sys.executable, "-c", code], cwd=_REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
+def test_default_device_is_cuda_and_never_quietly_the_cpu():
+    if torch.cuda.is_available():
+        pytest.skip("this box has a CUDA device")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        TwoPhaseSys(3).checker().spawn_cuda_bfs()

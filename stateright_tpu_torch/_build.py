@@ -3,9 +3,10 @@
 The port's copy of ``stateright_tpu/native/__init__.py::build_and_load``
 with ``nvcc`` in place of ``g++``. Each source is a plain C interface
 (no PyTorch headers), so a build takes seconds. It lands in
-``stateright_tpu_torch/_build/`` at first use and is rebuilt when the
-source is newer. The library is compiled to a temporary file and renamed
-into place, so parallel workers never load a half-written one. A failed
+``stateright_tpu_torch/_build/`` at first use and is rebuilt when any
+file of ``csrc/`` (the source or a header it may include) is newer. The
+library is compiled to a temporary file and renamed into place, so
+parallel workers never load a half-written one. A failed
 build raises: the port has no path that runs without its kernels.
 """
 
@@ -23,13 +24,20 @@ _DIR = os.path.dirname(os.path.abspath(__file__))
 BUILD_DIR = os.path.join(_DIR, "_build")
 
 
+def _newest_source() -> float:
+    """The latest mtime of any file under ``csrc/``."""
+    root = os.path.join(_DIR, "csrc")
+    return max(os.path.getmtime(os.path.join(d, f))
+               for d, _, files in os.walk(root) for f in files)
+
+
 def build_and_load(name: str) -> ctypes.CDLL:
     """Compiles ``csrc/<name>.cu`` into ``_build/<name>.so`` if missing
     or stale, and loads it. The compiler's output (with ptxas' register
     and spill report) is kept in ``_build/<name>.log``."""
     src = os.path.join(_DIR, "csrc", name + ".cu")
     so = os.path.join(BUILD_DIR, name + ".so")
-    if not os.path.exists(so) or os.path.getmtime(so) < os.path.getmtime(src):
+    if not os.path.exists(so) or os.path.getmtime(so) < _newest_source():
         os.makedirs(BUILD_DIR, exist_ok=True)
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
         os.close(fd)

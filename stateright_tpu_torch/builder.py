@@ -40,14 +40,17 @@ class CheckerBuilder:
     def spawn_cuda_bfs(self, device=None, batch_size: int = 1024,
                        table_capacity: int = 1 << 16,
                        arena_capacity: Optional[int] = None,
-                       waves_per_dispatch: int = 16
-                       ) -> FusedCudaBfsChecker:
+                       waves_per_dispatch: int = 16,
+                       wave_kernel: bool = False) -> FusedCudaBfsChecker:
         """Spawns the fused device BFS; call ``join()`` to wait for it.
 
         ``device=None`` means the current CUDA device and raises when
         there is none: the port never falls back to the CPU on its own.
         ``device="cpu"`` runs the same engine with the kernels' plain
-        versions."""
+        versions. ``wave_kernel=True`` runs each wave's successor path
+        as one kernel (``wave.py``); on the card it needs a model with
+        CUDA device code (``DeviceModel.cuda_model()``) and raises for
+        one without."""
         if device is None:
             if not torch.cuda.is_available():
                 raise RuntimeError(
@@ -60,4 +63,4 @@ class CheckerBuilder:
         return FusedCudaBfsChecker(
             self, device, batch_size=batch_size,
             table_capacity=table_capacity, arena_capacity=arena_capacity,
-            waves_per_dispatch=waves_per_dispatch)
+            waves_per_dispatch=waves_per_dispatch, wave_kernel=wave_kernel)

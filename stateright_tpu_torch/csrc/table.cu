@@ -30,6 +30,9 @@
 // its own index: the earliest row by construction, never whichever thread
 // arrived first.
 //
+// Pass 2 (a candidate walks the visited table) is sr::probe_claim of
+// table.cuh, which the wave kernel (wave.cuh) runs as its second pass too.
+//
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 //        -Xcompiler -fPIC (stateright_tpu_torch/_build.py); the wrapper and
 // the plain version are in stateright_tpu_torch/table.py.
@@ -37,96 +40,24 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "table.cuh"
+
 namespace {
 
-typedef unsigned long long u64;
+using sr::u64;
 
-constexpr u64 kSentinel = ~0ull;
-constexpr u64 kTableMix = 0x9E3779B97F4A7C15ull;
-constexpr u64 kStepMix = 0xC2B2AE3D27D4EB4Full;
 constexpr int kThreads = 256;
 
-__device__ __forceinline__ void slot_hash(u64 fp, int bits, u64* home,
-                                          u64* step) {
-  const int shift = 64 - bits;
-  *home = (fp * kTableMix) >> shift;
-  *step = ((fp * kStepMix) >> shift) | 1ull;
-}
-
 // Pass 1: every valid row finds or claims its fingerprint's slot in the
-// scratch table (m = 2^m_bits >= 2n slots, so a free slot always exists)
-// and lowers the slot's row to its own index.
+// scratch table and lowers the slot's row to its own index.
 __global__ void local_claim(const u64* __restrict__ fps, long long n,
                             u64* keys, int* rows, int* __restrict__ slot_of,
                             int m_bits) {
   const long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
   if (i >= n) return;
   const u64 fp = fps[i];
-  if (fp == kSentinel) return;
-  const u64 mask = (1ull << m_bits) - 1;
-  u64 h, step;
-  slot_hash(fp, m_bits, &h, &step);
-  for (u64 t = 0; t <= mask; ++t) {
-    const u64 old = atomicCAS(&keys[h], kSentinel, fp);
-    if (old == kSentinel || old == fp) {
-      atomicMin(&rows[h], (int)i);
-      slot_of[i] = (int)h;
-      return;
-    }
-    h = (h + step) & mask;
-  }
-}
-
-// Pass 2: a row is a candidate iff it holds its slot's least row; each
-// candidate walks the visited table by double hashing. Its own key means
-// seen; the sentinel means try to claim with atomicCAS (a loser to the
-// same key is seen, a loser to another key walks on); any other key means
-// walk on. A walk of `capacity` slots that finds neither is a full table:
-// counts[2] flags it for the engine, which stops at the dispatch end.
-__global__ void probe_claim(const u64* __restrict__ fps, long long n,
-                            const int* __restrict__ rows,
-                            const int* __restrict__ slot_of, u64* table,
-                            int c_bits, bool* __restrict__ new_mask,
-                            bool* __restrict__ cand_mask, int* counts) {
-  const long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-  bool cand = false, is_new = false, unresolved = false;
-  if (i < n) {
-    const u64 fp = fps[i];
-    cand = fp != kSentinel && rows[slot_of[i]] == (int)i;
-    if (cand) {
-      const u64 mask = (1ull << c_bits) - 1;
-      u64 idx, step;
-      slot_hash(fp, c_bits, &idx, &step);
-      unresolved = true;
-      for (u64 t = 0; t <= mask; ++t) {
-        const u64 cur = __ldcg(&table[idx]);
-        if (cur == fp) {
-          unresolved = false;
-          break;
-        }
-        if (cur == kSentinel) {
-          const u64 old = atomicCAS(&table[idx], kSentinel, fp);
-          if (old == kSentinel || old == fp) {
-            is_new = old == kSentinel;
-            unresolved = false;
-            break;
-          }
-        }
-        idx = (idx + step) & mask;
-      }
-    }
-    new_mask[i] = is_new;
-    cand_mask[i] = cand;
-  }
-  // Warp-aggregated counts: one atomic per warp, not per row.
-  const unsigned n_new = __popc(__ballot_sync(0xffffffffu, is_new));
-  const unsigned n_cand = __popc(__ballot_sync(0xffffffffu, cand));
-  const unsigned n_bad = __popc(__ballot_sync(0xffffffffu, unresolved));
-  if ((threadIdx.x & 31) == 0) {
-    if (n_new) atomicAdd(&counts[0], (int)n_new);
-    if (n_cand) atomicAdd(&counts[1], (int)n_cand);
-    if (n_bad) atomicAdd(&counts[2], (int)n_bad);
-  }
+  if (fp == sr::kSentinel) return;
+  slot_of[i] = sr::scratch_claim(fp, (int)i, keys, rows, m_bits);
 }
 
 }  // namespace
@@ -147,7 +78,7 @@ extern "C" int sr_dedup_and_insert(const void* fps, long long n, void* table,
     local_claim<<<blocks, kThreads, 0, s>>>(
         static_cast<const u64*>(fps), n, static_cast<u64*>(keys),
         static_cast<int*>(rows), static_cast<int*>(slot_of), m_bits);
-    probe_claim<<<blocks, kThreads, 0, s>>>(
+    sr::probe_claim<<<blocks, kThreads, 0, s>>>(
         static_cast<const u64*>(fps), n, static_cast<const int*>(rows),
         static_cast<const int*>(slot_of), static_cast<u64*>(table), c_bits,
         static_cast<bool*>(new_mask), static_cast<bool*>(cand_mask),

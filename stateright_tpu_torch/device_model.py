@@ -13,6 +13,9 @@ and its kernels work on batches, never on one state at a time.
   reference's level order. Invalid slots may hold anything.
 - ``device_properties()`` maps property names to predicates
   ``rows[B, W] -> bool[B]``.
+- ``cuda_model()`` names the model's CUDA device code, which the
+  single-kernel wave (``wave.py``) needs on the card; ``None`` by
+  default.
 
 Every device function must be synchronisation-free (no ``.item()``, no
 boolean-mask indexing, no ``nonzero``): the engine runs several waves
@@ -21,7 +24,7 @@ per host round trip and reads nothing back in between.
 
 from __future__ import annotations
 
-from typing import Callable, Dict, List, Optional
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -84,4 +87,18 @@ class DeviceModel:
         row's symmetry class. Dedup uses its fingerprint when the
         builder enables symmetry; paths keep the original rows'
         fingerprints. ``None`` means symmetry is unsupported."""
+        return None
+
+    def cuda_model(self) -> Optional[Tuple[str, Tuple[int, ...]]]:
+        """The model's step as CUDA device code, for the single-kernel
+        wave (``spawn_cuda_bfs(wave_kernel=True)`` on the card):
+        ``(name, params)``, where ``csrc/models/<name>.cuh`` holds the
+        device step and representative, ``csrc/wave_<name>.cu`` the C
+        entry point, and ``params`` the runtime ints that entry point
+        takes first. The device code computes exactly this class's
+        ``step`` (its ``boundary`` folded into the enabled bit) and
+        ``representative``; a subclass that overrides one of them
+        without declaring its own ``cuda_model`` has none. ``None`` (the
+        default) means no device code: the wave kernel then runs only as
+        its plain version, on the CPU."""
         return None

@@ -6,8 +6,8 @@ fingerprinting, the two dedup levels and compaction. The dedup functions
 here (``first_occurrence_candidates``, ``global_insert`` and their
 composition ``dedup_and_insert``) are the plain version of the CUDA
 kernel in ``table.py`` and the reference it is held to; the engine
-reaches them only through ``table.dedup_and_insert``, which takes them
-for CPU tensors alone.
+reaches them only through ``table.dedup_and_insert`` and
+``wave.wave_megakernel``, which take them for CPU tensors alone.
 
 Hash constants and slot/step functions equal the reference's, so a table
 built by either side is a valid probe structure for the other.

@@ -22,8 +22,17 @@ together with the parts of ``tpu/engine.py::TpuBfsChecker`` it inherits
 - **Paths.** Parents stay in the arena; a path reconstruction reads its
   chain from there on demand.
 
-The dedup of every wave goes through ``table.dedup_and_insert``: the
-CUDA kernel on the card, its plain version on the CPU.
+The successor path of a wave runs one of two ways, each a CUDA kernel on
+the card and its plain version on the CPU:
+
+- by default, torch stage functions (``engine``) for the step, the
+  fingerprints and the packing, and ``table.dedup_and_insert`` for the
+  dedup;
+- with ``wave_kernel=True``, the single-kernel wave
+  ``wave.wave_megakernel``, on the packed batch as it lies in the arena.
+
+The table's rehash at rest points goes through ``table.dedup_and_insert``
+either way. ``kernel_path()`` says which implementation ran.
 """
 
 from __future__ import annotations
@@ -42,6 +51,7 @@ from .model import Expectation
 from .packing import compile_layout
 from .path import Path
 from .table import dedup_and_insert
+from .wave import cuda_model, wave_megakernel
 
 __all__ = ["FusedCudaBfsChecker", "ST_HEAD", "ST_TAIL", "ST_OCC",
            "ST_SUCC", "ST_CAND", "ST_TARGET", "ST_ERR", "ST_WAVES",
@@ -79,7 +89,7 @@ class FusedCudaBfsChecker(Checker):
 
     def __init__(self, builder, device: torch.device, batch_size: int = 1024,
                  table_capacity: int = 1 << 16, arena_capacity=None,
-                 waves_per_dispatch: int = 16):
+                 waves_per_dispatch: int = 16, wave_kernel: bool = False):
         model = builder._model
         dm = model.device_model()
         self._model, self._dm, self._device = model, dm, device
@@ -102,6 +112,9 @@ class FusedCudaBfsChecker(Checker):
         self._B, self._F = int(batch_size), dm.max_fanout
         self._K = max(1, int(waves_per_dispatch))
         self._layout = compile_layout(dm.lane_bits(), W)
+        self._wave_kernel = bool(wave_kernel)
+        if self._wave_kernel and device.type == "cuda":
+            cuda_model(dm, self._layout)  # raises before any device work
         ebits_all = 0
         for i, p in enumerate(self._properties):
             if p.expectation is Expectation.EVENTUALLY:
@@ -205,7 +218,8 @@ class FusedCudaBfsChecker(Checker):
             idx = head + rb
             valid = (idx < tail) & go
             idx = idx.clamp(max=ucap - 1)
-            rows = layout.unpack(self._vecs[idx])
+            bstore = self._vecs[idx]
+            rows = layout.unpack(bstore)
             bfps = self._fps[idx]
             bebits = self._ebits[idx]
 
@@ -216,12 +230,29 @@ class FusedCudaBfsChecker(Checker):
                 elif prop.expectation is Expectation.SOMETIMES:
                     disc[i] = _first_hit(disc[i], valid & conds[i], bfps)
 
-            succ, sflat, succ_count, terminal = expand_frontier(dm, rows,
-                                                                valid)
-            dedup_fps, path_fps = fingerprint_successors(
-                dm, succ, sflat, self._use_symmetry)
-            new_mask, _, new_count, cand_count, full = dedup_and_insert(
-                dedup_fps, self._table)
+            err_col = None
+            if self._wave_kernel:
+                # The whole successor path in one kernel, on the packed
+                # rows; succ_count and terminal follow from sflat, and
+                # the error lane is read from the packed successors.
+                (succ_store, path_fps, sflat, new_mask, _, new_count,
+                 cand_count, full) = wave_megakernel(
+                    dm, bstore, valid, self._table, self._use_symmetry,
+                    layout)
+                succ_count = sflat.sum(dtype=torch.int64)
+                terminal = valid & ~sflat.reshape(B, F).any(dim=1)
+                if dm.error_lane is not None:
+                    err_col = layout.lane(succ_store, dm.error_lane)
+            else:
+                succ, sflat, succ_count, terminal = expand_frontier(
+                    dm, rows, valid)
+                dedup_fps, path_fps = fingerprint_successors(
+                    dm, succ, sflat, self._use_symmetry)
+                new_mask, _, new_count, cand_count, full = dedup_and_insert(
+                    dedup_fps, self._table)
+                succ_store = layout.pack(succ)
+                if dm.error_lane is not None:
+                    err_col = succ[:, dm.error_lane]
             comp = compaction_order(new_mask)
 
             # Eventually bits: clear the satisfied ones at the parent,
@@ -236,8 +267,8 @@ class FusedCudaBfsChecker(Checker):
                     hit = valid & terminal & (((cleared >> i) & 1) != 0)
                     disc[i] = _first_hit(disc[i], hit, bfps)
 
-            if dm.error_lane is not None:
-                bad = ((succ[:, dm.error_lane] != 0) & new_mask).any()
+            if err_col is not None:
+                bad = ((err_col != 0) & new_mask).any()
                 err = err | torch.where(bad, ERR_LANE, 0)
             err = err | torch.where(full, ERR_TABLE_FULL, 0)
 
@@ -246,7 +277,7 @@ class FusedCudaBfsChecker(Checker):
             nc = new_count.to(torch.int64)
             pos = torch.where(rs < nc, tail + rs, ucap)
             parent = comp // F
-            self._vecs.index_copy_(0, pos, layout.pack(succ)[comp])
+            self._vecs.index_copy_(0, pos, succ_store[comp])
             self._fps.index_copy_(0, pos, path_fps[comp])
             self._par.index_copy_(0, pos, bfps[parent])
             self._ebits.index_copy_(0, pos, cleared[parent])
@@ -360,6 +391,17 @@ class FusedCudaBfsChecker(Checker):
 
     def model(self):
         return self._model
+
+    def kernel_path(self) -> str:
+        """Which successor-path implementation the waves run:
+        ``megakernel`` (the single-kernel wave) or ``dedup_kernel``
+        (torch stages around the dedup kernel) on the card, and their
+        plain versions ``megakernel_plain`` or ``dedup_plain`` on the
+        CPU."""
+        on_card = self._device.type == "cuda"
+        if self._wave_kernel:
+            return "megakernel" if on_card else "megakernel_plain"
+        return "dedup_kernel" if on_card else "dedup_plain"
 
     def state_count(self) -> int:
         with self._lock:

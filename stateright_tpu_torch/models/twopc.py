@@ -100,6 +100,10 @@ class TwoPhaseDevice(DeviceModel):
         n = self.rm_count
         return [2] * n + [2, n, n + 2]
 
+    def cuda_model(self):
+        """``csrc/models/twopc.cuh``, at this RM count."""
+        return "twopc", (self.rm_count,)
+
     def action_names(self):
         names = [("TmCommit",), ("TmAbort",)]
         for i in range(self.rm_count):

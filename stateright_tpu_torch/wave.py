@@ -1,0 +1,158 @@
+"""The single-kernel wave: the CUDA kernel and its wrapper.
+
+``wave_megakernel`` replaces the Pallas kernel
+``stateright_tpu/tpu/pallas_table.py::build_wave_megakernel`` (with
+``_wave_front``). From a packed batch it computes a wave's whole
+successor path: unpack, the model's step, the path and dedup
+fingerprints (the representative's under symmetry), the first occurrence
+within the wave, the probe and claim in the visited table (in place),
+and the re-pack of the successors.
+
+For CUDA tensors it launches the kernel of ``csrc/wave.cuh``, built for
+the model named by ``DeviceModel.cuda_model()`` from
+``csrc/wave_<name>.cu`` at first use, or raises: a model with no device
+code, a layout the device code does not take, a failed build or a failed
+launch all raise. For CPU tensors it runs the plain version,
+``wave_megakernel_plain``: the port's own stage functions in the order
+of ``_wave_front`` and the dedup kernel. It is also the reference the
+kernel is held to on the card. The wrapper never synchronises, so it can
+run inside a multi-wave dispatch.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import numpy as np
+import torch
+
+from ._build import build_and_load
+from .engine import dedup_and_insert as dedup_and_insert_plain
+from .engine import expand_frontier, fingerprint_successors, scratch_slots
+
+__all__ = ["wave_megakernel", "wave_megakernel_plain", "cuda_model"]
+
+_INT32_MAX = (1 << 31) - 1
+
+
+def wave_megakernel_plain(dm, store: torch.Tensor, valid: torch.Tensor,
+                          table: torch.Tensor, use_sym: bool, layout):
+    """The plain version of ``wave_megakernel``, in torch ops."""
+    succ, sflat, _, _ = expand_frontier(dm, layout.unpack(store), valid)
+    dedup_fps, path_fps = fingerprint_successors(dm, succ, sflat, use_sym)
+    new_mask, cand_mask, new_count, cand_count, full = \
+        dedup_and_insert_plain(dedup_fps, table)
+    return (layout.pack(succ), path_fps, sflat, new_mask, cand_mask,
+            new_count, cand_count, full)
+
+
+def _defining_class(cls, name: str):
+    return next(k for k in cls.__mro__ if name in vars(k))
+
+
+def cuda_model(dm, layout):
+    """``(name, params, lanes)`` of ``dm``'s CUDA device code, with
+    ``lanes`` the layout as the kernel takes it (each lane's packed word,
+    bit offset and bits, ``int32[3 * W]``). Raises when the model has no
+    device code for its step or the layout has sentinel lanes."""
+    spec = dm.cuda_model()
+    owner = _defining_class(type(dm), "cuda_model")
+    overridden = [fn for fn in ("step", "boundary", "representative")
+                  if _defining_class(type(dm), fn) not in owner.__mro__]
+    if spec is None or overridden:
+        raise NotImplementedError(
+            f"model {type(dm).__name__} has no CUDA step for the "
+            "single-kernel wave (DeviceModel.cuda_model()"
+            + (f"; it overrides {overridden}" if overridden else "")
+            + "): run it with wave_kernel=False on the card")
+    sentinel = [i for i, lane in enumerate(layout.lanes)
+                if lane.sentinel is not None]
+    if sentinel:
+        raise NotImplementedError(
+            f"lanes {sentinel} of {type(dm).__name__} have sentinel "
+            "values, which the wave kernel's packing does not handle")
+    lanes = np.array([[lane.word for lane in layout.lanes],
+                      [lane.offset for lane in layout.lanes],
+                      [lane.bits for lane in layout.lanes]], np.int32)
+    name, params = spec
+    return name, tuple(int(p) for p in params), lanes.reshape(-1)
+
+
+@functools.lru_cache(maxsize=None)
+def _entry(name: str, n_params: int):
+    fn = getattr(build_and_load("wave_" + name), "sr_wave_" + name)
+    fn.restype = ctypes.c_int
+    i, p = ctypes.c_int, ctypes.c_void_p
+    fn.argtypes = ([i] * n_params + [i, p, i, i, p, p, ctypes.c_longlong, i,
+                                      p, i, p, p, p, p, p, p, p, i, p, p, p,
+                                      p])
+    return fn
+
+
+def wave_megakernel(dm, store: torch.Tensor, valid: torch.Tensor,
+                    table: torch.Tensor, use_sym: bool, layout):
+    """``store int32[B, Wp]`` (packed rows), ``valid bool[B]``, ``table
+    int64[C]`` (C a power of two, updated in place) -> ``(succ_store
+    int32[S, Wp], path_fps int64[S], sflat bool[S], new_mask bool[S],
+    cand_mask bool[S], new_count, cand_count, full)`` with ``S = B * F``;
+    the counts are int32 and ``full`` bool 0-dim tensors on the same
+    device. ``full`` is True when a candidate found neither its key nor
+    a free slot in the whole table."""
+    tensors = (store, valid, table)
+    if all(t.device.type == "cpu" for t in tensors):
+        return wave_megakernel_plain(dm, store, valid, table, use_sym, layout)
+    dev = store.device
+    if dev.type != "cuda" or any(t.device != dev for t in tensors):
+        raise ValueError(
+            f"store on {store.device}, valid on {valid.device} and table on "
+            f"{table.device}: all must be on one CUDA device (or the CPU)")
+    B, F, wp = store.shape[0], dm.max_fanout, layout.packed_width
+    capacity = table.shape[0]
+    for name, t, dtype, shape in (("store", store, torch.int32, (B, wp)),
+                                  ("valid", valid, torch.bool, (B,)),
+                                  ("table", table, torch.int64, (capacity,))):
+        if t.dtype != dtype or not t.is_contiguous() or t.shape != shape:
+            raise ValueError(f"{name} must be a contiguous {dtype} tensor "
+                             f"of shape {shape}")
+    if capacity < 2 or capacity & (capacity - 1):
+        raise ValueError(f"table capacity {capacity} is not a power of two")
+    name, params, lanes = cuda_model(dm, layout)
+    S = B * F
+    m = scratch_slots(S)
+    if m > _INT32_MAX:
+        raise ValueError(f"{S} successor slots exceed the kernel's int32 "
+                         "row index")
+    succ_store = torch.empty((S, wp), dtype=torch.int32, device=dev)
+    path_fps = torch.empty(S, dtype=torch.int64, device=dev)
+    dedup_fps = torch.empty(S, dtype=torch.int64, device=dev)
+    sflat = torch.empty(S, dtype=torch.bool, device=dev)
+    new_mask = torch.empty(S, dtype=torch.bool, device=dev)
+    cand_mask = torch.empty(S, dtype=torch.bool, device=dev)
+    slot_of = torch.empty(max(S, 1), dtype=torch.int32, device=dev)
+    keys = torch.full((m,), -1, dtype=torch.int64, device=dev)
+    rows = torch.full((m,), _INT32_MAX, dtype=torch.int32, device=dev)
+    counts = torch.zeros(3, dtype=torch.int32, device=dev)
+    fn = _entry(name, len(params))
+    # The launch goes to the current device's context, which in the
+    # checker's worker thread is not necessarily the tensors' device.
+    with torch.cuda.device(dev):
+        rc = fn(*params, int(use_sym), lanes.ctypes.data, layout.width, wp,
+                store.data_ptr(), valid.data_ptr(), B, F, table.data_ptr(),
+                capacity.bit_length() - 1, succ_store.data_ptr(),
+                path_fps.data_ptr(), sflat.data_ptr(), dedup_fps.data_ptr(),
+                keys.data_ptr(), rows.data_ptr(), slot_of.data_ptr(),
+                m.bit_length() - 1, new_mask.data_ptr(),
+                cand_mask.data_ptr(), counts.data_ptr(),
+                torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"wave kernel launch for {name} failed: CUDA "
+                           f"error {rc}")
+    wave_megakernel.launches += 1
+    return (succ_store, path_fps, sflat, new_mask, cand_mask, counts[0],
+            counts[1], counts[2] != 0)
+
+
+#: kernel launches since the caller last set it to 0 (the CPU path does
+#: not count: it launches nothing)
+wave_megakernel.launches = 0

@@ -254,3 +254,10 @@ def test_error_lane_stops_the_run_on_both_sides():
                                           batch_size=64).join()
     with pytest.raises(RuntimeError, match="error lane 0"):
         Sys(3).checker().spawn_cuda_bfs(device="cpu", batch_size=64).join()
+    # The single-kernel wave reads the lane from the packed successors.
+    with pytest.raises(RuntimeError, match="error lane"):
+        RefSys(3).checker().spawn_tpu_bfs(
+            wave_kernel=True, pack_arena=True, batch_size=64).join()
+    with pytest.raises(RuntimeError, match="error lane 0"):
+        Sys(3).checker().spawn_cuda_bfs(device="cpu", batch_size=64,
+                                        wave_kernel=True).join()

@@ -35,6 +35,22 @@
 // 0.157 ms, some 28x the bound (chip_smoke.py; NVIDIA H100 80GB HBM3,
 // power limit 700 W). This first version re-reads row b for each of its F
 // slots (from L1), and keeps no row in shared memory.
+//
+// The sender kernel (launch_sender) replaces the Pallas kernel
+// build_sender_megakernel :451, the front half of the wave kernel with no
+// table that the sharded engine runs a shard at a time. Its input is the
+// shards' batches stacked, vecs uint32[n, B, Wp] and valid bool[n, B]; for
+// each shard's S slots it writes succ_store, dedup_fps, path_fps, sflat
+// and send_mask: the earliest slot of each dedup fingerprint within its
+// own shard when local_dedup (the exchange_novel_only contract), else
+// sflat. Pass 1 is the same wave_front, over all n * S slots in one
+// launch, each shard claiming in its own scratch region (one shared over
+// all shards would drop a later shard's copy of a state an earlier shard
+// also produced); pass 2 (sender_mask) reads the regions. It has no table,
+// no probe and no counts. Its outputs equal the plain version
+// (stateright_tpu_torch/wave.py::sender_megakernel_plain) bit for bit.
+// Its bound is bytes: the packed batch and valid read, the packed
+// successors, two fingerprint arrays and two byte masks written.
 
 #pragma once
 
@@ -72,10 +88,46 @@ struct WaveArgs {
   cudaStream_t stream;
 };
 
+// Pointers and sizes of one sender wave over n stacked shards.
+struct SenderArgs {
+  const int* lanes;  // host int32[3 * w]
+  int w, wp;
+  const uint32_t* vecs;  // [shards, B, wp]
+  const bool* valid;     // [shards, B]
+  long long batch;       // B, rows a shard
+  long long shards;
+  int fanout;
+  uint32_t* succ_store;  // [shards, S, wp], S = B * fanout
+  u64* dedup_fps;        // [shards, S]
+  u64* path_fps;         // [shards, S]
+  bool* sflat;           // [shards, S]
+  bool* send_mask;       // [shards, S]
+  u64* keys;             // [shards, 2^m_bits], all sentinel
+  int* rows;             // [shards, 2^m_bits], all INT32_MAX
+  int* slot_of;          // [shards, S], scratch
+  int m_bits;
+  bool use_sym, local_dedup;
+  cudaStream_t stream;
+};
+
 namespace {
 
 constexpr int kWaveThreads = 256;
 
+// The first scratch slot of slot i's region. One region (the wave
+// kernel's) needs no division, and slots fit 32 bits (the wrappers check
+// it), where a division costs a third of a 64-bit one.
+__device__ __forceinline__ long long region_base(long long i, long long S,
+                                                 long long region_slots,
+                                                 int m_bits) {
+  if (region_slots >= S) return 0;
+  return (long long)((unsigned)i / (unsigned)region_slots) << m_bits;
+}
+
+// Pass 1 of both kernels. Slot i's dedup fingerprint claims its slot in
+// scratch region i / region_slots (2^m_bits slots a region), so the first
+// occurrence is taken within each region: the wave kernel has one region,
+// the sender kernel one a shard. With keys null nothing is claimed.
 template <class M>
 __global__ void wave_front(M m, Layout<M::kMaxW, M::kMaxWords> L,
                            const uint32_t* __restrict__ vecs,
@@ -85,7 +137,8 @@ __global__ void wave_front(M m, Layout<M::kMaxW, M::kMaxWords> L,
                            u64* __restrict__ path_fps,
                            bool* __restrict__ sflat,
                            u64* __restrict__ dedup_fps, u64* keys, int* rows,
-                           int* __restrict__ slot_of, int m_bits) {
+                           int* __restrict__ slot_of, int m_bits,
+                           long long region_slots) {
   constexpr int kMaxW = M::kMaxW, kMaxWords = M::kMaxWords;
   for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
        i < S; i += (long long)gridDim.x * blockDim.x) {
@@ -112,49 +165,110 @@ __global__ void wave_front(M m, Layout<M::kMaxW, M::kMaxWords> L,
         m.representative(v);
         dfp = fp64(v, L.w);
       }
-      slot_of[i] = scratch_claim(dfp, (int)i, keys, rows, m_bits);
+      if (keys != nullptr) {
+        const long long base = region_base(i, S, region_slots, m_bits);
+        slot_of[i] = scratch_claim(dfp, (int)i, keys + base, rows + base,
+                                   m_bits);
+      }
     }
     dedup_fps[i] = dfp;
   }
 }
 
+// Pass 2 of the sender kernel: with local dedup, slot i is sent iff it
+// holds the least row of its fingerprint's slot in its own region; without
+// it, iff it is a valid successor.
+__global__ void sender_mask(const u64* __restrict__ dedup_fps,
+                            const bool* __restrict__ sflat, long long n,
+                            long long region_slots,
+                            const int* __restrict__ rows,
+                            const int* __restrict__ slot_of, int m_bits,
+                            bool local_dedup, bool* __restrict__ send_mask) {
+  const long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  bool send = sflat[i];
+  if (local_dedup)
+    send = dedup_fps[i] != kSentinel &&
+           rows[region_base(i, n, region_slots, m_bits) + slot_of[i]] ==
+               (int)i;
+  send_mask[i] = send;
+}
+
 }  // namespace
+
+template <class M>
+bool make_layout(const M& m, const int* lanes, int w, int wp, int fanout,
+                 Layout<M::kMaxW, M::kMaxWords>* L) {
+  if (w != m.width() || w > M::kMaxW || wp > M::kMaxWords ||
+      fanout != m.fanout())
+    return false;
+  L->w = w;
+  L->wp = wp;
+  for (int j = 0; j < w; ++j) {
+    L->word[j] = (uint8_t)lanes[j];
+    L->offset[j] = (uint8_t)lanes[w + j];
+    L->bits[j] = (uint8_t)lanes[2 * w + j];
+  }
+  return true;
+}
+
+// Blocks of pass 1 for S slots: as many as the card holds at once, at
+// most one a slot; the grid-stride loop covers the rest.
+template <class M>
+unsigned front_blocks(long long S) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, wave_front<M>,
+                                                kWaveThreads, 0);
+  const long long want = (S + kWaveThreads - 1) / kWaveThreads;
+  const long long most = (long long)(sms > 0 ? sms : 1) *
+                         (per_sm > 0 ? per_sm : 1);
+  return (unsigned)(want < most ? want : most);
+}
 
 // Launches both passes on a.stream for model m; does not synchronise.
 // Returns cudaErrorInvalidValue when the layout or the fanout does not fit
 // the model, else cudaGetLastError().
 template <class M>
 int launch_wave(const M& m, const WaveArgs& a) {
-  constexpr int kMaxW = M::kMaxW, kMaxWords = M::kMaxWords;
-  if (a.w != m.width() || a.w > kMaxW || a.wp > kMaxWords ||
-      a.fanout != m.fanout())
+  Layout<M::kMaxW, M::kMaxWords> L;
+  if (!make_layout(m, a.lanes, a.w, a.wp, a.fanout, &L))
     return (int)cudaErrorInvalidValue;
-  Layout<kMaxW, kMaxWords> L;
-  L.w = a.w;
-  L.wp = a.wp;
-  for (int j = 0; j < a.w; ++j) {
-    L.word[j] = (uint8_t)a.lanes[j];
-    L.offset[j] = (uint8_t)a.lanes[a.w + j];
-    L.bits[j] = (uint8_t)a.lanes[2 * a.w + j];
-  }
   const long long S = a.batch * a.fanout;
   if (S > 0) {
-    int dev = 0, sms = 0, per_sm = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, wave_front<M>,
-                                                  kWaveThreads, 0);
-    const long long want = (S + kWaveThreads - 1) / kWaveThreads;
-    const long long most = (long long)(sms > 0 ? sms : 1) *
-                           (per_sm > 0 ? per_sm : 1);
-    wave_front<M><<<(unsigned)(want < most ? want : most), kWaveThreads, 0,
-                    a.stream>>>(m, L, a.vecs, a.valid, S, a.fanout,
-                                a.use_sym, a.succ_store, a.path_fps,
-                                a.sflat, a.dedup_fps, a.keys, a.rows,
-                                a.slot_of, a.m_bits);
-    probe_claim<<<(unsigned)want, kWaveThreads, 0, a.stream>>>(
+    const unsigned want = (unsigned)((S + kWaveThreads - 1) / kWaveThreads);
+    wave_front<M><<<front_blocks<M>(S), kWaveThreads, 0, a.stream>>>(
+        m, L, a.vecs, a.valid, S, a.fanout, a.use_sym, a.succ_store,
+        a.path_fps, a.sflat, a.dedup_fps, a.keys, a.rows, a.slot_of,
+        a.m_bits, S);
+    probe_claim<<<want, kWaveThreads, 0, a.stream>>>(
         a.dedup_fps, S, a.rows, a.slot_of, a.table, a.c_bits, a.new_mask,
         a.cand_mask, a.counts);
+  }
+  return (int)cudaGetLastError();
+}
+
+// Launches the sender kernel, both passes, on a.stream for model m over
+// all shards at once; does not synchronise. Same return codes as
+// launch_wave.
+template <class M>
+int launch_sender(const M& m, const SenderArgs& a) {
+  Layout<M::kMaxW, M::kMaxWords> L;
+  if (!make_layout(m, a.lanes, a.w, a.wp, a.fanout, &L))
+    return (int)cudaErrorInvalidValue;
+  const long long region = a.batch * a.fanout;
+  const long long S = a.shards * region;
+  if (S > 0) {
+    const unsigned want = (unsigned)((S + kWaveThreads - 1) / kWaveThreads);
+    wave_front<M><<<front_blocks<M>(S), kWaveThreads, 0, a.stream>>>(
+        m, L, a.vecs, a.valid, S, a.fanout, a.use_sym, a.succ_store,
+        a.path_fps, a.sflat, a.dedup_fps,
+        a.local_dedup ? a.keys : nullptr, a.rows, a.slot_of, a.m_bits,
+        region);
+    sender_mask<<<want, kWaveThreads, 0, a.stream>>>(
+        a.dedup_fps, a.sflat, S, region, a.rows, a.slot_of, a.m_bits,
+        a.local_dedup, a.send_mask);
   }
   return (int)cudaGetLastError();
 }

@@ -1,11 +1,11 @@
-// The single-kernel wave (wave.cuh) for two-phase commit, behind a plain
-// C interface.
+// The single-kernel wave and the sender kernel (wave.cuh) for two-phase
+// commit, behind a plain C interface.
 //
-// Instantiates the wave kernel for models/twopc.cuh at four register
-// sizes, 4, 8, 16 and 28 RMs (28 is the most the encoding holds), and
-// picks the smallest that holds the run's RM count. See wave.cuh for what
-// the kernel computes, what bounds it and how it is held to its plain
-// version.
+// Instantiates both kernels for models/twopc.cuh at four register sizes,
+// 4, 8, 16 and 28 RMs (28 is the most the encoding holds), and picks the
+// smallest that holds the run's RM count. See wave.cuh for what the
+// kernels compute, what bounds them and how they are held to their plain
+// versions.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 //        -Xcompiler -fPIC (stateright_tpu_torch/_build.py); the wrapper and
@@ -62,5 +62,52 @@ extern "C" int sr_wave_twopc(int rm_count, int use_sym, const int* lanes,
   if (rm_count <= 8) return sr::launch_wave(sr::TwoPhase<8>{rm_count}, a);
   if (rm_count <= 16) return sr::launch_wave(sr::TwoPhase<16>{rm_count}, a);
   if (rm_count <= 28) return sr::launch_wave(sr::TwoPhase<28>{rm_count}, a);
+  return (int)cudaErrorInvalidValue;
+}
+
+// rm_count RMs; lanes as above; vecs int32[shards, batch, wp] and valid
+// bool[shards, batch] (each shard's batch); outputs for S = batch * fanout
+// slots a shard: succ_store int32[shards, S, wp], dedup_fps and path_fps
+// int64[shards, S], sflat and send_mask bool[shards, S]; scratch, read
+// only when local_dedup: keys int64[shards, 2^m_bits] (all sentinel),
+// rows int32[shards, 2^m_bits] (all INT32_MAX), slot_of int32[shards, S].
+// Launches on `stream` and does not synchronise. Returns a CUDA error
+// code, 0 on success.
+extern "C" int sr_sender_twopc(int rm_count, int use_sym, int local_dedup,
+                               const int* lanes, int w, int wp,
+                               const void* vecs, const void* valid,
+                               long long batch, long long shards,
+                               int fanout, void* succ_store,
+                               void* dedup_fps, void* path_fps, void* sflat,
+                               void* send_mask, void* keys, void* rows,
+                               void* slot_of, int m_bits, void* stream) {
+  sr::SenderArgs a;
+  a.lanes = lanes;
+  a.w = w;
+  a.wp = wp;
+  a.vecs = static_cast<const uint32_t*>(vecs);
+  a.valid = static_cast<const bool*>(valid);
+  a.batch = batch;
+  a.shards = shards;
+  a.fanout = fanout;
+  a.succ_store = static_cast<uint32_t*>(succ_store);
+  a.dedup_fps = static_cast<sr::u64*>(dedup_fps);
+  a.path_fps = static_cast<sr::u64*>(path_fps);
+  a.sflat = static_cast<bool*>(sflat);
+  a.send_mask = static_cast<bool*>(send_mask);
+  a.keys = static_cast<sr::u64*>(keys);
+  a.rows = static_cast<int*>(rows);
+  a.slot_of = static_cast<int*>(slot_of);
+  a.m_bits = m_bits;
+  a.use_sym = use_sym != 0;
+  a.local_dedup = local_dedup != 0;
+  a.stream = static_cast<cudaStream_t>(stream);
+  if (rm_count < 1) return (int)cudaErrorInvalidValue;
+  if (rm_count <= 4) return sr::launch_sender(sr::TwoPhase<4>{rm_count}, a);
+  if (rm_count <= 8) return sr::launch_sender(sr::TwoPhase<8>{rm_count}, a);
+  if (rm_count <= 16)
+    return sr::launch_sender(sr::TwoPhase<16>{rm_count}, a);
+  if (rm_count <= 28)
+    return sr::launch_sender(sr::TwoPhase<28>{rm_count}, a);
   return (int)cudaErrorInvalidValue;
 }

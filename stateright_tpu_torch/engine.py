@@ -5,9 +5,11 @@ The port's copy of the wave building blocks of
 fingerprinting, the two dedup levels and compaction. The dedup functions
 here (``first_occurrence_candidates``, ``global_insert`` and their
 composition ``dedup_and_insert``) are the plain version of the CUDA
-kernel in ``table.py`` and the reference it is held to; the engine
-reaches them only through ``table.dedup_and_insert`` and
-``wave.wave_megakernel``, which take them for CPU tensors alone.
+kernel in ``table.py`` and the reference it is held to; the engines
+reach them only through ``table.dedup_and_insert`` and the kernels of
+``wave``, which take them for CPU tensors alone. The sharded wave's
+sender side takes its first occurrence from ``first_occurrence_sorted``,
+the same function with no synchronisation.
 
 Hash constants and slot/step functions equal the reference's, so a table
 built by either side is a valid probe structure for the other.
@@ -21,9 +23,11 @@ import torch
 from .hashing import SENTINEL, SENTINEL_U64, device_fp64
 
 __all__ = ["eval_properties", "expand_frontier", "fingerprint_successors",
-           "compaction_order", "TABLE_MIX", "STEP_MIX", "slot_hash",
-           "host_table_insert", "scratch_slots", "first_occurrence_candidates",
-           "global_insert", "dedup_and_insert"]
+           "cumsum_rows", "compaction_order", "first_occurrence_sorted",
+           "TABLE_MIX",
+           "STEP_MIX", "slot_hash", "host_table_insert", "scratch_slots",
+           "first_occurrence_candidates", "global_insert",
+           "dedup_and_insert"]
 
 # Fibonacci mixing constant (2^64 / golden ratio): the HIGH bits of
 # fp * TABLE_MIX pick the home slot. STEP_MIX makes the odd double-hashing
@@ -69,16 +73,38 @@ def fingerprint_successors(dm, succ_flat: torch.Tensor,
     return dedup_fps, path_fps
 
 
+def cumsum_rows(x: torch.Tensor) -> torch.Tensor:
+    """Inclusive int64 prefix sums along the last dim of ``[..., n]``, as
+    one scan of the flattened tensor: a scan along the last dim of a few
+    long rows runs one block a row on CUDA, a thousand times slower."""
+    flat = torch.cumsum(x.reshape(-1), 0, dtype=torch.int64).view(x.shape)
+    if x.dim() == 1:
+        return flat
+    return flat - (flat[..., :1] - x[..., :1].to(torch.int64))
+
+
 def compaction_order(mask: torch.Tensor) -> torch.Tensor:
     """Indices that bring ``mask``'s True rows to the front, both halves
-    in their original order (a stable argsort of ~mask, by two prefix
-    sums)."""
-    n = mask.shape[0]
-    kept = torch.cumsum(mask, 0) - 1
-    dropped = torch.cumsum(~mask, 0) - 1
-    slot = torch.where(mask, kept, kept[-1] + 1 + dropped)
+    in their original order (a stable argsort of ~mask, by a prefix sum),
+    along the last dim of ``[..., n]``."""
+    n = mask.shape[-1]
     rows = torch.arange(n, dtype=torch.int64, device=mask.device)
-    return torch.empty_like(rows).scatter_(0, slot, rows)
+    kept = cumsum_rows(mask)
+    # A dropped row has rows - kept dropped rows before it.
+    slot = torch.where(mask, kept - 1, kept[..., -1:] + rows - kept)
+    return torch.empty_like(slot).scatter_(-1, slot, rows.expand_as(slot))
+
+
+def first_occurrence_sorted(fps: torch.Tensor) -> torch.Tensor:
+    """True at the earliest row of each non-sentinel fingerprint along
+    the last dim of ``[..., n]``: the function of
+    ``first_occurrence_candidates`` by a stable sort, with no
+    synchronisation, for the sender side of the sharded wave."""
+    key, order = torch.sort(fps, dim=-1, stable=True)
+    first = torch.ones_like(key, dtype=torch.bool)
+    first[..., 1:] = key[..., 1:] != key[..., :-1]
+    first &= key != SENTINEL
+    return torch.empty_like(first).scatter_(-1, order, first)
 
 
 def slot_hash(fps: torch.Tensor, capacity: int):

@@ -115,10 +115,10 @@ class FusedCudaBfsChecker(Checker):
         self._wave_kernel = bool(wave_kernel)
         if self._wave_kernel and device.type == "cuda":
             cuda_model(dm, self._layout)  # raises before any device work
-        ebits_all = 0
+        self._ebits_all = 0
         for i, p in enumerate(self._properties):
             if p.expectation is Expectation.EVENTUALLY:
-                ebits_all |= 1 << i
+                self._ebits_all |= 1 << i
 
         # Seed from the init states; under symmetry an init state whose
         # representative was already seen is dropped.
@@ -149,36 +149,12 @@ class FusedCudaBfsChecker(Checker):
         cap = 1 << max(12, (int(table_capacity) - 1).bit_length())
         while cap < 4 * n_seed + 2 * S:
             cap *= 2
-        table = np.full(cap, SENTINEL_U64, np.uint64)
-        host_table_insert(table, np.array(list(seen), np.uint64))
         self._capacity = cap
-        self._table = torch.from_numpy(table.view(np.int64)).to(device)
-
-        ucap = _pow2(max(arena_capacity or max(1 << 15, 4 * S), n_seed))
-        self._ucap = ucap
         seed = np.stack(vecs) if vecs else np.zeros((0, W), np.uint32)
         self._layout.check_fits(seed)
-        seed = self._layout.pack_np(seed)
-        self._vecs = torch.zeros((ucap + 1, self._layout.packed_width),
-                                 dtype=torch.int32, device=device)
-        self._vecs[:n_seed] = torch.from_numpy(seed.view(np.int32))
-        self._fps = torch.full((ucap + 1,), SENTINEL, dtype=torch.int64,
-                               device=device)
-        self._fps[:n_seed] = torch.tensor([to_i64(f) for f in fps],
-                                          dtype=torch.int64)
-        self._par = torch.full_like(self._fps, SENTINEL)
-        self._ebits = torch.zeros((ucap + 1,), dtype=torch.int32,
-                                  device=device)
-        self._ebits[:n_seed] = _i32(ebits_all)
-
-        self._head, self._tail, self._occ = 0, n_seed, n_seed
-        P = len(self._properties)
-        stats = [0] * (ST_DISC + P)
-        stats[ST_TAIL] = stats[ST_OCC] = n_seed
-        stats[ST_TARGET] = (self._target - self._base_states
-                            if self._target is not None else 1 << 62)
-        stats[ST_DISC:] = [SENTINEL] * P
-        self._stats = torch.tensor(stats, dtype=torch.int64, device=device)
+        self._seed(self._layout.pack_np(seed),
+                   np.array(fps, np.uint64), np.array(list(seen), np.uint64),
+                   arena_capacity)
 
         self._discoveries: Dict[str, int] = {}
         #: waves that expanded rows, dispatches run, table rehashes and
@@ -190,6 +166,44 @@ class FusedCudaBfsChecker(Checker):
         self._error = None
         self._thread = threading.Thread(target=self._run, daemon=True)
         self._thread.start()
+
+    def _seed(self, seed: np.ndarray, fps: np.ndarray, rep_fps: np.ndarray,
+              arena_capacity) -> None:
+        """Builds the visited table from the seeds' dedup fingerprints
+        ``rep_fps``, the arena from their packed rows ``seed`` and path
+        fingerprints ``fps`` (uint64), and the first dispatch's stats."""
+        device, n_seed = self._device, len(fps)
+        S = self._B * self._F
+        table = np.full(self._capacity, SENTINEL_U64, np.uint64)
+        host_table_insert(table, rep_fps)
+        self._table = torch.from_numpy(table.view(np.int64)).to(device)
+
+        ucap = _pow2(max(arena_capacity or max(1 << 15, 4 * S), n_seed))
+        self._ucap = ucap
+        self._vecs = torch.zeros((ucap + 1, self._layout.packed_width),
+                                 dtype=torch.int32, device=device)
+        self._vecs[:n_seed] = torch.from_numpy(seed.view(np.int32))
+        self._fps = torch.full((ucap + 1,), SENTINEL, dtype=torch.int64,
+                               device=device)
+        self._fps[:n_seed] = torch.from_numpy(fps.view(np.int64))
+        self._par = torch.full_like(self._fps, SENTINEL)
+        self._ebits = torch.zeros((ucap + 1,), dtype=torch.int32,
+                                  device=device)
+        self._ebits[:n_seed] = _i32(self._ebits_all)
+
+        self._head, self._tail, self._occ = 0, n_seed, n_seed
+        P = len(self._properties)
+        stats = [0] * (ST_DISC + P)
+        stats[ST_TAIL] = stats[ST_OCC] = n_seed
+        stats[ST_TARGET] = self._target_left()
+        stats[ST_DISC:] = [SENTINEL] * P
+        self._stats = torch.tensor(stats, dtype=torch.int64, device=device)
+
+    def _target_left(self) -> int:
+        """Successors still to generate before the target state count
+        (effectively unbounded without one)."""
+        return (self._target - self._base_states
+                if self._target is not None else 1 << 62)
 
     # -- Device dispatch ---------------------------------------------------
 
@@ -303,20 +317,29 @@ class FusedCudaBfsChecker(Checker):
 
     def _run_waves(self) -> None:
         P = len(self._properties)
-        S = self._B * self._F
         while True:
             with self._lock:
                 done = (len(self._discoveries) == P
                         or (self._target is not None
                             and self._state_count >= self._target))
-            if done or self._head >= self._tail:
+            if done or not self._live():
                 return
-            if (self._occ + S > self._capacity // 2
-                    or self._tail + S > self._ucap):
+            if self._needs_growth():
                 self._grow()
                 continue
             self._stats = self._dispatch()
             self._process(self._stats.cpu().numpy())
+
+    def _live(self) -> bool:
+        """Whether the queue holds rows to expand."""
+        return self._head < self._tail
+
+    def _needs_growth(self) -> bool:
+        """Whether the next dispatch could overflow the table's half load
+        or the arena."""
+        S = self._B * self._F
+        return (self._occ + S > self._capacity // 2
+                or self._tail + S > self._ucap)
 
     def _process(self, st: np.ndarray) -> None:
         """Applies one dispatch's stats (absolute values)."""

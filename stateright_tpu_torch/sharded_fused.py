@@ -1,0 +1,384 @@
+"""The sharded fused BFS: per-shard device arenas and an in-dispatch
+exchange, driven from one process.
+
+The port's copy of ``stateright_tpu/tpu/sharded_fused.py::
+ShardedFusedTpuBfsChecker`` on the port's fused engine (``fused.py``).
+
+- **Shards.** Shard ``i`` owns the fingerprints of its partition
+  (``fp % n``, through ``membership.OwnerMap``): the slice ``i`` of the
+  visited table and an arena of its own, rows ``[head_i, tail_i)`` its
+  share of the queue. The shards of one device are stacked along a
+  leading axis (``mesh.py``): the table is ``int64[n, cap]``, the arena
+  columns ``[n, ucap + 1, ...]`` with each shard's dump row at ``ucap``.
+- **A wave**, for every shard at once: properties and first hits, the
+  successors' front half (the sender kernel ``wave.sender_megakernel``
+  with ``wave_kernel=True``, else torch stages), eventually bits, the
+  owner bucketing into ``n * CAP`` rows a shard (``CAP = S = B * F``),
+  the exchange (``Mesh.all_to_all`` of five arrays), the owner's insert
+  into its own table slice (``table.dedup_and_insert``, one call a
+  shard), compaction, and the appends at each shard's tail. With
+  ``exchange_novel_only`` (the default) a sender keeps only the first
+  occurrence of each fingerprint among its own successors.
+- **Lockstep.** As in JAX, one global ``go`` predicate, from reductions
+  over the shard axis, masks every shard's wave: live rows anywhere, no
+  error, and ``R = n * S`` rows of headroom in the fullest shard's arena
+  and table. A dispatch launches K waves and reads nothing back.
+- **Discovery order is shard-major**: the lowest shard with a hit wins,
+  and within it the first row.
+- **Paths.** A row lives at the owner of its dedup fingerprint, while its
+  parent link is a path fingerprint (they differ under symmetry), so a
+  chain walk searches every shard's rows.
+
+The in-flight dispatch pipeline, the tiered store and span roll,
+checkpoints, profiling, fault injection and the tracer of the JAX engine
+are not ported (ROADMAP A2 to A5), and neither is an ownership remap
+(A12).
+"""
+
+from __future__ import annotations
+
+from typing import List
+
+import numpy as np
+import torch
+
+from .engine import (compaction_order, cumsum_rows, eval_properties,
+                     expand_frontier, fingerprint_successors,
+                     first_occurrence_sorted, host_table_insert)
+from .fused import (ERR_LANE, ERR_TABLE_FULL, ST_CAND, ST_DISC, ST_ERR,
+                    ST_HEAD, ST_OCC, ST_SUCC, ST_TAIL, ST_TARGET, ST_WAVES,
+                    FusedCudaBfsChecker, _i32, _pow2)
+from .hashing import SENTINEL, SENTINEL_U64, to_i64, to_u64
+from .membership import EpochOwnership, OwnerMap
+from .model import Expectation
+from .table import dedup_and_insert
+from .wave import sender_megakernel
+
+__all__ = ["ShardedFusedCudaBfsChecker"]
+
+
+def _umod(fps: torch.Tensor, n: int) -> torch.Tensor:
+    """``fp % n`` of int64 bit patterns read as uint64."""
+    r = fps % n
+    return torch.where(fps < 0, (r + (1 << 64) % n) % n, r)
+
+
+def _combine_first(disc, hit, fps):
+    """Keeps the first hit's fingerprint, once: the lowest shard with a
+    hit, and its first row (``hit``, ``fps`` are ``[n, B]``)."""
+    row = hit.to(torch.int32).argmax(dim=1, keepdim=True)
+    first_fp = fps.gather(1, row).squeeze(1)
+    has = hit.any(dim=1)
+    winner = has.to(torch.int32).argmax().reshape(1)
+    first = first_fp.index_select(0, winner).reshape(())
+    return torch.where((disc == SENTINEL) & has.any(), first, disc)
+
+
+class ShardedFusedCudaBfsChecker(EpochOwnership, FusedCudaBfsChecker):
+    """The fused engine over a mesh of stacked shards. ``batch_size`` is
+    per shard."""
+
+    def __init__(self, builder, mesh, batch_size: int = 512,
+                 exchange_novel_only=None, **kwargs):
+        self._mesh = mesh
+        self._n = mesh.n
+        self._owner_map = OwnerMap.identity(self._n)
+        self._exchange_novel = (True if exchange_novel_only is None
+                                else bool(exchange_novel_only))
+        super().__init__(builder, mesh.device, batch_size=batch_size,
+                         **kwargs)
+
+    # -- Seeding -------------------------------------------------------------
+
+    def _seed(self, seed, fps, rep_fps, arena_capacity) -> None:
+        """Splits the seeds by owner (the table by the dedup
+        fingerprints, the arenas by the path fingerprints, as
+        ``_new_table`` and ``_run_waves`` do in JAX) and builds the
+        stacked table, arenas and per-shard stats."""
+        n, device, cap = self._n, self._device, self._capacity
+        table = np.full((n, cap), SENTINEL_U64, np.uint64)
+        t_owner = np.array([self._owner(f) for f in rep_fps], np.int64)
+        for i in range(n):
+            host_table_insert(table[i], rep_fps[t_owner == i])
+        self._occs = np.bincount(t_owner, minlength=n).astype(np.int64)
+        self._table = torch.from_numpy(table.view(np.int64)).to(device)
+
+        owner = np.array([self._owner(f) for f in fps], np.int64)
+        tails = np.bincount(owner, minlength=n).astype(np.int64)
+        R = n * self._B * self._F
+        max_seed = int(tails.max(initial=0))
+        ucap = arena_capacity or max(1 << 14, 4 * R, _pow2(max_seed))
+        ucap = max(_pow2(ucap), _pow2(max_seed))
+        self._ucap = ucap
+        wp = self._layout.packed_width
+        vecs = np.zeros((n, ucap + 1, wp), np.uint32)
+        afps = np.full((n, ucap + 1), SENTINEL_U64, np.uint64)
+        ebits = np.zeros((n, ucap + 1), np.uint32)
+        for i in range(n):
+            k = int(tails[i])
+            vecs[i, :k] = seed[owner == i]
+            afps[i, :k] = fps[owner == i]
+            ebits[i, :k] = self._ebits_all
+        self._vecs = torch.from_numpy(vecs.view(np.int32)).to(device)
+        self._fps = torch.from_numpy(afps.view(np.int64)).to(device)
+        self._par = torch.full_like(self._fps, SENTINEL)
+        self._ebits = torch.from_numpy(ebits.view(np.int32)).to(device)
+
+        self._heads, self._tails = np.zeros(n, np.int64), tails
+        P = len(self._properties)
+        stats = np.zeros((n, ST_DISC + P), np.int64)
+        stats[:, ST_TAIL] = tails
+        stats[:, ST_OCC] = self._occs
+        stats[:, ST_TARGET] = self._target_left()
+        stats[:, ST_DISC:] = SENTINEL
+        self._stats = torch.from_numpy(stats).to(device)
+
+    # -- Device dispatch -----------------------------------------------------
+
+    def _dispatch(self) -> torch.Tensor:
+        """Runs K waves on every shard from ``self._stats`` ``[n, L]``
+        and returns the next stats; reads nothing back."""
+        dm, layout, mesh = self._dm, self._layout, self._mesh
+        n, B, F = self._n, self._B, self._F
+        ucap, cap = self._ucap, self._capacity
+        W, wp = dm.state_width, layout.packed_width
+        S = B * F
+        CAP = S            # rows a sender may route to one owner
+        R = n * CAP        # rows an owner may receive
+        P = len(self._properties)
+        dev = self._device
+        st = self._stats
+        head, tail, occ, err = (st[:, i] for i in (ST_HEAD, ST_TAIL, ST_OCC,
+                                                   ST_ERR))
+        succ_total, cand_total, target = (st[0, i] for i in (
+            ST_SUCC, ST_CAND, ST_TARGET))
+        waves = torch.zeros((), dtype=torch.int64, device=dev)
+        disc = list(st[0, ST_DISC:].unbind())
+        rb = torch.arange(B, dtype=torch.int64, device=dev)
+        rr = torch.arange(R, dtype=torch.int64, device=dev)
+        shard = torch.arange(n, dtype=torch.int64, device=dev)[:, None]
+        arena_row = shard * (ucap + 1)    # each shard's first arena row
+        owners = torch.arange(n, dtype=torch.int64, device=dev)[:, None]
+        assign = (None if self._owner_map.is_identity else torch.tensor(
+            self._owner_map.assignment(), dtype=torch.int64, device=dev))
+        vecs = self._vecs.view(n * (ucap + 1), wp)
+        fps_a, par_a, eb_a = (a.view(-1) for a in (self._fps, self._par,
+                                                   self._ebits))
+        for _ in range(self._K):
+            # The reference's while_loop condition, every operand reduced
+            # over the shards (sharded_fused.py:339-353).
+            go = ((mesh.psum(tail - head) > 0) & (mesh.pmax(err) == 0)
+                  & (mesh.pmax(tail) + R <= ucap)
+                  & (mesh.pmax(occ) + R <= cap // 2)
+                  & (succ_total < target))
+            if P:
+                go = go & ~(torch.stack(disc) != SENTINEL).all()
+            idx = head[:, None] + rb
+            valid = (idx < tail[:, None]) & go
+            flat = (arena_row + idx.clamp(max=ucap - 1)).reshape(-1)
+            bstore = vecs.index_select(0, flat).view(n, B, wp)
+            rows = layout.unpack(bstore).view(n * B, W)
+            bfps = fps_a.index_select(0, flat).view(n, B)
+            bebits = eb_a.index_select(0, flat).view(n, B)
+
+            conds = [c.view(n, B)
+                     for c in eval_properties(self._prop_fns, rows)]
+            for i, prop in enumerate(self._properties):
+                if prop.expectation is Expectation.ALWAYS:
+                    disc[i] = _combine_first(disc[i], valid & ~conds[i],
+                                             bfps)
+                elif prop.expectation is Expectation.SOMETIMES:
+                    disc[i] = _combine_first(disc[i], valid & conds[i], bfps)
+
+            if self._wave_kernel:
+                succ_store, dedup_fps, path_fps, sflat, send_mask = \
+                    sender_megakernel(dm, bstore, valid, self._use_symmetry,
+                                      layout, self._exchange_novel)
+                succ_count = sflat.sum(dtype=torch.int64)
+                terminal = valid & ~sflat.view(n, B, F).any(dim=2)
+            else:
+                succ, sflat, succ_count, terminal = expand_frontier(
+                    dm, rows, valid.reshape(n * B))
+                dedup_fps, path_fps = fingerprint_successors(
+                    dm, succ, sflat, self._use_symmetry)
+                dedup_fps, path_fps, sflat = (
+                    t.view(n, S) for t in (dedup_fps, path_fps, sflat))
+                terminal = terminal.view(n, B)
+                send_mask = (first_occurrence_sorted(dedup_fps)
+                             if self._exchange_novel else sflat)
+                succ_store = layout.pack(succ).view(n, S, wp)
+            parent_fps = bfps[:, :, None].expand(n, B, F).reshape(n, S)
+
+            cleared = bebits
+            for i, prop in enumerate(self._properties):
+                if prop.expectation is Expectation.EVENTUALLY:
+                    cleared = torch.where(conds[i], cleared & ~_i32(1 << i),
+                                          cleared)
+            for i, prop in enumerate(self._properties):
+                if prop.expectation is Expectation.EVENTUALLY:
+                    hit = valid & terminal & (((cleared >> i) & 1) != 0)
+                    disc[i] = _combine_first(disc[i], hit, bfps)
+            child_ebits = cleared[:, :, None].expand(n, B, F).reshape(n, S)
+
+            # Bucket each sender's rows by owner, in their order
+            # (sharded_fused.py:274-285): a row goes to slot owner * CAP
+            # + its rank among the sender's rows for that owner, and a
+            # row not sent to one dump row past the end. The ranks are
+            # those of JAX's stable argsort, taken by a prefix sum of
+            # each owner's one-hot column instead of a sort.
+            part = _umod(dedup_fps, n)
+            dest = part if assign is None else assign[part]
+            owner = torch.where(send_mask, dest, n)
+            hot = owner[:, None, :] == owners
+            rank = cumsum_rows(hot).gather(
+                1, owner.clamp(max=n - 1)[:, None, :]).squeeze(1) - 1
+            slot = torch.where(owner < n, shard * R + owner * CAP + rank,
+                               n * R).view(-1)
+
+            def exchange(x, fill):
+                out = torch.full((n * R + 1,) + x.shape[2:], fill,
+                                 dtype=x.dtype, device=dev)
+                out.index_copy_(0, slot, x.reshape((n * S,) + x.shape[2:]))
+                return mesh.all_to_all(out[:-1].view((n, R) + x.shape[2:]))
+
+            recv_vecs = exchange(succ_store, 0)
+            recv_dedup = exchange(dedup_fps, SENTINEL)
+            recv_path = exchange(path_fps, SENTINEL)
+            recv_parent = exchange(parent_fps, SENTINEL)
+            recv_ebits = exchange(child_ebits, 0)
+
+            # The owner's insert into its own table slice.
+            owned = [dedup_and_insert(recv_dedup[k], self._table[k])
+                     for k in range(n)]
+            new_mask = torch.stack([o[0] for o in owned])
+            new_count = torch.stack([o[2] for o in owned]).to(torch.int64)
+            cand_count = torch.stack([o[3] for o in owned]).sum(
+                dtype=torch.int64)
+            full = torch.stack([o[4] for o in owned])
+            comp = compaction_order(new_mask)
+
+            if dm.error_lane is not None:
+                bad = ((layout.lane(recv_vecs, dm.error_lane) != 0)
+                       & new_mask).any(dim=1)
+                err = err | torch.where(bad, ERR_LANE, 0)
+            err = err | torch.where(full, ERR_TABLE_FULL, 0)
+
+            # Append each shard's new rows at its tail, in the order it
+            # received them; the rest go to its dump row.
+            pos = torch.where(rr < new_count[:, None], tail[:, None] + rr,
+                              ucap)
+            pos = (arena_row + pos).view(-1)
+            vecs.index_copy_(0, pos, recv_vecs.gather(
+                1, comp[:, :, None].expand(n, R, wp)).view(n * R, wp))
+            fps_a.index_copy_(0, pos, recv_path.gather(1, comp).view(-1))
+            par_a.index_copy_(0, pos, recv_parent.gather(1, comp).view(-1))
+            eb_a.index_copy_(0, pos, recv_ebits.gather(1, comp).view(-1))
+
+            head = torch.where(go, torch.minimum(head + B, tail), head)
+            tail = tail + new_count
+            occ = occ + new_count
+            succ_total = succ_total + succ_count
+            cand_total = cand_total + cand_count
+            waves = waves + go
+        # The ST_* row layout, one row a shard (the shared values
+        # repeated), so the next dispatch chains on it.
+        return torch.stack(
+            [head, tail, occ] + [x.expand(n) for x in (succ_total,
+                                                      cand_total, target)]
+            + [err, waves.expand(n)] + [d.expand(n) for d in disc], dim=1)
+
+    # -- Host loop ------------------------------------------------------------
+
+    def _live(self) -> bool:
+        return bool((self._tails > self._heads).any())
+
+    def _needs_growth(self) -> bool:
+        R = self._n * self._B * self._F
+        return (int(self._occs.max()) + R > self._capacity // 2
+                or int(self._tails.max()) + R > self._ucap)
+
+    def _process(self, st: np.ndarray) -> None:
+        """Applies one dispatch's stats ``[n, L]`` (absolute values)."""
+        err = int(np.bitwise_or.reduce(st[:, ST_ERR]))
+        if err & ERR_LANE:
+            raise RuntimeError(
+                f"device model error lane {self._dm.error_lane} is set in a "
+                "generated state: an encoding capacity was exceeded")
+        if err & ERR_TABLE_FULL:
+            raise RuntimeError("the visited table filled up: a candidate "
+                               "found no free slot")
+        with self._lock:
+            tails = st[:, ST_TAIL].copy()
+            self._unique_count += int(tails.sum() - self._tails.sum())
+            self._heads, self._tails = st[:, ST_HEAD].copy(), tails
+            self._occs = st[:, ST_OCC].copy()
+            self._state_count = self._base_states + int(st[0, ST_SUCC])
+            self.candidates = int(st[0, ST_CAND])
+            self.waves += int(st[0, ST_WAVES])
+            self.dispatches += 1
+            for i, prop in enumerate(self._properties):
+                fp = int(st[0, ST_DISC + i])
+                if fp != SENTINEL and prop.name not in self._discoveries:
+                    self._discoveries[prop.name] = to_u64(fp)
+
+    def _grow(self) -> None:
+        """Growth at a rest point (``_run_waves`` :670-766 without the
+        span roll): every table slice doubles, each re-inserted through
+        the dedup kernel (``_rehash_fn``), until the fullest keeps its
+        load at most 1/2 after a dispatch; every arena doubles
+        (``_grow_fn``) until the fullest takes a dispatch's appends."""
+        n = self._n
+        R = n * self._B * self._F
+        while int(self._occs.max()) + R > self._capacity // 2:
+            table = torch.full((n, 2 * self._capacity), SENTINEL,
+                               dtype=torch.int64, device=self._device)
+            for k in range(n):
+                if bool(dedup_and_insert(self._table[k], table[k])[4]):
+                    raise RuntimeError("rehash found no free slot")
+            self._table, self._capacity = table, 2 * self._capacity
+            self.rehashes += 1
+        while int(self._tails.max()) + R > self._ucap:
+            ucap = 2 * self._ucap
+
+            def grown(a, fill):
+                out = torch.full((n, ucap + 1) + a.shape[2:], fill,
+                                 dtype=a.dtype, device=a.device)
+                out[:, :self._ucap] = a[:, :self._ucap]
+                return out
+
+            with self._lock:
+                self._vecs = grown(self._vecs, 0)
+                self._fps = grown(self._fps, SENTINEL)
+                self._par = grown(self._par, SENTINEL)
+                self._ebits = grown(self._ebits, 0)
+                self._ucap = ucap
+            self.arena_grows += 1
+
+    # -- Paths ---------------------------------------------------------------
+
+    def _fingerprint_chain(self, fp: int) -> List[int]:
+        """The uint64 fingerprints from an init state to ``fp``: each
+        link is looked up in every shard's rows ``[0, tail_i)``."""
+        with self._lock:
+            fps, par, tails = self._fps, self._par, self._tails.copy()
+        cols = torch.arange(fps.shape[1], device=fps.device)
+        live = cols[None, :] < torch.from_numpy(tails).to(fps.device)[:, None]
+        chain = []
+        cur = to_i64(fp)
+        while cur != SENTINEL:
+            chain.append(to_u64(cur))
+            k, row = torch.nonzero((fps == cur) & live)[0].tolist()
+            cur = int(par[k, row])
+        return chain[::-1]
+
+    # -- Checker API ----------------------------------------------------------
+
+    def kernel_path(self) -> str:
+        """Which front half the waves run: ``sender_kernel`` (the sender
+        kernel) or ``dedup_kernel`` (torch stages, with the dedup kernel
+        on the owner side either way) on the card, and
+        ``sender_plain`` or ``dedup_plain`` on the CPU."""
+        on_card = self._device.type == "cuda"
+        if self._wave_kernel:
+            return "sender_kernel" if on_card else "sender_plain"
+        return "dedup_kernel" if on_card else "dedup_plain"

@@ -1,4 +1,11 @@
-"""The single-kernel wave: the CUDA kernel and its wrapper.
+"""The single-kernel wave and the sender kernel: CUDA kernels and wrappers.
+
+``sender_megakernel`` replaces the Pallas kernel
+``build_sender_megakernel``: the front half of the wave below with no
+table, which the sharded engine (``sharded_fused.py``) runs on every
+shard's batch at once, ending in each shard's own first occurrence
+(``send_mask``). It follows the same rules as ``wave_megakernel``, with
+``sender_megakernel_plain`` as its plain version.
 
 ``wave_megakernel`` replaces the Pallas kernel
 ``stateright_tpu/tpu/pallas_table.py::build_wave_megakernel`` (with
@@ -29,9 +36,11 @@ import torch
 
 from ._build import build_and_load
 from .engine import dedup_and_insert as dedup_and_insert_plain
-from .engine import expand_frontier, fingerprint_successors, scratch_slots
+from .engine import (expand_frontier, fingerprint_successors,
+                     first_occurrence_candidates, scratch_slots)
 
-__all__ = ["wave_megakernel", "wave_megakernel_plain", "cuda_model"]
+__all__ = ["wave_megakernel", "wave_megakernel_plain", "sender_megakernel",
+           "sender_megakernel_plain", "cuda_model"]
 
 _INT32_MAX = (1 << 31) - 1
 
@@ -156,3 +165,100 @@ def wave_megakernel(dm, store: torch.Tensor, valid: torch.Tensor,
 #: kernel launches since the caller last set it to 0 (the CPU path does
 #: not count: it launches nothing)
 wave_megakernel.launches = 0
+
+
+# -- The sender kernel -------------------------------------------------------
+
+
+def sender_megakernel_plain(dm, store: torch.Tensor, valid: torch.Tensor,
+                            use_sym: bool, layout, local_dedup: bool):
+    """The plain version of ``sender_megakernel``, in torch ops: the
+    front half of ``wave_megakernel_plain`` over the stacked shards, then
+    each shard's own first occurrence (``pallas_table.py:486-487``)."""
+    n, B = valid.shape
+    S = B * dm.max_fanout
+    rows = layout.unpack(store).reshape(n * B, -1)
+    succ, sflat, _, _ = expand_frontier(dm, rows, valid.reshape(n * B))
+    dedup_fps, path_fps = fingerprint_successors(dm, succ, sflat, use_sym)
+    dedup_fps, sflat = dedup_fps.reshape(n, S), sflat.reshape(n, S)
+    if local_dedup:
+        send_mask = torch.stack([first_occurrence_candidates(d)
+                                 for d in dedup_fps.unbind()])
+    else:
+        send_mask = sflat.clone()
+    return (layout.pack(succ).reshape(n, S, -1), dedup_fps,
+            path_fps.reshape(n, S), sflat, send_mask)
+
+
+@functools.lru_cache(maxsize=None)
+def _sender_entry(name: str, n_params: int):
+    fn = getattr(build_and_load("wave_" + name), "sr_sender_" + name)
+    fn.restype = ctypes.c_int
+    i, p, ll = ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong
+    fn.argtypes = ([i] * n_params + [i, i, p, i, i, p, p, ll, ll, i, p, p,
+                                      p, p, p, p, p, p, i, p])
+    return fn
+
+
+def sender_megakernel(dm, store: torch.Tensor, valid: torch.Tensor,
+                      use_sym: bool, layout, local_dedup: bool):
+    """The sharded engine's per-shard front half of a wave, for ``n``
+    stacked shards: ``store int32[n, B, Wp]`` (packed rows), ``valid
+    bool[n, B]`` -> ``(succ_store int32[n, S, Wp], dedup_fps int64[n, S],
+    path_fps int64[n, S], sflat bool[n, S], send_mask bool[n, S])`` with
+    ``S = B * F``. ``send_mask`` is the earliest slot of each dedup
+    fingerprint within its own shard when ``local_dedup``, else
+    ``sflat``. One launch covers every shard."""
+    if store.device.type == "cpu" and valid.device.type == "cpu":
+        return sender_megakernel_plain(dm, store, valid, use_sym, layout,
+                                       local_dedup)
+    dev = store.device
+    if dev.type != "cuda" or valid.device != dev:
+        raise ValueError(
+            f"store on {store.device} and valid on {valid.device}: both "
+            "must be on one CUDA device (or the CPU)")
+    n, B = valid.shape
+    F, wp = dm.max_fanout, layout.packed_width
+    for name, t, dtype, shape in (("store", store, torch.int32, (n, B, wp)),
+                                  ("valid", valid, torch.bool, (n, B))):
+        if t.dtype != dtype or not t.is_contiguous() or t.shape != shape:
+            raise ValueError(f"{name} must be a contiguous {dtype} tensor "
+                             f"of shape {shape}")
+    name, params, lanes = cuda_model(dm, layout)
+    S = B * F
+    m = scratch_slots(S)
+    if n * S > _INT32_MAX or n * m > _INT32_MAX:
+        raise ValueError(f"{n} x {S} successor slots exceed the kernel's "
+                         "int32 row index")
+    succ_store = torch.empty((n, S, wp), dtype=torch.int32, device=dev)
+    dedup_fps = torch.empty((n, S), dtype=torch.int64, device=dev)
+    path_fps = torch.empty((n, S), dtype=torch.int64, device=dev)
+    sflat = torch.empty((n, S), dtype=torch.bool, device=dev)
+    send_mask = torch.empty((n, S), dtype=torch.bool, device=dev)
+    keys = rows = slot_of = None
+    if local_dedup:
+        keys = torch.full((n, m), -1, dtype=torch.int64, device=dev)
+        rows = torch.full((n, m), _INT32_MAX, dtype=torch.int32, device=dev)
+        slot_of = torch.empty((n, max(S, 1)), dtype=torch.int32, device=dev)
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    fn = _sender_entry(name, len(params))
+    with torch.cuda.device(dev):
+        rc = fn(*params, int(use_sym), int(local_dedup), lanes.ctypes.data,
+                layout.width, wp, store.data_ptr(), valid.data_ptr(), B, n,
+                F, succ_store.data_ptr(), dedup_fps.data_ptr(),
+                path_fps.data_ptr(), sflat.data_ptr(), send_mask.data_ptr(),
+                ptr(keys), ptr(rows), ptr(slot_of), m.bit_length() - 1,
+                torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"sender kernel launch for {name} failed: CUDA "
+                           f"error {rc}")
+    sender_megakernel.launches += 1
+    return succ_store, dedup_fps, path_fps, sflat, send_mask
+
+
+#: kernel launches since the caller last set it to 0 (the CPU path does
+#: not count: it launches nothing)
+sender_megakernel.launches = 0

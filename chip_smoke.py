@@ -3,23 +3,35 @@
 
 Usage, from the root of a checkout on a machine with an NVIDIA H100:
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py            # every phase below
+    python3 chip_smoke.py --rehash   # phase 1, then the rehash case of 3
+
+``--rehash`` calls only ``table.dedup_and_insert(fps, table)``, the call
+every rehash makes, so a copy of this script beside an older port times
+that port's kernel on the same input.
 
 Phases, in order; any failure exits non-zero and prints no result line:
 
 1. build ``stateright_tpu_torch/csrc/table.cu`` and ``wave_twopc.cu``
    (the wave kernel's and the sender kernel's entry points) for
-   ``sm_90a``, one ``nvcc`` each, both at once, and print each build
-   time with ptxas' register and spill report, and the card's name and
-   power limit;
-2. hold the dedup kernel against its plain torch version at the shape of
-   a full-width wave (S = 16,384 x 52 = 851,968 fingerprints against a
-   2^27-slot table filled to 30%): masks and counts equal, tables equal
-   as sets; time both;
-3. hold the wave kernel against its plain version at full width: 16,384
+   ``sm_90a``, one ``nvcc`` each, both at once, and print each build time
+   with ptxas' register and spill report, and the card's name and power
+   limit;
+2. hold the wave kernel against its plain version at full width: 16,384
    packed rows of 2pc at 10 RMs from a mid-run arena against a 2^27-slot
-   table filled to 30%, plain and with symmetry: all five outputs and
-   the counts equal, tables equal as sets; time both;
+   table filled to 30% plus the run's states, plain and with symmetry:
+   all outputs and the counts equal, tables equal as sets, the
+   caller-owned scratch handed back clean; time both, by kernel and
+   memset (``torch.profiler``);
+3. the same for the dedup kernel at the shape of a full-width wave (S =
+   16,384 x 52 = 851,968 fingerprints): a synthetic stream (duplicates,
+   sentinels, revisits) against a 2^27-slot table filled to 30%, the
+   same kind of stream against a 2^21-slot table (whose walks leave most
+   of the 50 MB L2 to the scratch), and the mid-run wave's own dedup
+   fingerprints against its table (the default path's input); then at
+   the shape of the full run's last rehash, a 2^26-slot table about half
+   full into an empty one of 2^27 slots, called as the rehash calls it
+   (no caller's scratch);
 4. hold the sender kernel against its plain version at full width: the
    same rows as 4 shards of 4,096 (n * S = 851,968 slots), with symmetry
    and local dedup each on and off: all five outputs equal; time both;
@@ -45,7 +57,9 @@ It imports neither JAX nor ``stateright_tpu``.
 
 from __future__ import annotations
 
+import functools
 import json
+import math
 import os
 import subprocess
 import sys
@@ -116,24 +130,62 @@ def _profiled(torch, run, prepare=lambda: None, tries: int = 3):
                          "profiles")
 
 
-def _device_ms(torch, fn, reps: int, setup) -> float:
-    """Mean device time of ``fn`` a call: the summed time of the device
-    work (kernels and memsets) it launches, from ``torch.profiler``. A
-    CUDA-event window around one call also holds the gaps while the host
-    launches, which at a fraction of a millisecond is most of it."""
+def _breakdown(torch, fn, reps: int, setup):
+    """``(ms, parts)``: the mean device time of ``fn`` a call, the summed
+    time of the device work (kernels and memsets) it launches, from
+    ``torch.profiler``, and that work by name as ``(name, ms a call,
+    launches a call)``, slowest first. A CUDA-event window around one
+    call also holds the gaps while the host launches, which at a fraction
+    of a millisecond is most of it. A name's ms a call is its mean a
+    launch times its launches a call."""
     def run(args):
         for a in args:
             fn(*a)
 
-    kern, _ = _profiled(torch, run, lambda: [setup() for _ in range(reps)])
-    return sum(e.self_device_time_total for e in kern) / 1e3 / reps
+    # The profiler has been seen to drop some or all of one kernel's
+    # events in a run: two profiles, and each name from the one that
+    # recorded more of its launches.
+    best = {}
+    for _ in range(2):
+        kern, _ = _profiled(torch, run,
+                            lambda: [setup() for _ in range(reps)])
+        for e in kern:
+            if e.count > best.get(e.key, (0, 0.0))[0]:
+                best[e.key] = (e.count, e.self_device_time_total)
+    parts = []
+    for name, (count, total_us) in best.items():
+        per_call = math.ceil(count / reps)
+        parts.append((name, total_us / 1e3 / count * per_call, per_call))
+    parts.sort(key=lambda p: -p[1])
+    return sum(p[1] for p in parts), parts
 
 
-def _filled_table(torch, engine, gen, C):
-    """A ``C``-slot table 30% full of random keys, filled through the
-    plain version in chunks: ``(table, resident keys)``."""
+def _log_parts(parts) -> None:
+    for name, ms, count in parts:
+        _log(f"    {ms:9.4f} ms {count}x {name[:100]}")
+
+
+def _scratch(torch, table_mod, fn, n: int):
+    """``(fn, scratch)``: ``fn`` with a caller-owned scratch for ``n``
+    rows bound, as the engines call the kernels."""
+    scratch = table_mod.DedupScratch(n, torch.device("cuda"))
+    return functools.partial(fn, scratch=scratch), scratch
+
+
+def _check_clean(torch, scratch, what: str) -> None:
+    """The kernels hand a caller-owned scratch back clean."""
+    if scratch is None:
+        return
+    torch.cuda.synchronize()
+    if not scratch.is_clean():
+        raise AssertionError(f"{what} left its scratch dirty")
+
+
+def _filled_table(torch, engine, gen, C, load=0.3):
+    """A ``C``-slot table ``load`` full of random keys, filled through
+    the plain version in chunks: ``(table, resident keys)``."""
     dev = torch.device("cuda")
-    resident = torch.randint(1, 1 << 62, (int(0.3 * C),), generator=gen,
+    resident = torch.randint(1, 1 << 62, (int(load * C),), generator=gen,
                              device=dev)
     table = torch.full((C,), -1, dtype=torch.int64, device=dev)
     for chunk in resident.split(1 << 22):
@@ -142,71 +194,114 @@ def _filled_table(torch, engine, gen, C):
     return table, resident
 
 
-def phase_kernel(torch, table_mod, engine):
-    """The kernel against its plain version at the full-width shape."""
-    dev = torch.device("cuda")
-    gen = torch.Generator(device=dev).manual_seed(7)
-    S, C = BATCH * 52, 1 << 27
-
-    def rand(n):
-        return torch.randint(1, 1 << 62, (n,), generator=gen, device=dev)
-
-    table, resident = _filled_table(torch, engine, gen, C)
-    # The reference tests' stream: duplicates, sentinels, revisits.
-    fresh = rand(S)
-    fps = fresh.clone()
-    u = torch.rand(S, generator=gen, device=dev)
-    dup = u < 0.3
-    fps = torch.where(dup, fresh[torch.randint(0, S, (S,), generator=gen,
-                                               device=dev)], fps)
-    rev = torch.rand(S, generator=gen, device=dev) < 0.2
-    fps = torch.where(rev, resident[torch.randint(
-        0, resident.numel(), (S,), generator=gen, device=dev)], fps)
-    fps = torch.where(torch.rand(S, generator=gen, device=dev) < 0.1,
-                      torch.full_like(fps, -1), fps)
-
+def _dedup_case(torch, table_mod, fps, table, tag: str, engine_scratch=True):
+    """The dedup kernel against its plain version on ``fps`` and a copy
+    of ``table``: masks and counts equal, tables equal as sets; then its
+    time by kernel and memset, beside the plain version's and the bound.
+    With ``engine_scratch`` the kernel gets a caller-owned scratch, as the
+    engines' waves call it; without, the wrapper makes its own, as a
+    rehash calls it."""
+    S = fps.shape[0]
+    fn, scratch = table_mod.dedup_and_insert, None
+    if engine_scratch:
+        fn, scratch = _scratch(torch, table_mod, fn, S)
     t_k, t_p = table.clone(), table.clone()
-    out_k = table_mod.dedup_and_insert(fps, t_k)
+    out_k = fn(fps, t_k)
     out_p = table_mod.dedup_and_insert_plain(fps, t_p)
     torch.cuda.synchronize()
     errs = [int((a.to(torch.int64) - b.to(torch.int64)).abs().max())
             for a, b in zip(out_k, out_p)]
     max_err = max(errs)
     if max_err != 0:
-        raise AssertionError(f"kernel disagrees with its plain version: "
-                             f"per-output max abs err {errs}")
+        raise AssertionError(f"kernel ({tag}) disagrees with its plain "
+                             f"version: per-output max abs err {errs}")
     if not torch.equal(torch.sort(t_k).values, torch.sort(t_p).values):
-        raise AssertionError("kernel's table differs from the plain "
-                             "version's as a set")
+        raise AssertionError(f"kernel's table ({tag}) differs from the "
+                             "plain version's as a set")
+    _check_clean(torch, scratch, f"the dedup kernel ({tag})")
     new, cand = int(out_k[2]), int(out_k[3])
     valid = int((fps != -1).sum())
-    _log(f"kernel == plain at S={S}, C=2^27: new={new} cand={cand} "
-         f"valid={valid}")
+    del t_k, t_p, out_k, out_p
 
-    call_ms = _time_ms(torch, table_mod.dedup_and_insert, 5,
-                       lambda: (fps, table.clone()))
-    ms = _device_ms(torch, table_mod.dedup_and_insert, 5,
-                    lambda: (fps, table.clone()))
-    plain_ms = _time_ms(torch, table_mod.dedup_and_insert_plain, 3,
-                        lambda: (fps, table.clone()))
+    def setup():
+        return fps, table.clone()
+
+    call_ms = _time_ms(torch, fn, 5, setup)
+    ms, parts = _breakdown(torch, fn, 5, setup)
+    plain_ms = _time_ms(torch, table_mod.dedup_and_insert_plain, 3, setup)
     # Bound: the bytes of the function itself, each once: the fps read,
     # the two masks written, and one 32-byte sector a candidate in the
     # visited table. The kernel's scratch table is neither input nor
-    # output (at 12 B x 2^21 slots it can stay in the 50 MB L2).
+    # output.
     nbytes = 8 * S + 2 * S + 32 * cand
     bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    _log(f"dedup kernel {ms:.4f} ms on the card ({call_ms:.4f} ms a call "
-         f"between CUDA events, the host's launches included), plain "
-         f"{plain_ms:.4f} ms, bound "
-         f"{bound_ms:.4f} ms ({nbytes} B over HBM)")
-    del table, t_k, t_p, resident
+    _log(f"dedup kernel == plain ({tag}) at S={S}, C=2^"
+         f"{table.shape[0].bit_length() - 1}: new={new} cand={cand} "
+         f"valid={valid}; kernel {ms:.4f} ms on the card ({call_ms:.4f} ms "
+         f"a call between CUDA events, the host's launches included), "
+         f"plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({nbytes} B "
+         "over HBM); by kernel and memset, a call:")
+    _log_parts(parts)
     return dict(max_abs_err=max_err, ms=ms, plain_ms=plain_ms,
-                bound_ms=bound_ms)
+                bound_ms=bound_ms, parts=parts, cand=cand)
 
 
-def phase_wave_kernel(torch, wave_mod, engine, TwoPhaseSys):
+def _stream(torch, gen, S, resident):
+    """The reference tests' stream of ``S`` fingerprints: duplicates,
+    sentinels, and revisits of ``resident``."""
+    dev = torch.device("cuda")
+    fresh = torch.randint(1, 1 << 62, (S,), generator=gen, device=dev)
+    fps = fresh.clone()
+    dup = torch.rand(S, generator=gen, device=dev) < 0.3
+    fps = torch.where(dup, fresh[torch.randint(0, S, (S,), generator=gen,
+                                               device=dev)], fps)
+    rev = torch.rand(S, generator=gen, device=dev) < 0.2
+    fps = torch.where(rev, resident[torch.randint(
+        0, resident.numel(), (S,), generator=gen, device=dev)], fps)
+    return torch.where(torch.rand(S, generator=gen, device=dev) < 0.1,
+                       torch.full_like(fps, -1), fps)
+
+
+def phase_kernel(torch, table_mod, engine, wave_case):
+    """The dedup kernel against its plain version: at the full-width
+    shape, a synthetic stream against a large table and against a small
+    one, then the dedup fingerprints of a mid-run 10-RM wave against its
+    table (``wave_case``); then the rehash case."""
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    S = BATCH * 52
+    out = {}
+    for key, bits, tag in (("stream", 27, "synthetic stream"),
+                           ("small", 21, "synthetic stream, small table")):
+        table, resident = _filled_table(torch, engine, gen, 1 << bits)
+        fps = _stream(torch, gen, S, resident)
+        del resident
+        out[key] = _dedup_case(torch, table_mod, fps, table, tag)
+        del table, fps
+    out["wave"] = _dedup_case(torch, table_mod, *wave_case,
+                              "mid-run 10-RM wave")
+    out["rehash"] = phase_rehash(torch, table_mod, engine)
+    return out
+
+
+def phase_rehash(torch, table_mod, engine):
+    """The dedup kernel at the shape of the full 10-RM run's last rehash:
+    its table of 2^26 slots, about half full (a rehash runs once the
+    next dispatch could pass half load), into an empty one of 2^27, as
+    the rehash calls it."""
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    C = 1 << 26
+    old, _ = _filled_table(torch, engine, gen, C,
+                           load=0.5 - BATCH * 52 / C)
+    new = torch.full((2 * C,), -1, dtype=torch.int64, device="cuda")
+    return _dedup_case(torch, table_mod, old, new, "rehash",
+                       engine_scratch=False)
+
+
+def phase_wave_kernel(torch, wave_mod, table_mod, engine, TwoPhaseSys):
     """The wave kernel against its plain version at the full-width shape:
-    ``B`` packed rows of a mid-run arena of 2pc at 10 RMs."""
+    ``B`` packed rows of a mid-run arena of 2pc at 10 RMs. Also returns
+    that wave's dedup fingerprints and table, the dedup kernel's input on
+    the default path, and the rows for the sender kernel."""
     gen = torch.Generator(device="cuda").manual_seed(11)
     C = 1 << 27
     mid = (TwoPhaseSys(10).checker().target_state_count(3_000_000)
@@ -224,64 +319,79 @@ def phase_wave_kernel(torch, wave_mod, engine, TwoPhaseSys):
     engine.global_insert(seen, torch.ones_like(seen, dtype=torch.bool),
                          table)
     del mid, resident
-    S, W, wp = BATCH * dm.max_fanout, dm.state_width, layout.packed_width
+    out = {tag: _wave_case(torch, wave_mod, table_mod, dm, store, valid,
+                           layout, table, use_sym, tag)
+           for tag, use_sym in (("plain", False), ("sym", True))}
+    # The same wave through the torch stages: the dedup kernel's input on
+    # the default path (wave_kernel=False).
+    succ, sflat, _, _ = engine.expand_frontier(dm, layout.unpack(store),
+                                               valid)
+    dedup_fps = engine.fingerprint_successors(dm, succ, sflat, False)[0]
+    del succ, sflat
+    return out, (dm, store, layout), (dedup_fps, table)
+
+
+def _wave_case(torch, wave_mod, table_mod, dm, store, valid, layout, table,
+               use_sym, tag):
+    """The wave kernel against its plain version on ``store`` and a copy
+    of ``table``: all outputs equal, tables equal as sets; then its time
+    with a caller-owned scratch, by kernel and memset, beside the plain
+    version's and the bound."""
+    B = store.shape[0]
+    S, W, wp = B * dm.max_fanout, dm.state_width, layout.packed_width
     names = ("succ_store", "path_fps", "sflat", "new_mask", "cand_mask",
              "new_count", "cand_count", "full")
-    out = {}
-    for use_sym in (False, True):
-        t_k, t_p = table.clone(), table.clone()
-        got = wave_mod.wave_megakernel(dm, store, valid, t_k, use_sym, layout)
-        want = wave_mod.wave_megakernel_plain(dm, store, valid, t_p, use_sym,
-                                              layout)
-        torch.cuda.synchronize()
-        for name, a, b in zip(names, got, want):
-            if not torch.equal(a, b):
-                err = int((a.to(torch.int64) - b.to(torch.int64)).abs().max())
-                raise AssertionError(f"wave kernel (sym={use_sym}) disagrees "
-                                     f"with its plain version on {name}: "
-                                     f"max abs err {err}")
-        if not torch.equal(torch.sort(t_k).values, torch.sort(t_p).values):
-            raise AssertionError(f"wave kernel's table (sym={use_sym}) "
-                                 "differs from the plain version's as a set")
-        n_valid, new, cand = int(got[2].sum()), int(got[5]), int(got[6])
-        del t_k, t_p, got, want
+    fn, scratch = _scratch(torch, table_mod, wave_mod.wave_megakernel, S)
+    t_k, t_p = table.clone(), table.clone()
+    got = fn(dm, store, valid, t_k, use_sym, layout)
+    want = wave_mod.wave_megakernel_plain(dm, store, valid, t_p, use_sym,
+                                          layout)
+    torch.cuda.synchronize()
+    for name, a, b in zip(names, got, want):
+        if not torch.equal(a, b):
+            err = int((a.to(torch.int64) - b.to(torch.int64)).abs().max())
+            raise AssertionError(f"wave kernel ({tag}) disagrees with its "
+                                 f"plain version on {name}: max abs err "
+                                 f"{err}")
+    if not torch.equal(torch.sort(t_k).values, torch.sort(t_p).values):
+        raise AssertionError(f"wave kernel's table ({tag}) differs from the "
+                             "plain version's as a set")
+    _check_clean(torch, scratch, f"the wave kernel ({tag})")
+    n_valid, new, cand = int(got[2].sum()), int(got[5]), int(got[6])
+    del t_k, t_p, got, want
 
-        def setup():
-            return dm, store, valid, table.clone(), use_sym, layout
+    def setup():
+        return dm, store, valid, table.clone(), use_sym, layout
 
-        call_ms = _time_ms(torch, wave_mod.wave_megakernel, 5, setup)
-        ms = _device_ms(torch, wave_mod.wave_megakernel, 5, setup)
-        plain_ms = _time_ms(torch, wave_mod.wave_megakernel_plain, 3, setup)
-        # Bound: the function's own bytes, each once: the packed batch and
-        # valid read, the packed successors, path fingerprints and three
-        # byte masks written, and one 32-byte sector a candidate in the
-        # visited table. The dedup fingerprints and the scratch table are
-        # neither input nor output. Operations: 32-bit integer ops of the
-        # path fingerprint, unpack, step and re-pack of every slot, and of
-        # the representative's sort and fingerprint of each valid slot
-        # under symmetry.
-        nbytes = 4 * BATCH * wp + BATCH + 4 * S * wp + 8 * S + 3 * S \
-            + 32 * cand
-        fp_ops = 2 * (6 * W + 9) + 4
-        ops = S * (fp_ops + 8 * W)
-        if use_sym:
-            n = dm.rm_count
-            ops += n_valid * (fp_ops + 2 * n * n)
-        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-        ops_ms = ops / OPS_PER_S * 1e3
-        bound_ms = max(bytes_ms, ops_ms)
-        tag = "sym" if use_sym else "plain"
-        _log(f"wave kernel == plain ({tag}) at B={BATCH}, S={S}, C=2^27: "
-             f"valid={n_valid} cand={cand} new={new}; kernel {ms:.4f} ms on "
-             f"the card ({call_ms:.4f} ms a call between CUDA events), plain "
-             f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({nbytes} B over "
-             f"HBM: {bytes_ms:.4f} ms; {ops} ops: {ops_ms:.4f} ms)")
-        out[tag] = dict(max_abs_err=0, ms=ms, plain_ms=plain_ms,
-                        bound_ms=bound_ms,
-                        bound_by="bytes" if bytes_ms >= ops_ms
-                        else "operations")
-    del table
-    return out, (dm, store, layout)
+    call_ms = _time_ms(torch, fn, 5, setup)
+    ms, parts = _breakdown(torch, fn, 5, setup)
+    plain_ms = _time_ms(torch, wave_mod.wave_megakernel_plain, 3, setup)
+    # Bound: the function's own bytes, each once: the packed batch and
+    # valid read, the packed successors, path fingerprints and three byte
+    # masks written, and one 32-byte sector a candidate in the visited
+    # table. The dedup fingerprints and the scratch table are neither input
+    # nor output. Operations: 32-bit integer ops of the path fingerprint,
+    # unpack, step and re-pack of every slot, and of the representative's
+    # sort and fingerprint of each valid slot under symmetry.
+    nbytes = 4 * B * wp + B + 4 * S * wp + 8 * S + 3 * S + 32 * cand
+    fp_ops = 2 * (6 * W + 9) + 4
+    ops = S * (fp_ops + 8 * W)
+    if use_sym:
+        n = dm.rm_count
+        ops += n_valid * (fp_ops + 2 * n * n)
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / OPS_PER_S * 1e3
+    bound_ms = max(bytes_ms, ops_ms)
+    _log(f"wave kernel == plain ({tag}) at B={B}, S={S}, C=2^"
+         f"{table.shape[0].bit_length() - 1}: valid={n_valid} cand={cand} "
+         f"new={new}; kernel {ms:.4f} ms on the card ({call_ms:.4f} ms a "
+         f"call between CUDA events), plain {plain_ms:.4f} ms, bound "
+         f"{bound_ms:.4f} ms ({nbytes} B over HBM: {bytes_ms:.4f} ms; {ops} "
+         f"ops: {ops_ms:.4f} ms); by kernel and memset, a call:")
+    _log_parts(parts)
+    return dict(max_abs_err=0, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                parts=parts,
+                bound_by="bytes" if bytes_ms >= ops_ms else "operations")
 
 
 def phase_sender_kernel(torch, wave_mod, dm, store, layout):
@@ -310,8 +420,8 @@ def phase_sender_kernel(torch, wave_mod, dm, store, layout):
                         f"on {name}: max abs err {err}")
             n_valid, n_send = int(got[3].sum()), int(got[4].sum())
             del got, want
-            ms = _device_ms(torch, wave_mod.sender_megakernel, 5,
-                            lambda: args)
+            ms, parts = _breakdown(torch, wave_mod.sender_megakernel, 5,
+                                   lambda: args)
             call_ms = _time_ms(torch, wave_mod.sender_megakernel, 5,
                                lambda: args)
             plain_ms = _time_ms(torch, wave_mod.sender_megakernel_plain, 3,
@@ -339,9 +449,12 @@ def phase_sender_kernel(torch, wave_mod, dm, store, layout):
                  f"{ms:.4f} ms on the card ({call_ms:.4f} ms a call between "
                  f"CUDA events), plain {plain_ms:.4f} ms, bound "
                  f"{bound_ms:.4f} ms ({nbytes} B over HBM: {bytes_ms:.4f} ms; "
-                 f"{ops} ops: {ops_ms:.4f} ms)")
+                 f"{ops} ops: {ops_ms:.4f} ms); by kernel and memset, a "
+                 "call:")
+            _log_parts(parts)
             out[(use_sym, local_dedup)] = dict(
                 max_abs_err=0, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                parts=parts,
                 bound_by="bytes" if bytes_ms >= ops_ms else "operations")
     return out
 
@@ -572,8 +685,9 @@ def phase_profile(torch, fused, mid):
     kern.sort(key=lambda e: -e.self_device_time_total)
     total_ms = sum(e.self_device_time_total for e in kern) / 1e3
     port_ms = sum(e.self_device_time_total for e in kern
-                  if any(k in e.key for k in ("claim", "wave_front",
-                                              "sender_mask"))) / 1e3
+                  if any(k in e.key for k in ("claim", "resolve_rows",
+                                              "wave_front", "sender_mask"))
+                  ) / 1e3
     n_launch = sum(e.count for e in kern)
     _log(f"profiled dispatch: {waves} waves, {n_launch} kernel launches, "
          f"{total_ms:.3f} ms of kernel time, the port's kernels "
@@ -586,39 +700,71 @@ def phase_profile(torch, fused, mid):
     return total_ms / mid._K, n_launch / mid._K
 
 
-def main() -> int:
-    import torch
-
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device", file=sys.stderr)
-        return 2
+def _modules():
+    """The port's modules, from the checkout beside this script."""
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from stateright_tpu_torch import _build, engine, fused
     from stateright_tpu_torch import table as table_mod
     from stateright_tpu_torch import wave as wave_mod
     from stateright_tpu_torch.models.twopc import TwoPhaseDevice, TwoPhaseSys
+    return (_build, engine, fused, table_mod, wave_mod, TwoPhaseDevice,
+            TwoPhaseSys)
 
+
+def phase_build(_build, table_mod, wave_mod) -> None:
     def build(name, load):
         t0 = time.monotonic()
         load()
         return name, time.monotonic() - t0
 
-    # One nvcc a source, all started together.
-    with ThreadPoolExecutor(2) as pool:
-        builds = [pool.submit(build, "table", table_mod._lib),
-                  pool.submit(build, "wave_twopc",
-                              lambda: (wave_mod._entry("twopc", 1),
-                                       wave_mod._sender_entry("twopc", 1)))]
+    # One nvcc a source, both started together.
+    jobs = [("table", table_mod._lib),
+            ("wave_twopc", lambda: (wave_mod._entry("twopc", 1),
+                                    wave_mod._sender_entry("twopc", 1)))]
+    with ThreadPoolExecutor(len(jobs)) as pool:
+        builds = [pool.submit(build, name, load) for name, load in jobs]
         for fut in builds:
             name, sec = fut.result()
-            _log(f"built csrc/{name}.cu in {sec:.2f} s")
+            _log(f"built {name} in {sec:.2f} s")
             with open(os.path.join(_build.BUILD_DIR, name + ".log")) as f:
                 _log(f.read().strip())
+
+
+def _kernel_row(name, source, replaces, launches, max_abs_err, r):
+    """One kernel's entry of the kernels line from its phase's result
+    ``r``."""
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches,
+            "max_abs_err": max_abs_err, "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r.get("bound_by", "bytes"), "library_ms": None}
+
+
+def main(argv) -> int:
+    if argv not in ([], ["--rehash"]):
+        print(__doc__, file=sys.stderr)
+        return 2
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    (_build, engine, fused, table_mod, wave_mod, TwoPhaseDevice,
+     TwoPhaseSys) = _modules()
+    phase_build(_build, table_mod, wave_mod)
     card = _card_line()
     _log(f"card: {card}")
+    if argv:
+        r = phase_rehash(torch, table_mod, engine)
+        print(json.dumps({"rehash": {
+            key: r[key] for key in ("ms", "plain_ms", "bound_ms", "parts")}}))
+        return 0
 
-    k = phase_kernel(torch, table_mod, engine)
-    w, rows = phase_wave_kernel(torch, wave_mod, engine, TwoPhaseSys)
+    # Each kernel against its plain version at full width, timed.
+    w, rows, wave_case = phase_wave_kernel(torch, wave_mod, table_mod, engine,
+                                           TwoPhaseSys)
+    k = phase_kernel(torch, table_mod, engine, wave_case)
+    del wave_case
     sk = phase_sender_kernel(torch, wave_mod, *rows)
     del rows
     phase_small(TwoPhaseSys)
@@ -637,31 +783,23 @@ def main() -> int:
         torch, kernels, fused, TwoPhaseSys, batch_size=BATCH // SHARDS,
         mesh=["cuda:0"] * SHARDS, wave_kernel=True)["sender_megakernel"]
 
-    wk, sd = w["plain"], sk[(False, True)]
-    print(json.dumps({"kernels": [{
-        "name": "dedup_and_insert", "route": "cuda",
-        "source": "stateright_tpu_torch/csrc/table.cu",
-        "replaces": "stateright_tpu/tpu/pallas_table.py:256",
-        "launches": launches, "max_abs_err": k["max_abs_err"],
-        "ms": k["ms"], "plain_ms": k["plain_ms"],
-        "bound_ms": k["bound_ms"], "bound_by": "bytes",
-        "library_ms": None}, {
-        "name": "wave_megakernel", "route": "cuda",
-        "source": "stateright_tpu_torch/csrc/wave_twopc.cu",
-        "replaces": "stateright_tpu/tpu/pallas_table.py:380",
-        "launches": wave_launches,
-        "max_abs_err": max(v["max_abs_err"] for v in w.values()),
-        "ms": wk["ms"], "plain_ms": wk["plain_ms"],
-        "bound_ms": wk["bound_ms"], "bound_by": wk["bound_by"],
-        "library_ms": None}, {
-        "name": "sender_megakernel", "route": "cuda",
-        "source": "stateright_tpu_torch/csrc/wave_twopc.cu",
-        "replaces": "stateright_tpu/tpu/pallas_table.py:451",
-        "launches": sender_launches,
-        "max_abs_err": max(v["max_abs_err"] for v in sk.values()),
-        "ms": sd["ms"], "plain_ms": sd["plain_ms"],
-        "bound_ms": sd["bound_ms"], "bound_by": sd["bound_by"],
-        "library_ms": None}]}))
+    # Kernel 1 on the synthetic stream, and on the default path's input,
+    # the mid-run wave's dedup fingerprints.
+    src = "stateright_tpu_torch/csrc/"
+    pallas = "stateright_tpu/tpu/pallas_table.py:"
+    k_err = max(v["max_abs_err"] for v in k.values())
+    print(json.dumps({"kernels": [
+        _kernel_row("dedup_and_insert", src + "table.cu", pallas + "256",
+                    launches, k_err, k["stream"]),
+        _kernel_row("dedup_and_insert[mid-run wave]", src + "table.cu",
+                    pallas + "256", launches, k_err, k["wave"]),
+        _kernel_row("wave_megakernel", src + "wave_twopc.cu", pallas + "380",
+                    wave_launches,
+                    max(v["max_abs_err"] for v in w.values()), w["plain"]),
+        _kernel_row("sender_megakernel", src + "wave_twopc.cu",
+                    pallas + "451", sender_launches,
+                    max(v["max_abs_err"] for v in sk.values()),
+                    sk[(False, True)])]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -671,7 +809,7 @@ def main() -> int:
 
 if __name__ == "__main__":
     try:
-        rc = main()
+        rc = main(sys.argv[1:])
     except BaseException:  # any phase's failure fails the run
         traceback.print_exc()
         rc = 1

@@ -31,6 +31,8 @@ struct TwoPhase {
   static constexpr int kMaxW = kMaxN + 3;
   // 2 bits an RM and the TM, n + n + 2 bits of masks (lane_bits()).
   static constexpr int kMaxWords = (4 * kMaxN + 4 + 31) / 32;
+  // The fewest actions at any RM count (one RM).
+  static constexpr int kMinFanout = 7;
 
   int n;  // RM count
 

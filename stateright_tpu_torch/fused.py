@@ -50,7 +50,7 @@ from .hashing import SENTINEL, SENTINEL_U64, host_fp64, to_i64, to_u64
 from .model import Expectation
 from .packing import compile_layout
 from .path import Path
-from .table import dedup_and_insert
+from .table import DedupScratch, dedup_and_insert
 from .wave import cuda_model, wave_megakernel
 
 __all__ = ["FusedCudaBfsChecker", "ST_HEAD", "ST_TAIL", "ST_OCC",
@@ -156,6 +156,10 @@ class FusedCudaBfsChecker(Checker):
                    np.array(fps, np.uint64), np.array(list(seen), np.uint64),
                    arena_capacity)
 
+        # The dedup kernels' scratch for a wave's rows, handed to every
+        # call and back clean from each (the rehash makes its own).
+        self._scratch = (DedupScratch(self._dedup_rows(), device)
+                         if device.type == "cuda" else None)
         self._discoveries: Dict[str, int] = {}
         #: waves that expanded rows, dispatches run, table rehashes and
         #: arena doublings, and candidates that reached the table probe
@@ -198,6 +202,10 @@ class FusedCudaBfsChecker(Checker):
         stats[ST_TARGET] = self._target_left()
         stats[ST_DISC:] = [SENTINEL] * P
         self._stats = torch.tensor(stats, dtype=torch.int64, device=device)
+
+    def _dedup_rows(self) -> int:
+        """Rows of one call of a wave's dedup kernel."""
+        return self._B * self._F
 
     def _target_left(self) -> int:
         """Successors still to generate before the target state count
@@ -252,7 +260,7 @@ class FusedCudaBfsChecker(Checker):
                 (succ_store, path_fps, sflat, new_mask, _, new_count,
                  cand_count, full) = wave_megakernel(
                     dm, bstore, valid, self._table, self._use_symmetry,
-                    layout)
+                    layout, scratch=self._scratch)
                 succ_count = sflat.sum(dtype=torch.int64)
                 terminal = valid & ~sflat.reshape(B, F).any(dim=1)
                 if dm.error_lane is not None:
@@ -263,7 +271,7 @@ class FusedCudaBfsChecker(Checker):
                 dedup_fps, path_fps = fingerprint_successors(
                     dm, succ, sflat, self._use_symmetry)
                 new_mask, _, new_count, cand_count, full = dedup_and_insert(
-                    dedup_fps, self._table)
+                    dedup_fps, self._table, scratch=self._scratch)
                 succ_store = layout.pack(succ)
                 if dm.error_lane is not None:
                     err_col = succ[:, dm.error_lane]

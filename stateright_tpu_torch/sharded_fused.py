@@ -133,6 +133,12 @@ class ShardedFusedCudaBfsChecker(EpochOwnership, FusedCudaBfsChecker):
         stats[:, ST_DISC:] = SENTINEL
         self._stats = torch.from_numpy(stats).to(device)
 
+    def _dedup_rows(self) -> int:
+        """Rows of one owner-side insert: every row a shard may receive,
+        ``R = n * S``; the ``n`` inserts of a wave share one scratch, in
+        stream order."""
+        return self._n * self._B * self._F
+
     # -- Device dispatch -----------------------------------------------------
 
     def _dispatch(self) -> torch.Tensor:
@@ -248,7 +254,8 @@ class ShardedFusedCudaBfsChecker(EpochOwnership, FusedCudaBfsChecker):
             recv_ebits = exchange(child_ebits, 0)
 
             # The owner's insert into its own table slice.
-            owned = [dedup_and_insert(recv_dedup[k], self._table[k])
+            owned = [dedup_and_insert(recv_dedup[k], self._table[k],
+                                      scratch=self._scratch)
                      for k in range(n)]
             new_mask = torch.stack([o[0] for o in owned])
             new_count = torch.stack([o[2] for o in owned]).to(torch.int64)

@@ -11,6 +11,12 @@ For CUDA tensors it launches the kernel of ``csrc/table.cu`` (built by
 version, ``dedup_and_insert_plain`` (``engine.dedup_and_insert``), which
 is also the reference the kernel is held to on the card. The wrapper
 never synchronises, so it can run inside a multi-wave dispatch.
+
+The kernel's scratch (``DedupScratch``, shared with the wave kernel of
+``wave.py``) belongs to the caller: an engine keeps one and passes it to
+every call (``scratch=``), and the kernels hand it back clean, so a call
+fills nothing. Without one the wrapper makes a fresh one for the call (the
+rehash does so); one too small or on another device raises.
 """
 
 from __future__ import annotations
@@ -24,9 +30,58 @@ from ._build import build_and_load
 from .engine import dedup_and_insert as dedup_and_insert_plain
 from .engine import scratch_slots
 
-__all__ = ["dedup_and_insert", "dedup_and_insert_plain"]
+__all__ = ["dedup_and_insert", "dedup_and_insert_plain", "DedupScratch"]
 
 _INT32_MAX = (1 << 31) - 1
+
+
+#: a clean scratch slot (``sr::Slot``, two int64 words): the sentinel
+#: key, then the row INT32_MAX in the low half and the walk 0 in the high
+CLEAN_SLOT = (-1, _INT32_MAX)
+
+
+class DedupScratch:
+    """The scratch of the dedup and wave kernels for waves of up to ``n``
+    rows, on one CUDA device: a table of ``scratch_slots(n)`` slots of 16
+    bytes (a key, a least row and the outcome of the key's table walk),
+    the kernel's tally of three counters, and each row's slot. Made clean;
+    every kernel call leaves it clean. Calls that share one must run in
+    order on one stream (one checker's waves do); two checkers keep one
+    each."""
+
+    def __init__(self, n: int, device):
+        m = scratch_slots(n)
+        if m > _INT32_MAX:
+            raise ValueError(f"{n} rows exceed the kernels' int32 row index")
+        self.n, self.m_bits = n, m.bit_length() - 1
+        self.slots = torch.tensor(CLEAN_SLOT, dtype=torch.int64,
+                                  device=device).repeat(m, 1)
+        self.tally = torch.zeros(3, dtype=torch.int32, device=device)
+        self.slot_of = torch.empty(max(n, 1), dtype=torch.int32,
+                                   device=device)
+
+    @classmethod
+    def for_call(cls, scratch, n: int, device) -> "DedupScratch":
+        """A fresh scratch for ``n`` rows on ``device`` when ``scratch``
+        is None, else ``scratch``, which must take them there."""
+        if scratch is None:
+            return cls(n, device)
+        if n > scratch.n or scratch.slots.device != device:
+            raise ValueError(
+                f"the scratch takes {scratch.n} rows on "
+                f"{scratch.slots.device}, not {n} rows on {device}")
+        return scratch
+
+    def args(self):
+        """The kernels' scratch arguments: the slots, tally and slot_of
+        pointers, then m_bits."""
+        return (self.slots.data_ptr(), self.tally.data_ptr(),
+                self.slot_of.data_ptr(), self.m_bits)
+
+    def is_clean(self) -> bool:
+        """Whether every slot and counter is as made (synchronises)."""
+        clean = torch.tensor(CLEAN_SLOT, device=self.slots.device)
+        return bool((self.slots == clean).all() and (self.tally == 0).all())
 
 
 @functools.lru_cache(maxsize=None)
@@ -34,18 +89,19 @@ def _lib() -> ctypes.CDLL:
     lib = build_and_load("table")
     fn = lib.sr_dedup_and_insert
     fn.restype = ctypes.c_int
-    p = ctypes.c_void_p
-    fn.argtypes = [p, ctypes.c_longlong, p, ctypes.c_int, p, p, p,
-                   ctypes.c_int, p, p, p, p]
+    p, i = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = [p, ctypes.c_longlong, p, i, p, p, p, i, p, p, p, p]
     return lib
 
 
-def dedup_and_insert(fps: torch.Tensor, table: torch.Tensor):
+def dedup_and_insert(fps: torch.Tensor, table: torch.Tensor, scratch=None):
     """``fps int64[n]``, ``table int64[C]`` (C a power of two, updated in
     place) -> ``(new_mask bool[n], cand_mask bool[n], new_count,
     cand_count, full)``; the counts are int32 and ``full`` bool 0-dim
     tensors on the same device. ``full`` is True when a candidate found
-    neither its key nor a free slot in the whole table."""
+    neither its key nor a free slot in the whole table. ``scratch``, a
+    caller's ``DedupScratch`` for at least ``n`` rows on the tensors'
+    device, is used in place of a fresh one."""
     if fps.device.type == "cpu" and table.device.type == "cpu":
         return dedup_and_insert_plain(fps, table)
     if fps.device.type != "cuda" or table.device != fps.device:
@@ -58,24 +114,17 @@ def dedup_and_insert(fps: torch.Tensor, table: torch.Tensor):
     capacity = table.shape[0]
     if capacity < 2 or capacity & (capacity - 1):
         raise ValueError(f"table capacity {capacity} is not a power of two")
-    n = fps.shape[0]
-    m = scratch_slots(n)
-    if m > _INT32_MAX:
-        raise ValueError(f"{n} rows exceed the kernel's int32 row index")
-    dev = fps.device
-    keys = torch.full((m,), -1, dtype=torch.int64, device=dev)
-    rows = torch.full((m,), _INT32_MAX, dtype=torch.int32, device=dev)
-    slot_of = torch.empty(max(n, 1), dtype=torch.int32, device=dev)
+    n, dev = fps.shape[0], fps.device
+    scratch = DedupScratch.for_call(scratch, n, dev)
     new_mask = torch.empty(n, dtype=torch.bool, device=dev)
     cand_mask = torch.empty(n, dtype=torch.bool, device=dev)
-    counts = torch.zeros(3, dtype=torch.int32, device=dev)
+    counts = torch.empty(3, dtype=torch.int32, device=dev)
     # The launch goes to the current device's context, which in the
     # checker's worker thread is not necessarily the tensors' device.
     with torch.cuda.device(dev):
         rc = _lib().sr_dedup_and_insert(
             fps.data_ptr(), n, table.data_ptr(), capacity.bit_length() - 1,
-            keys.data_ptr(), rows.data_ptr(), slot_of.data_ptr(),
-            m.bit_length() - 1, new_mask.data_ptr(), cand_mask.data_ptr(),
+            *scratch.args(), new_mask.data_ptr(), cand_mask.data_ptr(),
             counts.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"dedup_and_insert kernel launch failed: "

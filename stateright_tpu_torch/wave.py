@@ -38,6 +38,7 @@ from ._build import build_and_load
 from .engine import dedup_and_insert as dedup_and_insert_plain
 from .engine import (expand_frontier, fingerprint_successors,
                      first_occurrence_candidates, scratch_slots)
+from .table import DedupScratch
 
 __all__ = ["wave_megakernel", "wave_megakernel_plain", "sender_megakernel",
            "sender_megakernel_plain", "cuda_model"]
@@ -88,26 +89,35 @@ def cuda_model(dm, layout):
     return name, tuple(int(p) for p in params), lanes.reshape(-1)
 
 
+def _device_index(dev: torch.device) -> int:
+    """The index of CUDA device ``dev`` (the current one for a bare
+    ``cuda``)."""
+    return torch.cuda.current_device() if dev.index is None else dev.index
+
+
 @functools.lru_cache(maxsize=None)
 def _entry(name: str, n_params: int):
     fn = getattr(build_and_load("wave_" + name), "sr_wave_" + name)
     fn.restype = ctypes.c_int
     i, p = ctypes.c_int, ctypes.c_void_p
     fn.argtypes = ([i] * n_params + [i, p, i, i, p, p, ctypes.c_longlong, i,
-                                      p, i, p, p, p, p, p, p, p, i, p, p, p,
+                                      p, i, p, p, p, p, p, p, i, p, p, p, i,
                                       p])
     return fn
 
 
 def wave_megakernel(dm, store: torch.Tensor, valid: torch.Tensor,
-                    table: torch.Tensor, use_sym: bool, layout):
+                    table: torch.Tensor, use_sym: bool, layout,
+                    scratch=None):
     """``store int32[B, Wp]`` (packed rows), ``valid bool[B]``, ``table
     int64[C]`` (C a power of two, updated in place) -> ``(succ_store
     int32[S, Wp], path_fps int64[S], sflat bool[S], new_mask bool[S],
     cand_mask bool[S], new_count, cand_count, full)`` with ``S = B * F``;
     the counts are int32 and ``full`` bool 0-dim tensors on the same
     device. ``full`` is True when a candidate found neither its key nor
-    a free slot in the whole table."""
+    a free slot in the whole table. ``scratch``, a caller's
+    ``table.DedupScratch`` for at least ``S`` rows on the tensors' device,
+    is used in place of a fresh one."""
     tensors = (store, valid, table)
     if all(t.device.type == "cpu" for t in tensors):
         return wave_megakernel_plain(dm, store, valid, table, use_sym, layout)
@@ -128,20 +138,13 @@ def wave_megakernel(dm, store: torch.Tensor, valid: torch.Tensor,
         raise ValueError(f"table capacity {capacity} is not a power of two")
     name, params, lanes = cuda_model(dm, layout)
     S = B * F
-    m = scratch_slots(S)
-    if m > _INT32_MAX:
-        raise ValueError(f"{S} successor slots exceed the kernel's int32 "
-                         "row index")
+    scratch = DedupScratch.for_call(scratch, S, dev)
     succ_store = torch.empty((S, wp), dtype=torch.int32, device=dev)
     path_fps = torch.empty(S, dtype=torch.int64, device=dev)
-    dedup_fps = torch.empty(S, dtype=torch.int64, device=dev)
     sflat = torch.empty(S, dtype=torch.bool, device=dev)
     new_mask = torch.empty(S, dtype=torch.bool, device=dev)
     cand_mask = torch.empty(S, dtype=torch.bool, device=dev)
-    slot_of = torch.empty(max(S, 1), dtype=torch.int32, device=dev)
-    keys = torch.full((m,), -1, dtype=torch.int64, device=dev)
-    rows = torch.full((m,), _INT32_MAX, dtype=torch.int32, device=dev)
-    counts = torch.zeros(3, dtype=torch.int32, device=dev)
+    counts = torch.empty(3, dtype=torch.int32, device=dev)
     fn = _entry(name, len(params))
     # The launch goes to the current device's context, which in the
     # checker's worker thread is not necessarily the tensors' device.
@@ -149,10 +152,9 @@ def wave_megakernel(dm, store: torch.Tensor, valid: torch.Tensor,
         rc = fn(*params, int(use_sym), lanes.ctypes.data, layout.width, wp,
                 store.data_ptr(), valid.data_ptr(), B, F, table.data_ptr(),
                 capacity.bit_length() - 1, succ_store.data_ptr(),
-                path_fps.data_ptr(), sflat.data_ptr(), dedup_fps.data_ptr(),
-                keys.data_ptr(), rows.data_ptr(), slot_of.data_ptr(),
-                m.bit_length() - 1, new_mask.data_ptr(),
-                cand_mask.data_ptr(), counts.data_ptr(),
+                path_fps.data_ptr(), sflat.data_ptr(), *scratch.args(),
+                new_mask.data_ptr(), cand_mask.data_ptr(), counts.data_ptr(),
+                _device_index(dev),
                 torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"wave kernel launch for {name} failed: CUDA "
@@ -196,7 +198,7 @@ def _sender_entry(name: str, n_params: int):
     fn.restype = ctypes.c_int
     i, p, ll = ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong
     fn.argtypes = ([i] * n_params + [i, i, p, i, i, p, p, ll, ll, i, p, p,
-                                      p, p, p, p, p, p, i, p])
+                                      p, p, p, p, p, p, i, i, p])
     return fn
 
 
@@ -251,6 +253,7 @@ def sender_megakernel(dm, store: torch.Tensor, valid: torch.Tensor,
                 F, succ_store.data_ptr(), dedup_fps.data_ptr(),
                 path_fps.data_ptr(), sflat.data_ptr(), send_mask.data_ptr(),
                 ptr(keys), ptr(rows), ptr(slot_of), m.bit_length() - 1,
+                _device_index(dev),
                 torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"sender kernel launch for {name} failed: CUDA "

@@ -93,3 +93,12 @@ def test_wrapper_refuses_mixed_devices():
         table.dedup_and_insert(torch.zeros(4, dtype=torch.int64),
                                torch.zeros(16, dtype=torch.int64,
                                            device="meta"))
+
+
+def test_a_callers_scratch_that_does_not_fit_raises():
+    fresh = table.DedupScratch.for_call(None, 10, torch.device("cpu"))
+    assert fresh.n == 10 and fresh.is_clean()
+    assert table.DedupScratch.for_call(fresh, 8, torch.device("cpu")) is fresh
+    for n, dev in ((11, "cpu"), (8, "meta")):
+        with pytest.raises(ValueError, match="the scratch takes 10 rows"):
+            table.DedupScratch.for_call(fresh, n, torch.device(dev))

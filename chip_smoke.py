@@ -34,14 +34,21 @@ Phases, in order; any failure exits non-zero and prints no result line:
    (no caller's scratch);
 4. hold the sender kernel against its plain version at full width: the
    same rows as 4 shards of 4,096 (n * S = 851,968 slots), with symmetry
-   and local dedup each on and off: all five outputs equal; time both;
+   and local dedup each on and off: all five outputs equal, the
+   caller-owned scratch (the engine's, for 4 shards) handed back clean;
+   time both, by kernel and memset; then at a ragged shape (3 shards of
+   4,095 rows: a shard count that is not a power of two, and each
+   shard's last tile part full) the same checks;
 5. 2pc at 3 and 5 RMs on the card, and 5 with symmetry: 288 / 1,146,
    8,832 / 58,146 and 314 / 2,048, with the same discovery fingerprint
    chains as the same run on the CPU (the plain path), each with the
    dedup kernel and with the wave kernel; then the same sharded on
    ``mesh=[cuda:0] * n`` at n = 1 and 4, with each path, against the
-   CPU run at the same n; a mesh over distinct devices, and either
-   kernel for a model without CUDA device code, raise on the card;
+   CPU run at the same n, and 5 RMs at n = 3 with 255 rows a shard (an
+   odd S = 6,885 slots a shard, so shards start off 16 bytes) through
+   the sender kernel with and without local dedup; a mesh over distinct
+   devices, and either kernel for a model without CUDA device code, raise
+   on the card;
 6. full width, 2pc at 10 RMs: batch 16,384 once with each path, and
    sharded at n = 4 with 4,096 rows a shard and the sender kernel:
    exactly 61,515,776 unique / 817,760,258 states, with the kernels'
@@ -165,10 +172,10 @@ def _log_parts(parts) -> None:
         _log(f"    {ms:9.4f} ms {count}x {name[:100]}")
 
 
-def _scratch(torch, table_mod, fn, n: int):
+def _scratch(torch, table_mod, fn, n: int, shards: int = 1):
     """``(fn, scratch)``: ``fn`` with a caller-owned scratch for ``n``
-    rows bound, as the engines call the kernels."""
-    scratch = table_mod.DedupScratch(n, torch.device("cuda"))
+    rows in ``shards`` shards bound, as the engines call the kernels."""
+    scratch = table_mod.DedupScratch(n, torch.device("cuda"), shards)
     return functools.partial(fn, scratch=scratch), scratch
 
 
@@ -394,36 +401,47 @@ def _wave_case(torch, wave_mod, table_mod, dm, store, valid, layout, table,
                 bound_by="bytes" if bytes_ms >= ops_ms else "operations")
 
 
-def phase_sender_kernel(torch, wave_mod, dm, store, layout):
+def _sender_equal(torch, wave_mod, fn, scratch, args, tag):
+    """The sender kernel (``fn``) against its plain version on ``args``:
+    all five outputs equal, the scratch handed back clean. Returns
+    ``(valid, sent)``."""
+    names = ("succ_store", "dedup_fps", "path_fps", "sflat", "send_mask")
+    got = fn(*args)
+    want = wave_mod.sender_megakernel_plain(*args)
+    torch.cuda.synchronize()
+    for name, a, b in zip(names, got, want):
+        if not torch.equal(a, b):
+            err = int((a.to(torch.int64) - b.to(torch.int64)).abs().max())
+            raise AssertionError(f"sender kernel ({tag}) disagrees with its "
+                                 f"plain version on {name}: max abs err "
+                                 f"{err}")
+    _check_clean(torch, scratch, f"the sender kernel ({tag})")
+    return int(got[3].sum()), int(got[4].sum())
+
+
+def phase_sender_kernel(torch, wave_mod, table_mod, dm, store, layout):
     """The sender kernel against its plain version at the full-width
-    shape: ``store``'s packed rows as ``SHARDS`` shards' batches."""
+    shape: ``store``'s packed rows as ``SHARDS`` shards' batches, with
+    the engine's scratch; then at a ragged shape."""
     B, wp = BATCH // SHARDS, layout.packed_width
-    store = store.reshape(SHARDS, B, wp).contiguous()
+    rows = store
+    store = rows.reshape(SHARDS, B, wp).contiguous()
     valid = torch.ones((SHARDS, B), dtype=torch.bool, device="cuda")
     W, n = dm.state_width, SHARDS
     S = B * dm.max_fanout
-    names = ("succ_store", "dedup_fps", "path_fps", "sflat", "send_mask")
+    fn, scratch = _scratch(torch, table_mod, wave_mod.sender_megakernel,
+                           n * S, n)
     out = {}
     for use_sym in (False, True):
         for local_dedup in (True, False):
             args = (dm, store, valid, use_sym, layout, local_dedup)
-            got = wave_mod.sender_megakernel(*args)
-            want = wave_mod.sender_megakernel_plain(*args)
-            torch.cuda.synchronize()
-            for name, a, b in zip(names, got, want):
-                if not torch.equal(a, b):
-                    err = int((a.to(torch.int64) - b.to(torch.int64))
-                              .abs().max())
-                    raise AssertionError(
-                        f"sender kernel (sym={use_sym}, local_dedup="
-                        f"{local_dedup}) disagrees with its plain version "
-                        f"on {name}: max abs err {err}")
-            n_valid, n_send = int(got[3].sum()), int(got[4].sum())
-            del got, want
-            ms, parts = _breakdown(torch, wave_mod.sender_megakernel, 5,
-                                   lambda: args)
-            call_ms = _time_ms(torch, wave_mod.sender_megakernel, 5,
-                               lambda: args)
+            tag = (f"{'sym' if use_sym else 'plain'}"
+                   f"{'' if local_dedup else ', no local dedup'}")
+            n_valid, n_send = _sender_equal(torch, wave_mod, fn, scratch,
+                                            args, tag)
+            ms, parts = _breakdown(torch, fn, 5, lambda: args)
+            call_ms = _time_ms(torch, fn, 5, lambda: args)
+            _check_clean(torch, scratch, f"the sender kernel ({tag}, timed)")
             plain_ms = _time_ms(torch, wave_mod.sender_megakernel_plain, 3,
                                 lambda: args)
             # Bound: the function's own bytes, each once: the packed
@@ -442,8 +460,6 @@ def phase_sender_kernel(torch, wave_mod, dm, store, layout):
             bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
             ops_ms = ops / OPS_PER_S * 1e3
             bound_ms = max(bytes_ms, ops_ms)
-            tag = (f"{'sym' if use_sym else 'plain'}"
-                   f"{'' if local_dedup else ', no local dedup'}")
             _log(f"sender kernel == plain ({tag}) at n={n} x B={B}, "
                  f"n*S={n * S}: valid={n_valid} sent={n_send}; kernel "
                  f"{ms:.4f} ms on the card ({call_ms:.4f} ms a call between "
@@ -456,6 +472,23 @@ def phase_sender_kernel(torch, wave_mod, dm, store, layout):
                 max_abs_err=0, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                 parts=parts,
                 bound_by="bytes" if bytes_ms >= ops_ms else "operations")
+    del fn, scratch
+    # Ragged: 3 shards of 4,095 rows, the last 100 of shard 2 not valid.
+    n, B = 3, 4_095
+    store = rows[:n * B].reshape(n, B, wp).contiguous()
+    valid = torch.ones((n, B), dtype=torch.bool, device="cuda")
+    valid[2, -100:] = False
+    S = B * dm.max_fanout
+    fn, scratch = _scratch(torch, table_mod, wave_mod.sender_megakernel,
+                           n * S, n)
+    for local_dedup in (True, False):
+        tag = f"ragged{'' if local_dedup else ', no local dedup'}"
+        n_valid, n_send = _sender_equal(
+            torch, wave_mod, fn, scratch,
+            (dm, store, valid, False, layout, local_dedup), tag)
+        _log(f"sender kernel == plain ({tag}) at n={n} x B={B}, S={S} "
+             f"({S % 256} slots in each shard's last tile): valid={n_valid} "
+             f"sent={n_send}, scratch clean")
     return out
 
 
@@ -520,6 +553,26 @@ def phase_sharded_small(torch, fused, TwoPhaseSys):
                                          "from the CPU run")
                 _log(f"{tag}: unique={got[0]} states={got[1]}, discoveries "
                      f"{sorted(_chains(gpu))} equal to the CPU run's")
+    # An odd S a shard, on a shard count that is not a power of two.
+    for novel in (True, False):
+        def spawn3(device, **kw):
+            return TwoPhaseSys(5).checker().spawn_cuda_bfs(
+                mesh=[device] * 3, batch_size=255,
+                exchange_novel_only=novel, **kw).join()
+
+        cpu, gpu = spawn3("cpu", wave_kernel=True), spawn3(
+            "cuda:0", wave_kernel=True)
+        got = (gpu.unique_state_count(), gpu.state_count())
+        tag = f"2pc 5 n=3 B=255 sender_kernel, exchange_novel_only={novel}"
+        if got != (8832, 58146) or got != (cpu.unique_state_count(),
+                                           cpu.state_count()):
+            raise AssertionError(f"{tag}: {got} != (8832, 58146)")
+        if gpu.kernel_path() != "sender_kernel" or _chains(gpu) != _chains(
+                cpu):
+            raise AssertionError(f"{tag}: {gpu.kernel_path()}, or discovery "
+                                 "chains differ from the CPU run")
+        _log(f"{tag}: unique={got[0]} states={got[1]}, equal to the CPU "
+             "run's")
     # The torch stages' sender side, sync-free too (the sender kernel's
     # path is checked at full width).
     mid = (TwoPhaseSys(5).checker().target_state_count(20_000)
@@ -685,8 +738,8 @@ def phase_profile(torch, fused, mid):
     kern.sort(key=lambda e: -e.self_device_time_total)
     total_ms = sum(e.self_device_time_total for e in kern) / 1e3
     port_ms = sum(e.self_device_time_total for e in kern
-                  if any(k in e.key for k in ("claim", "resolve_rows",
-                                              "wave_front", "sender_mask"))
+                  if any(k in e.key for k in ("claim_rows", "resolve_rows",
+                                              "tile_front", "send_rows"))
                   ) / 1e3
     n_launch = sum(e.count for e in kern)
     _log(f"profiled dispatch: {waves} waves, {n_launch} kernel launches, "
@@ -765,7 +818,7 @@ def main(argv) -> int:
                                            TwoPhaseSys)
     k = phase_kernel(torch, table_mod, engine, wave_case)
     del wave_case
-    sk = phase_sender_kernel(torch, wave_mod, *rows)
+    sk = phase_sender_kernel(torch, wave_mod, table_mod, *rows)
     del rows
     phase_small(TwoPhaseSys)
     phase_sharded_small(torch, fused, TwoPhaseSys)

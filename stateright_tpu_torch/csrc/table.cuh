@@ -1,6 +1,9 @@
 // The visited-table device code shared by the dedup kernel (table.cu) and
 // the wave kernel (wave.cuh): the hash of a slot, the walk of the visited
-// table, and the two phases of a wave's dedup built from them.
+// table, and the two phases of a wave's dedup built from them. The sender
+// kernel (wave.cuh) takes the claim and the take of a slot alone
+// (claim_slot, take_slot), in a region of the scratch a shard, with no
+// walk.
 //
 // Slot and step functions equal the reference's (stateright_tpu/tpu/
 // engine.py): the HIGH bits of fp * 0x9E3779B97F4A7C15 pick the home
@@ -103,29 +106,30 @@ __device__ __forceinline__ int probe_walk(u64 fp, u64* table, int c_bits) {
   return kWalkFull;
 }
 
-// The sender kernel's claim (wave.cuh), on plain arrays of keys and rows:
-// finds or claims fp's slot in the scratch table (2^m_bits >= 2n slots,
-// so a free slot always exists) and lowers the slot's row to i. Returns
-// the slot. After a grid-wide boundary, row i is the earliest row of its
-// fingerprint iff rows[slot] == i.
-__device__ __forceinline__ int scratch_claim(u64 fp, int i, u64* keys,
-                                             int* rows, int m_bits) {
-  const u64 mask = (1ull << m_bits) - 1;
+// Finds or claims fp's slot among the 2^bits slots from `slots`
+// (atomicCAS on its key; there are more slots than rows, so a free one
+// always exists) and lowers the slot's row to i (atomicMin). Returns the
+// slot; *fresh tells whether this call found it empty, which exactly one
+// call does for each distinct fingerprint.
+__device__ __forceinline__ int claim_slot(u64 fp, int i, Slot* slots,
+                                          int bits, bool* fresh) {
+  const u64 mask = (1ull << bits) - 1;
   u64 h, step;
-  slot_hash(fp, m_bits, &h, &step);
+  slot_hash(fp, bits, &h, &step);
   for (u64 t = 0; t <= mask; ++t) {
-    const u64 old = atomicCAS(&keys[h], kSentinel, fp);
+    const u64 old = atomicCAS(&slots[h].key, kSentinel, fp);
     if (old == kSentinel || old == fp) {
-      atomicMin(&rows[h], i);
+      atomicMin(&slots[h].row, i);
+      *fresh = old == kSentinel;
       return (int)h;
     }
     h = (h + step) & mask;
   }
-  return (int)h;  // not reached: the table has more slots than rows
+  *fresh = false;
+  return -1;  // not reached: the scratch has more slots than rows
 }
 
-// Phase 1 of row i with fingerprint fp: finds or claims fp's scratch slot
-// (atomicCAS on its key) and lowers the slot's row to i (atomicMin);
+// Phase 1 of row i with fingerprint fp: claim_slot in the whole scratch;
 // returns the slot, -1 for the sentinel, which has none. If this call
 // claimed the slot empty, it walks the visited table, keeps the outcome in
 // the slot's walk field and adds it to acc (new, candidates, unresolved).
@@ -133,25 +137,16 @@ __device__ __forceinline__ int claim_row(u64 fp, int i, const Scratch& s,
                                          u64* table, int c_bits,
                                          int (&acc)[3]) {
   if (fp == kSentinel) return -1;
-  const u64 mask = (1ull << s.m_bits) - 1;
-  u64 h, step;
-  slot_hash(fp, s.m_bits, &h, &step);
-  for (u64 t = 0; t <= mask; ++t) {
-    const u64 old = atomicCAS(&s.slots[h].key, kSentinel, fp);
-    if (old == kSentinel || old == fp) {
-      atomicMin(&s.slots[h].row, i);
-      if (old == kSentinel) {
-        const int walk = probe_walk(fp, table, c_bits);
-        s.slots[h].walk = walk;
-        acc[0] += walk == kWalkInserted;
-        acc[1] += 1;
-        acc[2] += walk == kWalkFull;
-      }
-      return (int)h;
-    }
-    h = (h + step) & mask;
+  bool fresh;
+  const int h = claim_slot(fp, i, s.slots, s.m_bits, &fresh);
+  if (fresh) {
+    const int walk = probe_walk(fp, table, c_bits);
+    s.slots[h].walk = walk;
+    acc[0] += walk == kWalkInserted;
+    acc[1] += 1;
+    acc[2] += walk == kWalkFull;
   }
-  return -1;  // not reached: the scratch has more slots than rows
+  return h;
 }
 
 // Adds a block's tallies to the scratch's: a warp's sum into shared
@@ -175,17 +170,24 @@ __device__ __forceinline__ void flush_tally(const int (&acc)[3],
       if (block_sum[k] != 0) atomicAdd(&tally[k], block_sum[k]);
 }
 
-// Phase 2 of row i, whose phase 1 returned slot (see the note above).
+// Phase 2 of row i, whose phase 1 returned slot: whether row i holds the
+// slot (see the note above). The holder reads the slot's walk into *walk
+// and resets the slot.
+__device__ __forceinline__ bool take_slot(int slot, int i, Slot* slots,
+                                          int* walk) {
+  if (slot < 0 || __ldcg(&slots[slot].row) != i) return false;
+  *walk = __ldcg(&slots[slot].walk);
+  slots[slot] = Slot{kSentinel, kRowNone, kWalkNone};
+  return true;
+}
+
+// Phase 2 of the dedup: row i is a candidate iff it holds its slot, and
+// new iff that slot's walk inserted.
 __device__ __forceinline__ void resolve(int slot, int i, const Scratch& s,
                                         bool* new_mask, bool* cand_mask) {
-  bool cand = false, is_new = false;
-  if (slot >= 0 && __ldcg(&s.slots[slot].row) == i) {
-    cand = true;
-    is_new = __ldcg(&s.slots[slot].walk) == kWalkInserted;
-    s.slots[slot] = Slot{kSentinel, kRowNone, kWalkNone};
-  }
-  new_mask[i] = is_new;
-  cand_mask[i] = cand;
+  int walk = kWalkNone;
+  cand_mask[i] = take_slot(slot, i, s.slots, &walk);
+  new_mask[i] = walk == kWalkInserted;
 }
 
 // Moves the tally into the caller's counts and clears it: once, in phase

@@ -1,68 +1,83 @@
-// The single-kernel wave: the whole successor path of one BFS wave, for
-// any model that has device code (a template on the model).
+// The single-kernel wave and the sender kernel: the whole successor path
+// of one BFS wave, and its front half for the sharded engine, for any
+// model that has device code (templates on the model), on one tile loop.
 //
-// Replaces the Pallas kernel stateright_tpu/tpu/pallas_table.py
-// ::build_wave_megakernel :380 (with _wave_front :353). From the packed
-// batch vecs uint32[B, Wp] and valid bool[B] it computes, for each of the
-// S = B * F successor slots (b, f): the packed successor succ_store[S, Wp],
-// its path fingerprint path_fps[S], sflat[S] = valid[b] & enabled, and
-// then the dedup of the wave against the visited table in place:
-// cand_mask[S] (earliest slot of each dedup fingerprint), new_mask[S]
-// (candidates this wave inserted) and the counts. Under symmetry the
-// dedup fingerprint is the representative's; paths keep the original's.
-// Every output equals the plain version (stateright_tpu_torch/wave.py
-// ::wave_megakernel_plain) bit for bit; the table equals it as a set.
-//
-// What bounds it on an H100: the per-slot integer work (unpack, step,
-// two murmur3 fingerprints and the re-pack, lanes resolved by selects in
-// registers) and the latency of the scratch claims and the table walk. Its
-// bytes are the packed batch read, the packed successors, path
-// fingerprints and three byte masks written, and about one 32-byte sector
-// per candidate in the visited table. The TPU kernel's VMEM gate
-// (wave_kernel_ok :330) has no counterpart: the table stays in HBM, and
-// the only limit is the int32 row index (S < 2^31). At a full-width wave
-// of 2pc at 10 RMs (B = 16,384 rows of a mid-run arena, S = 851,968,
-// against 2^27 slots 30% full, 86,817 candidates) that bound is
-// 19,112,992 B over 3.35 TB/s = 0.0057 ms (chip_smoke.py; PERF.md has
-// the kernel's times).
-//
-// The design, for this card. Phase 1 (wave_claim) walks the slots a tile
-// of kWaveThreads at a time, one thread a slot, over a grid of the blocks
-// the card holds at once. A tile's parent rows (at most
-// kWaveThreads / F + 2) are unpacked once into shared memory; each thread
-// splits its slot into row and action with 32-bit arithmetic, applies the
-// step to its parent's lanes, fingerprints and re-packs, and stages its
-// outputs in shared memory, which the block then writes out with
-// coalesced 16-byte stores (the successors, path fingerprints and sflat of
-// a tile are contiguous). Then each valid slot claims its dedup
-// fingerprint's scratch slot, and the first claimer walks the visited
-// table (table.cuh): the walks overlap the other slots' claims. The
-// dedup fingerprints never reach HBM. Phase 2 (table.cuh's resolve_rows,
-// after the launch boundary) writes the masks from the scratch and leaves
-// it clean. The caller owns the scratch: no fill a call. Measured choices
-// (PERF.md): the launch boundary as the barrier, since a cooperative
-// launch with a grid sync ran phase 2 on the front's small grid and was
-// slower; 16-byte stores from the staging, level with TMA bulk stores
-// (cp.async.bulk) at the 12-RM instantiation that 10 RMs use; and
-// __launch_bounds__(256, 4), 64 registers for four blocks an SM (no spill
-// at 12 RMs, 24 bytes at 16), faster than three at 80 registers.
+// The single-kernel wave (launch_wave) replaces the Pallas kernel
+// stateright_tpu/tpu/pallas_table.py::build_wave_megakernel :380 (with
+// _wave_front :353). From the packed batch vecs uint32[B, Wp] and valid
+// bool[B] it computes, for each of the S = B * F successor slots (b, f):
+// the packed successor succ_store[S, Wp], its path fingerprint
+// path_fps[S], sflat[S] = valid[b] & enabled, and then the dedup of the
+// wave against the visited table in place: cand_mask[S] (earliest slot of
+// each dedup fingerprint), new_mask[S] (candidates this wave inserted) and
+// the counts. Under symmetry the dedup fingerprint is the
+// representative's; paths keep the original's. Every output equals the
+// plain version (stateright_tpu_torch/wave.py::wave_megakernel_plain) bit
+// for bit; the table equals it as a set.
 //
 // The sender kernel (launch_sender) replaces the Pallas kernel
-// build_sender_megakernel :451, the front half of the wave kernel with no
-// table that the sharded engine runs a shard at a time. Its input is the
-// shards' batches stacked, vecs uint32[n, B, Wp] and valid bool[n, B]; for
-// each shard's S slots it writes succ_store, dedup_fps, path_fps, sflat
-// and send_mask: the earliest slot of each dedup fingerprint within its
-// own shard when local_dedup (the exchange_novel_only contract), else
-// sflat. Pass 1 (wave_front) runs over all n * S slots in one launch, a
-// slot a thread in a grid-stride loop, each shard claiming in its own
-// scratch region (one shared over all shards would drop a later shard's
-// copy of a state an earlier shard also produced); pass 2 (sender_mask)
-// reads the regions. It has no table, no probe and no counts. Its outputs
-// equal the plain version (stateright_tpu_torch/wave.py
-// ::sender_megakernel_plain) bit for bit. Its bound is bytes: the packed
-// batch and valid read, the packed successors, two fingerprint arrays and
-// two byte masks written.
+// build_sender_megakernel :451: the front half of the wave with no table,
+// which the sharded engine runs on every shard's batch at once. Its input
+// is the shards' batches stacked, vecs uint32[n, B, Wp] and valid
+// bool[n, B]; for each shard's S slots it writes succ_store, dedup_fps,
+// path_fps, sflat and send_mask: the earliest slot of each dedup
+// fingerprint within its own shard when local_dedup (the
+// exchange_novel_only contract), else sflat. It has no table, no walk and
+// no counts. Its outputs equal the plain version (wave.py
+// ::sender_megakernel_plain) bit for bit.
+//
+// What bounds them on an H100: the per-slot integer work (unpack, step,
+// two murmur3 fingerprints and the re-pack, lanes resolved by selects in
+// registers) and the latency of the scratch claims (and of the wave
+// kernel's table walks). Their bytes: the packed batch read, the packed
+// successors, path fingerprints and byte masks written, and for the wave
+// kernel about one 32-byte sector per candidate in the visited table, for
+// the sender the dedup fingerprints. The TPU kernels' VMEM gate
+// (wave_kernel_ok :330) has no counterpart: the table stays in HBM, and
+// the only limit is the int32 row index (n * S < 2^31). chip_smoke.py
+// computes each bound from its run's inputs (at the full-width shapes,
+// 0.0057 ms for the wave kernel and 0.0067 ms for the sender, both by
+// bytes); PERF.md has the kernels' times.
+//
+// The design, for this card. One tile loop (front_tiles, kernel
+// tile_front) serves both, a template on what a slot does after its
+// tile's stores (WaveTail, SenderTail). The grid, the blocks the card
+// holds at once, walks (shard, tile) pairs, kWaveThreads slots a tile and
+// one thread a slot; a tile never straddles a shard (the wave kernel is
+// one shard), so its shard is known once a tile and a shard's last tile
+// may be ragged. A tile's parent rows (at most kWaveThreads / F + 2) are
+// unpacked once into shared memory; each thread splits its slot into row
+// and action with 32-bit arithmetic, applies the step to its parent's
+// lanes, fingerprints and re-packs, and stages its outputs in shared
+// memory, which the block then writes out with coalesced 16-byte stores
+// (a tile's outputs are contiguous; element stores where a shard's start
+// leaves a destination off 16 bytes). Then each slot's tail runs:
+// - the wave kernel claims its dedup fingerprint's slot in the caller's
+//   scratch, and the first claimer walks the visited table (table.cuh's
+//   claim_row): the walks overlap the other slots' claims. The dedup
+//   fingerprints never reach HBM. Its phase 2 (table.cuh's resolve_rows,
+//   after the launch boundary) writes the masks from the scratch and
+//   leaves it clean.
+// - the sender, with local dedup, claims the same kind of 16-byte slot
+//   (claim_slot: atomicCAS on the key, atomicMin of the row, one sector)
+//   in its shard's region of the caller's scratch, 2^region_bits >= 2S
+//   slots from slot shard << region_bits (one region shared over all
+//   shards would drop a later shard's copy of a state an earlier shard
+//   also produced), and walks nothing. Its pass 2 (send_rows, after the
+//   launch boundary) sends slot i iff slot_of[i] names a slot whose row
+//   is i, and that slot then resets it (take_slot), so the scratch goes
+//   back clean to the owner-side inserts of the same wave. Pass 2 reads
+//   neither the fingerprints nor sflat. Without local dedup nothing is
+//   claimed, send_mask is written from pass 1's staging of sflat, and
+//   pass 2 is not launched: one launch.
+// The caller owns the scratch: no fill a call. Measured choices (PERF.md):
+// the launch boundary as the barrier, since a cooperative launch with a
+// grid sync ran phase 2 on the front's small grid and was slower (a
+// development tree, PR 4, not kept); 16-byte stores from the staging,
+// level with TMA bulk stores (cp.async.bulk) at the 12-RM instantiation
+// that 10 RMs use (the same tree); and __launch_bounds__(256, 4), 64
+// registers for four blocks an SM, faster than three at 80 registers.
+// ptxas (-Xptxas -v, sm_90a) for tile_front: see wave_twopc.cu.
 
 #pragma once
 
@@ -117,6 +132,114 @@ bool make_layout(const M& m, const int* lanes, int w, int wp, int fanout,
   return true;
 }
 
+// One block's shared memory in the tile loop: the tile's parent rows
+// unpacked (a tile of kWaveThreads slots spans at most kWaveThreads / F +
+// 2 rows, F >= M::kMinFanout), and its outputs staged for the full-line
+// stores; the dedup fingerprints too when kDedupOut (the sender's).
+template <class M, bool kDedupOut>
+struct WaveTile {
+  static constexpr int kRows = kWaveThreads / M::kMinFanout + 2;
+  uint32_t lanes[kRows][M::kMaxW];
+  bool valid[kRows];
+  alignas(16) uint32_t succ[kWaveThreads * M::kMaxWords];
+  alignas(16) u64 pfp[kWaveThreads];
+  alignas(16) u64 dfp[kDedupOut ? kWaveThreads : 1];
+  alignas(16) bool sflat[kWaveThreads];
+};
+
+// Unpacks the packed row p (wp words) into row r of the tile.
+template <class M, bool kDedupOut>
+__device__ __forceinline__ void stage_row(
+    const Layout<M::kMaxW, M::kMaxWords>& L, const uint32_t* p, bool valid,
+    WaveTile<M, kDedupOut>& tile, unsigned r) {
+  uint32_t w[M::kMaxWords];
+#pragma unroll
+  for (int k = 0; k < M::kMaxWords; ++k) w[k] = k < L.wp ? p[k] : 0u;
+  uint32_t v[M::kMaxW];
+  unpack(L, w, v);
+#pragma unroll
+  for (int j = 0; j < M::kMaxW; ++j) tile.lanes[r][j] = v[j];
+  tile.valid[r] = valid;
+}
+
+// Slot t of the tile, action f of the tile's row r: expands it and stages
+// its successor, path fingerprint, sflat and (kDedupOut) dedup fingerprint
+// at position t. Returns the dedup fingerprint.
+template <class M, bool kDedupOut>
+__device__ __forceinline__ u64 stage_slot(
+    const M& m, const Layout<M::kMaxW, M::kMaxWords>& L,
+    WaveTile<M, kDedupOut>& tile, unsigned t, unsigned r, int f,
+    bool use_sym) {
+  uint32_t v[M::kMaxW];
+#pragma unroll
+  for (int j = 0; j < M::kMaxW; ++j) v[j] = tile.lanes[r][j];
+  uint32_t q[M::kMaxWords];
+  u64 pfp, dfp;
+  tile.sflat[t] = expand_slot(m, L, v, f, tile.valid[r], use_sym, q, &pfp,
+                              &dfp);
+#pragma unroll
+  for (int k = 0; k < M::kMaxWords; ++k)
+    if (k < L.wp) tile.succ[t * L.wp + k] = q[k];
+  tile.pfp[t] = pfp;
+  if (kDedupOut) tile.dfp[t] = dfp;
+  return dfp;
+}
+
+// What a slot of the single-kernel wave does after its tile's stores:
+// claims its dedup fingerprint's slot in the scratch, and the first
+// claimer walks the visited table (claim_row); the block's counts go to
+// the scratch's tally at the end.
+struct WaveTail {
+  static constexpr bool kSender = false;
+  u64* table;  // [2^c_bits], in place
+  int c_bits;
+  Scratch scratch;  // the caller's, clean
+  int* slot_of;     // [S]
+
+  __device__ __forceinline__ void claim(u64 dfp, unsigned i, unsigned,
+                                        int (&acc)[3]) const {
+    slot_of[i] = claim_row(dfp, (int)i, scratch, table, c_bits, acc);
+  }
+  __device__ __forceinline__ void finish(const int (&acc)[3]) const {
+    flush_tally(acc, scratch.tally);
+  }
+};
+
+// The sender kernel's: with local dedup, slot i of shard k claims its
+// dedup fingerprint's slot in region k of the scratch (2^region_bits
+// slots from slot k << region_bits) and walks nothing; pass 2 (send) then
+// tells the holder of each slot, which resets it. Without local dedup,
+// nothing.
+struct SenderTail {
+  static constexpr bool kSender = true;
+  u64* dedup_fps;  // [n, S]
+  bool* send_mask;  // [n, S]
+  bool local_dedup;
+  Slot* slots;  // the caller's scratch, clean; n << region_bits slots
+  int region_bits;
+  int* slot_of;  // [n, S]
+
+  __device__ __forceinline__ void claim(u64 dfp, unsigned i, unsigned k,
+                                        int (&)[3]) const {
+    if (!local_dedup) return;
+    int slot = -1;
+    if (dfp != kSentinel) {
+      const unsigned base = k << region_bits;
+      bool fresh;
+      slot = (int)base + claim_slot(dfp, (int)i, slots + base, region_bits,
+                                    &fresh);
+    }
+    slot_of[i] = slot;
+  }
+  __device__ __forceinline__ void finish(const int (&)[3]) const {}
+
+  // Pass 2 of slot i, after every claim has landed.
+  __device__ __forceinline__ void send(unsigned i) const {
+    int walk;
+    send_mask[i] = take_slot(slot_of[i], (int)i, slots, &walk);
+  }
+};
+
 #ifdef __CUDACC__
 
 // Pointers and sizes of one wave, as the C entry point receives them.
@@ -156,202 +279,136 @@ struct SenderArgs {
   u64* path_fps;         // [shards, S]
   bool* sflat;           // [shards, S]
   bool* send_mask;       // [shards, S]
-  u64* keys;             // [shards, 2^m_bits], all sentinel
-  int* rows;             // [shards, 2^m_bits], all INT32_MAX
-  int* slot_of;          // [shards, S], scratch
-  int m_bits;
+  Slot* slots;           // the caller's scratch, read only when local_dedup
+  int* slot_of;          // [shards, S], likewise
+  int region_bits;
   bool use_sym, local_dedup;
   int device;
   cudaStream_t stream;
 };
 
-// The wave kernel's parameters, one struct so one pointer passes them.
-template <class M>
-struct WaveParams {
+// The tile loop's parameters, one struct so one pointer passes them.
+template <class M, class Tail>
+struct FrontParams {
   M m;
   Layout<M::kMaxW, M::kMaxWords> L;
-  const uint32_t* vecs;
-  const bool* valid;
-  unsigned S;  // slots, < 2^31
-  unsigned F;
+  const uint32_t* vecs;  // [shards, B, wp]
+  const bool* valid;     // [shards, B]
+  unsigned B, S, F;      // rows and slots a shard, actions a row
+  unsigned shards, tiles;  // tiles a shard
   bool use_sym;
-  uint32_t* succ_store;
-  u64* path_fps;
-  bool* sflat;
-  u64* table;
-  int c_bits;
-  Scratch scratch;
-  int* slot_of;
-  bool* new_mask;
-  bool* cand_mask;
-  int* counts;
-};
-
-// One block's shared memory in phase 1: the tile's parent rows unpacked
-// (a tile of kWaveThreads slots spans at most kWaveThreads / F + 2 rows,
-// F >= M::kMinFanout), and its outputs staged for the full-line stores.
-template <class M>
-struct WaveTile {
-  static constexpr int kRows = kWaveThreads / M::kMinFanout + 2;
-  uint32_t lanes[kRows][M::kMaxW];
-  bool valid[kRows];
-  alignas(16) uint32_t succ[kWaveThreads * M::kMaxWords];
-  alignas(16) u64 pfp[kWaveThreads];
-  alignas(16) bool sflat[kWaveThreads];
+  uint32_t* succ_store;  // [shards, S, wp]
+  u64* path_fps;         // [shards, S]
+  bool* sflat;           // [shards, S]
+  Tail tail;
 };
 
 namespace {
 
-// Copies n bytes of a staged tile from shared memory to global memory
-// (both ends 16-byte aligned): 16 bytes a thread a step, the ragged end a
-// byte at a time.
-__device__ __forceinline__ void copy_out(void* dst, const void* src,
-                                         unsigned n) {
-  const unsigned n16 = n / 16;
-  for (unsigned c = threadIdx.x; c < n16; c += blockDim.x)
-    static_cast<uint4*>(dst)[c] = static_cast<const uint4*>(src)[c];
-  for (unsigned c = n16 * 16 + threadIdx.x; c < n; c += blockDim.x)
-    static_cast<char*>(dst)[c] = static_cast<const char*>(src)[c];
+// Copies count elements of a staged tile from shared memory (16-byte
+// aligned) to global memory: 16 bytes a thread a step where dst is 16-byte
+// aligned too, an element a thread a step for the rest.
+template <class T>
+__device__ __forceinline__ void copy_out(T* dst, const T* src,
+                                         unsigned count) {
+  unsigned c0 = 0;
+  if ((reinterpret_cast<uintptr_t>(dst) & 15) == 0) {
+    const unsigned n16 = count * sizeof(T) / 16;
+    for (unsigned c = threadIdx.x; c < n16; c += blockDim.x)
+      reinterpret_cast<uint4*>(dst)[c] = reinterpret_cast<const uint4*>(src)[c];
+    c0 = n16 * (16 / sizeof(T));
+  }
+  for (unsigned c = c0 + threadIdx.x; c < count; c += blockDim.x)
+    dst[c] = src[c];
 }
 
-// Phase 1 of the wave kernel (see the note at the top), for a block.
-template <class M>
-__device__ __forceinline__ void wave_tiles(const WaveParams<M>& a,
-                                           WaveTile<M>& tile) {
-  constexpr int kMaxW = M::kMaxW, kMaxWords = M::kMaxWords;
+// The tile loop (see the note at the top), for a block.
+template <class M, class Tail>
+__device__ __forceinline__ void front_tiles(
+    const FrontParams<M, Tail>& a, WaveTile<M, Tail::kSender>& tile) {
   const unsigned tid = threadIdx.x, F = a.F, wp = a.L.wp;
   int acc[3] = {0, 0, 0};
-  for (unsigned t0 = blockIdx.x * kWaveThreads; t0 < a.S;
-       t0 += gridDim.x * kWaveThreads) {
+  for (unsigned p = blockIdx.x; p < a.shards * a.tiles; p += gridDim.x) {
+    const unsigned k = p / a.tiles;  // the tile's shard
+    const unsigned t0 = (p - k * a.tiles) * kWaveThreads;  // in the shard
     const unsigned n = min((unsigned)kWaveThreads, a.S - t0);
     const unsigned b0 = t0 / F;
     const unsigned rows = (t0 + n - 1) / F - b0 + 1;
+    const unsigned g0 = k * a.S + t0;    // over all shards
+    const unsigned row0 = k * a.B + b0;  // likewise
     __syncthreads();  // the last tile's stores have read the staging
-    if (tid < rows) {
-      uint32_t p[kMaxWords];
-#pragma unroll
-      for (int k = 0; k < kMaxWords; ++k)
-        p[k] = k < (int)wp ? a.vecs[(b0 + tid) * wp + k] : 0u;
-      uint32_t v[kMaxW];
-      unpack(a.L, p, v);
-#pragma unroll
-      for (int j = 0; j < kMaxW; ++j) tile.lanes[tid][j] = v[j];
-      tile.valid[tid] = a.valid[b0 + tid];
-    }
+    if (tid < rows)
+      stage_row(a.L, a.vecs + (size_t)(row0 + tid) * wp, a.valid[row0 + tid],
+                tile, tid);
     __syncthreads();
     u64 dfp = kSentinel;
     if (tid < n) {
-      const unsigned i = t0 + tid;
-      const unsigned r = i / F - b0;
-      const int f = (int)(i - (b0 + r) * F);
-      uint32_t v[kMaxW];
-#pragma unroll
-      for (int j = 0; j < kMaxW; ++j) v[j] = tile.lanes[r][j];
-      uint32_t q[kMaxWords];
-      u64 pfp;
-      tile.sflat[tid] = expand_slot(a.m, a.L, v, f, tile.valid[r],
-                                    a.use_sym, q, &pfp, &dfp);
-#pragma unroll
-      for (int k = 0; k < kMaxWords; ++k)
-        if (k < (int)wp) tile.succ[tid * wp + k] = q[k];
-      tile.pfp[tid] = pfp;
+      const unsigned r = (t0 + tid) / F - b0;
+      dfp = stage_slot(a.m, a.L, tile, tid, r, (int)(t0 + tid - (b0 + r) * F),
+                       a.use_sym);
     }
     __syncthreads();
-    copy_out(a.succ_store + (size_t)t0 * wp, tile.succ, n * wp * 4);
-    copy_out(a.path_fps + t0, tile.pfp, n * 8);
-    copy_out(a.sflat + t0, tile.sflat, n);
-    if (tid < n)
-      a.slot_of[t0 + tid] =
-          claim_row(dfp, (int)(t0 + tid), a.scratch, a.table, a.c_bits, acc);
-  }
-  flush_tally(acc, a.scratch.tally);
-}
-
-// Phase 1 as its own launch; phase 2 is table.cuh's resolve_rows.
-template <class M>
-__global__ void __launch_bounds__(kWaveThreads, M::kMaxW > 20 ? 2 : 4)
-    wave_claim(const WaveParams<M> a) {
-  __shared__ WaveTile<M> tile;
-  wave_tiles(a, tile);
-}
-
-// The first scratch slot of slot i's region (the sender kernel's; slots
-// fit 32 bits, the wrappers check it).
-__device__ __forceinline__ long long region_base(long long i, long long S,
-                                                 long long region_slots,
-                                                 int m_bits) {
-  if (region_slots >= S) return 0;
-  return (long long)((unsigned)i / (unsigned)region_slots) << m_bits;
-}
-
-// Pass 1 of the sender kernel. Slot i's dedup fingerprint claims its slot
-// in scratch region i / region_slots (2^m_bits slots a region), so the
-// first occurrence is taken within each shard. With keys null nothing is
-// claimed.
-template <class M>
-__global__ void wave_front(M m, Layout<M::kMaxW, M::kMaxWords> L,
-                           const uint32_t* __restrict__ vecs,
-                           const bool* __restrict__ valid, long long S,
-                           int F, bool use_sym,
-                           uint32_t* __restrict__ succ_store,
-                           u64* __restrict__ path_fps,
-                           bool* __restrict__ sflat,
-                           u64* __restrict__ dedup_fps, u64* keys, int* rows,
-                           int* __restrict__ slot_of, int m_bits,
-                           long long region_slots) {
-  constexpr int kMaxW = M::kMaxW, kMaxWords = M::kMaxWords;
-  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-       i < S; i += (long long)gridDim.x * blockDim.x) {
-    const long long b = i / F;
-    const int f = (int)(i - b * F);
-    uint32_t p[kMaxWords];
-#pragma unroll
-    for (int k = 0; k < kMaxWords; ++k)
-      p[k] = k < L.wp ? vecs[b * L.wp + k] : 0u;
-    uint32_t v[kMaxW];
-    unpack(L, p, v);
-    const bool sf = m.step(v, f) && valid[b];
-    const u64 pfp = fp64(v, L.w);
-    pack(L, v, p);
-#pragma unroll
-    for (int k = 0; k < kMaxWords; ++k)
-      if (k < L.wp) succ_store[i * L.wp + k] = p[k];
-    path_fps[i] = pfp;
-    sflat[i] = sf;
-    u64 dfp = kSentinel;
-    if (sf) {
-      dfp = pfp;
-      if (use_sym) {
-        m.representative(v);
-        dfp = fp64(v, L.w);
-      }
-      if (keys != nullptr) {
-        const long long base = region_base(i, S, region_slots, m_bits);
-        slot_of[i] = scratch_claim(dfp, (int)i, keys + base, rows + base,
-                                   m_bits);
-      }
+    copy_out(a.succ_store + (size_t)g0 * wp, tile.succ, n * wp);
+    copy_out(a.path_fps + g0, tile.pfp, n);
+    copy_out(a.sflat + g0, tile.sflat, n);
+    if constexpr (Tail::kSender) {
+      copy_out(a.tail.dedup_fps + g0, tile.dfp, n);
+      if (!a.tail.local_dedup) copy_out(a.tail.send_mask + g0, tile.sflat, n);
     }
-    dedup_fps[i] = dfp;
+    if (tid < n) a.tail.claim(dfp, g0 + tid, k, acc);
   }
+  a.tail.finish(acc);
 }
 
-// Pass 2 of the sender kernel: with local dedup, slot i is sent iff it
-// holds the least row of its fingerprint's slot in its own region; without
-// it, iff it is a valid successor.
-__global__ void sender_mask(const u64* __restrict__ dedup_fps,
-                            const bool* __restrict__ sflat, long long n,
-                            long long region_slots,
-                            const int* __restrict__ rows,
-                            const int* __restrict__ slot_of, int m_bits,
-                            bool local_dedup, bool* __restrict__ send_mask) {
-  const long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  bool send = sflat[i];
-  if (local_dedup)
-    send = dedup_fps[i] != kSentinel &&
-           rows[region_base(i, n, region_slots, m_bits) + slot_of[i]] ==
-               (int)i;
-  send_mask[i] = send;
+template <class M, class Tail>
+__global__ void __launch_bounds__(kWaveThreads, M::kMaxW > 20 ? 2 : 4)
+    tile_front(const FrontParams<M, Tail> a) {
+  __shared__ WaveTile<M, Tail::kSender> tile;
+  front_tiles(a, tile);
+}
+
+// The sender's pass 2 as its own launch: one thread a slot.
+__global__ void send_rows(const SenderTail t, unsigned n) {
+  const unsigned i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < n) t.send(i);
+}
+
+// Fills the tile loop's common parameters for `shards` shards of `batch`
+// rows; false when the layout or the fanout does not fit the model.
+template <class M, class Tail>
+bool front_params(const M& m, const int* lanes, int w, int wp, int fanout,
+                  const uint32_t* vecs, const bool* valid, long long batch,
+                  long long shards, bool use_sym, uint32_t* succ_store,
+                  u64* path_fps, bool* sflat, FrontParams<M, Tail>* p) {
+  if (!make_layout(m, lanes, w, wp, fanout, &p->L)) return false;
+  p->m = m;
+  p->vecs = vecs;
+  p->valid = valid;
+  p->B = (unsigned)batch;
+  p->S = (unsigned)(batch * fanout);
+  p->F = (unsigned)fanout;
+  p->shards = (unsigned)shards;
+  p->tiles = (p->S + kWaveThreads - 1) / kWaveThreads;
+  p->use_sym = use_sym;
+  p->succ_store = succ_store;
+  p->path_fps = path_fps;
+  p->sflat = sflat;
+  return true;
+}
+
+// Launches the tile loop over p's tiles on `stream`, on at most the blocks
+// the device holds at once (asked once a kernel and device).
+template <class M, class Tail>
+int launch_front(const FrontParams<M, Tail>& p, int device,
+                 cudaStream_t stream) {
+  static std::atomic<unsigned> cache[kMaxDevices];
+  const unsigned most = resident_blocks(cache, (const void*)tile_front<M, Tail>,
+                                        kWaveThreads, device);
+  if (most == 0) return (int)cudaErrorInvalidDevice;
+  const unsigned tiles = p.shards * p.tiles;
+  tile_front<M, Tail><<<(tiles < most ? tiles : most), kWaveThreads, 0,
+                        stream>>>(p);
+  return 0;
 }
 
 }  // namespace
@@ -361,65 +418,40 @@ __global__ void sender_mask(const u64* __restrict__ dedup_fps,
 // the model, else the launches' CUDA error code.
 template <class M>
 int launch_wave(const M& m, const WaveArgs& a) {
-  WaveParams<M> p;
-  if (!make_layout(m, a.lanes, a.w, a.wp, a.fanout, &p.L))
+  FrontParams<M, WaveTail> p;
+  if (!front_params(m, a.lanes, a.w, a.wp, a.fanout, a.vecs, a.valid,
+                    a.batch, 1, a.use_sym, a.succ_store, a.path_fps, a.sflat,
+                    &p))
     return (int)cudaErrorInvalidValue;
-  const long long S = a.batch * a.fanout;
-  if (S <= 0)
+  if (p.S == 0)
     return (int)cudaMemsetAsync(a.counts, 0, 3 * sizeof(int), a.stream);
-  p.m = m;
-  p.vecs = a.vecs;
-  p.valid = a.valid;
-  p.S = (unsigned)S;
-  p.F = (unsigned)a.fanout;
-  p.use_sym = a.use_sym;
-  p.succ_store = a.succ_store;
-  p.path_fps = a.path_fps;
-  p.sflat = a.sflat;
-  p.table = a.table;
-  p.c_bits = a.c_bits;
-  p.scratch = a.scratch;
-  p.slot_of = a.slot_of;
-  p.new_mask = a.new_mask;
-  p.cand_mask = a.cand_mask;
-  p.counts = a.counts;
-  static std::atomic<unsigned> cache[kMaxDevices];
-  const unsigned most = resident_blocks(cache, (const void*)wave_claim<M>,
-                                        kWaveThreads, a.device);
-  if (most == 0) return (int)cudaErrorInvalidDevice;
-  const long long tiles = (S + kWaveThreads - 1) / kWaveThreads;
-  const unsigned grid = (unsigned)(tiles < most ? tiles : most);
-  wave_claim<M><<<grid, kWaveThreads, 0, a.stream>>>(p);
-  resolve_rows<<<(unsigned)tiles, kWaveThreads, 0, a.stream>>>(
-      a.slot_of, S, a.scratch, a.new_mask, a.cand_mask, a.counts);
+  p.tail = WaveTail{a.table, a.c_bits, a.scratch, a.slot_of};
+  const int rc = launch_front(p, a.device, a.stream);
+  if (rc != 0) return rc;
+  resolve_rows<<<p.tiles, kWaveThreads, 0, a.stream>>>(
+      a.slot_of, p.S, a.scratch, a.new_mask, a.cand_mask, a.counts);
   return (int)cudaGetLastError();
 }
 
-// Launches the sender kernel, both passes, on a.stream for model m over
-// all shards at once; does not synchronise. Same return codes as
-// launch_wave.
+// Launches the sender kernel on a.stream for model m over all shards at
+// once: the tile loop, then with local dedup pass 2; does not
+// synchronise. Same return codes as launch_wave.
 template <class M>
 int launch_sender(const M& m, const SenderArgs& a) {
-  Layout<M::kMaxW, M::kMaxWords> L;
-  if (!make_layout(m, a.lanes, a.w, a.wp, a.fanout, &L))
+  FrontParams<M, SenderTail> p;
+  if (!front_params(m, a.lanes, a.w, a.wp, a.fanout, a.vecs, a.valid,
+                    a.batch, a.shards, a.use_sym, a.succ_store, a.path_fps,
+                    a.sflat, &p))
     return (int)cudaErrorInvalidValue;
-  const long long region = a.batch * a.fanout;
-  const long long S = a.shards * region;
-  if (S > 0) {
-    static std::atomic<unsigned> cache[kMaxDevices];
-    const unsigned most = resident_blocks(cache, (const void*)wave_front<M>,
-                                          kWaveThreads, a.device);
-    if (most == 0) return (int)cudaErrorInvalidDevice;
-    const long long want = (S + kWaveThreads - 1) / kWaveThreads;
-    wave_front<M><<<(unsigned)(want < most ? want : most), kWaveThreads, 0,
-                    a.stream>>>(
-        m, L, a.vecs, a.valid, S, a.fanout, a.use_sym, a.succ_store,
-        a.path_fps, a.sflat, a.dedup_fps, a.local_dedup ? a.keys : nullptr,
-        a.rows, a.slot_of, a.m_bits, region);
-    sender_mask<<<(unsigned)want, kWaveThreads, 0, a.stream>>>(
-        a.dedup_fps, a.sflat, S, region, a.rows, a.slot_of, a.m_bits,
-        a.local_dedup, a.send_mask);
-  }
+  const unsigned n = p.shards * p.S;
+  if (n == 0) return 0;
+  p.tail = SenderTail{a.dedup_fps, a.send_mask, a.local_dedup, a.slots,
+                      a.region_bits, a.slot_of};
+  const int rc = launch_front(p, a.device, a.stream);
+  if (rc != 0) return rc;
+  if (a.local_dedup)
+    send_rows<<<(n + kWaveThreads - 1) / kWaveThreads, kWaveThreads, 0,
+                a.stream>>>(p.tail, n);
   return (int)cudaGetLastError();
 }
 

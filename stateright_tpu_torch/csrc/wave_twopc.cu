@@ -2,12 +2,17 @@
 // commit, behind a plain C interface.
 //
 // Instantiates both kernels for models/twopc.cuh at register sizes of
-// 4, 8, 16 and 28 RMs (28 is the most the encoding holds), the wave kernel
-// at 12 too, and picks the smallest that holds the run's RM count: every
-// lane loop runs over the instantiation's lanes, so 10 RMs at 12 (15
-// lanes, not 19) cut the wave kernel's time by a sixth (PERF.md). See
-// wave.cuh for what the kernels compute, what bounds them and how they are
-// held to their plain versions.
+// 4, 8, 12, 16 and 28 RMs (28 is the most the encoding holds) and picks
+// the smallest that holds the run's RM count: every lane loop runs over the
+// instantiation's lanes, so 10 RMs at 12 (15 lanes, not 19) cut the wave
+// kernel's time by a sixth (PERF.md). See wave.cuh for what the kernels
+// compute, what bounds them and how they are held to their plain versions.
+//
+// ptxas for sm_90a (-Xptxas -v, CUDA 12.8), tile_front under
+// __launch_bounds__(256, 4):
+//   TwoPhase<12>: wave 64 registers, sender 64, no spill in either;
+//   TwoPhase<16>: wave 64 registers and 8 bytes of spill, sender 64 and
+//   no spill.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 //        -Xcompiler -fPIC (stateright_tpu_torch/_build.py); the wrapper and
@@ -71,9 +76,10 @@ extern "C" int sr_wave_twopc(int rm_count, int use_sym, const int* lanes,
 // rm_count RMs; lanes as above; vecs int32[shards, batch, wp] and valid
 // bool[shards, batch] (each shard's batch); outputs for S = batch * fanout
 // slots a shard: succ_store int32[shards, S, wp], dedup_fps and path_fps
-// int64[shards, S], sflat and send_mask bool[shards, S]; scratch, read
-// only when local_dedup: keys int64[shards, 2^m_bits] (all sentinel),
-// rows int32[shards, 2^m_bits] (all INT32_MAX), slot_of int32[shards, S].
+// int64[shards, S], sflat and send_mask bool[shards, S]; the caller's
+// clean scratch, handed back clean and read only when local_dedup: slots
+// int64[2^m_bits, 2] (sr::Slot records) with shards << region_bits slots
+// at least and 2^region_bits >= 2S, and slot_of int32[shards, S].
 // `device` is the current device. Launches on `stream` and does not
 // synchronise. Returns a CUDA error code, 0 on success.
 extern "C" int sr_sender_twopc(int rm_count, int use_sym, int local_dedup,
@@ -82,8 +88,8 @@ extern "C" int sr_sender_twopc(int rm_count, int use_sym, int local_dedup,
                                long long batch, long long shards,
                                int fanout, void* succ_store,
                                void* dedup_fps, void* path_fps, void* sflat,
-                               void* send_mask, void* keys, void* rows,
-                               void* slot_of, int m_bits, int device,
+                               void* send_mask, void* slots,
+                               void* slot_of, int region_bits, int device,
                                void* stream) {
   sr::SenderArgs a;
   a.lanes = lanes;
@@ -99,10 +105,9 @@ extern "C" int sr_sender_twopc(int rm_count, int use_sym, int local_dedup,
   a.path_fps = static_cast<sr::u64*>(path_fps);
   a.sflat = static_cast<bool*>(sflat);
   a.send_mask = static_cast<bool*>(send_mask);
-  a.keys = static_cast<sr::u64*>(keys);
-  a.rows = static_cast<int*>(rows);
+  a.slots = static_cast<sr::Slot*>(slots);
   a.slot_of = static_cast<int*>(slot_of);
-  a.m_bits = m_bits;
+  a.region_bits = region_bits;
   a.use_sym = use_sym != 0;
   a.local_dedup = local_dedup != 0;
   a.device = device;
@@ -110,6 +115,8 @@ extern "C" int sr_sender_twopc(int rm_count, int use_sym, int local_dedup,
   if (rm_count < 1) return (int)cudaErrorInvalidValue;
   if (rm_count <= 4) return sr::launch_sender(sr::TwoPhase<4>{rm_count}, a);
   if (rm_count <= 8) return sr::launch_sender(sr::TwoPhase<8>{rm_count}, a);
+  if (rm_count <= 12)
+    return sr::launch_sender(sr::TwoPhase<12>{rm_count}, a);
   if (rm_count <= 16)
     return sr::launch_sender(sr::TwoPhase<16>{rm_count}, a);
   if (rm_count <= 28)

@@ -156,9 +156,10 @@ class FusedCudaBfsChecker(Checker):
                    np.array(fps, np.uint64), np.array(list(seen), np.uint64),
                    arena_capacity)
 
-        # The dedup kernels' scratch for a wave's rows, handed to every
-        # call and back clean from each (the rehash makes its own).
-        self._scratch = (DedupScratch(self._dedup_rows(), device)
+        # The kernels' scratch for a wave's rows, handed to every call and
+        # back clean from each (the rehash makes its own).
+        rows, shards = self._scratch_shape()
+        self._scratch = (DedupScratch(rows, device, shards)
                          if device.type == "cuda" else None)
         self._discoveries: Dict[str, int] = {}
         #: waves that expanded rows, dispatches run, table rehashes and
@@ -203,9 +204,10 @@ class FusedCudaBfsChecker(Checker):
         stats[ST_DISC:] = [SENTINEL] * P
         self._stats = torch.tensor(stats, dtype=torch.int64, device=device)
 
-    def _dedup_rows(self) -> int:
-        """Rows of one call of a wave's dedup kernel."""
-        return self._B * self._F
+    def _scratch_shape(self):
+        """``DedupScratch``'s rows and shards: a wave's, the rows of one
+        call of its dedup kernel, one shard."""
+        return self._B * self._F, 1
 
     def _target_left(self) -> int:
         """Successors still to generate before the target state count

@@ -133,11 +133,12 @@ class ShardedFusedCudaBfsChecker(EpochOwnership, FusedCudaBfsChecker):
         stats[:, ST_DISC:] = SENTINEL
         self._stats = torch.from_numpy(stats).to(device)
 
-    def _dedup_rows(self) -> int:
-        """Rows of one owner-side insert: every row a shard may receive,
-        ``R = n * S``; the ``n`` inserts of a wave share one scratch, in
-        stream order."""
-        return self._n * self._B * self._F
+    def _scratch_shape(self):
+        """``DedupScratch``'s rows and shards: the rows of one owner-side
+        insert, every row a shard may receive (``R = n * S``), and the
+        sender kernel's ``n`` shards of ``S`` rows. The sender and the
+        ``n`` inserts of a wave share one scratch, in stream order."""
+        return self._n * self._B * self._F, self._n
 
     # -- Device dispatch -----------------------------------------------------
 
@@ -199,7 +200,8 @@ class ShardedFusedCudaBfsChecker(EpochOwnership, FusedCudaBfsChecker):
             if self._wave_kernel:
                 succ_store, dedup_fps, path_fps, sflat, send_mask = \
                     sender_megakernel(dm, bstore, valid, self._use_symmetry,
-                                      layout, self._exchange_novel)
+                                      layout, self._exchange_novel,
+                                      scratch=self._scratch)
                 succ_count = sflat.sum(dtype=torch.int64)
                 terminal = valid & ~sflat.view(n, B, F).any(dim=2)
             else:

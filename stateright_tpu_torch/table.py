@@ -16,7 +16,9 @@ The kernel's scratch (``DedupScratch``, shared with the wave kernel of
 ``wave.py``) belongs to the caller: an engine keeps one and passes it to
 every call (``scratch=``), and the kernels hand it back clean, so a call
 fills nothing. Without one the wrapper makes a fresh one for the call (the
-rehash does so); one too small or on another device raises.
+rehash does so); one too small or on another device raises. The sender
+kernel (``wave.sender_megakernel``) claims in the same scratch, a region
+of it a shard (``scratch_bits``).
 """
 
 from __future__ import annotations
@@ -30,7 +32,8 @@ from ._build import build_and_load
 from .engine import dedup_and_insert as dedup_and_insert_plain
 from .engine import scratch_slots
 
-__all__ = ["dedup_and_insert", "dedup_and_insert_plain", "DedupScratch"]
+__all__ = ["dedup_and_insert", "dedup_and_insert_plain", "DedupScratch",
+           "scratch_bits"]
 
 _INT32_MAX = (1 << 31) - 1
 
@@ -40,20 +43,36 @@ _INT32_MAX = (1 << 31) - 1
 CLEAN_SLOT = (-1, _INT32_MAX)
 
 
+def scratch_bits(n: int, shards: int = 1):
+    """``(m_bits, region_bits)`` of the kernels' scratch for waves of up
+    to ``n`` rows, which the sender kernel splits into ``shards`` shards
+    of ``ceil(n / shards)`` rows: shard k claims in the region of
+    ``2^region_bits = scratch_slots(ceil(n / shards))`` slots from slot
+    ``k << region_bits``, and ``2^m_bits`` is the least power of two that
+    holds those regions and the ``scratch_slots(n)`` of a dedup call over
+    all ``n`` rows (more than that only for a shard count that is not a
+    power of two)."""
+    region = scratch_slots(-(-n // shards))
+    m = max(scratch_slots(n), 1 << (shards * region - 1).bit_length())
+    return m.bit_length() - 1, region.bit_length() - 1
+
+
 class DedupScratch:
-    """The scratch of the dedup and wave kernels for waves of up to ``n``
-    rows, on one CUDA device: a table of ``scratch_slots(n)`` slots of 16
-    bytes (a key, a least row and the outcome of the key's table walk),
-    the kernel's tally of three counters, and each row's slot. Made clean;
+    """The scratch of the dedup, wave and sender kernels for waves of up
+    to ``n`` rows (``shards`` shards of them for the sender), on one CUDA
+    device: a table of ``2^scratch_bits(n, shards)[0]`` slots of 16 bytes
+    (a key, a least row and the outcome of the key's table walk), the
+    kernel's tally of three counters, and each row's slot. Made clean;
     every kernel call leaves it clean. Calls that share one must run in
     order on one stream (one checker's waves do); two checkers keep one
     each."""
 
-    def __init__(self, n: int, device):
-        m = scratch_slots(n)
-        if m > _INT32_MAX:
+    def __init__(self, n: int, device, shards: int = 1):
+        m_bits = scratch_bits(n, shards)[0]
+        if m_bits > 30:
             raise ValueError(f"{n} rows exceed the kernels' int32 row index")
-        self.n, self.m_bits = n, m.bit_length() - 1
+        self.n, self.m_bits = n, m_bits
+        m = 1 << m_bits
         self.slots = torch.tensor(CLEAN_SLOT, dtype=torch.int64,
                                   device=device).repeat(m, 1)
         self.tally = torch.zeros(3, dtype=torch.int32, device=device)
@@ -61,15 +80,19 @@ class DedupScratch:
                                    device=device)
 
     @classmethod
-    def for_call(cls, scratch, n: int, device) -> "DedupScratch":
-        """A fresh scratch for ``n`` rows on ``device`` when ``scratch``
-        is None, else ``scratch``, which must take them there."""
+    def for_call(cls, scratch, n: int, device,
+                 shards: int = 1) -> "DedupScratch":
+        """A fresh scratch for ``n`` rows in ``shards`` shards on
+        ``device`` when ``scratch`` is None, else ``scratch``, which must
+        take them there."""
         if scratch is None:
-            return cls(n, device)
-        if n > scratch.n or scratch.slots.device != device:
+            return cls(n, device, shards)
+        if (n > scratch.n or scratch_bits(n, shards)[0] > scratch.m_bits
+                or scratch.slots.device != device):
             raise ValueError(
-                f"the scratch takes {scratch.n} rows on "
-                f"{scratch.slots.device}, not {n} rows on {device}")
+                f"the scratch takes {scratch.n} rows in 2^{scratch.m_bits} "
+                f"slots on {scratch.slots.device}, not {n} rows in {shards} "
+                f"shard(s) on {device}")
         return scratch
 
     def args(self):

@@ -5,7 +5,8 @@
 table, which the sharded engine (``sharded_fused.py``) runs on every
 shard's batch at once, ending in each shard's own first occurrence
 (``send_mask``). It follows the same rules as ``wave_megakernel``, with
-``sender_megakernel_plain`` as its plain version.
+``sender_megakernel_plain`` as its plain version, and claims in the same
+caller-owned scratch (``scratch=``), a region a shard.
 
 ``wave_megakernel`` replaces the Pallas kernel
 ``stateright_tpu/tpu/pallas_table.py::build_wave_megakernel`` (with
@@ -37,8 +38,8 @@ import torch
 from ._build import build_and_load
 from .engine import dedup_and_insert as dedup_and_insert_plain
 from .engine import (expand_frontier, fingerprint_successors,
-                     first_occurrence_candidates, scratch_slots)
-from .table import DedupScratch
+                     first_occurrence_candidates)
+from .table import DedupScratch, scratch_bits
 
 __all__ = ["wave_megakernel", "wave_megakernel_plain", "sender_megakernel",
            "sender_megakernel_plain", "cuda_model"]
@@ -198,19 +199,24 @@ def _sender_entry(name: str, n_params: int):
     fn.restype = ctypes.c_int
     i, p, ll = ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong
     fn.argtypes = ([i] * n_params + [i, i, p, i, i, p, p, ll, ll, i, p, p,
-                                      p, p, p, p, p, p, i, i, p])
+                                      p, p, p, p, p, i, i, p])
     return fn
 
 
 def sender_megakernel(dm, store: torch.Tensor, valid: torch.Tensor,
-                      use_sym: bool, layout, local_dedup: bool):
+                      use_sym: bool, layout, local_dedup: bool,
+                      scratch=None):
     """The sharded engine's per-shard front half of a wave, for ``n``
     stacked shards: ``store int32[n, B, Wp]`` (packed rows), ``valid
     bool[n, B]`` -> ``(succ_store int32[n, S, Wp], dedup_fps int64[n, S],
     path_fps int64[n, S], sflat bool[n, S], send_mask bool[n, S])`` with
     ``S = B * F``. ``send_mask`` is the earliest slot of each dedup
     fingerprint within its own shard when ``local_dedup``, else
-    ``sflat``. One launch covers every shard."""
+    ``sflat``. One launch covers every shard, and a second finds the
+    first occurrences when ``local_dedup``. ``scratch``, a caller's
+    ``table.DedupScratch`` for at least ``n * S`` rows in ``n`` shards
+    on the tensors' device, is used in place of a fresh one; without
+    ``local_dedup`` none is needed."""
     if store.device.type == "cpu" and valid.device.type == "cpu":
         return sender_megakernel_plain(dm, store, valid, use_sym, layout,
                                        local_dedup)
@@ -228,8 +234,7 @@ def sender_megakernel(dm, store: torch.Tensor, valid: torch.Tensor,
                              f"of shape {shape}")
     name, params, lanes = cuda_model(dm, layout)
     S = B * F
-    m = scratch_slots(S)
-    if n * S > _INT32_MAX or n * m > _INT32_MAX:
+    if n * S > _INT32_MAX:
         raise ValueError(f"{n} x {S} successor slots exceed the kernel's "
                          "int32 row index")
     succ_store = torch.empty((n, S, wp), dtype=torch.int32, device=dev)
@@ -237,23 +242,19 @@ def sender_megakernel(dm, store: torch.Tensor, valid: torch.Tensor,
     path_fps = torch.empty((n, S), dtype=torch.int64, device=dev)
     sflat = torch.empty((n, S), dtype=torch.bool, device=dev)
     send_mask = torch.empty((n, S), dtype=torch.bool, device=dev)
-    keys = rows = slot_of = None
+    slots = slot_of = None
+    region_bits = 0
     if local_dedup:
-        keys = torch.full((n, m), -1, dtype=torch.int64, device=dev)
-        rows = torch.full((n, m), _INT32_MAX, dtype=torch.int32, device=dev)
-        slot_of = torch.empty((n, max(S, 1)), dtype=torch.int32, device=dev)
-
-    def ptr(t):
-        return None if t is None else t.data_ptr()
-
+        scratch = DedupScratch.for_call(scratch, n * S, dev, shards=n)
+        slots, slot_of = scratch.slots.data_ptr(), scratch.slot_of.data_ptr()
+        region_bits = scratch_bits(n * S, n)[1]
     fn = _sender_entry(name, len(params))
     with torch.cuda.device(dev):
         rc = fn(*params, int(use_sym), int(local_dedup), lanes.ctypes.data,
                 layout.width, wp, store.data_ptr(), valid.data_ptr(), B, n,
                 F, succ_store.data_ptr(), dedup_fps.data_ptr(),
                 path_fps.data_ptr(), sflat.data_ptr(), send_mask.data_ptr(),
-                ptr(keys), ptr(rows), ptr(slot_of), m.bit_length() - 1,
-                _device_index(dev),
+                slots, slot_of, region_bits, _device_index(dev),
                 torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"sender kernel launch for {name} failed: CUDA "

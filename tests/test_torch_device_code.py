@@ -4,16 +4,20 @@ The phases of ``stateright_tpu_torch/csrc/table.cuh`` and ``wave.cuh``
 are ``__device__`` functions outside the CUDA-only section, so a host
 compiler builds them behind a small shim: the CUDA qualifiers defined
 away, one thread a block, and sequential atomics. The harness below runs
-phase 1 (claim + walk; under the wave kernel, the step, fingerprints and
-pack first) for every row, then phase 2 (resolve + reset) for every row,
-a row at a time in a given arrival order: forward, reverse and a seeded
-shuffle. Held to the plain versions (``dedup_and_insert_plain``,
-``wave_megakernel_plain``) exactly: masks, counts, successors, path
-fingerprints and sflat bit for bit, the table as a set. Also: the
-scratch comes back clean, exactly one row walks the visited table for
-each distinct valid fingerprint and only in phase 1, and the outputs do
-not depend on the order. The tile loop, shared memory and stores of the
-kernels themselves run only on the card (``chip_smoke.py``).
+phase 1 (claim + walk; under the wave kernel, the tile loop's per-slot
+steps first: row staged, slot expanded and staged) for every row, then
+phase 2 (resolve + reset) for every row, a row at a time in a given
+arrival order: forward, reverse and a seeded shuffle; and the sender
+kernel's per-slot steps (the claim in its shard's region, no walk) and
+its pass 2 (send + reset) the same way over 2 and 3 stacked shards.
+Held to the plain versions (``dedup_and_insert_plain``,
+``wave_megakernel_plain``, ``sender_megakernel_plain``) exactly: masks,
+counts, successors, fingerprints and sflat bit for bit, the table as a
+set. Also: the scratch comes back clean, exactly one row walks the
+visited table for each distinct valid fingerprint and only in phase 1,
+the sender touches no tally, and the outputs do not depend on the order.
+The tile loop's shared memory, barriers and stores run only on the card
+(``chip_smoke.py``).
 """
 
 import ctypes
@@ -27,7 +31,7 @@ import torch
 from stateright_tpu_torch import carry, table, wave
 from stateright_tpu_torch.engine import (expand_frontier,
                                          fingerprint_successors,
-                                         host_table_insert, scratch_slots)
+                                         host_table_insert)
 from stateright_tpu_torch.hashing import SENTINEL_U64
 from stateright_tpu_torch.models import twopc
 from stateright_tpu_torch.packing import compile_layout
@@ -115,6 +119,17 @@ long long resolve_all(const std::vector<int>& slot_of, const long long* order,
   return g_table_reads - before;
 }
 
+// Copies slot t of a staged tile out to slot i of the outputs.
+template <class Tile>
+void unstage(const Tile& tile, unsigned t, long long i, int wp, uint32_t* succ,
+             u64* path_fps, bool* sflat) {
+  for (int j = 0; j < wp; ++j) succ[i * wp + j] = tile.succ[t * wp + j];
+  path_fps[i] = tile.pfp[t];
+  sflat[i] = tile.sflat[t];
+}
+
+// The wave kernel's per-slot work a slot at a time: the parent row staged,
+// the slot expanded and staged, copied out, then its tail's claim.
 template <int kMaxN>
 long long wave_t(int rm, int use_sym, const int* lanes, int w, int wp,
                  const uint32_t* vecs, const bool* valid, long long batch,
@@ -123,24 +138,69 @@ long long wave_t(int rm, int use_sym, const int* lanes, int w, int wp,
                  uint32_t* succ, u64* path_fps, bool* sflat, bool* new_mask,
                  bool* cand_mask, int* counts, unsigned char* walked) {
   using M = sr::TwoPhase<kMaxN>;
+  using Tile = sr::WaveTile<M, false>;
   const M m{rm};
   sr::Layout<M::kMaxW, M::kMaxWords> L;
   if (!sr::make_layout(m, lanes, w, wp, fanout, &L)) return -1;
   const long long S = batch * fanout;
   std::vector<int> slot_of(S);
+  const sr::WaveTail tail{table, c_bits, s, slot_of.data()};
+  static Tile tile;
   for (long long k = 0; k < S; ++k) {
     const long long i = order1[k], b = i / fanout;
-    uint32_t p[M::kMaxWords], v[M::kMaxW], q[M::kMaxWords];
-    for (int j = 0; j < M::kMaxWords; ++j) p[j] = j < wp ? vecs[b * wp + j] : 0;
-    sr::unpack(L, p, v);
-    u64 pfp, dfp;
-    sflat[i] = sr::expand_slot(m, L, v, (int)(i - b * fanout), valid[b],
-                               use_sym != 0, q, &pfp, &dfp);
-    for (int j = 0; j < wp; ++j) succ[i * wp + j] = q[j];
-    path_fps[i] = pfp;
-    slot_of[i] = claim(dfp, i, s, table, c_bits, walked);
+    const unsigned t = i % sr::kWaveThreads, r = b % Tile::kRows;
+    sr::stage_row(L, vecs + b * wp, valid[b], tile, r);
+    const u64 dfp = sr::stage_slot(m, L, tile, t, r, (int)(i - b * fanout),
+                                   use_sym != 0);
+    unstage(tile, t, i, wp, succ, path_fps, sflat);
+    const long long before = g_table_reads;
+    int acc[3] = {0, 0, 0};
+    tail.claim(dfp, (unsigned)i, 0, acc);
+    tail.finish(acc);
+    walked[i] = g_table_reads != before;
   }
   return resolve_all(slot_of, order2, s, new_mask, cand_mask, counts);
+}
+
+// The sender kernel's per-slot work over `shards` stacked shards a slot
+// at a time (row staged, slot expanded and staged, copied out, the claim
+// in its shard's region), then pass 2 a slot at a time. Returns -1 when
+// the layout does not fit, -2 when a tally was touched, else 0.
+template <int kMaxN>
+long long sender_t(int rm, int use_sym, int local_dedup, const int* lanes,
+                   int w, int wp, const uint32_t* vecs, const bool* valid,
+                   long long batch, long long shards, int fanout,
+                   sr::Slot* slots, int region_bits, const long long* order1,
+                   const long long* order2, uint32_t* succ, u64* dedup_fps,
+                   u64* path_fps, bool* sflat, bool* send_mask) {
+  using M = sr::TwoPhase<kMaxN>;
+  using Tile = sr::WaveTile<M, true>;
+  const M m{rm};
+  sr::Layout<M::kMaxW, M::kMaxWords> L;
+  if (!sr::make_layout(m, lanes, w, wp, fanout, &L)) return -1;
+  const long long S = batch * fanout, n = shards * S;
+  std::vector<int> slot_of(n, -7);
+  const sr::SenderTail tail{dedup_fps, send_mask, local_dedup != 0, slots,
+                            region_bits, slot_of.data()};
+  static Tile tile;
+  for (long long k = 0; k < n; ++k) {
+    const long long i = order1[k], shard = i / S, j = i - shard * S;
+    const long long b = j / fanout, row = shard * batch + b;
+    const unsigned t = i % sr::kWaveThreads, r = b % Tile::kRows;
+    sr::stage_row(L, vecs + row * wp, valid[row], tile, r);
+    const u64 dfp = sr::stage_slot(m, L, tile, t, r, (int)(j - b * fanout),
+                                   use_sym != 0);
+    unstage(tile, t, i, wp, succ, path_fps, sflat);
+    dedup_fps[i] = tile.dfp[t];
+    if (!local_dedup) send_mask[i] = tile.sflat[t];
+    int acc[3] = {0, 0, 0};
+    tail.claim(dfp, (unsigned)i, (unsigned)shard, acc);
+    tail.finish(acc);
+    if (acc[0] || acc[1] || acc[2]) return -2;
+  }
+  if (local_dedup)
+    for (long long k = 0; k < n; ++k) tail.send((unsigned)order2[k]);
+  return 0;
 }
 
 }  // namespace
@@ -177,6 +237,17 @@ extern "C" long long wave_phases(
                    table, c_bits, s, order1, order2, succ, path_fps, sflat,
                    new_mask, cand_mask, counts, walked);
 }
+
+extern "C" long long sender_phases(
+    int rm, int use_sym, int local_dedup, const int* lanes, int w, int wp,
+    const uint32_t* vecs, const bool* valid, long long batch,
+    long long shards, int fanout, sr::Slot* slots, int region_bits,
+    const long long* order1, const long long* order2, uint32_t* succ,
+    u64* dedup_fps, u64* path_fps, bool* sflat, bool* send_mask) {
+  return sender_t<8>(rm, use_sym, local_dedup, lanes, w, wp, vecs, valid,
+                     batch, shards, fanout, slots, region_bits, order1,
+                     order2, succ, dedup_fps, path_fps, sflat, send_mask);
+}
 """
 
 
@@ -203,12 +274,12 @@ def _ptr(a: np.ndarray) -> int:
 
 class _Scratch:
     """A clean scratch of the kernels' layout (``table.DedupScratch``),
-    for ``n`` rows."""
+    for ``n`` rows in ``shards`` shards."""
 
-    def __init__(self, n):
-        m = scratch_slots(n)
-        self.m_bits = m.bit_length() - 1
-        self.slots = np.tile(np.array(table.CLEAN_SLOT, np.int64), (m, 1))
+    def __init__(self, n, shards=1):
+        self.m_bits, self.region_bits = table.scratch_bits(n, shards)
+        self.slots = np.tile(np.array(table.CLEAN_SLOT, np.int64),
+                             (1 << self.m_bits, 1))
         self.tally = np.zeros(3, np.int32)
 
     def args(self):
@@ -399,5 +470,69 @@ def test_wave_phases_match_the_plain_version(lib, rm, sym):
         _check_walks(dfps, walked.astype(bool), reads, s)
         outs.append(got)
     assert want[6] > 0 and want[5] > 0
+    for a, b in zip(outs, outs[1:]):
+        assert all(np.array_equal(x, y) for x, y in zip(a, b))
+
+
+def _sender_rows(rm, sym, n, rng):
+    """``n`` shards' batches of a 2pc frontier: repeats within shard 0,
+    and shard 1 starting with shard 0's rows (uint32[n, B, Wp],
+    bool[n, B])."""
+    B = 16
+    dm, layout, packed, valid, _ = _frontier(rm, sym, n * B, rng)
+    packed = packed.reshape(n, B, -1)
+    valid = valid.reshape(n, B)
+    for k, part in ((0, slice(B // 2, None)), (1, slice(None, B // 2))):
+        packed[k, part] = packed[0, :B // 2]
+        valid[k, part] = valid[0, :B // 2]
+    return dm, layout, np.ascontiguousarray(packed), valid
+
+
+@pytest.mark.parametrize("n", [2, 3])
+@pytest.mark.parametrize("local_dedup", [True, False],
+                         ids=["local_dedup", "no_local_dedup"])
+@pytest.mark.parametrize("rm, sym", [(3, False), (4, False), (5, False),
+                                     (3, True), (5, True)])
+def test_sender_phases_match_the_plain_version(lib, rm, sym, local_dedup, n):
+    """The sender kernel's per-slot work and pass 2 against
+    ``sender_megakernel_plain``, bit for bit, in three arrival orders, in
+    the engine's scratch for ``n`` shards (n = 3: regions in a scratch
+    sized for a shard count that is not a power of two)."""
+    rng = np.random.default_rng(10 * rm + n)
+    dm, layout, packed, valid = _sender_rows(rm, sym, n, rng)
+    B, F, wp = valid.shape[1], dm.max_fanout, layout.packed_width
+    S = B * F
+    _, _, lanes = wave.cuda_model(dm, layout)
+    want = wave.sender_megakernel_plain(
+        dm, carry.words_in(packed), torch.from_numpy(valid), sym, layout,
+        local_dedup)
+    want = (carry.words_out(want[0]), carry.u64_out(want[1]),
+            carry.u64_out(want[2]), want[3].numpy(), want[4].numpy())
+    if local_dedup:  # shard 0 does not send its repeats; shard 1 sends
+        # states shard 0 sends too
+        assert want[4][0].sum() < want[3][0].sum()
+        assert set(want[1][0][want[4][0]]) & set(want[1][1][want[4][1]])
+    else:
+        assert np.array_equal(want[4], want[3])
+    outs = []
+    for name, (o1, o2) in _orders(n * S, rm).items():
+        s = _Scratch(n * S, n)
+        succ = np.zeros((n, S, wp), np.uint32)
+        dfps, pfps = np.zeros((n, S), np.uint64), np.zeros((n, S), np.uint64)
+        sflat, send = np.zeros((n, S), np.bool_), np.zeros((n, S), np.bool_)
+        fn = lib.sender_phases
+        fn.restype = ctypes.c_longlong
+        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        rc = fn(i(rm), i(int(sym)), i(int(local_dedup)), p(_ptr(lanes)),
+                i(layout.width), i(wp), p(_ptr(packed)), p(_ptr(valid)),
+                ll(B), ll(n), i(F), p(_ptr(s.slots)), i(s.region_bits),
+                p(_ptr(o1)), p(_ptr(o2)), p(_ptr(succ)), p(_ptr(dfps)),
+                p(_ptr(pfps)), p(_ptr(sflat)), p(_ptr(send)))
+        assert rc == 0, "the layout did not fit, or a tally was touched"
+        got = (succ, dfps, pfps, sflat, send)
+        for g, w in zip(got, want):
+            assert np.array_equal(g, w), name
+        assert s.is_clean(), name
+        outs.append(got)
     for a, b in zip(outs, outs[1:]):
         assert all(np.array_equal(x, y) for x, y in zip(a, b))

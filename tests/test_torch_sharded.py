@@ -33,7 +33,8 @@ from stateright_tpu.tpu.hashing import host_fp64  # noqa: E402
 from stateright_tpu.tpu.packing import compile_layout as ref_layout  # noqa: E402,E501
 from stateright_tpu.tpu.pallas_table import build_sender_megakernel  # noqa: E402,E501
 from stateright_tpu.tpu.sharded_fused import ShardedFusedTpuBfsChecker  # noqa: E402,E501
-from stateright_tpu_torch import carry, wave  # noqa: E402
+from stateright_tpu_torch import carry, table, wave  # noqa: E402
+from stateright_tpu_torch.engine import scratch_slots  # noqa: E402
 from stateright_tpu_torch.hashing import SENTINEL, to_i64  # noqa: E402
 from stateright_tpu_torch.membership import OwnerMap  # noqa: E402
 from stateright_tpu_torch.mesh import Mesh  # noqa: E402
@@ -143,6 +144,42 @@ def test_sender_wrapper_refuses_mixed_devices():
         wave.sender_megakernel(dm, torch.zeros((2, 4, 1), dtype=torch.int32),
                                torch.ones((2, 4), dtype=torch.bool,
                                           device="meta"), False, layout, True)
+
+
+@pytest.mark.parametrize("n", range(1, 9))
+def test_sender_regions_fit_the_engines_scratch(n):
+    """The engine's scratch (``DedupScratch(n * S, dev, shards=n)``, sized
+    by ``table.scratch_bits``) holds the sender kernel's ``n`` regions,
+    each of at least ``scratch_slots(S)`` slots, apart, and the
+    owner-side inserts' ``scratch_slots(n * S)``; a scratch sized for one
+    shard raises where it does not hold them."""
+    assert _run(twopc.TwoPhaseSys(2), n, batch_size=8)._scratch_shape() \
+        == (n * 8 * 12, n)
+    for B in (1, 7, 100, 256, 4095, 4096, 16384):
+        for F in (12, 17, 27, 52):
+            S = B * F
+            m_bits, region_bits = table.scratch_bits(n * S, n)
+            assert 1 << region_bits >= scratch_slots(S)
+            regions = [(k << region_bits, (k + 1) << region_bits)
+                       for k in range(n)]
+            assert regions[-1][1] <= 1 << m_bits
+            assert all(a[1] <= b[0] for a, b in zip(regions, regions[1:]))
+            assert 1 << m_bits >= scratch_slots(n * S)
+            assert 1 << m_bits < 2 * max(scratch_slots(n * S),
+                                         regions[-1][1])
+    S = 130  # just past a power of two: the regions' worst case
+    one = table.DedupScratch(n * S, torch.device("cpu"))
+    fits = table.scratch_bits(n * S, n)[0] <= one.m_bits
+    assert fits == (n & (n - 1) == 0)
+    if fits:
+        assert table.DedupScratch.for_call(one, n * S, one.slots.device,
+                                           shards=n) is one
+    else:
+        with pytest.raises(ValueError, match="the scratch takes"):
+            table.DedupScratch.for_call(one, n * S, one.slots.device,
+                                        shards=n)
+    eng = table.DedupScratch(n * S, torch.device("cpu"), shards=n)
+    assert eng.is_clean() and eng.m_bits == table.scratch_bits(n * S, n)[0]
 
 
 # -- Mesh and ownership ------------------------------------------------------

@@ -6,10 +6,6 @@ Usage, from the root of a checkout on a machine with an NVIDIA H100:
     python3 chip_smoke.py            # every phase below
     python3 chip_smoke.py --rehash   # phase 1, then the rehash case of 3
 
-``--rehash`` calls only ``table.dedup_and_insert(fps, table)``, the call
-every rehash makes, so a copy of this script beside an older port times
-that port's kernel on the same input.
-
 Phases, in order; any failure exits non-zero and prints no result line:
 
 1. build ``stateright_tpu_torch/csrc/table.cu`` and ``wave_twopc.cu``
@@ -28,10 +24,15 @@ Phases, in order; any failure exits non-zero and prints no result line:
    sentinels, revisits) against a 2^27-slot table filled to 30%, the
    same kind of stream against a 2^21-slot table (whose walks leave most
    of the 50 MB L2 to the scratch), and the mid-run wave's own dedup
-   fingerprints against its table (the default path's input); then at
-   the shape of the full run's last rehash, a 2^26-slot table about half
-   full into an empty one of 2^27 slots, called as the rehash calls it
-   (no caller's scratch);
+   fingerprints against its table (the default path's input); the next
+   wave of ``paxos check 3`` stopped mid-run at a rest point (S = 16,384
+   x 18 = 294,912), against its engine's table with its engine's
+   scratch; then at the shape of the full 2pc run's last rehash, a
+   2^26-slot table about half full into an empty one of 2^27 slots,
+   through an engine's chunked rehash (strided chunks of at most its
+   scratch rows) against the plain version, timed with its peak memory
+   beside chunks of adjacent slots and one call with no scratch (the
+   earlier form);
 4. hold the sender kernel against its plain version at full width: the
    same rows as 4 shards of 4,096 (n * S = 851,968 slots), with symmetry
    and local dedup each on and off: all five outputs equal, the
@@ -46,18 +47,24 @@ Phases, in order; any failure exits non-zero and prints no result line:
    ``mesh=[cuda:0] * n`` at n = 1 and 4, with each path, against the
    CPU run at the same n, and 5 RMs at n = 3 with 255 rows a shard (an
    odd S = 6,885 slots a shard, so shards start off 16 bytes) through
-   the sender kernel with and without local dedup; a mesh over distinct
-   devices, and either kernel for a model without CUDA device code, raise
-   on the card;
+   the sender kernel with and without local dedup; paxos at 1 and 2
+   clients, unsharded and at n = 4, against the CPU run: 265 / 482 and
+   16,668 / 32,971; a mesh over distinct devices, either kernel for a
+   model without CUDA device code, and either on paxos (no CUDA step
+   yet), raise on the card;
 6. full width, 2pc at 10 RMs: batch 16,384 once with each path, and
    sharded at n = 4 with 4,096 rows a shard and the sender kernel:
-   exactly 61,515,776 unique / 817,760,258 states, with the kernels'
-   launch counts beside the waves and rehashes; then for each run,
-   dispatches of a mid-run checker: one under
+   exactly 61,515,776 unique / 817,760,258 states; then ``paxos check
+   3`` on the dedup kernel's path, batch 16,384 and sharded at n = 4
+   with 4,096 rows a shard: exactly 1,194,428 unique / 2,420,477 states,
+   "value chosen" found, no "linearizable" counterexample. Each run with
+   the kernels' launch counts beside the waves and rehashes; then for
+   each run, dispatches of a mid-run checker: one under
    ``torch.cuda.set_sync_debug_mode("error")``, four timed plain for the
    steady pace a wave, and one under ``torch.profiler`` (kernel time by
    kernel), which together give the card's idle share;
-7. the kernels line, the card line and the result line.
+7. the kernels line, the script's running time, the card line and the
+   result line.
 
 It imports neither JAX nor ``stateright_tpu``.
 """
@@ -79,6 +86,12 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA's data sheet
 # 32-bit integer operations, which Hopper issues at most at that rate.
 OPS_PER_S = 67e12
 FULL_UNIQUE, FULL_STATES = 61_515_776, 817_760_258
+PAXOS_UNIQUE, PAXOS_STATES = 1_194_428, 2_420_477
+#: the states a paxos 3 checker runs to before its next wave's dedup
+#: fingerprints are read (about 150,000 unique, a frontier far wider than
+#: a batch), and before its dispatches are timed: the whole run is about
+#: 90 waves at 16,384 rows, so the timed dispatches start early
+PAXOS_WAVE_AT, PAXOS_MID = 240_000, 50_000
 BATCH = 16_384
 SHARDS = 4
 
@@ -201,17 +214,19 @@ def _filled_table(torch, engine, gen, C, load=0.3):
     return table, resident
 
 
-def _dedup_case(torch, table_mod, fps, table, tag: str, engine_scratch=True):
+def _dedup_case(torch, table_mod, fps, table, tag: str, scratch=None):
     """The dedup kernel against its plain version on ``fps`` and a copy
-    of ``table``: masks and counts equal, tables equal as sets; then its
-    time by kernel and memset, beside the plain version's and the bound.
-    With ``engine_scratch`` the kernel gets a caller-owned scratch, as the
-    engines' waves call it; without, the wrapper makes its own, as a
-    rehash calls it."""
+    of ``table``: masks and counts equal, tables equal as sets, the
+    caller-owned scratch handed back clean; then its time by kernel and
+    memset, beside the plain version's and the bound. The kernel gets
+    ``scratch`` (an engine's), or a caller-owned one of its own, as the
+    engines call it."""
     S = fps.shape[0]
-    fn, scratch = table_mod.dedup_and_insert, None
-    if engine_scratch:
-        fn, scratch = _scratch(torch, table_mod, fn, S)
+    if scratch is None:
+        fn, scratch = _scratch(torch, table_mod, table_mod.dedup_and_insert,
+                               S)
+    else:
+        fn = functools.partial(table_mod.dedup_and_insert, scratch=scratch)
     t_k, t_p = table.clone(), table.clone()
     out_k = fn(fps, t_k)
     out_p = table_mod.dedup_and_insert_plain(fps, t_p)
@@ -269,11 +284,13 @@ def _stream(torch, gen, S, resident):
                        torch.full_like(fps, -1), fps)
 
 
-def phase_kernel(torch, table_mod, engine, wave_case):
+def phase_kernel(torch, table_mod, engine, fused, wave_case, TwoPhaseSys,
+                 PaxosSys):
     """The dedup kernel against its plain version: at the full-width
     shape, a synthetic stream against a large table and against a small
     one, then the dedup fingerprints of a mid-run 10-RM wave against its
-    table (``wave_case``); then the rehash case."""
+    table (``wave_case``) and of a mid-run paxos 3 wave against its
+    engine's table, with that engine's scratch; then the rehash case."""
     gen = torch.Generator(device="cuda").manual_seed(7)
     S = BATCH * 52
     out = {}
@@ -286,22 +303,117 @@ def phase_kernel(torch, table_mod, engine, wave_case):
         del table, fps
     out["wave"] = _dedup_case(torch, table_mod, *wave_case,
                               "mid-run 10-RM wave")
-    out["rehash"] = phase_rehash(torch, table_mod, engine)
+    fps, table, scratch = _paxos_wave(torch, engine, PaxosSys)
+    out["paxos"] = _dedup_case(torch, table_mod, fps, table,
+                               "mid-run paxos 3 wave", scratch)
+    del fps, table, scratch
+    out["rehash"] = phase_rehash(torch, table_mod, engine, fused,
+                                 TwoPhaseSys)
     return out
 
 
-def phase_rehash(torch, table_mod, engine):
-    """The dedup kernel at the shape of the full 10-RM run's last rehash:
-    its table of 2^26 slots, about half full (a rehash runs once the
-    next dispatch could pass half load), into an empty one of 2^27, as
-    the rehash calls it."""
+def _paxos_wave(torch, engine, PaxosSys):
+    """``(dedup fps, table, scratch)`` of the next wave of a ``paxos check
+    3`` checker stopped mid-run, at its rest point: the default path's
+    input to the dedup kernel, with the engine's table (a copy) and the
+    engine's own scratch."""
+    mid = (PaxosSys(3).checker().target_state_count(PAXOS_WAVE_AT)
+           .spawn_cuda_bfs(batch_size=BATCH).join())
+    if mid._tail - mid._head < BATCH:
+        raise AssertionError(f"mid-run paxos frontier of "
+                             f"{mid._tail - mid._head} rows is narrower "
+                             f"than {BATCH}")
+    rows = mid._layout.unpack(mid._vecs[mid._head:mid._head + BATCH])
+    valid = torch.ones(BATCH, dtype=torch.bool, device="cuda")
+    succ, sflat, _, _ = engine.expand_frontier(mid._dm, rows, valid)
+    dedup_fps = engine.fingerprint_successors(mid._dm, succ, sflat, False)[0]
+    return dedup_fps, mid._table.clone(), mid._scratch
+
+
+def phase_rehash(torch, table_mod, engine, fused, TwoPhaseSys):
+    """The rehash at the shape of the full 10-RM run's last: its table of
+    2^26 slots, about half full (a rehash runs once the next dispatch
+    could pass half load), into an empty one of 2^27, through a 10-RM
+    engine's own ``_rehash`` (128 strided chunks of 524,288 rows, at most
+    its 851,968 scratch rows, with its scratch), against the plain
+    version's one call: the tables equal
+    as sets, no key without a slot, the scratch handed back clean. Then
+    its time and its peak of device memory beside those of chunks that
+    are runs of adjacent slots (the form ``_rehash`` avoids: their keys
+    share their hash's high bits, which also pick their scratch slots),
+    and of one kernel call over all 2^26 rows with no scratch (the earlier
+    form, which builds a scratch of 2 x 2^26 slots of 16 bytes)."""
     gen = torch.Generator(device="cuda").manual_seed(13)
     C = 1 << 26
     old, _ = _filled_table(torch, engine, gen, C,
                            load=0.5 - BATCH * 52 / C)
-    new = torch.full((2 * C,), -1, dtype=torch.int64, device="cuda")
-    return _dedup_case(torch, table_mod, old, new, "rehash",
-                       engine_scratch=False)
+    eng = (TwoPhaseSys(10).checker().target_state_count(1)
+           .spawn_cuda_bfs(batch_size=BATCH).join())
+    rows = eng._scratch_shape()[0]
+
+    def chunked(new):
+        return eng._rehash(old, new)
+
+    def runs(new):
+        return torch.stack([table_mod.dedup_and_insert(
+            chunk, new, scratch=eng._scratch)[4]
+            for chunk in old.split(rows)]).any()
+
+    def one_call(new):
+        return table_mod.dedup_and_insert(old, new)[4]
+
+    def setup():
+        return (torch.full((2 * C,), -1, dtype=torch.int64, device="cuda"),)
+
+    (t_k,), (t_p,) = setup(), setup()
+    full = chunked(t_k)
+    table_mod.dedup_and_insert_plain(old, t_p)
+    torch.cuda.synchronize()
+    if bool(full) or not torch.equal(torch.sort(t_k).values,
+                                     torch.sort(t_p).values):
+        raise AssertionError("the chunked rehash differs from the plain "
+                             "version's as a set")
+    _check_clean(torch, eng._scratch, "the chunked rehash")
+    cand = int((old != -1).sum())
+    del t_k, t_p
+    out = {}
+    for key, fn in (("chunked", chunked), ("runs", runs),
+                    ("one call", one_call)):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        fn(*setup())
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        call_ms = _time_ms(torch, fn, 3, setup)
+        ms, parts = _breakdown(torch, fn, 3, setup)
+        out[key] = dict(ms=ms, call_ms=call_ms, peak=peak, parts=parts)
+        how = {"chunked": f"{fused._pow2(-(-C // rows))} strided chunks "
+                          f"of at most {rows} rows",
+               "runs": f"{-(-C // rows)} runs of {rows} adjacent slots",
+               "one call": "no scratch"}[key]
+        _log(f"rehash 2^26 -> 2^27 ({key}, {how}): "
+             f"{ms:.4f} ms on the card ({call_ms:.4f} ms between CUDA "
+             f"events), peak device memory {peak} B over the old table "
+             "(the new table included); by kernel and memset:")
+        _log_parts(parts)
+        _check_clean(torch, eng._scratch, f"the rehash ({key})")
+    plain_ms = _time_ms(torch, table_mod.dedup_and_insert_plain, 1,
+                        lambda: (old,) + setup())
+    # Bound: the function's bytes, each once: the old table read, two
+    # masks written, one 32-byte sector a key in the new table.
+    nbytes = 8 * C + 2 * C + 32 * cand
+    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    _log(f"rehash: {cand} keys, chunked {out['chunked']['ms']:.4f} ms "
+         f"against runs {out['runs']['ms']:.4f} ms and one call "
+         f"{out['one call']['ms']:.4f} ms in this run, peak "
+         f"{out['chunked']['peak']} against "
+         f"{out['one call']['peak']} B for one call; plain one call "
+         f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({nbytes} B over HBM)")
+    return dict(max_abs_err=0, ms=out["chunked"]["ms"], plain_ms=plain_ms,
+                bound_ms=bound_ms, parts=out["chunked"]["parts"],
+                peak=out["chunked"]["peak"], runs=out["runs"],
+                one_call=out["one call"])
 
 
 def phase_wave_kernel(torch, wave_mod, table_mod, engine, TwoPhaseSys):
@@ -585,10 +697,40 @@ def phase_sharded_small(torch, fused, TwoPhaseSys):
          f"set_sync_debug_mode('error'), {waves} waves, no synchronisation")
 
 
-def phase_refusals(TwoPhaseSys, TwoPhaseDevice):
+def phase_paxos_small(PaxosSys):
+    """paxos at 1 and 2 clients on the card (the dedup kernel's path),
+    unsharded and sharded on ``mesh=[cuda:0] * SHARDS``, each against the
+    same run on the CPU: 265 / 482 and 16,668 / 32,971 states, and the
+    same discovery chains."""
+    for clients, want in ((1, (265, 482)), (2, (16_668, 32_971))):
+        for spawn in (dict(batch_size=1024),
+                      dict(batch_size=256, mesh=["cuda:0"] * SHARDS)):
+            cpu_spawn = (dict(spawn, mesh=["cpu"] * SHARDS) if "mesh" in spawn
+                         else dict(spawn, device="cpu"))
+            cpu = PaxosSys(clients).checker().spawn_cuda_bfs(
+                **cpu_spawn).join()
+            gpu = PaxosSys(clients).checker().spawn_cuda_bfs(**spawn).join()
+            got = (gpu.unique_state_count(), gpu.state_count())
+            n = getattr(gpu, "_n", 1)
+            tag = f"paxos {clients} n={n} {gpu.kernel_path()}"
+            if got != want or got != (cpu.unique_state_count(),
+                                      cpu.state_count()):
+                raise AssertionError(f"{tag}: {got} != {want}")
+            if gpu.kernel_path() != "dedup_kernel":
+                raise AssertionError(f"{tag}: kernel_path() is "
+                                     f"{gpu.kernel_path()}")
+            if _chains(gpu) != _chains(cpu) or sorted(_chains(gpu)) != [
+                    "value chosen"]:
+                raise AssertionError(f"{tag}: discovery chains differ from "
+                                     "the CPU run")
+            _log(f"{tag}: unique={got[0]} states={got[1]}, discoveries "
+                 f"{sorted(_chains(gpu))} equal to the CPU run's")
+
+
+def phase_refusals(TwoPhaseSys, TwoPhaseDevice, PaxosSys):
     """On the card, what the port lacks raises and never runs elsewhere:
     a mesh over distinct devices, and the kernels of a model without CUDA
-    device code."""
+    device code (paxos's has none yet)."""
 
     class NoCode(TwoPhaseDevice):
         def cuda_model(self):
@@ -605,7 +747,12 @@ def phase_refusals(TwoPhaseSys, TwoPhaseDevice):
                 3).checker().spawn_cuda_bfs(mesh=["cuda:0"] * SHARDS,
                                             wave_kernel=True)),
             ("the wave kernel without device code", lambda: NoCodeSys(
-                3).checker().spawn_cuda_bfs(wave_kernel=True))):
+                3).checker().spawn_cuda_bfs(wave_kernel=True)),
+            ("the wave kernel on paxos", lambda: PaxosSys(
+                1).checker().spawn_cuda_bfs(wave_kernel=True)),
+            ("the sender kernel on paxos", lambda: PaxosSys(
+                1).checker().spawn_cuda_bfs(mesh=["cuda:0"] * SHARDS,
+                                            wave_kernel=True))):
         try:
             spawn().join()
         except NotImplementedError as e:
@@ -614,50 +761,60 @@ def phase_refusals(TwoPhaseSys, TwoPhaseDevice):
             raise AssertionError(f"{what} ran instead of raising")
 
 
-def phase_full(torch, kernels, fused, TwoPhaseSys, **spawn):
-    """2pc at 10 RMs to its end through ``spawn_cuda_bfs(**spawn)``, with
-    every kernel's launch count set to 0 just before and read just after;
-    then the dispatches of a mid-run checker. Returns the launch counts
-    by kernel name."""
+def phase_full(torch, kernels, fused, config, model, want_counts,
+               want_found, mid_target, steady_dispatches, **spawn):
+    """``model()`` (``config`` names it) to its end through
+    ``spawn_cuda_bfs(**spawn)``, with every kernel's launch count set to
+    0 just before and read just after: exactly ``want_counts`` (unique,
+    states), the discoveries ``want_found``, no counterexample; then the
+    dispatches of a checker stopped at ``mid_target`` states, with
+    ``steady_dispatches`` timed plain. Returns the launch counts by
+    kernel name and the run's numbers."""
     torch.cuda.reset_peak_memory_stats()
     for fn in kernels.values():
         fn.launches = 0
     t0 = time.monotonic()
-    c = TwoPhaseSys(10).checker().spawn_cuda_bfs(**spawn).join()
+    c = model().checker().spawn_cuda_bfs(**spawn).join()
     torch.cuda.synchronize()
     sec = time.monotonic() - t0
     launches = {name: fn.launches for name, fn in kernels.items()}
     unique, states = c.unique_state_count(), c.state_count()
     n = getattr(c, "_n", 1)
-    _log(f"2pc 10 ({c.kernel_path()}, {n} shard(s)): unique={unique} "
+    peak = torch.cuda.max_memory_allocated()
+    _log(f"{config} ({c.kernel_path()}, {n} shard(s)): unique={unique} "
          f"states={states} sec={sec:.3f} states/s={states / sec:.1f} "
          f"waves={c.waves} dispatches={c.dispatches} rehashes={c.rehashes} "
          f"arena_grows={c.arena_grows} candidates={c.candidates} "
-         f"launches={launches} "
-         f"max_memory_allocated={torch.cuda.max_memory_allocated()}")
-    if (unique, states) != (FULL_UNIQUE, FULL_STATES):
-        raise AssertionError(f"2pc 10: {(unique, states)} != "
-                             f"{(FULL_UNIQUE, FULL_STATES)}")
+         f"launches={launches} max_memory_allocated={peak}")
+    if (unique, states) != want_counts:
+        raise AssertionError(f"{config}: {(unique, states)} != "
+                             f"{want_counts}")
     found = c.discoveries()
-    if sorted(found) != ["abort agreement", "commit agreement"]:
-        raise AssertionError(f"2pc 10 discoveries: {sorted(found)}")
+    if sorted(found) != want_found:
+        raise AssertionError(f"{config} discoveries: {sorted(found)}")
     c.assert_properties()
-    c_waves, c_dispatches = c.waves, c.dispatches
+    c_waves, c_dispatches, c_rehashes = c.waves, c.dispatches, c.rehashes
     # Every dispatch launches K waves, also those past a rest point. A
-    # wave and a rehash run the dedup kernel once a shard, unless the
-    # single-kernel wave does the wave's dedup itself.
+    # wave runs the dedup kernel once a shard, unless the single-kernel
+    # wave does the wave's dedup itself; a rehash runs it once a chunk of
+    # each old table slice: the least power of two of chunks of at most
+    # the engine's scratch rows.
     launched = c._K * c.dispatches
+    rows = c._scratch_shape()[0]
+    chunks = sum(fused._pow2(-(-(c._capacity >> i) // rows))
+                 for i in range(1, c.rehashes + 1))
     wave_kernel = spawn.get("wave_kernel", False)
     sharded = "mesh" in spawn
     want = {
-        "dedup_and_insert": n * (c.rehashes + (
+        "dedup_and_insert": n * (chunks + (
             launched if sharded or not wave_kernel else 0)),
         "wave_megakernel": launched if wave_kernel and not sharded else 0,
         "sender_megakernel": launched if wave_kernel and sharded else 0}
     if launches != want:
         raise AssertionError(f"kernel launches {launches}, expected {want} "
                              f"for {c._K} x {c.dispatches} launched waves "
-                             f"and {c.rehashes} rehashes on {n} shard(s)")
+                             f"and {c.rehashes} rehashes ({chunks} chunks) "
+                             f"on {n} shard(s)")
     del c
 
     # Dispatches of a mid-run checker, each timed alone with its rest
@@ -665,7 +822,7 @@ def phase_full(torch, kernels, fused, TwoPhaseSys, **spawn):
     # synchronisation an error (nothing inside a dispatch may wait for
     # the card), then a few plain ones for the steady pace, then one
     # under torch.profiler for the kernel time.
-    mid = (TwoPhaseSys(10).checker().target_state_count(20_000_000)
+    mid = (model().checker().target_state_count(mid_target)
            .spawn_cuda_bfs(**spawn).join())
     mid._stats[..., fused.ST_TARGET] = 1 << 62
     waves, dev_ms, wall_ms = _timed_dispatch(torch, fused, mid,
@@ -678,7 +835,8 @@ def phase_full(torch, kernels, fused, TwoPhaseSys, **spawn):
     # Every dispatch launches K waves' work, also those past a rest
     # point (no-ops with no valid row), so the pace is per launched wave.
     K = mid._K
-    steady = [_timed_dispatch(torch, fused, mid) for _ in range(4)]
+    steady = [_timed_dispatch(torch, fused, mid)
+              for _ in range(steady_dispatches)]
     for w, d, h in steady:
         _log(f"steady dispatch: {w} of {K} waves expanded rows, {d:.3f} ms "
              f"on the card, {h:.3f} ms wall, {h / K:.3f} ms a launched wave")
@@ -692,7 +850,9 @@ def phase_full(torch, kernels, fused, TwoPhaseSys, **spawn):
          f" of the steady pace, idle {1 - busy_ms / wave_ms:.1%}; host time "
          f"an op {wave_ms / launches_pw * 1e3:.2f} us ({launches_pw:.1f} "
          "kernel launches a launched wave)")
-    return launches
+    return launches, dict(sec=sec, peak=peak, wave_ms=wave_ms,
+                          busy_ms=busy_ms, launches_pw=launches_pw,
+                          rehashes=c_rehashes, chunks=chunks)
 
 
 def _timed_dispatch(torch, fused, mid, sync_check=False):
@@ -759,9 +919,10 @@ def _modules():
     from stateright_tpu_torch import _build, engine, fused
     from stateright_tpu_torch import table as table_mod
     from stateright_tpu_torch import wave as wave_mod
+    from stateright_tpu_torch.models.paxos import PaxosSys
     from stateright_tpu_torch.models.twopc import TwoPhaseDevice, TwoPhaseSys
     return (_build, engine, fused, table_mod, wave_mod, TwoPhaseDevice,
-            TwoPhaseSys)
+            TwoPhaseSys, PaxosSys)
 
 
 def phase_build(_build, table_mod, wave_mod) -> None:
@@ -803,41 +964,67 @@ def main(argv) -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     (_build, engine, fused, table_mod, wave_mod, TwoPhaseDevice,
-     TwoPhaseSys) = _modules()
+     TwoPhaseSys, PaxosSys) = _modules()
+    t_start = time.monotonic()
     phase_build(_build, table_mod, wave_mod)
     card = _card_line()
     _log(f"card: {card}")
     if argv:
-        r = phase_rehash(torch, table_mod, engine)
+        r = phase_rehash(torch, table_mod, engine, fused, TwoPhaseSys)
         print(json.dumps({"rehash": {
-            key: r[key] for key in ("ms", "plain_ms", "bound_ms", "parts")}}))
+            key: r[key] for key in ("ms", "plain_ms", "bound_ms", "parts",
+                                    "peak", "runs", "one_call")}}))
         return 0
 
     # Each kernel against its plain version at full width, timed.
     w, rows, wave_case = phase_wave_kernel(torch, wave_mod, table_mod, engine,
                                            TwoPhaseSys)
-    k = phase_kernel(torch, table_mod, engine, wave_case)
+    k = phase_kernel(torch, table_mod, engine, fused, wave_case, TwoPhaseSys,
+                     PaxosSys)
     del wave_case
     sk = phase_sender_kernel(torch, wave_mod, table_mod, *rows)
     del rows
     phase_small(TwoPhaseSys)
     phase_sharded_small(torch, fused, TwoPhaseSys)
-    phase_refusals(TwoPhaseSys, TwoPhaseDevice)
+    phase_paxos_small(PaxosSys)
+    phase_refusals(TwoPhaseSys, TwoPhaseDevice, PaxosSys)
     kernels = {"dedup_and_insert": table_mod.dedup_and_insert,
                "wave_megakernel": wave_mod.wave_megakernel,
                "sender_megakernel": wave_mod.sender_megakernel}
-    # Each path's run reads its own kernels' launches.
-    launches = phase_full(torch, kernels, fused, TwoPhaseSys,
-                          batch_size=BATCH)["dedup_and_insert"]
-    wave_launches = phase_full(torch, kernels, fused, TwoPhaseSys,
+    # Each path's run reads its own kernels' launches: 2pc at 10 RMs on
+    # the three paths, then paxos check 3 on the dedup kernel's path,
+    # unsharded and sharded.
+    twopc = ("2pc 10", functools.partial(TwoPhaseSys, 10),
+             (FULL_UNIQUE, FULL_STATES),
+             ["abort agreement", "commit agreement"], 20_000_000, 4)
+    launches = phase_full(torch, kernels, fused, *twopc,
+                          batch_size=BATCH)[0]["dedup_and_insert"]
+    wave_launches = phase_full(torch, kernels, fused, *twopc,
                                batch_size=BATCH,
-                               wave_kernel=True)["wave_megakernel"]
+                               wave_kernel=True)[0]["wave_megakernel"]
     sender_launches = phase_full(
-        torch, kernels, fused, TwoPhaseSys, batch_size=BATCH // SHARDS,
-        mesh=["cuda:0"] * SHARDS, wave_kernel=True)["sender_megakernel"]
+        torch, kernels, fused, *twopc, batch_size=BATCH // SHARDS,
+        mesh=["cuda:0"] * SHARDS, wave_kernel=True)[0]["sender_megakernel"]
+    paxos = ("paxos 3", functools.partial(PaxosSys, 3),
+             (PAXOS_UNIQUE, PAXOS_STATES), ["value chosen"], PAXOS_MID, 2)
+    runs = {}
+    for tag, spawn in (("fused", dict(batch_size=BATCH)),
+                       ("sharded", dict(batch_size=BATCH // SHARDS,
+                                        mesh=["cuda:0"] * SHARDS))):
+        launched, runs[tag] = phase_full(torch, kernels, fused, *paxos,
+                                         **spawn)
+        runs[tag]["launches"] = launched["dedup_and_insert"]
+    for tag, r in runs.items():
+        _log(f"paxos 3 {tag}: {r['sec']:.3f} s, {r['launches_pw']:.1f} torch "
+             f"launches a launched wave, {r['busy_ms']:.3f} ms card time a "
+             f"launched wave of {r['wave_ms']:.3f}, idle "
+             f"{1 - r['busy_ms'] / r['wave_ms']:.1%}, peak device memory "
+             f"{r['peak']} B, {r['rehashes']} rehashes in {r['chunks']} "
+             f"chunks a slice, dedup kernel launches {r['launches']}")
 
-    # Kernel 1 on the synthetic stream, and on the default path's input,
-    # the mid-run wave's dedup fingerprints.
+    # Kernel 1 on the synthetic stream, on the default path's input of
+    # each model (a mid-run wave's dedup fingerprints), and at the
+    # rehash.
     src = "stateright_tpu_torch/csrc/"
     pallas = "stateright_tpu/tpu/pallas_table.py:"
     k_err = max(v["max_abs_err"] for v in k.values())
@@ -846,6 +1033,11 @@ def main(argv) -> int:
                     launches, k_err, k["stream"]),
         _kernel_row("dedup_and_insert[mid-run wave]", src + "table.cu",
                     pallas + "256", launches, k_err, k["wave"]),
+        _kernel_row("dedup_and_insert[paxos 3 wave]", src + "table.cu",
+                    pallas + "256", runs["fused"]["launches"], k_err,
+                    k["paxos"]),
+        _kernel_row("dedup_and_insert[rehash]", src + "table.cu",
+                    pallas + "256", launches, k_err, k["rehash"]),
         _kernel_row("wave_megakernel", src + "wave_twopc.cu", pallas + "380",
                     wave_launches,
                     max(v["max_abs_err"] for v in w.values()), w["plain"]),
@@ -853,6 +1045,7 @@ def main(argv) -> int:
                     pallas + "451", sender_launches,
                     max(v["max_abs_err"] for v in sk.values()),
                     sk[(False, True)])]}))
+    _log(f"chip_smoke ran {time.monotonic() - t_start:.1f} s")
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

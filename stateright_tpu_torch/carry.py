@@ -5,9 +5,11 @@ state as numpy arrays (its dtypes) becomes the port's tensors (the
 port's dtype policy) and back, so that a test can start both sides from
 the same state. Every conversion keeps the bits:
 
-- ``uint64`` visited tables, fingerprints and parent fingerprints are
+- ``uint64`` visited tables, fingerprints, parent fingerprints and the
+  register workloads' packed observation tables (any shape) are
   ``int64`` bit patterns (``SENTINEL`` becomes -1);
-- ``uint32`` unpacked rows ``[N, W]`` are ``int64`` lane values;
+- ``uint32`` unpacked rows ``[N, W]`` (paxos's sentinel lanes, all-ones,
+  included) are ``int64`` lane values;
 - ``uint32`` packed rows ``[N, Wp]`` and eventually-bits ``[N]`` are
   ``int32`` bit patterns;
 - the sharded engine's flat shard-major ``[n * cap]`` table and

@@ -29,7 +29,12 @@ from typing import Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-__all__ = ["DeviceModel"]
+__all__ = ["DeviceModel", "DeviceFormUnavailable"]
+
+
+class DeviceFormUnavailable(NotImplementedError):
+    """The model's configuration lies outside what its device encoding
+    can express (the port has no host engine to fall back to)."""
 
 
 class DeviceModel:
@@ -58,6 +63,12 @@ class DeviceModel:
         """The label of each of the ``max_fanout`` action slots, for
         paths and reports."""
         return list(range(self.max_fanout))
+
+    def action_label(self, vec: np.ndarray, f: int):
+        """The label of action slot ``f`` taken from the state ``vec``
+        (``uint32[state_width]``), for paths: ``action_names()[f]`` unless
+        a model's actions depend on the state."""
+        return self.action_names()[f]
 
     # -- Device-side (batch-first torch functions) -----------------------
 

@@ -32,7 +32,8 @@ the card and its plain version on the CPU:
   ``wave.wave_megakernel``, on the packed batch as it lies in the arena.
 
 The table's rehash at rest points goes through ``table.dedup_and_insert``
-either way. ``kernel_path()`` says which implementation ran.
+either way, in chunks of at most a wave's rows with the engine's scratch.
+``kernel_path()`` says which implementation ran.
 """
 
 from __future__ import annotations
@@ -156,8 +157,8 @@ class FusedCudaBfsChecker(Checker):
                    np.array(fps, np.uint64), np.array(list(seen), np.uint64),
                    arena_capacity)
 
-        # The kernels' scratch for a wave's rows, handed to every call and
-        # back clean from each (the rehash makes its own).
+        # The kernels' scratch for a wave's rows, handed to every call
+        # (the rehash's chunks too) and back clean from each.
         rows, shards = self._scratch_shape()
         self._scratch = (DedupScratch(rows, device, shards)
                          if device.type == "cuda" else None)
@@ -374,17 +375,45 @@ class FusedCudaBfsChecker(Checker):
                 if fp != SENTINEL and prop.name not in self._discoveries:
                     self._discoveries[prop.name] = to_u64(fp)
 
+    def _rehash(self, old: torch.Tensor, new: torch.Tensor):
+        """Re-inserts table ``old``'s keys into the empty table ``new``
+        through the dedup kernel with the engine's scratch (see
+        ``_grow``), in ``n`` chunks of at most the scratch's rows, ``n`` a
+        power of two: chunk k is every n-th slot from slot k, copied
+        contiguous. Not runs of adjacent slots: the keys of adjacent slots
+        share the high bits of their hash, which also pick their home
+        slots in the scratch, so a run of them piles into a small window
+        of it (``chip_smoke.py``'s rehash case, 2^26 slots into 2^27 on an
+        H100: about 20 times slower in runs than in strides). Returns a
+        bool 0-dim tensor on the device, the chunks' ``full`` flags ORed:
+        whether a key found no free slot."""
+        n = _pow2(-(-old.shape[0] // self._scratch_shape()[0]))
+        cols = old.view(-1, n)
+        return torch.stack([
+            dedup_and_insert(cols[:, k].contiguous(), new,
+                             scratch=self._scratch)[4]
+            for k in range(n)]).any()
+
     def _grow(self) -> None:
         """Growth at a rest point: the table doubles until the next
         dispatch keeps its load at most 1/2 (each doubling re-inserts the
-        old table through the dedup kernel), and the arena doubles until
-        a dispatch's appends fit."""
+        old table through the dedup kernel, ``_rehash``), and the arena
+        doubles until a dispatch's appends fit.
+
+        JAX rehashes a table in one ``dedup_and_insert`` call over all its
+        slots. The port chunks it through the engine's scratch, at most a
+        wave's rows a call, and reads the ORed ``full`` flags once: a call
+        over C rows would need a scratch of 2·C slots of 16 bytes, which
+        ``table.DedupScratch`` refuses above 2^30 slots (so the table could
+        not grow past 2^30) and which would set the peak of device memory.
+        The old keys are distinct, so chunks change neither the set the new
+        table holds nor its occupancy, and sentinel slots stay invalid
+        rows; slot order has no meaning."""
         S = self._B * self._F
         while self._occ + S > self._capacity // 2:
             table = torch.full((2 * self._capacity,), SENTINEL,
-                               dtype=torch.int64, device=self._device)
-            full = dedup_and_insert(self._table, table)[4]
-            if bool(full):
+                               dtype=torch.int64, device=self._table.device)
+            if bool(self._rehash(self._table, table)):
                 raise RuntimeError("rehash found no free slot")
             self._table, self._capacity = table, 2 * self._capacity
             self.rehashes += 1

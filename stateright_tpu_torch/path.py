@@ -54,16 +54,15 @@ class Path:
             raise NondeterminismError(
                 f"no init state has the fingerprint {fps[0]}; available: "
                 f"{[host_fp64(v) for v in inits]}")
-        names = dm.action_names()
         vecs, actions = [vec], []
         for fp in fps[1:]:
             succ, valid = dm.step(torch.from_numpy(vec.astype(np.int64))[None])
             succ = succ[0].numpy().astype(np.uint32)
             for f in np.flatnonzero(valid[0].numpy()):
                 if host_fp64(succ[f]) == fp:
+                    actions.append(dm.action_label(vec, int(f)))
                     vec = succ[f]
                     vecs.append(vec)
-                    actions.append(names[f])
                     break
             else:
                 raise NondeterminismError(

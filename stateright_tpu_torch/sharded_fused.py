@@ -333,17 +333,20 @@ class ShardedFusedCudaBfsChecker(EpochOwnership, FusedCudaBfsChecker):
     def _grow(self) -> None:
         """Growth at a rest point (``_run_waves`` :670-766 without the
         span roll): every table slice doubles, each re-inserted through
-        the dedup kernel (``_rehash_fn``), until the fullest keeps its
-        load at most 1/2 after a dispatch; every arena doubles
+        the dedup kernel (``_rehash_fn``; JAX in one call a slice, the
+        port's ``_rehash`` in chunks through the engine's scratch, for the
+        reasons ``FusedCudaBfsChecker._grow`` gives), until the fullest keeps
+        its load at most 1/2 after a dispatch; every arena doubles
         (``_grow_fn``) until the fullest takes a dispatch's appends."""
         n = self._n
         R = n * self._B * self._F
         while int(self._occs.max()) + R > self._capacity // 2:
             table = torch.full((n, 2 * self._capacity), SENTINEL,
-                               dtype=torch.int64, device=self._device)
-            for k in range(n):
-                if bool(dedup_and_insert(self._table[k], table[k])[4]):
-                    raise RuntimeError("rehash found no free slot")
+                               dtype=torch.int64, device=self._table.device)
+            full = torch.stack([self._rehash(self._table[k], table[k])
+                                for k in range(n)]).any()
+            if bool(full):
+                raise RuntimeError("rehash found no free slot")
             self._table, self._capacity = table, 2 * self._capacity
             self.rehashes += 1
         while int(self._tails.max()) + R > self._ucap:

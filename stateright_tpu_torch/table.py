@@ -15,8 +15,9 @@ never synchronises, so it can run inside a multi-wave dispatch.
 The kernel's scratch (``DedupScratch``, shared with the wave kernel of
 ``wave.py``) belongs to the caller: an engine keeps one and passes it to
 every call (``scratch=``), and the kernels hand it back clean, so a call
-fills nothing. Without one the wrapper makes a fresh one for the call (the
-rehash does so); one too small or on another device raises. The sender
+fills nothing; the engines' rehash, too, goes through theirs, in chunks of
+its rows. Without one the wrapper makes a fresh one for the call; one too
+small or on another device raises. The sender
 kernel (``wave.sender_megakernel``) claims in the same scratch, a region
 of it a shard (``scratch_bits``).
 """

@@ -28,7 +28,7 @@ from stateright_tpu.tpu import engine as ref_engine  # noqa: E402
 from stateright_tpu.tpu.hashing import host_fp64  # noqa: E402
 from stateright_tpu.tpu.models.twopc import TwoPhaseDevice as RefDevice  # noqa: E402,E501
 from stateright_tpu.tpu.pallas_table import dedup_and_insert_pallas  # noqa: E402,E501
-from stateright_tpu_torch import Property, carry, engine, table  # noqa: E402
+from stateright_tpu_torch import Property, carry, engine, fused, table  # noqa: E402,E501
 from stateright_tpu_torch.models import twopc  # noqa: E402
 
 torch.set_num_threads(2)
@@ -261,3 +261,54 @@ def test_error_lane_stops_the_run_on_both_sides():
     with pytest.raises(RuntimeError, match="error lane 0"):
         Sys(3).checker().spawn_cuda_bfs(device="cpu", batch_size=64,
                                         wave_kernel=True).join()
+
+
+# -- The rehash goes through the engine's scratch, in chunks -----------------
+
+
+def test_rehash_past_2_30_slots_takes_the_engines_scratch(monkeypatch):
+    """The grow from 2^30 to 2^31 slots, on tables that allocate nothing
+    (the meta device) and with the insert stubbed: every call gets the
+    engine's own scratch and at most its rows, and the calls (a power of
+    two of them) cover the old table once. A one-call rehash would need a
+    fresh scratch for 2^30 rows, which ``DedupScratch`` refuses."""
+    c = twopc.TwoPhaseSys(3).checker().spawn_cuda_bfs(
+        device="cpu", batch_size=1 << 14).join()
+    rows = c._scratch_shape()[0]
+    calls, scratch, C = [], object(), 1 << 30
+
+    def insert(fps, new, scratch=None):
+        calls.append((fps.shape[0], new.shape[0], scratch))
+        return (None,) * 4 + (torch.zeros((), dtype=torch.bool),)
+
+    monkeypatch.setattr(fused, "dedup_and_insert", insert)
+    c._table = torch.empty(C, dtype=torch.int64, device="meta")
+    c._capacity, c._occ, c._scratch = C, C // 2 - rows + 1, scratch
+    rehashes = c.rehashes
+    c._grow()
+    assert (c._capacity, c.rehashes) == (2 * C, rehashes + 1)
+    assert c._table.shape == (2 * C,) and c._table.device.type == "meta"
+    assert len(calls) == fused._pow2(-(-C // rows))
+    assert sum(n for n, _, _ in calls) == C
+    assert all(n <= rows and cap == 2 * C and s is scratch
+               for n, cap, s in calls)
+    with pytest.raises(ValueError, match="int32 row index"):
+        table.DedupScratch(C, "meta")
+
+
+def test_chunked_rehash_equals_one_call_as_a_set():
+    """A real rehash on the CPU, in chunks of a wave's rows, holds the
+    same keys as one call over the whole old table, and as many."""
+    c = twopc.TwoPhaseSys(5).checker().spawn_cuda_bfs(
+        device="cpu", batch_size=64).join()
+    old = c._table.clone()
+    assert old.shape[0] > 4 * c._scratch_shape()[0]  # several chunks
+    one = torch.full((2 * old.shape[0],), -1, dtype=torch.int64)
+    assert not bool(table.dedup_and_insert(old, one)[4])
+    c._occ = c._capacity // 2
+    c._grow()
+    assert c._capacity == 2 * old.shape[0]
+    got, want = c._table, one
+    assert int((got != -1).sum()) == int((want != -1).sum()) == int(
+        (old != -1).sum())
+    assert torch.equal(got.sort().values, want.sort().values)

@@ -1,8 +1,9 @@
 """The port stands alone: it imports neither JAX nor the JAX package.
 
 An AST scan of every file of ``stateright_tpu_torch/``; a fresh
-interpreter that checks 2pc at 3 RMs through the port on the CPU and
-then finds neither ``jax`` nor ``stateright_tpu`` loaded; and the entry
+interpreter that checks 2pc at 3 RMs and paxos at 1 client through the
+port on the CPU and then finds neither ``jax`` nor ``stateright_tpu``
+loaded; and the entry
 point's default device, which is CUDA and raises on a box without one.
 """
 
@@ -18,7 +19,8 @@ from stateright_tpu_torch.models.twopc import TwoPhaseSys
 
 _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _PKG = os.path.join(_REPO, "stateright_tpu_torch")
-_BANNED = ("jax", "jaxlib", "stateright_tpu", "examples", "two_phase_commit")
+_BANNED = ("jax", "jaxlib", "stateright_tpu", "examples", "two_phase_commit",
+           "paxos")
 
 
 def _imports(path):
@@ -46,6 +48,10 @@ def test_a_cpu_check_loads_neither_jax_nor_the_jax_package():
         "from stateright_tpu_torch.models.twopc import TwoPhaseSys\n"
         "c = TwoPhaseSys(3).checker().spawn_cuda_bfs(device='cpu').join()\n"
         "assert (c.unique_state_count(), c.state_count()) == (288, 1146)\n"
+        "c.assert_properties()\n"
+        "from stateright_tpu_torch.models.paxos import PaxosSys\n"
+        "c = PaxosSys(1).checker().spawn_cuda_bfs(device='cpu').join()\n"
+        "assert (c.unique_state_count(), c.state_count()) == (265, 482)\n"
         "c.assert_properties()\n"
         "bad = [m for m in sys.modules\n"
         "       if m.split('.')[0] in ('jax', 'jaxlib', 'stateright_tpu')]\n"

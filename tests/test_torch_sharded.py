@@ -33,7 +33,7 @@ from stateright_tpu.tpu.hashing import host_fp64  # noqa: E402
 from stateright_tpu.tpu.packing import compile_layout as ref_layout  # noqa: E402,E501
 from stateright_tpu.tpu.pallas_table import build_sender_megakernel  # noqa: E402,E501
 from stateright_tpu.tpu.sharded_fused import ShardedFusedTpuBfsChecker  # noqa: E402,E501
-from stateright_tpu_torch import carry, table, wave  # noqa: E402
+from stateright_tpu_torch import carry, fused, table, wave  # noqa: E402
 from stateright_tpu_torch.engine import scratch_slots  # noqa: E402
 from stateright_tpu_torch.hashing import SENTINEL, to_i64  # noqa: E402
 from stateright_tpu_torch.membership import OwnerMap  # noqa: E402
@@ -329,6 +329,46 @@ def test_growth_of_tables_and_arenas():
         else:
             a, b = a[:, :int(tails.max())], b[:, :int(tails.max())]
         assert torch.equal(a, b), name
+
+
+def test_rehash_past_2_30_slots_takes_the_engines_scratch(monkeypatch):
+    """As the unsharded engine's test: every slice's grow from 2^30 to
+    2^31 slots, on the meta device with the insert stubbed, goes through
+    the engine's scratch in calls of at most its rows."""
+    n = 3
+    c = twopc.TwoPhaseSys(3).checker().spawn_cuda_bfs(
+        device="cpu", mesh=["cpu"] * n, batch_size=1 << 12).join()
+    rows = c._scratch_shape()[0]
+    calls, scratch, C = [], object(), 1 << 30
+
+    def insert(fps, new, scratch=None):
+        calls.append((fps.shape[0], new.shape[0], scratch))
+        return (None,) * 4 + (torch.zeros((), dtype=torch.bool),)
+
+    monkeypatch.setattr(fused, "dedup_and_insert", insert)
+    c._table = torch.empty((n, C), dtype=torch.int64, device="meta")
+    c._capacity, c._scratch = C, scratch
+    c._occs = np.full(n, C // 2 - rows + 1)
+    c._grow()
+    assert c._capacity == 2 * C and c._table.shape == (n, 2 * C)
+    assert len(calls) == n * fused._pow2(-(-C // rows))
+    assert sum(k for k, _, _ in calls) == n * C
+    assert all(k <= rows and cap == 2 * C and s is scratch
+               for k, cap, s in calls)
+
+
+def test_chunked_rehash_equals_one_call_as_a_set():
+    c = _run(twopc.TwoPhaseSys(5), 4, batch_size=16)
+    old = c._table.clone()
+    assert old.shape[1] > 2 * c._scratch_shape()[0]  # several chunks
+    c._occs[:] = c._capacity // 2
+    c._grow()
+    for k in range(4):
+        one = torch.full((2 * old.shape[1],), SENTINEL, dtype=torch.int64)
+        assert not bool(table.dedup_and_insert(old[k], one)[4])
+        got = c._table[k]
+        assert int((got != SENTINEL).sum()) == int((old[k] != SENTINEL).sum())
+        assert torch.equal(got.sort().values, one.sort().values)
 
 
 def test_target_state_count():

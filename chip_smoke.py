@@ -8,11 +8,11 @@ Usage, from the root of a checkout on a machine with an NVIDIA H100:
 
 Phases, in order; any failure exits non-zero and prints no result line:
 
-1. build ``stateright_tpu_torch/csrc/table.cu`` and ``wave_twopc.cu``
-   (the wave kernel's and the sender kernel's entry points) for
-   ``sm_90a``, one ``nvcc`` each, both at once, and print each build time
-   with ptxas' register and spill report, and the card's name and power
-   limit;
+1. build ``stateright_tpu_torch/csrc/table.cu``, ``wave_twopc.cu`` and
+   ``wave_paxos.cu`` (the wave kernel's and the sender kernel's entry
+   points for 2pc and for paxos) for ``sm_90a``, one ``nvcc`` each, all
+   at once, and print each build time with ptxas' register and spill
+   report, and the card's name and power limit;
 2. hold the wave kernel against its plain version at full width: 16,384
    packed rows of 2pc at 10 RMs from a mid-run arena against a 2^27-slot
    table filled to 30% plus the run's states, plain and with symmetry:
@@ -39,7 +39,12 @@ Phases, in order; any failure exits non-zero and prints no result line:
    caller-owned scratch (the engine's, for 4 shards) handed back clean;
    time both, by kernel and memset; then at a ragged shape (3 shards of
    4,095 rows: a shard count that is not a power of two, and each
-   shard's last tile part full) the same checks;
+   shard's last tile part full) the same checks; then kernels 2 and 3 on
+   paxos (its CUDA step, sentinel lanes in the packed rows): the wave
+   kernel on the 16,384 rows of phase 3's mid-run ``paxos check 3``
+   arena against its engine's table with its engine's scratch, plain and
+   with symmetry, and the sender kernel on the same rows as 4 shards of
+   4,096 and ragged, each checked and timed as above;
 5. 2pc at 3 and 5 RMs on the card, and 5 with symmetry: 288 / 1,146,
    8,832 / 58,146 and 314 / 2,048, with the same discovery fingerprint
    chains as the same run on the CPU (the plain path), each with the
@@ -48,21 +53,26 @@ Phases, in order; any failure exits non-zero and prints no result line:
    CPU run at the same n, and 5 RMs at n = 3 with 255 rows a shard (an
    odd S = 6,885 slots a shard, so shards start off 16 bytes) through
    the sender kernel with and without local dedup; paxos at 1 and 2
-   clients, unsharded and at n = 4, against the CPU run: 265 / 482 and
-   16,668 / 32,971; a mesh over distinct devices, either kernel for a
-   model without CUDA device code, and either on paxos (no CUDA step
-   yet), raise on the card;
+   clients, unsharded and at n = 4, on the dedup kernel's path and on the
+   kernels' (``wave_kernel=True``), against the CPU run: 265 / 482 and
+   16,668 / 32,971; paxos at 4 clients with symmetry to 20,000 states and
+   at 1 client with liveness and with 5 network slots (fewer than the
+   default 8: smaller tiles) on the kernels, against the CPU run; two
+   network slots raise paxos's overflow error on the kernels, unsharded
+   and sharded; a mesh over distinct devices and either kernel for a
+   model without CUDA device code raise on the card;
 6. full width, 2pc at 10 RMs: batch 16,384 once with each path, and
    sharded at n = 4 with 4,096 rows a shard and the sender kernel:
    exactly 61,515,776 unique / 817,760,258 states; then ``paxos check
-   3`` on the dedup kernel's path, batch 16,384 and sharded at n = 4
-   with 4,096 rows a shard: exactly 1,194,428 unique / 2,420,477 states,
-   "value chosen" found, no "linearizable" counterexample. Each run with
-   the kernels' launch counts beside the waves and rehashes; then for
-   each run, dispatches of a mid-run checker: one under
-   ``torch.cuda.set_sync_debug_mode("error")``, four timed plain for the
-   steady pace a wave, and one under ``torch.profiler`` (kernel time by
-   kernel), which together give the card's idle share;
+   3`` on the dedup kernel's path and on the kernels' (the wave kernel
+   unsharded, the sender kernel sharded), batch 16,384 and sharded at n
+   = 4 with 4,096 rows a shard: exactly 1,194,428 unique / 2,420,477
+   states, "value chosen" found, no "linearizable" counterexample. Each
+   run with the kernels' launch counts beside the waves and rehashes;
+   then for each run, dispatches of a mid-run checker: one under
+   ``torch.cuda.set_sync_debug_mode("error")``, a few timed plain for
+   the steady pace a wave, and one under ``torch.profiler`` (kernel time
+   and launches by kernel), which together give the card's idle share;
 7. the kernels line, the script's running time, the card line and the
    result line.
 
@@ -72,9 +82,11 @@ It imports neither JAX nor ``stateright_tpu``.
 from __future__ import annotations
 
 import functools
+import gc
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -92,6 +104,9 @@ PAXOS_UNIQUE, PAXOS_STATES = 1_194_428, 2_420_477
 #: a batch), and before its dispatches are timed: the whole run is about
 #: 90 waves at 16,384 rows, so the timed dispatches start early
 PAXOS_WAVE_AT, PAXOS_MID = 240_000, 50_000
+#: the states paxos at 4 clients with symmetry runs to on the card and on
+#: the CPU (its whole space is far larger)
+PAXOS4_TARGET = 20_000
 BATCH = 16_384
 SHARDS = 4
 
@@ -285,12 +300,13 @@ def _stream(torch, gen, S, resident):
 
 
 def phase_kernel(torch, table_mod, engine, fused, wave_case, TwoPhaseSys,
-                 PaxosSys):
+                 paxos_mid):
     """The dedup kernel against its plain version: at the full-width
     shape, a synthetic stream against a large table and against a small
     one, then the dedup fingerprints of a mid-run 10-RM wave against its
-    table (``wave_case``) and of a mid-run paxos 3 wave against its
-    engine's table, with that engine's scratch; then the rehash case."""
+    table (``wave_case``) and of a mid-run paxos 3 wave (``paxos_mid``'s
+    next) against its engine's table, with that engine's scratch; then the
+    rehash case."""
     gen = torch.Generator(device="cuda").manual_seed(7)
     S = BATCH * 52
     out = {}
@@ -303,31 +319,52 @@ def phase_kernel(torch, table_mod, engine, fused, wave_case, TwoPhaseSys,
         del table, fps
     out["wave"] = _dedup_case(torch, table_mod, *wave_case,
                               "mid-run 10-RM wave")
-    fps, table, scratch = _paxos_wave(torch, engine, PaxosSys)
-    out["paxos"] = _dedup_case(torch, table_mod, fps, table,
-                               "mid-run paxos 3 wave", scratch)
-    del fps, table, scratch
+    fps = _paxos_wave(torch, engine, paxos_mid)
+    out["paxos"] = _dedup_case(torch, table_mod, fps, paxos_mid._table,
+                               "mid-run paxos 3 wave", paxos_mid._scratch)
+    del fps
     out["rehash"] = phase_rehash(torch, table_mod, engine, fused,
                                  TwoPhaseSys)
     return out
 
 
-def _paxos_wave(torch, engine, PaxosSys):
-    """``(dedup fps, table, scratch)`` of the next wave of a ``paxos check
-    3`` checker stopped mid-run, at its rest point: the default path's
-    input to the dedup kernel, with the engine's table (a copy) and the
-    engine's own scratch."""
+def _paxos_mid(PaxosSys):
+    """A ``paxos check 3`` checker on the default path stopped mid-run, at
+    its rest point, with a frontier of at least a batch."""
     mid = (PaxosSys(3).checker().target_state_count(PAXOS_WAVE_AT)
            .spawn_cuda_bfs(batch_size=BATCH).join())
     if mid._tail - mid._head < BATCH:
         raise AssertionError(f"mid-run paxos frontier of "
                              f"{mid._tail - mid._head} rows is narrower "
                              f"than {BATCH}")
+    return mid
+
+
+def _paxos_wave(torch, engine, mid):
+    """The dedup fingerprints of ``mid``'s next wave: the default path's
+    input to the dedup kernel."""
     rows = mid._layout.unpack(mid._vecs[mid._head:mid._head + BATCH])
     valid = torch.ones(BATCH, dtype=torch.bool, device="cuda")
     succ, sflat, _, _ = engine.expand_frontier(mid._dm, rows, valid)
-    dedup_fps = engine.fingerprint_successors(mid._dm, succ, sflat, False)[0]
-    return dedup_fps, mid._table.clone(), mid._scratch
+    return engine.fingerprint_successors(mid._dm, succ, sflat, False)[0]
+
+
+def phase_paxos_kernels(torch, wave_mod, table_mod, mid):
+    """Kernels 2 and 3 on paxos (``csrc/models/paxos.cuh``, sentinel lanes
+    in the packed rows) against their plain versions at full width: the
+    next batch of the mid-run ``paxos check 3`` arena of ``mid``, against
+    its engine's table and with its engine's scratch, plain and with
+    symmetry; then the same rows as ``SHARDS`` shards, and ragged."""
+    dm, layout = mid._dm, mid._layout
+    store = mid._vecs[mid._head:mid._head + BATCH].clone()
+    valid = torch.ones(BATCH, dtype=torch.bool, device="cuda")
+    w = {tag: _wave_case(torch, wave_mod, table_mod, dm, store, valid,
+                         layout, mid._table, use_sym, f"paxos 3, {tag}",
+                         scratch=mid._scratch)
+         for tag, use_sym in (("plain", False), ("sym", True))}
+    sk = phase_sender_kernel(torch, wave_mod, table_mod, dm, store, layout,
+                             "paxos 3")
+    return w, sk
 
 
 def phase_rehash(torch, table_mod, engine, fused, TwoPhaseSys):
@@ -450,17 +487,43 @@ def phase_wave_kernel(torch, wave_mod, table_mod, engine, TwoPhaseSys):
     return out, (dm, store, layout), (dedup_fps, table)
 
 
+def _sym_ops(dm) -> int:
+    """32-bit integer operations of one representative beyond its
+    fingerprint: 2pc's sort network over its RMs' keys; paxos's network
+    re-sorted at 4 clients (3 servers: the group is trivial below)."""
+    if hasattr(dm, "rm_count"):
+        return 2 * dm.rm_count ** 2
+    return 2 * dm.net_slots ** 2 + 8 * dm.state_width if dm.C == 4 else 0
+
+
+def _front_ops(dm, slots: int, n_valid: int, use_sym: bool) -> int:
+    """32-bit integer operations of the kernels' front: the path
+    fingerprint, unpack, step and re-pack of every slot, and the
+    representative and its fingerprint of each valid slot under
+    symmetry."""
+    W = dm.state_width
+    fp_ops = 2 * (6 * W + 9) + 4
+    ops = slots * (fp_ops + 8 * W)
+    if use_sym:
+        ops += n_valid * (fp_ops + _sym_ops(dm))
+    return ops
+
+
 def _wave_case(torch, wave_mod, table_mod, dm, store, valid, layout, table,
-               use_sym, tag):
+               use_sym, tag, scratch=None):
     """The wave kernel against its plain version on ``store`` and a copy
     of ``table``: all outputs equal, tables equal as sets; then its time
-    with a caller-owned scratch, by kernel and memset, beside the plain
-    version's and the bound."""
+    with a caller-owned scratch (``scratch``, an engine's, or one of its
+    own), by kernel and memset, beside the plain version's and the
+    bound."""
     B = store.shape[0]
-    S, W, wp = B * dm.max_fanout, dm.state_width, layout.packed_width
+    S, wp = B * dm.max_fanout, layout.packed_width
     names = ("succ_store", "path_fps", "sflat", "new_mask", "cand_mask",
              "new_count", "cand_count", "full")
-    fn, scratch = _scratch(torch, table_mod, wave_mod.wave_megakernel, S)
+    if scratch is None:
+        fn, scratch = _scratch(torch, table_mod, wave_mod.wave_megakernel, S)
+    else:
+        fn = functools.partial(wave_mod.wave_megakernel, scratch=scratch)
     t_k, t_p = table.clone(), table.clone()
     got = fn(dm, store, valid, t_k, use_sym, layout)
     want = wave_mod.wave_megakernel_plain(dm, store, valid, t_p, use_sym,
@@ -489,15 +552,9 @@ def _wave_case(torch, wave_mod, table_mod, dm, store, valid, layout, table,
     # valid read, the packed successors, path fingerprints and three byte
     # masks written, and one 32-byte sector a candidate in the visited
     # table. The dedup fingerprints and the scratch table are neither input
-    # nor output. Operations: 32-bit integer ops of the path fingerprint,
-    # unpack, step and re-pack of every slot, and of the representative's
-    # sort and fingerprint of each valid slot under symmetry.
+    # nor output. Operations: _front_ops.
     nbytes = 4 * B * wp + B + 4 * S * wp + 8 * S + 3 * S + 32 * cand
-    fp_ops = 2 * (6 * W + 9) + 4
-    ops = S * (fp_ops + 8 * W)
-    if use_sym:
-        n = dm.rm_count
-        ops += n_valid * (fp_ops + 2 * n * n)
+    ops = _front_ops(dm, S, n_valid, use_sym)
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     ops_ms = ops / OPS_PER_S * 1e3
     bound_ms = max(bytes_ms, ops_ms)
@@ -531,15 +588,16 @@ def _sender_equal(torch, wave_mod, fn, scratch, args, tag):
     return int(got[3].sum()), int(got[4].sum())
 
 
-def phase_sender_kernel(torch, wave_mod, table_mod, dm, store, layout):
+def phase_sender_kernel(torch, wave_mod, table_mod, dm, store, layout,
+                        model="2pc 10"):
     """The sender kernel against its plain version at the full-width
-    shape: ``store``'s packed rows as ``SHARDS`` shards' batches, with
-    the engine's scratch; then at a ragged shape."""
+    shape: ``store``'s packed rows (of ``model``) as ``SHARDS`` shards'
+    batches, with the engine's scratch; then at a ragged shape."""
     B, wp = BATCH // SHARDS, layout.packed_width
     rows = store
     store = rows.reshape(SHARDS, B, wp).contiguous()
     valid = torch.ones((SHARDS, B), dtype=torch.bool, device="cuda")
-    W, n = dm.state_width, SHARDS
+    n = SHARDS
     S = B * dm.max_fanout
     fn, scratch = _scratch(torch, table_mod, wave_mod.sender_megakernel,
                            n * S, n)
@@ -547,7 +605,7 @@ def phase_sender_kernel(torch, wave_mod, table_mod, dm, store, layout):
     for use_sym in (False, True):
         for local_dedup in (True, False):
             args = (dm, store, valid, use_sym, layout, local_dedup)
-            tag = (f"{'sym' if use_sym else 'plain'}"
+            tag = (f"{model}, {'sym' if use_sym else 'plain'}"
                    f"{'' if local_dedup else ', no local dedup'}")
             n_valid, n_send = _sender_equal(torch, wave_mod, fn, scratch,
                                             args, tag)
@@ -560,15 +618,10 @@ def phase_sender_kernel(torch, wave_mod, table_mod, dm, store, layout):
             # batch and valid read; the packed successors, two
             # fingerprint arrays and two byte masks written. The scratch
             # is neither input nor output. Operations as the wave
-            # kernel's: path fingerprint, unpack, step and re-pack of
-            # every slot, and the representative of each valid slot
-            # under symmetry.
+            # kernel's (_front_ops).
             nbytes = (4 * n * B * wp + n * B + 4 * n * S * wp + 16 * n * S
                       + 2 * n * S)
-            fp_ops = 2 * (6 * W + 9) + 4
-            ops = n * S * (fp_ops + 8 * W)
-            if use_sym:
-                ops += n_valid * (fp_ops + 2 * dm.rm_count ** 2)
+            ops = _front_ops(dm, n * S, n_valid, use_sym)
             bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
             ops_ms = ops / OPS_PER_S * 1e3
             bound_ms = max(bytes_ms, ops_ms)
@@ -594,7 +647,7 @@ def phase_sender_kernel(torch, wave_mod, table_mod, dm, store, layout):
     fn, scratch = _scratch(torch, table_mod, wave_mod.sender_megakernel,
                            n * S, n)
     for local_dedup in (True, False):
-        tag = f"ragged{'' if local_dedup else ', no local dedup'}"
+        tag = f"{model}, ragged{'' if local_dedup else ', no local dedup'}"
         n_valid, n_send = _sender_equal(
             torch, wave_mod, fn, scratch,
             (dm, store, valid, False, layout, local_dedup), tag)
@@ -697,40 +750,101 @@ def phase_sharded_small(torch, fused, TwoPhaseSys):
          f"set_sync_debug_mode('error'), {waves} waves, no synchronisation")
 
 
-def phase_paxos_small(PaxosSys):
-    """paxos at 1 and 2 clients on the card (the dedup kernel's path),
-    unsharded and sharded on ``mesh=[cuda:0] * SHARDS``, each against the
-    same run on the CPU: 265 / 482 and 16,668 / 32,971 states, and the
-    same discovery chains."""
+def _paxos_against_cpu(checker, want, path, found, **spawn):
+    """``checker()``'s run on the card through ``spawn_cuda_bfs(**spawn)``
+    (a ``mesh`` of ``cuda:0`` for the sharded engine) against the same run
+    on the CPU: the counts (and ``want``, where given), the kernel path,
+    the discoveries ``found`` (where given) and their chains."""
+    cpu_spawn = (dict(spawn, mesh=["cpu"] * len(spawn["mesh"]))
+                 if "mesh" in spawn else dict(spawn, device="cpu"))
+    cpu = checker().spawn_cuda_bfs(**cpu_spawn).join()
+    gpu = checker().spawn_cuda_bfs(**spawn).join()
+    got = (gpu.unique_state_count(), gpu.state_count())
+    tag = f"n={getattr(gpu, '_n', 1)} {gpu.kernel_path()}"
+    if got != (cpu.unique_state_count(), cpu.state_count()) or (
+            want is not None and got != want):
+        raise AssertionError(f"{tag}: {got}, the CPU run "
+                             f"{(cpu.unique_state_count(), cpu.state_count())}"
+                             f", expected {want}")
+    if gpu.kernel_path() != path:
+        raise AssertionError(f"{tag}: kernel_path() is {gpu.kernel_path()}")
+    if _chains(gpu) != _chains(cpu) or (found is not None
+                                        and sorted(_chains(gpu)) != found):
+        raise AssertionError(f"{tag}: discoveries {sorted(_chains(gpu))}, "
+                             "or their chains differ from the CPU run")
+    return gpu, f"{tag}: unique={got[0]} states={got[1]}, discoveries " \
+        f"{sorted(_chains(gpu))} equal to the CPU run's"
+
+
+def phase_paxos_small(PaxosSys, PaxosDevice):
+    """paxos on the card against the same run on the CPU, each path
+    unsharded and sharded on ``mesh=[cuda:0] * SHARDS``: at 1 and 2
+    clients (265 / 482 and 16,668 / 32,971 states) on the dedup kernel's
+    path and on the kernels' (``wave_kernel=True``: paxos's CUDA step in
+    the wave and sender kernels); at 4 clients with symmetry to a target
+    (the representative's nontrivial group), at 1 client with liveness
+    and with 5 network slots (below the default, so the kernels' tiles
+    shrink); then a network too small for the run raises the error lane's
+    error on the card, as on the CPU."""
     for clients, want in ((1, (265, 482)), (2, (16_668, 32_971))):
-        for spawn in (dict(batch_size=1024),
-                      dict(batch_size=256, mesh=["cuda:0"] * SHARDS)):
-            cpu_spawn = (dict(spawn, mesh=["cpu"] * SHARDS) if "mesh" in spawn
-                         else dict(spawn, device="cpu"))
-            cpu = PaxosSys(clients).checker().spawn_cuda_bfs(
-                **cpu_spawn).join()
-            gpu = PaxosSys(clients).checker().spawn_cuda_bfs(**spawn).join()
-            got = (gpu.unique_state_count(), gpu.state_count())
-            n = getattr(gpu, "_n", 1)
-            tag = f"paxos {clients} n={n} {gpu.kernel_path()}"
-            if got != want or got != (cpu.unique_state_count(),
-                                      cpu.state_count()):
-                raise AssertionError(f"{tag}: {got} != {want}")
-            if gpu.kernel_path() != "dedup_kernel":
-                raise AssertionError(f"{tag}: kernel_path() is "
-                                     f"{gpu.kernel_path()}")
-            if _chains(gpu) != _chains(cpu) or sorted(_chains(gpu)) != [
-                    "value chosen"]:
-                raise AssertionError(f"{tag}: discovery chains differ from "
-                                     "the CPU run")
-            _log(f"{tag}: unique={got[0]} states={got[1]}, discoveries "
-                 f"{sorted(_chains(gpu))} equal to the CPU run's")
+        for wave_kernel, paths in ((False, ("dedup_kernel", "dedup_kernel")),
+                                   (True, ("megakernel", "sender_kernel"))):
+            for path, spawn in zip(paths, (
+                    dict(batch_size=1024),
+                    dict(batch_size=256, mesh=["cuda:0"] * SHARDS))):
+                _, line = _paxos_against_cpu(
+                    PaxosSys(clients).checker, want, path, ["value chosen"],
+                    wave_kernel=wave_kernel, **spawn)
+                _log(f"paxos {clients} {line}")
+    for path, spawn in (("megakernel", dict(batch_size=1024)),
+                        ("sender_kernel", dict(batch_size=256,
+                                               mesh=["cuda:0"] * SHARDS))):
+        gpu, line = _paxos_against_cpu(
+            lambda: PaxosSys(4).checker().symmetry().target_state_count(
+                PAXOS4_TARGET), None, path, None, wave_kernel=True, **spawn)
+        if gpu.state_count() < PAXOS4_TARGET:
+            raise AssertionError(f"paxos 4 sym {line}: stopped short of "
+                                 f"{PAXOS4_TARGET} states")
+        _log(f"paxos 4 sym to {PAXOS4_TARGET} states {line}")
+    _, line = _paxos_against_cpu(
+        PaxosSys(1, liveness=True).checker, (265, 482), "megakernel",
+        ["value chosen"], wave_kernel=True, batch_size=1024)
+    _log(f"paxos 1 liveness {line}, no 'eventually chosen' counterexample")
+
+    def slots(net_slots):
+        class Sys(PaxosSys):
+            def device_model(self):
+                return PaxosDevice(1, net_slots=net_slots)
+        return Sys(1)
+
+    # Five slots, fewer than the default 8 (the kernels' tiles hold 165
+    # slots, not 256), hold the whole run; two overflow.
+    for path, spawn in (("megakernel", dict(batch_size=1024)),
+                        ("sender_kernel", dict(batch_size=256,
+                                               mesh=["cuda:0"] * SHARDS))):
+        _, line = _paxos_against_cpu(slots(5).checker, (265, 482), path,
+                                     ["value chosen"], wave_kernel=True,
+                                     **spawn)
+        _log(f"paxos 1 with 5 network slots {line}")
+    lane = PaxosDevice(1, net_slots=2).error_lane
+    for spawn in (dict(), dict(mesh=["cuda:0"] * SHARDS)):
+        try:
+            slots(2).checker().spawn_cuda_bfs(wave_kernel=True,
+                                              batch_size=128, **spawn).join()
+        except RuntimeError as e:
+            if f"error lane {lane} " not in str(e):
+                raise
+            _log(f"paxos 1 with 2 network slots on the kernels "
+                 f"({'sharded' if spawn else 'fused'}) raises: {e}")
+        else:
+            raise AssertionError("paxos 1 with 2 network slots ran on the "
+                                 "card without its overflow error")
 
 
-def phase_refusals(TwoPhaseSys, TwoPhaseDevice, PaxosSys):
+def phase_refusals(TwoPhaseSys, TwoPhaseDevice):
     """On the card, what the port lacks raises and never runs elsewhere:
     a mesh over distinct devices, and the kernels of a model without CUDA
-    device code (paxos's has none yet)."""
+    device code."""
 
     class NoCode(TwoPhaseDevice):
         def cuda_model(self):
@@ -747,12 +861,7 @@ def phase_refusals(TwoPhaseSys, TwoPhaseDevice, PaxosSys):
                 3).checker().spawn_cuda_bfs(mesh=["cuda:0"] * SHARDS,
                                             wave_kernel=True)),
             ("the wave kernel without device code", lambda: NoCodeSys(
-                3).checker().spawn_cuda_bfs(wave_kernel=True)),
-            ("the wave kernel on paxos", lambda: PaxosSys(
-                1).checker().spawn_cuda_bfs(wave_kernel=True)),
-            ("the sender kernel on paxos", lambda: PaxosSys(
-                1).checker().spawn_cuda_bfs(mesh=["cuda:0"] * SHARDS,
-                                            wave_kernel=True))):
+                3).checker().spawn_cuda_bfs(wave_kernel=True))):
         try:
             spawn().join()
         except NotImplementedError as e:
@@ -770,6 +879,7 @@ def phase_full(torch, kernels, fused, config, model, want_counts,
     dispatches of a checker stopped at ``mid_target`` states, with
     ``steady_dispatches`` timed plain. Returns the launch counts by
     kernel name and the run's numbers."""
+    gc.collect()  # what earlier phases left in reference cycles goes first
     torch.cuda.reset_peak_memory_stats()
     for fn in kernels.values():
         fn.launches = 0
@@ -885,8 +995,9 @@ def _waves(fused, stats) -> int:
 
 
 def phase_profile(torch, fused, mid):
-    """Device time of the next dispatch, by kernel (torch.profiler):
-    ``(kernel ms, kernel launches)`` a launched wave."""
+    """Device time and launches of the next dispatch, by kernel
+    (torch.profiler): ``(kernel ms, kernel launches)`` a launched
+    wave."""
     def run(_):
         stats = mid._dispatch()
         mid._stats = stats
@@ -908,6 +1019,10 @@ def phase_profile(torch, fused, mid):
     for e in kern[:8]:
         _log(f"  {e.self_device_time_total / 1e3:9.3f} ms {e.count:6d}x "
              f"{e.key[:90]}")
+    _log("  by launches:")
+    for e in sorted(kern, key=lambda e: -e.count)[:10]:
+        _log(f"  {e.count:6d}x {e.self_device_time_total / 1e3:9.3f} ms "
+             f"{e.key[:90]}")
     if waves == 0:
         raise AssertionError("the profiled dispatch ran no wave")
     return total_ms / mid._K, n_launch / mid._K
@@ -919,10 +1034,32 @@ def _modules():
     from stateright_tpu_torch import _build, engine, fused
     from stateright_tpu_torch import table as table_mod
     from stateright_tpu_torch import wave as wave_mod
-    from stateright_tpu_torch.models.paxos import PaxosSys
+    from stateright_tpu_torch.models.paxos import PaxosDevice, PaxosSys
     from stateright_tpu_torch.models.twopc import TwoPhaseDevice, TwoPhaseSys
     return (_build, engine, fused, table_mod, wave_mod, TwoPhaseDevice,
-            TwoPhaseSys, PaxosSys)
+            TwoPhaseSys, PaxosDevice, PaxosSys)
+
+
+def _log_ptxas(log: str) -> None:
+    """ptxas' report (``-Xptxas -v``), a line a kernel: its registers,
+    shared memory, stack frame and spills."""
+    kernel, frame = None, ""
+    for line in log.splitlines():
+        entry = re.search(r"Compiling entry function '(\w+)'", line)
+        if entry:
+            mangled = entry.group(1)
+            fn = re.search(r"\d(tile_front|send_rows|resolve_rows|claim_rows)",
+                           mangled)
+            model = re.search(r"(TwoPhase|Paxos)ILi(\d+)E", mangled)
+            tail = re.search(r"(WaveTail|SenderTail)", mangled)
+            kernel = ((fn.group(1) if fn else mangled)
+                      + (f"<{model.group(1)}<{model.group(2)}>, "
+                         f"{tail.group(1)}>" if model and tail else ""))
+        elif "stack frame" in line:
+            frame = line.strip()
+        elif "Used" in line and kernel:
+            _log(f"  {kernel}: {line.split(':', 1)[1].strip()}; {frame}")
+            kernel, frame = None, ""
 
 
 def phase_build(_build, table_mod, wave_mod) -> None:
@@ -931,17 +1068,19 @@ def phase_build(_build, table_mod, wave_mod) -> None:
         load()
         return name, time.monotonic() - t0
 
-    # One nvcc a source, both started together.
+    # One nvcc a source, all started together.
     jobs = [("table", table_mod._lib),
             ("wave_twopc", lambda: (wave_mod._entry("twopc", 1),
-                                    wave_mod._sender_entry("twopc", 1)))]
+                                    wave_mod._sender_entry("twopc", 1))),
+            ("wave_paxos", lambda: (wave_mod._entry("paxos", 2),
+                                    wave_mod._sender_entry("paxos", 2)))]
     with ThreadPoolExecutor(len(jobs)) as pool:
         builds = [pool.submit(build, name, load) for name, load in jobs]
         for fut in builds:
             name, sec = fut.result()
             _log(f"built {name} in {sec:.2f} s")
             with open(os.path.join(_build.BUILD_DIR, name + ".log")) as f:
-                _log(f.read().strip())
+                _log_ptxas(f.read())
 
 
 def _kernel_row(name, source, replaces, launches, max_abs_err, r):
@@ -964,7 +1103,7 @@ def main(argv) -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     (_build, engine, fused, table_mod, wave_mod, TwoPhaseDevice,
-     TwoPhaseSys, PaxosSys) = _modules()
+     TwoPhaseSys, PaxosDevice, PaxosSys) = _modules()
     t_start = time.monotonic()
     phase_build(_build, table_mod, wave_mod)
     card = _card_line()
@@ -979,21 +1118,24 @@ def main(argv) -> int:
     # Each kernel against its plain version at full width, timed.
     w, rows, wave_case = phase_wave_kernel(torch, wave_mod, table_mod, engine,
                                            TwoPhaseSys)
+    paxos_mid = _paxos_mid(PaxosSys)
     k = phase_kernel(torch, table_mod, engine, fused, wave_case, TwoPhaseSys,
-                     PaxosSys)
+                     paxos_mid)
     del wave_case
     sk = phase_sender_kernel(torch, wave_mod, table_mod, *rows)
     del rows
+    pw, psk = phase_paxos_kernels(torch, wave_mod, table_mod, paxos_mid)
+    del paxos_mid
     phase_small(TwoPhaseSys)
     phase_sharded_small(torch, fused, TwoPhaseSys)
-    phase_paxos_small(PaxosSys)
-    phase_refusals(TwoPhaseSys, TwoPhaseDevice, PaxosSys)
+    phase_paxos_small(PaxosSys, PaxosDevice)
+    phase_refusals(TwoPhaseSys, TwoPhaseDevice)
     kernels = {"dedup_and_insert": table_mod.dedup_and_insert,
                "wave_megakernel": wave_mod.wave_megakernel,
                "sender_megakernel": wave_mod.sender_megakernel}
     # Each path's run reads its own kernels' launches: 2pc at 10 RMs on
-    # the three paths, then paxos check 3 on the dedup kernel's path,
-    # unsharded and sharded.
+    # the three paths, then paxos check 3 on the same three paths,
+    # unsharded and sharded, the torch stages beside the kernels.
     twopc = ("2pc 10", functools.partial(TwoPhaseSys, 10),
              (FULL_UNIQUE, FULL_STATES),
              ["abort agreement", "commit agreement"], 20_000_000, 4)
@@ -1007,44 +1149,58 @@ def main(argv) -> int:
         mesh=["cuda:0"] * SHARDS, wave_kernel=True)[0]["sender_megakernel"]
     paxos = ("paxos 3", functools.partial(PaxosSys, 3),
              (PAXOS_UNIQUE, PAXOS_STATES), ["value chosen"], PAXOS_MID, 2)
+    sharded = dict(batch_size=BATCH // SHARDS, mesh=["cuda:0"] * SHARDS)
     runs = {}
     for tag, spawn in (("fused", dict(batch_size=BATCH)),
-                       ("sharded", dict(batch_size=BATCH // SHARDS,
-                                        mesh=["cuda:0"] * SHARDS))):
-        launched, runs[tag] = phase_full(torch, kernels, fused, *paxos,
-                                         **spawn)
-        runs[tag]["launches"] = launched["dedup_and_insert"]
+                       ("sharded", sharded),
+                       ("fused, wave kernel", dict(batch_size=BATCH,
+                                                   wave_kernel=True)),
+                       ("sharded, sender kernel", dict(sharded,
+                                                       wave_kernel=True))):
+        runs[tag] = dict(zip(("launches", "run"), phase_full(
+            torch, kernels, fused, *paxos, **spawn)))
     for tag, r in runs.items():
-        _log(f"paxos 3 {tag}: {r['sec']:.3f} s, {r['launches_pw']:.1f} torch "
-             f"launches a launched wave, {r['busy_ms']:.3f} ms card time a "
-             f"launched wave of {r['wave_ms']:.3f}, idle "
-             f"{1 - r['busy_ms'] / r['wave_ms']:.1%}, peak device memory "
-             f"{r['peak']} B, {r['rehashes']} rehashes in {r['chunks']} "
-             f"chunks a slice, dedup kernel launches {r['launches']}")
+        run = r["run"]
+        _log(f"paxos 3 {tag}: {run['sec']:.3f} s, {run['launches_pw']:.1f} "
+             f"torch launches a launched wave, {run['busy_ms']:.3f} ms card "
+             f"time a launched wave of {run['wave_ms']:.3f}, idle "
+             f"{1 - run['busy_ms'] / run['wave_ms']:.1%}, peak device memory "
+             f"{run['peak']} B, {run['rehashes']} rehashes in "
+             f"{run['chunks']} chunks a slice, kernel launches "
+             f"{r['launches']}")
 
     # Kernel 1 on the synthetic stream, on the default path's input of
     # each model (a mid-run wave's dedup fingerprints), and at the
-    # rehash.
+    # rehash; kernels 2 and 3 on each model's mid-run rows.
     src = "stateright_tpu_torch/csrc/"
     pallas = "stateright_tpu/tpu/pallas_table.py:"
     k_err = max(v["max_abs_err"] for v in k.values())
+    w_err = max(v["max_abs_err"] for v in (*w.values(), *pw.values()))
+    s_err = max(v["max_abs_err"] for v in (*sk.values(), *psk.values()))
     print(json.dumps({"kernels": [
         _kernel_row("dedup_and_insert", src + "table.cu", pallas + "256",
                     launches, k_err, k["stream"]),
         _kernel_row("dedup_and_insert[mid-run wave]", src + "table.cu",
                     pallas + "256", launches, k_err, k["wave"]),
         _kernel_row("dedup_and_insert[paxos 3 wave]", src + "table.cu",
-                    pallas + "256", runs["fused"]["launches"], k_err,
+                    pallas + "256",
+                    runs["fused"]["launches"]["dedup_and_insert"], k_err,
                     k["paxos"]),
         _kernel_row("dedup_and_insert[rehash]", src + "table.cu",
                     pallas + "256", launches, k_err, k["rehash"]),
         _kernel_row("wave_megakernel", src + "wave_twopc.cu", pallas + "380",
-                    wave_launches,
-                    max(v["max_abs_err"] for v in w.values()), w["plain"]),
+                    wave_launches, w_err, w["plain"]),
         _kernel_row("sender_megakernel", src + "wave_twopc.cu",
-                    pallas + "451", sender_launches,
-                    max(v["max_abs_err"] for v in sk.values()),
-                    sk[(False, True)])]}))
+                    pallas + "451", sender_launches, s_err,
+                    sk[(False, True)]),
+        _kernel_row("wave_megakernel[paxos 3]", src + "wave_paxos.cu",
+                    pallas + "380",
+                    runs["fused, wave kernel"]["launches"]["wave_megakernel"],
+                    w_err, pw["plain"]),
+        _kernel_row("sender_megakernel[paxos 3]", src + "wave_paxos.cu",
+                    pallas + "451",
+                    runs["sharded, sender kernel"]["launches"][
+                        "sender_megakernel"], s_err, psk[(False, True)])]}))
     _log(f"chip_smoke ran {time.monotonic() - t_start:.1f} s")
     print(card)
     print(json.dumps({"ok": True, "device": {

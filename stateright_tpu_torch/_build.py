@@ -43,9 +43,11 @@ def build_and_load(name: str) -> ctypes.CDLL:
         os.close(fd)
         try:
             nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+            # --split-compile=0: the optimiser's passes on every core
+            # (paxos's four client counts' unrolled steps are most of it).
             cmd = [nvcc, "-gencode", "arch=compute_90a,code=sm_90a",
-                   "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-                   "-Xptxas", "-v", "-o", tmp, src]
+                   "-std=c++17", "-O3", "--split-compile=0", "-shared",
+                   "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o", tmp, src]
             proc = subprocess.run(cmd, capture_output=True, text=True,
                                   timeout=600)
             with open(os.path.join(BUILD_DIR, name + ".log"), "w") as f:

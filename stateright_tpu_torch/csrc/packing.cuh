@@ -4,9 +4,13 @@
 // (the port of stateright_tpu/tpu/packing.py pack :261 and unpack :279):
 // lane j of a state is a field of bits[j] bits at bit offset[j] of packed
 // word word[j], and a field that runs past bit 31 spills into word + 1.
-// The word layout equals the reference's bit for bit. Lanes with an
-// out-of-band sentinel value are not handled here: the wrapper
-// (stateright_tpu_torch/wave.py) refuses such a layout before any launch.
+// The word layout equals the reference's bit for bit. A sentinel lane
+// holds values below its field's all-ones pattern plus one out-of-band
+// value (paxos's empty network slot, 0xFFFFFFFF, taken from the layout):
+// pack stores it as min(v, mask), so the sentinel and anything at or above
+// the mask become all ones, and unpack turns the all-ones field back into
+// the sentinel, as packing.py::pack and _lane do (the reference's
+// packing.py :261-297).
 //
 // A row's lanes and words live in small arrays indexed only by constants
 // after unrolling (a runtime index into a register array would put it in
@@ -28,6 +32,8 @@ struct Layout {
   uint8_t word[kMaxW];
   uint8_t offset[kMaxW];
   uint8_t bits[kMaxW];
+  uint8_t has_sentinel[kMaxW];  // 1 for a sentinel lane
+  uint32_t sentinel[kMaxW];     // its unpacked all-ones value
 };
 
 template <int kMaxW>
@@ -66,13 +72,16 @@ __device__ __forceinline__ void unpack(const Layout<kMaxW, kMaxWords>& L,
       }
       const unsigned long long x =
           (((unsigned long long)hi << 32) | lo) >> L.offset[j];
-      v[j] = (uint32_t)(x & ((1ull << L.bits[j]) - 1));
+      const uint32_t mask = (uint32_t)((1ull << L.bits[j]) - 1);
+      const uint32_t f = (uint32_t)x & mask;
+      v[j] = L.has_sentinel[j] && f == mask ? L.sentinel[j] : f;
     }
   }
 }
 
 // Lanes v[0, w) -> packed words p[0, wp); a lane keeps its low bits[j]
-// bits, as the reference's pack does.
+// bits, and a sentinel lane saturates at its all-ones pattern, as the
+// reference's pack does.
 template <int kMaxW, int kMaxWords>
 __device__ __forceinline__ void pack(const Layout<kMaxW, kMaxWords>& L,
                                      const uint32_t (&v)[kMaxW],
@@ -82,7 +91,9 @@ __device__ __forceinline__ void pack(const Layout<kMaxW, kMaxWords>& L,
 #pragma unroll
   for (int j = 0; j < kMaxW; ++j) {
     if (j < L.w) {
-      const unsigned long long f = v[j] & ((1ull << L.bits[j]) - 1);
+      const uint32_t mask = (uint32_t)((1ull << L.bits[j]) - 1);
+      const unsigned long long f =
+          L.has_sentinel[j] ? min(v[j], mask) : v[j] & mask;
       const unsigned long long x = f << L.offset[j];
       const int wd = L.word[j];
 #pragma unroll

@@ -35,9 +35,9 @@
 // of it, either way, on the default path's shape (PERF.md), and the launch
 // boundary needs no limit of co-resident blocks.
 //
-// Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
-//        -Xcompiler -fPIC (stateright_tpu_torch/_build.py); the wrapper and
-// the plain version are in stateright_tpu_torch/table.py.
+// Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 --split-compile=0
+//        -shared -Xcompiler -fPIC (stateright_tpu_torch/_build.py); the
+// wrapper and the plain version are in stateright_tpu_torch/table.py.
 
 #include <cstdint>
 #include <cuda_runtime.h>

@@ -42,16 +42,18 @@
 // The design, for this card. One tile loop (front_tiles, kernel
 // tile_front) serves both, a template on what a slot does after its
 // tile's stores (WaveTail, SenderTail). The grid, the blocks the card
-// holds at once, walks (shard, tile) pairs, kWaveThreads slots a tile and
-// one thread a slot; a tile never straddles a shard (the wave kernel is
-// one shard), so its shard is known once a tile and a shard's last tile
-// may be ragged. A tile's parent rows (at most kWaveThreads / F + 2) are
-// unpacked once into shared memory; each thread splits its slot into row
-// and action with 32-bit arithmetic, applies the step to its parent's
-// lanes, fingerprints and re-packs, and stages its outputs in shared
-// memory, which the block then writes out with coalesced 16-byte stores
-// (a tile's outputs are contiguous; element stores where a shard's start
-// leaves a destination off 16 bytes). Then each slot's tail runs:
+// holds at once, walks (shard, tile) pairs, kWaveThreads slots a tile
+// (fewer when the fanout is below the model's kMinFanout, so that a tile's
+// rows fit the staging) and one thread a slot; a tile never straddles a
+// shard (the wave kernel is one shard), so its shard is known once a tile
+// and a shard's last tile may be ragged. A tile's parent rows (at most
+// kWaveThreads / F + 2) are unpacked once into shared memory; each thread
+// splits its slot into row and action with 32-bit arithmetic, applies the
+// step to its parent's lanes, fingerprints and re-packs, and stages its
+// outputs in shared memory, which the block then writes out with
+// coalesced 16-byte stores (a tile's outputs are contiguous; element
+// stores where a shard's start leaves a destination off 16 bytes). Then
+// each slot's tail runs:
 // - the wave kernel claims its dedup fingerprint's slot in the caller's
 //   scratch, and the first claimer walks the visited table (table.cuh's
 //   claim_row): the walks overlap the other slots' claims. The dedup
@@ -76,8 +78,10 @@
 // development tree, PR 4, not kept); 16-byte stores from the staging,
 // level with TMA bulk stores (cp.async.bulk) at the 12-RM instantiation
 // that 10 RMs use (the same tree); and __launch_bounds__(256, 4), 64
-// registers for four blocks an SM, faster than three at 80 registers.
-// ptxas (-Xptxas -v, sm_90a) for tile_front: see wave_twopc.cu.
+// registers for four blocks an SM, faster than three at 80 registers; a
+// model of more than 20 lanes (paxos: 37 to 64) takes two blocks an SM,
+// up to 128 registers. ptxas (-Xptxas -v, sm_90a) for tile_front: see
+// wave_twopc.cu and wave_paxos.cu.
 
 #pragma once
 
@@ -114,13 +118,14 @@ __device__ __forceinline__ bool expand_slot(
   return sf;
 }
 
-// The layout of lanes (host int32[3 * w]: each lane's word, offset and
-// bits) for model m; false when the widths or the fanout do not fit it.
+// The layout of lanes (host int32[5 * w]: each lane's word, offset, bits,
+// sentinel flag and sentinel value, a uint32 bit pattern) for model m;
+// false when the widths or the fanout do not fit it.
 template <class M>
 bool make_layout(const M& m, const int* lanes, int w, int wp, int fanout,
                  Layout<M::kMaxW, M::kMaxWords>* L) {
   if (w != m.width() || w > M::kMaxW || wp > M::kMaxWords ||
-      fanout != m.fanout() || fanout < M::kMinFanout)
+      fanout != m.fanout() || fanout < 1)
     return false;
   L->w = w;
   L->wp = wp;
@@ -128,14 +133,18 @@ bool make_layout(const M& m, const int* lanes, int w, int wp, int fanout,
     L->word[j] = (uint8_t)lanes[j];
     L->offset[j] = (uint8_t)lanes[w + j];
     L->bits[j] = (uint8_t)lanes[2 * w + j];
+    L->has_sentinel[j] = lanes[3 * w + j] != 0;
+    L->sentinel[j] = (uint32_t)lanes[4 * w + j];
   }
   return true;
 }
 
 // One block's shared memory in the tile loop: the tile's parent rows
-// unpacked (a tile of kWaveThreads slots spans at most kWaveThreads / F +
-// 2 rows, F >= M::kMinFanout), and its outputs staged for the full-line
-// stores; the dedup fingerprints too when kDedupOut (the sender's).
+// unpacked (a tile of T slots spans at most (T - 1) / F + 2 rows, so
+// kRows rows hold a tile of kWaveThreads slots at F >= M::kMinFanout; a
+// smaller fanout takes tiles of (kRows - 1) * F slots), and its outputs
+// staged for the full-line stores; the dedup fingerprints too when
+// kDedupOut (the sender's).
 template <class M, bool kDedupOut>
 struct WaveTile {
   static constexpr int kRows = kWaveThreads / M::kMinFanout + 2;
@@ -244,7 +253,7 @@ struct SenderTail {
 
 // Pointers and sizes of one wave, as the C entry point receives them.
 struct WaveArgs {
-  const int* lanes;  // host int32[3 * w]: each lane's word, offset, bits
+  const int* lanes;  // host int32[5 * w]: word, offset, bits, sentinel
   int w, wp;
   const uint32_t* vecs;  // [B, wp]
   const bool* valid;     // [B]
@@ -267,7 +276,7 @@ struct WaveArgs {
 
 // Pointers and sizes of one sender wave over n stacked shards.
 struct SenderArgs {
-  const int* lanes;  // host int32[3 * w]
+  const int* lanes;  // host int32[5 * w]
   int w, wp;
   const uint32_t* vecs;  // [shards, B, wp]
   const bool* valid;     // [shards, B]
@@ -295,6 +304,7 @@ struct FrontParams {
   const uint32_t* vecs;  // [shards, B, wp]
   const bool* valid;     // [shards, B]
   unsigned B, S, F;      // rows and slots a shard, actions a row
+  unsigned T;            // slots a tile, at most kWaveThreads
   unsigned shards, tiles;  // tiles a shard
   bool use_sym;
   uint32_t* succ_store;  // [shards, S, wp]
@@ -330,8 +340,8 @@ __device__ __forceinline__ void front_tiles(
   int acc[3] = {0, 0, 0};
   for (unsigned p = blockIdx.x; p < a.shards * a.tiles; p += gridDim.x) {
     const unsigned k = p / a.tiles;  // the tile's shard
-    const unsigned t0 = (p - k * a.tiles) * kWaveThreads;  // in the shard
-    const unsigned n = min((unsigned)kWaveThreads, a.S - t0);
+    const unsigned t0 = (p - k * a.tiles) * a.T;  // in the shard
+    const unsigned n = min(a.T, a.S - t0);
     const unsigned b0 = t0 / F;
     const unsigned rows = (t0 + n - 1) / F - b0 + 1;
     const unsigned g0 = k * a.S + t0;    // over all shards
@@ -387,8 +397,10 @@ bool front_params(const M& m, const int* lanes, int w, int wp, int fanout,
   p->B = (unsigned)batch;
   p->S = (unsigned)(batch * fanout);
   p->F = (unsigned)fanout;
+  p->T = min((unsigned)kWaveThreads,
+             (unsigned)(WaveTile<M, Tail::kSender>::kRows - 1) * p->F);
   p->shards = (unsigned)shards;
-  p->tiles = (p->S + kWaveThreads - 1) / kWaveThreads;
+  p->tiles = (p->S + p->T - 1) / p->T;
   p->use_sym = use_sym;
   p->succ_store = succ_store;
   p->path_fps = path_fps;
@@ -428,7 +440,8 @@ int launch_wave(const M& m, const WaveArgs& a) {
   p.tail = WaveTail{a.table, a.c_bits, a.scratch, a.slot_of};
   const int rc = launch_front(p, a.device, a.stream);
   if (rc != 0) return rc;
-  resolve_rows<<<p.tiles, kWaveThreads, 0, a.stream>>>(
+  resolve_rows<<<(p.S + kWaveThreads - 1) / kWaveThreads, kWaveThreads, 0,
+                 a.stream>>>(
       a.slot_of, p.S, a.scratch, a.new_mask, a.cand_mask, a.counts);
   return (int)cudaGetLastError();
 }

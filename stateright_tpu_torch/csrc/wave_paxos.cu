@@ -1,0 +1,147 @@
+// The single-kernel wave and the sender kernel (wave.cuh) for single-decree
+// paxos under the register workload, behind a plain C interface: the same
+// interface as wave_twopc.cu, with (client_count, net_slots) for params.
+//
+// Instantiates both kernels for models/paxos.cuh at 1 to 4 clients (3
+// servers, PaxosDevice's only count), each for any net_slots from 1 up to
+// its default (5 * clients + 3); a larger net_slots, or another client
+// count, returns cudaErrorInvalidValue and the wrapper raises. The packed
+// row's network lanes are sentinel lanes (packing.cuh). See wave.cuh for
+// what the kernels compute, what bounds them and how they are held to
+// their plain versions.
+//
+// ptxas for sm_90a (-Xptxas -v), tile_front under __launch_bounds__(256,
+// 2), wave / sender: Paxos<1> 79 / 72 registers, Paxos<2> 95 / 91,
+// Paxos<3> 127 / 127, Paxos<4> 128 / 128; no spill in any, but a stack
+// frame of 240, 296, 304 and 368 bytes (part of a row in local memory);
+// static shared memory from 15,600 / 17,616 bytes at 1 client to 33,328 /
+// 35,344 at 4. The build takes about 43 s on the H100's machine, the
+// longest of chip_smoke.py's three.
+//
+// Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 --split-compile=0
+//        -shared -Xcompiler -fPIC (stateright_tpu_torch/_build.py); the
+// wrapper and the plain version are in stateright_tpu_torch/wave.py.
+
+#include <cstdint>
+#include <cuda_runtime.h>
+
+#include "models/paxos.cuh"
+#include "wave.cuh"
+
+namespace {
+
+// Calls fn with the model instance for clients c and net_slots e, or
+// returns cudaErrorInvalidValue when the instantiations do not hold them.
+template <class Fn>
+int with_paxos(int c, int e, Fn&& fn) {
+  switch (c) {
+    case 1:
+      if (e >= 1 && e <= sr::Paxos<1>::kMaxE) return fn(sr::Paxos<1>{e});
+      break;
+    case 2:
+      if (e >= 1 && e <= sr::Paxos<2>::kMaxE) return fn(sr::Paxos<2>{e});
+      break;
+    case 3:
+      if (e >= 1 && e <= sr::Paxos<3>::kMaxE) return fn(sr::Paxos<3>{e});
+      break;
+    case 4:
+      if (e >= 1 && e <= sr::Paxos<4>::kMaxE) return fn(sr::Paxos<4>{e});
+      break;
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+}  // namespace
+
+// client_count clients and net_slots network slots; lanes host int32[5 *
+// w] (each lane's packed word, bit offset, bits, sentinel flag and
+// sentinel value); vecs int32[batch, wp] (packed rows as uint32 bit
+// patterns) and valid bool[batch]; table int64[2^c_bits] (uint64 bit
+// patterns, updated in place); outputs for S = batch * fanout slots:
+// succ_store int32[S, wp], path_fps int64[S], sflat, new_mask, cand_mask
+// bool[S], counts int32[3]: new, candidates, unresolved; the caller's
+// clean scratch, handed back clean: slots int64[2^m_bits, 2] (sr::Slot
+// records), tally int32[3] and slot_of int32[S], with 2^m_bits >= 2S.
+// `device` is the current device. Launches on `stream` and does not
+// synchronise. Returns a CUDA error code, 0 on success.
+extern "C" int sr_wave_paxos(int client_count, int net_slots, int use_sym,
+                             const int* lanes, int w, int wp,
+                             const void* vecs,
+                             const void* valid, long long batch, int fanout,
+                             void* table, int c_bits, void* succ_store,
+                             void* path_fps, void* sflat, void* slots,
+                             void* tally, void* slot_of, int m_bits,
+                             void* new_mask, void* cand_mask, void* counts,
+                             int device, void* stream) {
+  sr::WaveArgs a;
+  a.lanes = lanes;
+  a.w = w;
+  a.wp = wp;
+  a.vecs = static_cast<const uint32_t*>(vecs);
+  a.valid = static_cast<const bool*>(valid);
+  a.batch = batch;
+  a.fanout = fanout;
+  a.table = static_cast<sr::u64*>(table);
+  a.c_bits = c_bits;
+  a.succ_store = static_cast<uint32_t*>(succ_store);
+  a.path_fps = static_cast<sr::u64*>(path_fps);
+  a.sflat = static_cast<bool*>(sflat);
+  a.scratch = sr::Scratch{static_cast<sr::Slot*>(slots),
+                          static_cast<int*>(tally), m_bits};
+  a.slot_of = static_cast<int*>(slot_of);
+  a.new_mask = static_cast<bool*>(new_mask);
+  a.cand_mask = static_cast<bool*>(cand_mask);
+  a.counts = static_cast<int*>(counts);
+  a.use_sym = use_sym != 0;
+  a.device = device;
+  a.stream = static_cast<cudaStream_t>(stream);
+  return with_paxos(client_count, net_slots, [&](const auto& m) {
+    return sr::launch_wave(m, a);
+  });
+}
+
+// client_count clients and net_slots network slots; lanes as above; vecs
+// int32[shards, batch, wp] and valid bool[shards, batch] (each shard's
+// batch); outputs for S = batch * fanout
+// slots a shard: succ_store int32[shards, S, wp], dedup_fps and path_fps
+// int64[shards, S], sflat and send_mask bool[shards, S]; the caller's
+// clean scratch, handed back clean and read only when local_dedup: slots
+// int64[2^m_bits, 2] (sr::Slot records) with shards << region_bits slots
+// at least and 2^region_bits >= 2S, and slot_of int32[shards, S].
+// `device` is the current device. Launches on `stream` and does not
+// synchronise. Returns a CUDA error code, 0 on success.
+extern "C" int sr_sender_paxos(int client_count, int net_slots, int use_sym,
+                               int local_dedup,
+                               const int* lanes, int w, int wp,
+                               const void* vecs, const void* valid,
+                               long long batch, long long shards,
+                               int fanout, void* succ_store,
+                               void* dedup_fps, void* path_fps, void* sflat,
+                               void* send_mask, void* slots,
+                               void* slot_of, int region_bits, int device,
+                               void* stream) {
+  sr::SenderArgs a;
+  a.lanes = lanes;
+  a.w = w;
+  a.wp = wp;
+  a.vecs = static_cast<const uint32_t*>(vecs);
+  a.valid = static_cast<const bool*>(valid);
+  a.batch = batch;
+  a.shards = shards;
+  a.fanout = fanout;
+  a.succ_store = static_cast<uint32_t*>(succ_store);
+  a.dedup_fps = static_cast<sr::u64*>(dedup_fps);
+  a.path_fps = static_cast<sr::u64*>(path_fps);
+  a.sflat = static_cast<bool*>(sflat);
+  a.send_mask = static_cast<bool*>(send_mask);
+  a.slots = static_cast<sr::Slot*>(slots);
+  a.slot_of = static_cast<int*>(slot_of);
+  a.region_bits = region_bits;
+  a.use_sym = use_sym != 0;
+  a.local_dedup = local_dedup != 0;
+  a.device = device;
+  a.stream = static_cast<cudaStream_t>(stream);
+  return with_paxos(client_count, net_slots, [&](const auto& m) {
+    return sr::launch_sender(m, a);
+  });
+}

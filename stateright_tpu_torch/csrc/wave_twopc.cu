@@ -14,9 +14,9 @@
 //   TwoPhase<16>: wave 64 registers and 8 bytes of spill, sender 64 and
 //   no spill.
 //
-// Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
-//        -Xcompiler -fPIC (stateright_tpu_torch/_build.py); the wrapper and
-// the plain version are in stateright_tpu_torch/wave.py.
+// Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 --split-compile=0
+//        -shared -Xcompiler -fPIC (stateright_tpu_torch/_build.py); the
+// wrapper and the plain version are in stateright_tpu_torch/wave.py.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -24,10 +24,11 @@
 #include "models/twopc.cuh"
 #include "wave.cuh"
 
-// rm_count RMs; lanes host int32[3 * w] (each lane's packed word, bit
-// offset and bits); vecs int32[batch, wp] (packed rows as uint32 bit
-// patterns) and valid bool[batch]; table int64[2^c_bits] (uint64 bit
-// patterns, updated in place); outputs for S = batch * fanout slots:
+// rm_count RMs; lanes host int32[5 * w] (each lane's packed word, bit
+// offset, bits, sentinel flag and sentinel value); vecs int32[batch, wp]
+// (packed rows as uint32 bit patterns) and valid bool[batch]; table
+// int64[2^c_bits] (uint64 bit patterns, updated in place); outputs for S =
+// batch * fanout slots:
 // succ_store int32[S, wp], path_fps int64[S], sflat, new_mask, cand_mask
 // bool[S], counts int32[3]: new, candidates, unresolved; the caller's
 // clean scratch, handed back clean: slots int64[2^m_bits, 2] (sr::Slot

@@ -108,7 +108,9 @@ class DeviceModel:
         entry point, and ``params`` the runtime ints that entry point
         takes first. The device code computes exactly this class's
         ``step`` (its ``boundary`` folded into the enabled bit) and
-        ``representative``; a subclass that overrides one of them
+        ``representative``; a subclass that overrides one of them, or a
+        hook they are built from (``wave._DEVICE_HOOKS``: an actor
+        model's delivery, a register workload's client and symmetry),
         without declaring its own ``cuda_model`` has none. ``None`` (the
         default) means no device code: the wave kernel then runs only as
         its plain version, on the CPU."""

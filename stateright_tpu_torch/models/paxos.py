@@ -25,8 +25,9 @@ universes:
 Internal messages carry ``ballot[0:4] | proposal[4:] | last accepted``
 in the envelope's ``extra`` bits. A server's lanes: ballot, proposal,
 prepares[3] (0 = none, else 1 + la), the accepts mask, the accepted la
-index, decided. The model has no CUDA step yet, so the single-kernel
-wave refuses it on the card.
+index, decided. Its CUDA device code (``cuda_model()``) is
+``csrc/models/paxos.cuh``, which the single-kernel wave and the sender
+kernel run on the card.
 """
 
 from __future__ import annotations
@@ -173,6 +174,12 @@ class PaxosDevice(RegisterWorkloadDevice):
         self.prop_bits = 2 if client_count <= 3 else 3
         self.prop_mask = (1 << self.prop_bits) - 1
         self.la_shift = 4 + self.prop_bits
+
+    def cuda_model(self):
+        """``csrc/models/paxos.cuh`` at this client count and
+        ``net_slots`` (the entry point refuses more slots than the
+        default's)."""
+        return "paxos", (self.C, self.net_slots)
 
     # -- Packed-row layout -------------------------------------------------
 

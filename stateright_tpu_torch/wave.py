@@ -18,13 +18,14 @@ and the re-pack of the successors.
 
 For CUDA tensors it launches the kernel of ``csrc/wave.cuh``, built for
 the model named by ``DeviceModel.cuda_model()`` from
-``csrc/wave_<name>.cu`` at first use, or raises: a model with no device
-code, a layout the device code does not take, a failed build or a failed
-launch all raise. For CPU tensors it runs the plain version,
-``wave_megakernel_plain``: the port's own stage functions in the order
-of ``_wave_front`` and the dedup kernel. It is also the reference the
-kernel is held to on the card. The wrapper never synchronises, so it can
-run inside a multi-wave dispatch.
+``csrc/wave_<name>.cu`` at first use (2pc's and paxos's), or raises: a
+model with no device code, a layout or a size the device code does not
+take, a failed build or a failed launch all raise. Sentinel lanes (paxos's
+network slots) pack and unpack as ``packing.py`` does. For CPU tensors
+it runs the plain version, ``wave_megakernel_plain``: the port's own
+stage functions in the order of ``_wave_front`` and the dedup kernel. It
+is also the reference the kernel is held to on the card. The wrapper
+never synchronises, so it can run inside a multi-wave dispatch.
 """
 
 from __future__ import annotations
@@ -62,32 +63,43 @@ def _defining_class(cls, name: str):
     return next(k for k in cls.__mro__ if name in vars(k))
 
 
+#: the hooks whose device twin a model's CUDA code is: a subclass that
+#: overrides one below the class declaring ``cuda_model`` has no device
+#: code (the actor layer's delivery and the register workload's client
+#: and symmetry hooks, which ``csrc/models/paxos.cuh`` mirrors, included)
+_DEVICE_HOOKS = ("step", "boundary", "representative", "deliver",
+                 "server_deliver", "_client_deliver", "build_env",
+                 "client_permutations", "_sym_tables", "_sym_rewrite",
+                 "sym_extra_tables", "sym_rewrite_servers",
+                 "sym_rewrite_extra", "sym_rewrite_internal_req")
+
+
 def cuda_model(dm, layout):
     """``(name, params, lanes)`` of ``dm``'s CUDA device code, with
-    ``lanes`` the layout as the kernel takes it (each lane's packed word,
-    bit offset and bits, ``int32[3 * W]``). Raises when the model has no
-    device code for its step or the layout has sentinel lanes."""
+    ``lanes`` the layout as the kernel takes it: each lane's packed word,
+    bit offset, bits, sentinel flag and sentinel value (its uint32 bit
+    pattern; the field's all-ones value when the lane has none),
+    ``int32[5 * W]``. Raises when the model has no device code for its
+    step."""
     spec = dm.cuda_model()
     owner = _defining_class(type(dm), "cuda_model")
-    overridden = [fn for fn in ("step", "boundary", "representative")
-                  if _defining_class(type(dm), fn) not in owner.__mro__]
+    overridden = [fn for fn in _DEVICE_HOOKS if hasattr(dm, fn)
+                  and _defining_class(type(dm), fn) not in owner.__mro__]
     if spec is None or overridden:
         raise NotImplementedError(
             f"model {type(dm).__name__} has no CUDA step for the "
             "single-kernel wave (DeviceModel.cuda_model()"
             + (f"; it overrides {overridden}" if overridden else "")
             + "): run it with wave_kernel=False on the card")
-    sentinel = [i for i, lane in enumerate(layout.lanes)
-                if lane.sentinel is not None]
-    if sentinel:
-        raise NotImplementedError(
-            f"lanes {sentinel} of {type(dm).__name__} have sentinel "
-            "values, which the wave kernel's packing does not handle")
     lanes = np.array([[lane.word for lane in layout.lanes],
                       [lane.offset for lane in layout.lanes],
-                      [lane.bits for lane in layout.lanes]], np.int32)
+                      [lane.bits for lane in layout.lanes],
+                      [lane.sentinel is not None for lane in layout.lanes],
+                      [lane.mask if lane.sentinel is None else lane.sentinel
+                       for lane in layout.lanes]], np.int64)
     name, params = spec
-    return name, tuple(int(p) for p in params), lanes.reshape(-1)
+    return (name, tuple(int(p) for p in params),
+            lanes.reshape(-1).astype(np.uint32).view(np.int32))
 
 
 def _device_index(dev: torch.device) -> int:

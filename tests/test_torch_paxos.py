@@ -7,8 +7,10 @@ enumeration of histories), the client-symmetry ``representative`` at 4
 clients, and the network's sorted insert and removal. Then the whole
 slice: ``PaxosSys`` through ``spawn_cuda_bfs(device="cpu")`` against JAX
 ``spawn_tpu_bfs`` in counts, capacities and discovery paths, fused and
-on ``mesh=["cpu"] * n``. All of it is integer arithmetic: every
-comparison is exact.
+on ``mesh=["cpu"] * n``, each on the torch stages and with
+``wave_kernel=True`` (the wave and sender kernels' plain versions, the
+CPU side of the kernels that run paxos's CUDA step on the card). All of it
+is integer arithmetic: every comparison is exact.
 """
 
 import itertools
@@ -31,11 +33,12 @@ import paxos as ref_paxos  # noqa: E402
 from stateright_tpu.tpu import register_workload as ref_rw  # noqa: E402
 from stateright_tpu.tpu.hashing import host_fp64  # noqa: E402
 from stateright_tpu.tpu.models.paxos import PaxosDevice as RefPaxosDevice  # noqa: E402,E501
-from stateright_tpu_torch import carry, register_workload  # noqa: E402
+from stateright_tpu_torch import carry, register_workload, wave  # noqa: E402,E501
 from stateright_tpu_torch.actor_device import (EMPTY_ENV, net_insert,  # noqa: E402,E501
                                                net_remove_at)
 from stateright_tpu_torch.device_model import DeviceFormUnavailable  # noqa: E402,E501
 from stateright_tpu_torch.models.paxos import PaxosDevice, PaxosSys  # noqa: E402,E501
+from stateright_tpu_torch.packing import compile_layout  # noqa: E402
 
 torch.set_num_threads(2)
 
@@ -373,12 +376,127 @@ def test_unsupported_configurations_raise():
         PaxosDevice(5)
 
 
+@pytest.mark.parametrize("c", [1, 2, 3, 4])
+def test_cuda_model_resolves_paxos_with_its_sentinel_lanes(c):
+    """paxos's CUDA device code is ``csrc/models/paxos.cuh`` at its client
+    count and network size, and the lanes table the kernels take flags
+    each network lane as a sentinel lane holding ``EMPTY_ENV``: the
+    packed layout, five rows of W."""
+    for net_slots in (0, 3):
+        dm = PaxosDevice(c, net_slots=net_slots)
+        layout = compile_layout(dm.lane_bits(), dm.state_width)
+        name, params, lanes = wave.cuda_model(dm, layout)
+        assert (name, params) == ("paxos", (c, dm.net_slots))
+        w, off, e = dm.state_width, dm.net_offset, dm.net_slots
+        table = lanes.view(np.uint32).reshape(5, w)
+        assert [list(r) for r in table[:3]] == [
+            [lane.word for lane in layout.lanes],
+            [lane.offset for lane in layout.lanes],
+            [lane.bits for lane in layout.lanes]]
+        flags = np.zeros(w, bool)
+        flags[off:off + e] = True
+        assert np.array_equal(table[3] != 0, flags)
+        assert (table[4][flags] == EMPTY_ENV).all()
+        assert (table[4][~flags] == [lane.mask for lane in layout.lanes
+                                     if lane.sentinel is None]).all()
+
+
+class _OwnServer(PaxosDevice):
+    """Changes the delivery, so paxos's device code no longer computes
+    its step."""
+
+    def server_deliver(self, lanes, f):
+        new_lanes, handled, outs = super().server_deliver(lanes, f)
+        return new_lanes, handled & (f.kind != 1), outs
+
+
 @pytest.mark.parametrize("spawn", [dict(device="cuda:0"),
                                    dict(mesh=["cuda:0"] * 2)],
                          ids=["wave", "sender"])
-def test_wave_kernel_refuses_paxos_on_the_card(spawn):
-    """paxos has no CUDA step: ``wave_kernel=True`` on a CUDA device
-    raises at spawn, before any device work (so no card is needed), and
-    never falls back to the torch stages."""
-    with pytest.raises(NotImplementedError, match="PaxosDevice has no CUDA"):
-        PaxosSys(1).checker().spawn_cuda_bfs(wave_kernel=True, **spawn)
+def test_wave_kernel_refuses_a_paxos_subclass_with_its_own_delivery(spawn):
+    """A ``PaxosDevice`` subclass that overrides ``server_deliver``
+    without its own ``cuda_model`` has no CUDA step: ``wave_kernel=True``
+    on a CUDA device raises at spawn, before any device work (so no card
+    is needed), and never falls back to the torch stages; on the CPU it
+    runs the plain versions."""
+
+    class Sys(PaxosSys):
+        def device_model(self):
+            return _OwnServer(self.client_count)
+
+    with pytest.raises(NotImplementedError,
+                       match=r"_OwnServer has no CUDA.*\['server_deliver'\]"):
+        Sys(1).checker().spawn_cuda_bfs(wave_kernel=True, **spawn)
+    c = Sys(1).checker().spawn_cuda_bfs(device="cpu", wave_kernel=True,
+                                        batch_size=128).join()
+    assert c.kernel_path() == "megakernel_plain"
+    assert c.unique_state_count() < 265
+
+
+# -- The whole check on the kernels' path -------------------------------------
+
+
+@pytest.mark.parametrize("n", [None, 1, 3, 4],
+                         ids=["fused", "n=1", "n=3", "n=4"])
+def test_one_client_on_the_wave_kernel_path_matches_jax(n):
+    """``wave_kernel=True`` on the CPU runs the wave kernel's plain version
+    (fused) or the sender kernel's (sharded), the functions the card's
+    kernels are held to: counts, capacities and discovery paths equal to
+    JAX's engines."""
+    if n is None:
+        ref = _ref(1).checker().spawn_tpu_bfs(batch_size=128).join()
+        ours = PaxosSys(1).checker().spawn_cuda_bfs(
+            device="cpu", wave_kernel=True, batch_size=128).join()
+        assert ours.kernel_path() == "megakernel_plain"
+    else:
+        ref = _ref(1).checker().spawn_tpu_bfs(
+            sharded=True, mesh=_ref_mesh(n), batch_size=128).join()
+        ours = PaxosSys(1).checker().spawn_cuda_bfs(
+            mesh=["cpu"] * n, wave_kernel=True, batch_size=128).join()
+        assert ours.kernel_path() == "sender_plain"
+        assert ours._ucap == ref._ucap
+    assert (ours.unique_state_count(), ours.state_count()) == (265, 482)
+    _assert_same(ref, ours)
+    ours.assert_properties()
+
+
+def test_liveness_on_the_wave_kernel_path_matches_jax():
+    ref = _ref(1, liveness=True).checker().spawn_tpu_bfs(
+        batch_size=128).join()
+    ours = PaxosSys(1, liveness=True).checker().spawn_cuda_bfs(
+        device="cpu", wave_kernel=True, batch_size=128).join()
+    assert ours.kernel_path() == "megakernel_plain"
+    _assert_same(ref, ours)
+    ours.assert_no_discovery("eventually chosen")
+    ours.assert_properties()
+
+
+def test_network_overflow_raises_on_the_wave_kernel_path():
+    """Two network slots overflow: the error lane, read from the packed
+    successors, stops the run fused and sharded."""
+
+    class Sys(PaxosSys):
+        def device_model(self):
+            return PaxosDevice(1, net_slots=2)
+
+    lane = PaxosDevice(1, net_slots=2).error_lane
+    for spawn in (dict(device="cpu"), dict(mesh=["cpu"] * 2)):
+        with pytest.raises(RuntimeError, match=f"error lane {lane} "):
+            Sys(1).checker().spawn_cuda_bfs(wave_kernel=True, batch_size=128,
+                                            **spawn).join()
+
+
+@pytest.mark.slow
+def test_two_clients_16668_on_the_wave_kernel_path():
+    ref = _ref(2).checker().spawn_tpu_bfs(batch_size=512).join()
+    ours = PaxosSys(2).checker().spawn_cuda_bfs(
+        device="cpu", wave_kernel=True, batch_size=512).join()
+    assert ours.unique_state_count() == 16668
+    _assert_same(ref, ours)
+    ref = _ref(2).checker().spawn_tpu_bfs(
+        sharded=True, mesh=_ref_mesh(4), batch_size=256).join()
+    ours = PaxosSys(2).checker().spawn_cuda_bfs(
+        mesh=["cpu"] * 4, wave_kernel=True, batch_size=256).join()
+    assert ours.unique_state_count() == 16668
+    _assert_same(ref, ours)
+    ours.assert_properties()

@@ -175,8 +175,7 @@ class _SentinelLane(twopc.TwoPhaseDevice):
 
 @pytest.mark.parametrize("dm_cls, match", [
     (_OwnStep, "_OwnStep has no CUDA step.*overrides \\['step'\\]"),
-    (_NoCode, "_NoCode has no CUDA step"),
-    (_SentinelLane, "sentinel")])
+    (_NoCode, "_NoCode has no CUDA step")])
 def test_wave_kernel_on_the_card_never_falls_back(dm_cls, match):
     """Without device code for the model, ``wave_kernel=True`` on a CUDA
     device raises at spawn, before any device work (so no card is
@@ -194,6 +193,24 @@ def test_wave_kernel_on_the_card_never_falls_back(dm_cls, match):
         wave.cuda_model(dm, compile_layout(dm.lane_bits(), dm.state_width))
     c = Sys(2).checker().spawn_cuda_bfs(device="cpu", wave_kernel=True)
     assert c.join().kernel_path() == "megakernel_plain"
+
+
+def test_lanes_table_carries_the_sentinel_flags():
+    """A layout with a sentinel lane no longer stops the kernels: the
+    lanes table flags the lane and carries its sentinel (here 7, the
+    3-bit field's all-ones value), and the plain lanes their own mask."""
+    dm = _SentinelLane(2)
+    layout = compile_layout(dm.lane_bits(), dm.state_width)
+    name, params, lanes = wave.cuda_model(dm, layout)
+    assert (name, params) == ("twopc", (2,))
+    table = lanes.reshape(5, dm.state_width)
+    assert table[3].tolist() == [1] + [0] * (dm.state_width - 1)
+    assert table[4].tolist() == [7] + [lane.mask
+                                       for lane in layout.lanes[1:]]
+    plain = twopc.TwoPhaseDevice(2)
+    _, _, plain_lanes = wave.cuda_model(
+        plain, compile_layout(plain.lane_bits(), plain.state_width))
+    assert not plain_lanes.reshape(5, -1)[3].any()
 
 
 def test_wrapper_refuses_mixed_devices():

@@ -8,11 +8,11 @@ Usage, from the root of a checkout on a machine with an NVIDIA H100:
 
 Phases, in order; any failure exits non-zero and prints no result line:
 
-1. build ``stateright_tpu_torch/csrc/table.cu``, ``wave_twopc.cu`` and
+1. build ``stateright_tpu_torch/csrc/table.cu``, ``wave_twopc.cu``,
    ``wave_paxos.cu`` (the wave kernel's and the sender kernel's entry
-   points for 2pc and for paxos) for ``sm_90a``, one ``nvcc`` each, all
-   at once, and print each build time with ptxas' register and spill
-   report, and the card's name and power limit;
+   points for 2pc and for paxos) and ``append.cu`` for ``sm_90a``, one
+   ``nvcc`` each, all at once, and print each build time with ptxas'
+   register and spill report, and the card's name and power limit;
 2. hold the wave kernel against its plain version at full width: 16,384
    packed rows of 2pc at 10 RMs from a mid-run arena against a 2^27-slot
    table filled to 30% plus the run's states, plain and with symmetry:
@@ -44,7 +44,14 @@ Phases, in order; any failure exits non-zero and prints no result line:
    kernel on the 16,384 rows of phase 3's mid-run ``paxos check 3``
    arena against its engine's table with its engine's scratch, plain and
    with symmetry, and the sender kernel on the same rows as 4 shards of
-   4,096 and ragged, each checked and timed as above;
+   4,096 and ragged, each checked and timed as above; then the append
+   kernel against its plain version on the outputs of those waves: the
+   mid-run 2pc 10 wave (16,384 rows), the mid-run paxos 3 wave (16,384),
+   the sharded shape (4 shards of 4,096, every shard's received rows,
+   unequal tails), and the 2pc wave with no row new and with every row
+   new: arena rows ``[0, tail + new_count)`` equal in all four arrays,
+   no other row written; timed by kernel, beside the plain version and
+   the bound;
 5. 2pc at 3 and 5 RMs on the card, and 5 with symmetry: 288 / 1,146,
    8,832 / 58,146 and 314 / 2,048, with the same discovery fingerprint
    chains as the same run on the CPU (the plain path), each with the
@@ -60,19 +67,37 @@ Phases, in order; any failure exits non-zero and prints no result line:
    default 8: smaller tiles) on the kernels, against the CPU run; two
    network slots raise paxos's overflow error on the kernels, unsharded
    and sharded; a mesh over distinct devices and either kernel for a
-   model without CUDA device code raise on the card;
+   model without CUDA device code raise on the card. Then the on/off
+   gates of the host loop: 2pc 5 and paxos 2, fused and at n = 4, on the
+   kernels at 2 waves a dispatch (so that dispatches replay), with the
+   defaults (graphs on, one dispatch in flight, no ladder) against ``cuda_graph=False``, ``inflight_dispatches=2`` and a
+   ladder of 5 rungs: equal counts, tables equal as sets, and equal
+   discovery chains and arena rows ``[0, tail)``, except the sharded
+   ladder's, whose shards' row order follows the buckets (as in JAX):
+   those equal the CPU run with the same knobs;
 6. full width, 2pc at 10 RMs: batch 16,384 once with each path, and
    sharded at n = 4 with 4,096 rows a shard and the sender kernel:
    exactly 61,515,776 unique / 817,760,258 states; then ``paxos check
    3`` on the dedup kernel's path and on the kernels' (the wave kernel
    unsharded, the sender kernel sharded), batch 16,384 and sharded at n
    = 4 with 4,096 rows a shard: exactly 1,194,428 unique / 2,420,477
-   states, "value chosen" found, no "linearizable" counterexample. Each
-   run with the kernels' launch counts beside the waves and rehashes;
-   then for each run, dispatches of a mid-run checker: one under
-   ``torch.cuda.set_sync_debug_mode("error")``, a few timed plain for
-   the steady pace a wave, and one under ``torch.profiler`` (kernel time
-   and launches by kernel), which together give the card's idle share;
+   states, "value chosen" found, no "linearizable" counterexample. Every
+   run on the defaults: one CUDA graph a dispatch, one dispatch in
+   flight, the append kernel. Each run with the kernels' launch counts
+   (the replays' included) beside the waves and rehashes, and its graph
+   captures, replays and capture seconds and deepest pipelining; the
+   three kernel paths (2pc 10 on the wave kernel, paxos 3 on the wave
+   kernel and sharded on the sender kernel) again with
+   ``cuda_graph=False``, side by side; 2pc 10 on
+   the wave kernel with graphs on at one dispatch in flight and at two,
+   alternately, twice each (the in-flight depth's own effect); and
+   ``paxos check 3`` on a ladder from 1,024 to 16,384 rows, exact. Then
+   for each run but the ladder's, dispatches of a mid-run checker through
+   the engine's own launch (a replay once its key is captured): one
+   under ``torch.cuda.set_sync_debug_mode("error")``, a few timed alone
+   for the host's µs a dispatch and the steady pace a wave, and one
+   under ``torch.profiler`` (kernel time and launches by kernel, which
+   are the graph's nodes), which together give the card's idle share;
 7. the kernels line, the script's running time, the card line and the
    result line.
 
@@ -142,10 +167,10 @@ def _time_ms(torch, fn, reps: int, setup=None) -> float:
 def _profiled(torch, run, prepare=lambda: None, tries: int = 3):
     """``(device events, result)`` of ``run(prepare())`` under
     ``torch.profiler``, ``prepare()`` outside the profiled window: the
-    kernels and memsets ``run`` launched, by name. A profile that
-    records no device time at all (seen once on the card, after an
-    earlier profile in the same process) is taken again, ``tries`` times
-    at most."""
+    kernels and memsets ``run`` launched, by name (a replayed graph's
+    nodes too). A profile that records no device time at all (seen once
+    on the card, after an earlier profile in the same process) is taken
+    again, ``tries`` times at most, then raises."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -365,6 +390,152 @@ def phase_paxos_kernels(torch, wave_mod, table_mod, mid):
     sk = phase_sender_kernel(torch, wave_mod, table_mod, dm, store, layout,
                              "paxos 3")
     return w, sk
+
+
+def _pow2(n: int) -> int:
+    return 1 << max(0, int(n) - 1).bit_length()
+
+
+def _append_case(torch, engine, append_mod, tag, src, new_mask, div, tails):
+    """The append kernel against its plain version: the new rows
+    (``new_mask [n, R]``) of one wave's outputs ``src`` (``vecs [n, R, Wp],
+    fps [n, R], par and ebits [n, R / div]``), into an arena of random rows
+    with shard k's tail at ``tails[k]``: arena rows ``[0, tail +
+    new_count)`` equal in all four arrays, and no other row written by the
+    kernel (the dump row included); then its time by kernel, beside the
+    plain version's and the bound."""
+    dev = torch.device("cuda")
+    n, R = new_mask.shape
+    wp = src[0].shape[2]
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    U = _pow2(max(tails) + R) + 1
+
+    def rand(shape, dtype):
+        return torch.randint(-(1 << 62), 1 << 62, shape, generator=gen,
+                             device=dev).to(dtype)
+
+    arena = (rand((n, U, wp), torch.int32), rand((n, U), torch.int64),
+             rand((n, U), torch.int64), rand((n, U), torch.int32))
+    comp = engine.compaction_order(new_mask)
+    new_count = new_mask.sum(1)
+    tail = torch.tensor(tails, dtype=torch.int64, device=dev)
+    got = tuple(a.clone() for a in arena)
+    want = tuple(a.clone() for a in arena)
+    append_mod.append_rows(got, src, comp, new_count, tail, div)
+    append_mod.append_rows_plain(want, src, comp, new_count, tail, div)
+    torch.cuda.synchronize()
+    for k in range(n):
+        end = tails[k] + int(new_count[k])
+        for name, g, w, a in zip(("vecs", "fps", "par", "ebits"), got, want,
+                                 arena):
+            if not torch.equal(g[k, :end], w[k, :end]):
+                raise AssertionError(f"append kernel ({tag}) disagrees with "
+                                     f"its plain version on {name}, shard "
+                                     f"{k}")
+            if not torch.equal(g[k, end:], a[k, end:]):
+                raise AssertionError(f"append kernel ({tag}) wrote {name} "
+                                     f"past row {end} of shard {k}")
+    new = int(new_count.sum())
+    del got, want
+    args = (arena, src, comp, new_count, tail, div)
+    ms, parts = _breakdown(torch, append_mod.append_rows, 5, lambda: args)
+    call_ms = _time_ms(torch, append_mod.append_rows, 5, lambda: args)
+    plain_ms = _time_ms(torch, append_mod.append_rows_plain, 3,
+                        lambda: args)
+    # Bound: the function's own bytes, each once: a new row's compaction
+    # index (8 B) and source row read (4 Wp + 8 B: the packed words and
+    # its fingerprint), its arena row written (4 Wp + 20 B: those, its
+    # parent's fingerprint and eventually bits), and the parent's 12 B
+    # read once a distinct parent of the new rows (siblings share one).
+    parents = sum(int(torch.unique(comp[k, :int(new_count[k])] // div)
+                      .numel()) for k in range(n))
+    nbytes = new * (2 * (4 * wp + 8) + 8 + 12) + 12 * parents
+    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    _log(f"append kernel == plain ({tag}) at n={n} x R={R}, Wp={wp}: "
+         f"new={new} of {n * R} from {parents} parents, tails {tails}, no "
+         f"other row written; "
+         f"kernel {ms:.4f} ms on the card ({call_ms:.4f} ms a call between "
+         f"CUDA events), plain {plain_ms:.4f} ms, bound {bound_ms:.6f} ms "
+         f"({nbytes} B over HBM); by kernel, a call:")
+    _log_parts(parts)
+    return dict(max_abs_err=0, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                parts=parts, new=new)
+
+
+def phase_append(torch, engine, wave_mod, table_mod, append_mod, rows,
+                 table, paxos_mid):
+    """The append kernel against its plain version on the outputs of the
+    mid-run waves: 2pc 10's 16,384 rows (``rows``, against ``table``)
+    through the wave kernel, with no row new and with every row new too;
+    paxos 3's next 16,384 rows of ``paxos_mid``, against its engine's
+    table with its engine's scratch; and the sharded shape, the 2pc rows
+    as ``SHARDS`` shards of 4,096 through the sender kernel, each shard's
+    received rows (every sender's rows that it owns) at its own tail."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device="cuda").manual_seed(19)
+    out = {}
+
+    def wave(dm, store, layout, tbl, scratch):
+        valid = torch.ones(store.shape[0], dtype=torch.bool, device=dev)
+        got = wave_mod.wave_megakernel(dm, store, valid, tbl.clone(), False,
+                                       layout, scratch=scratch)
+        B = store.shape[0]
+        # The parents' fingerprints and eventually bits: random, as the
+        # kernel only copies them.
+        par = torch.randint(-(1 << 62), 1 << 62, (1, B), generator=gen,
+                            device=dev)
+        ebits = torch.randint(0, 1 << 30, (1, B), generator=gen, device=dev,
+                              dtype=torch.int64).to(torch.int32)
+        return (got[0][None], got[1][None], par, ebits), got[3][None]
+
+    dm, store, layout = rows
+    S = store.shape[0] * dm.max_fanout
+    scratch = table_mod.DedupScratch(S, dev)
+    src, new_mask = wave(dm, store, layout, table, scratch)
+    out["2pc"] = _append_case(torch, engine, append_mod,
+                              "mid-run 2pc 10 wave", src, new_mask,
+                              dm.max_fanout, [2 * S])
+    out["none"] = _append_case(torch, engine, append_mod,
+                               "2pc 10 wave, no row new", src,
+                               torch.zeros_like(new_mask), dm.max_fanout,
+                               [2 * S])
+    out["all"] = _append_case(torch, engine, append_mod,
+                              "2pc 10 wave, every row new", src,
+                              torch.ones_like(new_mask), dm.max_fanout,
+                              [2 * S])
+    del src, new_mask, scratch
+    pstore = paxos_mid._vecs[paxos_mid._head:paxos_mid._head + BATCH].clone()
+    psrc, pmask = wave(paxos_mid._dm, pstore, paxos_mid._layout,
+                       paxos_mid._table, paxos_mid._scratch)
+    out["paxos"] = _append_case(
+        torch, engine, append_mod, "mid-run paxos 3 wave", psrc, pmask,
+        paxos_mid._dm.max_fanout, [paxos_mid._tail])
+    del psrc, pmask, pstore
+    # The sharded shape: shard k receives every sender's rows and appends
+    # those it owns that its sender sent (``send_mask``).
+    n, B, wp = SHARDS, BATCH // SHARDS, layout.packed_width
+    sS = B * dm.max_fanout
+    sscratch = table_mod.DedupScratch(n * sS, dev, n)
+    succ, dedup, path, _, send = wave_mod.sender_megakernel(
+        dm, store.reshape(n, B, wp).contiguous(),
+        torch.ones((n, B), dtype=torch.bool, device=dev), False, layout,
+        True, scratch=sscratch)
+    R = n * sS
+    owner = dedup.reshape(R) % n
+    owner = torch.where(dedup.reshape(R) < 0, (owner + (1 << 64) % n) % n,
+                        owner)
+    new_mask = torch.stack([send.reshape(R) & (owner == k)
+                            for k in range(n)])
+    recv = (succ.reshape(1, R, wp).expand(n, R, wp).contiguous(),
+            path.reshape(1, R).expand(n, R).contiguous(),
+            torch.randint(-(1 << 62), 1 << 62, (n, R), generator=gen,
+                          device=dev),
+            torch.randint(0, 1 << 30, (n, R), generator=gen, device=dev,
+                          dtype=torch.int64).to(torch.int32))
+    out["sharded"] = _append_case(
+        torch, engine, append_mod, f"sharded {n} x {B}", recv, new_mask, 1,
+        [sS, sS + 1_000, sS + 5, sS + 77_777])
+    return out
 
 
 def phase_rehash(torch, table_mod, engine, fused, TwoPhaseSys):
@@ -743,10 +914,12 @@ def phase_sharded_small(torch, fused, TwoPhaseSys):
     mid = (TwoPhaseSys(5).checker().target_state_count(20_000)
            .spawn_cuda_bfs(mesh=["cuda:0"] * SHARDS, batch_size=256).join())
     mid._stats[..., fused.ST_TARGET] = 1 << 62
-    waves = _timed_dispatch(torch, fused, mid, sync_check=True)[0]
-    if waves == 0:
-        raise AssertionError("the sync-checked dispatch ran no wave")
-    _log(f"2pc 5 n={SHARDS} dedup_kernel: one dispatch under "
+    point = _Point(torch, fused, mid)
+    waves, _, _, _, replay = _timed_dispatch(torch, point, sync_check=True)
+    if waves == 0 or not replay:
+        raise AssertionError(f"the sync-checked dispatch ran {waves} waves "
+                             f"(a replay: {replay})")
+    _log(f"2pc 5 n={SHARDS} dedup_kernel: one replayed dispatch under "
          f"set_sync_debug_mode('error'), {waves} waves, no synchronisation")
 
 
@@ -870,15 +1043,110 @@ def phase_refusals(TwoPhaseSys, TwoPhaseDevice):
             raise AssertionError(f"{what} ran instead of raising")
 
 
+def _state(c):
+    """``(arena, table)`` of checker ``c`` on the host: each shard's arena
+    rows ``[0, tail)`` (vecs, fps, par, ebits), and each table slice's keys
+    sorted (the table as a set), a tuple a shard."""
+    cols = (c._vecs, c._fps, c._par, c._ebits)
+    if hasattr(c, "_tails"):
+        arena = [tuple(a[k, :int(c._tails[k])].cpu() for a in cols)
+                 for k in range(c._n)]
+        tables = [(t[t != -1].sort().values.cpu(),) for t in c._table]
+    else:
+        arena = [tuple(a[:c._tail].cpu() for a in cols)]
+        tables = [(c._table[c._table != -1].sort().values.cpu(),)]
+    return arena, tables
+
+
+def _same(torch, a, b) -> bool:
+    return len(a) == len(b) and all(
+        all(torch.equal(x, y) for x, y in zip(p, q)) for p, q in zip(a, b))
+
+
+def phase_gates(torch, TwoPhaseSys, PaxosSys):
+    """The host loop's knobs on the card, each against the defaults (one
+    graph a dispatch, one dispatch in flight, no ladder): 2pc 5 and
+    paxos 2, fused and on ``SHARDS`` stacked shards, on the kernels, at 2
+    waves a dispatch (at 16 these runs take 2 or 3 dispatches, and no
+    bucket is dispatched twice between growths: nothing would replay). Each
+    pair gives equal counts and tables equal as sets, and equal discovery
+    chains and arena rows ``[0, tail)``, except a sharded run on a ladder:
+    each shard appends a wave's rows sender by sender, so its row order
+    (and the first discoverer of a state) follows the buckets, in JAX as
+    here; its chains and arena rows equal the CPU run with the same
+    knobs."""
+    for name, model in (("2pc 5", functools.partial(TwoPhaseSys, 5)),
+                        ("paxos 2", functools.partial(PaxosSys, 2))):
+        for engine, base, low, spawn in (
+                ("fused", 1024, 64, {}),
+                (f"n={SHARDS}", 256, 16, dict(mesh=["cuda:0"] * SHARDS))):
+            def knobs(**kw):
+                return dict(dict(spawn, batch_size=base, wave_kernel=True,
+                                 waves_per_dispatch=2), **kw)
+
+            def run(**kw):
+                return model().checker().spawn_cuda_bfs(**knobs(**kw)).join()
+
+            on = run()
+            want = (on.unique_state_count(), on.state_count(), _chains(on),
+                    _state(on))
+            g = on.scheduler_stats()["graphs"]
+            if not g or not g["replays"]:
+                raise AssertionError(f"{name} {engine}: no dispatch was a "
+                                     f"replay ({g})")
+            _log(f"{name} {engine} on the defaults: unique={want[0]} "
+                 f"states={want[1]}, {on.dispatches} dispatches, graphs {g}, "
+                 f"max_inflight {on.scheduler_stats()['max_inflight']}")
+            for what, kw in (
+                    ("cuda_graph=False", dict(cuda_graph=False)),
+                    ("inflight_dispatches=2", dict(inflight_dispatches=2)),
+                    ("a 5-rung ladder", dict(batch_size=low,
+                                             max_batch_size=base))):
+                c = run(**kw)
+                got = (c.unique_state_count(), c.state_count(), _chains(c),
+                       _state(c))
+                tag = f"{name} {engine}, {what}"
+                if got[:2] != want[:2] or not _same(torch, got[3][1],
+                                                    want[3][1]):
+                    raise AssertionError(f"{tag}: counts {got[:2]} against "
+                                         f"{want[:2]}, or the tables differ "
+                                         "as sets")
+                stats = c.scheduler_stats()
+                if kw.get("cuda_graph", True) and not stats["graphs"][
+                        "replays"]:
+                    raise AssertionError(f"{tag}: no dispatch was a replay")
+                if "max_batch_size" in kw:
+                    if len(stats["bucket_ladder"]) != 5 or len(
+                            stats["bucket_dispatches"]) < 2:
+                        raise AssertionError(f"{tag}: the ladder did not "
+                                             f"adapt ({stats})")
+                if "max_batch_size" in kw and spawn:
+                    cpu = model().checker().spawn_cuda_bfs(**dict(
+                        knobs(**kw), mesh=["cpu"] * SHARDS)).join()
+                    ref, against = (_chains(cpu), _state(cpu)), "the CPU run"
+                else:
+                    ref, against = (want[2], want[3]), "the defaults"
+                if got[2] != ref[0] or not _same(torch, got[3][0],
+                                                 ref[1][0]):
+                    raise AssertionError(f"{tag}: discovery chains or arena "
+                                         f"rows differ from {against}")
+                _log(f"{tag}: equal to {against} in counts, chains, arena "
+                     f"rows [0, tail) and the table as a set; "
+                     f"{c.dispatches} dispatches, buckets "
+                     f"{stats['bucket_dispatches']}, max_inflight "
+                     f"{stats['max_inflight']}, graphs {stats['graphs']}")
+
+
 def phase_full(torch, kernels, fused, config, model, want_counts,
                want_found, mid_target, steady_dispatches, **spawn):
     """``model()`` (``config`` names it) to its end through
     ``spawn_cuda_bfs(**spawn)``, with every kernel's launch count set to
     0 just before and read just after: exactly ``want_counts`` (unique,
-    states), the discoveries ``want_found``, no counterexample; then the
-    dispatches of a checker stopped at ``mid_target`` states, with
-    ``steady_dispatches`` timed plain. Returns the launch counts by
-    kernel name and the run's numbers."""
+    states), the discoveries ``want_found``, no counterexample, the
+    launches exact; then, unless ``steady_dispatches`` is 0, the
+    dispatches of a checker stopped at ``mid_target`` states, through its
+    own launch, ``steady_dispatches`` of them timed alone. Returns the
+    launch counts by kernel name and the run's numbers."""
     gc.collect()  # what earlier phases left in reference cycles goes first
     torch.cuda.reset_peak_memory_stats()
     for fn in kernels.values():
@@ -891,11 +1159,21 @@ def phase_full(torch, kernels, fused, config, model, want_counts,
     unique, states = c.unique_state_count(), c.state_count()
     n = getattr(c, "_n", 1)
     peak = torch.cuda.max_memory_allocated()
+    sched = c.scheduler_stats()
+    graphs = sched["graphs"] or {"captures": 0, "replays": 0,
+                                 "capture_sec": 0.0}
+    knobs = {k: v for k, v in spawn.items() if k in (
+        "cuda_graph", "inflight_dispatches", "max_batch_size")}
+    config = f"{config}{' ' + str(knobs) if knobs else ''}"
     _log(f"{config} ({c.kernel_path()}, {n} shard(s)): unique={unique} "
          f"states={states} sec={sec:.3f} states/s={states / sec:.1f} "
          f"waves={c.waves} dispatches={c.dispatches} rehashes={c.rehashes} "
          f"arena_grows={c.arena_grows} candidates={c.candidates} "
-         f"launches={launches} max_memory_allocated={peak}")
+         f"launches={launches} max_memory_allocated={peak} "
+         f"captures={graphs['captures']} replays={graphs['replays']} "
+         f"capture_sec={graphs['capture_sec']:.3f} "
+         f"max_inflight={sched['max_inflight']} "
+         f"buckets={sched['bucket_dispatches']}")
     if (unique, states) != want_counts:
         raise AssertionError(f"{config}: {(unique, states)} != "
                              f"{want_counts}")
@@ -903,12 +1181,15 @@ def phase_full(torch, kernels, fused, config, model, want_counts,
     if sorted(found) != want_found:
         raise AssertionError(f"{config} discoveries: {sorted(found)}")
     c.assert_properties()
+    if spawn.get("cuda_graph", True) and not graphs["replays"]:
+        raise AssertionError(f"{config}: no dispatch was a replay")
     c_waves, c_dispatches, c_rehashes = c.waves, c.dispatches, c.rehashes
-    # Every dispatch launches K waves, also those past a rest point. A
-    # wave runs the dedup kernel once a shard, unless the single-kernel
-    # wave does the wave's dedup itself; a rehash runs it once a chunk of
-    # each old table slice: the least power of two of chunks of at most
-    # the engine's scratch rows.
+    # Every dispatch launches K waves, also those past a rest point, and
+    # a replay counts its captured launches. A wave runs the dedup kernel
+    # once a shard, unless the single-kernel wave does the wave's dedup
+    # itself, and the append kernel once; a rehash runs the dedup kernel
+    # once a chunk of each old table slice: the least power of two of
+    # chunks of at most the engine's scratch rows.
     launched = c._K * c.dispatches
     rows = c._scratch_shape()[0]
     chunks = sum(fused._pow2(-(-(c._capacity >> i) // rows))
@@ -919,103 +1200,169 @@ def phase_full(torch, kernels, fused, config, model, want_counts,
         "dedup_and_insert": n * (chunks + (
             launched if sharded or not wave_kernel else 0)),
         "wave_megakernel": launched if wave_kernel and not sharded else 0,
-        "sender_megakernel": launched if wave_kernel and sharded else 0}
+        "sender_megakernel": launched if wave_kernel and sharded else 0,
+        "append_rows": launched}
     if launches != want:
         raise AssertionError(f"kernel launches {launches}, expected {want} "
                              f"for {c._K} x {c.dispatches} launched waves "
                              f"and {c.rehashes} rehashes ({chunks} chunks) "
                              f"on {n} shard(s)")
+    run = dict(sec=sec, peak=peak, rehashes=c_rehashes, chunks=chunks,
+               captures=graphs["captures"], replays=graphs["replays"],
+               capture_sec=graphs["capture_sec"],
+               max_inflight=sched["max_inflight"],
+               buckets=sched["bucket_dispatches"], dispatches=c_dispatches)
     del c
+    if not steady_dispatches:
+        return launches, run
 
-    # Dispatches of a mid-run checker, each timed alone with its rest
-    # point's growth outside the window: the first with every
-    # synchronisation an error (nothing inside a dispatch may wait for
-    # the card), then a few plain ones for the steady pace, then one
-    # under torch.profiler for the kernel time.
+    # Dispatches of a mid-run checker through its own launch, each from
+    # the same point of its run (the script puts its device state back
+    # after each), once the dispatch at that point is a replay (graphs
+    # on): the first with every synchronisation an error (nothing inside
+    # a dispatch may wait for the card), then a few for the host's time a
+    # dispatch and the steady pace, then one under torch.profiler for the
+    # kernel time.
     mid = (model().checker().target_state_count(mid_target)
            .spawn_cuda_bfs(**spawn).join())
     mid._stats[..., fused.ST_TARGET] = 1 << 62
-    waves, dev_ms, wall_ms = _timed_dispatch(torch, fused, mid,
-                                             sync_check=True)
+    point = _Point(torch, fused, mid)
+    waves, dev_ms, wall_ms, host_us, replay = _timed_dispatch(
+        torch, point, sync_check=True)
     if waves == 0:
         raise AssertionError("the sync-checked dispatch ran no wave")
-    _log(f"one dispatch under set_sync_debug_mode('error'): {waves} waves, "
-         f"no synchronisation, {dev_ms:.3f} ms on the card, "
-         f"{wall_ms:.3f} ms wall")
+    _log(f"one dispatch{' (a replay)' if replay else ''} under "
+         f"set_sync_debug_mode('error'): {waves} waves, no synchronisation, "
+         f"{dev_ms:.3f} ms on the card, {wall_ms:.3f} ms wall, "
+         f"{host_us:.1f} us in the host's launch")
     # Every dispatch launches K waves' work, also those past a rest
     # point (no-ops with no valid row), so the pace is per launched wave.
     K = mid._K
-    steady = [_timed_dispatch(torch, fused, mid)
+    steady = [_timed_dispatch(torch, point)
               for _ in range(steady_dispatches)]
-    for w, d, h in steady:
-        _log(f"steady dispatch: {w} of {K} waves expanded rows, {d:.3f} ms "
-             f"on the card, {h:.3f} ms wall, {h / K:.3f} ms a launched wave")
-    wave_ms = sum(h for _, _, h in steady) / (K * len(steady))
+    for w, d, h, us, rep in steady:
+        _log(f"steady dispatch{' (a replay)' if rep else ''}: {w} of {K} "
+             f"waves expanded rows, {d:.3f} ms on the card, {h:.3f} ms "
+             f"wall, {h / K:.3f} ms a launched wave, {us:.1f} us in the "
+             "host's launch")
+    wave_ms = sum(s[2] for s in steady) / (K * len(steady))
+    host_us = sum(s[3] for s in steady) / len(steady)
     _log(f"steady pace: {wave_ms:.3f} ms a launched wave over "
-         f"{K * len(steady)} (the full run: {sec * 1e3 / c_waves:.3f} ms a "
+         f"{K * len(steady)}, {host_us:.1f} us of host time a dispatch's "
+         f"launch (the full run: {sec * 1e3 / c_waves:.3f} ms a "
          f"wave that expanded rows, {sec * 1e3 / (K * c_dispatches):.3f} "
          "ms a launched wave, rest points included)")
-    busy_ms, launches_pw = phase_profile(torch, fused, mid)
-    _log(f"card busy {busy_ms:.3f} ms a launched wave: {busy_ms / wave_ms:.1%}"
-         f" of the steady pace, idle {1 - busy_ms / wave_ms:.1%}; host time "
-         f"an op {wave_ms / launches_pw * 1e3:.2f} us ({launches_pw:.1f} "
-         "kernel launches a launched wave)")
-    return launches, dict(sec=sec, peak=peak, wave_ms=wave_ms,
-                          busy_ms=busy_ms, launches_pw=launches_pw,
-                          rehashes=c_rehashes, chunks=chunks)
+    busy_ms, launches_pw = phase_profile(torch, point)
+    _log(f"card busy {busy_ms:.3f} ms a launched wave (torch.profiler): "
+         f"{busy_ms / wave_ms:.1%} of the steady pace, idle "
+         f"{1 - busy_ms / wave_ms:.1%}; {launches_pw:.1f} kernel launches "
+         f"a launched wave{' (graph nodes)' if mid._graphs else ''}, host "
+         f"time an op {wave_ms / launches_pw * 1e3:.2f} us")
+    run.update(wave_ms=wave_ms, busy_ms=busy_ms, launches_pw=launches_pw,
+               host_us=host_us)
+    return launches, run
 
 
-def _timed_dispatch(torch, fused, mid, sync_check=False):
-    """Grows ``mid`` if at a rest point, then runs one dispatch timed by
-    CUDA events and the host clock: ``(waves, device ms, wall ms)``."""
-    mid._grow()
+class _Point:
+    """A point of a mid-run checker's run to time dispatches from: the
+    checker ``mid`` grown if its next dispatch needs it, that dispatch's
+    ``bucket``, and a copy of its device state (stats, arena, table).
+    ``launch`` runs one dispatch from the point through the checker's own
+    launch, reads its waves and puts the device state back in place, so
+    every dispatch from it expands the same waves, no rest point comes,
+    and a dispatch graph, which holds those tensors, stays valid. The
+    host's view of the run never moves. The first dispatch from the
+    point warms its key up and the second captures (graphs on); both run
+    in ``__init__``, so every later one is a replay."""
+
+    def __init__(self, torch, fused, mid):
+        self.torch, self.fused, self.mid = torch, fused, mid
+        self.bucket = mid._pick_bucket()
+        if mid._needs_growth(self.bucket):
+            mid._grow(self.bucket)
+        self._state = [mid._stats, mid._vecs, mid._fps, mid._par,
+                       mid._ebits, mid._table]
+        self._saved = [t.clone() for t in self._state]
+        for _ in range(2):
+            if self.replays():
+                break
+            self.launch()
+        if mid._graphs is not None and not self.replays():
+            raise AssertionError("no dispatch graph after two dispatches")
+
+    def replays(self) -> bool:
+        """Whether the next dispatch from the point is a graph's replay."""
+        g = self.mid._graphs
+        return g is not None and g.has_graph(self.bucket)
+
+    def launch(self):
+        """``(waves, entry)`` of one dispatch from the point, the device
+        state put back after it."""
+        entry = self.mid._launch(self.bucket)
+        host, copied, _ = entry
+        if copied is not None:
+            copied.synchronize()
+        waves = int(host.numpy()[..., self.fused.ST_WAVES].reshape(-1)[0])
+        self.rewind()
+        return waves, entry
+
+    def rewind(self) -> None:
+        for t, s in zip(self._state, self._saved):
+            t.copy_(s)
+        self.torch.cuda.synchronize()
+
+
+def _timed_dispatch(torch, point, sync_check=False):
+    """One dispatch from ``point``, timed by CUDA events, by the host clock
+    to the end, and by the host clock over the launch call: ``(waves,
+    device ms, wall ms, host us of the launch, replayed)``."""
+    replay = point.replays()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    mid = point.mid
     t0 = time.perf_counter()
     if sync_check:
         torch.cuda.set_sync_debug_mode("error")
     try:
         start.record()
-        stats = mid._dispatch()
+        entry = mid._launch(point.bucket)
+        host_us = (time.perf_counter() - t0) * 1e6
         end.record()
     finally:
         torch.cuda.set_sync_debug_mode(0)
     end.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3
-    mid._stats = stats
-    mid._process(stats.cpu().numpy())
-    return _waves(fused, stats), start.elapsed_time(end), wall_ms
+    host, copied, _ = entry
+    if copied is not None:
+        copied.synchronize()
+    waves = int(host.numpy()[..., point.fused.ST_WAVES].reshape(-1)[0])
+    point.rewind()
+    return waves, start.elapsed_time(end), wall_ms, host_us, replay
 
 
-def _waves(fused, stats) -> int:
-    """Waves that expanded rows, from one dispatch's stats (one row, or
-    one a shard)."""
-    return int(stats[..., fused.ST_WAVES].reshape(-1)[0])
+def phase_profile(torch, point):
+    """Device time and launches of one dispatch from ``point``, by kernel
+    (``torch.profiler``): ``(kernel ms, kernel launches)`` a launched
+    wave. With graphs on the dispatch is a replay, whose launches are the
+    graph's nodes."""
+    mid = point.mid
 
-
-def phase_profile(torch, fused, mid):
-    """Device time and launches of the next dispatch, by kernel
-    (torch.profiler): ``(kernel ms, kernel launches)`` a launched
-    wave."""
     def run(_):
-        stats = mid._dispatch()
-        mid._stats = stats
-        mid._process(stats.cpu().numpy())
-        return stats
+        return point.launch()[0]
 
-    kern, stats = _profiled(torch, run, mid._grow)
-    waves = _waves(fused, stats)
+    kern, waves = _profiled(torch, run, point.rewind)
     kern.sort(key=lambda e: -e.self_device_time_total)
     total_ms = sum(e.self_device_time_total for e in kern) / 1e3
     port_ms = sum(e.self_device_time_total for e in kern
                   if any(k in e.key for k in ("claim_rows", "resolve_rows",
-                                              "tile_front", "send_rows"))
+                                              "tile_front", "send_rows",
+                                              "append_rows"))
                   ) / 1e3
     n_launch = sum(e.count for e in kern)
-    _log(f"profiled dispatch: {waves} waves, {n_launch} kernel launches, "
-         f"{total_ms:.3f} ms of kernel time, the port's kernels "
-         f"{port_ms:.3f} ms")
+    _log(f"profiled dispatch{' (a replay)' if point.replays() else ''}: "
+         f"{waves} waves, {n_launch} kernel launches, {total_ms:.3f} ms of "
+         f"kernel time, the port's kernels {port_ms:.3f} ms")
     for e in kern[:8]:
         _log(f"  {e.self_device_time_total / 1e3:9.3f} ms {e.count:6d}x "
              f"{e.key[:90]}")
@@ -1032,12 +1379,13 @@ def _modules():
     """The port's modules, from the checkout beside this script."""
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from stateright_tpu_torch import _build, engine, fused
+    from stateright_tpu_torch import append as append_mod
     from stateright_tpu_torch import table as table_mod
     from stateright_tpu_torch import wave as wave_mod
     from stateright_tpu_torch.models.paxos import PaxosDevice, PaxosSys
     from stateright_tpu_torch.models.twopc import TwoPhaseDevice, TwoPhaseSys
-    return (_build, engine, fused, table_mod, wave_mod, TwoPhaseDevice,
-            TwoPhaseSys, PaxosDevice, PaxosSys)
+    return (_build, engine, fused, table_mod, wave_mod, append_mod,
+            TwoPhaseDevice, TwoPhaseSys, PaxosDevice, PaxosSys)
 
 
 def _log_ptxas(log: str) -> None:
@@ -1048,8 +1396,8 @@ def _log_ptxas(log: str) -> None:
         entry = re.search(r"Compiling entry function '(\w+)'", line)
         if entry:
             mangled = entry.group(1)
-            fn = re.search(r"\d(tile_front|send_rows|resolve_rows|claim_rows)",
-                           mangled)
+            fn = re.search(r"\d(tile_front|send_rows|resolve_rows|claim_rows"
+                           r"|append_rows)", mangled)
             model = re.search(r"(TwoPhase|Paxos)ILi(\d+)E", mangled)
             tail = re.search(r"(WaveTail|SenderTail)", mangled)
             kernel = ((fn.group(1) if fn else mangled)
@@ -1062,7 +1410,7 @@ def _log_ptxas(log: str) -> None:
             kernel, frame = None, ""
 
 
-def phase_build(_build, table_mod, wave_mod) -> None:
+def phase_build(_build, table_mod, wave_mod, append_mod) -> None:
     def build(name, load):
         t0 = time.monotonic()
         load()
@@ -1073,7 +1421,8 @@ def phase_build(_build, table_mod, wave_mod) -> None:
             ("wave_twopc", lambda: (wave_mod._entry("twopc", 1),
                                     wave_mod._sender_entry("twopc", 1))),
             ("wave_paxos", lambda: (wave_mod._entry("paxos", 2),
-                                    wave_mod._sender_entry("paxos", 2)))]
+                                    wave_mod._sender_entry("paxos", 2))),
+            ("append", append_mod._lib)]
     with ThreadPoolExecutor(len(jobs)) as pool:
         builds = [pool.submit(build, name, load) for name, load in jobs]
         for fut in builds:
@@ -1102,10 +1451,10 @@ def main(argv) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
-    (_build, engine, fused, table_mod, wave_mod, TwoPhaseDevice,
+    (_build, engine, fused, table_mod, wave_mod, append_mod, TwoPhaseDevice,
      TwoPhaseSys, PaxosDevice, PaxosSys) = _modules()
     t_start = time.monotonic()
-    phase_build(_build, table_mod, wave_mod)
+    phase_build(_build, table_mod, wave_mod, append_mod)
     card = _card_line()
     _log(f"card: {card}")
     if argv:
@@ -1121,6 +1470,8 @@ def main(argv) -> int:
     paxos_mid = _paxos_mid(PaxosSys)
     k = phase_kernel(torch, table_mod, engine, fused, wave_case, TwoPhaseSys,
                      paxos_mid)
+    ap = phase_append(torch, engine, wave_mod, table_mod, append_mod, rows,
+                      wave_case[1], paxos_mid)
     del wave_case
     sk = phase_sender_kernel(torch, wave_mod, table_mod, *rows)
     del rows
@@ -1130,77 +1481,124 @@ def main(argv) -> int:
     phase_sharded_small(torch, fused, TwoPhaseSys)
     phase_paxos_small(PaxosSys, PaxosDevice)
     phase_refusals(TwoPhaseSys, TwoPhaseDevice)
-    kernels = {"dedup_and_insert": table_mod.dedup_and_insert,
-               "wave_megakernel": wave_mod.wave_megakernel,
-               "sender_megakernel": wave_mod.sender_megakernel}
+    phase_gates(torch, TwoPhaseSys, PaxosSys)
+    kernels = {fn.__name__: fn for fn in fused.KERNELS}
     # Each path's run reads its own kernels' launches: 2pc at 10 RMs on
     # the three paths, then paxos check 3 on the same three paths,
-    # unsharded and sharded, the torch stages beside the kernels.
+    # unsharded and sharded, the torch stages beside the kernels; all on
+    # the defaults, and the kernel paths again with graphs off, next to
+    # their run on the defaults.
     twopc = ("2pc 10", functools.partial(TwoPhaseSys, 10),
              (FULL_UNIQUE, FULL_STATES),
              ["abort agreement", "commit agreement"], 20_000_000, 4)
-    launches = phase_full(torch, kernels, fused, *twopc,
-                          batch_size=BATCH)[0]["dedup_and_insert"]
-    wave_launches = phase_full(torch, kernels, fused, *twopc,
-                               batch_size=BATCH,
-                               wave_kernel=True)[0]["wave_megakernel"]
-    sender_launches = phase_full(
-        torch, kernels, fused, *twopc, batch_size=BATCH // SHARDS,
-        mesh=["cuda:0"] * SHARDS, wave_kernel=True)[0]["sender_megakernel"]
     paxos = ("paxos 3", functools.partial(PaxosSys, 3),
              (PAXOS_UNIQUE, PAXOS_STATES), ["value chosen"], PAXOS_MID, 2)
+    off = dict(cuda_graph=False)
     sharded = dict(batch_size=BATCH // SHARDS, mesh=["cuda:0"] * SHARDS)
-    runs = {}
-    for tag, spawn in (("fused", dict(batch_size=BATCH)),
-                       ("sharded", sharded),
-                       ("fused, wave kernel", dict(batch_size=BATCH,
-                                                   wave_kernel=True)),
-                       ("sharded, sender kernel", dict(sharded,
-                                                       wave_kernel=True))):
-        runs[tag] = dict(zip(("launches", "run"), phase_full(
-            torch, kernels, fused, *paxos, **spawn)))
-    for tag, r in runs.items():
+    full = {}
+    for tag, cfg, spawn in (
+            ("2pc 10", twopc, dict(batch_size=BATCH)),
+            ("2pc 10, wave kernel", twopc, dict(batch_size=BATCH,
+                                                wave_kernel=True)),
+            ("2pc 10, wave kernel, off", twopc, dict(
+                batch_size=BATCH, wave_kernel=True, **off)),
+            *((f"2pc 10, wave kernel, depth {d} ({turn})", twopc[:5] + (0,),
+               dict(batch_size=BATCH, wave_kernel=True,
+                    inflight_dispatches=d))
+              for turn in ("a", "b") for d in (1, 2)),
+            ("2pc 10, sharded, sender kernel", twopc, dict(
+                sharded, wave_kernel=True)),
+            ("paxos 3", paxos, dict(batch_size=BATCH)),
+            ("paxos 3, sharded", paxos, sharded),
+            ("paxos 3, wave kernel", paxos, dict(batch_size=BATCH,
+                                                 wave_kernel=True)),
+            ("paxos 3, wave kernel, off", paxos, dict(
+                batch_size=BATCH, wave_kernel=True, **off)),
+            ("paxos 3, sharded, sender kernel", paxos, dict(
+                sharded, wave_kernel=True)),
+            ("paxos 3, sharded, sender kernel, off", paxos, dict(
+                sharded, wave_kernel=True, **off)),
+            ("paxos 3, ladder", paxos[:5] + (0,), dict(
+                batch_size=1024, max_batch_size=BATCH, wave_kernel=True))):
+        full[tag] = dict(zip(("launches", "run"), phase_full(
+            torch, kernels, fused, *cfg, **spawn)))
+    for tag, r in full.items():
         run = r["run"]
-        _log(f"paxos 3 {tag}: {run['sec']:.3f} s, {run['launches_pw']:.1f} "
-             f"torch launches a launched wave, {run['busy_ms']:.3f} ms card "
-             f"time a launched wave of {run['wave_ms']:.3f}, idle "
-             f"{1 - run['busy_ms'] / run['wave_ms']:.1%}, peak device memory "
-             f"{run['peak']} B, {run['rehashes']} rehashes in "
-             f"{run['chunks']} chunks a slice, kernel launches "
-             f"{r['launches']}")
+        line = (f"{tag}: {run['sec']:.3f} s, {run['dispatches']} dispatches "
+                f"({run['captures']} captures in {run['capture_sec']:.3f} s, "
+                f"{run['replays']} replays, max_inflight "
+                f"{run['max_inflight']}, buckets {run['buckets']}), peak "
+                f"device memory {run['peak']} B, {run['rehashes']} rehashes "
+                f"in {run['chunks']} chunks a slice, kernel launches "
+                f"{r['launches']}")
+        if "wave_ms" in run:
+            line += (f"; {run['host_us']:.1f} us of host time a dispatch, "
+                     f"{run['launches_pw']:.1f} launches a launched wave, "
+                     f"{run['busy_ms']:.3f} ms card time a launched wave of "
+                     f"{run['wave_ms']:.3f}, idle "
+                     f"{1 - run['busy_ms'] / run['wave_ms']:.1%}")
+        _log(line)
+    depth_sec = {d: [full[f"2pc 10, wave kernel, depth {d} ({turn})"]
+                     ["run"]["sec"] for turn in ("a", "b")] for d in (1, 2)}
+    _log(f"2pc 10 on the wave kernel, graphs on, the in-flight depth alone: "
+         f"depth 1 {depth_sec[1]} s, depth 2 {depth_sec[2]} s (turns a, b)")
+    buckets = full["paxos 3, ladder"]["run"]["buckets"]
+    if len(buckets) < 2:
+        raise AssertionError(f"paxos 3 on a ladder used one bucket: "
+                             f"{buckets}")
 
     # Kernel 1 on the synthetic stream, on the default path's input of
     # each model (a mid-run wave's dedup fingerprints), and at the
-    # rehash; kernels 2 and 3 on each model's mid-run rows.
+    # rehash; kernels 2 and 3 on each model's mid-run rows; the append
+    # kernel on the mid-run waves' outputs.
     src = "stateright_tpu_torch/csrc/"
     pallas = "stateright_tpu/tpu/pallas_table.py:"
     k_err = max(v["max_abs_err"] for v in k.values())
     w_err = max(v["max_abs_err"] for v in (*w.values(), *pw.values()))
     s_err = max(v["max_abs_err"] for v in (*sk.values(), *psk.values()))
+    a_err = max(v["max_abs_err"] for v in ap.values())
+
+    def launched(tag, name):
+        return full[tag]["launches"][name]
+
+    launches = launched("2pc 10", "dedup_and_insert")
     print(json.dumps({"kernels": [
         _kernel_row("dedup_and_insert", src + "table.cu", pallas + "256",
                     launches, k_err, k["stream"]),
         _kernel_row("dedup_and_insert[mid-run wave]", src + "table.cu",
                     pallas + "256", launches, k_err, k["wave"]),
         _kernel_row("dedup_and_insert[paxos 3 wave]", src + "table.cu",
-                    pallas + "256",
-                    runs["fused"]["launches"]["dedup_and_insert"], k_err,
-                    k["paxos"]),
+                    pallas + "256", launched("paxos 3", "dedup_and_insert"),
+                    k_err, k["paxos"]),
         _kernel_row("dedup_and_insert[rehash]", src + "table.cu",
                     pallas + "256", launches, k_err, k["rehash"]),
         _kernel_row("wave_megakernel", src + "wave_twopc.cu", pallas + "380",
-                    wave_launches, w_err, w["plain"]),
+                    launched("2pc 10, wave kernel", "wave_megakernel"),
+                    w_err, w["plain"]),
         _kernel_row("sender_megakernel", src + "wave_twopc.cu",
-                    pallas + "451", sender_launches, s_err,
+                    pallas + "451", launched("2pc 10, sharded, sender kernel",
+                                             "sender_megakernel"), s_err,
                     sk[(False, True)]),
         _kernel_row("wave_megakernel[paxos 3]", src + "wave_paxos.cu",
                     pallas + "380",
-                    runs["fused, wave kernel"]["launches"]["wave_megakernel"],
+                    launched("paxos 3, wave kernel", "wave_megakernel"),
                     w_err, pw["plain"]),
         _kernel_row("sender_megakernel[paxos 3]", src + "wave_paxos.cu",
                     pallas + "451",
-                    runs["sharded, sender kernel"]["launches"][
-                        "sender_megakernel"], s_err, psk[(False, True)])]}))
+                    launched("paxos 3, sharded, sender kernel",
+                             "sender_megakernel"), s_err, psk[(False, True)]),
+        _kernel_row("append_rows", src + "append.cu",
+                    "stateright_tpu/tpu/fused.py:311",
+                    launched("2pc 10, wave kernel", "append_rows"), a_err,
+                    ap["2pc"]),
+        _kernel_row("append_rows[paxos 3 wave]", src + "append.cu",
+                    "stateright_tpu/tpu/fused.py:311",
+                    launched("paxos 3, wave kernel", "append_rows"), a_err,
+                    ap["paxos"]),
+        _kernel_row("append_rows[sharded]", src + "append.cu",
+                    "stateright_tpu/tpu/sharded_fused.py:322",
+                    launched("2pc 10, sharded, sender kernel",
+                             "append_rows"), a_err, ap["sharded"])]}))
     _log(f"chip_smoke ran {time.monotonic() - t_start:.1f} s")
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -46,7 +46,11 @@ class CheckerBuilder:
                        arena_capacity: Optional[int] = None,
                        waves_per_dispatch: int = 16,
                        wave_kernel: bool = False, sharded=None, mesh=None,
-                       exchange_novel_only=None) -> FusedCudaBfsChecker:
+                       exchange_novel_only=None,
+                       max_batch_size: Optional[int] = None,
+                       inflight_dispatches: int = 1,
+                       cuda_graph: Optional[bool] = None
+                       ) -> FusedCudaBfsChecker:
         """Spawns the fused device BFS; call ``join()`` to wait for it.
 
         ``device=None`` means the current CUDA device and raises when
@@ -57,6 +61,18 @@ class CheckerBuilder:
         CUDA device code (``DeviceModel.cuda_model()``) and raises for
         one without. ``batch_size`` defaults to 1,024.
 
+        The host loop's knobs, as in JAX: ``max_batch_size`` makes the
+        dispatch width adaptive, the least rung of ``batch_size``'s
+        doublings up to it that covers the queue (unset: always
+        ``batch_size``); ``inflight_dispatches`` is how many dispatches
+        run ahead of the host's stats reads (1, the default: a read after
+        every dispatch; JAX's default is 2, which on the card with graphs
+        measured slower, PERF.md §6). ``cuda_graph`` runs each dispatch as one CUDA
+        graph, captured at the second dispatch of each width and table and
+        arena size and replayed after: ``None`` (the default) means on for
+        a CUDA device, ``False`` runs every dispatch op by op, and ``True``
+        on the CPU raises. None of the three changes a result.
+
         With ``mesh`` (a list of devices, one a shard) or ``sharded=True``
         (one shard a visible CUDA device) the sharded fused BFS runs
         instead: the fingerprint space is split over the shards by
@@ -64,12 +80,15 @@ class CheckerBuilder:
         ``exchange_novel_only`` (default on) drops a sender's repeated
         successors before the exchange. The shards must share one
         device, stacked: ``mesh=["cpu"] * n`` or ``["cuda:0"] * n``."""
+        knobs = dict(table_capacity=table_capacity,
+                     arena_capacity=arena_capacity,
+                     waves_per_dispatch=waves_per_dispatch,
+                     wave_kernel=wave_kernel, max_batch_size=max_batch_size,
+                     inflight_dispatches=inflight_dispatches)
         if mesh is not None or sharded:
             return self._spawn_sharded(
                 device, mesh, batch_size or 512, exchange_novel_only,
-                table_capacity=table_capacity, arena_capacity=arena_capacity,
-                waves_per_dispatch=waves_per_dispatch,
-                wave_kernel=wave_kernel)
+                cuda_graph, **knobs)
         if exchange_novel_only is not None:
             raise ValueError("exchange_novel_only is a knob of the sharded "
                              "engine: pass sharded=True or a mesh")
@@ -80,11 +99,10 @@ class CheckerBuilder:
             device = torch.device("cuda", torch.cuda.current_device())
         return FusedCudaBfsChecker(
             self, device, batch_size=batch_size or 1024,
-            table_capacity=table_capacity, arena_capacity=arena_capacity,
-            waves_per_dispatch=waves_per_dispatch, wave_kernel=wave_kernel)
+            cuda_graph=_graphs_on(cuda_graph, device), **knobs)
 
     def _spawn_sharded(self, device, mesh, batch_size, exchange_novel_only,
-                       **kwargs) -> ShardedFusedCudaBfsChecker:
+                       cuda_graph, **kwargs) -> ShardedFusedCudaBfsChecker:
         if mesh is None:
             if device is not None:
                 raise ValueError("sharded=True meshes every visible CUDA "
@@ -99,7 +117,18 @@ class CheckerBuilder:
                              f"{mesh.device}")
         return ShardedFusedCudaBfsChecker(
             self, mesh, batch_size=batch_size,
-            exchange_novel_only=exchange_novel_only, **kwargs)
+            exchange_novel_only=exchange_novel_only,
+            cuda_graph=_graphs_on(cuda_graph, mesh.device), **kwargs)
+
+
+def _graphs_on(cuda_graph, device: torch.device) -> bool:
+    """``spawn_cuda_bfs``'s ``cuda_graph`` resolved for ``device``."""
+    if cuda_graph is None:
+        return device.type == "cuda"
+    if cuda_graph and device.type != "cuda":
+        raise ValueError(f"cuda_graph=True needs a CUDA device, not "
+                         f"{device}: CUDA graphs run only on the card")
+    return bool(cuda_graph)
 
 
 def _default_device() -> str:

@@ -1,8 +1,9 @@
 """The stage functions of one BFS wave, as plain torch ops.
 
 The port's copy of the wave building blocks of
-``stateright_tpu/tpu/engine.py``: property evaluation, expansion,
-fingerprinting, the two dedup levels and compaction. The dedup functions
+``stateright_tpu/tpu/engine.py``: the dispatch width's bucket ladder,
+property evaluation, expansion, fingerprinting, the two dedup levels and
+compaction. The dedup functions
 here (``first_occurrence_candidates``, ``global_insert`` and their
 composition ``dedup_and_insert``) are the plain version of the CUDA
 kernel in ``table.py`` and the reference it is held to; the engines
@@ -22,7 +23,8 @@ import torch
 
 from .hashing import SENTINEL, SENTINEL_U64, device_fp64
 
-__all__ = ["eval_properties", "expand_frontier", "fingerprint_successors",
+__all__ = ["batch_bucket_ladder", "pick_bucket", "eval_properties",
+           "expand_frontier", "fingerprint_successors",
            "cumsum_rows", "compaction_order", "first_occurrence_sorted",
            "TABLE_MIX",
            "STEP_MIX", "slot_hash", "host_table_insert", "scratch_slots",
@@ -38,6 +40,35 @@ STEP_MIX = 0xC2B2AE3D27D4EB4F
 
 def _signed(c: int) -> int:
     return c - (1 << 64) if c >> 63 else c
+
+
+def batch_bucket_ladder(base: int, max_batch) -> tuple:
+    """The dispatch widths the host loop picks from: ``base``, then
+    doublings up to ``max_batch`` rounded up to a power of two (capped by
+    that power when the doublings of a base that is not one stop short).
+    With ``max_batch`` unset, or at most ``base``, the one rung
+    ``(base,)``. The BFS's results do not depend on the width (the first
+    occurrence keeps the queue's order whatever a wave holds), so the
+    ladder is a schedule only."""
+    base = max(1, int(base))
+    if not max_batch or int(max_batch) <= base:
+        return (base,)
+    top = 1 << max(0, int(max_batch) - 1).bit_length()
+    ladder = [base]
+    while ladder[-1] * 2 <= top:
+        ladder.append(ladder[-1] * 2)
+    if ladder[-1] < int(max_batch):
+        ladder.append(top)
+    return tuple(ladder)
+
+
+def pick_bucket(ladder: tuple, width: int) -> int:
+    """The least rung that covers ``width`` queued rows, else the widest
+    (the queue then drains over several full-width waves)."""
+    for b in ladder:
+        if width <= b:
+            return b
+    return ladder[-1]
 
 
 def eval_properties(prop_fns, rows: torch.Tensor):

@@ -8,17 +8,29 @@ together with the parts of ``tpu/engine.py::TpuBfsChecker`` it inherits
   words ``vecs[U+1, Wp]``, ``fps[U+1]``, parent ``par[U+1]`` and
   eventually-bits ``ebits[U+1]``. Rows ``[head, tail)`` are the BFS
   queue, all rows are the parent map, and row ``U`` is a dump row that
-  absorbs the writes of rows that are not new.
-- **Dispatches.** One dispatch runs ``K`` waves with no host
-  synchronisation. JAX runs them in a ``lax.while_loop``; torch has no
-  device-side loop, so the stop predicates are computed on the device
-  into a ``go`` flag that masks the wave's rows, and a wave past a rest
-  point is a no-op (the reference's "launched past a rest point" rule).
-  Appends go to a device-side ``tail`` through ``index_copy_``. The host
-  reads one small stats tensor per dispatch, in the ``ST_*`` layout.
+  absorbs the appends' plain version's writes of rows that are not new
+  (the append kernel writes the new rows alone).
+- **Dispatches.** One dispatch runs ``K`` waves of ``bucket`` rows with
+  no host synchronisation. JAX runs them in a ``lax.while_loop``; torch
+  has no device-side loop, so the stop predicates are computed on the
+  device into a ``go`` flag that masks the wave's rows, and a wave past a
+  rest point is a no-op (the reference's "launched past a rest point"
+  rule). The new rows go to a device-side ``tail`` through the append
+  kernel (``append.py``). A dispatch writes its stats, in the ``ST_*``
+  layout, in place into the static ``_stats`` tensor the next one reads.
+  On the card a dispatch is one CUDA graph (``graphs.py``): JAX's one
+  program a dispatch.
+- **The host loop** (``_run_waves``, the reference's :460-816 without
+  checkpoints, the arena-span spill and the tracer) launches up to
+  ``inflight_dispatches`` dispatches ahead of its stats reads: after each
+  launch it copies the stats to a pinned host slot of its own and waits
+  for that copy alone when it retires the dispatch. The width of each
+  dispatch is the least rung of the bucket ladder (``max_batch_size``)
+  that covers the queue, as last retired.
 - **Rest points.** Between dispatches the host grows the visited table
   (a rehash through the same dedup kernel) or the arena when the next
-  dispatch could overflow either, and retires discoveries.
+  dispatch could overflow either, once every dispatch in flight is
+  retired, and retires discoveries.
 - **Paths.** Parents stay in the arena; a path reconstruction reads its
   chain from there on demand.
 
@@ -38,23 +50,28 @@ either way, in chunks of at most a wave's rows with the engine's scratch.
 
 from __future__ import annotations
 
+import contextlib
 import threading
+from collections import deque
 from typing import Dict, List
 
 import numpy as np
 import torch
 
+from .append import append_rows
 from .checker import Checker
-from .engine import (compaction_order, eval_properties, expand_frontier,
-                     fingerprint_successors, host_table_insert)
+from .engine import (batch_bucket_ladder, compaction_order, eval_properties,
+                     expand_frontier, fingerprint_successors,
+                     host_table_insert, pick_bucket)
+from .graphs import DispatchGraphs
 from .hashing import SENTINEL, SENTINEL_U64, host_fp64, to_i64, to_u64
 from .model import Expectation
 from .packing import compile_layout
 from .path import Path
 from .table import DedupScratch, dedup_and_insert
-from .wave import cuda_model, wave_megakernel
+from .wave import cuda_model, sender_megakernel, wave_megakernel
 
-__all__ = ["FusedCudaBfsChecker", "ST_HEAD", "ST_TAIL", "ST_OCC",
+__all__ = ["FusedCudaBfsChecker", "KERNELS", "ST_HEAD", "ST_TAIL", "ST_OCC",
            "ST_SUCC", "ST_CAND", "ST_TARGET", "ST_ERR", "ST_WAVES",
            "ST_DISC", "ERR_LANE", "ERR_TABLE_FULL"]
 
@@ -67,6 +84,9 @@ ST_DISC = 8
 #: ST_ERR bits: a generated state set the model's error lane; a
 #: candidate found no free slot in the visited table.
 ERR_LANE, ERR_TABLE_FULL = 1, 2
+#: the kernel wrappers whose ``.launches`` a dispatch graph accounts for
+KERNELS = (dedup_and_insert, wave_megakernel, sender_megakernel,
+           append_rows)
 
 
 def _pow2(n: int) -> int:
@@ -90,7 +110,9 @@ class FusedCudaBfsChecker(Checker):
 
     def __init__(self, builder, device: torch.device, batch_size: int = 1024,
                  table_capacity: int = 1 << 16, arena_capacity=None,
-                 waves_per_dispatch: int = 16, wave_kernel: bool = False):
+                 waves_per_dispatch: int = 16, wave_kernel: bool = False,
+                 max_batch_size=None, inflight_dispatches: int = 1,
+                 cuda_graph: bool = False):
         model = builder._model
         dm = model.device_model()
         self._model, self._dm, self._device = model, dm, device
@@ -111,7 +133,12 @@ class FusedCudaBfsChecker(Checker):
                 "symmetry() needs DeviceModel.representative()")
         self._target = builder._target_state_count
         self._B, self._F = int(batch_size), dm.max_fanout
+        self._buckets = batch_bucket_ladder(self._B, max_batch_size)
+        self._B_max = self._buckets[-1]
         self._K = max(1, int(waves_per_dispatch))
+        # Dispatches launched ahead of the oldest one's stats read; safe at
+        # any depth, since a dispatch launched past a rest point is a no-op.
+        self._depth = max(1, int(inflight_dispatches))
         self._layout = compile_layout(dm.lane_bits(), W)
         self._wave_kernel = bool(wave_kernel)
         if self._wave_kernel and device.type == "cuda":
@@ -145,8 +172,8 @@ class FusedCudaBfsChecker(Checker):
         self._unique_count = n_seed
 
         # Visited table: capacity rounds up to a power of two, and is at
-        # least 4x the seeds plus two dispatch widths of headroom.
-        S = self._B * self._F
+        # least 4x the seeds plus two of the widest dispatch's widths.
+        S = self._B_max * self._F
         cap = 1 << max(12, (int(table_capacity) - 1).bit_length())
         while cap < 4 * n_seed + 2 * S:
             cap *= 2
@@ -167,6 +194,19 @@ class FusedCudaBfsChecker(Checker):
         #: arena doublings, and candidates that reached the table probe
         self.waves = self.dispatches = self.rehashes = self.arena_grows = 0
         self.candidates = 0
+        #: one dict a retired dispatch: its ``bucket``, the dispatches in
+        #: flight at its launch (``inflight``, itself included), its
+        #: ``waves`` that expanded rows, and whether it ``compiled`` (paid
+        #: a graph capture)
+        self.dispatch_log: List[dict] = []
+        self._graphs = DispatchGraphs(KERNELS) if cuda_graph else None
+        # The ring of host slots the stats are copied to, one a dispatch
+        # in flight (pinned, so the copy does not wait for the card).
+        pinned = device.type == "cuda"
+        self._host_stats = [torch.empty(self._stats.shape,
+                                        dtype=torch.int64, pin_memory=pinned)
+                            for _ in range(self._depth)]
+        self._launched = 0
         self._lock = threading.Lock()
         self._done = threading.Event()
         self._error = None
@@ -179,7 +219,7 @@ class FusedCudaBfsChecker(Checker):
         ``rep_fps``, the arena from their packed rows ``seed`` and path
         fingerprints ``fps`` (uint64), and the first dispatch's stats."""
         device, n_seed = self._device, len(fps)
-        S = self._B * self._F
+        S = self._B_max * self._F
         table = np.full(self._capacity, SENTINEL_U64, np.uint64)
         host_table_insert(table, rep_fps)
         self._table = torch.from_numpy(table.view(np.int64)).to(device)
@@ -206,9 +246,9 @@ class FusedCudaBfsChecker(Checker):
         self._stats = torch.tensor(stats, dtype=torch.int64, device=device)
 
     def _scratch_shape(self):
-        """``DedupScratch``'s rows and shards: a wave's, the rows of one
-        call of its dedup kernel, one shard."""
-        return self._B * self._F, 1
+        """``DedupScratch``'s rows and shards: the widest wave's, the rows
+        of one call of its dedup kernel, one shard."""
+        return self._B_max * self._F, 1
 
     def _target_left(self) -> int:
         """Successors still to generate before the target state count
@@ -218,12 +258,13 @@ class FusedCudaBfsChecker(Checker):
 
     # -- Device dispatch ---------------------------------------------------
 
-    def _dispatch(self) -> torch.Tensor:
-        """Runs K waves on the device from ``self._stats`` and returns
-        the next stats tensor. Nothing here reads a device value on the
-        host, so the K waves queue up without a synchronisation."""
+    def _dispatch(self, bucket: int) -> None:
+        """Runs K waves of ``bucket`` rows on the device from
+        ``self._stats`` and writes the next stats into it in place. Nothing
+        here reads a device value on the host, so the K waves queue up
+        without a synchronisation, and a CUDA graph can hold them."""
         dm, layout = self._dm, self._layout
-        B, F, ucap, cap = self._B, self._F, self._ucap, self._capacity
+        B, F, ucap, cap = bucket, self._F, self._ucap, self._capacity
         S = B * F
         P = len(self._properties)
         st = self._stats
@@ -233,7 +274,8 @@ class FusedCudaBfsChecker(Checker):
         waves = torch.zeros((), dtype=torch.int64, device=self._device)
         disc = list(st[ST_DISC:].unbind())
         rb = torch.arange(B, dtype=torch.int64, device=self._device)
-        rs = torch.arange(S, dtype=torch.int64, device=self._device)
+        arena = tuple(a[None] for a in (self._vecs, self._fps, self._par,
+                                        self._ebits))
         for _ in range(self._K):
             # The reference's while_loop condition (fused.py:324-333).
             go = ((head < tail) & (err == 0) & (tail + S <= ucap)
@@ -298,14 +340,12 @@ class FusedCudaBfsChecker(Checker):
             err = err | torch.where(full, ERR_TABLE_FULL, 0)
 
             # Append the new rows at the tail in frontier order (the
-            # bfs.rs:262 enqueue order); the rest go to the dump row.
+            # bfs.rs:262 enqueue order), each with its parent's
+            # fingerprint and eventually bits.
             nc = new_count.to(torch.int64)
-            pos = torch.where(rs < nc, tail + rs, ucap)
-            parent = comp // F
-            self._vecs.index_copy_(0, pos, succ_store[comp])
-            self._fps.index_copy_(0, pos, path_fps[comp])
-            self._par.index_copy_(0, pos, bfps[parent])
-            self._ebits.index_copy_(0, pos, cleared[parent])
+            append_rows(arena, (succ_store[None], path_fps[None], bfps[None],
+                                cleared[None]), comp[None], nc.reshape(1),
+                        tail.reshape(1), F)
 
             head = torch.where(go, torch.minimum(head + B, tail), head)
             tail = tail + nc
@@ -313,8 +353,8 @@ class FusedCudaBfsChecker(Checker):
             succ_total = succ_total + succ_count
             cand_total = cand_total + cand_count
             waves = waves + go
-        return torch.stack([head, tail, occ, succ_total, cand_total, target,
-                            err, waves] + disc)
+        st.copy_(torch.stack([head, tail, occ, succ_total, cand_total,
+                              target, err, waves] + disc))
 
     # -- Host loop ---------------------------------------------------------
 
@@ -327,28 +367,84 @@ class FusedCudaBfsChecker(Checker):
             self._done.set()
 
     def _run_waves(self) -> None:
+        """The pipelined host loop (the reference's ``_run_waves``
+        :640-816). Every dispatch stops at a true rest point on the device,
+        so the loop launches the next one from the stats on the device
+        before it reads the last: up to ``inflight_dispatches`` ahead. It
+        retires the oldest first when it must act on stats at rest (growth
+        due, or the queue as last read drained), and every launched
+        dispatch before it returns: their insertions are real."""
         P = len(self._properties)
+        inflight: deque = deque()
         while True:
             with self._lock:
                 done = (len(self._discoveries) == P
                         or (self._target is not None
                             and self._state_count >= self._target))
-            if done or not self._live():
-                return
-            if self._needs_growth():
-                self._grow()
+            live = self._live()
+            if done or (not live and not inflight):
+                break
+            bucket = self._pick_bucket()
+            growth = self._needs_growth(bucket)
+            if (growth or not live) and inflight:
+                self._retire(inflight.popleft())
                 continue
-            self._stats = self._dispatch()
-            self._process(self._stats.cpu().numpy())
+            if growth:
+                self._grow(bucket)
+                continue
+            inflight.append(self._launch(bucket, len(inflight) + 1))
+            if len(inflight) >= self._depth:
+                self._retire(inflight.popleft())
+        while inflight:
+            self._retire(inflight.popleft())
+
+    def _launch(self, bucket: int, inflight: int = 1):
+        """Launches one dispatch of ``bucket`` rows (a graph's replay once
+        its key was captured) and the copy of its stats to the next host
+        slot: ``(host slot, copy's event or None, meta)`` for
+        ``_retire``."""
+        on_card = self._device.type == "cuda"
+        with torch.cuda.device(self._device) if on_card else contextlib.nullcontext():
+            if self._graphs is None:
+                self._dispatch(bucket)
+                captured = False
+            else:
+                captured = self._graphs.run(
+                    bucket, lambda: self._dispatch(bucket))
+            host = self._host_stats[self._launched % self._depth]
+            self._launched += 1
+            host.copy_(self._stats, non_blocking=on_card)
+            copied = None
+            if on_card:
+                copied = torch.cuda.Event()
+                copied.record()
+        return host, copied, {"bucket": bucket, "inflight": inflight,
+                              "compiled": captured}
+
+    def _retire(self, entry) -> None:
+        """Waits for one launched dispatch's stats and applies them."""
+        host, copied, meta = entry
+        if copied is not None:
+            copied.synchronize()
+        st = host.numpy()
+        self._process(st)
+        with self._lock:
+            self.dispatch_log.append(dict(
+                meta, waves=int(st[..., ST_WAVES].reshape(-1)[0])))
+
+    def _pick_bucket(self) -> int:
+        """The next dispatch's width: the least rung that covers the
+        queue as last retired."""
+        return pick_bucket(self._buckets, self._tail - self._head)
 
     def _live(self) -> bool:
         """Whether the queue holds rows to expand."""
         return self._head < self._tail
 
-    def _needs_growth(self) -> bool:
-        """Whether the next dispatch could overflow the table's half load
-        or the arena."""
-        S = self._B * self._F
+    def _needs_growth(self, bucket: int) -> bool:
+        """Whether a dispatch of ``bucket`` rows could overflow the
+        table's half load or the arena."""
+        S = bucket * self._F
         return (self._occ + S > self._capacity // 2
                 or self._tail + S > self._ucap)
 
@@ -394,11 +490,13 @@ class FusedCudaBfsChecker(Checker):
                              scratch=self._scratch)[4]
             for k in range(n)]).any()
 
-    def _grow(self) -> None:
-        """Growth at a rest point: the table doubles until the next
-        dispatch keeps its load at most 1/2 (each doubling re-inserts the
-        old table through the dedup kernel, ``_rehash``), and the arena
-        doubles until a dispatch's appends fit.
+    def _grow(self, bucket: int) -> None:
+        """Growth at a rest point, with no dispatch in flight: every
+        dispatch graph goes (they hold the tensors that growth replaces),
+        the table doubles until a dispatch of ``bucket`` rows keeps its
+        load at most 1/2 (each doubling re-inserts the old table through
+        the dedup kernel, ``_rehash``), and the arena doubles until such a
+        dispatch's appends fit.
 
         JAX rehashes a table in one ``dedup_and_insert`` call over all its
         slots. The port chunks it through the engine's scratch, at most a
@@ -409,7 +507,9 @@ class FusedCudaBfsChecker(Checker):
         The old keys are distinct, so chunks change neither the set the new
         table holds nor its occupancy, and sentinel slots stay invalid
         rows; slot order has no meaning."""
-        S = self._B * self._F
+        if self._graphs is not None:
+            self._graphs.clear()
+        S = bucket * self._F
         while self._occ + S > self._capacity // 2:
             table = torch.full((2 * self._capacity,), SENTINEL,
                                dtype=torch.int64, device=self._table.device)
@@ -464,6 +564,29 @@ class FusedCudaBfsChecker(Checker):
         if self._wave_kernel:
             return "megakernel" if on_card else "megakernel_plain"
         return "dedup_kernel" if on_card else "dedup_plain"
+
+    def scheduler_stats(self) -> dict:
+        """The host loop's telemetry, under the reference's keys
+        (``tpu/engine.py::scheduler_stats``): the bucket ladder, the
+        dispatches each bucket served, the dispatches retired, those that
+        paid a graph capture, and the deepest pipelining reached; and the
+        dispatch graphs' captures, replays and capture seconds (None with
+        graphs off)."""
+        with self._lock:
+            log = list(self.dispatch_log)
+        buckets: Dict[str, int] = {}
+        for e in log:
+            buckets[str(e["bucket"])] = buckets.get(str(e["bucket"]), 0) + 1
+        g = self._graphs
+        return {
+            "bucket_ladder": list(self._buckets),
+            "bucket_dispatches": buckets,
+            "dispatches": len(log),
+            "bucket_compiles": sum(1 for e in log if e["compiled"]),
+            "max_inflight": max((e["inflight"] for e in log), default=0),
+            "graphs": None if g is None else {
+                "captures": g.captures, "replays": g.replays,
+                "capture_sec": g.capture_sec}}
 
     def state_count(self) -> int:
         with self._lock:

@@ -16,23 +16,25 @@ ShardedFusedTpuBfsChecker`` on the port's fused engine (``fused.py``).
   owner bucketing into ``n * CAP`` rows a shard (``CAP = S = B * F``),
   the exchange (``Mesh.all_to_all`` of five arrays), the owner's insert
   into its own table slice (``table.dedup_and_insert``, one call a
-  shard), compaction, and the appends at each shard's tail. With
+  shard), compaction, and the appends at each shard's tail (one launch of
+  the append kernel, ``append.py``, for every shard). With
   ``exchange_novel_only`` (the default) a sender keeps only the first
   occurrence of each fingerprint among its own successors.
 - **Lockstep.** As in JAX, one global ``go`` predicate, from reductions
   over the shard axis, masks every shard's wave: live rows anywhere, no
   error, and ``R = n * S`` rows of headroom in the fullest shard's arena
-  and table. A dispatch launches K waves and reads nothing back.
+  and table. A dispatch launches K waves and reads nothing back; the
+  host loop, its in-flight depth, the bucket ladder (the bucket from the
+  fullest shard's queue) and the dispatch graphs are the fused engine's.
 - **Discovery order is shard-major**: the lowest shard with a hit wins,
   and within it the first row.
 - **Paths.** A row lives at the owner of its dedup fingerprint, while its
   parent link is a path fingerprint (they differ under symmetry), so a
   chain walk searches every shard's rows.
 
-The in-flight dispatch pipeline, the tiered store and span roll,
-checkpoints, profiling, fault injection and the tracer of the JAX engine
-are not ported (ROADMAP A2 to A5), and neither is an ownership remap
-(A12).
+The tiered store and span roll, checkpoints, profiling, fault injection
+and the tracer of the JAX engine are not ported (ROADMAP A3 to A8), and
+neither is an ownership remap (A13).
 """
 
 from __future__ import annotations
@@ -42,9 +44,11 @@ from typing import List
 import numpy as np
 import torch
 
+from .append import append_rows
 from .engine import (compaction_order, cumsum_rows, eval_properties,
                      expand_frontier, fingerprint_successors,
-                     first_occurrence_sorted, host_table_insert)
+                     first_occurrence_sorted, host_table_insert,
+                     pick_bucket)
 from .fused import (ERR_LANE, ERR_TABLE_FULL, ST_CAND, ST_DISC, ST_ERR,
                     ST_HEAD, ST_OCC, ST_SUCC, ST_TAIL, ST_TARGET, ST_WAVES,
                     FusedCudaBfsChecker, _i32, _pow2)
@@ -85,6 +89,11 @@ class ShardedFusedCudaBfsChecker(EpochOwnership, FusedCudaBfsChecker):
         self._owner_map = OwnerMap.identity(self._n)
         self._exchange_novel = (True if exchange_novel_only is None
                                 else bool(exchange_novel_only))
+        # The owner of each fingerprint partition, made here at rest and
+        # not inside a dispatch (None at the identity map).
+        self._assign = (None if self._owner_map.is_identity else torch.tensor(
+            self._owner_map.assignment(), dtype=torch.int64,
+            device=mesh.device))
         super().__init__(builder, mesh.device, batch_size=batch_size,
                          **kwargs)
 
@@ -105,7 +114,7 @@ class ShardedFusedCudaBfsChecker(EpochOwnership, FusedCudaBfsChecker):
 
         owner = np.array([self._owner(f) for f in fps], np.int64)
         tails = np.bincount(owner, minlength=n).astype(np.int64)
-        R = n * self._B * self._F
+        R = n * self._B_max * self._F
         max_seed = int(tails.max(initial=0))
         ucap = arena_capacity or max(1 << 14, 4 * R, _pow2(max_seed))
         ucap = max(_pow2(ucap), _pow2(max_seed))
@@ -136,17 +145,19 @@ class ShardedFusedCudaBfsChecker(EpochOwnership, FusedCudaBfsChecker):
     def _scratch_shape(self):
         """``DedupScratch``'s rows and shards: the rows of one owner-side
         insert, every row a shard may receive (``R = n * S``), and the
-        sender kernel's ``n`` shards of ``S`` rows. The sender and the
-        ``n`` inserts of a wave share one scratch, in stream order."""
-        return self._n * self._B * self._F, self._n
+        sender kernel's ``n`` shards of ``S`` rows, at the widest bucket.
+        The sender and the ``n`` inserts of a wave share one scratch, in
+        stream order."""
+        return self._n * self._B_max * self._F, self._n
 
     # -- Device dispatch -----------------------------------------------------
 
-    def _dispatch(self) -> torch.Tensor:
-        """Runs K waves on every shard from ``self._stats`` ``[n, L]``
-        and returns the next stats; reads nothing back."""
+    def _dispatch(self, bucket: int) -> None:
+        """Runs K waves of ``bucket`` rows a shard on every shard from
+        ``self._stats`` ``[n, L]`` and writes the next stats into it in
+        place; reads nothing back."""
         dm, layout, mesh = self._dm, self._layout, self._mesh
-        n, B, F = self._n, self._B, self._F
+        n, B, F = self._n, bucket, self._F
         ucap, cap = self._ucap, self._capacity
         W, wp = dm.state_width, layout.packed_width
         S = B * F
@@ -162,15 +173,13 @@ class ShardedFusedCudaBfsChecker(EpochOwnership, FusedCudaBfsChecker):
         waves = torch.zeros((), dtype=torch.int64, device=dev)
         disc = list(st[0, ST_DISC:].unbind())
         rb = torch.arange(B, dtype=torch.int64, device=dev)
-        rr = torch.arange(R, dtype=torch.int64, device=dev)
         shard = torch.arange(n, dtype=torch.int64, device=dev)[:, None]
         arena_row = shard * (ucap + 1)    # each shard's first arena row
         owners = torch.arange(n, dtype=torch.int64, device=dev)[:, None]
-        assign = (None if self._owner_map.is_identity else torch.tensor(
-            self._owner_map.assignment(), dtype=torch.int64, device=dev))
+        assign = self._assign
+        arena = (self._vecs, self._fps, self._par, self._ebits)
         vecs = self._vecs.view(n * (ucap + 1), wp)
-        fps_a, par_a, eb_a = (a.view(-1) for a in (self._fps, self._par,
-                                                   self._ebits))
+        fps_a, eb_a = self._fps.view(-1), self._ebits.view(-1)
         for _ in range(self._K):
             # The reference's while_loop condition, every operand reduced
             # over the shards (sharded_fused.py:339-353).
@@ -273,15 +282,10 @@ class ShardedFusedCudaBfsChecker(EpochOwnership, FusedCudaBfsChecker):
             err = err | torch.where(full, ERR_TABLE_FULL, 0)
 
             # Append each shard's new rows at its tail, in the order it
-            # received them; the rest go to its dump row.
-            pos = torch.where(rr < new_count[:, None], tail[:, None] + rr,
-                              ucap)
-            pos = (arena_row + pos).view(-1)
-            vecs.index_copy_(0, pos, recv_vecs.gather(
-                1, comp[:, :, None].expand(n, R, wp)).view(n * R, wp))
-            fps_a.index_copy_(0, pos, recv_path.gather(1, comp).view(-1))
-            par_a.index_copy_(0, pos, recv_parent.gather(1, comp).view(-1))
-            eb_a.index_copy_(0, pos, recv_ebits.gather(1, comp).view(-1))
+            # received them, each with its own parent and eventually bits.
+            append_rows(arena, (recv_vecs, recv_path, recv_parent,
+                                recv_ebits), comp, new_count,
+                        tail.contiguous(), 1)
 
             head = torch.where(go, torch.minimum(head + B, tail), head)
             tail = tail + new_count
@@ -291,18 +295,24 @@ class ShardedFusedCudaBfsChecker(EpochOwnership, FusedCudaBfsChecker):
             waves = waves + go
         # The ST_* row layout, one row a shard (the shared values
         # repeated), so the next dispatch chains on it.
-        return torch.stack(
+        st.copy_(torch.stack(
             [head, tail, occ] + [x.expand(n) for x in (succ_total,
                                                       cand_total, target)]
-            + [err, waves.expand(n)] + [d.expand(n) for d in disc], dim=1)
+            + [err, waves.expand(n)] + [d.expand(n) for d in disc], dim=1))
 
     # -- Host loop ------------------------------------------------------------
 
     def _live(self) -> bool:
         return bool((self._tails > self._heads).any())
 
-    def _needs_growth(self) -> bool:
-        R = self._n * self._B * self._F
+    def _pick_bucket(self) -> int:
+        """The next dispatch's width a shard, from the fullest shard's
+        queue (``sharded_fused.py:658-663``)."""
+        return pick_bucket(self._buckets,
+                           int((self._tails - self._heads).max()))
+
+    def _needs_growth(self, bucket: int) -> bool:
+        R = self._n * bucket * self._F
         return (int(self._occs.max()) + R > self._capacity // 2
                 or int(self._tails.max()) + R > self._ucap)
 
@@ -330,16 +340,20 @@ class ShardedFusedCudaBfsChecker(EpochOwnership, FusedCudaBfsChecker):
                 if fp != SENTINEL and prop.name not in self._discoveries:
                     self._discoveries[prop.name] = to_u64(fp)
 
-    def _grow(self) -> None:
+    def _grow(self, bucket: int) -> None:
         """Growth at a rest point (``_run_waves`` :670-766 without the
-        span roll): every table slice doubles, each re-inserted through
-        the dedup kernel (``_rehash_fn``; JAX in one call a slice, the
-        port's ``_rehash`` in chunks through the engine's scratch, for the
-        reasons ``FusedCudaBfsChecker._grow`` gives), until the fullest keeps
-        its load at most 1/2 after a dispatch; every arena doubles
-        (``_grow_fn``) until the fullest takes a dispatch's appends."""
+        span roll), the dispatch graphs dropped first: every table slice
+        doubles, each re-inserted through the dedup kernel
+        (``_rehash_fn``; JAX in one call a slice, the port's ``_rehash`` in
+        chunks through the engine's scratch, for the reasons
+        ``FusedCudaBfsChecker._grow`` gives), until the fullest keeps its
+        load at most 1/2 after a dispatch of ``bucket`` rows a shard; every
+        arena doubles (``_grow_fn``) until the fullest takes such a
+        dispatch's appends."""
+        if self._graphs is not None:
+            self._graphs.clear()
         n = self._n
-        R = n * self._B * self._F
+        R = n * bucket * self._F
         while int(self._occs.max()) + R > self._capacity // 2:
             table = torch.full((n, 2 * self._capacity), SENTINEL,
                                dtype=torch.int64, device=self._table.device)

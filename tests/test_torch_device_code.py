@@ -36,8 +36,8 @@ import numpy as np
 import pytest
 import torch
 
-from stateright_tpu_torch import carry, table, wave
-from stateright_tpu_torch.engine import (expand_frontier,
+from stateright_tpu_torch import append, carry, table, wave
+from stateright_tpu_torch.engine import (compaction_order, expand_frontier,
                                          fingerprint_successors,
                                          host_table_insert)
 from stateright_tpu_torch.actor_device import EMPTY_ENV
@@ -94,6 +94,7 @@ using std::min;
 
 HARNESS = r"""
 #include <vector>
+#include "append.cuh"
 #include "wave.cuh"
 #include "models/paxos.cuh"
 #include "models/twopc.cuh"
@@ -282,6 +283,30 @@ extern "C" long long sender_phases(
                     shards, fanout, slots, region_bits, order1, order2, succ,
                     dedup_fps, path_fps, sflat, send_mask);
   });
+}
+
+// The append kernel's device code for every shard, a word then a row at a
+// time, last first (the grid-stride loop's order does not matter). Returns
+// the rows it appended.
+extern "C" long long append_phases(
+    int shards, long long rows, int div, int wp, long long arena_rows,
+    const uint32_t* src_vecs, const u64* src_fps, const u64* src_par,
+    const uint32_t* src_ebits, const long long* comp,
+    const long long* new_count, const long long* tail, uint32_t* vecs,
+    u64* fps, u64* par, uint32_t* ebits) {
+  const sr::AppendArgs a{shards,  rows,      div,       wp,
+                         arena_rows, src_vecs, src_fps,  src_par,
+                         src_ebits, comp,      new_count, tail,
+                         vecs,      fps,       par,       ebits};
+  long long written = 0;
+  for (int k = 0; k < shards; ++k) {
+    const long long nc = sr::append_count(a, k);
+    for (long long j = nc * wp - 1; j >= 0; --j)
+      sr::append_word(a, k, j / wp, (int)(j % wp));
+    for (long long i = nc - 1; i >= 0; --i) sr::append_row(a, k, i);
+    written += nc;
+  }
+  return written;
 }
 
 // The model's step on every slot of n rows of w lanes: succ[n, F, w] and
@@ -827,3 +852,65 @@ def test_sentinel_packing_matches_packing_py(lib, c):
     assert np.array_equal(unpacked, want)
     assert (want[:, sentinel] == EMPTY_ENV).any()
     assert (want[:, sentinel] != EMPTY_ENV).any()
+
+
+# -- The append kernel -------------------------------------------------------
+
+
+@pytest.mark.parametrize("case", [
+    # shards, source rows a shard, rows a parent, packed words, arena rows
+    # a shard (the dump row last), each shard's tail and new rows
+    ("none new", 1, 60, 12, 3, 128, [40], [0]),
+    ("ragged", 1, 60, 12, 3, 128, [40], [23]),
+    ("every row new", 1, 60, 12, 3, 128, [67], [60]),
+    ("sharded, unequal tails", 3, 90, 1, 20, 160, [0, 57, 69], [31, 90, 0]),
+    ("rows onto the dump row", 2, 30, 1, 2, 64, [34, 5], [30, 7])])
+def test_append_matches_the_plain_version(lib, case):
+    """``append.cuh``'s device code against ``append_rows_plain``: arena
+    rows ``[0, tail + new_count)`` of every shard equal bit for bit in all
+    four arrays, and no other row written (the dump row included), except
+    where the rows would pass the arena: there nothing is."""
+    tag, n, rows, div, wp, U, tails, counts = case
+    rng = np.random.default_rng(len(tag))
+
+    def words(shape):
+        return rng.integers(0, 1 << 32, shape, dtype=np.uint64).astype(
+            np.uint32)
+
+    def keys(shape):
+        return rng.integers(0, 1 << 64, shape, dtype=np.uint64)
+
+    src = (words((n, rows, wp)), keys((n, rows)), keys((n, rows // div)),
+           words((n, rows // div)))
+    mask = np.zeros((n, rows), bool)
+    for k, c in enumerate(counts):
+        mask[k, rng.choice(rows, c, replace=False)] = True
+    comp = compaction_order(torch.from_numpy(mask)).numpy()
+    new_count = mask.sum(1).astype(np.int64)
+    tail = np.array(tails, np.int64)
+    arena = (words((n, U, wp)), keys((n, U)), keys((n, U)), words((n, U)))
+    got = tuple(a.copy() for a in arena)
+    written = _call(lib, "append_phases", ctypes.c_int(n),
+                    ctypes.c_longlong(rows), ctypes.c_int(div),
+                    ctypes.c_int(wp), ctypes.c_longlong(U),
+                    *[ctypes.c_void_p(_ptr(a)) for a in (
+                        *src, comp, new_count, tail, *got)])
+    # A shard whose rows would pass the arena appends none.
+    fits = tail + new_count <= U - 1
+    assert written == int((new_count * fits).sum())
+
+    def tensor(a):
+        return torch.from_numpy(
+            a.view(np.int64 if a.dtype == np.uint64 else np.int32).copy())
+
+    want = tuple(tensor(a) for a in arena)
+    append.append_rows(want, tuple(tensor(a) for a in src),
+                       torch.from_numpy(comp),
+                       torch.from_numpy(np.where(fits, new_count, 0)),
+                       torch.from_numpy(tail), div)
+    for k in range(n):
+        end = int(tail[k] + new_count[k]) if fits[k] else 0
+        for g, w, a in zip(got, want, arena):
+            assert np.array_equal(g[k, :end], w[k, :end].numpy().view(
+                g.dtype)), (tag, k)
+            assert np.array_equal(g[k, end:], a[k, end:]), (tag, k)

@@ -285,7 +285,7 @@ def test_rehash_past_2_30_slots_takes_the_engines_scratch(monkeypatch):
     c._table = torch.empty(C, dtype=torch.int64, device="meta")
     c._capacity, c._occ, c._scratch = C, C // 2 - rows + 1, scratch
     rehashes = c.rehashes
-    c._grow()
+    c._grow(c._B)
     assert (c._capacity, c.rehashes) == (2 * C, rehashes + 1)
     assert c._table.shape == (2 * C,) and c._table.device.type == "meta"
     assert len(calls) == fused._pow2(-(-C // rows))
@@ -306,7 +306,7 @@ def test_chunked_rehash_equals_one_call_as_a_set():
     one = torch.full((2 * old.shape[0],), -1, dtype=torch.int64)
     assert not bool(table.dedup_and_insert(old, one)[4])
     c._occ = c._capacity // 2
-    c._grow()
+    c._grow(c._B)
     assert c._capacity == 2 * old.shape[0]
     got, want = c._table, one
     assert int((got != -1).sum()) == int((want != -1).sum()) == int(

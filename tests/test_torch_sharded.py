@@ -349,7 +349,7 @@ def test_rehash_past_2_30_slots_takes_the_engines_scratch(monkeypatch):
     c._table = torch.empty((n, C), dtype=torch.int64, device="meta")
     c._capacity, c._scratch = C, scratch
     c._occs = np.full(n, C // 2 - rows + 1)
-    c._grow()
+    c._grow(c._B)
     assert c._capacity == 2 * C and c._table.shape == (n, 2 * C)
     assert len(calls) == n * fused._pow2(-(-C // rows))
     assert sum(k for k, _, _ in calls) == n * C
@@ -362,7 +362,7 @@ def test_chunked_rehash_equals_one_call_as_a_set():
     old = c._table.clone()
     assert old.shape[1] > 2 * c._scratch_shape()[0]  # several chunks
     c._occs[:] = c._capacity // 2
-    c._grow()
+    c._grow(c._B)
     for k in range(4):
         one = torch.full((2 * old.shape[1],), SENTINEL, dtype=torch.int64)
         assert not bool(table.dedup_and_insert(old[k], one)[4])

@@ -98,7 +98,24 @@ Phases, in order; any failure exits non-zero and prints no result line:
    for the host's µs a dispatch and the steady pace a wave, and one
    under ``torch.profiler`` (kernel time and launches by kernel, which
    are the graph's nodes), which together give the card's idle share;
-7. the kernels line, the script's running time, the card line and the
+7. checkpoints and resume: 2pc 5 and paxos 2, fused on the wave kernel
+   and on 4 stacked shards on the sender kernel, stopped at a target with
+   a checkpoint at every rest point, against the CPU run with the same
+   knobs: every section of the last generation and of its ``.prev`` equal
+   byte for byte; each file resumed on the card by each engine to the
+   full counts and discovery chains; ``paxos check 3`` at full width
+   (batch 16,384 fused on the wave kernel, 4 x 4,096 on the sender
+   kernel) stopped at 1,000,000 states after periodic generations, each
+   file resumed on both engines to exactly 1,194,428 / 2,420,477 with
+   "value chosen" replayed and no counterexample, and one
+   ``restart_from`` of a periodic generation; 2pc at 10 RMs on the wave
+   kernel stopped at 200,000,000 states, its snapshot timed in parts, its
+   compressed write timed with the file's bytes, the file resumed to
+   exactly 61,515,776 / 817,760,258 with every kernel's launches exact
+   (the resumed table's chunks of the dedup kernel included), and the
+   resumed table's build held to the plain version and timed beside the
+   host's insert and upload (the JAX package's way) and its bound;
+8. the kernels line, the script's running time, the card line and the
    result line.
 
 It imports neither JAX nor ``stateright_tpu``.
@@ -542,13 +559,13 @@ def phase_rehash(torch, table_mod, engine, fused, TwoPhaseSys):
     """The rehash at the shape of the full 10-RM run's last: its table of
     2^26 slots, about half full (a rehash runs once the next dispatch
     could pass half load), into an empty one of 2^27, through a 10-RM
-    engine's own ``_rehash`` (128 strided chunks of 524,288 rows, at most
-    its 851,968 scratch rows, with its scratch), against the plain
-    version's one call: the tables equal
-    as sets, no key without a slot, the scratch handed back clean. Then
-    its time and its peak of device memory beside those of chunks that
-    are runs of adjacent slots (the form ``_rehash`` avoids: their keys
-    share their hash's high bits, which also pick their scratch slots),
+    engine's own ``_insert_chunked`` (128 strided chunks of 524,288 rows,
+    at most its 851,968 scratch rows, with its scratch), against the
+    plain version's one call: the tables equal as sets, no key without a
+    slot, the scratch handed back clean. Then its time and its peak of
+    device memory beside those of chunks that are runs of adjacent slots
+    (the form ``_insert_chunked`` avoids: their keys share their hash's
+    high bits, which also pick their scratch slots),
     and of one kernel call over all 2^26 rows with no scratch (the earlier
     form, which builds a scratch of 2 x 2^26 slots of 16 bytes)."""
     gen = torch.Generator(device="cuda").manual_seed(13)
@@ -560,7 +577,7 @@ def phase_rehash(torch, table_mod, engine, fused, TwoPhaseSys):
     rows = eng._scratch_shape()[0]
 
     def chunked(new):
-        return eng._rehash(old, new)
+        return eng._insert_chunked(old, new)
 
     def runs(new):
         return torch.stack([table_mod.dedup_and_insert(
@@ -1375,17 +1392,360 @@ def phase_profile(torch, point):
     return total_ms / mid._K, n_launch / mid._K
 
 
+# -- Checkpoints and resume ------------------------------------------------
+
+
+def _sections(path):
+    """A checkpoint file's sections: name -> (dtype, shape, bytes)."""
+    import numpy as np
+
+    with np.load(path) as data:
+        return {k: (str(data[k].dtype), data[k].shape, data[k].tobytes())
+                for k in data.files}
+
+
+def _same_files(ckpt_mod, a: str, b: str, tag: str) -> None:
+    """Every section of ``a`` and of ``b`` equal byte for byte, in the
+    last generation and in its ``.prev``."""
+    for suffix in ("", ckpt_mod.PREV_SUFFIX):
+        sa, sb = _sections(a + suffix), _sections(b + suffix)
+        bad = sorted(k for k in set(sa) | set(sb) if sa.get(k) != sb.get(k))
+        if bad:
+            raise AssertionError(f"{tag}: sections {bad} of "
+                                 f"{suffix or 'the last generation'} "
+                                 "differ from the CPU run's")
+
+
+def phase_checkpoint_small(ckpt_mod, TwoPhaseSys, PaxosSys, workdir,
+                           device="cuda:0"):
+    """Checkpoints of 2pc 5 and paxos 2 on ``device``, fused on the wave
+    kernel and on ``SHARDS`` stacked shards on the sender kernel, at 2
+    waves a dispatch with a checkpoint due at every rest point and a
+    target, against the CPU run with the same knobs: every section of the
+    last generation and of its ``.prev`` equal byte for byte. Then each
+    file resumed on ``device`` by each engine: the full run's counts; the
+    full run's discovery chains on the writer's own engine, and on the
+    other those of the CPU run resuming the same file on that engine (a
+    property found before the checkpoint keeps the writer's chain)."""
+    for name, model, target, base in (
+            ("2pc 5", functools.partial(TwoPhaseSys, 5), 20_000, 256),
+            ("paxos 2", functools.partial(PaxosSys, 2), 15_000, 256)):
+        def engines(dev):
+            return {"fused": dict(device=dev, batch_size=base),
+                    f"n={SHARDS}": dict(mesh=[dev] * SHARDS,
+                                        batch_size=base // SHARDS)}
+
+        def spawn(b, **kw):
+            return b.spawn_cuda_bfs(wave_kernel=True, waves_per_dispatch=2,
+                                    **kw).join()
+
+        full, files = {}, {}
+        for engine, kw in engines(device).items():
+            full[engine] = spawn(model().checker(), **kw)
+            paths = [os.path.join(workdir, f"{name}-{engine}-{where}.npz")
+                     for where in ("card", "cpu")]
+            for path, spawn_kw in zip(paths, (kw, engines("cpu")[engine])):
+                c = spawn(model().checker().target_state_count(target),
+                          checkpoint_path=path, checkpoint_every_waves=1,
+                          **spawn_kw)
+                if c.checkpoints < 3:
+                    raise AssertionError(f"{name} {engine}: {c.checkpoints} "
+                                         "checkpoints")
+            _same_files(ckpt_mod, *paths, f"{name} {engine}")
+            files[engine] = paths[0]
+            _log(f"{name} {engine}: stopped at unique="
+                 f"{c.unique_state_count()} states={c.state_count()} after "
+                 f"{c.checkpoints} checkpoints; the last two generations "
+                 "equal the CPU run's, section by section, byte for byte")
+        want = (full["fused"].unique_state_count(),
+                full["fused"].state_count())
+        for writer, path in files.items():
+            for reader, kw in engines(device).items():
+                c = spawn(model().checker(), resume_from=path, **kw)
+                tag = f"{name}: {writer}'s file resumed on {reader}"
+                got = (c.unique_state_count(), c.state_count())
+                if got != want:
+                    raise AssertionError(f"{tag}: {got} != {want}")
+                if writer == reader:
+                    ref, against = full[reader], "the full run's"
+                else:
+                    ref = spawn(model().checker(), resume_from=path,
+                                **engines("cpu")[reader])
+                    against = "those of the CPU run resuming the file"
+                if _chains(c) != _chains(ref) or not _chains(c):
+                    raise AssertionError(f"{tag}: discovery chains differ "
+                                         f"from {against}")
+                _log(f"{tag}: unique={got[0]} states={got[1]}, discovery "
+                     f"chains {sorted(_chains(c))} equal to {against}")
+
+
+def _resume_exact(c, want, found, tag):
+    """A resumed run's counts, discoveries and properties."""
+    got = (c.unique_state_count(), c.state_count())
+    if got != want:
+        raise AssertionError(f"{tag}: {got} != {want}")
+    if sorted(c.discoveries()) != found:
+        raise AssertionError(f"{tag}: discoveries {sorted(c.discoveries())}")
+    c.assert_properties()  # the paths replay; no counterexample
+
+
+def phase_checkpoint_paxos(ckpt_mod, PaxosSys, workdir, device="cuda:0",
+                           batch=BATCH, clients=3,
+                           want=(PAXOS_UNIQUE, PAXOS_STATES),
+                           target=1_000_000, waves=8):
+    """``paxos check 3`` at full width, fused on the wave kernel (batch
+    16,384) and sharded ``SHARDS`` x 4,096 on the sender kernel, 8 waves a
+    dispatch, stopped at ``target`` states with a checkpoint due at every
+    rest point before it; each file resumed on its own engine and on the
+    other to exactly the full counts, "value chosen" found and its path
+    replayed, no "linearizable" counterexample; then ``restart_from`` of
+    the fused file's periodic generation (its ``.prev``) on a finished
+    checker. Returns each run's seconds."""
+    engines = {"fused": dict(device=device, batch_size=batch),
+               f"n={SHARDS}": dict(mesh=[device] * SHARDS,
+                                   batch_size=batch // SHARDS)}
+    spawn = dict(wave_kernel=True, waves_per_dispatch=waves)
+    files, out, finished = {}, {}, {}
+    for engine, kw in engines.items():
+        path = os.path.join(workdir, f"paxos{clients}-{engine}.npz")
+        t0 = time.monotonic()
+        c = (PaxosSys(clients).checker().target_state_count(target)
+             .spawn_cuda_bfs(checkpoint_path=path, checkpoint_every_waves=1,
+                             **spawn, **kw).join())
+        sec = time.monotonic() - t0
+        if c.checkpoints < 3:
+            raise AssertionError(f"paxos {clients} {engine}: only "
+                                 f"{c.checkpoints - 1} periodic checkpoints "
+                                 "before the target")
+        head = ckpt_mod.verify_file(path)
+        prev = ckpt_mod.verify_file(path + ckpt_mod.PREV_SUFFIX)
+        _log(f"paxos {clients} {engine}: stopped at unique="
+             f"{c.unique_state_count()} states={c.state_count()} in "
+             f"{sec:.3f} s, {c.checkpoints} checkpoints ({c.checkpoints - 1} "
+             f"periodic); the file's header {head['unique_count']} / "
+             f"{head['state_count']}, its .prev {prev['unique_count']} / "
+             f"{prev['state_count']}")
+        files[engine] = path
+        out[f"{engine} to {target}"] = sec
+    for writer, path in files.items():
+        for reader, kw in engines.items():
+            t0 = time.monotonic()
+            c = PaxosSys(clients).checker().spawn_cuda_bfs(
+                resume_from=path, **spawn, **kw).join()
+            sec = time.monotonic() - t0
+            tag = f"paxos {clients}: {writer}'s file resumed on {reader}"
+            _resume_exact(c, want, ["value chosen"], tag)
+            out[f"{writer} on {reader}"] = sec
+            finished[reader] = c
+            _log(f"{tag}: unique={want[0]} states={want[1]} in {sec:.3f} s, "
+                 "'value chosen' found and replayed, no counterexample")
+    c = finished["fused"]
+    t0 = time.monotonic()
+    c.restart_from(files["fused"] + ckpt_mod.PREV_SUFFIX).join()
+    sec = time.monotonic() - t0
+    _resume_exact(c, want, ["value chosen"],
+                  f"paxos {clients}: restart_from the periodic file")
+    out["restart_from"] = sec
+    _log(f"paxos {clients}: restart_from the fused run's periodic "
+         f"generation (its .prev) on a finished fused checker: "
+         f"unique={want[0]} states={want[1]} in {sec:.3f} s")
+    return out
+
+
+def _seed_case(torch, table_mod, engine, eng, visited, cap):
+    """The resumed table's build of ``visited`` into ``cap`` slots, as
+    the engine ``eng`` builds it (kernel 1 in strided chunks with its
+    scratch, ``_insert_chunked``), against
+    the plain version's one call as sets, the scratch clean; its time by
+    kernel, the plain version's, and the host's insert plus upload (the
+    JAX package's way, ``engine.host_table_insert``), with kernel 1's
+    bound by bytes."""
+    import numpy as np
+
+    dev = eng._device
+    keys = torch.from_numpy(visited.view(np.int64)).to(dev)
+
+    def setup():
+        return (torch.full((cap,), -1, dtype=torch.int64, device=dev),)
+
+    (t_k,), (t_p,) = setup(), setup()
+    full = eng._insert_chunked(keys, t_k)
+    table_mod.dedup_and_insert_plain(keys, t_p)
+    torch.cuda.synchronize()
+    if bool(full) or not torch.equal(torch.sort(t_k).values,
+                                     torch.sort(t_p).values):
+        raise AssertionError("the resumed table built by the dedup kernel "
+                             "differs from the plain version's as a set")
+    _check_clean(torch, eng._scratch, "the resumed table's build")
+    n = len(visited)
+    del t_k, t_p
+
+    def chunked(table):
+        return eng._insert_chunked(keys, table)
+
+    call_ms = _time_ms(torch, chunked, 3, setup)
+    ms, parts = _breakdown(torch, chunked, 3, setup)
+    plain_ms = _time_ms(torch, table_mod.dedup_and_insert_plain, 1,
+                        lambda: (keys,) + setup())
+    t0 = time.monotonic()
+    host = np.full(cap, np.uint64(0xFFFFFFFFFFFFFFFF), np.uint64)
+    engine.host_table_insert(host, visited)
+    t1 = time.monotonic()
+    torch.from_numpy(host.view(np.int64)).to(dev)
+    torch.cuda.synchronize()
+    t2 = time.monotonic()
+    # Bound: the function's bytes, each once: the keys read, two masks
+    # written, one 32-byte sector a key in the table.
+    nbytes = 8 * n + 2 * n + 32 * n
+    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    chunks = eng._chunks(n)
+    _log(f"resumed table's build: {n} keys into 2^{cap.bit_length() - 1} "
+         f"slots, {chunks} strided chunks of kernel 1, {ms:.4f} ms on the "
+         f"card ({call_ms:.4f} ms between CUDA events), plain one call "
+         f"{plain_ms:.4f} ms, host_table_insert {(t1 - t0) * 1e3:.1f} ms "
+         f"plus its upload {(t2 - t1) * 1e3:.1f} ms, bound {bound_ms:.4f} ms "
+         f"({nbytes} B over HBM); by kernel and memset:")
+    _log_parts(parts)
+    return dict(max_abs_err=0, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                parts=parts, host_ms=(t1 - t0) * 1e3,
+                upload_ms=(t2 - t1) * 1e3, chunks=chunks, keys=n)
+
+
+def phase_checkpoint_2pc(torch, kernels, fused, table_mod, engine, ckpt_mod,
+                         TwoPhaseSys, workdir, device="cuda:0", rm=10,
+                         batch=BATCH, target=200_000_000,
+                         want=(FULL_UNIQUE, FULL_STATES)):
+    """2pc at 10 RMs on the wave kernel, batch 16,384, stopped at
+    ``target`` states: its snapshot timed in parts (the queue's rows read
+    from the card, the visited set sorted on the card and read, the
+    parent sections), then ``write_atomic`` (compressed, as in JAX) timed
+    with the file's bytes; the file resumed on the wave kernel to exactly
+    the full counts, with every kernel's launches set to 0 just before the
+    spawn and read after it (the seed's chunks, the rehashes' and the
+    waves' launches exact), and the file's load timed alone; and the
+    resumed table's build timed."""
+    import numpy as np
+
+    spawn = dict(device=device, batch_size=batch, wave_kernel=True)
+    t0 = time.monotonic()
+    c = (TwoPhaseSys(rm).checker().target_state_count(target)
+         .spawn_cuda_bfs(**spawn).join())
+    stop_sec = time.monotonic() - t0
+    torch.cuda.synchronize()
+    times = {}
+    t0 = time.monotonic()
+    blocks = c._pending_blocks()
+    times["queue rows"] = time.monotonic() - t0
+    t0 = time.monotonic()
+    visited = c._visited_sorted()
+    times["visited sort"] = time.monotonic() - t0
+    t0 = time.monotonic()
+    parents = c._parent_sections()
+    times["parent sections"] = time.monotonic() - t0
+    t0 = time.monotonic()
+    payload = c._snapshot()
+    snap_sec = time.monotonic() - t0
+    if not (np.array_equal(payload["visited"], visited)
+            and np.array_equal(payload["parent_child"], parents[0])
+            and np.array_equal(payload["pending_fps"], blocks[0][1])):
+        raise AssertionError("the snapshot's parts differ from its whole")
+    path = os.path.join(workdir, f"2pc{rm}.npz")
+    t0 = time.monotonic()
+    ckpt_mod.write_atomic(path, payload)
+    write_sec = time.monotonic() - t0
+    nbytes = os.path.getsize(path)
+    raw = sum(np.asarray(v).nbytes for v in payload.values())
+    unique, states = c.unique_state_count(), c.state_count()
+    _log(f"2pc {rm} stopped at unique={unique} states={states} in "
+         f"{stop_sec:.3f} s; snapshot {snap_sec:.3f} s ("
+         + ", ".join(f"{k} {v:.3f} s" for k, v in times.items())
+         + f"): {len(visited)} visited, {len(blocks[0][1])} queued, "
+         f"{len(parents[0])} parents, {raw} B raw; write_atomic "
+         f"{write_sec:.3f} s, {nbytes} B on disk")
+    del payload, blocks, parents, c
+    gc.collect()
+
+    for fn in kernels.values():
+        fn.launches = 0
+    t0 = time.monotonic()
+    r = TwoPhaseSys(rm).checker().spawn_cuda_bfs(resume_from=path,
+                                                 **spawn).join()
+    torch.cuda.synchronize()
+    resume_sec = time.monotonic() - t0
+    launches = {name: fn.launches for name, fn in kernels.items()}
+    _resume_exact(r, want, ["abort agreement", "commit agreement"],
+                  f"2pc {rm} resumed")
+    seed_chunks = r._chunks(len(visited))
+    rows = r._scratch_shape()[0]
+    chunks = sum(fused._pow2(-(-(r._capacity >> i) // rows))
+                 for i in range(1, r.rehashes + 1))
+    launched = r._K * r.dispatches
+    expect = {"dedup_and_insert": seed_chunks + chunks,
+              "wave_megakernel": launched, "sender_megakernel": 0,
+              "append_rows": launched}
+    expect = {k: v for k, v in expect.items() if k in kernels}
+    if launches != expect:
+        raise AssertionError(f"2pc {rm} resumed: kernel launches {launches}, "
+                             f"expected {expect}")
+    # The file's load alone, as the resume ran it (the finished checker's
+    # counts are not read after this).
+    t0 = time.monotonic()
+    r._load_checkpoint(path)
+    load_sec = time.monotonic() - t0
+    _log(f"2pc {rm} resumed on the wave kernel: unique={want[0]} "
+         f"states={want[1]} in {resume_sec:.3f} s (load, seed and run; the "
+         f"load alone {load_sec:.3f} s), {r.dispatches} dispatches, "
+         f"{r.rehashes} rehashes; kernel launches {launches} "
+         f"({seed_chunks} the seed's chunks)")
+    # The resumed table's capacity: the rule from the default's 2^16.
+    cap = 1 << 16
+    while cap < 4 * len(visited) + 2 * batch * r._F:
+        cap *= 2
+    seed = _seed_case(torch, table_mod, engine, r, visited, cap)
+    return dict(seed, launches=seed_chunks, stop_sec=stop_sec,
+                snap_sec=snap_sec, parts_sec=times, write_sec=write_sec,
+                file_bytes=nbytes, raw_bytes=raw, resume_sec=resume_sec,
+                load_sec=load_sec, unique=unique, states=states)
+
+
+def phase_checkpoint(torch, kernels, fused, table_mod, engine, ckpt_mod,
+                     TwoPhaseSys, PaxosSys):
+    """The three checkpoint phases in a directory of their own beside
+    this script, removed after them."""
+    import shutil
+
+    workdir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "_ckpt_tmp")
+    shutil.rmtree(workdir, ignore_errors=True)
+    os.makedirs(workdir)
+    try:
+        t0 = time.monotonic()
+        phase_checkpoint_small(ckpt_mod, TwoPhaseSys, PaxosSys, workdir)
+        t1 = time.monotonic()
+        paxos = phase_checkpoint_paxos(ckpt_mod, PaxosSys, workdir)
+        t2 = time.monotonic()
+        twopc = phase_checkpoint_2pc(torch, kernels, fused, table_mod, engine,
+                                     ckpt_mod, TwoPhaseSys, workdir)
+        t3 = time.monotonic()
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    _log(f"checkpoint phases: small gates {t1 - t0:.1f} s, paxos 3 "
+         f"{t2 - t1:.1f} s, 2pc 10 {t3 - t2:.1f} s")
+    return dict(twopc, paxos=paxos, sec=(t1 - t0, t2 - t1, t3 - t2))
+
+
 def _modules():
     """The port's modules, from the checkout beside this script."""
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from stateright_tpu_torch import _build, engine, fused
     from stateright_tpu_torch import append as append_mod
+    from stateright_tpu_torch import checkpoint_format as ckpt_mod
     from stateright_tpu_torch import table as table_mod
     from stateright_tpu_torch import wave as wave_mod
     from stateright_tpu_torch.models.paxos import PaxosDevice, PaxosSys
     from stateright_tpu_torch.models.twopc import TwoPhaseDevice, TwoPhaseSys
     return (_build, engine, fused, table_mod, wave_mod, append_mod,
-            TwoPhaseDevice, TwoPhaseSys, PaxosDevice, PaxosSys)
+            ckpt_mod, TwoPhaseDevice, TwoPhaseSys, PaxosDevice, PaxosSys)
 
 
 def _log_ptxas(log: str) -> None:
@@ -1451,8 +1811,8 @@ def main(argv) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
-    (_build, engine, fused, table_mod, wave_mod, append_mod, TwoPhaseDevice,
-     TwoPhaseSys, PaxosDevice, PaxosSys) = _modules()
+    (_build, engine, fused, table_mod, wave_mod, append_mod, ckpt_mod,
+     TwoPhaseDevice, TwoPhaseSys, PaxosDevice, PaxosSys) = _modules()
     t_start = time.monotonic()
     phase_build(_build, table_mod, wave_mod, append_mod)
     card = _card_line()
@@ -1546,6 +1906,10 @@ def main(argv) -> int:
     if len(buckets) < 2:
         raise AssertionError(f"paxos 3 on a ladder used one bucket: "
                              f"{buckets}")
+    # Checkpoints and resume: the small gates against the CPU, paxos 3
+    # and 2pc 10 at full width, the resumed table's build.
+    ck = phase_checkpoint(torch, kernels, fused, table_mod, engine, ckpt_mod,
+                          TwoPhaseSys, PaxosSys)
 
     # Kernel 1 on the synthetic stream, on the default path's input of
     # each model (a mid-run wave's dedup fingerprints), and at the
@@ -1572,6 +1936,8 @@ def main(argv) -> int:
                     k_err, k["paxos"]),
         _kernel_row("dedup_and_insert[rehash]", src + "table.cu",
                     pallas + "256", launches, k_err, k["rehash"]),
+        _kernel_row("dedup_and_insert[resume seed]", src + "table.cu",
+                    pallas + "256", ck["launches"], ck["max_abs_err"], ck),
         _kernel_row("wave_megakernel", src + "wave_twopc.cu", pallas + "380",
                     launched("2pc 10, wave kernel", "wave_megakernel"),
                     w_err, w["plain"]),

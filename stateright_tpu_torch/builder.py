@@ -49,7 +49,11 @@ class CheckerBuilder:
                        exchange_novel_only=None,
                        max_batch_size: Optional[int] = None,
                        inflight_dispatches: int = 1,
-                       cuda_graph: Optional[bool] = None
+                       cuda_graph: Optional[bool] = None,
+                       checkpoint_path: Optional[str] = None,
+                       checkpoint_every_waves: int = 64,
+                       resume_from: Optional[str] = None,
+                       async_io: Optional[bool] = None
                        ) -> FusedCudaBfsChecker:
         """Spawns the fused device BFS; call ``join()`` to wait for it.
 
@@ -79,12 +83,29 @@ class CheckerBuilder:
         ``fp % n``, ``batch_size`` (default 512) is per shard, and
         ``exchange_novel_only`` (default on) drops a sender's repeated
         successors before the exchange. The shards must share one
-        device, stacked: ``mesh=["cpu"] * n`` or ``["cuda:0"] * n``."""
+        device, stacked: ``mesh=["cpu"] * n`` or ``["cuda:0"] * n``.
+
+        Checkpoints, as in JAX's ``spawn_tpu_bfs``: with
+        ``checkpoint_path`` the run writes a snapshot there at a rest
+        point each time ``checkpoint_every_waves * batch_size`` new states
+        have arrived, and one at its end, keeping the last two
+        generations (the older at ``checkpoint_path + ".prev"``).
+        ``resume_from`` starts the run from a snapshot of either of the
+        port's engines or of a JAX BFS engine; it must be of the same
+        model, width and symmetry setting. ``async_io=True`` (or the
+        ``STpu_ASYNC_IO`` environment variable) writes on a thread of its
+        own: the same bytes, and a failure raises at the next write or at
+        ``join()``. A file's sections and dtypes are the JAX package's
+        (``checkpoint_format.py``), so either package resumes the
+        other's."""
         knobs = dict(table_capacity=table_capacity,
                      arena_capacity=arena_capacity,
                      waves_per_dispatch=waves_per_dispatch,
                      wave_kernel=wave_kernel, max_batch_size=max_batch_size,
-                     inflight_dispatches=inflight_dispatches)
+                     inflight_dispatches=inflight_dispatches,
+                     checkpoint_path=checkpoint_path,
+                     checkpoint_every_waves=checkpoint_every_waves,
+                     resume_from=resume_from, async_io=async_io)
         if mesh is not None or sharded:
             return self._spawn_sharded(
                 device, mesh, batch_size or 512, exchange_novel_only,

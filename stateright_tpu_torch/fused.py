@@ -21,7 +21,7 @@ together with the parts of ``tpu/engine.py::TpuBfsChecker`` it inherits
   On the card a dispatch is one CUDA graph (``graphs.py``): JAX's one
   program a dispatch.
 - **The host loop** (``_run_waves``, the reference's :460-816 without
-  checkpoints, the arena-span spill and the tracer) launches up to
+  the arena-span spill and the tracer) launches up to
   ``inflight_dispatches`` dispatches ahead of its stats reads: after each
   launch it copies the stats to a pinned host slot of its own and waits
   for that copy alone when it retires the dispatch. The width of each
@@ -32,7 +32,18 @@ together with the parts of ``tpu/engine.py::TpuBfsChecker`` it inherits
   dispatch could overflow either, once every dispatch in flight is
   retired, and retires discoveries.
 - **Paths.** Parents stay in the arena; a path reconstruction reads its
-  chain from there on demand.
+  chain from there on demand, and from the host's parent map (the seeds,
+  or a checkpoint's parent sections) for the rows it does not hold.
+- **Checkpoints** (the reference's ``tpu/engine.py`` :552-800 and the
+  fused hooks): with ``checkpoint_path`` the loop writes a snapshot at a
+  rest point once ``checkpoint_every_waves * batch_size`` new states
+  arrived since the last, with no dispatch in flight and after any
+  growth, and one at the end of the run. A snapshot reads the device
+  only (the visited set, the queue's rows, the parents), so the dispatch
+  graphs stay. ``resume_from`` starts from a snapshot of either of the
+  port's engines or of a JAX BFS engine; its visited set goes into the
+  table through the dedup kernel (``_new_table``). ``checkpoint()`` and
+  ``restart_from()`` are the reference's.
 
 The successor path of a wave runs one of two ways, each a CUDA kernel on
 the card and its plain version on the CPU:
@@ -60,11 +71,14 @@ import torch
 
 from .append import append_rows
 from .checker import Checker
+from .checkpoint_format import (load_checkpoint, make_header, pending_rows,
+                                validate_header, write_atomic)
 from .engine import (batch_bucket_ladder, compaction_order, eval_properties,
                      expand_frontier, fingerprint_successors,
                      host_table_insert, pick_bucket)
 from .graphs import DispatchGraphs
 from .hashing import SENTINEL, SENTINEL_U64, host_fp64, to_i64, to_u64
+from .io.async_io import writer_from_config
 from .model import Expectation
 from .packing import compile_layout
 from .path import Path
@@ -87,6 +101,45 @@ ERR_LANE, ERR_TABLE_FULL = 1, 2
 #: the kernel wrappers whose ``.launches`` a dispatch graph accounts for
 KERNELS = (dedup_and_insert, wave_megakernel, sender_megakernel,
            append_rows)
+
+
+#: the header sections of modules the port has not ported, which no
+#: resume may drop
+_UNPORTED = {
+    "store": "references cold segments of the tiered store "
+             "(stateright_tpu/store/tiered.py, ROADMAP A6)",
+    "shard": "marks one partition of an elastic run "
+             "(stateright_tpu/resilience/elastic.py, ROADMAP A13)",
+    "elastic": "marks an elastic run's manifest "
+               "(stateright_tpu/resilience/elastic.py, ROADMAP A13)"}
+_I64_MIN = -(1 << 63)
+
+
+def checkpoint_name(model) -> str:
+    """The model name a checkpoint header records: the model's
+    ``checkpoint_name`` where it sets one, else its class's name."""
+    return model.checkpoint_name or type(model).__name__
+
+
+def _u32(t: torch.Tensor) -> np.ndarray:
+    """int32 bit patterns on any device as numpy ``uint32``."""
+    return t.cpu().numpy().view(np.uint32)
+
+
+def _u64(t: torch.Tensor) -> np.ndarray:
+    """int64 bit patterns on any device as numpy ``uint64``."""
+    return t.cpu().numpy().view(np.uint64)
+
+
+def _first_occurrences(keys: torch.Tensor) -> torch.Tensor:
+    """True at the first occurrence of each key of ``keys``."""
+    order = torch.sort(keys, stable=True).indices
+    s = keys[order]
+    first = torch.ones_like(keys, dtype=torch.bool)
+    first[1:] = s[1:] != s[:-1]
+    out = torch.empty_like(first)
+    out[order] = first
+    return out
 
 
 def _pow2(n: int) -> int:
@@ -112,7 +165,9 @@ class FusedCudaBfsChecker(Checker):
                  table_capacity: int = 1 << 16, arena_capacity=None,
                  waves_per_dispatch: int = 16, wave_kernel: bool = False,
                  max_batch_size=None, inflight_dispatches: int = 1,
-                 cuda_graph: bool = False):
+                 cuda_graph: bool = False, checkpoint_path=None,
+                 checkpoint_every_waves: int = 64, resume_from=None,
+                 async_io=None):
         model = builder._model
         dm = model.device_model()
         self._model, self._dm, self._device = model, dm, device
@@ -147,53 +202,30 @@ class FusedCudaBfsChecker(Checker):
         for i, p in enumerate(self._properties):
             if p.expectation is Expectation.EVENTUALLY:
                 self._ebits_all |= 1 << i
-
-        # Seed from the init states; under symmetry an init state whose
-        # representative was already seen is dropped.
-        init_states = model.init_states()
-        seen: Dict[int, None] = {}
-        vecs: List[np.ndarray] = []
-        fps: List[int] = []
-        for s in init_states:
-            vec = np.asarray(dm.encode(s), np.uint32)
-            rep_fp = fp = host_fp64(vec)
-            if self._use_symmetry:
-                rep = dm.representative(
-                    torch.from_numpy(vec.astype(np.int64))[None])
-                rep_fp = host_fp64(rep[0].numpy().astype(np.uint32))
-            if rep_fp in seen:
-                continue
-            seen[rep_fp] = None
-            vecs.append(vec)
-            fps.append(fp)
-        n_seed = len(fps)
-        self._state_count = len(init_states)
-        self._base_states = len(init_states)
-        self._unique_count = n_seed
-
-        # Visited table: capacity rounds up to a power of two, and is at
-        # least 4x the seeds plus two of the widest dispatch's widths.
-        S = self._B_max * self._F
-        cap = 1 << max(12, (int(table_capacity) - 1).bit_length())
-        while cap < 4 * n_seed + 2 * S:
-            cap *= 2
-        self._capacity = cap
-        seed = np.stack(vecs) if vecs else np.zeros((0, W), np.uint32)
-        self._layout.check_fits(seed)
-        self._seed(self._layout.pack_np(seed),
-                   np.array(fps, np.uint64), np.array(list(seen), np.uint64),
-                   arena_capacity)
+        self._ckpt_path = checkpoint_path
+        self._ckpt_every = max(1, int(checkpoint_every_waves))
+        # One checkpoint writer an engine: inline, or its own thread.
+        self._aio = writer_from_config(
+            async_io, name=f"stpu-aio-{type(self).__name__}")
 
         # The kernels' scratch for a wave's rows, handed to every call
-        # (the rehash's chunks too) and back clean from each.
+        # (the table's chunked inserts too) and back clean from each.
         rows, shards = self._scratch_shape()
         self._scratch = (DedupScratch(rows, device, shards)
                          if device.type == "cuda" else None)
+        # Visited table: capacity rounds up to a power of two, and is at
+        # least 4x the visited set plus two of the widest dispatch's
+        # widths (``_start``).
+        self._capacity = 1 << max(12, (int(table_capacity) - 1).bit_length())
+        self._arena_capacity = arena_capacity
         self._discoveries: Dict[str, int] = {}
-        #: waves that expanded rows, dispatches run, table rehashes and
-        #: arena doublings, and candidates that reached the table probe
+        self._start(resume_from)
+
+        #: waves that expanded rows, dispatches run, table rehashes,
+        #: arena doublings and checkpoints written, and candidates that
+        #: reached the table probe
         self.waves = self.dispatches = self.rehashes = self.arena_grows = 0
-        self.candidates = 0
+        self.checkpoints = self.candidates = 0
         #: one dict a retired dispatch: its ``bucket``, the dispatches in
         #: flight at its launch (``inflight``, itself included), its
         #: ``waves`` that expanded rows, and whether it ``compiled`` (paid
@@ -213,18 +245,66 @@ class FusedCudaBfsChecker(Checker):
         self._thread = threading.Thread(target=self._run, daemon=True)
         self._thread.start()
 
-    def _seed(self, seed: np.ndarray, fps: np.ndarray, rep_fps: np.ndarray,
-              arena_capacity) -> None:
-        """Builds the visited table from the seeds' dedup fingerprints
-        ``rep_fps``, the arena from their packed rows ``seed`` and path
-        fingerprints ``fps`` (uint64), and the first dispatch's stats."""
-        device, n_seed = self._device, len(fps)
-        S = self._B_max * self._F
-        table = np.full(self._capacity, SENTINEL_U64, np.uint64)
-        host_table_insert(table, rep_fps)
-        self._table = torch.from_numpy(table.view(np.int64)).to(device)
+    def _start(self, resume_from) -> None:
+        """Seeds a run: from the init states, or from the checkpoint at
+        ``resume_from``; then grows the table's capacity to the rule and
+        builds the device state (``_seed``)."""
+        if resume_from is None:
+            seed, fps, ebits, visited = self._init_rows()
+        else:
+            seed, fps, ebits, visited = self._load_checkpoint(resume_from)
+        while self._capacity < 4 * len(visited) + 2 * self._B_max * self._F:
+            self._capacity *= 2
+        self._seed(seed, fps, ebits, visited, resumed=resume_from is not None)
 
-        ucap = _pow2(max(arena_capacity or max(1 << 15, 4 * S), n_seed))
+    def _init_rows(self):
+        """The init states as seed rows: ``(packed rows, path fps, ebits,
+        dedup fps)``, numpy ``uint32``/``uint64``. Under symmetry an init
+        state whose representative was already seen is dropped. The
+        seeds are the host parent map's roots."""
+        model, dm = self._model, self._dm
+        init_states = model.init_states()
+        seen: Dict[int, None] = {}
+        vecs: List[np.ndarray] = []
+        fps: List[int] = []
+        for s in init_states:
+            vec = np.asarray(dm.encode(s), np.uint32)
+            rep_fp = fp = host_fp64(vec)
+            if self._use_symmetry:
+                rep = dm.representative(
+                    torch.from_numpy(vec.astype(np.int64))[None])
+                rep_fp = host_fp64(rep[0].numpy().astype(np.uint32))
+            if rep_fp in seen:
+                continue
+            seen[rep_fp] = None
+            vecs.append(vec)
+            fps.append(fp)
+        self._state_count = self._base_states = len(init_states)
+        self._unique_count = len(fps)
+        seed = (np.stack(vecs) if vecs
+                else np.zeros((0, dm.state_width), np.uint32))
+        self._layout.check_fits(seed)
+        fps = np.array(fps, np.uint64)
+        self._parents = (fps, np.zeros(len(fps), np.uint64),
+                         np.ones(len(fps), bool))
+        return (self._layout.pack_np(seed), fps,
+                np.full(len(fps), self._ebits_all, np.uint32),
+                np.array(list(seen), np.uint64))
+
+    def _seed(self, seed: np.ndarray, fps: np.ndarray, ebits: np.ndarray,
+              visited: np.ndarray, resumed: bool) -> None:
+        """Builds the visited table from the dedup fingerprints
+        ``visited`` (``_new_table``), the arena from the seeds' packed
+        rows ``seed``, path fingerprints ``fps`` and eventually bits
+        ``ebits`` (numpy ``uint32``/``uint64``), and the first dispatch's
+        stats. A resumed run's table is built by the dedup kernel, not on
+        the host as in JAX: slot order has no meaning, since checkpoints
+        sort the visited set (``tpu/engine.py`` :603-610)."""
+        device, n_seed = self._device, len(fps)
+        self._table = self._new_table(visited, resumed)
+        S = self._B_max * self._F
+        ucap = _pow2(max(self._arena_capacity or max(1 << 15, 4 * S),
+                         n_seed))
         self._ucap = ucap
         self._vecs = torch.zeros((ucap + 1, self._layout.packed_width),
                                  dtype=torch.int32, device=device)
@@ -235,15 +315,46 @@ class FusedCudaBfsChecker(Checker):
         self._par = torch.full_like(self._fps, SENTINEL)
         self._ebits = torch.zeros((ucap + 1,), dtype=torch.int32,
                                   device=device)
-        self._ebits[:n_seed] = _i32(self._ebits_all)
+        self._ebits[:n_seed] = torch.from_numpy(ebits.view(np.int32))
 
-        self._head, self._tail, self._occ = 0, n_seed, n_seed
+        # The seed rows' parents are in the host map: the arena's own
+        # part of the parent map starts after them.
+        self._n_seed = n_seed
+        self._head, self._tail, self._occ = 0, n_seed, len(visited)
         P = len(self._properties)
         stats = [0] * (ST_DISC + P)
-        stats[ST_TAIL] = stats[ST_OCC] = n_seed
+        stats[ST_TAIL], stats[ST_OCC] = n_seed, len(visited)
         stats[ST_TARGET] = self._target_left()
         stats[ST_DISC:] = [SENTINEL] * P
         self._stats = torch.tensor(stats, dtype=torch.int64, device=device)
+
+    def _new_table(self, visited: np.ndarray, resumed: bool) -> torch.Tensor:
+        """A table of the engine's capacity holding the ``uint64``
+        fingerprints ``visited``, on the engine's device.
+
+        A fresh run's seeds go in on the host (``host_table_insert``), as
+        in JAX. A resumed run's visited set goes up as it lies in the file
+        and into the table through the dedup kernel, in strided chunks of
+        at most the scratch's rows with the engine's scratch, its chunks'
+        ``full`` flags ORed and read once (``_insert_chunked``): on the
+        card the kernel builds a table of millions of keys where the
+        host's insert takes seconds. JAX inserts on the host either way
+        (``tpu/engine.py`` :803-811); this is the port's own choice.
+        Slot order has no meaning (checkpoints sort the set), so the two
+        tables hold the same set at the same capacity."""
+        cap = self._capacity
+        if not resumed:
+            table = np.full(cap, SENTINEL_U64, np.uint64)
+            host_table_insert(table, visited)
+            return torch.from_numpy(table.view(np.int64)).to(self._device)
+        table = torch.full((cap,), SENTINEL, dtype=torch.int64,
+                           device=self._device)
+        keys = torch.from_numpy(
+            np.ascontiguousarray(visited, np.uint64).view(np.int64)
+        ).to(self._device)
+        if bool(self._insert_chunked(keys, table)):
+            raise RuntimeError("the resumed visited set found no free slot")
+        return table
 
     def _scratch_shape(self):
         """``DedupScratch``'s rows and shards: the widest wave's, the rows
@@ -361,6 +472,11 @@ class FusedCudaBfsChecker(Checker):
     def _run(self) -> None:
         try:
             self._run_waves()
+            if self._ckpt_path is not None:
+                self._write_checkpoint(self._ckpt_path)
+            # The last generation lands, or its writer's failure raises,
+            # before the run is done.
+            self._aio.join()
         except BaseException as e:  # surfaced at join()
             self._error = e
         finally:
@@ -373,9 +489,15 @@ class FusedCudaBfsChecker(Checker):
         before it reads the last: up to ``inflight_dispatches`` ahead. It
         retires the oldest first when it must act on stats at rest (growth
         due, or the queue as last read drained), and every launched
-        dispatch before it returns: their insertions are real."""
+        dispatch before it returns: their insertions are real. With
+        ``checkpoint_path`` a checkpoint is due once
+        ``checkpoint_every_waves * batch_size`` new states arrived since
+        the last one this run wrote (a resumed run's first is due at
+        once, as in JAX); it is written at rest, after any growth
+        (:656-663, :766-769)."""
         P = len(self._properties)
         inflight: deque = deque()
+        last_ckpt = 0
         while True:
             with self._lock:
                 done = (len(self._discoveries) == P
@@ -386,11 +508,18 @@ class FusedCudaBfsChecker(Checker):
                 break
             bucket = self._pick_bucket()
             growth = self._needs_growth(bucket)
-            if (growth or not live) and inflight:
+            ckpt_due = (self._ckpt_path is not None
+                        and (self._unique_count - last_ckpt
+                             >= self._ckpt_every * self._B))
+            if (growth or ckpt_due or not live) and inflight:
                 self._retire(inflight.popleft())
                 continue
             if growth:
                 self._grow(bucket)
+                continue
+            if ckpt_due:
+                self._write_checkpoint(self._ckpt_path)
+                last_ckpt = self._unique_count
                 continue
             inflight.append(self._launch(bucket, len(inflight) + 1))
             if len(inflight) >= self._depth:
@@ -471,22 +600,33 @@ class FusedCudaBfsChecker(Checker):
                 if fp != SENTINEL and prop.name not in self._discoveries:
                     self._discoveries[prop.name] = to_u64(fp)
 
-    def _rehash(self, old: torch.Tensor, new: torch.Tensor):
-        """Re-inserts table ``old``'s keys into the empty table ``new``
-        through the dedup kernel with the engine's scratch (see
-        ``_grow``), in ``n`` chunks of at most the scratch's rows, ``n`` a
-        power of two: chunk k is every n-th slot from slot k, copied
-        contiguous. Not runs of adjacent slots: the keys of adjacent slots
-        share the high bits of their hash, which also pick their home
-        slots in the scratch, so a run of them piles into a small window
-        of it (``chip_smoke.py``'s rehash case, 2^26 slots into 2^27 on an
-        H100: about 20 times slower in runs than in strides). Returns a
-        bool 0-dim tensor on the device, the chunks' ``full`` flags ORed:
-        whether a key found no free slot."""
-        n = _pow2(-(-old.shape[0] // self._scratch_shape()[0]))
-        cols = old.view(-1, n)
+    def _chunks(self, n: int) -> int:
+        """The chunks ``_insert_chunked`` takes for ``n`` keys: the least
+        power of two of chunks of at most the scratch's rows."""
+        return _pow2(-(-n // self._scratch_shape()[0]))
+
+    def _insert_chunked(self, keys: torch.Tensor, table: torch.Tensor):
+        """Inserts the distinct int64 keys ``keys`` (sentinels are not
+        keys) into ``table`` through the dedup kernel with the engine's
+        scratch, in ``n`` chunks of at most the scratch's rows, ``n`` a
+        power of two: chunk k is every n-th key from key k, copied
+        contiguous (the keys padded with sentinels to a multiple of n).
+        Not runs of adjacent slots of an old table: the keys of adjacent
+        slots share the high bits of their hash, which also pick their
+        home slots in the scratch, so a run of them piles into a small
+        window of it (``chip_smoke.py``'s rehash case, 2^26 slots into
+        2^27 on an H100: about 20 times slower in runs than in strides).
+        Returns a bool 0-dim tensor on the device, the chunks' ``full``
+        flags ORed: whether a key found no free slot."""
+        n = self._chunks(keys.shape[0])
+        pad = -keys.shape[0] % n
+        if pad:
+            keys = torch.cat([keys, keys.new_full((pad,), SENTINEL)])
+        if not keys.numel():
+            return torch.zeros((), dtype=torch.bool, device=table.device)
+        cols = keys.view(-1, n)
         return torch.stack([
-            dedup_and_insert(cols[:, k].contiguous(), new,
+            dedup_and_insert(cols[:, k].contiguous(), table,
                              scratch=self._scratch)[4]
             for k in range(n)]).any()
 
@@ -495,8 +635,8 @@ class FusedCudaBfsChecker(Checker):
         dispatch graph goes (they hold the tensors that growth replaces),
         the table doubles until a dispatch of ``bucket`` rows keeps its
         load at most 1/2 (each doubling re-inserts the old table through
-        the dedup kernel, ``_rehash``), and the arena doubles until such a
-        dispatch's appends fit.
+        the dedup kernel, ``_insert_chunked``), and the arena doubles until
+        such a dispatch's appends fit.
 
         JAX rehashes a table in one ``dedup_and_insert`` call over all its
         slots. The port chunks it through the engine's scratch, at most a
@@ -513,7 +653,7 @@ class FusedCudaBfsChecker(Checker):
         while self._occ + S > self._capacity // 2:
             table = torch.full((2 * self._capacity,), SENTINEL,
                                dtype=torch.int64, device=self._table.device)
-            if bool(self._rehash(self._table, table)):
+            if bool(self._insert_chunked(self._table, table)):
                 raise RuntimeError("rehash found no free slot")
             self._table, self._capacity = table, 2 * self._capacity
             self.rehashes += 1
@@ -534,19 +674,189 @@ class FusedCudaBfsChecker(Checker):
                 self._ucap = ucap
             self.arena_grows += 1
 
+    # -- Checkpoints ---------------------------------------------------------
+
+    def _pending_blocks(self) -> list:
+        """The queue's rows ``[head, tail)`` as ``(packed vecs, fps,
+        ebits)`` blocks, numpy ``uint32``/``uint64``/``uint32``."""
+        lo, hi = self._head, self._tail
+        return [(_u32(self._vecs[lo:hi]), _u64(self._fps[lo:hi]),
+                 _u32(self._ebits[lo:hi]))]
+
+    def _visited_sorted(self) -> np.ndarray:
+        """The visited set, ``uint64`` sorted (engine :603-610): the
+        table's keys with the sentinels dropped, sorted on the device as
+        the unsigned values they stand for."""
+        keys = self._table[self._table != SENTINEL]
+        return _u64(torch.sort(keys ^ _I64_MIN).values ^ _I64_MIN)
+
+    def _parent_rows(self):
+        """The arena's part of the parent map: the fingerprints and
+        parents of rows ``[n_seed, tail)`` (the seed rows' are in the
+        host map), as tensors on the device, in the order JAX's parent
+        log holds them."""
+        lo, hi = self._n_seed, self._tail
+        return self._fps[lo:hi], self._par[lo:hi]
+
+    def _parent_sections(self):
+        """``(child, parent, rooted)``, in the order of JAX's
+        ``_parent_map`` (engine :1825): the host map (the seeds as roots,
+        or the parent sections a run resumed from), then the arena's rows
+        in the order JAX fetches them, each child's first entry kept (the
+        reference's ``setdefault``)."""
+        h_child, h_parent, h_rooted = self._parents
+        a_child, a_parent = self._parent_rows()
+        keys = torch.cat([torch.from_numpy(h_child.view(np.int64)).to(
+            a_child.device), a_child])
+        child = np.concatenate([h_child, _u64(a_child)])
+        parent = np.concatenate([h_parent, _u64(a_parent)])
+        rooted = np.concatenate([h_rooted, np.zeros(len(a_child), bool)])
+        first = _first_occurrences(keys)
+        if not bool(first.all()):
+            keep = first.cpu().numpy()
+            child, parent, rooted = child[keep], parent[keep], rooted[keep]
+        return child, parent, rooted
+
+    def _snapshot(self) -> dict:
+        """The checkpoint's sections at a rest point (engine :571-627),
+        each with the reference's name and dtype."""
+        child, parent, rooted = self._parent_sections()
+        blocks = self._pending_blocks()
+        layout = self._layout
+        header = make_header(
+            model_name=checkpoint_name(self._model),
+            state_width=self._dm.state_width, state_count=self._state_count,
+            unique_count=self._unique_count,
+            use_symmetry=self._use_symmetry, discoveries=self._discoveries,
+            row_format="packed" if layout.packs else "u32",
+            lane_bits=layout.specs if layout.packs else None,
+            packed_width=layout.packed_width if layout.packs else None)
+        return dict(header=header, visited=self._visited_sorted(),
+                    pending_vecs=np.concatenate([b[0] for b in blocks]),
+                    pending_fps=np.concatenate([b[1] for b in blocks]),
+                    pending_ebits=np.concatenate([b[2] for b in blocks]),
+                    parent_child=child, parent_parent=parent,
+                    parent_rooted=rooted)
+
+    def _write_checkpoint(self, path: str) -> None:
+        """Writes one generation at a rest point (engine :629-662): joins
+        the last write first (its failure raises here), takes the
+        snapshot on this thread, and hands the write to the writer."""
+        self._aio.join()
+        payload = self._snapshot()
+        self._aio.submit(lambda: write_atomic(path, payload))
+        self.checkpoints += 1
+
+    def checkpoint(self, path: str) -> None:
+        """Writes a resumable snapshot to ``path``, once the run has
+        stopped (done, every property found, or the target reached), and
+        returns when the file has landed. While the run goes, pass
+        ``checkpoint_path`` to ``spawn_cuda_bfs`` instead."""
+        if not self._done.is_set():
+            raise RuntimeError(
+                "checkpoint() while the checker is running would race the "
+                "wave loop; pass checkpoint_path=... to spawn_cuda_bfs for "
+                "periodic snapshots, or join() first")
+        if self._error is not None:
+            # A failed dispatch's states may be in the table but not in
+            # the queue; a snapshot would lose their subtrees.
+            raise RuntimeError(
+                "checkpoint() after a failed run would snapshot a torn "
+                "frontier; resume from the last periodic checkpoint "
+                "(restart_from) instead") from self._error
+        self._write_checkpoint(path)
+        self._aio.join()
+
+    def restart_from(self, path: str) -> "FusedCudaBfsChecker":
+        """Recovers this instance in place once its run has stopped (the
+        reference's, engine :692-753): drops the failed run's flag, its
+        arena, table and dispatch graphs, reloads the snapshot at
+        ``path`` and restarts the worker. The kernels stay built and the
+        scratch stays."""
+        if not self._done.is_set():
+            raise RuntimeError(
+                "restart_from() while the checker is running; join() "
+                "(or wait for the failure) first")
+        self._thread.join()
+        self._aio.reset()
+        self._error = None
+        self._discoveries = {}
+        self.dispatch_log = []
+        self._reset_engine_state()
+        self._start(path)
+        self._done = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+        self._thread.start()
+        return self
+
+    def _reset_engine_state(self) -> None:
+        """Drops the device state a restart rebuilds (fused :882-893)."""
+        if self._graphs is not None:
+            self._graphs.clear()
+        self._table = self._vecs = self._fps = self._par = None
+        self._ebits = self._stats = None
+
+    def _load_checkpoint(self, path: str):
+        """Restores the counts, discoveries and host parent map from the
+        checkpoint at ``path`` (engine :755-800) and returns its seed
+        rows as ``_init_rows`` does: the pending rows packed in this
+        engine's layout (a ``u32`` or ``packed`` file alike), their
+        fingerprints and eventually bits, and the visited set."""
+        W = self._dm.state_width
+        with load_checkpoint(path) as data:
+            header = validate_header(
+                data, model_name=checkpoint_name(self._model),
+                state_width=W, use_symmetry=self._use_symmetry)
+            for key, what in _UNPORTED.items():
+                if header.get(key):
+                    raise NotImplementedError(
+                        f"checkpoint {path!r} has a {key!r} section, which "
+                        f"{what}; the port cannot resume it")
+            rows = pending_rows(data, header, W)
+            self._layout.check_fits(rows)
+            seed = self._layout.pack_np(rows)
+            fps = np.asarray(data["pending_fps"], np.uint64)
+            ebits = np.asarray(data["pending_ebits"], np.uint32)
+            self._parents = (
+                np.asarray(data["parent_child"], np.uint64),
+                np.asarray(data["parent_parent"], np.uint64),
+                np.asarray(data["parent_rooted"], bool))
+            visited = np.asarray(data["visited"], np.uint64)
+        self._state_count = self._base_states = int(header["state_count"])
+        self._unique_count = int(header["unique_count"])
+        self._discoveries = {k: int(v)
+                             for k, v in header["discoveries"].items()}
+        return seed, fps, ebits, visited
+
     # -- Paths -------------------------------------------------------------
 
-    def _fingerprint_chain(self, fp: int) -> List[int]:
-        """The uint64 fingerprints from an init state to ``fp``, read
-        from the arena's parent column."""
+    def _arena_parent(self, cur: int):
+        """The parent (int64 bit pattern) of arena row fingerprint
+        ``cur`` among the rows whose parents the arena holds, or None."""
         with self._lock:
-            fps, par, tail = self._fps, self._par, self._tail
-        fps, chain = fps[:tail], []
+            fps, par = self._parent_rows()
+        hit = torch.nonzero(fps == cur)
+        return int(par[hit[0, 0]]) if len(hit) else None
+
+    def _fingerprint_chain(self, fp: int) -> List[int]:
+        """The uint64 fingerprints from an init state to ``fp``: each
+        link from the host map (its roots end the chain), else from the
+        arena's parent column, as JAX's ``_reconstruct_path`` walks its
+        parent map."""
+        h_child, h_parent, h_rooted = self._parents
+        chain = []
         cur = to_i64(fp)
-        while cur != SENTINEL:
+        while True:
             chain.append(to_u64(cur))
-            row = int(torch.nonzero(fps == cur)[0, 0])
-            cur = int(par[row])
+            i = np.flatnonzero(h_child == np.uint64(to_u64(cur)))
+            if len(i):
+                if h_rooted[i[0]]:
+                    break
+                cur = to_i64(int(h_parent[i[0]]))
+                continue
+            cur = self._arena_parent(cur)
+            if cur is None:
+                break
         return chain[::-1]
 
     # -- Checker API -------------------------------------------------------

@@ -3,17 +3,19 @@
 The port's copy of the part of ``stateright_tpu/resilience/membership.py``
 that the sharded engine reads: ``OwnerMap`` (:53) at its identity
 assignment, with its epoch, and the engine's ``_owner`` (``EpochOwnership``
-:164). Partition ``p`` of the fingerprint space is ``fp % n``; shard
-``assignment()[p]`` owns it. The engine's dispatch takes the assignment
-as a tensor whenever the map is not the identity, so a later remap needs
-no change to the wave. Remapping itself (``with_assignment``,
-``set_owner_assignment``) belongs to the elastic layer and is not ported
-yet.
+:164; here ``_owners``, over a numpy array). Partition ``p`` of the
+fingerprint space is ``fp % n``; shard ``assignment()[p]`` owns it. The
+engine's dispatch takes the assignment as a tensor whenever the map is
+not the identity, so a later remap needs no change to the wave.
+Remapping itself (``with_assignment``, ``set_owner_assignment``) belongs
+to the elastic layer and is not ported yet.
 """
 
 from __future__ import annotations
 
 from typing import List
+
+import numpy as np
 
 __all__ = ["OwnerMap", "EpochOwnership"]
 
@@ -59,9 +61,12 @@ class OwnerMap:
 
 
 class EpochOwnership:
-    """Mixin: the engine's ``_owner`` over ``self._owner_map``."""
+    """Mixin: the engine's ``_owners`` over ``self._owner_map``."""
 
-    def _owner(self, fp: int) -> int:
-        """The shard owning uint64 fingerprint ``fp`` under the current
-        epoch's assignment."""
-        return self._owner_map.owner(fp)
+    def _owners(self, fps: np.ndarray) -> np.ndarray:
+        """The shard owning each ``uint64`` fingerprint of ``fps`` under
+        the current epoch's assignment, vectorised (the reference's
+        ``_owner`` a fingerprint at a time)."""
+        assign = np.asarray(self._owner_map.assignment(), np.int64)
+        return assign[(fps % np.uint64(self._owner_map.n_partitions))
+                      .astype(np.int64)]

@@ -50,6 +50,11 @@ class Model:
     """A transition system given by its initial states and its device
     form (``device_model``), which holds the transition function."""
 
+    #: the model name a checkpoint header records, where it is not the
+    #: class's name: the name the JAX package writes for the same model,
+    #: so that a checkpoint crosses between the packages
+    checkpoint_name = None
+
     def init_states(self) -> List:
         """The initial states, as host objects the device model encodes."""
         raise NotImplementedError

@@ -117,6 +117,12 @@ class PaxosSys(Model):
     """``server_count`` Paxos servers (the device form takes 3) and
     ``client_count`` (1 to 4) Put-then-Get clients."""
 
+    #: the model name checkpoints record: the JAX package's paxos is
+    #: ``examples/paxos.py``'s ``PaxosModelCfg.into_model()``, an
+    #: ``ActorModel``, so the same name lets its files resume here and
+    #: the port's resume there
+    checkpoint_name = "ActorModel"
+
     def __init__(self, client_count: int, server_count: int = 3,
                  liveness: bool = False):
         if server_count != 3:

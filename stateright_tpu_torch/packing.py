@@ -93,6 +93,10 @@ class PackedLayout:
         self.total_bits = cursor
         self.packed_width = max(1, -(-cursor // 32))
         self.packs = self.packed_width < self.width
+        #: the lane specs in json form, as a checkpoint header records
+        #: them (``checkpoint_format.make_header``)
+        self.specs = [(l.bits if l.sentinel is None
+                       else [l.bits, l.sentinel]) for l in self.lanes]
 
     # -- torch codec (device waves) --------------------------------------
 

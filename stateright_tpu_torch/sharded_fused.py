@@ -32,8 +32,14 @@ ShardedFusedTpuBfsChecker`` on the port's fused engine (``fused.py``).
   parent link is a path fingerprint (they differ under symmetry), so a
   chain walk searches every shard's rows.
 
-The tiered store and span roll, checkpoints, profiling, fault injection
-and the tracer of the JAX engine are not ported (ROADMAP A3 to A8), and
+- **Checkpoints** are the fused engine's, with the queue's rows taken
+  shard by shard and the parent sections in JAX's per-shard sync order;
+  a resumed run splits the pending rows over the arenas and the visited
+  set over the table slices by owner, each slice built by the dedup
+  kernel. A file crosses between the two engines either way.
+
+The tiered store and span roll, profiling, fault injection and the
+tracer of the JAX engine are not ported (ROADMAP A6, A8 and A13), and
 neither is an ownership remap (A13).
 """
 
@@ -51,8 +57,8 @@ from .engine import (compaction_order, cumsum_rows, eval_properties,
                      pick_bucket)
 from .fused import (ERR_LANE, ERR_TABLE_FULL, ST_CAND, ST_DISC, ST_ERR,
                     ST_HEAD, ST_OCC, ST_SUCC, ST_TAIL, ST_TARGET, ST_WAVES,
-                    FusedCudaBfsChecker, _i32, _pow2)
-from .hashing import SENTINEL, SENTINEL_U64, to_i64, to_u64
+                    FusedCudaBfsChecker, _i32, _pow2, _u32, _u64)
+from .hashing import SENTINEL, SENTINEL_U64, to_u64
 from .membership import EpochOwnership, OwnerMap
 from .model import Expectation
 from .table import dedup_and_insert
@@ -99,41 +105,64 @@ class ShardedFusedCudaBfsChecker(EpochOwnership, FusedCudaBfsChecker):
 
     # -- Seeding -------------------------------------------------------------
 
-    def _seed(self, seed, fps, rep_fps, arena_capacity) -> None:
-        """Splits the seeds by owner (the table by the dedup
-        fingerprints, the arenas by the path fingerprints, as
-        ``_new_table`` and ``_run_waves`` do in JAX) and builds the
-        stacked table, arenas and per-shard stats."""
-        n, device, cap = self._n, self._device, self._capacity
-        table = np.full((n, cap), SENTINEL_U64, np.uint64)
-        t_owner = np.array([self._owner(f) for f in rep_fps], np.int64)
-        for i in range(n):
-            host_table_insert(table[i], rep_fps[t_owner == i])
-        self._occs = np.bincount(t_owner, minlength=n).astype(np.int64)
-        self._table = torch.from_numpy(table.view(np.int64)).to(device)
+    def _new_table(self, visited: np.ndarray, resumed: bool) -> torch.Tensor:
+        """The stacked table ``[n, capacity]``: shard ``i``'s slice holds
+        the fingerprints it owns (JAX :103-117), each slice built as the
+        unsharded engine builds its table (the dedup kernel in strided
+        chunks for a resumed run, the host for the seeds); sets each
+        shard's occupancy."""
+        n, cap = self._n, self._capacity
+        owner = self._owners(visited)
+        self._occs = np.bincount(owner, minlength=n).astype(np.int64)
+        if not resumed:
+            table = np.full((n, cap), SENTINEL_U64, np.uint64)
+            for i in range(n):
+                host_table_insert(table[i], visited[owner == i])
+            return torch.from_numpy(table.view(np.int64)).to(self._device)
+        table = torch.full((n, cap), SENTINEL, dtype=torch.int64,
+                           device=self._device)
+        full = torch.stack([self._insert_chunked(torch.from_numpy(
+            visited[owner == i].view(np.int64)).to(self._device), table[i])
+            for i in range(n)]).any()
+        if bool(full):
+            raise RuntimeError("the resumed visited set found no free slot")
+        return table
 
-        owner = np.array([self._owner(f) for f in fps], np.int64)
+    def _seed(self, seed, fps, ebits, visited, resumed: bool) -> None:
+        """Splits the seeds by owner (the table by the dedup
+        fingerprints, the arenas by the path fingerprints, as JAX's
+        ``_new_table`` and ``_run_waves`` do, :478-497) and builds the
+        stacked table, arenas and per-shard stats."""
+        n, device = self._n, self._device
+        self._table = self._new_table(visited, resumed)
+
+        owner = self._owners(fps)
         tails = np.bincount(owner, minlength=n).astype(np.int64)
         R = n * self._B_max * self._F
         max_seed = int(tails.max(initial=0))
-        ucap = arena_capacity or max(1 << 14, 4 * R, _pow2(max_seed))
+        ucap = self._arena_capacity or max(1 << 14, 4 * R, _pow2(max_seed))
         ucap = max(_pow2(ucap), _pow2(max_seed))
         self._ucap = ucap
         wp = self._layout.packed_width
         vecs = np.zeros((n, ucap + 1, wp), np.uint32)
         afps = np.full((n, ucap + 1), SENTINEL_U64, np.uint64)
-        ebits = np.zeros((n, ucap + 1), np.uint32)
+        aebits = np.zeros((n, ucap + 1), np.uint32)
         for i in range(n):
             k = int(tails[i])
             vecs[i, :k] = seed[owner == i]
             afps[i, :k] = fps[owner == i]
-            ebits[i, :k] = self._ebits_all
+            aebits[i, :k] = ebits[owner == i]
         self._vecs = torch.from_numpy(vecs.view(np.int32)).to(device)
         self._fps = torch.from_numpy(afps.view(np.int64)).to(device)
         self._par = torch.full_like(self._fps, SENTINEL)
-        self._ebits = torch.from_numpy(ebits.view(np.int32)).to(device)
+        self._ebits = torch.from_numpy(aebits.view(np.int32)).to(device)
 
         self._heads, self._tails = np.zeros(n, np.int64), tails
+        # The parent log, as JAX keeps it a shard at a time (:530,
+        # :820-836): each shard's rows past its seeds go to the parent
+        # sections in the segments each sync took, shard by shard.
+        self._n_seeds, self._shard_synced = tails.copy(), tails.copy()
+        self._segments: List[tuple] = []
         P = len(self._properties)
         stats = np.zeros((n, ST_DISC + P), np.int64)
         stats[:, ST_TAIL] = tails
@@ -344,12 +373,12 @@ class ShardedFusedCudaBfsChecker(EpochOwnership, FusedCudaBfsChecker):
         """Growth at a rest point (``_run_waves`` :670-766 without the
         span roll), the dispatch graphs dropped first: every table slice
         doubles, each re-inserted through the dedup kernel
-        (``_rehash_fn``; JAX in one call a slice, the port's ``_rehash`` in
-        chunks through the engine's scratch, for the reasons
-        ``FusedCudaBfsChecker._grow`` gives), until the fullest keeps its
-        load at most 1/2 after a dispatch of ``bucket`` rows a shard; every
-        arena doubles (``_grow_fn``) until the fullest takes such a
-        dispatch's appends."""
+        (``_rehash_fn``; JAX in one call a slice, the port's
+        ``_insert_chunked`` in chunks through the engine's scratch, for the
+        reasons ``FusedCudaBfsChecker._grow`` gives), until the fullest
+        keeps its load at most 1/2 after a dispatch of ``bucket`` rows a
+        shard; every arena doubles (``_grow_fn``) until the fullest takes
+        such a dispatch's appends."""
         if self._graphs is not None:
             self._graphs.clear()
         n = self._n
@@ -357,7 +386,8 @@ class ShardedFusedCudaBfsChecker(EpochOwnership, FusedCudaBfsChecker):
         while int(self._occs.max()) + R > self._capacity // 2:
             table = torch.full((n, 2 * self._capacity), SENTINEL,
                                dtype=torch.int64, device=self._table.device)
-            full = torch.stack([self._rehash(self._table[k], table[k])
+            full = torch.stack([self._insert_chunked(self._table[k],
+                                                     table[k])
                                 for k in range(n)]).any()
             if bool(full):
                 raise RuntimeError("rehash found no free slot")
@@ -380,22 +410,56 @@ class ShardedFusedCudaBfsChecker(EpochOwnership, FusedCudaBfsChecker):
                 self._ucap = ucap
             self.arena_grows += 1
 
+    # -- Checkpoints ----------------------------------------------------------
+
+    def _pending_blocks(self) -> list:
+        """Each shard's queue rows ``[head_i, tail_i)``, in shard order
+        (JAX :838-853)."""
+        blocks = []
+        for i in range(self._n):
+            lo, hi = int(self._heads[i]), int(self._tails[i])
+            if hi > lo:
+                blocks.append((_u32(self._vecs[i, lo:hi]),
+                               _u64(self._fps[i, lo:hi]),
+                               _u32(self._ebits[i, lo:hi])))
+        if not blocks:
+            blocks.append((np.zeros((0, self._layout.packed_width),
+                                    np.uint32), np.zeros(0, np.uint64),
+                           np.zeros(0, np.uint32)))
+        return blocks
+
+    def _parent_rows(self):
+        """The arenas' part of the parent map in JAX's per-shard sync
+        order (:820-836): each snapshot first syncs every shard's rows
+        ``[synced_i, tail_i)``, shard by shard, and the map holds every
+        segment synced so far, in order."""
+        for i in range(self._n):
+            lo, hi = int(self._shard_synced[i]), int(self._tails[i])
+            if hi > lo:
+                self._segments.append((i, lo, hi))
+                self._shard_synced[i] = hi
+        empty = self._fps.new_empty(0)
+        return (torch.cat([empty] + [self._fps[i, lo:hi]
+                                     for i, lo, hi in self._segments]),
+                torch.cat([empty] + [self._par[i, lo:hi]
+                                     for i, lo, hi in self._segments]))
+
     # -- Paths ---------------------------------------------------------------
 
-    def _fingerprint_chain(self, fp: int) -> List[int]:
-        """The uint64 fingerprints from an init state to ``fp``: each
-        link is looked up in every shard's rows ``[0, tail_i)``."""
+    def _arena_parent(self, cur: int):
+        """The parent of fingerprint ``cur`` among every shard's rows
+        ``[n_seed_i, tail_i)``, or None."""
         with self._lock:
-            fps, par, tails = self._fps, self._par, self._tails.copy()
-        cols = torch.arange(fps.shape[1], device=fps.device)
-        live = cols[None, :] < torch.from_numpy(tails).to(fps.device)[:, None]
-        chain = []
-        cur = to_i64(fp)
-        while cur != SENTINEL:
-            chain.append(to_u64(cur))
-            k, row = torch.nonzero((fps == cur) & live)[0].tolist()
-            cur = int(par[k, row])
-        return chain[::-1]
+            fps, par = self._fps, self._par
+            lo, hi = self._n_seeds.copy(), self._tails.copy()
+        cols = torch.arange(fps.shape[1], device=fps.device)[None, :]
+        live = ((cols >= torch.from_numpy(lo).to(fps.device)[:, None])
+                & (cols < torch.from_numpy(hi).to(fps.device)[:, None]))
+        hit = torch.nonzero((fps == cur) & live)
+        if not len(hit):
+            return None
+        k, row = hit[0].tolist()
+        return int(par[k, row])
 
     # -- Checker API ----------------------------------------------------------
 

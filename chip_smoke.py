@@ -115,7 +115,28 @@ Phases, in order; any failure exits non-zero and prints no result line:
    (the resumed table's chunks of the dedup kernel included), and the
    resumed table's build held to the plain version and timed beside the
    host's insert and upload (the JAX package's way) and its bound;
-8. the kernels line, the script's running time, the card line and the
+8. the classic per-wave engine (``spawn_cuda_bfs(fused=False)``,
+   ``classic.py``) on the card against the same run on the CPU: 2pc 3, 5
+   and 5 with symmetry and paxos 1 and 2 on both successor paths (counts,
+   discovery chains, parent maps and every wave's bucket, rows, output
+   rung, new rows and overflow); 2pc 3 with a visitor (288 states
+   recorded, the classic engine spawned, ``fused=True`` refused) and with
+   a property the host evaluates (warned, found); 2pc 4 with every wave
+   at an output rung of 8 rows, so that the regather runs, on both paths,
+   against the ladder off; the pipeline on against off; a checkpoint of
+   2pc 5 equal to the CPU's section by section and resumed on the fused
+   and the classic engine. Then, none cut, at batch 16,384 with graphs on,
+   ``paxos check 3`` and 2pc at 10 RMs on both paths, exactly 1,194,428 /
+   2,420,477 and 61,515,776 / 817,760,258, the kernels' launches exact
+   (one a wave, plus the rehash chunks); each run's seconds, waves,
+   captures and replays, output rungs and regathers, host us a wave
+   (launch, processing, waiting), bytes down a wave, peak device memory
+   and the host parent log's bytes, beside the fused run of phase 6; and
+   waves of a mid-run checker from one point: one replay under
+   ``set_sync_debug_mode("error")``, a few timed, one under
+   ``torch.profiler`` (the card's time a wave, and its idle share of the
+   run's pace);
+9. the kernels line, the script's running time, the card line and the
    result line.
 
 It imports neither JAX nor ``stateright_tpu``.
@@ -1734,6 +1755,374 @@ def phase_checkpoint(torch, kernels, fused, table_mod, engine, ckpt_mod,
     return dict(twopc, paxos=paxos, sec=(t1 - t0, t2 - t1, t3 - t2))
 
 
+
+# -- The classic engine ------------------------------------------------------
+
+
+def _classic_same(a, b, tag: str,
+                  fields=("bucket", "rows", "out_rows", "novel", "overflow")
+                  ) -> None:
+    """Two classic runs equal in counts, discovery chains, parent maps and
+    every wave's ``fields``."""
+    got = (a.unique_state_count(), a.state_count(), _chains(a))
+    want = (b.unique_state_count(), b.state_count(), _chains(b))
+    if got != want:
+        raise AssertionError(f"{tag}: {got[:2]} / {sorted(got[2])} differ "
+                             f"from {want[:2]} / {sorted(want[2])}")
+    if a._parent_map() != b._parent_map():
+        raise AssertionError(f"{tag}: the parent maps differ")
+    waves = [[tuple(e[f] for f in fields) for e in c.dispatch_log]
+             for c in (a, b)]
+    if waves[0] != waves[1]:
+        raise AssertionError(f"{tag}: the waves' {fields} differ")
+
+
+def phase_classic_small(torch, ckpt_mod, TwoPhaseSys, PaxosSys, workdir,
+                        device="cuda:0"):
+    """The classic engine (``fused=False``) on ``device`` against the
+    same run on the CPU: 2pc 3, 5 and 5 with symmetry and paxos 1 and 2 on
+    both successor paths; 2pc 3 with a visitor (every state recorded, the
+    classic engine spawned, ``fused=True`` refused) and with a property
+    the host evaluates; 2pc 4 with every wave at an output rung of 8 rows
+    (regathers) against the ladder off, on both paths; the pipeline on
+    against off; a checkpoint of 2pc 5 equal to the CPU's section by
+    section, resumed on the fused and on the classic engine."""
+    from stateright_tpu_torch import Property
+    from stateright_tpu_torch.classic import CudaBfsChecker
+    from stateright_tpu_torch.fused import FusedUnsupported
+    from stateright_tpu_torch.models.twopc import RmState
+    from stateright_tpu_torch.visitor import StateRecorder
+
+    def run(model, dev, **kw):
+        # The pipeline is on by default on the card and off on the CPU;
+        # a wave launched ahead picks its output rung from a history one
+        # wave older, so the CPU run is pipelined too.
+        kw.setdefault("pipeline", True)
+        c = model.spawn_cuda_bfs(device=dev, fused=False, **kw).join()
+        if not isinstance(c, CudaBfsChecker):
+            raise AssertionError(f"{type(c).__name__} is not the classic "
+                                 "engine")
+        return c
+
+    def against_cpu(tag, model, want, **kw):
+        cpu = run(model(), "cpu", **kw)
+        for wave_kernel in (False, True):
+            c = run(model(), device, wave_kernel=wave_kernel, **kw)
+            t = f"{tag} classic {c.kernel_path()}"
+            if want and (c.unique_state_count(), c.state_count()) != want:
+                raise AssertionError(f"{t}: {c.unique_state_count()}, "
+                                     f"{c.state_count()} != {want}")
+            _classic_same(c, cpu, t)
+            s = c.scheduler_stats()
+            _log(f"{t}: unique={c.unique_state_count()} states="
+                 f"{c.state_count()}, {c.waves} waves, rungs "
+                 f"{s['succ_ladder']['out_rows_dispatches']}, "
+                 f"max_inflight {s['max_inflight']}, graphs {s['graphs']}; "
+                 "chains, parent map and waves equal to the CPU run's")
+
+    for n, sym, want in ((3, False, (288, 1146)), (5, False, (8832, 58146)),
+                         (5, True, (314, 2048))):
+        def model(n=n, sym=sym):
+            b = TwoPhaseSys(n).checker()
+            return b.symmetry() if sym else b
+        against_cpu(f"2pc {n}{' sym' if sym else ''}", model, want,
+                    batch_size=64)
+    against_cpu("paxos 1", lambda: PaxosSys(1).checker(), (265, 482),
+                batch_size=64)
+    against_cpu("paxos 2", lambda: PaxosSys(2).checker(), (16_668, 32_971),
+                batch_size=1024)
+
+    rec, states = StateRecorder.new_with_accessor()
+    c = (TwoPhaseSys(3).checker().visitor(rec)
+         .spawn_cuda_bfs(device=device, batch_size=64).join())
+    if not isinstance(c, CudaBfsChecker) or len(states()) != 288:
+        raise AssertionError(f"2pc 3 with a visitor: {type(c).__name__}, "
+                             f"{len(states())} states recorded")
+    try:
+        TwoPhaseSys(3).checker().visitor(rec).spawn_cuda_bfs(
+            device=device, fused=True)
+    except FusedUnsupported as e:
+        _log(f"2pc 3 with a visitor: the classic engine, {len(states())} "
+             f"states recorded; fused=True raises FusedUnsupported: {e}")
+    else:
+        raise AssertionError("fused=True with a visitor did not raise")
+
+    class Hybrid(TwoPhaseSys):
+        def properties(self):
+            return super().properties() + [Property.sometimes(
+                "host-only abort", lambda _, s: all(
+                    r is RmState.ABORTED for r in s.rm_state))]
+
+    import warnings
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        cards = [Hybrid(3).checker().spawn_cuda_bfs(
+            device=dev, batch_size=64, **kw).join()
+            for dev, kw in ((device, {}), ("cpu", dict(pipeline=True)))]
+    if not any("host-only abort" in str(w.message) for w in caught):
+        raise AssertionError("the host property raised no warning")
+    if "host-only abort" not in _chains(cards[0]):
+        raise AssertionError("the host property was not found")
+    _classic_same(*cards, "2pc 3 with a host property")
+    _log("2pc 3 with a host-only property: warned, the classic engine, "
+         "found, the chain equal to the CPU run's")
+
+    forced_8 = CudaBfsChecker._pick_out_rows
+    off = run(TwoPhaseSys(4).checker(), device, batch_size=64,
+              succ_ladder=False)
+    CudaBfsChecker._pick_out_rows = lambda self, B: (
+        8 if self._succ_ladder_on else B * self._F)
+    try:
+        for wave_kernel in (False, True):
+            c = run(TwoPhaseSys(4).checker(), device, batch_size=64,
+                    wave_kernel=wave_kernel)
+            regathers = c.scheduler_stats()["succ_ladder"][
+                "overflow_redispatches"]
+            if not regathers or c._parent_map() != off._parent_map() or (
+                    c.unique_state_count(), c.state_count()) != (1568, 8258):
+                raise AssertionError(f"2pc 4 at rung 8 ({c.kernel_path()}): "
+                                     f"{regathers} regathers")
+            _log(f"2pc 4 with every wave at a rung of 8 rows "
+                 f"({c.kernel_path()}): {regathers} regathers of "
+                 f"{c.waves} waves, counts and parent map equal to the "
+                 "ladder-off run's")
+    finally:
+        CudaBfsChecker._pick_out_rows = forced_8
+
+    on, off = (run(TwoPhaseSys(5).checker(), device, batch_size=64,
+                   max_batch_size=256, pipeline=p) for p in (True, False))
+    depth = [c.scheduler_stats()["max_inflight"] for c in (on, off)]
+    if depth != [1, 0]:
+        raise AssertionError(f"pipeline on/off reached depths {depth}")
+    # A wave launched ahead picks its output rung before the last wave's
+    # count is in the history, so only the rungs may differ.
+    _classic_same(on, off, "2pc 5 pipeline on against off",
+                  fields=("bucket", "rows", "novel"))
+    _log(f"2pc 5 on a ladder of 64 to 256 rows, pipeline on against off: "
+         f"equal counts, chains, parent maps and waves, max_inflight "
+         f"{depth}")
+
+    paths = [os.path.join(workdir, f"classic-2pc5-{w}.npz")
+             for w in ("card", "cpu")]
+    for path, dev in zip(paths, (device, "cpu")):
+        c = run(TwoPhaseSys(5).checker().target_state_count(20_000), dev,
+                batch_size=64, checkpoint_path=path,
+                checkpoint_every_waves=1)
+        if c.checkpoints < 3:
+            raise AssertionError(f"classic 2pc 5: {c.checkpoints} "
+                                 "checkpoints")
+    _same_files(ckpt_mod, *paths, "classic 2pc 5")
+    full = run(TwoPhaseSys(5).checker(), "cpu", batch_size=64)
+    for engine in ("fused", "classic"):
+        r = TwoPhaseSys(5).checker().spawn_cuda_bfs(
+            device=device, batch_size=64, resume_from=paths[0],
+            fused=engine == "fused").join()
+        if ((r.unique_state_count(), r.state_count()) != (8832, 58146)
+                or _chains(r) != _chains(full)):
+            raise AssertionError(f"classic 2pc 5's file resumed on the "
+                                 f"{engine} engine: {r.unique_state_count()}"
+                                 f", {r.state_count()}")
+    _log(f"classic 2pc 5 stopped at {c.state_count()} states: both "
+         "generations equal the CPU run's section by section; resumed on "
+         "the card's fused and classic engines to 8,832 / 58,146 with the "
+         "full run's chains")
+
+
+class _ClassicPoint:
+    """A point of a mid-run classic checker to time waves from: the next
+    wave's batch, the queue and a copy of the table. ``wave`` launches
+    one wave from the point through the checker's own launch, waits for
+    its outputs on its slot's event and puts the queue and the table
+    back, never processing them; the first two launches (a warm-up and a
+    capture) run in ``__init__``, so every later one is a replay."""
+
+    def __init__(self, torch, mid):
+        self.torch, self.mid = torch, mid
+        if mid._needs_growth():
+            mid._grow_table()
+        self.bucket = mid._buckets[-1]
+        queued = sum(len(b[1]) for b in mid._pending)
+        if queued < self.bucket:
+            raise AssertionError(f"the point's queue holds {queued} rows")
+        self._queue = list(mid._pending)
+        self._table = mid._table.clone()
+        for _ in range(2):
+            self.wave()
+
+    def replays(self) -> bool:
+        mid = self.mid
+        key = (self.bucket, mid._capacity, mid._pick_out_rows(self.bucket))
+        return mid._graphs is not None and mid._graphs.has_graph(key)
+
+    def launch(self):
+        return self.mid._dispatch_wave(self.bucket, 0)
+
+    def wait(self, wave):
+        out = self.mid._fetch(wave)
+        self.rewind()
+        return int(out[1][2])
+
+    def wave(self):
+        return self.wait(self.launch())
+
+    def rewind(self) -> None:
+        mid = self.mid
+        mid._pending.clear()
+        mid._pending.extend(self._queue)
+        mid._table.copy_(self._table)
+        self.torch.cuda.synchronize()
+
+
+def phase_classic_full(torch, kernels, config, model, want_counts,
+                       want_found, mid_target, **spawn):
+    """``model()`` to its end on the classic engine
+    (``spawn_cuda_bfs(fused=False, **spawn)``), the kernels' launch counts
+    set to 0 just before and read just after: exactly ``want_counts``,
+    the discoveries ``want_found`` and no counterexample, the launches
+    exact (the dedup kernel once a wave on the torch stages, the wave
+    kernel once a wave on the kernel, and the dedup kernel once a chunk
+    of every rehash); the run's pace, host time a wave, readback, rungs
+    and memory. Then waves of a checker stopped at ``mid_target`` states
+    from one point: one replay under ``set_sync_debug_mode("error")``, a
+    few timed, one under ``torch.profiler``."""
+    gc.collect()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in kernels.values():
+        fn.launches = 0
+    t0 = time.monotonic()
+    c = model().checker().spawn_cuda_bfs(fused=False, **spawn).join()
+    torch.cuda.synchronize()
+    sec = time.monotonic() - t0
+    launches = {name: fn.launches for name, fn in kernels.items()}
+    peak = torch.cuda.max_memory_allocated()
+    unique, states = c.unique_state_count(), c.state_count()
+    s = c.scheduler_stats()
+    g = s["graphs"] or {"captures": 0, "replays": 0, "capture_sec": 0.0}
+    ladder = s["succ_ladder"]
+    waves = c.waves
+    down = [e["bytes_down"] for e in c.dispatch_log]
+    host = {k: v * 1e6 / waves for k, v in c.host_sec.items()}
+    log_bytes = c.parent_log_bytes()
+    wave_kernel = spawn.get("wave_kernel", False)
+    run = dict(sec=sec, waves=waves, captures=g["captures"],
+               replays=g["replays"], capture_sec=g["capture_sec"],
+               rungs=ladder["out_rows_dispatches"],
+               regathers=ladder["overflow_redispatches"],
+               host_us=host, bytes_down=sum(down) / waves,
+               bytes_down_max=max(down), peak=peak, log_bytes=log_bytes,
+               rehashes=c.rehashes, chunks=c.rehash_chunks,
+               max_inflight=s["max_inflight"])
+    _log(f"{config} classic ({c.kernel_path()}): unique={unique} states="
+         f"{states} sec={sec:.3f} states/s={states / sec:.1f} waves={waves} "
+         f"rehashes={c.rehashes} ({c.rehash_chunks} chunks) "
+         f"launches={launches} captures={g['captures']} replays="
+         f"{g['replays']} capture_sec={g['capture_sec']:.3f} max_inflight="
+         f"{s['max_inflight']} rungs={ladder['out_rows_dispatches']} "
+         f"regathers={ladder['overflow_redispatches']}; host us a wave: "
+         f"launch {host['launch']:.1f}, processing {host['process']:.1f}, "
+         f"waiting {host['wait']:.1f}; bytes down a wave "
+         f"{run['bytes_down']:.0f} (most {max(down)}); peak device memory "
+         f"{peak} B; host parent log {log_bytes} B")
+    if (unique, states) != want_counts:
+        raise AssertionError(f"{config} classic: {(unique, states)} != "
+                             f"{want_counts}")
+    if sorted(c.discoveries()) != want_found:
+        raise AssertionError(f"{config} classic discoveries: "
+                             f"{sorted(c.discoveries())}")
+    c.assert_properties()
+    want = {"dedup_and_insert": c.rehash_chunks + (0 if wave_kernel
+                                                   else waves),
+            "wave_megakernel": waves if wave_kernel else 0,
+            "sender_megakernel": 0, "append_rows": 0}
+    if launches != want:
+        raise AssertionError(f"{config} classic: kernel launches "
+                             f"{launches}, expected {want}")
+    if not g["replays"]:
+        raise AssertionError(f"{config} classic: no wave was a replay")
+    del c
+
+    mid = (model().checker().target_state_count(mid_target)
+           .spawn_cuda_bfs(fused=False, **spawn).join())
+    point = _ClassicPoint(torch, mid)
+    if not point.replays():
+        raise AssertionError("no wave graph after two waves")
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        wave = point.launch()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    new = point.wait(wave)
+    _log(f"one replayed classic wave of {point.bucket} rows under "
+         f"set_sync_debug_mode('error'): no synchronisation, {new} new rows")
+    steady = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        wave = point.launch()
+        t1 = time.perf_counter()
+        point.wait(wave)
+        steady.append(((t1 - t0) * 1e6, (time.perf_counter() - t0) * 1e3))
+    kern, _ = _profiled(torch, lambda _: point.wave(), point.rewind)
+    busy = sum(e.self_device_time_total for e in kern) / 1e3
+    nodes = sum(e.count for e in kern)
+    pace = sec * 1e3 / waves
+    run.update(busy_ms=busy, nodes=nodes, pace_ms=pace,
+               wave_ms=sum(w for _, w in steady) / len(steady),
+               launch_us=sum(u for u, _ in steady) / len(steady))
+    _log(f"{config} classic steady wave from a point at {mid_target} "
+         f"states: launch {run['launch_us']:.1f} us, launch to outputs on "
+         f"the host {run['wave_ms']:.3f} ms; card busy {busy:.3f} ms a "
+         f"wave ({nodes} kernels and memsets, torch.profiler); the full "
+         f"run's pace {pace:.3f} ms a wave, so the card idles "
+         f"{1 - busy / pace:.1%} of it")
+    for e in sorted(kern, key=lambda e: -e.self_device_time_total)[:6]:
+        _log(f"  {e.self_device_time_total / 1e3:9.3f} ms {e.count:5d}x "
+             f"{e.key[:90]}")
+    return launches, run
+
+
+def phase_classic(torch, kernels, ckpt_mod, TwoPhaseSys, PaxosSys, fused_runs):
+    """Phase 8: the classic engine's small gates against the CPU, in a
+    directory of their own beside this script (removed after), then its
+    full runs: ``paxos check 3`` and 2pc at 10 RMs with ``fused=False`` on
+    both successor paths, none cut, batch 16,384, graphs on; each beside
+    the fused engine's run of the same configuration (``fused_runs``,
+    phase 6)."""
+    import shutil
+
+    workdir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "_ckpt_tmp")
+    shutil.rmtree(workdir, ignore_errors=True)
+    os.makedirs(workdir)
+    t0 = time.monotonic()
+    try:
+        phase_classic_small(torch, ckpt_mod, TwoPhaseSys, PaxosSys, workdir)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    t1 = time.monotonic()
+    twopc = ("2pc 10", functools.partial(TwoPhaseSys, 10),
+             (FULL_UNIQUE, FULL_STATES),
+             ["abort agreement", "commit agreement"], 20_000_000)
+    paxos = ("paxos 3", functools.partial(PaxosSys, 3),
+             (PAXOS_UNIQUE, PAXOS_STATES), ["value chosen"], PAXOS_MID)
+    out = {}
+    for cfg, wave_kernel, fused_tag in (
+            (paxos, False, "paxos 3"), (paxos, True, "paxos 3, wave kernel"),
+            (twopc, False, "2pc 10"), (twopc, True, "2pc 10, wave kernel")):
+        tag = f"{cfg[0]}{', wave kernel' if wave_kernel else ''}"
+        launches, run = phase_classic_full(torch, kernels, *cfg,
+                                           batch_size=BATCH,
+                                           wave_kernel=wave_kernel)
+        out[tag] = dict(launches=launches, run=run)
+        f = fused_runs[fused_tag]["run"]
+        _log(f"{tag}: classic {run['sec']:.3f} s ({run['waves']} waves) "
+             f"against fused {f['sec']:.3f} s ({f['dispatches']} "
+             f"dispatches); peak {run['peak']} B against {f['peak']} B")
+    _log(f"classic phase: small gates {t1 - t0:.1f} s, full runs "
+         f"{time.monotonic() - t1:.1f} s")
+    return out
+
+
 def _modules():
     """The port's modules, from the checkout beside this script."""
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
@@ -1910,6 +2299,9 @@ def main(argv) -> int:
     # and 2pc 10 at full width, the resumed table's build.
     ck = phase_checkpoint(torch, kernels, fused, table_mod, engine, ckpt_mod,
                           TwoPhaseSys, PaxosSys)
+    # The classic engine: its small gates against the CPU, then paxos 3
+    # and 2pc 10 on both successor paths beside the fused runs above.
+    cl = phase_classic(torch, kernels, ckpt_mod, TwoPhaseSys, PaxosSys, full)
 
     # Kernel 1 on the synthetic stream, on the default path's input of
     # each model (a mid-run wave's dedup fingerprints), and at the
@@ -1938,6 +2330,14 @@ def main(argv) -> int:
                     pallas + "256", launches, k_err, k["rehash"]),
         _kernel_row("dedup_and_insert[resume seed]", src + "table.cu",
                     pallas + "256", ck["launches"], ck["max_abs_err"], ck),
+        _kernel_row("dedup_and_insert[classic 2pc 10]", src + "table.cu",
+                    pallas + "256",
+                    cl["2pc 10"]["launches"]["dedup_and_insert"], k_err,
+                    k["wave"]),
+        _kernel_row("dedup_and_insert[classic paxos 3]", src + "table.cu",
+                    pallas + "256",
+                    cl["paxos 3"]["launches"]["dedup_and_insert"], k_err,
+                    k["paxos"]),
         _kernel_row("wave_megakernel", src + "wave_twopc.cu", pallas + "380",
                     launched("2pc 10, wave kernel", "wave_megakernel"),
                     w_err, w["plain"]),
@@ -1948,6 +2348,14 @@ def main(argv) -> int:
         _kernel_row("wave_megakernel[paxos 3]", src + "wave_paxos.cu",
                     pallas + "380",
                     launched("paxos 3, wave kernel", "wave_megakernel"),
+                    w_err, pw["plain"]),
+        _kernel_row("wave_megakernel[classic 2pc 10]",
+                    src + "wave_twopc.cu", pallas + "380",
+                    cl["2pc 10, wave kernel"]["launches"]["wave_megakernel"],
+                    w_err, w["plain"]),
+        _kernel_row("wave_megakernel[classic paxos 3]",
+                    src + "wave_paxos.cu", pallas + "380",
+                    cl["paxos 3, wave kernel"]["launches"]["wave_megakernel"],
                     w_err, pw["plain"]),
         _kernel_row("sender_megakernel[paxos 3]", src + "wave_paxos.cu",
                     pallas + "451",

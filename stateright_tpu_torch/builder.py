@@ -2,9 +2,12 @@
 
 The port's copy of ``stateright_tpu/checker/builder.py`` for the engines
 this package has: ``spawn_cuda_bfs`` runs the fused device BFS
-(``fused.py``), or with ``sharded=True`` or a ``mesh`` the sharded fused
-BFS (``sharded_fused.py``), on a CUDA device, or on the CPU when the
-caller asks.
+(``fused.py``) by default, the classic per-wave BFS (``classic.py``) where
+the fused one cannot run the model (a visitor, or a property the host
+evaluates) or the caller asks for it, or with ``sharded=True`` or a
+``mesh`` the sharded fused BFS (``sharded_fused.py``); on a CUDA device,
+or on the CPU when the caller asks. The engines are chosen by JAX's
+``spawn_tpu_bfs`` rules (``checker/builder.py`` :189-216).
 """
 
 from __future__ import annotations
@@ -13,7 +16,8 @@ from typing import Optional
 
 import torch
 
-from .fused import FusedCudaBfsChecker
+from .classic import CudaBfsChecker
+from .fused import FusedCudaBfsChecker, FusedUnsupported
 from .mesh import Mesh
 from .sharded_fused import ShardedFusedCudaBfsChecker
 
@@ -28,11 +32,26 @@ class CheckerBuilder:
         self._model = model
         self._symmetry = False
         self._target_state_count: Optional[int] = None
+        self._visitor = None
 
     def symmetry(self) -> "CheckerBuilder":
         """Dedups by the device model's ``representative``; paths keep
         the original states."""
         self._symmetry = True
+        return self
+
+    def symmetry_fn(self, representative) -> "CheckerBuilder":
+        """Symmetry with an explicit canonicaliser of host states. The
+        device engines dedup by the device model's ``representative``
+        either way, as JAX's do (``tpu/engine.py`` :228); the function is
+        kept for the host engines the port does not have."""
+        self._symmetry = representative
+        return self
+
+    def visitor(self, visitor) -> "CheckerBuilder":
+        """A function ``f(model, path)`` or a ``CheckerVisitor`` run on
+        every state the checker evaluates (the classic engine's)."""
+        self._visitor = visitor
         return self
 
     def target_state_count(self, count: int) -> "CheckerBuilder":
@@ -53,9 +72,11 @@ class CheckerBuilder:
                        checkpoint_path: Optional[str] = None,
                        checkpoint_every_waves: int = 64,
                        resume_from: Optional[str] = None,
-                       async_io: Optional[bool] = None
-                       ) -> FusedCudaBfsChecker:
-        """Spawns the fused device BFS; call ``join()`` to wait for it.
+                       async_io: Optional[bool] = None,
+                       fused: Optional[bool] = None,
+                       pipeline: Optional[bool] = None,
+                       succ_ladder: Optional[bool] = None):
+        """Spawns a device BFS; call ``join()`` to wait for it.
 
         ``device=None`` means the current CUDA device and raises when
         there is none: the port never falls back to the CPU on its own.
@@ -65,17 +86,32 @@ class CheckerBuilder:
         CUDA device code (``DeviceModel.cuda_model()``) and raises for
         one without. ``batch_size`` defaults to 1,024.
 
+        The engine, by JAX's rules: the fused engine by default; the
+        classic per-wave engine (``classic.py``) when the fused one
+        cannot run the model (a ``visitor``, or a property with a host
+        condition and no device predicate, ``FusedUnsupported``) unless
+        ``fused=True``, which then raises; ``fused=False`` or
+        ``pipeline=True`` ask for the classic engine, which drops the
+        fused engine's knobs (``waves_per_dispatch``, ``arena_capacity``,
+        ``inflight_dispatches``). The classic engine's own knobs:
+        ``pipeline`` (launch the next wave before reading the last, when
+        a full widest batch is queued; default on for a CUDA device, off
+        on the CPU) and ``succ_ladder`` (default on: bound the new rows a
+        wave sends to the host by the output ladder, regathering a wave
+        that outgrows its rung). None of these changes a result.
+
         The host loop's knobs, as in JAX: ``max_batch_size`` makes the
         dispatch width adaptive, the least rung of ``batch_size``'s
         doublings up to it that covers the queue (unset: always
         ``batch_size``); ``inflight_dispatches`` is how many dispatches
         run ahead of the host's stats reads (1, the default: a read after
         every dispatch; JAX's default is 2, which on the card with graphs
-        measured slower, PERF.md §6). ``cuda_graph`` runs each dispatch as one CUDA
-        graph, captured at the second dispatch of each width and table and
-        arena size and replayed after: ``None`` (the default) means on for
-        a CUDA device, ``False`` runs every dispatch op by op, and ``True``
-        on the CPU raises. None of the three changes a result.
+        measured slower, PERF.md §6). ``cuda_graph`` runs each dispatch
+        (each wave, on the classic engine) as one CUDA graph, captured at
+        the second dispatch of each width and table and arena size (and
+        output rung) and replayed after: ``None`` (the default) means on
+        for a CUDA device, ``False`` runs every dispatch op by op, and
+        ``True`` on the CPU raises. None of the three changes a result.
 
         With ``mesh`` (a list of devices, one a shard) or ``sharded=True``
         (one shard a visible CUDA device) the sharded fused BFS runs
@@ -83,14 +119,17 @@ class CheckerBuilder:
         ``fp % n``, ``batch_size`` (default 512) is per shard, and
         ``exchange_novel_only`` (default on) drops a sender's repeated
         successors before the exchange. The shards must share one
-        device, stacked: ``mesh=["cpu"] * n`` or ``["cuda:0"] * n``.
+        device, stacked: ``mesh=["cpu"] * n`` or ``["cuda:0"] * n``. The
+        sharded engine has no classic twin yet: a sharded spawn that
+        needs one raises ``NotImplementedError``.
 
         Checkpoints, as in JAX's ``spawn_tpu_bfs``: with
         ``checkpoint_path`` the run writes a snapshot there at a rest
         point each time ``checkpoint_every_waves * batch_size`` new states
-        have arrived, and one at its end, keeping the last two
+        have arrived (every ``checkpoint_every_waves`` waves on the
+        classic engine), and one at its end, keeping the last two
         generations (the older at ``checkpoint_path + ".prev"``).
-        ``resume_from`` starts the run from a snapshot of either of the
+        ``resume_from`` starts the run from a snapshot of any of the
         port's engines or of a JAX BFS engine; it must be of the same
         model, width and symmetry setting. ``async_io=True`` (or the
         ``STpu_ASYNC_IO`` environment variable) writes on a thread of its
@@ -98,18 +137,30 @@ class CheckerBuilder:
         ``join()``. A file's sections and dtypes are the JAX package's
         (``checkpoint_format.py``), so either package resumes the
         other's."""
+        if fused and pipeline:
+            raise ValueError(
+                "fused=True and pipeline=True are mutually exclusive: "
+                "pipelining is a classic-engine knob")
         knobs = dict(table_capacity=table_capacity,
-                     arena_capacity=arena_capacity,
-                     waves_per_dispatch=waves_per_dispatch,
                      wave_kernel=wave_kernel, max_batch_size=max_batch_size,
-                     inflight_dispatches=inflight_dispatches,
                      checkpoint_path=checkpoint_path,
                      checkpoint_every_waves=checkpoint_every_waves,
                      resume_from=resume_from, async_io=async_io)
+        fused_knobs = dict(arena_capacity=arena_capacity,
+                           waves_per_dispatch=waves_per_dispatch,
+                           inflight_dispatches=inflight_dispatches)
+        classic = fused is False or bool(pipeline)
         if mesh is not None or sharded:
-            return self._spawn_sharded(
-                device, mesh, batch_size or 512, exchange_novel_only,
-                cuda_graph, **knobs)
+            if classic:
+                raise _no_sharded_classic("fused=False or pipeline=True")
+            try:
+                return self._spawn_sharded(
+                    device, mesh, batch_size or 512, exchange_novel_only,
+                    cuda_graph, **knobs, **fused_knobs)
+            except FusedUnsupported as e:
+                if fused:
+                    raise
+                raise _no_sharded_classic(str(e)) from e
         if exchange_novel_only is not None:
             raise ValueError("exchange_novel_only is a knob of the sharded "
                              "engine: pass sharded=True or a mesh")
@@ -118,9 +169,17 @@ class CheckerBuilder:
         device = torch.device(device)
         if device.type == "cuda" and device.index is None:
             device = torch.device("cuda", torch.cuda.current_device())
-        return FusedCudaBfsChecker(
-            self, device, batch_size=batch_size or 1024,
-            cuda_graph=_graphs_on(cuda_graph, device), **knobs)
+        knobs.update(batch_size=batch_size or 1024,
+                     cuda_graph=_graphs_on(cuda_graph, device))
+        if not classic:
+            try:
+                return FusedCudaBfsChecker(self, device, **knobs,
+                                           **fused_knobs)
+            except FusedUnsupported:
+                if fused:
+                    raise
+        return CudaBfsChecker(self, device, pipeline=pipeline,
+                              succ_ladder=succ_ladder, **knobs)
 
     def _spawn_sharded(self, device, mesh, batch_size, exchange_novel_only,
                        cuda_graph, **kwargs) -> ShardedFusedCudaBfsChecker:
@@ -140,6 +199,13 @@ class CheckerBuilder:
             self, mesh, batch_size=batch_size,
             exchange_novel_only=exchange_novel_only,
             cuda_graph=_graphs_on(cuda_graph, mesh.device), **kwargs)
+
+
+def _no_sharded_classic(why: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{why}: the sharded engine has no classic per-wave twin yet "
+        "(tpu/sharded.py, ROADMAP A11); spawn without sharded/mesh for "
+        "the classic engine")
 
 
 def _graphs_on(cuda_graph, device: torch.device) -> bool:

@@ -1,9 +1,9 @@
 """The stage functions of one BFS wave, as plain torch ops.
 
 The port's copy of the wave building blocks of
-``stateright_tpu/tpu/engine.py``: the dispatch width's bucket ladder,
-property evaluation, expansion, fingerprinting, the two dedup levels and
-compaction. The dedup functions
+``stateright_tpu/tpu/engine.py``: the dispatch width's bucket ladder, the
+classic engine's output ladder, property evaluation, expansion,
+fingerprinting, the two dedup levels and compaction. The dedup functions
 here (``first_occurrence_candidates``, ``global_insert`` and their
 composition ``dedup_and_insert``) are the plain version of the CUDA
 kernel in ``table.py`` and the reference it is held to; the engines
@@ -23,7 +23,8 @@ import torch
 
 from .hashing import SENTINEL, SENTINEL_U64, device_fp64
 
-__all__ = ["batch_bucket_ladder", "pick_bucket", "eval_properties",
+__all__ = ["batch_bucket_ladder", "pick_bucket", "succ_bucket_ladder",
+           "eval_properties",
            "expand_frontier", "fingerprint_successors",
            "cumsum_rows", "compaction_order", "first_occurrence_sorted",
            "TABLE_MIX",
@@ -71,9 +72,29 @@ def pick_bucket(ladder: tuple, width: int) -> int:
     return ladder[-1]
 
 
+def succ_bucket_ladder(full: int, base: int = 256) -> tuple:
+    """The classic engine's output ladder: how many compacted new rows a
+    wave emits. ``base`` times powers of four, then ``full`` (the wave's
+    ``B * F`` successors, so that any wave fits the last rung). A wave
+    whose new rows outgrow its rung is regathered at a rung that fits,
+    so the ladder bounds the rows a wave sends to the host and never
+    changes a result."""
+    full = max(1, int(full))
+    if full <= base:
+        return (full,)
+    rungs = []
+    k = base
+    while k < full:
+        rungs.append(k)
+        k *= 4
+    rungs.append(full)
+    return tuple(rungs)
+
+
 def eval_properties(prop_fns, rows: torch.Tensor):
-    """Each property predicate over the batch (at "pop time")."""
-    return [fn(rows) for fn in prop_fns]
+    """Each property predicate over the batch (at "pop time"); None for
+    a property the host evaluates (the classic engine's)."""
+    return [None if fn is None else fn(rows) for fn in prop_fns]
 
 
 def expand_frontier(dm, rows: torch.Tensor, valid: torch.Tensor):

@@ -1,8 +1,12 @@
 """Fused device BFS: the checker's whole state lives on the device.
 
-The port's copy of ``stateright_tpu/tpu/fused.py::FusedTpuBfsChecker``
-together with the parts of ``tpu/engine.py::TpuBfsChecker`` it inherits
-(seeding, the table capacity rule, growth, paths, the Checker API).
+The port's copy of ``stateright_tpu/tpu/fused.py::FusedTpuBfsChecker``,
+and in ``BfsEngine`` the parts of ``tpu/engine.py::TpuBfsChecker`` that
+it shares with the port's classic engine (``classic.py``): seeding and
+resuming, the table and its chunked inserts, checkpoints, the worker and
+the Checker API. A visitor or a property the host evaluates needs a host
+step a wave, which this engine has not: it raises ``FusedUnsupported``
+and the builder spawns the classic engine.
 
 - **Arena.** Every discovered state is a row of a device arena: packed
   words ``vecs[U+1, Wp]``, ``fps[U+1]``, parent ``par[U+1]`` and
@@ -79,15 +83,16 @@ from .engine import (batch_bucket_ladder, compaction_order, eval_properties,
 from .graphs import DispatchGraphs
 from .hashing import SENTINEL, SENTINEL_U64, host_fp64, to_i64, to_u64
 from .io.async_io import writer_from_config
-from .model import Expectation
+from .model import Expectation, property_predicates
 from .packing import compile_layout
 from .path import Path
 from .table import DedupScratch, dedup_and_insert
+from .visitor import as_visitor
 from .wave import cuda_model, sender_megakernel, wave_megakernel
 
-__all__ = ["FusedCudaBfsChecker", "KERNELS", "ST_HEAD", "ST_TAIL", "ST_OCC",
-           "ST_SUCC", "ST_CAND", "ST_TARGET", "ST_ERR", "ST_WAVES",
-           "ST_DISC", "ERR_LANE", "ERR_TABLE_FULL"]
+__all__ = ["BfsEngine", "FusedCudaBfsChecker", "FusedUnsupported", "KERNELS",
+           "ST_HEAD", "ST_TAIL", "ST_OCC", "ST_SUCC", "ST_CAND", "ST_TARGET",
+           "ST_ERR", "ST_WAVES", "ST_DISC", "ERR_LANE", "ERR_TABLE_FULL"]
 
 # Dispatch-stats layout (int64), read by the host once per dispatch and
 # chained on the device into the next one. Discovery fingerprints follow
@@ -158,29 +163,37 @@ def _first_hit(disc, hit, fps):
     return torch.where((disc == SENTINEL) & hit.any(), first, disc)
 
 
-class FusedCudaBfsChecker(Checker):
-    """Device-arena BFS with multi-wave dispatches."""
+class FusedUnsupported(TypeError):
+    """The model or builder needs a host step a wave (a visitor, or a
+    property the host evaluates), which only the classic engine has:
+    ``spawn_cuda_bfs`` then spawns it, unless ``fused=True``."""
 
-    def __init__(self, builder, device: torch.device, batch_size: int = 1024,
-                 table_capacity: int = 1 << 16, arena_capacity=None,
-                 waves_per_dispatch: int = 16, wave_kernel: bool = False,
-                 max_batch_size=None, inflight_dispatches: int = 1,
-                 cuda_graph: bool = False, checkpoint_path=None,
-                 checkpoint_every_waves: int = 64, resume_from=None,
-                 async_io=None):
+
+class BfsEngine(Checker):
+    """What the port's device engines share (the reference's
+    ``TpuBfsChecker``, of which its fused engine is a subclass): the
+    configuration, seeding and resuming, the visited table and its
+    chunked inserts, checkpoints, the worker thread and the Checker API.
+    A subclass sets up its own state in ``_start`` and runs its host loop
+    in ``_run_waves``."""
+
+    def _configure(self, builder, device: torch.device, batch_size: int,
+                   table_capacity: int, wave_kernel: bool, max_batch_size,
+                   checkpoint_path, checkpoint_every_waves: int,
+                   async_io) -> None:
         model = builder._model
         dm = model.device_model()
         self._model, self._dm, self._device = model, dm, device
         self._properties = model.properties()
         if len(self._properties) > 32:
             raise NotImplementedError("at most 32 properties on device")
-        preds = dm.device_properties()
-        missing = [p.name for p in self._properties if p.name not in preds]
-        if missing:
-            raise ValueError(f"properties {missing} have no device "
-                             "predicate; the port checks on the device only")
-        self._prop_fns = [preds[p.name] for p in self._properties]
-        self._use_symmetry = builder._symmetry
+        self._prop_fns = property_predicates(self._properties, dm)
+        self._visitor = (None if builder._visitor is None
+                         else as_visitor(builder._visitor))
+        # A configuration this engine cannot run raises here, before the
+        # writer thread, the scratch and the table exist.
+        self._check_support()
+        self._use_symmetry = bool(builder._symmetry)
         W = dm.state_width
         if self._use_symmetry and dm.representative(
                 torch.zeros((1, W), dtype=torch.int64)) is None:
@@ -190,10 +203,6 @@ class FusedCudaBfsChecker(Checker):
         self._B, self._F = int(batch_size), dm.max_fanout
         self._buckets = batch_bucket_ladder(self._B, max_batch_size)
         self._B_max = self._buckets[-1]
-        self._K = max(1, int(waves_per_dispatch))
-        # Dispatches launched ahead of the oldest one's stats read; safe at
-        # any depth, since a dispatch launched past a rest point is a no-op.
-        self._depth = max(1, int(inflight_dispatches))
         self._layout = compile_layout(dm.lane_bits(), W)
         self._wave_kernel = bool(wave_kernel)
         if self._wave_kernel and device.type == "cuda":
@@ -217,45 +226,19 @@ class FusedCudaBfsChecker(Checker):
         # least 4x the visited set plus two of the widest dispatch's
         # widths (``_start``).
         self._capacity = 1 << max(12, (int(table_capacity) - 1).bit_length())
-        self._arena_capacity = arena_capacity
         self._discoveries: Dict[str, int] = {}
-        self._start(resume_from)
-
-        #: waves that expanded rows, dispatches run, table rehashes,
-        #: arena doublings and checkpoints written, and candidates that
-        #: reached the table probe
-        self.waves = self.dispatches = self.rehashes = self.arena_grows = 0
-        self.checkpoints = self.candidates = 0
-        #: one dict a retired dispatch: its ``bucket``, the dispatches in
-        #: flight at its launch (``inflight``, itself included), its
-        #: ``waves`` that expanded rows, and whether it ``compiled`` (paid
-        #: a graph capture)
-        self.dispatch_log: List[dict] = []
-        self._graphs = DispatchGraphs(KERNELS) if cuda_graph else None
-        # The ring of host slots the stats are copied to, one a dispatch
-        # in flight (pinned, so the copy does not wait for the card).
-        pinned = device.type == "cuda"
-        self._host_stats = [torch.empty(self._stats.shape,
-                                        dtype=torch.int64, pin_memory=pinned)
-                            for _ in range(self._depth)]
-        self._launched = 0
         self._lock = threading.Lock()
+
+    def _check_support(self) -> None:
+        """Raises for a configuration this engine cannot run (the
+        reference's hook of the same name)."""
+
+    def _spawn_worker(self) -> None:
+        """Starts the worker thread that runs ``_run``."""
         self._done = threading.Event()
         self._error = None
         self._thread = threading.Thread(target=self._run, daemon=True)
         self._thread.start()
-
-    def _start(self, resume_from) -> None:
-        """Seeds a run: from the init states, or from the checkpoint at
-        ``resume_from``; then grows the table's capacity to the rule and
-        builds the device state (``_seed``)."""
-        if resume_from is None:
-            seed, fps, ebits, visited = self._init_rows()
-        else:
-            seed, fps, ebits, visited = self._load_checkpoint(resume_from)
-        while self._capacity < 4 * len(visited) + 2 * self._B_max * self._F:
-            self._capacity *= 2
-        self._seed(seed, fps, ebits, visited, resumed=resume_from is not None)
 
     def _init_rows(self):
         """The init states as seed rows: ``(packed rows, path fps, ebits,
@@ -290,6 +273,273 @@ class FusedCudaBfsChecker(Checker):
         return (self._layout.pack_np(seed), fps,
                 np.full(len(fps), self._ebits_all, np.uint32),
                 np.array(list(seen), np.uint64))
+
+    def _new_table(self, visited: np.ndarray, resumed: bool) -> torch.Tensor:
+        """A table of the engine's capacity holding the ``uint64``
+        fingerprints ``visited``, on the engine's device.
+
+        A fresh run's seeds go in on the host (``host_table_insert``), as
+        in JAX. A resumed run's visited set goes up as it lies in the file
+        and into the table through the dedup kernel, in strided chunks of
+        at most the scratch's rows with the engine's scratch, its chunks'
+        ``full`` flags ORed and read once (``_insert_chunked``): on the
+        card the kernel builds a table of millions of keys where the
+        host's insert takes seconds. JAX inserts on the host either way
+        (``tpu/engine.py`` :803-811); this is the port's own choice.
+        Slot order has no meaning (checkpoints sort the set), so the two
+        tables hold the same set at the same capacity."""
+        cap = self._capacity
+        if not resumed:
+            table = np.full(cap, SENTINEL_U64, np.uint64)
+            host_table_insert(table, visited)
+            return torch.from_numpy(table.view(np.int64)).to(self._device)
+        table = torch.full((cap,), SENTINEL, dtype=torch.int64,
+                           device=self._device)
+        keys = torch.from_numpy(
+            np.ascontiguousarray(visited, np.uint64).view(np.int64)
+        ).to(self._device)
+        if bool(self._insert_chunked(keys, table)):
+            raise RuntimeError("the resumed visited set found no free slot")
+        return table
+
+    def _scratch_shape(self):
+        """``DedupScratch``'s rows and shards: the widest wave's, the rows
+        of one call of its dedup kernel, one shard."""
+        return self._B_max * self._F, 1
+
+    def _run(self) -> None:
+        try:
+            self._run_waves()
+            if self._ckpt_path is not None:
+                self._write_checkpoint(self._ckpt_path)
+            # The last generation lands, or its writer's failure raises,
+            # before the run is done.
+            self._aio.join()
+        except BaseException as e:  # surfaced at join()
+            self._error = e
+        finally:
+            self._done.set()
+
+    def _chunks(self, n: int) -> int:
+        """The chunks ``_insert_chunked`` takes for ``n`` keys: the least
+        power of two of chunks of at most the scratch's rows."""
+        return _pow2(-(-n // self._scratch_shape()[0]))
+
+    def _insert_chunked(self, keys: torch.Tensor, table: torch.Tensor):
+        """Inserts the distinct int64 keys ``keys`` (sentinels are not
+        keys) into ``table`` through the dedup kernel with the engine's
+        scratch, in ``n`` chunks of at most the scratch's rows, ``n`` a
+        power of two: chunk k is every n-th key from key k, copied
+        contiguous (the keys padded with sentinels to a multiple of n).
+        Not runs of adjacent slots of an old table: the keys of adjacent
+        slots share the high bits of their hash, which also pick their
+        home slots in the scratch, so a run of them piles into a small
+        window of it (``chip_smoke.py``'s rehash case, 2^26 slots into
+        2^27 on an H100: about 20 times slower in runs than in strides).
+        Returns a bool 0-dim tensor on the device, the chunks' ``full``
+        flags ORed: whether a key found no free slot."""
+        n = self._chunks(keys.shape[0])
+        pad = -keys.shape[0] % n
+        if pad:
+            keys = torch.cat([keys, keys.new_full((pad,), SENTINEL)])
+        if not keys.numel():
+            return torch.zeros((), dtype=torch.bool, device=table.device)
+        cols = keys.view(-1, n)
+        return torch.stack([
+            dedup_and_insert(cols[:, k].contiguous(), table,
+                             scratch=self._scratch)[4]
+            for k in range(n)]).any()
+
+    def _visited_sorted(self) -> np.ndarray:
+        """The visited set, ``uint64`` sorted (engine :603-610): the
+        table's keys with the sentinels dropped, sorted on the device as
+        the unsigned values they stand for."""
+        keys = self._table[self._table != SENTINEL]
+        return _u64(torch.sort(keys ^ _I64_MIN).values ^ _I64_MIN)
+
+    def _write_checkpoint(self, path: str) -> None:
+        """Writes one generation at a rest point (engine :629-662): joins
+        the last write first (its failure raises here), takes the
+        snapshot on this thread, and hands the write to the writer."""
+        self._aio.join()
+        payload = self._snapshot()
+        self._aio.submit(lambda: write_atomic(path, payload))
+        self.checkpoints += 1
+
+    def checkpoint(self, path: str) -> None:
+        """Writes a resumable snapshot to ``path``, once the run has
+        stopped (done, every property found, or the target reached), and
+        returns when the file has landed. While the run goes, pass
+        ``checkpoint_path`` to ``spawn_cuda_bfs`` instead."""
+        if not self._done.is_set():
+            raise RuntimeError(
+                "checkpoint() while the checker is running would race the "
+                "wave loop; pass checkpoint_path=... to spawn_cuda_bfs for "
+                "periodic snapshots, or join() first")
+        if self._error is not None:
+            # A failed dispatch's states may be in the table but not in
+            # the queue; a snapshot would lose their subtrees.
+            raise RuntimeError(
+                "checkpoint() after a failed run would snapshot a torn "
+                "frontier; resume from the last periodic checkpoint "
+                "(restart_from) instead") from self._error
+        self._write_checkpoint(path)
+        self._aio.join()
+
+    def restart_from(self, path: str) -> "BfsEngine":
+        """Recovers this instance in place once its run has stopped (the
+        reference's, engine :692-753): drops the failed run's flag, its
+        arena, table and dispatch graphs, reloads the snapshot at
+        ``path`` and restarts the worker. The kernels stay built and the
+        scratch stays."""
+        if not self._done.is_set():
+            raise RuntimeError(
+                "restart_from() while the checker is running; join() "
+                "(or wait for the failure) first")
+        self._thread.join()
+        self._aio.reset()
+        self._error = None
+        self._discoveries = {}
+        self.dispatch_log = []
+        self._reset_engine_state()
+        self._start(path)
+        self._spawn_worker()
+        return self
+
+    def _load_checkpoint(self, path: str):
+        """Restores the counts, discoveries and host parent map from the
+        checkpoint at ``path`` (engine :755-800) and returns its seed
+        rows as ``_init_rows`` does: the pending rows packed in this
+        engine's layout (a ``u32`` or ``packed`` file alike), their
+        fingerprints and eventually bits, and the visited set."""
+        W = self._dm.state_width
+        with load_checkpoint(path) as data:
+            header = validate_header(
+                data, model_name=checkpoint_name(self._model),
+                state_width=W, use_symmetry=self._use_symmetry)
+            for key, what in _UNPORTED.items():
+                if header.get(key):
+                    raise NotImplementedError(
+                        f"checkpoint {path!r} has a {key!r} section, which "
+                        f"{what}; the port cannot resume it")
+            rows = pending_rows(data, header, W)
+            self._layout.check_fits(rows)
+            seed = self._layout.pack_np(rows)
+            fps = np.asarray(data["pending_fps"], np.uint64)
+            ebits = np.asarray(data["pending_ebits"], np.uint32)
+            self._parents = (
+                np.asarray(data["parent_child"], np.uint64),
+                np.asarray(data["parent_parent"], np.uint64),
+                np.asarray(data["parent_rooted"], bool))
+            visited = np.asarray(data["visited"], np.uint64)
+        self._state_count = self._base_states = int(header["state_count"])
+        self._unique_count = int(header["unique_count"])
+        self._discoveries = {k: int(v)
+                             for k, v in header["discoveries"].items()}
+        return seed, fps, ebits, visited
+
+    def model(self):
+        return self._model
+
+    def kernel_path(self) -> str:
+        """Which successor-path implementation the waves run:
+        ``megakernel`` (the single-kernel wave) or ``dedup_kernel``
+        (torch stages around the dedup kernel) on the card, and their
+        plain versions ``megakernel_plain`` or ``dedup_plain`` on the
+        CPU."""
+        on_card = self._device.type == "cuda"
+        if self._wave_kernel:
+            return "megakernel" if on_card else "megakernel_plain"
+        return "dedup_kernel" if on_card else "dedup_plain"
+
+    def state_count(self) -> int:
+        with self._lock:
+            return self._state_count
+
+    def unique_state_count(self) -> int:
+        with self._lock:
+            return self._unique_count
+
+    def discoveries(self) -> Dict[str, Path]:
+        with self._lock:
+            found = list(self._discoveries.items())
+        return {name: Path.from_fingerprints(
+                    self._model, self._fingerprint_chain(fp), self._dm)
+                for name, fp in found}
+
+    def join(self) -> "BfsEngine":
+        self._thread.join()
+        if self._error is not None:
+            raise self._error
+        return self
+
+    def is_done(self) -> bool:
+        return self._done.is_set()
+
+
+class FusedCudaBfsChecker(BfsEngine):
+    """Device-arena BFS with multi-wave dispatches."""
+
+    def __init__(self, builder, device: torch.device, batch_size: int = 1024,
+                 table_capacity: int = 1 << 16, arena_capacity=None,
+                 waves_per_dispatch: int = 16, wave_kernel: bool = False,
+                 max_batch_size=None, inflight_dispatches: int = 1,
+                 cuda_graph: bool = False, checkpoint_path=None,
+                 checkpoint_every_waves: int = 64, resume_from=None,
+                 async_io=None):
+        self._K = max(1, int(waves_per_dispatch))
+        # Dispatches launched ahead of the oldest one's stats read; safe at
+        # any depth, since a dispatch launched past a rest point is a no-op.
+        self._depth = max(1, int(inflight_dispatches))
+        self._configure(builder, device, batch_size, table_capacity,
+                        wave_kernel, max_batch_size, checkpoint_path,
+                        checkpoint_every_waves, async_io)
+        self._arena_capacity = arena_capacity
+        self._start(resume_from)
+
+        #: waves that expanded rows, dispatches run, table rehashes,
+        #: arena doublings and checkpoints written, and candidates that
+        #: reached the table probe
+        self.waves = self.dispatches = self.rehashes = self.arena_grows = 0
+        self.checkpoints = self.candidates = 0
+        #: one dict a retired dispatch: its ``bucket``, the dispatches in
+        #: flight at its launch (``inflight``, itself included), its
+        #: ``waves`` that expanded rows, and whether it ``compiled`` (paid
+        #: a graph capture)
+        self.dispatch_log: List[dict] = []
+        self._graphs = DispatchGraphs(KERNELS) if cuda_graph else None
+        # The ring of host slots the stats are copied to, one a dispatch
+        # in flight (pinned, so the copy does not wait for the card).
+        pinned = device.type == "cuda"
+        self._host_stats = [torch.empty(self._stats.shape,
+                                        dtype=torch.int64, pin_memory=pinned)
+                            for _ in range(self._depth)]
+        self._launched = 0
+        self._spawn_worker()
+
+    def _check_support(self) -> None:
+        """A visitor or a property with no device predicate needs a host
+        step a wave (the reference's ``tpu/fused.py`` :162-170)."""
+        if self._visitor is not None:
+            raise FusedUnsupported(
+                "visitors need the per-wave host loop; the builder falls "
+                "back to the classic engine")
+        if any(fn is None for fn in self._prop_fns):
+            raise FusedUnsupported(
+                "host-fallback properties need the per-wave host loop; "
+                "the builder falls back to the classic engine")
+
+    def _start(self, resume_from) -> None:
+        """Seeds a run: from the init states, or from the checkpoint at
+        ``resume_from``; then grows the table's capacity to the rule and
+        builds the device state (``_seed``)."""
+        if resume_from is None:
+            seed, fps, ebits, visited = self._init_rows()
+        else:
+            seed, fps, ebits, visited = self._load_checkpoint(resume_from)
+        while self._capacity < 4 * len(visited) + 2 * self._B_max * self._F:
+            self._capacity *= 2
+        self._seed(seed, fps, ebits, visited, resumed=resume_from is not None)
 
     def _seed(self, seed: np.ndarray, fps: np.ndarray, ebits: np.ndarray,
               visited: np.ndarray, resumed: bool) -> None:
@@ -327,39 +577,6 @@ class FusedCudaBfsChecker(Checker):
         stats[ST_TARGET] = self._target_left()
         stats[ST_DISC:] = [SENTINEL] * P
         self._stats = torch.tensor(stats, dtype=torch.int64, device=device)
-
-    def _new_table(self, visited: np.ndarray, resumed: bool) -> torch.Tensor:
-        """A table of the engine's capacity holding the ``uint64``
-        fingerprints ``visited``, on the engine's device.
-
-        A fresh run's seeds go in on the host (``host_table_insert``), as
-        in JAX. A resumed run's visited set goes up as it lies in the file
-        and into the table through the dedup kernel, in strided chunks of
-        at most the scratch's rows with the engine's scratch, its chunks'
-        ``full`` flags ORed and read once (``_insert_chunked``): on the
-        card the kernel builds a table of millions of keys where the
-        host's insert takes seconds. JAX inserts on the host either way
-        (``tpu/engine.py`` :803-811); this is the port's own choice.
-        Slot order has no meaning (checkpoints sort the set), so the two
-        tables hold the same set at the same capacity."""
-        cap = self._capacity
-        if not resumed:
-            table = np.full(cap, SENTINEL_U64, np.uint64)
-            host_table_insert(table, visited)
-            return torch.from_numpy(table.view(np.int64)).to(self._device)
-        table = torch.full((cap,), SENTINEL, dtype=torch.int64,
-                           device=self._device)
-        keys = torch.from_numpy(
-            np.ascontiguousarray(visited, np.uint64).view(np.int64)
-        ).to(self._device)
-        if bool(self._insert_chunked(keys, table)):
-            raise RuntimeError("the resumed visited set found no free slot")
-        return table
-
-    def _scratch_shape(self):
-        """``DedupScratch``'s rows and shards: the widest wave's, the rows
-        of one call of its dedup kernel, one shard."""
-        return self._B_max * self._F, 1
 
     def _target_left(self) -> int:
         """Successors still to generate before the target state count
@@ -468,19 +685,6 @@ class FusedCudaBfsChecker(Checker):
                               target, err, waves] + disc))
 
     # -- Host loop ---------------------------------------------------------
-
-    def _run(self) -> None:
-        try:
-            self._run_waves()
-            if self._ckpt_path is not None:
-                self._write_checkpoint(self._ckpt_path)
-            # The last generation lands, or its writer's failure raises,
-            # before the run is done.
-            self._aio.join()
-        except BaseException as e:  # surfaced at join()
-            self._error = e
-        finally:
-            self._done.set()
 
     def _run_waves(self) -> None:
         """The pipelined host loop (the reference's ``_run_waves``
@@ -600,36 +804,6 @@ class FusedCudaBfsChecker(Checker):
                 if fp != SENTINEL and prop.name not in self._discoveries:
                     self._discoveries[prop.name] = to_u64(fp)
 
-    def _chunks(self, n: int) -> int:
-        """The chunks ``_insert_chunked`` takes for ``n`` keys: the least
-        power of two of chunks of at most the scratch's rows."""
-        return _pow2(-(-n // self._scratch_shape()[0]))
-
-    def _insert_chunked(self, keys: torch.Tensor, table: torch.Tensor):
-        """Inserts the distinct int64 keys ``keys`` (sentinels are not
-        keys) into ``table`` through the dedup kernel with the engine's
-        scratch, in ``n`` chunks of at most the scratch's rows, ``n`` a
-        power of two: chunk k is every n-th key from key k, copied
-        contiguous (the keys padded with sentinels to a multiple of n).
-        Not runs of adjacent slots of an old table: the keys of adjacent
-        slots share the high bits of their hash, which also pick their
-        home slots in the scratch, so a run of them piles into a small
-        window of it (``chip_smoke.py``'s rehash case, 2^26 slots into
-        2^27 on an H100: about 20 times slower in runs than in strides).
-        Returns a bool 0-dim tensor on the device, the chunks' ``full``
-        flags ORed: whether a key found no free slot."""
-        n = self._chunks(keys.shape[0])
-        pad = -keys.shape[0] % n
-        if pad:
-            keys = torch.cat([keys, keys.new_full((pad,), SENTINEL)])
-        if not keys.numel():
-            return torch.zeros((), dtype=torch.bool, device=table.device)
-        cols = keys.view(-1, n)
-        return torch.stack([
-            dedup_and_insert(cols[:, k].contiguous(), table,
-                             scratch=self._scratch)[4]
-            for k in range(n)]).any()
-
     def _grow(self, bucket: int) -> None:
         """Growth at a rest point, with no dispatch in flight: every
         dispatch graph goes (they hold the tensors that growth replaces),
@@ -683,13 +857,6 @@ class FusedCudaBfsChecker(Checker):
         return [(_u32(self._vecs[lo:hi]), _u64(self._fps[lo:hi]),
                  _u32(self._ebits[lo:hi]))]
 
-    def _visited_sorted(self) -> np.ndarray:
-        """The visited set, ``uint64`` sorted (engine :603-610): the
-        table's keys with the sentinels dropped, sorted on the device as
-        the unsigned values they stand for."""
-        keys = self._table[self._table != SENTINEL]
-        return _u64(torch.sort(keys ^ _I64_MIN).values ^ _I64_MIN)
-
     def _parent_rows(self):
         """The arena's part of the parent map: the fingerprints and
         parents of rows ``[n_seed, tail)`` (the seed rows' are in the
@@ -738,95 +905,12 @@ class FusedCudaBfsChecker(Checker):
                     parent_child=child, parent_parent=parent,
                     parent_rooted=rooted)
 
-    def _write_checkpoint(self, path: str) -> None:
-        """Writes one generation at a rest point (engine :629-662): joins
-        the last write first (its failure raises here), takes the
-        snapshot on this thread, and hands the write to the writer."""
-        self._aio.join()
-        payload = self._snapshot()
-        self._aio.submit(lambda: write_atomic(path, payload))
-        self.checkpoints += 1
-
-    def checkpoint(self, path: str) -> None:
-        """Writes a resumable snapshot to ``path``, once the run has
-        stopped (done, every property found, or the target reached), and
-        returns when the file has landed. While the run goes, pass
-        ``checkpoint_path`` to ``spawn_cuda_bfs`` instead."""
-        if not self._done.is_set():
-            raise RuntimeError(
-                "checkpoint() while the checker is running would race the "
-                "wave loop; pass checkpoint_path=... to spawn_cuda_bfs for "
-                "periodic snapshots, or join() first")
-        if self._error is not None:
-            # A failed dispatch's states may be in the table but not in
-            # the queue; a snapshot would lose their subtrees.
-            raise RuntimeError(
-                "checkpoint() after a failed run would snapshot a torn "
-                "frontier; resume from the last periodic checkpoint "
-                "(restart_from) instead") from self._error
-        self._write_checkpoint(path)
-        self._aio.join()
-
-    def restart_from(self, path: str) -> "FusedCudaBfsChecker":
-        """Recovers this instance in place once its run has stopped (the
-        reference's, engine :692-753): drops the failed run's flag, its
-        arena, table and dispatch graphs, reloads the snapshot at
-        ``path`` and restarts the worker. The kernels stay built and the
-        scratch stays."""
-        if not self._done.is_set():
-            raise RuntimeError(
-                "restart_from() while the checker is running; join() "
-                "(or wait for the failure) first")
-        self._thread.join()
-        self._aio.reset()
-        self._error = None
-        self._discoveries = {}
-        self.dispatch_log = []
-        self._reset_engine_state()
-        self._start(path)
-        self._done = threading.Event()
-        self._thread = threading.Thread(target=self._run, daemon=True)
-        self._thread.start()
-        return self
-
     def _reset_engine_state(self) -> None:
         """Drops the device state a restart rebuilds (fused :882-893)."""
         if self._graphs is not None:
             self._graphs.clear()
         self._table = self._vecs = self._fps = self._par = None
         self._ebits = self._stats = None
-
-    def _load_checkpoint(self, path: str):
-        """Restores the counts, discoveries and host parent map from the
-        checkpoint at ``path`` (engine :755-800) and returns its seed
-        rows as ``_init_rows`` does: the pending rows packed in this
-        engine's layout (a ``u32`` or ``packed`` file alike), their
-        fingerprints and eventually bits, and the visited set."""
-        W = self._dm.state_width
-        with load_checkpoint(path) as data:
-            header = validate_header(
-                data, model_name=checkpoint_name(self._model),
-                state_width=W, use_symmetry=self._use_symmetry)
-            for key, what in _UNPORTED.items():
-                if header.get(key):
-                    raise NotImplementedError(
-                        f"checkpoint {path!r} has a {key!r} section, which "
-                        f"{what}; the port cannot resume it")
-            rows = pending_rows(data, header, W)
-            self._layout.check_fits(rows)
-            seed = self._layout.pack_np(rows)
-            fps = np.asarray(data["pending_fps"], np.uint64)
-            ebits = np.asarray(data["pending_ebits"], np.uint32)
-            self._parents = (
-                np.asarray(data["parent_child"], np.uint64),
-                np.asarray(data["parent_parent"], np.uint64),
-                np.asarray(data["parent_rooted"], bool))
-            visited = np.asarray(data["visited"], np.uint64)
-        self._state_count = self._base_states = int(header["state_count"])
-        self._unique_count = int(header["unique_count"])
-        self._discoveries = {k: int(v)
-                             for k, v in header["discoveries"].items()}
-        return seed, fps, ebits, visited
 
     # -- Paths -------------------------------------------------------------
 
@@ -861,20 +945,6 @@ class FusedCudaBfsChecker(Checker):
 
     # -- Checker API -------------------------------------------------------
 
-    def model(self):
-        return self._model
-
-    def kernel_path(self) -> str:
-        """Which successor-path implementation the waves run:
-        ``megakernel`` (the single-kernel wave) or ``dedup_kernel``
-        (torch stages around the dedup kernel) on the card, and their
-        plain versions ``megakernel_plain`` or ``dedup_plain`` on the
-        CPU."""
-        on_card = self._device.type == "cuda"
-        if self._wave_kernel:
-            return "megakernel" if on_card else "megakernel_plain"
-        return "dedup_kernel" if on_card else "dedup_plain"
-
     def scheduler_stats(self) -> dict:
         """The host loop's telemetry, under the reference's keys
         (``tpu/engine.py::scheduler_stats``): the bucket ladder, the
@@ -897,27 +967,3 @@ class FusedCudaBfsChecker(Checker):
             "graphs": None if g is None else {
                 "captures": g.captures, "replays": g.replays,
                 "capture_sec": g.capture_sec}}
-
-    def state_count(self) -> int:
-        with self._lock:
-            return self._state_count
-
-    def unique_state_count(self) -> int:
-        with self._lock:
-            return self._unique_count
-
-    def discoveries(self) -> Dict[str, Path]:
-        with self._lock:
-            found = list(self._discoveries.items())
-        return {name: Path.from_fingerprints(
-                    self._model, self._fingerprint_chain(fp), self._dm)
-                for name, fp in found}
-
-    def join(self) -> "FusedCudaBfsChecker":
-        self._thread.join()
-        if self._error is not None:
-            raise self._error
-        return self
-
-    def is_done(self) -> bool:
-        return self._done.is_set()

@@ -1,17 +1,20 @@
 """The ``Model`` a user checks, and its named ``Property`` predicates.
 
 The port's copy of what the engine needs from ``stateright_tpu/model.py``.
-The port checks on the device only, so a property here is a name and an
-expectation; its predicate is the device model's (``device_properties``).
+A property is a name, an expectation and an optional host ``condition(model,
+state)``. Its predicate on the device is the device model's
+(``device_properties``) where it has one; the classic engine
+(``classic.py``) evaluates a property that has none by its condition, on
+decoded states, a wave at a time.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
 from enum import Enum
-from typing import List
+from typing import Any, Callable, List, Optional
 
-__all__ = ["Expectation", "Property", "Model"]
+__all__ = ["Expectation", "Property", "Model", "property_predicates"]
 
 
 class Expectation(Enum):
@@ -24,26 +27,42 @@ class Expectation(Enum):
 
 @dataclass(frozen=True)
 class Property:
-    """A named property; the device model supplies its predicate."""
+    """A named property. The device model supplies its predicate; the
+    host ``condition(model, state)``, where given, is what an engine
+    evaluates when the device model has none."""
 
     expectation: Expectation
     name: str
+    condition: Optional[Callable[[Any, Any], bool]] = None
 
     @staticmethod
-    def always(name: str) -> "Property":
+    def always(name: str, condition=None) -> "Property":
         """A safety invariant: the checker hunts a counterexample."""
-        return Property(Expectation.ALWAYS, name)
+        return Property(Expectation.ALWAYS, name, condition)
 
     @staticmethod
-    def eventually(name: str) -> "Property":
+    def eventually(name: str, condition=None) -> "Property":
         """A liveness property: a counterexample is a terminal path that
         never satisfies it (sound on acyclic state graphs only)."""
-        return Property(Expectation.EVENTUALLY, name)
+        return Property(Expectation.EVENTUALLY, name, condition)
 
     @staticmethod
-    def sometimes(name: str) -> "Property":
+    def sometimes(name: str, condition=None) -> "Property":
         """A reachability property: the checker hunts an example."""
-        return Property(Expectation.SOMETIMES, name)
+        return Property(Expectation.SOMETIMES, name, condition)
+
+
+def property_predicates(properties, dm) -> list:
+    """Each property's device predicate, or None where the device model
+    has none and the property's host condition stands in. A property
+    with neither raises ``ValueError``."""
+    preds = dm.device_properties()
+    neither = [p.name for p in properties
+               if p.name not in preds and p.condition is None]
+    if neither:
+        raise ValueError(f"properties {neither} have neither a device "
+                         "predicate nor a host condition")
+    return [preds.get(p.name) for p in properties]
 
 
 class Model:

@@ -154,17 +154,23 @@ class PackedLayout:
         """``uint32[..., Wp] -> uint32[..., W]``."""
         packed = np.asarray(packed, np.uint32)
         out = np.zeros(packed.shape[:-1] + (self.width,), np.uint32)
-        for i, l in enumerate(self.lanes):
-            mask = np.uint32(l.mask)
-            f = packed[..., l.word] >> np.uint32(l.offset)
-            if l.spill:
-                f = f | (packed[..., l.word + 1]
-                         << np.uint32(32 - l.offset)).astype(np.uint32)
-            f = f & mask
-            if l.sentinel is not None:
-                f = np.where(f == mask, np.uint32(l.sentinel), f)
-            out[..., i] = f
+        for i in range(self.width):
+            out[..., i] = self.lane_np(packed, i)
         return out
+
+    def lane_np(self, packed: np.ndarray, lane: int) -> np.ndarray:
+        """One unpacked lane (``uint32``) of packed rows."""
+        packed = np.asarray(packed, np.uint32)
+        l = self.lanes[lane]
+        mask = np.uint32(l.mask)
+        f = packed[..., l.word] >> np.uint32(l.offset)
+        if l.spill:
+            f = f | (packed[..., l.word + 1]
+                     << np.uint32(32 - l.offset)).astype(np.uint32)
+        f = f & mask
+        if l.sentinel is not None:
+            f = np.where(f == mask, np.uint32(l.sentinel), f)
+        return f
 
     def check_fits(self, rows: np.ndarray) -> None:
         """Raises if a lane value exceeds its declared width (a wrong

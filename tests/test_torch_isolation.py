@@ -1,9 +1,10 @@
 """The port stands alone: it imports neither JAX nor the JAX package.
 
-An AST scan of every file of ``stateright_tpu_torch/``; a fresh
-interpreter that checks 2pc at 3 RMs and paxos at 1 client through the
-port on the CPU and then finds neither ``jax`` nor ``stateright_tpu``
-loaded; and the entry
+An AST scan of every file of ``stateright_tpu_torch/`` (the classic
+engine's ``classic.py`` and ``visitor.py`` among them); a fresh
+interpreter that checks 2pc at 3 RMs (on the fused engine, and on the
+classic engine with a visitor) and paxos at 1 client through the port on
+the CPU and then finds neither ``jax`` nor ``stateright_tpu`` loaded; and the entry
 point's default device, which is CUDA and raises on a box without one.
 """
 
@@ -36,6 +37,8 @@ def test_no_file_of_the_port_imports_jax_or_the_jax_package():
     files = [os.path.join(d, f) for d, _, fs in os.walk(_PKG)
              for f in fs if f.endswith(".py")]
     assert len(files) >= 12
+    names = {os.path.relpath(f, _PKG) for f in files}
+    assert {"classic.py", "visitor.py"} <= names
     for path in files + [os.path.join(_REPO, "chip_smoke.py")]:
         for name in _imports(path):
             assert name.split(".")[0] not in _BANNED, (path, name)
@@ -49,6 +52,12 @@ def test_a_cpu_check_loads_neither_jax_nor_the_jax_package():
         "c = TwoPhaseSys(3).checker().spawn_cuda_bfs(device='cpu').join()\n"
         "assert (c.unique_state_count(), c.state_count()) == (288, 1146)\n"
         "c.assert_properties()\n"
+        "from stateright_tpu_torch.visitor import StateRecorder\n"
+        "rec, states = StateRecorder.new_with_accessor()\n"
+        "c = (TwoPhaseSys(3).checker().visitor(rec)\n"
+        "     .spawn_cuda_bfs(device='cpu').join())\n"
+        "assert type(c).__name__ == 'CudaBfsChecker', type(c)\n"
+        "assert (c.unique_state_count(), len(states())) == (288, 288)\n"
         "from stateright_tpu_torch.models.paxos import PaxosSys\n"
         "c = PaxosSys(1).checker().spawn_cuda_bfs(device='cpu').join()\n"
         "assert (c.unique_state_count(), c.state_count()) == (265, 482)\n"

@@ -5,14 +5,22 @@ Usage, from the root of a checkout on a machine with an NVIDIA H100:
 
     python3 chip_smoke.py            # every phase below
     python3 chip_smoke.py --rehash   # phase 1, then the rehash case of 3
+    python3 chip_smoke.py --phases registers       # phase 1, then 9
+    python3 chip_smoke.py --phases kernels,full    # phase 1, 2-4 and 6
 
-Phases, in order; any failure exits non-zero and prints no result line:
+``--phases`` takes a comma-separated subset of ``kernels`` (phases 2 to
+4), ``small`` (5), ``full`` (6), ``checkpoint`` (7), ``classic`` (8) and
+``registers`` (9), runs phase 1 and those, in this order, and prints the
+kernels line's rows those phases give (phases 2 to 8's rows only when all
+of them ran). Phases, in order; any failure exits non-zero and prints no
+result line:
 
 1. build ``stateright_tpu_torch/csrc/table.cu``, ``wave_twopc.cu``,
-   ``wave_paxos.cu`` (the wave kernel's and the sender kernel's entry
-   points for 2pc and for paxos) and ``append.cu`` for ``sm_90a``, one
-   ``nvcc`` each, all at once, and print each build time with ptxas'
-   register and spill report, and the card's name and power limit;
+   ``wave_paxos.cu``, ``wave_single_copy.cu``, ``wave_abd.cu`` (the wave
+   kernel's and the sender kernel's entry points for 2pc and for each
+   register workload) and ``append.cu`` for ``sm_90a``, one ``nvcc``
+   each, all at once, and print each build time with ptxas' register and
+   spill report, and the card's name and power limit;
 2. hold the wave kernel against its plain version at full width: 16,384
    packed rows of 2pc at 10 RMs from a mid-run arena against a 2^27-slot
    table filled to 30% plus the run's states, plain and with symmetry:
@@ -136,8 +144,30 @@ Phases, in order; any failure exits non-zero and prints no result line:
    ``set_sync_debug_mode("error")``, a few timed, one under
    ``torch.profiler`` (the card's time a wave, and its idle share of the
    run's pace);
-9. the kernels line, the script's running time, the card line and the
-   result line.
+9. the register corpus (``phase_registers``; in a process of its own
+   when earlier phases ran, since the profiler then dropped the device
+   time of about half of its profiles): kernels 2 and 3 on
+   single-copy 4 (its CUDA step and its representative over the 23
+   non-identity client permutations) on the next 16,384 rows of a mid-run
+   arena, against its engine's table and scratch, plain and with
+   symmetry, then as 4 shards of 4,096 and ragged; on ABD 2/2's whole
+   space (544 rows) with seeded adversarial rows, one batch of 1,024,
+   then as 4 shards of 256 and ragged; all outputs, counts and tables
+   equal, the scratch clean, each timed. Then single-copy 3 and 4 on one
+   server (4,243 / 6,778 and 400,233 / 731,789), each plain and with
+   symmetry (712 / 1,144 and 16,726 / 30,657, JAX's counts on the CPU),
+   single-copy 2 on two servers (its "linearizable" counterexample) and
+   ABD 2/2 (544 / 875) to their ends on the fused, the classic and the
+   sharded engine (4 shards), each on the torch stages and on the
+   kernels: the counts exact, the discoveries' chains equal to the same
+   engine's run on the CPU (the fused engine's for the classic one;
+   single-copy 4's at a smaller batch), every kernel's launches exact,
+   each run's
+   seconds and peak device memory; then one replayed dispatch of
+   single-copy 4 on the wave kernel under
+   ``torch.cuda.set_sync_debug_mode("error")``;
+10. the kernels line, the script's running time, the card line and the
+    result line.
 
 It imports neither JAX nor ``stateright_tpu``.
 """
@@ -172,6 +202,8 @@ PAXOS_WAVE_AT, PAXOS_MID = 240_000, 50_000
 PAXOS4_TARGET = 20_000
 BATCH = 16_384
 SHARDS = 4
+SRC = "stateright_tpu_torch/csrc/"
+PALLAS = "stateright_tpu/tpu/pallas_table.py:"
 
 
 def _log(msg: str) -> None:
@@ -698,11 +730,15 @@ def phase_wave_kernel(torch, wave_mod, table_mod, engine, TwoPhaseSys):
 
 def _sym_ops(dm) -> int:
     """32-bit integer operations of one representative beyond its
-    fingerprint: 2pc's sort network over its RMs' keys; paxos's network
-    re-sorted at 4 clients (3 servers: the group is trivial below)."""
+    fingerprint: 2pc's sort network over its RMs' keys; a register
+    workload's network rewritten and sorted again, and its lanes compared,
+    once a non-identity client permutation (none where the group is
+    trivial: paxos below 4 clients, ABD; 23 at single-copy 4 on one
+    server)."""
     if hasattr(dm, "rm_count"):
         return 2 * dm.rm_count ** 2
-    return 2 * dm.net_slots ** 2 + 8 * dm.state_width if dm.C == 4 else 0
+    return len(dm.client_permutations()) * (2 * dm.net_slots ** 2
+                                            + 8 * dm.state_width)
 
 
 def _front_ops(dm, slots: int, n_valid: int, use_sym: bool) -> int:
@@ -801,8 +837,9 @@ def phase_sender_kernel(torch, wave_mod, table_mod, dm, store, layout,
                         model="2pc 10"):
     """The sender kernel against its plain version at the full-width
     shape: ``store``'s packed rows (of ``model``) as ``SHARDS`` shards'
-    batches, with the engine's scratch; then at a ragged shape."""
-    B, wp = BATCH // SHARDS, layout.packed_width
+    batches, with the engine's scratch; then at a ragged shape (3 shards
+    of a row less)."""
+    B, wp = store.shape[0] // SHARDS, layout.packed_width
     rows = store
     store = rows.reshape(SHARDS, B, wp).contiguous()
     valid = torch.ones((SHARDS, B), dtype=torch.bool, device="cuda")
@@ -847,8 +884,9 @@ def phase_sender_kernel(torch, wave_mod, table_mod, dm, store, layout,
                 parts=parts,
                 bound_by="bytes" if bytes_ms >= ops_ms else "operations")
     del fn, scratch
-    # Ragged: 3 shards of 4,095 rows, the last 100 of shard 2 not valid.
-    n, B = 3, 4_095
+    # Ragged: 3 shards of B - 1 rows (4,095 at full width), the last 100
+    # of shard 2 not valid.
+    n, B = 3, B - 1
     store = rows[:n * B].reshape(n, B, wp).contiguous()
     valid = torch.ones((n, B), dtype=torch.bool, device="cuda")
     valid[2, -100:] = False
@@ -1175,6 +1213,36 @@ def phase_gates(torch, TwoPhaseSys, PaxosSys):
                      f"{stats['max_inflight']}, graphs {stats['graphs']}")
 
 
+def _check_launches(fused, c, launches, **spawn) -> int:
+    """Raises unless ``launches`` (by kernel name) are exactly those of
+    fused-engine run ``c`` spawned with ``spawn``; returns its rehashes'
+    chunks. Every dispatch launches K waves, also those past a rest point,
+    and a replay counts its captured launches. A wave runs the dedup
+    kernel once a shard, unless the single-kernel wave does the wave's
+    dedup itself, and the append kernel once; a rehash runs the dedup
+    kernel once a chunk of each old table slice: the least power of two of
+    chunks of at most the engine's scratch rows."""
+    n = getattr(c, "_n", 1)
+    launched = c._K * c.dispatches
+    rows = c._scratch_shape()[0]
+    chunks = sum(fused._pow2(-(-(c._capacity >> i) // rows))
+                 for i in range(1, c.rehashes + 1))
+    wave_kernel = spawn.get("wave_kernel", False)
+    sharded = "mesh" in spawn
+    want = {
+        "dedup_and_insert": n * (chunks + (
+            launched if sharded or not wave_kernel else 0)),
+        "wave_megakernel": launched if wave_kernel and not sharded else 0,
+        "sender_megakernel": launched if wave_kernel and sharded else 0,
+        "append_rows": launched}
+    if launches != want:
+        raise AssertionError(f"kernel launches {launches}, expected {want} "
+                             f"for {c._K} x {c.dispatches} launched waves "
+                             f"and {c.rehashes} rehashes ({chunks} chunks) "
+                             f"on {n} shard(s)")
+    return chunks
+
+
 def phase_full(torch, kernels, fused, config, model, want_counts,
                want_found, mid_target, steady_dispatches, **spawn):
     """``model()`` (``config`` names it) to its end through
@@ -1222,29 +1290,7 @@ def phase_full(torch, kernels, fused, config, model, want_counts,
     if spawn.get("cuda_graph", True) and not graphs["replays"]:
         raise AssertionError(f"{config}: no dispatch was a replay")
     c_waves, c_dispatches, c_rehashes = c.waves, c.dispatches, c.rehashes
-    # Every dispatch launches K waves, also those past a rest point, and
-    # a replay counts its captured launches. A wave runs the dedup kernel
-    # once a shard, unless the single-kernel wave does the wave's dedup
-    # itself, and the append kernel once; a rehash runs the dedup kernel
-    # once a chunk of each old table slice: the least power of two of
-    # chunks of at most the engine's scratch rows.
-    launched = c._K * c.dispatches
-    rows = c._scratch_shape()[0]
-    chunks = sum(fused._pow2(-(-(c._capacity >> i) // rows))
-                 for i in range(1, c.rehashes + 1))
-    wave_kernel = spawn.get("wave_kernel", False)
-    sharded = "mesh" in spawn
-    want = {
-        "dedup_and_insert": n * (chunks + (
-            launched if sharded or not wave_kernel else 0)),
-        "wave_megakernel": launched if wave_kernel and not sharded else 0,
-        "sender_megakernel": launched if wave_kernel and sharded else 0,
-        "append_rows": launched}
-    if launches != want:
-        raise AssertionError(f"kernel launches {launches}, expected {want} "
-                             f"for {c._K} x {c.dispatches} launched waves "
-                             f"and {c.rehashes} rehashes ({chunks} chunks) "
-                             f"on {n} shard(s)")
+    chunks = _check_launches(fused, c, launches, **spawn)
     run = dict(sec=sec, peak=peak, rehashes=c_rehashes, chunks=chunks,
                captures=graphs["captures"], replays=graphs["replays"],
                capture_sec=graphs["capture_sec"],
@@ -2087,7 +2133,7 @@ def phase_classic(torch, kernels, ckpt_mod, TwoPhaseSys, PaxosSys, fused_runs):
     full runs: ``paxos check 3`` and 2pc at 10 RMs with ``fused=False`` on
     both successor paths, none cut, batch 16,384, graphs on; each beside
     the fused engine's run of the same configuration (``fused_runs``,
-    phase 6)."""
+    phase 6's, where it ran)."""
     import shutil
 
     workdir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
@@ -2114,6 +2160,8 @@ def phase_classic(torch, kernels, ckpt_mod, TwoPhaseSys, PaxosSys, fused_runs):
                                            batch_size=BATCH,
                                            wave_kernel=wave_kernel)
         out[tag] = dict(launches=launches, run=run)
+        if fused_runs is None:  # phase 6 did not run
+            continue
         f = fused_runs[fused_tag]["run"]
         _log(f"{tag}: classic {run['sec']:.3f} s ({run['waves']} waves) "
              f"against fused {f['sec']:.3f} s ({f['dispatches']} "
@@ -2121,6 +2169,229 @@ def phase_classic(torch, kernels, ckpt_mod, TwoPhaseSys, PaxosSys, fused_runs):
     _log(f"classic phase: small gates {t1 - t0:.1f} s, full runs "
          f"{time.monotonic() - t1:.1f} s")
     return out
+
+
+# -- The register corpus ------------------------------------------------------
+
+
+#: single-copy's counts (unique, states) at 3 and 4 clients on one server,
+#: plain and with symmetry; the symmetric ones are JAX spawn_tpu_bfs's on
+#: the CPU with .symmetry()
+SC_COUNTS = {(3, False): (4_243, 6_778), (4, False): (400_233, 731_789),
+             (3, True): (712, 1_144), (4, True): (16_726, 30_657)}
+ABD_COUNTS = (544, 875)
+#: the states a single-copy 4 checker runs to before its next batch is the
+#: kernels' input and its dispatch is sync-checked: a frontier wider than a
+#: batch
+SC4_MID = 150_000
+
+
+def _register_modules():
+    from stateright_tpu_torch.models.abd import AbdSys
+    from stateright_tpu_torch.models.single_copy import SingleCopySys
+    return SingleCopySys, AbdSys
+
+
+def phase_register_kernels(torch, wave_mod, table_mod, SingleCopySys,
+                           AbdSys):
+    """Kernels 2 and 3 on both register models (their CUDA steps on
+    ``csrc/models/register_workload.cuh``) against their plain versions:
+    the next 16,384 rows of a mid-run single-copy 4 arena, against its
+    engine's table and with its engine's scratch, plain and with symmetry
+    (23 permutations a row), then as 4 shards of 4,096 and ragged; and
+    ABD 2/2's whole space (544 rows) with seeded adversarial rows, one
+    batch of 1,024, against its finished run's table, then as 4 shards of
+    256 and ragged."""
+    mid = (SingleCopySys(4).checker().target_state_count(SC4_MID)
+           .spawn_cuda_bfs(device="cuda:0", batch_size=BATCH).join())
+    if mid._tail - mid._head < BATCH:
+        raise AssertionError(f"mid-run single_copy 4 frontier of "
+                             f"{mid._tail - mid._head} rows is narrower than "
+                             f"{BATCH}")
+    dm, layout = mid._dm, mid._layout
+    store = mid._vecs[mid._head:mid._head + BATCH].clone()
+    valid = torch.ones(BATCH, dtype=torch.bool, device="cuda")
+    out = {}
+    for tag, use_sym in (("plain", False), ("sym", True)):
+        out[("single_copy 4", tag)] = _wave_case(
+            torch, wave_mod, table_mod, dm, store, valid, layout,
+            mid._table, use_sym, f"single_copy 4, {tag}",
+            scratch=mid._scratch)
+    out[("single_copy 4", "sender")] = phase_sender_kernel(
+        torch, wave_mod, table_mod, dm, store, layout, "single_copy 4")
+    del mid, store
+
+    full = AbdSys(2, 2).checker().spawn_cuda_bfs(device="cuda:0",
+                                                 batch_size=1024).join()
+    dm, layout = full._dm, full._layout
+    reach = full._vecs[:full._tail]
+    if reach.shape[0] != ABD_COUNTS[0]:
+        raise AssertionError(f"abd 2 arena holds {reach.shape[0]} rows")
+    B = 1024
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    w, off, e = dm.state_width, dm.net_offset, dm.net_slots
+    n = B - reach.shape[0]
+    # Adversarial rows: small random lanes, and random envelopes (every
+    # kind and destination, extra bits past their range), half sorted.
+    adv = torch.randint(0, 12, (n, w), generator=gen, device="cuda")
+    env = torch.randint(0, 1 << (dm.extra_shift + 4), (n, e), generator=gen,
+                        device="cuda")
+    env = torch.where(torch.rand((n, e), generator=gen, device="cuda") < 0.3,
+                      torch.full_like(env, 0xFFFFFFFF), env)
+    half = torch.arange(n, device="cuda")[:, None] < n // 2
+    adv[:, off:off + e] = torch.where(half, torch.sort(env, dim=1).values,
+                                      env)
+    store = torch.cat([reach, layout.pack(adv)]).contiguous()
+    valid = torch.ones(B, dtype=torch.bool, device="cuda")
+    for tag, use_sym in (("plain", False), ("sym", True)):
+        out[("abd 2", tag)] = _wave_case(
+            torch, wave_mod, table_mod, dm, store, valid, layout,
+            full._table, use_sym, f"abd 2, {tag}", scratch=full._scratch)
+    out[("abd 2", "sender")] = phase_sender_kernel(
+        torch, wave_mod, table_mod, dm, store, layout, "abd 2")
+    return out
+
+
+def _register_cpu(build, engine, batch):
+    """The CPU run of ``build()``'s checker on ``engine`` at ``batch`` rows
+    (``batch / SHARDS`` a shard on the sharded engine), the torch
+    stages."""
+    return build().spawn_cuda_bfs(**_register_spawn("cpu", engine, batch))
+
+
+def _register_spawn(device, engine, batch, **kw):
+    if engine == "sharded":
+        return dict(mesh=[device] * SHARDS, batch_size=batch // SHARDS, **kw)
+    if engine == "classic":
+        return dict(device=device, fused=False, pipeline=True,
+                    batch_size=batch, **kw)
+    return dict(device=device, batch_size=batch, **kw)
+
+
+def _register_run(torch, kernels, fused, tag, build, engine, batch, want,
+                  found, cpu, wave_kernel):
+    """``build()``'s checker to its end on the card on ``engine`` (fused,
+    classic or sharded on ``mesh=[cuda:0] * SHARDS``), the kernels' launch
+    counts set to 0 just before and read just after: the counts ``want``
+    (where given) and the CPU run ``cpu``'s exactly, its discoveries
+    ``found`` with the CPU run's chains, the launches exact.
+    Returns the run's numbers."""
+    gc.collect()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in kernels.values():
+        fn.launches = 0
+    spawn = _register_spawn("cuda:0", engine, batch, wave_kernel=wave_kernel)
+    t0 = time.monotonic()
+    c = build().spawn_cuda_bfs(**spawn).join()
+    torch.cuda.synchronize()
+    sec = time.monotonic() - t0
+    launches = {name: fn.launches for name, fn in kernels.items()}
+    peak = torch.cuda.max_memory_allocated()
+    got = (c.unique_state_count(), c.state_count())
+    path = c.kernel_path()
+    tag = f"{tag}, {engine}, {path}"
+    _log(f"{tag}: unique={got[0]} states={got[1]} sec={sec:.3f} "
+         f"waves={c.waves} peak device memory {peak} B launches={launches}")
+    if want is not None and got != want:
+        raise AssertionError(f"{tag}: {got} != {want}")
+    if got != (cpu.unique_state_count(), cpu.state_count()):
+        raise AssertionError(f"{tag}: {got}, the CPU run's "
+                             f"{cpu.unique_state_count()} / "
+                             f"{cpu.state_count()}")
+    if sorted(c.discoveries()) != found or _chains(c) != _chains(cpu):
+        raise AssertionError(f"{tag}: discoveries {sorted(c.discoveries())}"
+                             ", or their chains differ from the CPU run")
+    want_path = {("fused", False): "dedup_kernel",
+                 ("fused", True): "megakernel",
+                 ("classic", False): "dedup_kernel",
+                 ("classic", True): "megakernel",
+                 ("sharded", False): "dedup_kernel",
+                 ("sharded", True): "sender_kernel"}[engine, wave_kernel]
+    if path != want_path:
+        raise AssertionError(f"{tag}: kernel_path() is not {want_path}")
+    if engine == "classic":
+        want_l = {"dedup_and_insert": c.rehash_chunks + (
+            0 if wave_kernel else c.waves),
+            "wave_megakernel": c.waves if wave_kernel else 0,
+            "sender_megakernel": 0, "append_rows": 0}
+        if launches != want_l:
+            raise AssertionError(f"{tag}: kernel launches {launches}, "
+                                 f"expected {want_l}")
+    else:
+        _check_launches(fused, c, launches, **spawn)
+    return dict(sec=sec, peak=peak, launches=launches, waves=c.waves,
+                counts=got)
+
+
+def phase_registers(torch, kernels, fused, wave_mod, table_mod):
+    """The register corpus on the card: kernels 2 and 3 held to their
+    plain versions on single-copy 4 and ABD 2/2
+    (``phase_register_kernels``); then each configuration to its end on
+    the fused, the classic and the sharded engine, each on the torch
+    stages and on the kernels, exact against its counts and against the
+    same run on the CPU: single-copy 3 and 4 on one server, each plain
+    and with symmetry, single-copy 2 on two servers (its linearizability
+    counterexample) and ABD 2/2. The classic engine's runs are held to
+    the fused engine's CPU run, and single-copy 4's CPU runs take a
+    smaller batch (4,096 plain, 1,024 with symmetry, where the CPU is
+    fastest): an engine's counts and chains do not depend on its batch,
+    and the classic engine's are the fused one's
+    (``tests/test_torch_registers.py``). Single-copy's symmetric counts
+    are JAX's.
+    Then one replayed dispatch of single-copy 4 on the wave kernel under
+    ``set_sync_debug_mode("error")``."""
+    SingleCopySys, AbdSys = _register_modules()
+    t0 = time.monotonic()
+    holds = phase_register_kernels(torch, wave_mod, table_mod,
+                                   SingleCopySys, AbdSys)
+    t1 = time.monotonic()
+    value = ["value chosen"]
+    # (tag, checker, batch, the CPU run's batch, counts, discoveries)
+    configs = (
+        ("single_copy 3", lambda: SingleCopySys(3).checker(), 1024, 1024,
+         SC_COUNTS[3, False], value),
+        ("single_copy 3 sym", lambda: SingleCopySys(3).checker().symmetry(),
+         1024, 1024, SC_COUNTS[3, True], value),
+        ("single_copy 2/2", lambda: SingleCopySys(2, 2).checker(), 1024,
+         1024, None, ["linearizable", "value chosen"]),
+        ("abd 2", lambda: AbdSys(2, 2).checker(), 1024, 1024, ABD_COUNTS,
+         value),
+        ("single_copy 4", lambda: SingleCopySys(4).checker(), BATCH, 4096,
+         SC_COUNTS[4, False], value),
+        ("single_copy 4 sym", lambda: SingleCopySys(4).checker().symmetry(),
+         BATCH, 1024, SC_COUNTS[4, True], value))
+    runs = {}
+    for tag, build, batch, cpu_batch, want, found in configs:
+        for engine in ("fused", "classic", "sharded"):
+            if engine != "classic":
+                t_cpu = time.monotonic()
+                cpu = _register_cpu(build, engine, cpu_batch).join()
+                _log(f"{tag}, {engine}, the CPU's run at batch {cpu_batch}:"
+                     f" {time.monotonic() - t_cpu:.1f} s")
+            for wave_kernel in (False, True):
+                runs[tag, engine, wave_kernel] = _register_run(
+                    torch, kernels, fused, tag, build, engine, batch, want,
+                    found, cpu, wave_kernel)
+    t2 = time.monotonic()
+    mid = (SingleCopySys(4).checker().target_state_count(SC4_MID)
+           .spawn_cuda_bfs(device="cuda:0", batch_size=BATCH,
+                           wave_kernel=True).join())
+    mid._stats[..., fused.ST_TARGET] = 1 << 62
+    point = _Point(torch, fused, mid)
+    waves, _, _, _, replay = _timed_dispatch(torch, point, sync_check=True)
+    if waves == 0 or not replay:
+        raise AssertionError(f"the sync-checked dispatch ran {waves} waves "
+                             f"(a replay: {replay})")
+    _log(f"single_copy 4 megakernel: one replayed dispatch under "
+         f"set_sync_debug_mode('error'), {waves} waves, no synchronisation")
+    del mid, point
+    _log(f"register phase: kernel holds {t1 - t0:.1f} s, full runs "
+         f"{t2 - t1:.1f} s, sync check {time.monotonic() - t2:.1f} s")
+    for (tag, engine, wave_kernel), r in runs.items():
+        path = "kernels" if wave_kernel else "torch stages"
+        _log(f"  {tag:18s} {engine:8s} {path:13s} {r['sec']:8.3f} s  peak "
+             f"{r['peak']:>12d} B  waves {r['waves']:4d}  {r['counts']}")
+    return holds, runs
 
 
 def _modules():
@@ -2147,11 +2418,15 @@ def _log_ptxas(log: str) -> None:
             mangled = entry.group(1)
             fn = re.search(r"\d(tile_front|send_rows|resolve_rows|claim_rows"
                            r"|append_rows)", mangled)
-            model = re.search(r"(TwoPhase|Paxos)ILi(\d+)E", mangled)
+            model = re.search(r"(TwoPhase|PaxosServer|SingleCopyServer"
+                              r"|AbdServer)ILi(\d+)E(?:Li(\d+)E)?", mangled)
             tail = re.search(r"(WaveTail|SenderTail)", mangled)
+            if model:
+                name = model.group(1).replace("Server", "")
+                sizes = ", ".join(g for g in model.groups()[1:] if g)
             kernel = ((fn.group(1) if fn else mangled)
-                      + (f"<{model.group(1)}<{model.group(2)}>, "
-                         f"{tail.group(1)}>" if model and tail else ""))
+                      + (f"<{name}<{sizes}>, {tail.group(1)}>"
+                         if model and tail else ""))
         elif "stack frame" in line:
             frame = line.strip()
         elif "Used" in line and kernel:
@@ -2171,6 +2446,11 @@ def phase_build(_build, table_mod, wave_mod, append_mod) -> None:
                                     wave_mod._sender_entry("twopc", 1))),
             ("wave_paxos", lambda: (wave_mod._entry("paxos", 2),
                                     wave_mod._sender_entry("paxos", 2))),
+            ("wave_single_copy", lambda: (
+                wave_mod._entry("single_copy", 3),
+                wave_mod._sender_entry("single_copy", 3))),
+            ("wave_abd", lambda: (wave_mod._entry("abd", 3),
+                                  wave_mod._sender_entry("abd", 3))),
             ("append", append_mod._lib)]
     with ThreadPoolExecutor(len(jobs)) as pool:
         builds = [pool.submit(build, name, load) for name, load in jobs]
@@ -2191,29 +2471,10 @@ def _kernel_row(name, source, replaces, launches, max_abs_err, r):
             "bound_by": r.get("bound_by", "bytes"), "library_ms": None}
 
 
-def main(argv) -> int:
-    if argv not in ([], ["--rehash"]):
-        print(__doc__, file=sys.stderr)
-        return 2
-    import torch
-
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device", file=sys.stderr)
-        return 2
-    (_build, engine, fused, table_mod, wave_mod, append_mod, ckpt_mod,
-     TwoPhaseDevice, TwoPhaseSys, PaxosDevice, PaxosSys) = _modules()
-    t_start = time.monotonic()
-    phase_build(_build, table_mod, wave_mod, append_mod)
-    card = _card_line()
-    _log(f"card: {card}")
-    if argv:
-        r = phase_rehash(torch, table_mod, engine, fused, TwoPhaseSys)
-        print(json.dumps({"rehash": {
-            key: r[key] for key in ("ms", "plain_ms", "bound_ms", "parts",
-                                    "peak", "runs", "one_call")}}))
-        return 0
-
-    # Each kernel against its plain version at full width, timed.
+def _phase_kernels(torch, engine, fused, table_mod, wave_mod, append_mod,
+                   TwoPhaseSys, PaxosSys):
+    """Phases 2 to 4: each kernel against its plain version at full width,
+    timed."""
     w, rows, wave_case = phase_wave_kernel(torch, wave_mod, table_mod, engine,
                                            TwoPhaseSys)
     paxos_mid = _paxos_mid(PaxosSys)
@@ -2226,13 +2487,24 @@ def main(argv) -> int:
     del rows
     pw, psk = phase_paxos_kernels(torch, wave_mod, table_mod, paxos_mid)
     del paxos_mid
+    return dict(w=w, k=k, ap=ap, sk=sk, pw=pw, psk=psk)
+
+
+def _phase_small(torch, fused, TwoPhaseSys, TwoPhaseDevice, PaxosSys,
+                 PaxosDevice):
+    """Phase 5: the small runs against the CPU, the refusals and the host
+    loop's gates."""
     phase_small(TwoPhaseSys)
     phase_sharded_small(torch, fused, TwoPhaseSys)
     phase_paxos_small(PaxosSys, PaxosDevice)
     phase_refusals(TwoPhaseSys, TwoPhaseDevice)
     phase_gates(torch, TwoPhaseSys, PaxosSys)
-    kernels = {fn.__name__: fn for fn in fused.KERNELS}
-    # Each path's run reads its own kernels' launches: 2pc at 10 RMs on
+
+
+def _phase_full_runs(torch, kernels, fused, TwoPhaseSys, PaxosSys):
+    """Phase 6: the full-width runs of 2pc 10 and ``paxos check 3``, each
+    path's run reading its own kernels' launches."""
+    # 2pc at 10 RMs on
     # the three paths, then paxos check 3 on the same three paths,
     # unsharded and sharded, the torch stages beside the kernels; all on
     # the defaults, and the kernel paths again with graphs off, next to
@@ -2295,20 +2567,16 @@ def main(argv) -> int:
     if len(buckets) < 2:
         raise AssertionError(f"paxos 3 on a ladder used one bucket: "
                              f"{buckets}")
-    # Checkpoints and resume: the small gates against the CPU, paxos 3
-    # and 2pc 10 at full width, the resumed table's build.
-    ck = phase_checkpoint(torch, kernels, fused, table_mod, engine, ckpt_mod,
-                          TwoPhaseSys, PaxosSys)
-    # The classic engine: its small gates against the CPU, then paxos 3
-    # and 2pc 10 on both successor paths beside the fused runs above.
-    cl = phase_classic(torch, kernels, ckpt_mod, TwoPhaseSys, PaxosSys, full)
+    return full
 
+
+def _earlier_rows(k, w, pw, sk, psk, ap, full, ck, cl):
+    """The kernels line's rows of phases 2 to 8."""
     # Kernel 1 on the synthetic stream, on the default path's input of
     # each model (a mid-run wave's dedup fingerprints), and at the
     # rehash; kernels 2 and 3 on each model's mid-run rows; the append
     # kernel on the mid-run waves' outputs.
-    src = "stateright_tpu_torch/csrc/"
-    pallas = "stateright_tpu/tpu/pallas_table.py:"
+    src, pallas = SRC, PALLAS
     k_err = max(v["max_abs_err"] for v in k.values())
     w_err = max(v["max_abs_err"] for v in (*w.values(), *pw.values()))
     s_err = max(v["max_abs_err"] for v in (*sk.values(), *psk.values()))
@@ -2318,7 +2586,7 @@ def main(argv) -> int:
         return full[tag]["launches"][name]
 
     launches = launched("2pc 10", "dedup_and_insert")
-    print(json.dumps({"kernels": [
+    return [
         _kernel_row("dedup_and_insert", src + "table.cu", pallas + "256",
                     launches, k_err, k["stream"]),
         _kernel_row("dedup_and_insert[mid-run wave]", src + "table.cu",
@@ -2372,7 +2640,138 @@ def main(argv) -> int:
         _kernel_row("append_rows[sharded]", src + "append.cu",
                     "stateright_tpu/tpu/sharded_fused.py:322",
                     launched("2pc 10, sharded, sender kernel",
-                             "append_rows"), a_err, ap["sharded"])]}))
+                             "append_rows"), a_err, ap["sharded"])]
+
+
+def _register_rows(holds, runs):
+    """The kernels line's rows of the register phase: kernels 2 and 3 on
+    single-copy 4 (the wave kernel plain and with symmetry) and ABD 2/2,
+    each with its launches in the model's full run on that kernel."""
+    src, pallas = SRC, PALLAS
+
+    def launched(tag, engine, name):
+        return runs[tag, engine, True]["launches"][name]
+
+    return [
+        _kernel_row("wave_megakernel[single_copy 4]",
+                    src + "wave_single_copy.cu", pallas + "380",
+                    launched("single_copy 4", "fused", "wave_megakernel"),
+                    0, holds["single_copy 4", "plain"]),
+        _kernel_row("wave_megakernel[single_copy 4 sym]",
+                    src + "wave_single_copy.cu", pallas + "380",
+                    launched("single_copy 4 sym", "fused",
+                             "wave_megakernel"),
+                    0, holds["single_copy 4", "sym"]),
+        _kernel_row("wave_megakernel[abd 2]", src + "wave_abd.cu",
+                    pallas + "380",
+                    launched("abd 2", "fused", "wave_megakernel"), 0,
+                    holds["abd 2", "plain"]),
+        _kernel_row("sender_megakernel[single_copy 4]",
+                    src + "wave_single_copy.cu", pallas + "451",
+                    launched("single_copy 4", "sharded",
+                             "sender_megakernel"),
+                    0, holds["single_copy 4", "sender"][(False, True)]),
+        _kernel_row("sender_megakernel[abd 2]", src + "wave_abd.cu",
+                    pallas + "451",
+                    launched("abd 2", "sharded", "sender_megakernel"), 0,
+                    holds["abd 2", "sender"][(False, True)])]
+
+
+def _registers_in_child(card: str):
+    """Phase 9 in a process of its own (``--phases registers``), whose
+    log it passes on and whose kernels line's rows it returns. After
+    phases 2 to 8 in one process, about half of the profiles the register
+    phase takes there recorded no device time on the card; a fresh
+    process records them all."""
+    child = subprocess.run(
+        [sys.executable, os.path.abspath(__file__), "--phases", "registers"],
+        capture_output=True, text=True, timeout=900)
+    rows = None
+    for line in child.stdout.splitlines():
+        if line.startswith('{"kernels": '):
+            rows = json.loads(line)["kernels"]
+        elif not line.startswith(('{"ok": ', "card: ")) and line != card:
+            _log(line)
+    sys.stderr.write(child.stderr)
+    if child.returncode != 0 or rows is None:
+        raise AssertionError(f"the register phase's process failed (rc "
+                             f"{child.returncode})")
+    return rows
+
+
+#: the phases ``--phases`` can name, in the order they run
+PHASES = ("kernels", "small", "full", "checkpoint", "classic", "registers")
+
+
+def _parse(argv):
+    """``(phases, rehash)`` of the command line, or None when it is not
+    one of the forms in the usage text."""
+    if argv == []:
+        return set(PHASES), False
+    if argv == ["--rehash"]:
+        return set(), True
+    if len(argv) == 2 and argv[0] == "--phases":
+        names = set(argv[1].split(","))
+        if names <= set(PHASES):
+            return names, False
+    return None
+
+
+def main(argv) -> int:
+    parsed = _parse(argv)
+    if parsed is None:
+        print(__doc__, file=sys.stderr)
+        return 2
+    phases, rehash = parsed
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    (_build, engine, fused, table_mod, wave_mod, append_mod, ckpt_mod,
+     TwoPhaseDevice, TwoPhaseSys, PaxosDevice, PaxosSys) = _modules()
+    t_start = time.monotonic()
+    phase_build(_build, table_mod, wave_mod, append_mod)
+    card = _card_line()
+    _log(f"card: {card}")
+    if rehash:
+        r = phase_rehash(torch, table_mod, engine, fused, TwoPhaseSys)
+        print(json.dumps({"rehash": {
+            key: r[key] for key in ("ms", "plain_ms", "bound_ms", "parts",
+                                    "peak", "runs", "one_call")}}))
+        return 0
+
+    kernels = {fn.__name__: fn for fn in fused.KERNELS}
+    old = {}
+    if "kernels" in phases:
+        old.update(_phase_kernels(torch, engine, fused, table_mod, wave_mod,
+                                  append_mod, TwoPhaseSys, PaxosSys))
+    if "small" in phases:
+        _phase_small(torch, fused, TwoPhaseSys, TwoPhaseDevice, PaxosSys,
+                     PaxosDevice)
+    if "full" in phases:
+        old["full"] = _phase_full_runs(torch, kernels, fused, TwoPhaseSys,
+                                       PaxosSys)
+    if "checkpoint" in phases:
+        # The small gates against the CPU, paxos 3 and 2pc 10 at full
+        # width, the resumed table's build.
+        old["ck"] = phase_checkpoint(torch, kernels, fused, table_mod,
+                                     engine, ckpt_mod, TwoPhaseSys, PaxosSys)
+    if "classic" in phases:
+        # Its small gates against the CPU, then paxos 3 and 2pc 10 on both
+        # successor paths beside the fused runs of phase 6.
+        old["cl"] = phase_classic(torch, kernels, ckpt_mod, TwoPhaseSys,
+                                  PaxosSys, old.get("full"))
+    rows = []
+    if set(PHASES[:5]) <= phases:
+        rows += _earlier_rows(**{key: old[key] for key in (
+            "k", "w", "pw", "sk", "psk", "ap", "full", "ck", "cl")})
+    if phases == {"registers"}:
+        rows += _register_rows(*phase_registers(torch, kernels, fused,
+                                                wave_mod, table_mod))
+    elif "registers" in phases:
+        rows += _registers_in_child(card)
+    print(json.dumps({"kernels": rows}))
     _log(f"chip_smoke ran {time.monotonic() - t_start:.1f} s")
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -37,14 +37,29 @@ import torch
 from .actor import DeliverAction
 from .device_model import DeviceModel
 
-__all__ = ["EMPTY_ENV", "M32", "ActorDeviceModel", "net_remove_at",
-           "net_insert"]
+__all__ = ["EMPTY_ENV", "M32", "ActorDeviceModel", "compact_envs",
+           "net_remove_at", "net_insert"]
 
 #: an empty network slot: all-ones, so real (smaller) envelopes sort first
 EMPTY_ENV = 0xFFFFFFFF
 #: the uint32 mask that keeps wrapped lane arithmetic equal to the
 #: reference's
 M32 = 0xFFFFFFFF
+
+
+def compact_envs(envs: torch.Tensor, k: int) -> torch.Tensor:
+    """The first ``k`` envelopes of each row of ``envs int64[N, n]`` that
+    are not ``EMPTY_ENV``, in their order, padded with ``EMPTY_ENV``:
+    ``int64[N, k]``. A cumsum and a scatter, as JAX's
+    ``actor_device.py::compact_envs``; a sort is not needed."""
+    n = envs.shape[0]
+    nonempty = envs != EMPTY_ENV
+    rank = nonempty.cumsum(dim=1) - 1
+    slot = torch.where(nonempty & (rank < k), rank, k)
+    out = torch.full((n, k + 1), EMPTY_ENV, dtype=envs.dtype,
+                     device=envs.device)
+    return out.scatter_(1, slot, torch.where(slot < k, envs, EMPTY_ENV))[
+        :, :k]
 
 
 def net_remove_at(net: torch.Tensor, slot: torch.Tensor) -> torch.Tensor:

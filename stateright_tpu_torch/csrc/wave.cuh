@@ -296,6 +296,73 @@ struct SenderArgs {
   cudaStream_t stream;
 };
 
+// The C entry points' arguments (wave_<model>.cu), as launch_wave takes
+// them.
+inline WaveArgs wave_args(int use_sym, const int* lanes, int w, int wp,
+                          const void* vecs, const void* valid,
+                          long long batch, int fanout, void* table,
+                          int c_bits, void* succ_store, void* path_fps,
+                          void* sflat, void* slots, void* tally,
+                          void* slot_of, int m_bits, void* new_mask,
+                          void* cand_mask, void* counts, int device,
+                          void* stream) {
+  WaveArgs a;
+  a.lanes = lanes;
+  a.w = w;
+  a.wp = wp;
+  a.vecs = static_cast<const uint32_t*>(vecs);
+  a.valid = static_cast<const bool*>(valid);
+  a.batch = batch;
+  a.fanout = fanout;
+  a.table = static_cast<u64*>(table);
+  a.c_bits = c_bits;
+  a.succ_store = static_cast<uint32_t*>(succ_store);
+  a.path_fps = static_cast<u64*>(path_fps);
+  a.sflat = static_cast<bool*>(sflat);
+  a.scratch = Scratch{static_cast<Slot*>(slots), static_cast<int*>(tally),
+                      m_bits};
+  a.slot_of = static_cast<int*>(slot_of);
+  a.new_mask = static_cast<bool*>(new_mask);
+  a.cand_mask = static_cast<bool*>(cand_mask);
+  a.counts = static_cast<int*>(counts);
+  a.use_sym = use_sym != 0;
+  a.device = device;
+  a.stream = static_cast<cudaStream_t>(stream);
+  return a;
+}
+
+// Likewise for launch_sender.
+inline SenderArgs sender_args(int use_sym, int local_dedup, const int* lanes,
+                              int w, int wp, const void* vecs,
+                              const void* valid, long long batch,
+                              long long shards, int fanout, void* succ_store,
+                              void* dedup_fps, void* path_fps, void* sflat,
+                              void* send_mask, void* slots, void* slot_of,
+                              int region_bits, int device, void* stream) {
+  SenderArgs a;
+  a.lanes = lanes;
+  a.w = w;
+  a.wp = wp;
+  a.vecs = static_cast<const uint32_t*>(vecs);
+  a.valid = static_cast<const bool*>(valid);
+  a.batch = batch;
+  a.shards = shards;
+  a.fanout = fanout;
+  a.succ_store = static_cast<uint32_t*>(succ_store);
+  a.dedup_fps = static_cast<u64*>(dedup_fps);
+  a.path_fps = static_cast<u64*>(path_fps);
+  a.sflat = static_cast<bool*>(sflat);
+  a.send_mask = static_cast<bool*>(send_mask);
+  a.slots = static_cast<Slot*>(slots);
+  a.slot_of = static_cast<int*>(slot_of);
+  a.region_bits = region_bits;
+  a.use_sym = use_sym != 0;
+  a.local_dedup = local_dedup != 0;
+  a.device = device;
+  a.stream = static_cast<cudaStream_t>(stream);
+  return a;
+}
+
 // The tile loop's parameters, one struct so one pointer passes them.
 template <class M, class Tail>
 struct FrontParams {

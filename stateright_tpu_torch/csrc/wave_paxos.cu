@@ -10,13 +10,14 @@
 // what the kernels compute, what bounds them and how they are held to
 // their plain versions.
 //
-// ptxas for sm_90a (-Xptxas -v), tile_front under __launch_bounds__(256,
-// 2), wave / sender: Paxos<1> 79 / 72 registers, Paxos<2> 95 / 91,
-// Paxos<3> 127 / 127, Paxos<4> 128 / 128; no spill in any, but a stack
-// frame of 240, 296, 304 and 368 bytes (part of a row in local memory);
-// static shared memory from 15,600 / 17,616 bytes at 1 client to 33,328 /
-// 35,344 at 4. The build takes about 43 s on the H100's machine, the
-// longest of chip_smoke.py's three.
+// ptxas for sm_90a (-Xptxas -v, CUDA 12.8), tile_front under
+// __launch_bounds__(256, 2), wave / sender: Paxos<1> 79 / 72 registers,
+// Paxos<2> 93 / 91, Paxos<3> 127 / 127, no spill, a stack frame of 240,
+// 296 and 304 bytes (part of a row in local memory); Paxos<4> 128 / 128,
+// a 384-byte frame and 28 / 8 bytes of spill stores (the representative's
+// permutation walk of register_workload.cuh). Static shared memory from
+// 15,600 / 17,616 bytes at 1 client to 33,328 / 35,344 at 4. The build
+// takes about 52 s on the H100's machine, the longest of chip_smoke.py's.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 --split-compile=0
 //        -shared -Xcompiler -fPIC (stateright_tpu_torch/_build.py); the
@@ -73,28 +74,10 @@ extern "C" int sr_wave_paxos(int client_count, int net_slots, int use_sym,
                              void* tally, void* slot_of, int m_bits,
                              void* new_mask, void* cand_mask, void* counts,
                              int device, void* stream) {
-  sr::WaveArgs a;
-  a.lanes = lanes;
-  a.w = w;
-  a.wp = wp;
-  a.vecs = static_cast<const uint32_t*>(vecs);
-  a.valid = static_cast<const bool*>(valid);
-  a.batch = batch;
-  a.fanout = fanout;
-  a.table = static_cast<sr::u64*>(table);
-  a.c_bits = c_bits;
-  a.succ_store = static_cast<uint32_t*>(succ_store);
-  a.path_fps = static_cast<sr::u64*>(path_fps);
-  a.sflat = static_cast<bool*>(sflat);
-  a.scratch = sr::Scratch{static_cast<sr::Slot*>(slots),
-                          static_cast<int*>(tally), m_bits};
-  a.slot_of = static_cast<int*>(slot_of);
-  a.new_mask = static_cast<bool*>(new_mask);
-  a.cand_mask = static_cast<bool*>(cand_mask);
-  a.counts = static_cast<int*>(counts);
-  a.use_sym = use_sym != 0;
-  a.device = device;
-  a.stream = static_cast<cudaStream_t>(stream);
+  const sr::WaveArgs a = sr::wave_args(
+      use_sym, lanes, w, wp, vecs, valid, batch, fanout, table, c_bits,
+      succ_store, path_fps, sflat, slots, tally, slot_of, m_bits, new_mask,
+      cand_mask, counts, device, stream);
   return with_paxos(client_count, net_slots, [&](const auto& m) {
     return sr::launch_wave(m, a);
   });
@@ -120,27 +103,10 @@ extern "C" int sr_sender_paxos(int client_count, int net_slots, int use_sym,
                                void* send_mask, void* slots,
                                void* slot_of, int region_bits, int device,
                                void* stream) {
-  sr::SenderArgs a;
-  a.lanes = lanes;
-  a.w = w;
-  a.wp = wp;
-  a.vecs = static_cast<const uint32_t*>(vecs);
-  a.valid = static_cast<const bool*>(valid);
-  a.batch = batch;
-  a.shards = shards;
-  a.fanout = fanout;
-  a.succ_store = static_cast<uint32_t*>(succ_store);
-  a.dedup_fps = static_cast<sr::u64*>(dedup_fps);
-  a.path_fps = static_cast<sr::u64*>(path_fps);
-  a.sflat = static_cast<bool*>(sflat);
-  a.send_mask = static_cast<bool*>(send_mask);
-  a.slots = static_cast<sr::Slot*>(slots);
-  a.slot_of = static_cast<int*>(slot_of);
-  a.region_bits = region_bits;
-  a.use_sym = use_sym != 0;
-  a.local_dedup = local_dedup != 0;
-  a.device = device;
-  a.stream = static_cast<cudaStream_t>(stream);
+  const sr::SenderArgs a = sr::sender_args(
+      use_sym, local_dedup, lanes, w, wp, vecs, valid, batch, shards, fanout,
+      succ_store, dedup_fps, path_fps, sflat, send_mask, slots, slot_of,
+      region_bits, device, stream);
   return with_paxos(client_count, net_slots, [&](const auto& m) {
     return sr::launch_sender(m, a);
   });

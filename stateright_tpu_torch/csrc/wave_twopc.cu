@@ -43,28 +43,10 @@ extern "C" int sr_wave_twopc(int rm_count, int use_sym, const int* lanes,
                              void* tally, void* slot_of, int m_bits,
                              void* new_mask, void* cand_mask, void* counts,
                              int device, void* stream) {
-  sr::WaveArgs a;
-  a.lanes = lanes;
-  a.w = w;
-  a.wp = wp;
-  a.vecs = static_cast<const uint32_t*>(vecs);
-  a.valid = static_cast<const bool*>(valid);
-  a.batch = batch;
-  a.fanout = fanout;
-  a.table = static_cast<sr::u64*>(table);
-  a.c_bits = c_bits;
-  a.succ_store = static_cast<uint32_t*>(succ_store);
-  a.path_fps = static_cast<sr::u64*>(path_fps);
-  a.sflat = static_cast<bool*>(sflat);
-  a.scratch = sr::Scratch{static_cast<sr::Slot*>(slots),
-                          static_cast<int*>(tally), m_bits};
-  a.slot_of = static_cast<int*>(slot_of);
-  a.new_mask = static_cast<bool*>(new_mask);
-  a.cand_mask = static_cast<bool*>(cand_mask);
-  a.counts = static_cast<int*>(counts);
-  a.use_sym = use_sym != 0;
-  a.device = device;
-  a.stream = static_cast<cudaStream_t>(stream);
+  const sr::WaveArgs a = sr::wave_args(
+      use_sym, lanes, w, wp, vecs, valid, batch, fanout, table, c_bits,
+      succ_store, path_fps, sflat, slots, tally, slot_of, m_bits, new_mask,
+      cand_mask, counts, device, stream);
   if (rm_count < 1) return (int)cudaErrorInvalidValue;
   if (rm_count <= 4) return sr::launch_wave(sr::TwoPhase<4>{rm_count}, a);
   if (rm_count <= 8) return sr::launch_wave(sr::TwoPhase<8>{rm_count}, a);
@@ -92,27 +74,10 @@ extern "C" int sr_sender_twopc(int rm_count, int use_sym, int local_dedup,
                                void* send_mask, void* slots,
                                void* slot_of, int region_bits, int device,
                                void* stream) {
-  sr::SenderArgs a;
-  a.lanes = lanes;
-  a.w = w;
-  a.wp = wp;
-  a.vecs = static_cast<const uint32_t*>(vecs);
-  a.valid = static_cast<const bool*>(valid);
-  a.batch = batch;
-  a.shards = shards;
-  a.fanout = fanout;
-  a.succ_store = static_cast<uint32_t*>(succ_store);
-  a.dedup_fps = static_cast<sr::u64*>(dedup_fps);
-  a.path_fps = static_cast<sr::u64*>(path_fps);
-  a.sflat = static_cast<bool*>(sflat);
-  a.send_mask = static_cast<bool*>(send_mask);
-  a.slots = static_cast<sr::Slot*>(slots);
-  a.slot_of = static_cast<int*>(slot_of);
-  a.region_bits = region_bits;
-  a.use_sym = use_sym != 0;
-  a.local_dedup = local_dedup != 0;
-  a.device = device;
-  a.stream = static_cast<cudaStream_t>(stream);
+  const sr::SenderArgs a = sr::sender_args(
+      use_sym, local_dedup, lanes, w, wp, vecs, valid, batch, shards, fanout,
+      succ_store, dedup_fps, path_fps, sflat, send_mask, slots, slot_of,
+      region_bits, device, stream);
   if (rm_count < 1) return (int)cudaErrorInvalidValue;
   if (rm_count <= 4) return sr::launch_sender(sr::TwoPhase<4>{rm_count}, a);
   if (rm_count <= 8) return sr::launch_sender(sr::TwoPhase<8>{rm_count}, a);

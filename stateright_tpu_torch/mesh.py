@@ -16,7 +16,7 @@ axis:
   stacked tensor itself, over dim 0.
 
 A mesh over distinct devices (one shard a card, with peer copies or
-NCCL for the exchange) is not ported yet (ROADMAP A13) and raises.
+NCCL for the exchange) is not ported yet (ROADMAP A14) and raises.
 """
 
 from __future__ import annotations
@@ -46,7 +46,7 @@ class Mesh:
         if any(d != devices[0] for d in devices):
             raise NotImplementedError(
                 f"a mesh over distinct devices {[str(d) for d in devices]} "
-                "is not ported yet (ROADMAP A13): the port stacks the "
+                "is not ported yet (ROADMAP A14): the port stacks the "
                 "shards of one device; pass the same device n times")
         self.devices = devices
         self.n = len(devices)

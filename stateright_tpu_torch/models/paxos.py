@@ -38,13 +38,12 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from ..actor import (NO_VALUE, ActorModelState, Envelope, Id,
-                     LinearizabilityTester, Network, Put, Register,
-                     RegisterClientState, RegisterServerState, Write)
+from ..actor import Id
 from ..actor_device import EMPTY_ENV, M32
 from ..device_model import DeviceFormUnavailable
 from ..model import Model, Property
-from ..register_workload import GET, GETOK, PUT, PUTOK, RegisterWorkloadDevice
+from ..register_workload import (GET, GETOK, PUT, PUTOK,
+                                 RegisterWorkloadDevice, register_init_state)
 
 __all__ = ["Prepare", "Prepared", "Accept", "Accepted", "Decided",
            "PaxosState", "PaxosSys", "PaxosDevice"]
@@ -140,19 +139,10 @@ class PaxosSys(Model):
     def init_states(self):
         """Every server fresh; each client has sent its Put to server
         ``index % S``, and the history holds the Put's write in flight."""
-        s = self.server_count
-        servers = [RegisterServerState(PaxosState(
+        return [register_init_state([PaxosState(
             ballot=(0, Id(0)), proposal=None, prepares=(), accepts=(),
-            accepted=None, is_decided=False)) for _ in range(s)]
-        history = LinearizabilityTester(Register(NO_VALUE))
-        clients, envs = [], []
-        for index in range(s, s + self.client_count):
-            value = chr(ord("A") + index - s)
-            envs.append(Envelope(Id(index), Id(index % s), Put(index, value)))
-            history.on_invoke(Id(index), Write(value))
-            clients.append(RegisterClientState(awaiting=index, op_count=1))
-        return [ActorModelState(servers + clients, Network(envs), [],
-                                history)]
+            accepted=None, is_decided=False)] * self.server_count,
+            self.client_count)]
 
     def properties(self):
         props = [Property.always("linearizable"),

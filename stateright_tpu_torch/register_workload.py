@@ -51,11 +51,39 @@ from .actor import (NO_VALUE, ActorModelState, Envelope, Get, GetOk, Id,
 from .actor_device import EMPTY_ENV, M32, ActorDeviceModel
 from .device_model import DeviceFormUnavailable
 
-__all__ = ["RegisterWorkloadDevice", "perm_tables", "observation_tables",
-           "packed_observation_tables", "serialization_tables", "PUT",
-           "GET", "PUTOK", "GETOK"]
+__all__ = ["RegisterWorkloadDevice", "register_init_state", "perm_tables",
+           "observation_tables", "packed_observation_tables",
+           "serialization_tables", "PUT", "GET", "PUTOK", "GETOK"]
 
 PUT, GET, PUTOK, GETOK = range(4)
+
+
+def cuda_instance(name: str, client_count: int, server_count: int,
+                  instances) -> None:
+    """Raises ``NotImplementedError`` unless ``csrc/wave_<name>.cu``
+    instantiates its kernels at ``(client_count, server_count)``, one of
+    ``instances``."""
+    if (client_count, server_count) not in instances:
+        raise NotImplementedError(
+            f"csrc/wave_{name}.cu has no instance at {client_count} clients"
+            f" / {server_count} servers (it holds (clients, servers) "
+            f"{list(instances)}): run it with wave_kernel=False on the card")
+
+
+def register_init_state(server_states, client_count: int) -> ActorModelState:
+    """The init state of a register workload: each server in its given
+    state; each client has sent its Put to server ``index % S``, and the
+    history holds the Put's write in flight."""
+    s = len(server_states)
+    servers = [RegisterServerState(st) for st in server_states]
+    history = LinearizabilityTester(Register(NO_VALUE))
+    clients, envs = [], []
+    for index in range(s, s + client_count):
+        value = chr(ord("A") + index - s)
+        envs.append(Envelope(Id(index), Id(index % s), Put(index, value)))
+        history.on_invoke(Id(index), Write(value))
+        clients.append(RegisterClientState(awaiting=index, op_count=1))
+    return ActorModelState(servers + clients, Network(envs), [], history)
 
 
 @lru_cache(maxsize=None)
@@ -256,14 +284,26 @@ class RegisterWorkloadDevice(ActorDeviceModel):
     def value_of(self, idx: int):
         return NO_VALUE if idx == 0 else chr(ord("A") + idx - 1)
 
-    def _req_field(self, request_id: int, client_actor: int) -> int:
-        """The req field of client actor ``client_actor``'s request
-        ``request_id`` (= op * actor)."""
-        op = request_id // client_actor
-        if op * client_actor != request_id or op not in (1, 2):
+    def _req_field(self, request_id: int, client_actor: int = None) -> int:
+        """The req field of request ``request_id`` (= op * actor) of
+        client actor ``client_actor``; without the actor (ABD's internal
+        messages carry bare request ids), of the one client whose op
+        gives that product."""
+        if client_actor is not None:
+            op = request_id // client_actor
+            if op * client_actor != request_id or op not in (1, 2):
+                raise ValueError(
+                    f"request id {request_id} not from actor {client_actor}")
+            return (op - 1) << 2 | (client_actor - self.S)
+        matches = [(op, k) for k in range(self.C) for op in (1, 2)
+                   if op * (self.S + k) == request_id]
+        if len(matches) != 1:
             raise ValueError(
-                f"request id {request_id} not from actor {client_actor}")
-        return (op - 1) << 2 | (client_actor - self.S)
+                f"request id {request_id} is "
+                f"{'ambiguous' if matches else 'outside the universe'}; "
+                "pass the client actor for context")
+        op, k = matches[0]
+        return (op - 1) << 2 | k
 
     def _req_id(self, field: int) -> int:
         return ((field >> 2) + 1) * (self.S + (field & 3))

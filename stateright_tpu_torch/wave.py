@@ -18,10 +18,12 @@ and the re-pack of the successors.
 
 For CUDA tensors it launches the kernel of ``csrc/wave.cuh``, built for
 the model named by ``DeviceModel.cuda_model()`` from
-``csrc/wave_<name>.cu`` at first use (2pc's and paxos's), or raises: a
-model with no device code, a layout or a size the device code does not
-take, a failed build or a failed launch all raise. Sentinel lanes (paxos's
-network slots) pack and unpack as ``packing.py`` does. For CPU tensors
+``csrc/wave_<name>.cu`` at first use (2pc's, and the register workloads'
+on ``csrc/models/register_workload.cuh``: paxos's, single-copy's and
+ABD's), or raises: a model with no device code, a layout or a size the
+device code does not take, a failed build or a failed launch all raise.
+Sentinel lanes (the register workloads' network slots) pack and unpack as
+``packing.py`` does. For CPU tensors
 it runs the plain version, ``wave_megakernel_plain``: the port's own
 stage functions in the order of ``_wave_front`` and the dedup kernel. It
 is also the reference the kernel is held to on the card. The wrapper
@@ -66,7 +68,8 @@ def _defining_class(cls, name: str):
 #: the hooks whose device twin a model's CUDA code is: a subclass that
 #: overrides one below the class declaring ``cuda_model`` has no device
 #: code (the actor layer's delivery and the register workload's client
-#: and symmetry hooks, which ``csrc/models/paxos.cuh`` mirrors, included)
+#: and symmetry hooks, which ``csrc/models/register_workload.cuh`` and its
+#: server policies mirror, included)
 _DEVICE_HOOKS = ("step", "boundary", "representative", "deliver",
                  "server_deliver", "_client_deliver", "build_env",
                  "client_permutations", "_sym_tables", "_sym_rewrite",

@@ -16,14 +16,19 @@ counts, successors, fingerprints and sflat bit for bit, the table as a
 set. Also: the scratch comes back clean, exactly one row walks the
 visited table for each distinct valid fingerprint and only in phase 1,
 the sender touches no tally, and the outputs do not depend on the order.
-The wave and sender cases run 2pc (``csrc/models/twopc.cuh``) and paxos
-(``csrc/models/paxos.cuh``, with sentinel lanes in its packed rows).
-paxos's device step is also held to ``PaxosDevice.step`` on every slot
-(successor and enabled bit) at 1 to 4 clients, on reachable rows (JAX's
-levels, as ``test_torch_paxos.py`` makes them) and on seeded adversarial
-rows (random lanes, garbage and empty envelopes, unsorted networks, fewer
-network slots than the default); its ``representative`` to the port's;
-and ``packing.cuh``'s codec to ``packing.py``, sentinel lanes included.
+The wave and sender cases run 2pc (``csrc/models/twopc.cuh``), paxos
+(``csrc/models/paxos.cuh``, with sentinel lanes in its packed rows),
+single-copy and ABD (``single_copy.cuh``, ``abd.cuh``), the register
+workloads on ``csrc/models/register_workload.cuh``. Their device steps
+are also held to the port's ``step`` on every slot (successor and
+enabled bit): paxos at 1 to 4 clients, single-copy at 1 to 4 clients on
+one server and 2 on two, ABD at 2 clients on two and three servers, on
+reachable rows (JAX's levels, as ``test_torch_paxos.py`` and
+``test_torch_registers.py`` make them) and on seeded adversarial rows
+(random lanes, garbage and empty envelopes, unsorted networks, fewer
+network slots than the default); their ``representative`` to the
+port's; and ``packing.cuh``'s codec to ``packing.py``, sentinel lanes
+included.
 The tile loop's shared memory, barriers and stores run only on the card
 (``chip_smoke.py``).
 """
@@ -42,7 +47,7 @@ from stateright_tpu_torch.engine import (compaction_order, expand_frontier,
                                          host_table_insert)
 from stateright_tpu_torch.actor_device import EMPTY_ENV
 from stateright_tpu_torch.hashing import SENTINEL_U64
-from stateright_tpu_torch.models import paxos, twopc
+from stateright_tpu_torch.models import abd, paxos, single_copy, twopc
 from stateright_tpu_torch.packing import compile_layout
 
 torch.set_num_threads(2)
@@ -96,7 +101,9 @@ HARNESS = r"""
 #include <vector>
 #include "append.cuh"
 #include "wave.cuh"
+#include "models/abd.cuh"
 #include "models/paxos.cuh"
+#include "models/single_copy.cuh"
 #include "models/twopc.cuh"
 
 long long g_table_reads = 0;
@@ -107,10 +114,20 @@ using sr::u64;
 
 namespace {
 
+// Calls fn with register workload M<kC, kS> at net_slots e, -1 when e is
+// not in 1..kMaxE.
+template <int kC, int kS, template <int, int> class M, class Fn>
+long long with_register(int e, Fn&& fn) {
+  if (e < 1 || e > M<kC, kS>::kMaxE) return -1;
+  return fn(M<kC, kS>{e});
+}
+
 // Calls fn with a model instance: model 0 is 2pc at p0 RMs, model 1 paxos
-// at p0 clients and p1 network slots. -1 for a model it does not hold.
+// at p0 clients and p1 network slots, model 2 single-copy and model 3 ABD
+// at p0 clients, p2 servers and p1 network slots. -1 for a model it does
+// not hold.
 template <class Fn>
-long long with_model(int model, int p0, int p1, Fn&& fn) {
+long long with_model(int model, int p0, int p1, int p2, Fn&& fn) {
   if (model == 0) return fn(sr::TwoPhase<8>{p0});
   if (model == 1 && p1 >= 1) {
     switch (p0) {
@@ -127,6 +144,22 @@ long long with_model(int model, int p0, int p1, Fn&& fn) {
         if (p1 <= sr::Paxos<4>::kMaxE) return fn(sr::Paxos<4>{p1});
         break;
     }
+  }
+  if (model == 2) {
+    const int k = p0 * 10 + p2;
+    if (k == 11) return with_register<1, 1, sr::SingleCopy>(p1, fn);
+    if (k == 21) return with_register<2, 1, sr::SingleCopy>(p1, fn);
+    if (k == 31) return with_register<3, 1, sr::SingleCopy>(p1, fn);
+    if (k == 41) return with_register<4, 1, sr::SingleCopy>(p1, fn);
+    if (k == 22) return with_register<2, 2, sr::SingleCopy>(p1, fn);
+    if (k == 32) return with_register<3, 2, sr::SingleCopy>(p1, fn);
+  }
+  if (model == 3) {
+    const int k = p0 * 10 + p2;
+    if (k == 11) return with_register<1, 1, sr::Abd>(p1, fn);
+    if (k == 22) return with_register<2, 2, sr::Abd>(p1, fn);
+    if (k == 23) return with_register<2, 3, sr::Abd>(p1, fn);
+    if (k == 33) return with_register<3, 3, sr::Abd>(p1, fn);
   }
   return -1;
 }
@@ -256,8 +289,9 @@ extern "C" long long dedup_phases(const u64* fps, long long n, u64* table,
 }
 
 extern "C" long long wave_phases(
-    int model, int p0, int p1, int use_sym, const int* lanes, int w, int wp,
-    const uint32_t* vecs, const bool* valid, long long batch, int fanout,
+    int model, int p0, int p1, int p2, int use_sym, const int* lanes, int w,
+    int wp, const uint32_t* vecs, const bool* valid, long long batch,
+    int fanout,
     u64* table, int c_bits, sr::Slot* slots, int* tally, int m_bits,
     const long long* order1, const long long* order2, uint32_t* succ,
     u64* path_fps, bool* sflat, bool* new_mask, bool* cand_mask, int* counts,
@@ -265,7 +299,7 @@ extern "C" long long wave_phases(
   g_table_lo = table;
   g_table_hi = table + (1ll << c_bits);
   const sr::Scratch s{slots, tally, m_bits};
-  return with_model(model, p0, p1, [&](const auto& m) {
+  return with_model(model, p0, p1, p2, [&](const auto& m) {
     return wave_t(m, use_sym, lanes, w, wp, vecs, valid, batch, fanout,
                   table, c_bits, s, order1, order2, succ, path_fps, sflat,
                   new_mask, cand_mask, counts, walked);
@@ -273,12 +307,13 @@ extern "C" long long wave_phases(
 }
 
 extern "C" long long sender_phases(
-    int model, int p0, int p1, int use_sym, int local_dedup, const int* lanes,
-    int w, int wp, const uint32_t* vecs, const bool* valid, long long batch,
-    long long shards, int fanout, sr::Slot* slots, int region_bits,
+    int model, int p0, int p1, int p2, int use_sym, int local_dedup,
+    const int* lanes, int w, int wp, const uint32_t* vecs, const bool* valid,
+    long long batch, long long shards, int fanout, sr::Slot* slots,
+    int region_bits,
     const long long* order1, const long long* order2, uint32_t* succ,
     u64* dedup_fps, u64* path_fps, bool* sflat, bool* send_mask) {
-  return with_model(model, p0, p1, [&](const auto& m) {
+  return with_model(model, p0, p1, p2, [&](const auto& m) {
     return sender_t(m, use_sym, local_dedup, lanes, w, wp, vecs, valid, batch,
                     shards, fanout, slots, region_bits, order1, order2, succ,
                     dedup_fps, path_fps, sflat, send_mask);
@@ -311,10 +346,10 @@ extern "C" long long append_phases(
 
 // The model's step on every slot of n rows of w lanes: succ[n, F, w] and
 // enabled[n, F]. -1 when w is not the model's width.
-extern "C" long long model_step(int model, int p0, int p1,
+extern "C" long long model_step(int model, int p0, int p1, int p2,
                                 const uint32_t* rows, long long n, int w,
                                 uint32_t* succ, bool* enabled) {
-  return with_model(model, p0, p1, [&](const auto& m) -> long long {
+  return with_model(model, p0, p1, p2, [&](const auto& m) -> long long {
     using M = std::decay_t<decltype(m)>;
     if (w != m.width()) return -1;
     const int F = m.fanout();
@@ -331,10 +366,10 @@ extern "C" long long model_step(int model, int p0, int p1,
 }
 
 // The model's representative of n rows of w lanes, into out[n, w].
-extern "C" long long model_representative(int model, int p0, int p1,
+extern "C" long long model_representative(int model, int p0, int p1, int p2,
                                           const uint32_t* rows, long long n,
                                           int w, uint32_t* out) {
-  return with_model(model, p0, p1, [&](const auto& m) -> long long {
+  return with_model(model, p0, p1, p2, [&](const auto& m) -> long long {
     using M = std::decay_t<decltype(m)>;
     if (w != m.width()) return -1;
     for (long long b = 0; b < n; ++b) {
@@ -349,11 +384,11 @@ extern "C" long long model_representative(int model, int p0, int p1,
 
 // The codec of the model's layout (lanes as the kernels take them): n rows
 // of w lanes packed into wp words a row (pack != 0), or back.
-extern "C" long long layout_codec(int model, int p0, int p1, int pack,
-                                  const int* lanes, int w, int wp,
+extern "C" long long layout_codec(int model, int p0, int p1, int p2,
+                                  int pack, const int* lanes, int w, int wp,
                                   const uint32_t* in, long long n,
                                   uint32_t* out) {
-  return with_model(model, p0, p1, [&](const auto& m) -> long long {
+  return with_model(model, p0, p1, p2, [&](const auto& m) -> long long {
     using M = std::decay_t<decltype(m)>;
     sr::Layout<M::kMaxW, M::kMaxWords> L;
     if (!sr::make_layout(m, lanes, w, wp, m.fanout(), &L)) return -1;
@@ -523,14 +558,22 @@ def test_dedup_phases_flag_a_full_table(lib):
 #: waves its frontier is taken after, and the bound of its garbage words
 #: (paxos's reach the all-ones fields of its sentinel lanes)
 _MODELS = {"twopc": (0, twopc.TwoPhaseSys, twopc.TwoPhaseDevice, 3, 1 << 20),
-           "paxos": (1, paxos.PaxosSys, paxos.PaxosDevice, 6, 1 << 32)}
+           "paxos": (1, paxos.PaxosSys, paxos.PaxosDevice, 6, 1 << 32),
+           "single_copy": (2, single_copy.SingleCopySys,
+                           lambda c: single_copy.SingleCopyDevice(c, 1), 4,
+                           1 << 32),
+           "abd": (3, abd.AbdSys, abd.AbdDevice, 6, 1 << 32)}
 
 
 def _params(dm):
-    """The harness's ``(model, p0, p1)`` of device model ``dm``."""
+    """The harness's ``(model, p0, p1, p2)`` of device model ``dm``."""
     if isinstance(dm, paxos.PaxosDevice):
-        return 1, dm.C, dm.net_slots
-    return 0, dm.rm_count, 0
+        return 1, dm.C, dm.net_slots, 0
+    if isinstance(dm, single_copy.SingleCopyDevice):
+        return 2, dm.C, dm.net_slots, dm.S
+    if isinstance(dm, abd.AbdDevice):
+        return 3, dm.C, dm.net_slots, dm.S
+    return 0, dm.rm_count, 0, 0
 
 
 def _frontier(model, size, sym, B, rng):
@@ -566,9 +609,15 @@ _CASES = [pytest.param("twopc", rm, sym, id=f"{rm}-{sym}")
 _PAXOS_CASES = [pytest.param("paxos", c, sym, id=f"paxos{c}-{sym}")
                 for c, sym in ((1, False), (2, False), (3, False),
                                (4, False), (4, True))]
+#: single-copy at 3 and 4 clients on one server, ABD at 2 clients on two
+_REGISTER_CASES = [pytest.param(m, c, sym, id=f"{m}{c}-{sym}")
+                   for m, c, sym in (("single_copy", 3, False),
+                                     ("single_copy", 4, True),
+                                     ("abd", 2, False))]
 
 
-@pytest.mark.parametrize("model, size, sym", _CASES + _PAXOS_CASES)
+@pytest.mark.parametrize("model, size, sym", _CASES + _PAXOS_CASES
+                         + _REGISTER_CASES)
 def test_wave_phases_match_the_plain_version(lib, model, size, sym):
     rng = np.random.default_rng(size)
     B = 48
@@ -640,8 +689,9 @@ def _sender_rows(model, size, sym, n, rng):
 @pytest.mark.parametrize("local_dedup", [True, False],
                          ids=["local_dedup", "no_local_dedup"])
 @pytest.mark.parametrize("model, size, sym", _CASES + [
-    c for c in _PAXOS_CASES if c.id in ("paxos1-False", "paxos2-False",
-                                        "paxos4-True")])
+    c for c in _PAXOS_CASES + _REGISTER_CASES
+    if c.id in ("paxos1-False", "paxos2-False", "paxos4-True",
+                "single_copy4-True", "abd2-False")])
 def test_sender_phases_match_the_plain_version(lib, model, size, sym,
                                                local_dedup, n):
     """The sender kernel's per-slot work and pass 2 against
@@ -852,6 +902,94 @@ def test_sentinel_packing_matches_packing_py(lib, c):
     assert np.array_equal(unpacked, want)
     assert (want[:, sentinel] == EMPTY_ENV).any()
     assert (want[:, sentinel] != EMPTY_ENV).any()
+
+
+# -- The register corpus's device steps and representatives -----------------
+
+
+@pytest.fixture(scope="module")
+def register_rows():
+    """Rows JAX's single-copy and ABD steps reach level by level from
+    init, a seeded sample a level (``test_torch_registers.py``'s
+    ``_levels``): every one of single-copy 2/1 (93) and ABD 2/2 (544)."""
+    from test_torch_registers import MODELS, _levels
+    sc, ab = MODELS["single_copy"][0], MODELS["abd"][0]
+    return {(single_copy.SingleCopyDevice, 1, 1): _levels(sc(1, 1)),
+            (single_copy.SingleCopyDevice, 2, 1): _levels(sc(2, 1)),
+            (single_copy.SingleCopyDevice, 3, 1): _levels(sc(3, 1), cap=60,
+                                                          seed=3),
+            (single_copy.SingleCopyDevice, 4, 1): _levels(sc(4, 1), cap=40,
+                                                          seed=4),
+            (single_copy.SingleCopyDevice, 2, 2): _levels(sc(2, 2)),
+            (abd.AbdDevice, 2, 2): _levels(ab(2, 2)),
+            (abd.AbdDevice, 2, 3): _levels(ab(2, 3), levels=14, cap=40,
+                                           seed=5)}
+
+
+_REGISTER_MODELS = [(single_copy.SingleCopyDevice, c, s)
+                    for c, s in ((1, 1), (2, 1), (3, 1), (4, 1), (2, 2))] + [
+    (abd.AbdDevice, 2, 2), (abd.AbdDevice, 2, 3)]
+
+
+def _register_id(key):
+    return f"{key[0].__name__}-{key[1]}-{key[2]}"
+
+
+@pytest.mark.parametrize("key", _REGISTER_MODELS, ids=_register_id)
+def test_register_step_matches_the_port_on_reachable_rows(lib, register_rows,
+                                                          key):
+    """``register_workload.cuh``'s step on each model's server policy
+    (``single_copy.cuh``, ``abd.cuh``), every slot of every row, enabled
+    or not, on reachable rows and on rows near them (``_perturbed``,
+    which reach the deeper branches): the successor's lanes and the
+    enabled bit, bit for bit."""
+    from test_torch_registers import _perturbed
+    rows = register_rows[key]
+    dm = key[0](key[1], key[2])
+    enabled = _assert_step_equal(lib, dm, rows)
+    assert enabled.sum() >= len(rows) - 1 and not enabled.all()
+    rng = np.random.default_rng(7 * key[1] + key[2])
+    _assert_step_equal(lib, dm, _perturbed(rows, dm, 600, rng))
+
+
+@pytest.mark.parametrize("key, net_slots", [
+    ((single_copy.SingleCopyDevice, 4, 1), 0),
+    ((single_copy.SingleCopyDevice, 2, 2), 0),
+    ((single_copy.SingleCopyDevice, 3, 1), 4),
+    ((abd.AbdDevice, 2, 2), 0), ((abd.AbdDevice, 2, 3), 0),
+    ((abd.AbdDevice, 2, 2), 3)],
+    ids=lambda k: _register_id(k) if isinstance(k, tuple) else str(k))
+def test_register_step_matches_the_port_on_adversarial_rows(lib, key,
+                                                            net_slots):
+    """Garbage rows (garbage envelopes, unsorted networks, lanes past
+    their ranges), at the default network size and at fewer slots (a
+    runtime net_slots, and inserts into full lists)."""
+    dm = key[0](key[1], key[2], net_slots=net_slots)
+    rng = np.random.default_rng(200 + 10 * key[1] + net_slots)
+    rows = _adversarial(dm, 1500, rng)
+    enabled = _assert_step_equal(lib, dm, rows)
+    assert 0 < enabled.sum() < enabled.size
+    overflow = _device_step(lib, dm, rows)[0][..., dm.error_lane]
+    assert (overflow == 1).any()
+
+
+@pytest.mark.parametrize("key", _REGISTER_MODELS, ids=_register_id)
+def test_register_representative_matches_the_port(lib, register_rows, key):
+    """The least row over the client permutations, walked in the kernel as
+    Lehmer codes with the running least held as its permutation and its
+    sorted network: the whole symmetric group at one server (23
+    permutations at 4 clients), the row itself where each client has its
+    own residue class (single-copy 2/2, ABD); on reachable and
+    adversarial rows, which reach the value map's clamp."""
+    dm = key[0](key[1], key[2])
+    rng = np.random.default_rng(key[1] + 10 * key[2])
+    rows = np.concatenate([register_rows[key], _adversarial(dm, 600, rng),
+                           rng.integers(0, 8, (300, dm.state_width))
+                           ]).astype(np.uint32)
+    got = _device_representative(lib, dm, rows)
+    want = dm.representative(carry.rows_in(rows))
+    assert np.array_equal(got, carry.rows_out(want))
+    assert (got != rows).any() == (key[2] == 1 and key[1] > 1)
 
 
 # -- The append kernel -------------------------------------------------------

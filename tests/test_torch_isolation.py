@@ -1,11 +1,14 @@
 """The port stands alone: it imports neither JAX nor the JAX package.
 
 An AST scan of every file of ``stateright_tpu_torch/`` (the classic
-engine's ``classic.py`` and ``visitor.py`` among them); a fresh
+engine's ``classic.py`` and ``visitor.py`` and the register models'
+``models/single_copy.py`` and ``models/abd.py`` among them); a fresh
 interpreter that checks 2pc at 3 RMs (on the fused engine, and on the
-classic engine with a visitor) and paxos at 1 client through the port on
-the CPU and then finds neither ``jax`` nor ``stateright_tpu`` loaded; and the entry
-point's default device, which is CUDA and raises on a box without one.
+classic engine with a visitor), paxos at 1 client, single-copy at 2
+clients on one server and ABD at 2 clients on two through the port on
+the CPU and then finds neither ``jax`` nor ``stateright_tpu`` loaded; and
+the entry point's default device, which is CUDA and raises on a box
+without one.
 """
 
 import ast
@@ -21,7 +24,7 @@ from stateright_tpu_torch.models.twopc import TwoPhaseSys
 _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _PKG = os.path.join(_REPO, "stateright_tpu_torch")
 _BANNED = ("jax", "jaxlib", "stateright_tpu", "examples", "two_phase_commit",
-           "paxos")
+           "paxos", "single_copy_register", "linearizable_register")
 
 
 def _imports(path):
@@ -38,7 +41,8 @@ def test_no_file_of_the_port_imports_jax_or_the_jax_package():
              for f in fs if f.endswith(".py")]
     assert len(files) >= 12
     names = {os.path.relpath(f, _PKG) for f in files}
-    assert {"classic.py", "visitor.py"} <= names
+    assert {"classic.py", "visitor.py", "models/single_copy.py",
+            "models/abd.py"} <= names
     for path in files + [os.path.join(_REPO, "chip_smoke.py")]:
         for name in _imports(path):
             assert name.split(".")[0] not in _BANNED, (path, name)
@@ -61,6 +65,14 @@ def test_a_cpu_check_loads_neither_jax_nor_the_jax_package():
         "from stateright_tpu_torch.models.paxos import PaxosSys\n"
         "c = PaxosSys(1).checker().spawn_cuda_bfs(device='cpu').join()\n"
         "assert (c.unique_state_count(), c.state_count()) == (265, 482)\n"
+        "c.assert_properties()\n"
+        "from stateright_tpu_torch.models.single_copy import SingleCopySys\n"
+        "c = SingleCopySys(2).checker().spawn_cuda_bfs(device='cpu').join()\n"
+        "assert c.unique_state_count() == 93, c.unique_state_count()\n"
+        "c.assert_properties()\n"
+        "from stateright_tpu_torch.models.abd import AbdSys\n"
+        "c = AbdSys(2, 2).checker().spawn_cuda_bfs(device='cpu').join()\n"
+        "assert (c.unique_state_count(), c.state_count()) == (544, 875)\n"
         "c.assert_properties()\n"
         "bad = [m for m in sys.modules\n"
         "       if m.split('.')[0] in ('jax', 'jaxlib', 'stateright_tpu')]\n"

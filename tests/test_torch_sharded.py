@@ -465,7 +465,7 @@ def test_one_shard_equals_the_unsharded_engine():
 
 @pytest.mark.parametrize("mesh", [["cuda:0", "cuda:1"], ["cpu", "cuda:0"]])
 def test_a_mesh_over_distinct_devices_raises(mesh):
-    with pytest.raises(NotImplementedError, match="ROADMAP A13"):
+    with pytest.raises(NotImplementedError, match="ROADMAP A14"):
         twopc.TwoPhaseSys(2).checker().spawn_cuda_bfs(mesh=mesh)
 
 

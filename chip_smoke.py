@@ -6,21 +6,24 @@ Usage, from the root of a checkout on a machine with an NVIDIA H100:
     python3 chip_smoke.py            # every phase below
     python3 chip_smoke.py --rehash   # phase 1, then the rehash case of 3
     python3 chip_smoke.py --phases registers       # phase 1, then 9
+    python3 chip_smoke.py --phases corpus          # phase 1, then 10
     python3 chip_smoke.py --phases kernels,full    # phase 1, 2-4 and 6
 
 ``--phases`` takes a comma-separated subset of ``kernels`` (phases 2 to
-4), ``small`` (5), ``full`` (6), ``checkpoint`` (7), ``classic`` (8) and
-``registers`` (9), runs phase 1 and those, in this order, and prints the
-kernels line's rows those phases give (phases 2 to 8's rows only when all
-of them ran). Phases, in order; any failure exits non-zero and prints no
-result line:
+4), ``small`` (5), ``full`` (6), ``checkpoint`` (7), ``classic`` (8),
+``registers`` (9) and ``corpus`` (10), runs phase 1 and those, in this
+order, and prints the kernels line's rows those phases give (phases 2 to
+8's rows only when all of them ran). Phases, in order; any failure exits
+non-zero and prints no result line:
 
 1. build ``stateright_tpu_torch/csrc/table.cu``, ``wave_twopc.cu``,
-   ``wave_paxos.cu``, ``wave_single_copy.cu``, ``wave_abd.cu`` (the wave
-   kernel's and the sender kernel's entry points for 2pc and for each
-   register workload) and ``append.cu`` for ``sm_90a``, one ``nvcc``
-   each, all at once, and print each build time with ptxas' register and
-   spill report, and the card's name and power limit;
+   ``wave_paxos.cu``, ``wave_single_copy.cu``, ``wave_abd.cu``,
+   ``wave_linear_equation.cu``, ``wave_dgraph.cu``, ``wave_increment.cu``,
+   ``wave_increment_lock.cu``, ``wave_sliding_puzzle.cu`` (the wave
+   kernel's and the sender kernel's entry points for 2pc, each register
+   workload and each plain model) and ``append.cu`` for ``sm_90a``, one
+   ``nvcc`` each, all at once, and print each build time with ptxas'
+   register and spill report, and the card's name and power limit;
 2. hold the wave kernel against its plain version at full width: 16,384
    packed rows of 2pc at 10 RMs from a mid-run arena against a 2^27-slot
    table filled to 30% plus the run's states, plain and with symmetry:
@@ -166,7 +169,30 @@ result line:
    seconds and peak device memory; then one replayed dispatch of
    single-copy 4 on the wave kernel under
    ``torch.cuda.set_sync_debug_mode("error")``;
-10. the kernels line, the script's running time, the card line and the
+10. the corpus's plain models (``phase_corpus``; in a process of its
+    own when earlier phases ran, as phase 9): kernels 2 and 3 on each
+    model's CUDA step against their plain versions at 16,384 rows, as 4
+    shards of 4,096 and ragged, the scratch clean (the 4x3 puzzle,
+    increment 16 and increment_lock 8 plain and with symmetry,
+    LinearEquation, a random graph); then LinearEquation (2, 4, 7) and (2,
+    10, 14), increment and increment_lock at 2 threads and at their
+    largest instances (16 and 8), each plain and with symmetry, the 3x3
+    puzzle (181,440 / 483,841) and the differential fuzz's random graphs
+    of seeds 0 to 4 on the fused, classic and sharded engines, each on the
+    torch stages and on the kernels, exact and against a CPU run at the
+    same batch (each engine's own where a run stops at a counterexample;
+    none for a full enumeration with no discovery, held to its counts);
+    then, none cut, the 4x3 puzzle (239,500,800
+    boards / 678,585,601 states, the closed form's; the device memory
+    reckoned first) and ``paxos check 4`` (2,372,188 / 4,807,983; 1,194,428
+    with symmetry), plain and with symmetry and its liveness property
+    (BASELINE.json's workload), each on the fused torch stages, the fused and
+    classic wave kernel and the sharded torch stages and sender kernel:
+    equal counts, discovery chains (replayed through ``path.py``) equal to
+    the fused torch stages' (the sharded sender's to the sharded torch
+    stages'), no counterexample, launches exact, seconds and peak device
+    memory printed;
+11. the kernels line, the script's running time, the card line and the
     result line.
 
 It imports neither JAX nor ``stateright_tpu``.
@@ -179,6 +205,7 @@ import gc
 import json
 import math
 import os
+import random
 import re
 import subprocess
 import sys
@@ -730,13 +757,18 @@ def phase_wave_kernel(torch, wave_mod, table_mod, engine, TwoPhaseSys):
 
 def _sym_ops(dm) -> int:
     """32-bit integer operations of one representative beyond its
-    fingerprint: 2pc's sort network over its RMs' keys; a register
-    workload's network rewritten and sorted again, and its lanes compared,
-    once a non-identity client permutation (none where the group is
+    fingerprint: 2pc's sort network over its RMs' keys, the shared
+    counters' over their threads' pairs; a register workload's network
+    rewritten and sorted again, and its lanes compared, once a
+    non-identity client permutation (none where the group is
     trivial: paxos below 4 clients, ABD; 23 at single-copy 4 on one
     server)."""
     if hasattr(dm, "rm_count"):
         return 2 * dm.rm_count ** 2
+    if hasattr(dm, "thread_count"):
+        # The shared counters' stable sort of (key, t, pc) triples: T(T-1)/2
+        # compare-exchanges of about 8 operations each.
+        return 4 * dm.thread_count ** 2
     return len(dm.client_permutations()) * (2 * dm.net_slots ** 2
                                             + 8 * dm.state_width)
 
@@ -834,11 +866,11 @@ def _sender_equal(torch, wave_mod, fn, scratch, args, tag):
 
 
 def phase_sender_kernel(torch, wave_mod, table_mod, dm, store, layout,
-                        model="2pc 10"):
+                        model="2pc 10", syms=(False, True)):
     """The sender kernel against its plain version at the full-width
     shape: ``store``'s packed rows (of ``model``) as ``SHARDS`` shards'
-    batches, with the engine's scratch; then at a ragged shape (3 shards
-    of a row less)."""
+    batches, with the engine's scratch, plain and with symmetry (each of
+    ``syms``); then at a ragged shape (3 shards of a row less)."""
     B, wp = store.shape[0] // SHARDS, layout.packed_width
     rows = store
     store = rows.reshape(SHARDS, B, wp).contiguous()
@@ -848,7 +880,7 @@ def phase_sender_kernel(torch, wave_mod, table_mod, dm, store, layout,
     fn, scratch = _scratch(torch, table_mod, wave_mod.sender_megakernel,
                            n * S, n)
     out = {}
-    for use_sym in (False, True):
+    for use_sym in syms:
         for local_dedup in (True, False):
             args = (dm, store, valid, use_sym, layout, local_dedup)
             tag = (f"{model}, {'sym' if use_sym else 'plain'}"
@@ -2252,14 +2284,14 @@ def phase_register_kernels(torch, wave_mod, table_mod, SingleCopySys,
     return out
 
 
-def _register_cpu(build, engine, batch):
+def _cpu_run(build, engine, batch):
     """The CPU run of ``build()``'s checker on ``engine`` at ``batch`` rows
     (``batch / SHARDS`` a shard on the sharded engine), the torch
     stages."""
-    return build().spawn_cuda_bfs(**_register_spawn("cpu", engine, batch))
+    return build().spawn_cuda_bfs(**_spawn_kw("cpu", engine, batch))
 
 
-def _register_spawn(device, engine, batch, **kw):
+def _spawn_kw(device, engine, batch, **kw):
     if engine == "sharded":
         return dict(mesh=[device] * SHARDS, batch_size=batch // SHARDS, **kw)
     if engine == "classic":
@@ -2268,19 +2300,20 @@ def _register_spawn(device, engine, batch, **kw):
     return dict(device=device, batch_size=batch, **kw)
 
 
-def _register_run(torch, kernels, fused, tag, build, engine, batch, want,
-                  found, cpu, wave_kernel):
+def _card_run(torch, kernels, fused, tag, build, engine, batch, want,
+              found, cpu, wave_kernel):
     """``build()``'s checker to its end on the card on ``engine`` (fused,
     classic or sharded on ``mesh=[cuda:0] * SHARDS``), the kernels' launch
     counts set to 0 just before and read just after: the counts ``want``
-    (where given) and the CPU run ``cpu``'s exactly, its discoveries
-    ``found`` with the CPU run's chains, the launches exact.
-    Returns the run's numbers."""
+    (unique, states; None for one not checked), the CPU run ``cpu``'s
+    counts and chains exactly (where given), its discoveries ``found``,
+    the launches exact. Returns the run's numbers with its discoveries'
+    chains (fingerprints and actions, replayed through ``path.py``)."""
     gc.collect()
     torch.cuda.reset_peak_memory_stats()
     for fn in kernels.values():
         fn.launches = 0
-    spawn = _register_spawn("cuda:0", engine, batch, wave_kernel=wave_kernel)
+    spawn = _spawn_kw("cuda:0", engine, batch, wave_kernel=wave_kernel)
     t0 = time.monotonic()
     c = build().spawn_cuda_bfs(**spawn).join()
     torch.cuda.synchronize()
@@ -2291,14 +2324,17 @@ def _register_run(torch, kernels, fused, tag, build, engine, batch, want,
     path = c.kernel_path()
     tag = f"{tag}, {engine}, {path}"
     _log(f"{tag}: unique={got[0]} states={got[1]} sec={sec:.3f} "
-         f"waves={c.waves} peak device memory {peak} B launches={launches}")
-    if want is not None and got != want:
+         f"states/s={got[1] / sec:.1f} waves={c.waves} peak device memory "
+         f"{peak} B launches={launches}")
+    if any(w is not None and g != w for g, w in zip(got, want or ())):
         raise AssertionError(f"{tag}: {got} != {want}")
-    if got != (cpu.unique_state_count(), cpu.state_count()):
+    if cpu is not None and got != (cpu.unique_state_count(),
+                                   cpu.state_count()):
         raise AssertionError(f"{tag}: {got}, the CPU run's "
                              f"{cpu.unique_state_count()} / "
                              f"{cpu.state_count()}")
-    if sorted(c.discoveries()) != found or _chains(c) != _chains(cpu):
+    if sorted(c.discoveries()) != found or (
+            cpu is not None and _chains(c) != _chains(cpu)):
         raise AssertionError(f"{tag}: discoveries {sorted(c.discoveries())}"
                              ", or their chains differ from the CPU run")
     want_path = {("fused", False): "dedup_kernel",
@@ -2319,8 +2355,10 @@ def _register_run(torch, kernels, fused, tag, build, engine, batch, want,
                                  f"expected {want_l}")
     else:
         _check_launches(fused, c, launches, **spawn)
+    chains = {name: (p.fingerprints, [repr(a) for a in p.into_actions()])
+              for name, p in c.discoveries().items()}
     return dict(sec=sec, peak=peak, launches=launches, waves=c.waves,
-                counts=got)
+                counts=got, chains=chains)
 
 
 def phase_registers(torch, kernels, fused, wave_mod, table_mod):
@@ -2365,11 +2403,11 @@ def phase_registers(torch, kernels, fused, wave_mod, table_mod):
         for engine in ("fused", "classic", "sharded"):
             if engine != "classic":
                 t_cpu = time.monotonic()
-                cpu = _register_cpu(build, engine, cpu_batch).join()
+                cpu = _cpu_run(build, engine, cpu_batch).join()
                 _log(f"{tag}, {engine}, the CPU's run at batch {cpu_batch}:"
                      f" {time.monotonic() - t_cpu:.1f} s")
             for wave_kernel in (False, True):
-                runs[tag, engine, wave_kernel] = _register_run(
+                runs[tag, engine, wave_kernel] = _card_run(
                     torch, kernels, fused, tag, build, engine, batch, want,
                     found, cpu, wave_kernel)
     t2 = time.monotonic()
@@ -2392,6 +2430,319 @@ def phase_registers(torch, kernels, fused, wave_mod, table_mod):
         _log(f"  {tag:18s} {engine:8s} {path:13s} {r['sec']:8.3f} s  peak "
              f"{r['peak']:>12d} B  waves {r['waves']:4d}  {r['counts']}")
     return holds, runs
+
+
+# -- The corpus's plain models ------------------------------------------------
+
+
+#: the 4x3 puzzle's space: 12! / 2 boards (a board reaches exactly the even
+#: permutations), and its states: each board's successors plus the init.
+#: With an odd column count the tiles' parity does not depend on the
+#: blank's cell, so each of the 12 cells holds the blank on 11! / 2 boards,
+#: with 2 moves from a corner (4 cells), 3 from an edge's middle (6) and 4
+#: from the middle (2): 19,958,400 x 34 + 1
+PUZZLE43 = (239_500_800, 678_585_601)
+#: the same at 3x3: 20,160 x (4 x 2 + 4 x 3 + 4) + 1
+PUZZLE33 = (181_440, 483_841)
+#: paxos at 4 clients (MEASUREMENTS.md): the whole space, and its orbits
+#: under the client symmetry (the states of a symmetric run are the fused
+#: torch-stage run's)
+PAXOS4 = (2_372_188, 4_807_983)
+PAXOS4_SYM_UNIQUE = 1_194_428
+#: the states the kernels' mid-run arenas are taken at (frontiers wider
+#: than a batch)
+PUZZLE_MID, LOCK_MID = 1_000_000, 150_000
+
+
+def _corpus_modules():
+    from stateright_tpu_torch.model import Property
+    from stateright_tpu_torch.models.increment import IncrementModel
+    from stateright_tpu_torch.models.increment_lock import IncrementLockModel
+    from stateright_tpu_torch.models.paxos import PaxosSys
+    from stateright_tpu_torch.models.sliding_puzzle import SlidingPuzzle
+    from stateright_tpu_torch.test_util import LinearEquation, random_graph
+    return dict(Property=Property, IncrementModel=IncrementModel,
+                IncrementLockModel=IncrementLockModel, PaxosSys=PaxosSys,
+                SlidingPuzzle=SlidingPuzzle, LinearEquation=LinearEquation,
+                random_graph=random_graph)
+
+
+def _fuzz_graphs(m, seed):
+    """The differential fuzz's graphs of ``seed``
+    (``tests/test_fuzz_engines.py``), from the same ``random.Random``
+    draws: its discovery graph (an always or sometimes property of one
+    node) and its eventually graph ("odd")."""
+    Property, random_graph = m["Property"], m["random_graph"]
+    rng = random.Random(2000 + seed)
+    target, kind = rng.randrange(12), rng.choice(["always", "sometimes"])
+    if kind == "always":
+        prop = Property.always("p")
+        pred = (lambda rows, t=target: rows[:, 0] != t)
+    else:
+        prop = Property.sometimes("p")
+        pred = (lambda rows, t=target: rows[:, 0] == t)
+    found = random_graph(rng, "p", pred).with_property_of(prop)
+    odd = random_graph(random.Random(3000 + seed), "odd",
+                       lambda rows: rows[:, 0] % 2 == 1).with_property_of(
+        Property.eventually("odd"))
+    return [(f"dgraph {seed} {kind}", found), (f"dgraph {seed} odd", odd)]
+
+
+def _last_rows(c, rows: int):
+    """The last ``rows`` packed rows of checker ``c``'s arena (its queue's,
+    where the queue holds that many)."""
+    if c._tail < rows:
+        raise AssertionError(f"the arena holds {c._tail} rows, not {rows}")
+    return c._vecs[c._tail - rows:c._tail].clone()
+
+
+def phase_corpus_kernels(torch, wave_mod, table_mod, m):
+    """Kernels 2 and 3 on the five plain models' CUDA steps against their
+    plain versions at full width (16,384 rows, then as 4 shards of 4,096
+    and ragged; the scratch clean after each), each against its engine's
+    table and with its engine's scratch: the last rows of a mid-run arena
+    of the 4x3 puzzle; of increment 16's (its run stops at the
+    counterexample) and a mid-run increment_lock 8's, each plain and with
+    symmetry; the first rows of LinearEquation (2, 4, 7)'s; and rows of
+    random node ids of a random graph of the differential fuzz (seed 0's
+    eventually graph)."""
+    out = {}
+
+    def hold(tag, c, store, syms, table=None):
+        dm, layout = c._dm, c._layout
+        valid = torch.ones(store.shape[0], dtype=torch.bool, device="cuda")
+        table = c._table if table is None else table
+        for use_sym in syms:
+            sym = "sym" if use_sym else "plain"
+            out[tag, sym] = _wave_case(
+                torch, wave_mod, table_mod, dm, store, valid, layout, table,
+                use_sym, f"{tag}, {sym}", scratch=c._scratch)
+        out[tag, "sender"] = phase_sender_kernel(
+            torch, wave_mod, table_mod, dm, store, layout, tag, syms=syms)
+
+    mid = (m["SlidingPuzzle"](4, 3).checker().target_state_count(PUZZLE_MID)
+           .spawn_cuda_bfs(device="cuda:0", batch_size=BATCH).join())
+    hold("puzzle 4x3", mid, _last_rows(mid, BATCH), (False,))
+    del mid
+    run = (m["IncrementModel"](16).checker()
+           .spawn_cuda_bfs(device="cuda:0", batch_size=BATCH).join())
+    hold("increment 16", run, _last_rows(run, BATCH), (False, True))
+    del run
+    mid = (m["IncrementLockModel"](8).checker().target_state_count(LOCK_MID)
+           .spawn_cuda_bfs(device="cuda:0", batch_size=BATCH).join())
+    hold("increment_lock 8", mid, _last_rows(mid, BATCH),
+         (False, True))
+    del mid
+    mid = (m["LinearEquation"](2, 4, 7).checker().target_state_count(20_000)
+           .spawn_cuda_bfs(device="cuda:0", batch_size=BATCH).join())
+    hold("linear_equation", mid, mid._vecs[:BATCH].clone(), (False,))
+    del mid
+    graph = _fuzz_graphs(m, 0)[1][1]
+    run = graph.checker().spawn_cuda_bfs(device="cuda:0",
+                                         batch_size=BATCH).join()
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    nodes = torch.randint(0, run._dm.n, (BATCH, 1), generator=gen,
+                          device="cuda")
+    hold("dgraph 0", run, run._layout.pack(nodes).contiguous(), (False,))
+    return out
+
+
+def _corpus_cpu(build, batch, kind):
+    """The CPU runs (the torch stages at ``batch`` rows) that each engine's
+    card runs of ``build()`` are held to, by engine. A run that stops at
+    its first counterexample (``kind`` "early") has counts that depend on
+    the engine and the batch: each engine meets its own CPU run. A full
+    enumeration's counts do not, and neither do the classic engine's
+    discovery chains, which are the fused engine's
+    (``tests/test_torch_corpus.py::test_full_enumerations_agree_across_
+    engines``): with discoveries ("found") the classic engine meets the
+    fused CPU run and the sharded engine its own; without ("full") the
+    runs meet their exact counts alone (held to JAX's on the CPU by
+    ``tests/test_torch_corpus.py``), and no CPU run is made."""
+    if kind == "full":
+        return dict.fromkeys(("fused", "classic", "sharded"))
+    fused = _cpu_run(build, "fused", batch).join()
+    out = {"fused": fused, "classic": fused,
+           "sharded": _cpu_run(build, "sharded", batch).join()}
+    if kind == "early":
+        out["classic"] = _cpu_run(build, "classic", batch).join()
+    return out
+
+
+def phase_corpus_gates(torch, kernels, fused, m):
+    """Each small configuration to its end on the fused, the classic and
+    the sharded engine (4 shards), each on the torch stages and on the
+    kernels, exact against its counts and against a CPU run at the same
+    batch (``_corpus_cpu``: discoveries and their chains too), the
+    kernels' launches exact. Returns the runs' numbers."""
+    LE, Inc = m["LinearEquation"], m["IncrementModel"]
+    Lock, Puzzle = m["IncrementLockModel"], m["SlidingPuzzle"]
+    # (tag, checker, batch, counts, discoveries, the CPU runs' kind)
+    configs = [
+        ("linear_equation 2 4 7", lambda: LE(2, 4, 7).checker(), 1024,
+         (65_536, 131_073), [], "full"),
+        ("linear_equation 2 10 14", lambda: LE(2, 10, 14).checker(), 1024,
+         None, ["solvable"], "early"),
+        ("increment 2", lambda: Inc(2).checker(), 1024, (13, 15), ["fin"],
+         "early"),
+        ("increment 2 sym", lambda: Inc(2).checker().symmetry(), 1024,
+         (8, 10), ["fin"], "early"),
+        ("increment 16", lambda: Inc(16).checker(), 1024, None, ["fin"],
+         "early"),
+        ("increment 16 sym", lambda: Inc(16).checker().symmetry(), 1024,
+         None, ["fin"], "early"),
+        ("increment_lock 2", lambda: Lock(2).checker(), 1024, (17, 17), [],
+         "full"),
+        ("increment_lock 2 sym", lambda: Lock(2).checker().symmetry(), 1024,
+         (9, 10), [], "full"),
+        ("increment_lock 8", lambda: Lock(8).checker(), BATCH,
+         (438_401, 438_401), [], "full"),
+        ("increment_lock 8 sym", lambda: Lock(8).checker().symmetry(),
+         BATCH, (33, 61), [], "full"),
+        ("puzzle 3x3", lambda: Puzzle(3, 3).checker(), BATCH, PUZZLE33,
+         ["solved"], "found")]
+    for seed in range(5):
+        for tag, graph in _fuzz_graphs(m, seed):
+            configs.append((tag, graph.checker, 8, None, None, "early"))
+    runs = {}
+    for tag, build, batch, want, found, kind in configs:
+        t_cpu = time.monotonic()
+        cpu = _corpus_cpu(build, batch, kind)
+        _log(f"{tag}: the CPU's runs at batch {batch}: "
+             f"{time.monotonic() - t_cpu:.1f} s")
+        for engine in ("fused", "classic", "sharded"):
+            want_found = (sorted(cpu[engine].discoveries()) if found is None
+                          else found)
+            for wave_kernel in (False, True):
+                runs[tag, engine, wave_kernel] = _card_run(
+                    torch, kernels, fused, tag, build, engine, batch, want,
+                    want_found, cpu[engine], wave_kernel)
+    return runs
+
+
+def _same_runs(a, b, tag):
+    if a["counts"] != b["counts"] or a["chains"] != b["chains"]:
+        raise AssertionError(f"{tag}: {a['counts']} and chains "
+                             f"{a['chains']}, the reference's {b['counts']} "
+                             f"and {b['chains']}")
+
+
+def _puzzle_memory(words: int) -> str:
+    """The 4x3 puzzle's device memory on the fused engine, reckoned before
+    its run from its ``words`` packed words a row: the arena (packed row,
+    fingerprint, parent, eventually bits) doubles to 2^28 rows while it
+    still holds its 2^27 rows, the visited table to 2^29 slots (half
+    load) while it still holds its 2^28."""
+    row = 4 * words + 8 + 8 + 4
+    unique = PUZZLE43[0]
+    arena = (1 << (unique - 1).bit_length()) * row
+    table = (1 << (2 * unique - 1).bit_length()) * 8
+    return (f"{row} B an arena row; the arena {arena} B at 2^28 rows, "
+            f"{arena * 3 // 2} B while it doubles; the table {table} B, "
+            f"{table * 3 // 2} B while it doubles; peak about "
+            f"{arena * 3 // 2 + table} B of 80 GB")
+
+
+def phase_corpus_full(torch, kernels, fused, m):
+    """The full-width runs: the 4x3 puzzle (239,500,800 boards) on the
+    fused torch stages (the card's reference), the fused wave kernel, the
+    classic wave kernel and the sharded engine (4 shards) on the torch
+    stages and the sender kernel, batch 16,384: equal counts (the closed
+    form's), "solved" chains equal to the fused torch stages' (the sharded
+    engine's to its own torch stages': its order within a wave is not
+    the fused engine's), no "even permutation" counterexample; then
+    ``paxos check 4`` to its end
+    (2,372,188 / 4,807,983; 1,194,428 with symmetry), plain and with
+    symmetry and the liveness property (BASELINE.json's workload), on the
+    same five, held likewise."""
+    Puzzle, Paxos = m["SlidingPuzzle"], m["PaxosSys"]
+    _log("puzzle 4x3, memory reckoned before the runs: "
+         + _puzzle_memory(Puzzle(4, 3).device_model().state_width))
+    # The sharded engine's order within a wave is not the fused engine's
+    # (as in JAX), so its chains meet its own torch-stage run's.
+    paths = (("fused", False), ("fused", True), ("classic", True),
+             ("sharded", False), ("sharded", True))
+    configs = (
+        ("puzzle 4x3", lambda: Puzzle(4, 3).checker(), PUZZLE43,
+         ["solved"]),
+        ("paxos 4", lambda: Paxos(4).checker(), PAXOS4, ["value chosen"]),
+        ("paxos 4 sym liveness",
+         lambda: Paxos(4, liveness=True).checker().symmetry(),
+         (PAXOS4_SYM_UNIQUE, None), ["value chosen"]))
+    runs = {}
+    for tag, build, want, found in configs:
+        for engine, wave_kernel in paths:
+            r = _card_run(torch, kernels, fused, tag, build, engine, BATCH,
+                          want, found, None, wave_kernel)
+            runs[tag, engine, wave_kernel] = r
+        ref, sharded = runs[tag, "fused", False], runs[tag, "sharded", False]
+        for engine, wave_kernel in paths:
+            r = runs[tag, engine, wave_kernel]
+            if r["counts"] != ref["counts"]:
+                raise AssertionError(f"{tag}, {engine}, wave_kernel="
+                                     f"{wave_kernel}: {r['counts']}, the "
+                                     f"reference's {ref['counts']}")
+            _same_runs(r, sharded if engine == "sharded" else ref,
+                       f"{tag}, {engine}, wave_kernel={wave_kernel}")
+        lengths = [{k: len(v[0]) for k, v in r["chains"].items()}
+                   for r in (ref, sharded)]
+        _log(f"{tag}: the runs agree ({ref['counts']}; chains of "
+             f"{lengths[0]} states, sharded {lengths[1]})")
+    return runs
+
+
+def phase_corpus(torch, kernels, fused, wave_mod, table_mod):
+    """The corpus's plain models on the card: kernels 2 and 3 held to
+    their plain versions (``phase_corpus_kernels``), the small
+    configurations against the CPU (``phase_corpus_gates``) and the
+    full-width runs (``phase_corpus_full``)."""
+    m = _corpus_modules()
+    t0 = time.monotonic()
+    holds = phase_corpus_kernels(torch, wave_mod, table_mod, m)
+    t1 = time.monotonic()
+    gates = phase_corpus_gates(torch, kernels, fused, m)
+    t2 = time.monotonic()
+    full = phase_corpus_full(torch, kernels, fused, m)
+    _log(f"corpus phase: kernel holds {t1 - t0:.1f} s, small gates "
+         f"{t2 - t1:.1f} s, full runs {time.monotonic() - t2:.1f} s")
+    for (tag, engine, wave_kernel), r in {**gates, **full}.items():
+        path = "kernels" if wave_kernel else "torch stages"
+        _log(f"  {tag:24s} {engine:8s} {path:13s} {r['sec']:8.3f} s  peak "
+             f"{r['peak']:>12d} B  waves {r['waves']:6d}  {r['counts']}")
+    return holds, gates, full
+
+
+def _corpus_rows(holds, gates, full):
+    """The kernels line's rows of the corpus phase: kernels 2 and 3 on each
+    plain model, each with its launches in the model's largest run on
+    that kernel."""
+    src, pallas = SRC, PALLAS
+    rows = []
+    for tag, source, sym, run, runs in (
+            ("puzzle 4x3", "wave_sliding_puzzle.cu", False, "puzzle 4x3",
+             full),
+            ("increment 16", "wave_increment.cu", False, "increment 16",
+             gates),
+            ("increment 16", "wave_increment.cu", True, "increment 16 sym",
+             gates),
+            ("increment_lock 8", "wave_increment_lock.cu", False,
+             "increment_lock 8", gates),
+            ("increment_lock 8", "wave_increment_lock.cu", True,
+             "increment_lock 8 sym", gates),
+            ("linear_equation", "wave_linear_equation.cu", False,
+             "linear_equation 2 4 7", gates),
+            ("dgraph 0", "wave_dgraph.cu", False, "dgraph 0 odd", gates)):
+        name = tag + (" sym" if sym else "")
+        rows.append(_kernel_row(
+            f"wave_megakernel[{name}]", src + source, pallas + "380",
+            runs[run, "fused", True]["launches"]["wave_megakernel"], 0,
+            holds[tag, "sym" if sym else "plain"]))
+        if not sym:
+            rows.append(_kernel_row(
+                f"sender_megakernel[{name}]", src + source, pallas + "451",
+                runs[run, "sharded", True]["launches"]["sender_megakernel"],
+                0, holds[tag, "sender"][(False, True)]))
+    return rows
 
 
 def _modules():
@@ -2419,14 +2770,18 @@ def _log_ptxas(log: str) -> None:
             fn = re.search(r"\d(tile_front|send_rows|resolve_rows|claim_rows"
                            r"|append_rows)", mangled)
             model = re.search(r"(TwoPhase|PaxosServer|SingleCopyServer"
-                              r"|AbdServer)ILi(\d+)E(?:Li(\d+)E)?", mangled)
+                              r"|AbdServer|IncrementLock|Increment"
+                              r"|SlidingPuzzle)ILi(\d+)E(?:Li(\d+)E)?"
+                              r"|(LinearEquation|DGraph)", mangled)
             tail = re.search(r"(WaveTail|SenderTail)", mangled)
-            if model:
-                name = model.group(1).replace("Server", "")
-                sizes = ", ".join(g for g in model.groups()[1:] if g)
+            if model and model.group(4):
+                name = model.group(4)
+            elif model:
+                name = model.group(1).replace("Server", "") + "<" + ", ".join(
+                    g for g in model.groups()[1:3] if g) + ">"
             kernel = ((fn.group(1) if fn else mangled)
-                      + (f"<{name}<{sizes}>, {tail.group(1)}>"
-                         if model and tail else ""))
+                      + (f"<{name}, {tail.group(1)}>" if model and tail
+                         else ""))
         elif "stack frame" in line:
             frame = line.strip()
         elif "Used" in line and kernel:
@@ -2441,17 +2796,17 @@ def phase_build(_build, table_mod, wave_mod, append_mod) -> None:
         return name, time.monotonic() - t0
 
     # One nvcc a source, all started together.
-    jobs = [("table", table_mod._lib),
-            ("wave_twopc", lambda: (wave_mod._entry("twopc", 1),
-                                    wave_mod._sender_entry("twopc", 1))),
-            ("wave_paxos", lambda: (wave_mod._entry("paxos", 2),
-                                    wave_mod._sender_entry("paxos", 2))),
-            ("wave_single_copy", lambda: (
-                wave_mod._entry("single_copy", 3),
-                wave_mod._sender_entry("single_copy", 3))),
-            ("wave_abd", lambda: (wave_mod._entry("abd", 3),
-                                  wave_mod._sender_entry("abd", 3))),
-            ("append", append_mod._lib)]
+    def entries(name, kinds):
+        # Each model's params' C types (wave._kinds).
+        return lambda: (wave_mod._entry(name, kinds),
+                        wave_mod._sender_entry(name, kinds))
+
+    jobs = [("table", table_mod._lib)] + [
+        ("wave_" + name, entries(name, kinds)) for name, kinds in (
+            ("twopc", "i"), ("paxos", "ii"), ("single_copy", "iii"),
+            ("abd", "iii"), ("linear_equation", ""), ("dgraph", "p"),
+            ("increment", "i"), ("increment_lock", "i"),
+            ("sliding_puzzle", "ii"))] + [("append", append_mod._lib)]
     with ThreadPoolExecutor(len(jobs)) as pool:
         builds = [pool.submit(build, name, load) for name, load in jobs]
         for fut in builds:
@@ -2677,14 +3032,14 @@ def _register_rows(holds, runs):
                     holds["abd 2", "sender"][(False, True)])]
 
 
-def _registers_in_child(card: str):
-    """Phase 9 in a process of its own (``--phases registers``), whose
-    log it passes on and whose kernels line's rows it returns. After
-    phases 2 to 8 in one process, about half of the profiles the register
-    phase takes there recorded no device time on the card; a fresh
-    process records them all."""
+def _in_child(card: str, phase: str):
+    """Phase ``phase`` (9 or 10) in a process of its own (``--phases
+    <phase>``), whose log it passes on and whose kernels line's rows it
+    returns. After phases 2 to 8 in one process, about half of the
+    profiles the register phase took there recorded no device time on the
+    card; a fresh process records them all."""
     child = subprocess.run(
-        [sys.executable, os.path.abspath(__file__), "--phases", "registers"],
+        [sys.executable, os.path.abspath(__file__), "--phases", phase],
         capture_output=True, text=True, timeout=900)
     rows = None
     for line in child.stdout.splitlines():
@@ -2694,13 +3049,14 @@ def _registers_in_child(card: str):
             _log(line)
     sys.stderr.write(child.stderr)
     if child.returncode != 0 or rows is None:
-        raise AssertionError(f"the register phase's process failed (rc "
+        raise AssertionError(f"the {phase} phase's process failed (rc "
                              f"{child.returncode})")
     return rows
 
 
 #: the phases ``--phases`` can name, in the order they run
-PHASES = ("kernels", "small", "full", "checkpoint", "classic", "registers")
+PHASES = ("kernels", "small", "full", "checkpoint", "classic", "registers",
+          "corpus")
 
 
 def _parse(argv):
@@ -2766,11 +3122,18 @@ def main(argv) -> int:
     if set(PHASES[:5]) <= phases:
         rows += _earlier_rows(**{key: old[key] for key in (
             "k", "w", "pw", "sk", "psk", "ap", "full", "ck", "cl")})
+    # Phase 9 or 10 runs here when it is the only one asked for, else each
+    # in a process of its own.
     if phases == {"registers"}:
         rows += _register_rows(*phase_registers(torch, kernels, fused,
                                                 wave_mod, table_mod))
     elif "registers" in phases:
-        rows += _registers_in_child(card)
+        rows += _in_child(card, "registers")
+    if phases == {"corpus"}:
+        rows += _corpus_rows(*phase_corpus(torch, kernels, fused, wave_mod,
+                                           table_mod))
+    elif "corpus" in phases:
+        rows += _in_child(card, "corpus")
     print(json.dumps({"kernels": rows}))
     _log(f"chip_smoke ran {time.monotonic() - t_start:.1f} s")
     print(card)

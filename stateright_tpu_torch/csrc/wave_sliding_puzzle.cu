@@ -1,0 +1,86 @@
+// The single-kernel wave and the sender kernel (wave.cuh) for the sliding
+// puzzle (models/sliding_puzzle.cuh), behind a plain C interface:
+// wave_twopc.cu's, with the board's rows and columns for its model
+// params.
+//
+// Instantiates both kernels on the 2x3, 3x3 and 4x3 boards (the ones
+// chip_smoke.py runs; PuzzleDevice.CUDA_INSTANCES lists them); another
+// board returns cudaErrorInvalidValue, and PuzzleDevice.cuda_model()
+// refuses it first. Every lane is a cell, so the row is kR * kC registers,
+// and every lane index is a constant: the blank's cell picks its
+// neighbours (models/sliding_puzzle.cuh says why). See wave.cuh for what
+// the kernels compute, what bounds them and how they are held to their
+// plain versions.
+//
+// Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 --split-compile=0
+//        -shared -Xcompiler -fPIC (stateright_tpu_torch/_build.py); the
+// wrapper and the plain version are in stateright_tpu_torch/wave.py.
+
+#include <cstdint>
+#include <cuda_runtime.h>
+
+#include "models/sliding_puzzle.cuh"
+#include "wave.cuh"
+
+namespace {
+
+// Calls fn with the model instance for a rows x cols board, or returns
+// cudaErrorInvalidValue when no instantiation holds it.
+template <class Fn>
+int with_puzzle(int rows, int cols, Fn&& fn) {
+  if (rows == 2 && cols == 3) return fn(sr::SlidingPuzzle<2, 3>{});
+  if (rows == 3 && cols == 3) return fn(sr::SlidingPuzzle<3, 3>{});
+  if (rows == 4 && cols == 3) return fn(sr::SlidingPuzzle<4, 3>{});
+  return (int)cudaErrorInvalidValue;
+}
+
+}  // namespace
+
+// rows x cols: the board;
+// lanes host int32[5 * w] (each lane's packed word, bit offset, bits,
+// sentinel flag and sentinel value); vecs int32[batch, wp] (packed rows as
+// uint32 bit patterns) and valid bool[batch]; table int64[2^c_bits]
+// (uint64 bit patterns, updated in place); outputs for S = batch * fanout
+// slots: succ_store int32[S, wp], path_fps int64[S], sflat, new_mask,
+// cand_mask bool[S], counts int32[3]: new, candidates, unresolved; the
+// caller's clean scratch, handed back clean: slots int64[2^m_bits, 2]
+// (sr::Slot records), tally int32[3] and slot_of int32[S], with 2^m_bits
+// >= 2S. `device` is the current device. Launches on `stream` and does not
+// synchronise. Returns a CUDA error code, 0 on success.
+extern "C" int sr_wave_sliding_puzzle(
+    int rows, int cols, int use_sym, const int* lanes, int w, int wp,
+    const void* vecs, const void* valid, long long batch, int fanout,
+    void* table, int c_bits, void* succ_store, void* path_fps, void* sflat,
+    void* slots, void* tally, void* slot_of, int m_bits, void* new_mask,
+    void* cand_mask, void* counts, int device, void* stream) {
+  const sr::WaveArgs a = sr::wave_args(
+      use_sym, lanes, w, wp, vecs, valid, batch, fanout, table, c_bits,
+      succ_store, path_fps, sflat, slots, tally, slot_of, m_bits, new_mask,
+      cand_mask, counts, device, stream);
+  return with_puzzle(rows, cols,
+      [&](const auto& m) { return sr::launch_wave(m, a); });
+}
+
+// rows x cols: the board;
+// lanes as above; vecs int32[shards, batch, wp] and valid bool[shards,
+// batch] (each shard's batch); outputs for S = batch * fanout slots a
+// shard: succ_store int32[shards, S, wp], dedup_fps and path_fps
+// int64[shards, S], sflat and send_mask bool[shards, S]; the caller's
+// clean scratch, handed back clean and read only when local_dedup: slots
+// int64[2^m_bits, 2] (sr::Slot records) with shards << region_bits slots
+// at least and 2^region_bits >= 2S, and slot_of int32[shards, S].
+// `device` is the current device. Launches on `stream` and does not
+// synchronise. Returns a CUDA error code, 0 on success.
+extern "C" int sr_sender_sliding_puzzle(
+    int rows, int cols, int use_sym, int local_dedup, const int* lanes, int w,
+    int wp, const void* vecs, const void* valid, long long batch,
+    long long shards, int fanout, void* succ_store, void* dedup_fps,
+    void* path_fps, void* sflat, void* send_mask, void* slots,
+    void* slot_of, int region_bits, int device, void* stream) {
+  const sr::SenderArgs a = sr::sender_args(
+      use_sym, local_dedup, lanes, w, wp, vecs, valid, batch, shards, fanout,
+      succ_store, dedup_fps, path_fps, sflat, send_mask, slots, slot_of,
+      region_bits, device, stream);
+  return with_puzzle(rows, cols,
+      [&](const auto& m) { return sr::launch_sender(m, a); });
+}

@@ -29,12 +29,23 @@ from typing import Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-__all__ = ["DeviceModel", "DeviceFormUnavailable"]
+__all__ = ["DeviceModel", "DeviceFormUnavailable", "cuda_instance"]
 
 
 class DeviceFormUnavailable(NotImplementedError):
     """The model's configuration lies outside what its device encoding
     can express (the port has no host engine to fall back to)."""
+
+
+def cuda_instance(name: str, key, instances, what: str) -> None:
+    """Raises ``NotImplementedError`` unless ``csrc/wave_<name>.cu``
+    instantiates its kernels at ``key``, one of ``instances`` (``what``
+    names ``key`` in the message): a model's ``cuda_model()`` refuses a
+    size before any launch."""
+    if key not in instances:
+        raise NotImplementedError(
+            f"csrc/wave_{name}.cu has no instance at {what} (it holds "
+            f"{list(instances)}): run it with wave_kernel=False on the card")
 
 
 class DeviceModel:
@@ -106,8 +117,10 @@ class DeviceModel:
         ``(name, params)``, where ``csrc/models/<name>.cuh`` holds the
         device step and representative, ``csrc/wave_<name>.cu`` the C
         entry point, and ``params`` the runtime ints that entry point
-        takes first. The device code computes exactly this class's
-        ``step`` (its ``boundary`` folded into the enabled bit) and
+        takes first (a numpy array among them goes as a host int32
+        pointer: a per-instance table, which the entry point copies into
+        the kernel's parameters). The device code computes exactly this
+        class's ``step`` (its ``boundary`` folded into the enabled bit) and
         ``representative``; a subclass that overrides one of them, or a
         hook they are built from (``wave._DEVICE_HOOKS``: an actor
         model's delivery, a register workload's client and symmetry),

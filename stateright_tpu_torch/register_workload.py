@@ -49,6 +49,7 @@ from .actor import (NO_VALUE, ActorModelState, Envelope, Get, GetOk, Id,
                     Read, ReadOk, Register, RegisterClientState,
                     RegisterServerState, Write, WriteOk)
 from .actor_device import EMPTY_ENV, M32, ActorDeviceModel
+from . import device_model
 from .device_model import DeviceFormUnavailable
 
 __all__ = ["RegisterWorkloadDevice", "register_init_state", "perm_tables",
@@ -63,11 +64,9 @@ def cuda_instance(name: str, client_count: int, server_count: int,
     """Raises ``NotImplementedError`` unless ``csrc/wave_<name>.cu``
     instantiates its kernels at ``(client_count, server_count)``, one of
     ``instances``."""
-    if (client_count, server_count) not in instances:
-        raise NotImplementedError(
-            f"csrc/wave_{name}.cu has no instance at {client_count} clients"
-            f" / {server_count} servers (it holds (clients, servers) "
-            f"{list(instances)}): run it with wave_kernel=False on the card")
+    device_model.cuda_instance(
+        name, (client_count, server_count), instances,
+        f"{client_count} clients / {server_count} servers")
 
 
 def register_init_state(server_states, client_count: int) -> ActorModelState:

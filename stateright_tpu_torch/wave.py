@@ -101,8 +101,21 @@ def cuda_model(dm, layout):
                       [lane.mask if lane.sentinel is None else lane.sentinel
                        for lane in layout.lanes]], np.int64)
     name, params = spec
-    return (name, tuple(int(p) for p in params),
+    params = tuple(np.ascontiguousarray(p, np.int32)
+                   if isinstance(p, np.ndarray) else int(p) for p in params)
+    return (name, params,
             lanes.reshape(-1).astype(np.uint32).view(np.int32))
+
+
+def _kinds(params) -> str:
+    """The C types of a model's params as the entry points take them: 'i'
+    an int, 'p' a host int32 array passed by pointer (read during the
+    call, which copies it into the kernel's parameters)."""
+    return "".join("p" if isinstance(p, np.ndarray) else "i" for p in params)
+
+
+def _c_params(params) -> list:
+    return [p.ctypes.data if isinstance(p, np.ndarray) else p for p in params]
 
 
 def _device_index(dev: torch.device) -> int:
@@ -112,11 +125,14 @@ def _device_index(dev: torch.device) -> int:
 
 
 @functools.lru_cache(maxsize=None)
-def _entry(name: str, n_params: int):
+def _entry(name: str, kinds: str):
+    """``csrc/wave_<name>.cu``'s wave entry point, its model params of the
+    C types ``kinds`` (``_kinds``)."""
     fn = getattr(build_and_load("wave_" + name), "sr_wave_" + name)
     fn.restype = ctypes.c_int
     i, p = ctypes.c_int, ctypes.c_void_p
-    fn.argtypes = ([i] * n_params + [i, p, i, i, p, p, ctypes.c_longlong, i,
+    fn.argtypes = ([{"i": i, "p": p}[k] for k in kinds]
+                   + [i, p, i, i, p, p, ctypes.c_longlong, i,
                                       p, i, p, p, p, p, p, p, i, p, p, p, i,
                                       p])
     return fn
@@ -161,13 +177,14 @@ def wave_megakernel(dm, store: torch.Tensor, valid: torch.Tensor,
     new_mask = torch.empty(S, dtype=torch.bool, device=dev)
     cand_mask = torch.empty(S, dtype=torch.bool, device=dev)
     counts = torch.empty(3, dtype=torch.int32, device=dev)
-    fn = _entry(name, len(params))
+    fn = _entry(name, _kinds(params))
     # The launch goes to the current device's context, which in the
     # checker's worker thread is not necessarily the tensors' device.
     with torch.cuda.device(dev):
-        rc = fn(*params, int(use_sym), lanes.ctypes.data, layout.width, wp,
-                store.data_ptr(), valid.data_ptr(), B, F, table.data_ptr(),
-                capacity.bit_length() - 1, succ_store.data_ptr(),
+        rc = fn(*_c_params(params), int(use_sym), lanes.ctypes.data,
+                layout.width, wp, store.data_ptr(), valid.data_ptr(), B, F,
+                table.data_ptr(), capacity.bit_length() - 1,
+                succ_store.data_ptr(),
                 path_fps.data_ptr(), sflat.data_ptr(), *scratch.args(),
                 new_mask.data_ptr(), cand_mask.data_ptr(), counts.data_ptr(),
                 _device_index(dev),
@@ -209,12 +226,14 @@ def sender_megakernel_plain(dm, store: torch.Tensor, valid: torch.Tensor,
 
 
 @functools.lru_cache(maxsize=None)
-def _sender_entry(name: str, n_params: int):
+def _sender_entry(name: str, kinds: str):
+    """Likewise, its sender entry point."""
     fn = getattr(build_and_load("wave_" + name), "sr_sender_" + name)
     fn.restype = ctypes.c_int
     i, p, ll = ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong
-    fn.argtypes = ([i] * n_params + [i, i, p, i, i, p, p, ll, ll, i, p, p,
-                                      p, p, p, p, p, i, i, p])
+    fn.argtypes = ([{"i": i, "p": p}[k] for k in kinds]
+                   + [i, i, p, i, i, p, p, ll, ll, i, p, p, p, p, p, p, p, i,
+                      i, p])
     return fn
 
 
@@ -263,12 +282,13 @@ def sender_megakernel(dm, store: torch.Tensor, valid: torch.Tensor,
         scratch = DedupScratch.for_call(scratch, n * S, dev, shards=n)
         slots, slot_of = scratch.slots.data_ptr(), scratch.slot_of.data_ptr()
         region_bits = scratch_bits(n * S, n)[1]
-    fn = _sender_entry(name, len(params))
+    fn = _sender_entry(name, _kinds(params))
     with torch.cuda.device(dev):
-        rc = fn(*params, int(use_sym), int(local_dedup), lanes.ctypes.data,
-                layout.width, wp, store.data_ptr(), valid.data_ptr(), B, n,
-                F, succ_store.data_ptr(), dedup_fps.data_ptr(),
-                path_fps.data_ptr(), sflat.data_ptr(), send_mask.data_ptr(),
+        rc = fn(*_c_params(params), int(use_sym), int(local_dedup),
+                lanes.ctypes.data, layout.width, wp, store.data_ptr(),
+                valid.data_ptr(), B, n, F, succ_store.data_ptr(),
+                dedup_fps.data_ptr(), path_fps.data_ptr(), sflat.data_ptr(),
+                send_mask.data_ptr(),
                 slots, slot_of, region_bits, _device_index(dev),
                 torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:

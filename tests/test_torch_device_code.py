@@ -34,6 +34,7 @@ The tile loop's shared memory, barriers and stores run only on the card
 """
 
 import ctypes
+import random
 import shutil
 import subprocess
 
@@ -41,13 +42,15 @@ import numpy as np
 import pytest
 import torch
 
-from stateright_tpu_torch import append, carry, table, wave
+from stateright_tpu_torch import append, carry, table, test_util, wave
 from stateright_tpu_torch.engine import (compaction_order, expand_frontier,
                                          fingerprint_successors,
                                          host_table_insert)
 from stateright_tpu_torch.actor_device import EMPTY_ENV
 from stateright_tpu_torch.hashing import SENTINEL_U64
-from stateright_tpu_torch.models import abd, paxos, single_copy, twopc
+from stateright_tpu_torch.models import (abd, increment, increment_lock,
+                                         paxos, single_copy, sliding_puzzle,
+                                         twopc)
 from stateright_tpu_torch.packing import compile_layout
 
 torch.set_num_threads(2)
@@ -102,8 +105,13 @@ HARNESS = r"""
 #include "append.cuh"
 #include "wave.cuh"
 #include "models/abd.cuh"
+#include "models/dgraph.cuh"
+#include "models/increment.cuh"
+#include "models/increment_lock.cuh"
+#include "models/linear_equation.cuh"
 #include "models/paxos.cuh"
 #include "models/single_copy.cuh"
+#include "models/sliding_puzzle.cuh"
 #include "models/twopc.cuh"
 
 long long g_table_reads = 0;
@@ -122,13 +130,38 @@ long long with_register(int e, Fn&& fn) {
   return fn(M<kC, kS>{e});
 }
 
+// The graph that model 5 runs (set_dgraph).
+sr::DGraph g_dgraph;
+
 // Calls fn with a model instance: model 0 is 2pc at p0 RMs, model 1 paxos
 // at p0 clients and p1 network slots, model 2 single-copy and model 3 ABD
-// at p0 clients, p2 servers and p1 network slots. -1 for a model it does
-// not hold.
+// at p0 clients, p2 servers and p1 network slots, model 4 LinearEquation,
+// model 5 the DGraph of the last set_dgraph, model 6 increment and model 7
+// increment_lock at p0 threads, model 8 the p0 x p1 sliding puzzle (each
+// at the sizes its entry point instantiates). -1 for a model it does not
+// hold.
 template <class Fn>
 long long with_model(int model, int p0, int p1, int p2, Fn&& fn) {
   if (model == 0) return fn(sr::TwoPhase<8>{p0});
+  if (model == 4) return fn(sr::LinearEquation{});
+  if (model == 5) return fn(g_dgraph);
+  if (model == 6) {
+    if (p0 == 2) return fn(sr::Increment<2>{});
+    if (p0 == 4) return fn(sr::Increment<4>{});
+    if (p0 == 8) return fn(sr::Increment<8>{});
+    if (p0 == 16) return fn(sr::Increment<16>{});
+  }
+  if (model == 7) {
+    if (p0 == 2) return fn(sr::IncrementLock<2>{});
+    if (p0 == 4) return fn(sr::IncrementLock<4>{});
+    if (p0 == 8) return fn(sr::IncrementLock<8>{});
+  }
+  if (model == 8) {
+    const int k = p0 * 10 + p1;
+    if (k == 23) return fn(sr::SlidingPuzzle<2, 3>{});
+    if (k == 33) return fn(sr::SlidingPuzzle<3, 3>{});
+    if (k == 43) return fn(sr::SlidingPuzzle<4, 3>{});
+  }
   if (model == 1 && p1 >= 1) {
     switch (p0) {
       case 1:
@@ -269,6 +302,12 @@ long long sender_t(const M& m, int use_sym, int local_dedup, const int* lanes,
 }
 
 }  // namespace
+
+// Loads model 5's graph from a DGraph entry point's host table; 0 on
+// success, -1 when it does not fit.
+extern "C" long long set_dgraph(const int* table) {
+  return g_dgraph.load(table) ? 0 : -1;
+}
 
 extern "C" long long dedup_phases(const u64* fps, long long n, u64* table,
                                   int c_bits, sr::Slot* slots, int* tally,
@@ -562,11 +601,44 @@ _MODELS = {"twopc": (0, twopc.TwoPhaseSys, twopc.TwoPhaseDevice, 3, 1 << 20),
            "single_copy": (2, single_copy.SingleCopySys,
                            lambda c: single_copy.SingleCopyDevice(c, 1), 4,
                            1 << 32),
-           "abd": (3, abd.AbdSys, abd.AbdDevice, 6, 1 << 32)}
+           "abd": (3, abd.AbdSys, abd.AbdDevice, 6, 1 << 32),
+           "linear_equation": (4, lambda abc: test_util.LinearEquation(*abc),
+                               lambda abc: test_util.LinearEquation(
+                                   *abc).device_model(), 12, 1 << 32),
+           "dgraph": (5, lambda seed: _graph(seed),
+                      lambda seed: _graph(seed).device_model(), 0, 12),
+           "increment": (6, increment.IncrementModel,
+                         increment.IncrementDevice, 3, 1 << 32),
+           "increment_lock": (7, increment_lock.IncrementLockModel,
+                              increment_lock.IncrementLockDevice, 6,
+                              1 << 32),
+           "puzzle": (8, lambda rc: sliding_puzzle.SlidingPuzzle(*rc),
+                      lambda rc: sliding_puzzle.PuzzleDevice(*rc), 8,
+                      1 << 32)}
 
 
-def _params(dm):
-    """The harness's ``(model, p0, p1, p2)`` of device model ``dm``."""
+def _graph(seed):
+    """A random graph of the differential fuzz, with a placeholder
+    property."""
+    return test_util.random_graph(random.Random(seed), "p",
+                                  lambda rows: rows[:, 0] < 0)
+
+
+def _params(lib, dm):
+    """The harness's ``(model, p0, p1, p2)`` of device model ``dm`` (a
+    DGraph's table loaded into the harness first)."""
+    if isinstance(dm, test_util.DGraphDevice):
+        _, (graph,) = dm.cuda_model()
+        assert _call(lib, "set_dgraph", ctypes.c_void_p(_ptr(graph))) == 0
+        return 5, 0, 0, 0
+    if isinstance(dm, test_util.LinearEquationDevice):
+        return 4, 0, 0, 0
+    if isinstance(dm, increment.IncrementDevice):
+        return 6, dm.thread_count, 0, 0
+    if isinstance(dm, increment_lock.IncrementLockDevice):
+        return 7, dm.thread_count, 0, 0
+    if isinstance(dm, sliding_puzzle.PuzzleDevice):
+        return 8, dm.rows, dm.cols, 0
     if isinstance(dm, paxos.PaxosDevice):
         return 1, dm.C, dm.net_slots, 0
     if isinstance(dm, single_copy.SingleCopyDevice):
@@ -574,6 +646,11 @@ def _params(dm):
     if isinstance(dm, abd.AbdDevice):
         return 3, dm.C, dm.net_slots, dm.S
     return 0, dm.rm_count, 0, 0
+
+
+def _seed(size):
+    """A seed from a model's size (an int, or a tuple of them)."""
+    return size if isinstance(size, int) else sum(size)
 
 
 def _frontier(model, size, sym, B, rng):
@@ -614,12 +691,21 @@ _REGISTER_CASES = [pytest.param(m, c, sym, id=f"{m}{c}-{sym}")
                    for m, c, sym in (("single_copy", 3, False),
                                      ("single_copy", 4, True),
                                      ("abd", 2, False))]
+#: the plain device models: the fixtures, the shared counters (threads)
+#: and the puzzle (its board)
+_PLAIN_CASES = [pytest.param(m, size, sym, id=f"{m}{size}-{sym}")
+                for m, size, sym in (
+                    ("linear_equation", (2, 4, 7), False),
+                    ("dgraph", 1000, False), ("dgraph", 1003, False),
+                    ("increment", 4, False), ("increment", 8, True),
+                    ("increment_lock", 4, True), ("increment_lock", 8, False),
+                    ("puzzle", (2, 3), False), ("puzzle", (4, 3), False))]
 
 
 @pytest.mark.parametrize("model, size, sym", _CASES + _PAXOS_CASES
-                         + _REGISTER_CASES)
+                         + _REGISTER_CASES + _PLAIN_CASES)
 def test_wave_phases_match_the_plain_version(lib, model, size, sym):
-    rng = np.random.default_rng(size)
+    rng = np.random.default_rng(_seed(size))
     B = 48
     dm, layout, packed, valid, host = _frontier(model, size, sym, B, rng)
     F, wp = dm.max_fanout, layout.packed_width
@@ -629,7 +715,7 @@ def test_wave_phases_match_the_plain_version(lib, model, size, sym):
         dm, carry.words_in(packed), torch.from_numpy(valid),
         t_p := carry.u64_in(host), sym, layout)
     outs = []
-    for name, (o1, o2) in _orders(S, size).items():
+    for name, (o1, o2) in _orders(S, _seed(size)).items():
         t = host.copy()
         s = _Scratch(S)
         succ = np.zeros((S, wp), np.uint32)
@@ -639,7 +725,7 @@ def test_wave_phases_match_the_plain_version(lib, model, size, sym):
         fn = lib.wave_phases
         fn.restype = ctypes.c_longlong
         p = ctypes.c_void_p
-        reads = fn(*[ctypes.c_int(a) for a in _params(dm)],
+        reads = fn(*[ctypes.c_int(a) for a in _params(lib, dm)],
                    ctypes.c_int(int(sym)), p(_ptr(lanes)),
                    ctypes.c_int(layout.width), ctypes.c_int(wp),
                    p(_ptr(packed)), p(_ptr(valid)),
@@ -691,14 +777,14 @@ def _sender_rows(model, size, sym, n, rng):
 @pytest.mark.parametrize("model, size, sym", _CASES + [
     c for c in _PAXOS_CASES + _REGISTER_CASES
     if c.id in ("paxos1-False", "paxos2-False", "paxos4-True",
-                "single_copy4-True", "abd2-False")])
+                "single_copy4-True", "abd2-False")] + _PLAIN_CASES)
 def test_sender_phases_match_the_plain_version(lib, model, size, sym,
                                                local_dedup, n):
     """The sender kernel's per-slot work and pass 2 against
     ``sender_megakernel_plain``, bit for bit, in three arrival orders, in
     the engine's scratch for ``n`` shards (n = 3: regions in a scratch
     sized for a shard count that is not a power of two)."""
-    rng = np.random.default_rng(10 * size + n)
+    rng = np.random.default_rng(10 * _seed(size) + n)
     dm, layout, packed, valid = _sender_rows(model, size, sym, n, rng)
     B, F, wp = valid.shape[1], dm.max_fanout, layout.packed_width
     S = B * F
@@ -715,7 +801,7 @@ def test_sender_phases_match_the_plain_version(lib, model, size, sym,
     else:
         assert np.array_equal(want[4], want[3])
     outs = []
-    for name, (o1, o2) in _orders(n * S, size).items():
+    for name, (o1, o2) in _orders(n * S, _seed(size)).items():
         s = _Scratch(n * S, n)
         succ = np.zeros((n, S, wp), np.uint32)
         dfps, pfps = np.zeros((n, S), np.uint64), np.zeros((n, S), np.uint64)
@@ -723,7 +809,7 @@ def test_sender_phases_match_the_plain_version(lib, model, size, sym,
         fn = lib.sender_phases
         fn.restype = ctypes.c_longlong
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        rc = fn(*[i(a) for a in _params(dm)], i(int(sym)),
+        rc = fn(*[i(a) for a in _params(lib, dm)], i(int(sym)),
                 i(int(local_dedup)), p(_ptr(lanes)),
                 i(layout.width), i(wp), p(_ptr(packed)), p(_ptr(valid)),
                 ll(B), ll(n), i(F), p(_ptr(s.slots)), i(s.region_bits),
@@ -755,7 +841,7 @@ def _device_step(lib, dm, rows):
     n, w = rows.shape
     succ = np.zeros((n, dm.max_fanout, w), np.uint32)
     enabled = np.zeros((n, dm.max_fanout), np.bool_)
-    rc = _call(lib, "model_step", *[ctypes.c_int(a) for a in _params(dm)],
+    rc = _call(lib, "model_step", *[ctypes.c_int(a) for a in _params(lib, dm)],
                ctypes.c_void_p(_ptr(rows)), ctypes.c_longlong(n),
                ctypes.c_int(w), ctypes.c_void_p(_ptr(succ)),
                ctypes.c_void_p(_ptr(enabled)))
@@ -767,7 +853,7 @@ def _device_representative(lib, dm, rows):
     rows = np.ascontiguousarray(rows, np.uint32)
     out = np.zeros_like(rows)
     rc = _call(lib, "model_representative",
-               *[ctypes.c_int(a) for a in _params(dm)],
+               *[ctypes.c_int(a) for a in _params(lib, dm)],
                ctypes.c_void_p(_ptr(rows)), ctypes.c_longlong(len(rows)),
                ctypes.c_int(rows.shape[1]), ctypes.c_void_p(_ptr(out)))
     assert rc == 0
@@ -883,7 +969,7 @@ def test_sentinel_packing_matches_packing_py(lib, c):
     rows[rng.random((n, w)) < 0.1] = EMPTY_ENV
     def codec(pack, src, out):
         assert _call(lib, "layout_codec",
-                     *[ctypes.c_int(a) for a in _params(dm)],
+                     *[ctypes.c_int(a) for a in _params(lib, dm)],
                      ctypes.c_int(pack), ctypes.c_void_p(_ptr(lanes)),
                      ctypes.c_int(w), ctypes.c_int(wp),
                      ctypes.c_void_p(_ptr(src)), ctypes.c_longlong(n),
@@ -990,6 +1076,120 @@ def test_register_representative_matches_the_port(lib, register_rows, key):
     want = dm.representative(carry.rows_in(rows))
     assert np.array_equal(got, carry.rows_out(want))
     assert (got != rows).any() == (key[2] == 1 and key[1] > 1)
+
+
+# -- The plain device models' steps and representatives ----------------------
+
+
+#: every instantiated size of the plain device models (two random graphs
+#: of the differential fuzz), with the system that gives its init states
+_PLAIN_MODELS = (
+    [(test_util.LinearEquation(2, 4, 7), "linear_equation"),
+     (_graph(1000), "dgraph 1000"), (_graph(1003), "dgraph 1003")]
+    + [(increment.IncrementModel(t), f"increment {t}")
+       for t in increment.IncrementDevice.CUDA_INSTANCES]
+    + [(increment_lock.IncrementLockModel(t), f"increment_lock {t}")
+       for t in increment_lock.IncrementLockDevice.CUDA_INSTANCES]
+    + [(sliding_puzzle.SlidingPuzzle(r, c), f"puzzle {r}x{c}")
+       for r, c in sliding_puzzle.PuzzleDevice.CUDA_INSTANCES])
+
+
+def _plain_rows(model, rng, levels=12, cap=64, n_adv=400):
+    """Rows the port's step reaches level by level from ``model``'s init
+    (a seeded sample of at most ``cap`` a level), then seeded adversarial
+    rows: lanes of every size, most of them small (pcs, cells and node ids
+    on both sides of their ranges), some at the top of the uint32 range
+    (so that the increments wrap)."""
+    dm = model.device_model()
+    rows = np.stack([dm.encode(s) for s in model.init_states()])
+    seen, out = {r.tobytes() for r in rows}, [rows]
+    for _ in range(levels):
+        succ, valid = dm.step(carry.rows_in(rows))
+        nxt = []
+        for r in carry.rows_out(succ)[valid.numpy()]:
+            if r.tobytes() not in seen:
+                seen.add(r.tobytes())
+                nxt.append(r)
+        if not nxt:
+            break
+        rows = np.stack(nxt)
+        if len(rows) > cap:
+            rows = rows[np.sort(rng.choice(len(rows), cap, replace=False))]
+        out.append(rows)
+    w = dm.state_width
+    adv = rng.integers(0, 1 << 32, (n_adv, w), dtype=np.uint64)
+    small = rng.random((n_adv, w)) < 0.7
+    adv[small] = rng.integers(0, 14, small.sum())
+    top = rng.random((n_adv, w)) < 0.05
+    adv[top] = 0xFFFFFFFF - rng.integers(0, 3, top.sum())
+    return np.concatenate(out + [adv.astype(np.uint32)])
+
+
+@pytest.mark.parametrize("model, tag", _PLAIN_MODELS,
+                         ids=[tag for _, tag in _PLAIN_MODELS])
+def test_plain_model_step_matches_the_port(lib, model, tag):
+    """Each model's ``.cuh`` step on every slot of reachable and
+    adversarial rows, at every size its entry point instantiates: the
+    successor's lanes and the enabled bit, bit for bit, against the port's
+    torch step."""
+    dm = model.device_model()
+    rows = _plain_rows(model, np.random.default_rng(len(tag)))
+    enabled = _assert_step_equal(lib, dm, rows)
+    assert enabled.any()
+    assert enabled.all() == (tag == "linear_equation")
+
+
+@pytest.mark.parametrize("model, tag", _PLAIN_MODELS,
+                         ids=[tag for _, tag in _PLAIN_MODELS])
+def test_plain_model_representative_matches_the_port(lib, model, tag):
+    """The shared counters' thread sort (``thread_sort.cuh``: stable, on
+    uint32 keys) against the port's, on reachable and adversarial rows
+    (pcs past the key's span and keys that wrap: equal keys of unequal
+    pairs); the models without symmetry leave a row as it is."""
+    dm = model.device_model()
+    rows = _plain_rows(model, np.random.default_rng(7 + len(tag)))
+    got = _device_representative(lib, dm, rows)
+    want = dm.representative(carry.rows_in(rows))
+    if want is None:
+        assert np.array_equal(got, rows)
+    else:
+        assert np.array_equal(got, carry.rows_out(want))
+        assert (got != rows).any()
+
+
+@pytest.mark.parametrize("model, tag", [m for m in _PLAIN_MODELS
+                                        if "increment" in m[1]],
+                         ids=[tag for _, tag in _PLAIN_MODELS
+                              if "increment" in tag])
+def test_plain_model_packing_matches_packing_py(lib, model, tag):
+    """``packing.cuh``'s pack and unpack on the shared counters' packed
+    layouts (their ``lane_bits``) against ``packing.py``: lanes past their
+    widths truncated alike, every word pattern unpacked alike."""
+    dm = model.device_model()
+    layout = compile_layout(dm.lane_bits(), dm.state_width)
+    w, wp = layout.width, layout.packed_width
+    _, _, lanes = wave.cuda_model(dm, layout)
+    rng = np.random.default_rng(len(tag))
+    rows = _plain_rows(model, rng)
+    n = len(rows)
+
+    def codec(pack, src, out):
+        assert _call(lib, "layout_codec",
+                     *[ctypes.c_int(a) for a in _params(lib, dm)],
+                     ctypes.c_int(pack), ctypes.c_void_p(_ptr(lanes)),
+                     ctypes.c_int(w), ctypes.c_int(wp),
+                     ctypes.c_void_p(_ptr(src)), ctypes.c_longlong(n),
+                     ctypes.c_void_p(_ptr(out))) == 0
+        return out
+
+    packed = codec(1, rows, np.zeros((n, wp), np.uint32))
+    assert np.array_equal(packed, carry.words_out(
+        layout.pack(carry.rows_in(rows))))
+    words = rng.integers(0, 1 << 32, (n, wp), dtype=np.uint64).astype(
+        np.uint32)
+    unpacked = codec(0, words, np.zeros((n, w), np.uint32))
+    assert np.array_equal(unpacked, carry.rows_out(
+        layout.unpack(carry.words_in(words))))
 
 
 # -- The append kernel -------------------------------------------------------

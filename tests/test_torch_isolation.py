@@ -1,12 +1,15 @@
 """The port stands alone: it imports neither JAX nor the JAX package.
 
 An AST scan of every file of ``stateright_tpu_torch/`` (the classic
-engine's ``classic.py`` and ``visitor.py`` and the register models'
-``models/single_copy.py`` and ``models/abd.py`` among them); a fresh
-interpreter that checks 2pc at 3 RMs (on the fused engine, and on the
-classic engine with a visitor), paxos at 1 client, single-copy at 2
-clients on one server and ABD at 2 clients on two through the port on
-the CPU and then finds neither ``jax`` nor ``stateright_tpu`` loaded; and
+engine's ``classic.py`` and ``visitor.py``, the register models'
+``models/single_copy.py`` and ``models/abd.py``, and the plain models'
+``test_util.py``, ``models/increment.py``, ``models/increment_lock.py``
+and ``models/sliding_puzzle.py`` among them); a fresh interpreter that
+checks 2pc at 3 RMs (on the fused engine, and on the classic engine with
+a visitor), paxos at 1 client, single-copy at 2 clients on one server,
+ABD at 2 clients on two, LinearEquation, increment and increment_lock at
+2 threads and the 2x3 puzzle through the port on the CPU and then finds
+neither ``jax`` nor ``stateright_tpu`` loaded; and
 the entry point's default device, which is CUDA and raises on a box
 without one.
 """
@@ -24,7 +27,8 @@ from stateright_tpu_torch.models.twopc import TwoPhaseSys
 _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _PKG = os.path.join(_REPO, "stateright_tpu_torch")
 _BANNED = ("jax", "jaxlib", "stateright_tpu", "examples", "two_phase_commit",
-           "paxos", "single_copy_register", "linearizable_register")
+           "paxos", "single_copy_register", "linearizable_register",
+           "increment", "increment_lock", "sliding_puzzle", "test_util")
 
 
 def _imports(path):
@@ -42,7 +46,8 @@ def test_no_file_of_the_port_imports_jax_or_the_jax_package():
     assert len(files) >= 12
     names = {os.path.relpath(f, _PKG) for f in files}
     assert {"classic.py", "visitor.py", "models/single_copy.py",
-            "models/abd.py"} <= names
+            "models/abd.py", "test_util.py", "models/increment.py",
+            "models/increment_lock.py", "models/sliding_puzzle.py"} <= names
     for path in files + [os.path.join(_REPO, "chip_smoke.py")]:
         for name in _imports(path):
             assert name.split(".")[0] not in _BANNED, (path, name)
@@ -74,6 +79,24 @@ def test_a_cpu_check_loads_neither_jax_nor_the_jax_package():
         "c = AbdSys(2, 2).checker().spawn_cuda_bfs(device='cpu').join()\n"
         "assert (c.unique_state_count(), c.state_count()) == (544, 875)\n"
         "c.assert_properties()\n"
+        "from stateright_tpu_torch.test_util import LinearEquation\n"
+        "c = LinearEquation(2, 10, 14).checker().spawn_cuda_bfs(\n"
+        "    device='cpu').join()\n"
+        "assert c.discovery('solvable') is not None\n"
+        "from stateright_tpu_torch.models.increment import IncrementModel\n"
+        "c = IncrementModel(2).checker().spawn_cuda_bfs(device='cpu').join()\n"
+        "assert c.unique_state_count() == 13, c.unique_state_count()\n"
+        "from stateright_tpu_torch.models.increment_lock import (\n"
+        "    IncrementLockModel)\n"
+        "c = IncrementLockModel(2).checker().spawn_cuda_bfs(\n"
+        "    device='cpu').join()\n"
+        "assert c.unique_state_count() == 17, c.unique_state_count()\n"
+        "c.assert_properties()\n"
+        "from stateright_tpu_torch.models.sliding_puzzle import (\n"
+        "    SlidingPuzzle)\n"
+        "c = SlidingPuzzle(2, 3).checker().spawn_cuda_bfs(\n"
+        "    device='cpu').join()\n"
+        "assert (c.unique_state_count(), c.state_count()) == (360, 841)\n"
         "bad = [m for m in sys.modules\n"
         "       if m.split('.')[0] in ('jax', 'jaxlib', 'stateright_tpu')]\n"
         "assert not bad, bad\n"

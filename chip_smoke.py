@@ -7,21 +7,23 @@ Usage, from the root of a checkout on a machine with an NVIDIA H100:
     python3 chip_smoke.py --rehash   # phase 1, then the rehash case of 3
     python3 chip_smoke.py --phases registers       # phase 1, then 9
     python3 chip_smoke.py --phases corpus          # phase 1, then 10
+    python3 chip_smoke.py --phases actors          # phase 1, then 11
     python3 chip_smoke.py --phases kernels,full    # phase 1, 2-4 and 6
 
 ``--phases`` takes a comma-separated subset of ``kernels`` (phases 2 to
 4), ``small`` (5), ``full`` (6), ``checkpoint`` (7), ``classic`` (8),
-``registers`` (9) and ``corpus`` (10), runs phase 1 and those, in this
-order, and prints the kernels line's rows those phases give (phases 2 to
-8's rows only when all of them ran). Phases, in order; any failure exits
-non-zero and prints no result line:
+``registers`` (9), ``corpus`` (10) and ``actors`` (11), runs phase 1 and
+those, in this order, and prints the kernels line's rows those phases give
+(phases 2 to 8's rows only when all of them ran). Phases, in order; any
+failure exits non-zero and prints no result line:
 
 1. build ``stateright_tpu_torch/csrc/table.cu``, ``wave_twopc.cu``,
    ``wave_paxos.cu``, ``wave_single_copy.cu``, ``wave_abd.cu``,
    ``wave_linear_equation.cu``, ``wave_dgraph.cu``, ``wave_increment.cu``,
-   ``wave_increment_lock.cu``, ``wave_sliding_puzzle.cu`` (the wave
-   kernel's and the sender kernel's entry points for 2pc, each register
-   workload and each plain model) and ``append.cu`` for ``sm_90a``, one
+   ``wave_increment_lock.cu``, ``wave_sliding_puzzle.cu``,
+   ``wave_pingpong.cu``, ``wave_vsr.cu`` (the wave kernel's and the sender
+   kernel's entry points for 2pc, each register workload, each plain model
+   and each actor model) and ``append.cu`` for ``sm_90a``, one
    ``nvcc`` each, all at once, and print each build time with ptxas'
    register and spill report, and the card's name and power limit;
 2. hold the wave kernel against its plain version at full width: 16,384
@@ -164,8 +166,9 @@ non-zero and prints no result line:
    sharded engine (4 shards), each on the torch stages and on the
    kernels: the counts exact, the discoveries' chains equal to the same
    engine's run on the CPU (the fused engine's for the classic one;
-   single-copy 4's at a smaller batch), every kernel's launches exact,
-   each run's
+   single-copy 4's, which makes no CPU run, to the card's fused torch
+   stages', the sharded engine's to its own torch stages'), every
+   kernel's launches exact, each run's
    seconds and peak device memory; then one replayed dispatch of
    single-copy 4 on the wave kernel under
    ``torch.cuda.set_sync_debug_mode("error")``;
@@ -192,7 +195,24 @@ non-zero and prints no result line:
     the fused torch stages' (the sharded sender's to the sharded torch
     stages'), no counterexample, launches exact, seconds and peak device
     memory printed;
-11. the kernels line, the script's running time, the card line and the
+11. the actor models, ping-pong and viewstamped replication
+    (``phase_actors``; in a process of its own when earlier phases ran, as
+    phase 9): kernels 2 and 3 on each model's CUDA step (on
+    ``csrc/models/actor_net.cuh``) against their plain versions at 16,384
+    rows of a mid-run arena of each full-width configuration, as 4 shards
+    of 4,096 and ragged, the scratch clean; then ping-pong's 14 (lossy,
+    max_nat 1), 4,094 (lossy and duplicating, 5), 11 (a perfect network,
+    5) and its history form at 3, and VSR at 2 replicas (63 / 169) on the
+    fused, classic and sharded engines, each on the torch stages and on
+    the kernels, against a CPU run at the same batch; then, none cut,
+    ping-pong lossy and duplicating at max_nat 11 on 26 slots (its counts
+    read against the pattern 16,777,214 / 188,743,681) and VSR at 4
+    replicas, max_view 1, on 48 slots (685,650 / 7,579,993, 82 lanes), each
+    on the fused torch stages, the fused and classic wave kernel and the
+    sharded torch stages and sender kernel: equal counts and discovery
+    chains (the sharded sender's to the sharded torch stages'), launches
+    exact, seconds, states/s and peak device memory printed;
+12. the kernels line, the script's running time, the card line and the
     result line.
 
 It imports neither JAX nor ``stateright_tpu``.
@@ -2370,12 +2390,13 @@ def phase_registers(torch, kernels, fused, wave_mod, table_mod):
     same run on the CPU: single-copy 3 and 4 on one server, each plain
     and with symmetry, single-copy 2 on two servers (its linearizability
     counterexample) and ABD 2/2. The classic engine's runs are held to
-    the fused engine's CPU run, and single-copy 4's CPU runs take a
-    smaller batch (4,096 plain, 1,024 with symmetry, where the CPU is
-    fastest): an engine's counts and chains do not depend on its batch,
-    and the classic engine's are the fused one's
-    (``tests/test_torch_registers.py``). Single-copy's symmetric counts
-    are JAX's.
+    the fused engine's CPU run. Single-copy 4 makes no CPU run (the CPU's
+    were most of the phase's time): its runs are held to its pinned
+    counts, which the CPU tests hold to JAX's
+    (``tests/test_torch_registers.py``), and their chains to the card's
+    fused torch stages' (the sharded engine's to its own torch stages'),
+    as the corpus phase does for the puzzle. Single-copy's symmetric
+    counts are JAX's.
     Then one replayed dispatch of single-copy 4 on the wave kernel under
     ``set_sync_debug_mode("error")``."""
     SingleCopySys, AbdSys = _register_modules()
@@ -2394,14 +2415,15 @@ def phase_registers(torch, kernels, fused, wave_mod, table_mod):
          1024, None, ["linearizable", "value chosen"]),
         ("abd 2", lambda: AbdSys(2, 2).checker(), 1024, 1024, ABD_COUNTS,
          value),
-        ("single_copy 4", lambda: SingleCopySys(4).checker(), BATCH, 4096,
+        ("single_copy 4", lambda: SingleCopySys(4).checker(), BATCH, None,
          SC_COUNTS[4, False], value),
         ("single_copy 4 sym", lambda: SingleCopySys(4).checker().symmetry(),
-         BATCH, 1024, SC_COUNTS[4, True], value))
+         BATCH, None, SC_COUNTS[4, True], value))
     runs = {}
     for tag, build, batch, cpu_batch, want, found in configs:
+        cpu = None
         for engine in ("fused", "classic", "sharded"):
-            if engine != "classic":
+            if engine != "classic" and cpu_batch:
                 t_cpu = time.monotonic()
                 cpu = _cpu_run(build, engine, cpu_batch).join()
                 _log(f"{tag}, {engine}, the CPU's run at batch {cpu_batch}:"
@@ -2410,6 +2432,14 @@ def phase_registers(torch, kernels, fused, wave_mod, table_mod):
                 runs[tag, engine, wave_kernel] = _card_run(
                     torch, kernels, fused, tag, build, engine, batch, want,
                     found, cpu, wave_kernel)
+        if not cpu_batch:
+            # No CPU run: the card's fused torch stages are the reference,
+            # the sharded torch stages the sharded sender's.
+            for (t, engine, wave_kernel), r in runs.items():
+                if t == tag:
+                    _same_runs(r, runs[tag, "sharded" if engine == "sharded"
+                                       else "fused", False],
+                               f"{tag}, {engine}, wave_kernel={wave_kernel}")
     t2 = time.monotonic()
     mid = (SingleCopySys(4).checker().target_state_count(SC4_MID)
            .spawn_cuda_bfs(device="cuda:0", batch_size=BATCH,
@@ -2745,6 +2775,175 @@ def _corpus_rows(holds, gates, full):
     return rows
 
 
+# -- The actor models: ping-pong and viewstamped replication -----------------
+
+
+#: ping-pong on a lossy, duplicating network at max_nat 11 and 26 network
+#: slots (2 max_nat + 4, as JAX's run at 9 took 22; the CUDA instance's
+#: most): 2^(2m+2) - 2 unique and 2^(2m+2) (m + 1/4) + 1 states, the
+#: pattern of max_nat 5, 7 and 9 (4,094; 65,534 / 475,137; 1,048,574 /
+#: 9,699,329: the JAX package's counts, the port's at 5 and 9 in its
+#: tests). A count off the pattern is reported, not forced: the runs are
+#: held to each other.
+PP_MAX_NAT, PP_SLOTS = 11, 26
+PP_PATTERN = (2 ** 24 - 2, 2 ** 24 * 45 // 4 + 1)
+#: VSR at 4 replicas (the most the envelope holds), max_view 1, 48 network
+#: slots (the default 32 overflows): JAX's fused engine's counts on the CPU
+VSR41 = (685_650, 7_579_993)
+VSR_SLOTS = 48
+PP_FOUND = ["can reach max", "must exceed max", "must reach max"]
+VSR_FOUND = ["can commit", "commit survives view change",
+             "view change completes"]
+#: the states the kernels' mid-run arenas are taken at (frontiers wider
+#: than a batch)
+PP_MID, VSR_MID = 2_000_000, 1_000_000
+
+
+def _actor_modules():
+    from stateright_tpu_torch.models.pingpong import PingPongSys
+    from stateright_tpu_torch.models.vsr import VsrSys
+    return PingPongSys, VsrSys
+
+
+def phase_actor_kernels(torch, wave_mod, table_mod, PingPongSys, VsrSys):
+    """Kernels 2 and 3 on both actor models' CUDA steps (on
+    ``csrc/models/actor_net.cuh``) against their plain versions at full
+    width: the last 16,384 rows of a mid-run arena of each card
+    configuration (ping-pong at max_nat 11 on 26 slots, lossy and
+    duplicating: 31 lanes, 52 actions; VSR at 4 replicas on 48 slots: 82
+    lanes, 52 actions), against its engine's table and with its engine's
+    scratch, then as 4 shards of 4,096 and ragged 3 x 4,095 (the scratch
+    clean after each)."""
+    out = {}
+    for tag, build, target in (
+            ("pingpong 11", lambda: PingPongSys(
+                PP_MAX_NAT, lossy=True, net_slots=PP_SLOTS), PP_MID),
+            ("vsr 4", lambda: VsrSys(4, 1, net_slots=VSR_SLOTS), VSR_MID)):
+        mid = (build().checker().target_state_count(target)
+               .spawn_cuda_bfs(device="cuda:0", batch_size=BATCH).join())
+        dm, layout = mid._dm, mid._layout
+        store = _last_rows(mid, BATCH)
+        valid = torch.ones(BATCH, dtype=torch.bool, device="cuda")
+        out[tag, "plain"] = _wave_case(
+            torch, wave_mod, table_mod, dm, store, valid, layout, mid._table,
+            False, tag, scratch=mid._scratch)
+        out[tag, "sender"] = phase_sender_kernel(
+            torch, wave_mod, table_mod, dm, store, layout, tag, syms=(False,))
+        del mid, store
+    return out
+
+
+def phase_actor_gates(torch, kernels, fused, PingPongSys, VsrSys):
+    """The small configurations to their ends on the fused, the classic
+    and the sharded engine (4 shards), each on the torch stages and on the
+    kernels, exact against their counts and against a CPU run at the same
+    batch (``_corpus_cpu``): ping-pong's 14 (lossy, max_nat 1), 4,094
+    (lossy and duplicating, 5), 11 (a perfect network, 5) and its history
+    form at max_nat 3 (254 / 833, JAX's); VSR at 2 replicas, 63 / 169."""
+    configs = (
+        ("pingpong 1 lossy", lambda: PingPongSys(1, lossy=True).checker(),
+         (14, 21)),
+        ("pingpong 5 lossy", lambda: PingPongSys(5, lossy=True).checker(),
+         (4_094, 21_505)),
+        ("pingpong 5 perfect", lambda: PingPongSys(
+            5, duplicating=False).checker(), (11, 11)),
+        ("pingpong 3 history", lambda: PingPongSys(
+            3, True, lossy=True).checker(), (254, 833)),
+        ("vsr 2", lambda: VsrSys(2, 1).checker(), (63, 169)))
+    runs = {}
+    for tag, build, want in configs:
+        cpu = _corpus_cpu(build, 1024, "found")
+        for engine in ("fused", "classic", "sharded"):
+            for wave_kernel in (False, True):
+                runs[tag, engine, wave_kernel] = _card_run(
+                    torch, kernels, fused, tag, build, engine, 1024, want,
+                    sorted(cpu[engine].discoveries()), cpu[engine],
+                    wave_kernel)
+    return runs
+
+
+def phase_actor_full(torch, kernels, fused, PingPongSys, VsrSys):
+    """The full-width runs, batch 16,384, on the fused torch stages (the
+    card's reference), the fused and classic wave kernel and the sharded
+    engine (4 shards) on the torch stages and the sender kernel: ping-pong
+    at max_nat 11 (lossy, duplicating, 26 slots), its counts against the
+    pattern (reported) and equal across the runs, "delta within 1" held
+    and "must reach max" found; VSR at 4 replicas, max_view 1 (48 slots),
+    exactly 685,650 / 7,579,993, "agreement" held and the three sometimes
+    properties found. Discovery chains equal to the fused torch stages'
+    (the sharded engine's to its own torch stages')."""
+    paths = (("fused", False), ("fused", True), ("classic", True),
+             ("sharded", False), ("sharded", True))
+    configs = (
+        ("pingpong 11", lambda: PingPongSys(
+            PP_MAX_NAT, lossy=True, net_slots=PP_SLOTS).checker(), None,
+         PP_FOUND),
+        ("vsr 4", lambda: VsrSys(4, 1, net_slots=VSR_SLOTS).checker(),
+         VSR41, VSR_FOUND))
+    runs = {}
+    for tag, build, want, found in configs:
+        for engine, wave_kernel in paths:
+            runs[tag, engine, wave_kernel] = _card_run(
+                torch, kernels, fused, tag, build, engine, BATCH, want,
+                found, None, wave_kernel)
+        ref, sharded = runs[tag, "fused", False], runs[tag, "sharded", False]
+        for engine, wave_kernel in paths:
+            r = runs[tag, engine, wave_kernel]
+            _same_runs(r, sharded if engine == "sharded" else ref,
+                       f"{tag}, {engine}, wave_kernel={wave_kernel}")
+        if tag == "pingpong 11":
+            _log(f"pingpong 11: {ref['counts']}, the pattern's "
+                 f"{PP_PATTERN}: "
+                 + ("equal" if ref["counts"] == PP_PATTERN else "DIFFERENT"))
+        lengths = [{k: len(v[0]) for k, v in r["chains"].items()}
+                   for r in (ref, sharded)]
+        _log(f"{tag}: the runs agree ({ref['counts']}; chains of "
+             f"{lengths[0]} states, sharded {lengths[1]})")
+    return runs
+
+
+def phase_actors(torch, kernels, fused, wave_mod, table_mod):
+    """The actor models on the card: kernels 2 and 3 held to their plain
+    versions (``phase_actor_kernels``), the small configurations against
+    the CPU (``phase_actor_gates``) and the full-width runs
+    (``phase_actor_full``)."""
+    PingPongSys, VsrSys = _actor_modules()
+    t0 = time.monotonic()
+    holds = phase_actor_kernels(torch, wave_mod, table_mod, PingPongSys,
+                                VsrSys)
+    t1 = time.monotonic()
+    gates = phase_actor_gates(torch, kernels, fused, PingPongSys, VsrSys)
+    t2 = time.monotonic()
+    full = phase_actor_full(torch, kernels, fused, PingPongSys, VsrSys)
+    _log(f"actor phase: kernel holds {t1 - t0:.1f} s, small gates "
+         f"{t2 - t1:.1f} s, full runs {time.monotonic() - t2:.1f} s")
+    for (tag, engine, wave_kernel), r in {**gates, **full}.items():
+        path = "kernels" if wave_kernel else "torch stages"
+        c = r["counts"]
+        _log(f"  {tag:20s} {engine:8s} {path:13s} {r['sec']:8.3f} s  "
+             f"{c[1] / r['sec']:14.1f} states/s  peak {r['peak']:>12d} B  "
+             f"waves {r['waves']:5d}  {c}")
+    return holds, full
+
+
+def _actor_rows(holds, full):
+    """The kernels line's rows of the actor phase: kernels 2 and 3 on each
+    actor model, each with its launches in the model's full-width run on
+    that kernel."""
+    rows = []
+    for tag, source in (("pingpong 11", "wave_pingpong.cu"),
+                        ("vsr 4", "wave_vsr.cu")):
+        rows.append(_kernel_row(
+            f"wave_megakernel[{tag}]", SRC + source, PALLAS + "380",
+            full[tag, "fused", True]["launches"]["wave_megakernel"], 0,
+            holds[tag, "plain"]))
+        rows.append(_kernel_row(
+            f"sender_megakernel[{tag}]", SRC + source, PALLAS + "451",
+            full[tag, "sharded", True]["launches"]["sender_megakernel"], 0,
+            holds[tag, "sender"][(False, True)]))
+    return rows
+
+
 def _modules():
     """The port's modules, from the checkout beside this script."""
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
@@ -2771,7 +2970,8 @@ def _log_ptxas(log: str) -> None:
                            r"|append_rows)", mangled)
             model = re.search(r"(TwoPhase|PaxosServer|SingleCopyServer"
                               r"|AbdServer|IncrementLock|Increment"
-                              r"|SlidingPuzzle)ILi(\d+)E(?:Li(\d+)E)?"
+                              r"|SlidingPuzzle|PingPong|Vsr)ILi(\d+)E"
+                              r"(?:Li(\d+)E)?"
                               r"|(LinearEquation|DGraph)", mangled)
             tail = re.search(r"(WaveTail|SenderTail)", mangled)
             if model and model.group(4):
@@ -2806,7 +3006,8 @@ def phase_build(_build, table_mod, wave_mod, append_mod) -> None:
             ("twopc", "i"), ("paxos", "ii"), ("single_copy", "iii"),
             ("abd", "iii"), ("linear_equation", ""), ("dgraph", "p"),
             ("increment", "i"), ("increment_lock", "i"),
-            ("sliding_puzzle", "ii"))] + [("append", append_mod._lib)]
+            ("sliding_puzzle", "ii"), ("pingpong", "iiiii"),
+            ("vsr", "iiiii"))] + [("append", append_mod._lib)]
     with ThreadPoolExecutor(len(jobs)) as pool:
         builds = [pool.submit(build, name, load) for name, load in jobs]
         for fut in builds:
@@ -3033,7 +3234,7 @@ def _register_rows(holds, runs):
 
 
 def _in_child(card: str, phase: str):
-    """Phase ``phase`` (9 or 10) in a process of its own (``--phases
+    """Phase ``phase`` (9, 10 or 11) in a process of its own (``--phases
     <phase>``), whose log it passes on and whose kernels line's rows it
     returns. After phases 2 to 8 in one process, about half of the
     profiles the register phase took there recorded no device time on the
@@ -3056,7 +3257,7 @@ def _in_child(card: str, phase: str):
 
 #: the phases ``--phases`` can name, in the order they run
 PHASES = ("kernels", "small", "full", "checkpoint", "classic", "registers",
-          "corpus")
+          "corpus", "actors")
 
 
 def _parse(argv):
@@ -3122,8 +3323,8 @@ def main(argv) -> int:
     if set(PHASES[:5]) <= phases:
         rows += _earlier_rows(**{key: old[key] for key in (
             "k", "w", "pw", "sk", "psk", "ap", "full", "ck", "cl")})
-    # Phase 9 or 10 runs here when it is the only one asked for, else each
-    # in a process of its own.
+    # Phase 9, 10 or 11 runs here when it is the only one asked for, else
+    # each in a process of its own.
     if phases == {"registers"}:
         rows += _register_rows(*phase_registers(torch, kernels, fused,
                                                 wave_mod, table_mod))
@@ -3134,6 +3335,11 @@ def main(argv) -> int:
                                            table_mod))
     elif "corpus" in phases:
         rows += _in_child(card, "corpus")
+    if phases == {"actors"}:
+        rows += _actor_rows(*phase_actors(torch, kernels, fused, wave_mod,
+                                          table_mod))
+    elif "actors" in phases:
+        rows += _in_child(card, "actors")
     print(json.dumps({"kernels": rows}))
     _log(f"chip_smoke ran {time.monotonic() - t_start:.1f} s")
     print(card)

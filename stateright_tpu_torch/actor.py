@@ -16,7 +16,7 @@ from dataclasses import dataclass
 from typing import Any, Iterable, List, Optional
 
 __all__ = ["Id", "Envelope", "Network", "ActorModelState", "DeliverAction",
-           "Internal", "Put", "Get", "PutOk", "GetOk",
+           "DropAction", "TimeoutAction", "Internal", "Put", "Get", "PutOk", "GetOk",
            "RegisterClientState", "RegisterServerState", "NO_VALUE",
            "Register", "Read", "ReadOk", "Write", "WriteOk",
            "LinearizabilityTester"]
@@ -103,6 +103,27 @@ class DeliverAction:
     def __repr__(self) -> str:
         return (f"Deliver {{ src: {self.src!r}, dst: {self.dst!r}, "
                 f"msg: {self.msg!r} }}")
+
+
+@dataclass(frozen=True)
+class DropAction:
+    """The loss of one envelope, on a lossy network: an actor model's
+    action."""
+
+    envelope: Envelope
+
+    def __repr__(self) -> str:
+        return f"Drop({self.envelope!r})"
+
+
+@dataclass(frozen=True)
+class TimeoutAction:
+    """The timeout of an actor's armed timer: an actor model's action."""
+
+    id: Id
+
+    def __repr__(self) -> str:
+        return f"Timeout({self.id!r})"
 
 
 # -- Register messages and actor states ----------------------------------

@@ -10,21 +10,30 @@ The port's copy of ``stateright_tpu/tpu/actor_device.py``, batch-first.
   the tail right; a send into a full list sets the overflow lane at
   ``net_offset + net_slots``, which is the model's ``error_lane``, and the
   engine raises (raise ``net_slots``).
-- **Actions.** Slot ``f`` delivers the f-th envelope of the sorted list,
-  so ``max_fanout == net_slots``; an empty slot is no action. The
-  network does not duplicate: the delivered envelope leaves the list (a
-  shift left past its slot).
-- **No-op elision.** The model's ``deliver`` returns a ``handled`` flag
-  that mirrors the host handler's "return None" branches; a delivery that
-  is not handled is no action, even where its successor would differ.
+- **Network forms** (the reference's ``actor/model.rs:54-55, 240-266``).
+  On a duplicating network (the default) a delivered envelope stays in
+  the list, so it can be delivered again; on one that does not
+  duplicate it leaves the list (a shift left past its slot). A lossy
+  network adds a Drop action an envelope, which removes it and changes
+  nothing else.
+- **Actions**, in the host model's order: for each slot, its Drop (lossy
+  only) and then its Deliver, interleaved ``[drop0, deliver0, drop1,
+  deliver1, ...]``; then one Timeout a timer actor (``n_timers`` of them,
+  the armed-timer bitmask in lane ``timer_offset``, below
+  ``net_offset``). So ``max_fanout == net_slots * (1 + lossy) +
+  n_timers``; an empty slot and a disarmed timer are no action.
+- **No-op elision.** The model's ``deliver`` and ``timeout`` return a
+  ``handled`` flag that mirrors the host handler's "return None"
+  branches; an action that is not handled is no action, even where its
+  successor would differ.
 
 All ``B * net_slots`` deliveries of a batch run at once along one row
 axis: the model's ``deliver`` sees ``body[N, net_offset]`` and
 ``env[N]`` with ``N = B * net_slots`` (row ``b * net_slots + f``), and
-there is no loop over slots. Lane arithmetic is the uint32 arithmetic of
-the reference: values stay in ``[0, 2^32)``, and a result that can wrap
-is masked with ``M32``. The reference's duplicating and lossy networks
-and its timers are not ported; no ported model has them.
+its ``timeout`` sees ``body[B * n_timers, net_offset]`` and the actor of
+each row; there is no loop over slots. Lane arithmetic is the uint32
+arithmetic of the reference: values stay in ``[0, 2^32)``, and a result
+that can wrap is masked with ``M32``.
 """
 
 from __future__ import annotations
@@ -34,7 +43,7 @@ from typing import List
 import numpy as np
 import torch
 
-from .actor import DeliverAction
+from .actor import DeliverAction, DropAction, Id, TimeoutAction
 from .device_model import DeviceModel
 
 __all__ = ["EMPTY_ENV", "M32", "ActorDeviceModel", "compact_envs",
@@ -92,30 +101,38 @@ def net_insert(net: torch.Tensor, outs: torch.Tensor):
 
 
 class ActorDeviceModel(DeviceModel):
-    """The device form of an actor system (``ActorModel``) on a network
-    that neither duplicates nor loses messages.
+    """The device form of an actor system (``ActorModel``).
 
     A subclass sets ``net_slots`` (E), ``net_offset`` (the first network
     lane; the lane after the E network lanes is the overflow flag),
-    ``max_out`` (sends a delivery), and implements
-    ``deliver(body int64[N, net_offset], env int64[N]) -> (new_body,
-    handled bool[N], outs int64[N, max_out])`` (``EMPTY_ENV`` = no send)
-    and the host codec ``env_encode``/``env_decode``."""
+    ``max_out`` (sends an action), the network form (``duplicating``,
+    ``lossy``) and its timers (``n_timers``, ``timer_offset``), and
+    implements ``deliver(body int64[N, net_offset], env int64[N]) ->
+    (new_body, handled bool[N], outs int64[N, max_out])`` (``EMPTY_ENV`` =
+    no send), with timers ``timeout(body, actor int64[N])`` of the same
+    form, and the host codec ``env_encode``/``env_decode``."""
 
     net_slots: int
     net_offset: int
     max_out: int
+    duplicating: bool = True
+    lossy: bool = False
+    n_timers: int = 0
+    timer_offset: int = -1
 
     @property
     def max_fanout(self) -> int:  # type: ignore[override]
-        return self.net_slots
+        return self.net_slots * (2 if self.lossy else 1) + self.n_timers
 
     def deliver(self, body: torch.Tensor, env: torch.Tensor):
         raise NotImplementedError
 
+    def timeout(self, body: torch.Tensor, actor: torch.Tensor):
+        raise NotImplementedError
+
     def step(self, rows: torch.Tensor):
-        """Every slot's delivery for every row: ``int64[B, W] ->
-        (int64[B, E, W], bool[B, E])``."""
+        """Every action of every row: ``int64[B, W] -> (int64[B, F, W],
+        bool[B, F])``, in the order of the module docstring."""
         e, off = self.net_slots, self.net_offset
         B, W = rows.shape
         N = B * e
@@ -123,17 +140,56 @@ class ActorDeviceModel(DeviceModel):
         net = rows[:, None, off:off + e].expand(B, e, e).reshape(N, e)
         err = rows[:, None, off + e].expand(B, e).reshape(N)
         env = rows[:, off:off + e].reshape(N)
+        present = env != EMPTY_ENV
         new_body, handled, outs = self.deliver(body, env)
-        slot = torch.arange(e, device=rows.device).repeat(B)
-        new_net, overflow = net_insert(net_remove_at(net, slot), outs)
+        removed = None
+        if self.lossy or not self.duplicating:
+            slot = torch.arange(e, device=rows.device).repeat(B)
+            removed = net_remove_at(net, slot)
+        new_net, overflow = net_insert(
+            net if self.duplicating else removed, outs)
         new_err = torch.where(overflow, 1, err)
         succ = torch.cat([new_body, new_net, new_err[:, None]], dim=1)
-        valid = (env != EMPTY_ENV) & handled
-        return succ.view(B, e, W), valid.view(B, e)
+        succ, valid = succ.view(B, e, W), (present & handled).view(B, e)
+        if self.lossy:
+            dropped = torch.cat([body, removed, err[:, None]], dim=1)
+            succ = torch.stack([dropped.view(B, e, W), succ],
+                               dim=2).view(B, 2 * e, W)
+            valid = torch.stack([present.view(B, e), valid],
+                                dim=2).view(B, 2 * e)
+        if self.n_timers:
+            t_succ, t_valid = self._timeouts(rows)
+            succ = torch.cat([succ, t_succ], dim=1)
+            valid = torch.cat([valid, t_valid], dim=1)
+        return succ, valid
+
+    def _timeouts(self, rows: torch.Tensor):
+        """Each timer actor's Timeout for every row: ``(int64[B, T, W],
+        bool[B, T])``; the sends go in as a delivery's, and nothing leaves
+        the network."""
+        e, off, T = self.net_slots, self.net_offset, self.n_timers
+        B, W = rows.shape
+        N = B * T
+        body = rows[:, None, :off].expand(B, T, off).reshape(N, off)
+        net = rows[:, None, off:off + e].expand(B, T, e).reshape(N, e)
+        err = rows[:, None, off + e].expand(B, T).reshape(N)
+        actor = torch.arange(T, device=rows.device).repeat(B)
+        armed = ((body[:, self.timer_offset] >> actor) & 1) == 1
+        new_body, handled, outs = self.timeout(body, actor)
+        new_net, overflow = net_insert(net, outs)
+        new_err = torch.where(overflow, 1, err)
+        succ = torch.cat([new_body, new_net, new_err[:, None]], dim=1)
+        return succ.view(B, T, W), (armed & handled).view(B, T)
 
     def action_label(self, vec: np.ndarray, f: int):
-        """The delivery of slot ``f``'s envelope of ``vec``."""
-        env = self.env_decode(int(vec[self.net_offset + f]))
+        """Action ``f`` of ``vec``: the Drop or the Deliver of a slot's
+        envelope, or an actor's Timeout."""
+        lossy = int(self.lossy)
+        if f >= self.net_slots * (1 + lossy):
+            return TimeoutAction(Id(f - self.net_slots * (1 + lossy)))
+        env = self.env_decode(int(vec[self.net_offset + (f >> lossy)]))
+        if lossy and f % 2 == 0:
+            return DropAction(env)
         return DeliverAction(env.src, env.dst, env.msg)
 
     # -- Host-side network codec -------------------------------------------

@@ -84,7 +84,14 @@ class CheckerBuilder:
         versions. ``wave_kernel=True`` runs each wave's successor path
         as one kernel (``wave.py``); on the card it needs a model with
         CUDA device code (``DeviceModel.cuda_model()``) and raises for
-        one without. ``batch_size`` defaults to 1,024.
+        one without. Every model of ``models/`` and ``test_util.py`` has
+        one, at the sizes its entry point instantiates: 2pc; the actor
+        models on ``csrc/models/actor_net.cuh`` (every network form:
+        duplicating or not, lossy or not, with timers), the register
+        workloads paxos, single-copy and ABD, and ping-pong and
+        viewstamped replication; LinearEquation, DGraph, increment,
+        increment_lock and the sliding puzzle. ``batch_size`` defaults
+        to 1,024.
 
         The engine, by JAX's rules: the fused engine by default; the
         classic per-wave engine (``classic.py``) when the fused one

@@ -3,8 +3,8 @@
 // of its client-symmetry class, on a server policy.
 //
 // The device-code twin of the port's batch-first torch functions:
-// actor_device.py::ActorDeviceModel.step (net_remove_at, the model's
-// deliver, net_insert), register_workload.py::RegisterWorkloadDevice
+// actor_device.py::ActorDeviceModel.step (actor_net.cuh's actor_step, with
+// the model's deliver), register_workload.py::RegisterWorkloadDevice
 // .deliver, ._client_deliver, .build_env, .client_permutations,
 // ._sym_rewrite and .representative. Those are the port of
 // stateright_tpu/tpu/actor_device.py :127 (_net_effect) and :161, and
@@ -42,7 +42,8 @@
 //
 // Runtime indices: kS and kC are compile-time constants, so the dispatch
 // on the envelope's destination leaves every server lane at a constant
-// index; the network's removal and inserts are compare-and-select loops
+// index; the network (actor_net.cuh, the actor layer's network on the form
+// that neither duplicates nor loses messages) is compare-and-select loops
 // over kMaxE slots, and the runtime net_slots e (1 <= e <= kMaxE, the
 // model's default) guards each slot as TwoPhase's n does.
 //
@@ -59,6 +60,7 @@
 #include <cstdint>
 
 #include "../packing.cuh"
+#include "actor_net.cuh"
 
 namespace sr {
 
@@ -147,67 +149,24 @@ struct RegisterWorkload {
   __host__ __device__ int width() const { return kNetOff + e + 1; }
   __host__ __device__ int fanout() const { return e; }
 
-  // Delivers the f-th envelope of the row in v, in place: the delivery's
-  // effect, the envelope removed, up to kMaxOut sends inserted at their
-  // rank (a send into a full list drops the largest and sets the overflow
-  // lane). Returns whether the action is enabled: a real envelope that its
-  // destination handles.
+  // The actor layer's hooks (actor_net.cuh): no timers, and a delivered
+  // envelope leaves the network, which loses nothing.
+  static constexpr int kTimers = 0, kTimerOff = 0;
+  static constexpr bool lossy = false, duplicating = false;
+
+  // Delivers the f-th envelope of the row in v, in place (actor_step): the
+  // delivery's effect, the envelope removed, up to kMaxOut sends inserted
+  // at their rank (a send into a full list drops the largest and sets the
+  // overflow lane). Returns whether the action is enabled: a real envelope
+  // that its destination handles.
   __device__ __forceinline__ bool step(uint32_t (&v)[kMaxW], int f) const {
-    uint32_t net[kMaxE + 1];
-#pragma unroll
-    for (int i = 0; i < kMaxE; ++i) net[i] = i < e ? v[kNetOff + i] : kEmpty;
-    net[kMaxE] = kEmpty;
-    uint32_t env = kEmpty, err = 0;
-#pragma unroll
-    for (int i = 0; i < kMaxE; ++i)
-      if (i == f) env = net[i];
-#pragma unroll
-    for (int i = 0; i <= kMaxE; ++i)
-      if (i == e) err = v[kNetOff + i];
-    const Env m = P::fields(env);
-    uint32_t outs[kMaxOut];
-#pragma unroll
-    for (int j = 0; j < kMaxOut; ++j) outs[j] = kEmpty;
-    const bool handled = deliver<0>(v, m, outs);
-    // net_remove_at: the tail past slot f shifts left.
-#pragma unroll
-    for (int i = 0; i < kMaxE; ++i) net[i] = i < f ? net[i] : net[i + 1];
-    // net_insert, a send at a time.
-    bool overflow = false;
-#pragma unroll
-    for (int j = 0; j < kMaxOut; ++j) {
-      const uint32_t x = outs[j];
-      bool dup = false;
-      unsigned pos = 0;
-      uint32_t last = kEmpty;
-#pragma unroll
-      for (int i = 0; i < kMaxE; ++i) {
-        dup = dup || net[i] == x;
-        pos += net[i] < x ? 1u : 0u;
-        if (i == e - 1) last = net[i];
-      }
-      const bool skip = x == kEmpty || dup;
-      overflow = overflow || (!skip && last != kEmpty);
-      if (!skip) {
-#pragma unroll
-        for (int i = kMaxE - 1; i > 0; --i)
-          net[i] = (unsigned)i < pos ? net[i]
-                   : (unsigned)i == pos ? x
-                                        : net[i - 1];
-        net[0] = pos == 0 ? x : net[0];
-        // The slot past the list's end took the dropped envelope.
-#pragma unroll
-        for (int i = 0; i < kMaxE; ++i)
-          if (i >= e) net[i] = kEmpty;
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < kMaxE; ++i)
-      if (i < e) v[kNetOff + i] = net[i];
-#pragma unroll
-    for (int i = 0; i <= kMaxE; ++i)
-      if (i == e) v[kNetOff + i] = overflow ? 1u : err;
-    return env != kEmpty && handled;
+    return actor_step(*this, v, f);
+  }
+
+  __device__ __forceinline__ bool on_deliver(uint32_t (&v)[kMaxW],
+                                             uint32_t env,
+                                             uint32_t (&outs)[kMaxOut]) const {
+    return deliver<0>(v, P::fields(env), outs);
   }
 
   // RegisterWorkloadDevice.deliver: server D's delivery when the envelope

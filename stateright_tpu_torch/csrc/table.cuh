@@ -210,14 +210,19 @@ constexpr int kMaxDevices = 64;
 // range.
 inline unsigned resident_blocks(std::atomic<unsigned> (&cache)[kMaxDevices],
                                 const void* kernel, int threads,
-                                int device) {
+                                int device, size_t dyn_smem = 0) {
   if (device < 0 || device >= kMaxDevices) return 0;
   unsigned most = cache[device].load(std::memory_order_relaxed);
   if (most == 0) {
     int sms = 0, per_sm = 0;
+    // A block of more dynamic shared memory than the default 48 KiB opts
+    // in, once a kernel and (current) device, before its first launch.
+    if (dyn_smem > 48 * 1024)
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)dyn_smem);
     cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
     cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads,
-                                                  0);
+                                                  dyn_smem);
     most = (unsigned)((sms > 0 ? sms : 1) * (per_sm > 0 ? per_sm : 1));
     cache[device].store(most, std::memory_order_relaxed);
   }

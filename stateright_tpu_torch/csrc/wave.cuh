@@ -86,6 +86,7 @@
 #pragma once
 
 #include <cstdint>
+#include <type_traits>
 
 #include "hashing.cuh"
 #include "packing.cuh"
@@ -94,6 +95,17 @@
 namespace sr {
 
 constexpr int kWaveThreads = 256;
+
+// Whether model M's lanes are all whole words (M::kWholeWords: a model
+// with no lane_bits(), ping-pong's and VSR's): its layout must then be the
+// identity, and its rows are copied, not packed. The codec's select over
+// every word for each lane (unpack and pack, O(W x Wp)) would otherwise be
+// most of a wide row's instructions and of its build.
+template <class M, class = void>
+struct WholeWords : std::false_type {};
+template <class M>
+struct WholeWords<M, std::void_t<decltype(M::kWholeWords)>>
+    : std::bool_constant<M::kWholeWords> {};
 
 // Successor f of the unpacked row v (clobbered) of a row that is valid or
 // not: returns sflat (enabled, of a valid row); q gets the successor's
@@ -106,7 +118,12 @@ __device__ __forceinline__ bool expand_slot(
     uint32_t (&q)[M::kMaxWords], u64* pfp, u64* dfp) {
   const bool sf = m.step(v, f) && row_valid;
   *pfp = fp64(v, L.w);
-  pack(L, v, q);
+  if constexpr (WholeWords<M>::value) {
+#pragma unroll
+    for (int k = 0; k < M::kMaxWords; ++k) q[k] = k < L.w ? v[k] : 0u;
+  } else {
+    pack(L, v, q);
+  }
   *dfp = kSentinel;
   if (sf) {
     *dfp = *pfp;
@@ -135,8 +152,12 @@ bool make_layout(const M& m, const int* lanes, int w, int wp, int fanout,
     L->bits[j] = (uint8_t)lanes[2 * w + j];
     L->has_sentinel[j] = lanes[3 * w + j] != 0;
     L->sentinel[j] = (uint32_t)lanes[4 * w + j];
+    if (WholeWords<M>::value &&
+        (L->word[j] != j || L->offset[j] != 0 || L->bits[j] != 32 ||
+         L->has_sentinel[j]))
+      return false;
   }
-  return true;
+  return !WholeWords<M>::value || wp == w;
 }
 
 // One block's shared memory in the tile loop: the tile's parent rows
@@ -164,10 +185,15 @@ __device__ __forceinline__ void stage_row(
   uint32_t w[M::kMaxWords];
 #pragma unroll
   for (int k = 0; k < M::kMaxWords; ++k) w[k] = k < L.wp ? p[k] : 0u;
-  uint32_t v[M::kMaxW];
-  unpack(L, w, v);
+  if constexpr (WholeWords<M>::value) {
 #pragma unroll
-  for (int j = 0; j < M::kMaxW; ++j) tile.lanes[r][j] = v[j];
+    for (int j = 0; j < M::kMaxW; ++j) tile.lanes[r][j] = w[j];
+  } else {
+    uint32_t v[M::kMaxW];
+    unpack(L, w, v);
+#pragma unroll
+    for (int j = 0; j < M::kMaxW; ++j) tile.lanes[r][j] = v[j];
+  }
   tile.valid[r] = valid;
 }
 
@@ -437,11 +463,15 @@ __device__ __forceinline__ void front_tiles(
   a.tail.finish(acc);
 }
 
+// The tile lives in dynamic shared memory, sizeof(WaveTile) bytes a block:
+// a wide row's outgrows the 48 KiB a block may declare statically (VSR at
+// 3 and 4 replicas stages 66 and 82 words a slot, about 72 and 89 KB a
+// tile).
 template <class M, class Tail>
 __global__ void __launch_bounds__(kWaveThreads, M::kMaxW > 20 ? 2 : 4)
     tile_front(const FrontParams<M, Tail> a) {
-  __shared__ WaveTile<M, Tail::kSender> tile;
-  front_tiles(a, tile);
+  extern __shared__ uint4 tile_smem[];
+  front_tiles(a, *reinterpret_cast<WaveTile<M, Tail::kSender>*>(tile_smem));
 }
 
 // The sender's pass 2 as its own launch: one thread a slot.
@@ -481,11 +511,12 @@ template <class M, class Tail>
 int launch_front(const FrontParams<M, Tail>& p, int device,
                  cudaStream_t stream) {
   static std::atomic<unsigned> cache[kMaxDevices];
+  constexpr size_t smem = sizeof(WaveTile<M, Tail::kSender>);
   const unsigned most = resident_blocks(cache, (const void*)tile_front<M, Tail>,
-                                        kWaveThreads, device);
+                                        kWaveThreads, device, smem);
   if (most == 0) return (int)cudaErrorInvalidDevice;
   const unsigned tiles = p.shards * p.tiles;
-  tile_front<M, Tail><<<(tiles < most ? tiles : most), kWaveThreads, 0,
+  tile_front<M, Tail><<<(tiles < most ? tiles : most), kWaveThreads, smem,
                         stream>>>(p);
   return 0;
 }

@@ -15,8 +15,9 @@
 // Paxos<2> 93 / 91, Paxos<3> 127 / 127, no spill, a stack frame of 240,
 // 296 and 304 bytes (part of a row in local memory); Paxos<4> 128 / 128,
 // a 384-byte frame and 28 / 8 bytes of spill stores (the representative's
-// permutation walk of register_workload.cuh). Static shared memory from
-// 15,600 / 17,616 bytes at 1 client to 33,328 / 35,344 at 4. The build
+// permutation walk of register_workload.cuh). A tile (wave.cuh's
+// WaveTile, in dynamic shared memory) of 15,600 / 17,616 bytes at 1 client
+// to 33,328 / 35,344 at 4. The build
 // takes about 52 s on the H100's machine, the longest of chip_smoke.py's.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 --split-compile=0

@@ -14,8 +14,9 @@
 // ptxas for sm_90a (-Xptxas -v, CUDA 12.8), tile_front under
 // __launch_bounds__(256, 2), wave / sender: SingleCopy<2, 1> 127 / 123
 // registers, <3, 1> 117 / 121, <4, 1> 128 / 128, <2, 2> 128 / 128; no
-// spill in any, a stack frame of 176 to 224 bytes; static shared memory
-// 12,496 to 21,872 bytes. The build takes about 22 s on the H100's machine.
+// spill in any, a stack frame of 176 to 224 bytes; a tile (wave.cuh's
+// WaveTile, in dynamic shared memory) of 12,496 to 21,872 bytes. The build
+// takes about 22 s on the H100's machine.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 --split-compile=0
 //        -shared -Xcompiler -fPIC (stateright_tpu_torch/_build.py); the

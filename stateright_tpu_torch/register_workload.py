@@ -223,6 +223,9 @@ class RegisterWorkloadDevice(ActorDeviceModel):
     INTERNAL_KINDS: tuple = ()
 
     max_out = 1
+    #: a delivered envelope leaves the network, as in JAX's register
+    #: workloads (``duplicating=False``, the reference's ``paxos.rs:213``)
+    duplicating = False
 
     def __init__(self, client_count: int, server_count: int,
                  net_slots: int = 0):

@@ -18,9 +18,11 @@ and the re-pack of the successors.
 
 For CUDA tensors it launches the kernel of ``csrc/wave.cuh``, built for
 the model named by ``DeviceModel.cuda_model()`` from
-``csrc/wave_<name>.cu`` at first use (2pc's, and the register workloads'
-on ``csrc/models/register_workload.cuh``: paxos's, single-copy's and
-ABD's), or raises: a model with no device code, a layout or a size the
+``csrc/wave_<name>.cu`` at first use (2pc's; the actor models' on
+``csrc/models/actor_net.cuh``: the register workloads' on
+``csrc/models/register_workload.cuh``, paxos's, single-copy's and ABD's,
+and ping-pong's and viewstamped replication's; the plain models'), or
+raises: a model with no device code, a layout or a size the
 device code does not take, a failed build or a failed launch all raise.
 Sentinel lanes (the register workloads' network slots) pack and unpack as
 ``packing.py`` does. For CPU tensors
@@ -67,11 +69,11 @@ def _defining_class(cls, name: str):
 
 #: the hooks whose device twin a model's CUDA code is: a subclass that
 #: overrides one below the class declaring ``cuda_model`` has no device
-#: code (the actor layer's delivery and the register workload's client
-#: and symmetry hooks, which ``csrc/models/register_workload.cuh`` and its
-#: server policies mirror, included)
+#: code (the actor layer's delivery and timeout and the register
+#: workload's client and symmetry hooks, which ``csrc/models/actor_net.cuh``,
+#: ``register_workload.cuh`` and their models mirror, included)
 _DEVICE_HOOKS = ("step", "boundary", "representative", "deliver",
-                 "server_deliver", "_client_deliver", "build_env",
+                 "timeout", "server_deliver", "_client_deliver", "build_env",
                  "client_permutations", "_sym_tables", "_sym_rewrite",
                  "sym_extra_tables", "sym_rewrite_servers",
                  "sym_rewrite_extra", "sym_rewrite_internal_req")

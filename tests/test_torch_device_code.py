@@ -49,8 +49,8 @@ from stateright_tpu_torch.engine import (compaction_order, expand_frontier,
 from stateright_tpu_torch.actor_device import EMPTY_ENV
 from stateright_tpu_torch.hashing import SENTINEL_U64
 from stateright_tpu_torch.models import (abd, increment, increment_lock,
-                                         paxos, single_copy, sliding_puzzle,
-                                         twopc)
+                                         paxos, pingpong, single_copy,
+                                         sliding_puzzle, twopc, vsr)
 from stateright_tpu_torch.packing import compile_layout
 
 torch.set_num_threads(2)
@@ -110,9 +110,11 @@ HARNESS = r"""
 #include "models/increment_lock.cuh"
 #include "models/linear_equation.cuh"
 #include "models/paxos.cuh"
+#include "models/pingpong.cuh"
 #include "models/single_copy.cuh"
 #include "models/sliding_puzzle.cuh"
 #include "models/twopc.cuh"
+#include "models/vsr.cuh"
 
 long long g_table_reads = 0;
 const void* g_table_lo = nullptr;
@@ -138,11 +140,24 @@ sr::DGraph g_dgraph;
 // at p0 clients, p2 servers and p1 network slots, model 4 LinearEquation,
 // model 5 the DGraph of the last set_dgraph, model 6 increment and model 7
 // increment_lock at p0 threads, model 8 the p0 x p1 sliding puzzle (each
-// at the sizes its entry point instantiates). -1 for a model it does not
-// hold.
+// at the sizes its entry point instantiates); model 9 ping-pong at max_nat
+// p0 and p1 network slots, its form in p2's bits (history 1, lossy 2,
+// duplicating 4); model 10 VSR at p0 replicas and p1 network slots, p2's
+// bits lossy 1 and duplicating 2 and max_view above them (the instances of
+// wave_pingpong.cu and wave_vsr.cu). -1 for a model it does not hold.
 template <class Fn>
 long long with_model(int model, int p0, int p1, int p2, Fn&& fn) {
   if (model == 0) return fn(sr::TwoPhase<8>{p0});
+  if (model == 9 && p1 >= 1 && p1 <= sr::PingPong<26>::kMaxE)
+    return fn(sr::PingPong<26>{p1, (p2 & 1) != 0, (p2 & 2) != 0,
+                               (p2 & 4) != 0, (uint32_t)p0});
+  if (model == 10 && p1 >= 1) {
+    const bool l = (p2 & 1) != 0, d = (p2 & 2) != 0;
+    const uint32_t mv = (uint32_t)(p2 >> 2);
+    if (p0 == 2 && p1 <= 16) return fn(sr::Vsr<2, 16>{p1, l, d, mv});
+    if (p0 == 3 && p1 <= 40) return fn(sr::Vsr<3, 40>{p1, l, d, mv});
+    if (p0 == 4 && p1 <= 48) return fn(sr::Vsr<4, 48>{p1, l, d, mv});
+  }
   if (model == 4) return fn(sr::LinearEquation{});
   if (model == 5) return fn(g_dgraph);
   if (model == 6) {
@@ -614,7 +629,12 @@ _MODELS = {"twopc": (0, twopc.TwoPhaseSys, twopc.TwoPhaseDevice, 3, 1 << 20),
                               1 << 32),
            "puzzle": (8, lambda rc: sliding_puzzle.SlidingPuzzle(*rc),
                       lambda rc: sliding_puzzle.PuzzleDevice(*rc), 8,
-                      1 << 32)}
+                      1 << 32),
+           "pingpong": (9, lambda m: pingpong.PingPongSys(m, lossy=True),
+                        lambda m: pingpong.PingPongDevice(m, lossy=True), 8,
+                        1 << 32),
+           "vsr": (10, lambda n: vsr.VsrSys(n, 1),
+                   lambda n: vsr.VsrDevice(n, 1), 6, 1 << 32)}
 
 
 def _graph(seed):
@@ -639,6 +659,12 @@ def _params(lib, dm):
         return 7, dm.thread_count, 0, 0
     if isinstance(dm, sliding_puzzle.PuzzleDevice):
         return 8, dm.rows, dm.cols, 0
+    if isinstance(dm, pingpong.PingPongDevice):
+        return 9, dm.max_nat, dm.net_slots, (
+            dm.maintains_history | dm.lossy << 1 | dm.duplicating << 2)
+    if isinstance(dm, vsr.VsrDevice):
+        return 10, dm.n, dm.net_slots, (
+            dm.lossy | dm.duplicating << 1 | dm.max_view << 2)
     if isinstance(dm, paxos.PaxosDevice):
         return 1, dm.C, dm.net_slots, 0
     if isinstance(dm, single_copy.SingleCopyDevice):
@@ -700,10 +726,15 @@ _PLAIN_CASES = [pytest.param(m, size, sym, id=f"{m}{size}-{sym}")
                     ("increment", 4, False), ("increment", 8, True),
                     ("increment_lock", 4, True), ("increment_lock", 8, False),
                     ("puzzle", (2, 3), False), ("puzzle", (4, 3), False))]
+#: the actor models on actor_net.cuh: ping-pong lossy and duplicating, VSR
+#: at 2 to 4 replicas (its rows of 34, 50 and 66 lanes and its timers)
+_ACTOR_CASES = [pytest.param(m, size, False, id=f"{m}{size}")
+                for m, size in (("pingpong", 5), ("vsr", 2), ("vsr", 3),
+                                ("vsr", 4))]
 
 
 @pytest.mark.parametrize("model, size, sym", _CASES + _PAXOS_CASES
-                         + _REGISTER_CASES + _PLAIN_CASES)
+                         + _REGISTER_CASES + _PLAIN_CASES + _ACTOR_CASES)
 def test_wave_phases_match_the_plain_version(lib, model, size, sym):
     rng = np.random.default_rng(_seed(size))
     B = 48
@@ -777,7 +808,8 @@ def _sender_rows(model, size, sym, n, rng):
 @pytest.mark.parametrize("model, size, sym", _CASES + [
     c for c in _PAXOS_CASES + _REGISTER_CASES
     if c.id in ("paxos1-False", "paxos2-False", "paxos4-True",
-                "single_copy4-True", "abd2-False")] + _PLAIN_CASES)
+                "single_copy4-True", "abd2-False")] + _PLAIN_CASES
+    + _ACTOR_CASES[:2])
 def test_sender_phases_match_the_plain_version(lib, model, size, sym,
                                                local_dedup, n):
     """The sender kernel's per-slot work and pass 2 against
@@ -1193,6 +1225,105 @@ def test_plain_model_packing_matches_packing_py(lib, model, tag):
 
 
 # -- The append kernel -------------------------------------------------------
+
+
+# -- The actor models' device steps on actor_net.cuh ------------------------
+
+
+def _actor_rows(model, rng, levels=24, cap=48, n_adv=600):
+    """Rows the port's step reaches level by level from ``model``'s init
+    inside its boundary (a seeded sample of at most ``cap`` a level), then
+    seeded adversarial rows: lanes of every size (most of them small, so
+    that counts, views, statuses and masks compare both ways; some at the
+    top of the uint32 range, so that they wrap) and networks of envelopes
+    of random fields (every kind, and destinations past the replicas),
+    garbage and empty ones, half of them sorted."""
+    dm = model.device_model()
+    w, off, e = dm.state_width, dm.net_offset, dm.net_slots
+    rows = np.stack([dm.encode(s) for s in model.init_states()])
+    seen, out = {r.tobytes() for r in rows}, [rows]
+    for _ in range(levels):
+        succ, valid = dm.step(carry.rows_in(rows))
+        flat = succ.reshape(-1, w)
+        keep = (valid.reshape(-1) & dm.boundary(flat)).numpy()
+        nxt = []
+        for r in carry.rows_out(flat)[keep]:
+            if r.tobytes() not in seen:
+                seen.add(r.tobytes())
+                nxt.append(r)
+        if not nxt:
+            break
+        rows = np.stack(nxt)
+        if len(rows) > cap:
+            rows = rows[np.sort(rng.choice(len(rows), cap, replace=False))]
+        out.append(rows)
+    adv = rng.integers(0, 1 << 32, (n_adv, w), dtype=np.uint64)
+    small = rng.random((n_adv, w)) < 0.7
+    adv[small] = rng.integers(0, 6, small.sum())
+    top = rng.random((n_adv, w)) < 0.05
+    adv[top] = 0xFFFFFFFF - rng.integers(0, 3, top.sum())
+    env = rng.integers(0, 1 << 15, (n_adv, e), dtype=np.uint64)
+    wide = rng.random((n_adv, e)) < 0.1
+    env[wide] = rng.integers(0, 1 << 32, wide.sum(), dtype=np.uint64)
+    env[rng.random((n_adv, e)) < 0.3] = EMPTY_ENV
+    ordered = rng.random(n_adv) < 0.5
+    env[ordered] = np.sort(env[ordered], axis=1)
+    adv[:, off:off + e] = env
+    return np.concatenate(out + [adv.astype(np.uint32)])
+
+
+#: ping-pong in each of its eight forms (history, lossy, duplicating) at
+#: the default 16 slots, at the instance's 26 and at 3 (whose inserts
+#: overflow); VSR at 2 to 4 replicas at the default 8n slots and at the
+#: instances' most, each network form at 2, and 3 slots at 3 (overflow)
+_ACTOR_MODELS = (
+    [pingpong.PingPongSys(3, h, lossy=l, duplicating=d)
+     for h in (False, True) for l in (False, True) for d in (False, True)]
+    + [pingpong.PingPongSys(5, lossy=True, net_slots=26),
+       pingpong.PingPongSys(5, lossy=True, net_slots=3)]
+    + [vsr.VsrSys(2, 1, lossy=l, duplicating=d)
+       for l in (False, True) for d in (True, False)]
+    + [vsr.VsrSys(3, 1), vsr.VsrSys(3, 2, net_slots=40),
+       vsr.VsrSys(4, 1), vsr.VsrSys(4, 1, net_slots=48),
+       vsr.VsrSys(3, 1, lossy=True, net_slots=3)])
+
+
+def _actor_id(model):
+    dm = model.device_model()
+    name = (f"pingpong-h{int(dm.maintains_history)}"
+            if isinstance(dm, pingpong.PingPongDevice)
+            else f"vsr{dm.n}-v{dm.max_view}")
+    return (f"{name}-l{int(dm.lossy)}-d{int(dm.duplicating)}"
+            f"-e{dm.net_slots}")
+
+
+@pytest.mark.parametrize("model", _ACTOR_MODELS,
+                         ids=[_actor_id(m) for m in _ACTOR_MODELS])
+def test_actor_step_matches_the_port(lib, model):
+    """``pingpong.cuh`` and ``vsr.cuh`` on ``actor_net.cuh``: every action
+    of every row, enabled or not (a Deliver, a Drop on a lossy network, a
+    replica's Timeout), on reachable and adversarial rows: the successor's
+    lanes bit for bit, and the enabled bit as the torch step's valid bit
+    inside the boundary (which the device code folds into it). Every kind
+    of action is enabled somewhere, and a network of 3 slots overflows
+    (from a clear overflow lane)."""
+    dm = model.device_model()
+    rows = _actor_rows(model, np.random.default_rng(dm.state_width))
+    succ, enabled = _device_step(lib, dm, rows)
+    want, valid = dm.step(carry.rows_in(rows))
+    inside = dm.boundary(want.reshape(-1, dm.state_width)).view(valid.shape)
+    assert np.array_equal(succ, carry.rows_out(want))
+    assert np.array_equal(enabled, (valid & inside).numpy())
+    e, lossy = dm.net_slots, int(dm.lossy)
+    kinds = {"deliver": enabled[:, lossy:e * (1 + lossy):1 + lossy],
+             "drop": enabled[:, 0:2 * e:2] if lossy else None,
+             "timeout": enabled[:, e * (1 + lossy):] if dm.n_timers
+             else None}
+    for kind, en in kinds.items():
+        assert en is None or en.any(), kind
+    if e == 3:
+        clear = rows[:, None, dm.error_lane] == 0
+        assert ((succ[..., dm.error_lane] == 1) & clear).any()
 
 
 @pytest.mark.parametrize("case", [

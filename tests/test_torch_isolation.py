@@ -4,12 +4,14 @@ An AST scan of every file of ``stateright_tpu_torch/`` (the classic
 engine's ``classic.py`` and ``visitor.py``, the register models'
 ``models/single_copy.py`` and ``models/abd.py``, and the plain models'
 ``test_util.py``, ``models/increment.py``, ``models/increment_lock.py``
-and ``models/sliding_puzzle.py`` among them); a fresh interpreter that
-checks 2pc at 3 RMs (on the fused engine, and on the classic engine with
-a visitor), paxos at 1 client, single-copy at 2 clients on one server,
-ABD at 2 clients on two, LinearEquation, increment and increment_lock at
-2 threads and the 2x3 puzzle through the port on the CPU and then finds
-neither ``jax`` nor ``stateright_tpu`` loaded; and
+and ``models/sliding_puzzle.py``, and the actor models'
+``models/pingpong.py`` and ``models/vsr.py`` among them); a fresh
+interpreter that checks 2pc at 3 RMs (on the fused engine, and on the
+classic engine with a visitor), paxos at 1 client, single-copy at 2
+clients on one server, ABD at 2 clients on two, LinearEquation, increment
+and increment_lock at 2 threads, the 2x3 puzzle, ping-pong at max_nat 5 on
+a lossy network and VSR at 2 replicas through the port on the CPU and then
+finds neither ``jax`` nor ``stateright_tpu`` loaded; and
 the entry point's default device, which is CUDA and raises on a box
 without one.
 """
@@ -28,7 +30,8 @@ _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _PKG = os.path.join(_REPO, "stateright_tpu_torch")
 _BANNED = ("jax", "jaxlib", "stateright_tpu", "examples", "two_phase_commit",
            "paxos", "single_copy_register", "linearizable_register",
-           "increment", "increment_lock", "sliding_puzzle", "test_util")
+           "increment", "increment_lock", "sliding_puzzle", "test_util",
+           "actor_test_util", "viewstamped")
 
 
 def _imports(path):
@@ -47,7 +50,8 @@ def test_no_file_of_the_port_imports_jax_or_the_jax_package():
     names = {os.path.relpath(f, _PKG) for f in files}
     assert {"classic.py", "visitor.py", "models/single_copy.py",
             "models/abd.py", "test_util.py", "models/increment.py",
-            "models/increment_lock.py", "models/sliding_puzzle.py"} <= names
+            "models/increment_lock.py", "models/sliding_puzzle.py",
+            "models/pingpong.py", "models/vsr.py"} <= names
     for path in files + [os.path.join(_REPO, "chip_smoke.py")]:
         for name in _imports(path):
             assert name.split(".")[0] not in _BANNED, (path, name)
@@ -97,6 +101,14 @@ def test_a_cpu_check_loads_neither_jax_nor_the_jax_package():
         "c = SlidingPuzzle(2, 3).checker().spawn_cuda_bfs(\n"
         "    device='cpu').join()\n"
         "assert (c.unique_state_count(), c.state_count()) == (360, 841)\n"
+        "from stateright_tpu_torch.models.pingpong import PingPongSys\n"
+        "c = PingPongSys(5, lossy=True).checker().spawn_cuda_bfs(\n"
+        "    device='cpu').join()\n"
+        "assert (c.unique_state_count(), c.state_count()) == (4094, 21505)\n"
+        "from stateright_tpu_torch.models.vsr import VsrSys\n"
+        "c = VsrSys(2, 1).checker().spawn_cuda_bfs(device='cpu').join()\n"
+        "assert (c.unique_state_count(), c.state_count()) == (63, 169)\n"
+        "c.assert_properties()\n"
         "bad = [m for m in sys.modules\n"
         "       if m.split('.')[0] in ('jax', 'jaxlib', 'stateright_tpu')]\n"
         "assert not bad, bad\n"

@@ -8,22 +8,24 @@ Usage, from the root of a checkout on a machine with an NVIDIA H100:
     python3 chip_smoke.py --phases registers       # phase 1, then 9
     python3 chip_smoke.py --phases corpus          # phase 1, then 10
     python3 chip_smoke.py --phases actors          # phase 1, then 11
+    python3 chip_smoke.py --phases sharded_classic # phase 1, then 12
     python3 chip_smoke.py --phases kernels,full    # phase 1, 2-4 and 6
 
 ``--phases`` takes a comma-separated subset of ``kernels`` (phases 2 to
 4), ``small`` (5), ``full`` (6), ``checkpoint`` (7), ``classic`` (8),
-``registers`` (9), ``corpus`` (10) and ``actors`` (11), runs phase 1 and
-those, in this order, and prints the kernels line's rows those phases give
+``registers`` (9), ``corpus`` (10), ``actors`` (11) and
+``sharded_classic`` (12), runs phase 1 and those, in this order, and prints the kernels line's rows those phases give
 (phases 2 to 8's rows only when all of them ran). Phases, in order; any
 failure exits non-zero and prints no result line:
 
 1. build ``stateright_tpu_torch/csrc/table.cu``, ``wave_twopc.cu``,
-   ``wave_paxos.cu``, ``wave_single_copy.cu``, ``wave_abd.cu``,
-   ``wave_linear_equation.cu``, ``wave_dgraph.cu``, ``wave_increment.cu``,
-   ``wave_increment_lock.cu``, ``wave_sliding_puzzle.cu``,
-   ``wave_pingpong.cu``, ``wave_vsr.cu`` (the wave kernel's and the sender
-   kernel's entry points for 2pc, each register workload, each plain model
-   and each actor model) and ``append.cu`` for ``sm_90a``, one
+   ``wave_paxos.cu``, ``sender_paxos.cu``, ``wave_single_copy.cu``,
+   ``wave_abd.cu``, ``wave_linear_equation.cu``, ``wave_dgraph.cu``,
+   ``wave_increment.cu``, ``wave_increment_lock.cu``,
+   ``wave_sliding_puzzle.cu``, ``wave_pingpong.cu``, ``wave_vsr.cu`` (the
+   wave kernel's and the sender kernel's entry points for 2pc, each
+   register workload, each plain model and each actor model; paxos's
+   sender in a source of its own) and ``append.cu`` for ``sm_90a``, one
    ``nvcc`` each, all at once, and print each build time with ptxas'
    register and spill report, and the card's name and power limit;
 2. hold the wave kernel against its plain version at full width: 16,384
@@ -212,7 +214,31 @@ failure exits non-zero and prints no result line:
     sharded torch stages and sender kernel: equal counts and discovery
     chains (the sharded sender's to the sharded torch stages'), launches
     exact, seconds, states/s and peak device memory printed;
-12. the kernels line, the script's running time, the card line and the
+12. the classic sharded engine (``spawn_cuda_bfs(mesh=[cuda:0] * n,
+    fused=False)``, ``sharded.py``; ``phase_sharded_classic``, in a
+    process of its own when earlier phases ran, as phase 9): at 4 shards
+    and at a ragged 3, each on the torch stages and on the sender kernel,
+    against the same run on the CPU (counts, discovery chains, parent maps
+    and every wave's log fields): 2pc 3 (288 / 1,146), 2pc 4 with a
+    visitor (the builder's fallback, every state visited, a rehash from
+    2^12 slots), 2pc 5 with symmetry (314 / 2,048), paxos 1 with a
+    property the host evaluates (265 / 482) and 2pc 3 with one that is
+    found; 2pc 4 with every wave at an output rung of 8 rows (regathers)
+    against the ladder off; ``fused=True`` with a visitor and
+    ``pipeline=True`` refused. Then, none cut, 4 shards of 4,096 rows,
+    graphs on: 2pc at 10 RMs (61,515,776 / 817,760,258) and ``paxos check
+    3`` (1,194,428 / 2,420,477, "value chosen" found) on the torch stages
+    and on the sender kernel, exact, the launches exact, the sender
+    kernel's chains the torch stages', each run's seconds, waves, host us
+    a wave, bytes down and peak device memory; from a mid-run point of
+    each on each path, one replayed wave under
+    ``torch.cuda.set_sync_debug_mode("error")``, three timed and one
+    profiled (the card's time a wave and its idle share), and on the
+    sender kernel's, kernels 3 and 1 held to their plain versions and
+    timed at this path's shapes (the next wave's 4 x 4,096 rows; shard
+    0's 851,968 (2pc) or 294,912 (paxos) received rows against its table
+    slice with the engine's scratch);
+13. the kernels line, the script's running time, the card line and the
     result line.
 
 It imports neither JAX nor ``stateright_tpu``.
@@ -231,6 +257,7 @@ import subprocess
 import sys
 import time
 import traceback
+from collections import deque
 from concurrent.futures import ThreadPoolExecutor
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA's data sheet
@@ -245,8 +272,9 @@ PAXOS_UNIQUE, PAXOS_STATES = 1_194_428, 2_420_477
 #: 90 waves at 16,384 rows, so the timed dispatches start early
 PAXOS_WAVE_AT, PAXOS_MID = 240_000, 50_000
 #: the states paxos at 4 clients with symmetry runs to on the card and on
-#: the CPU (its whole space is far larger)
-PAXOS4_TARGET = 20_000
+#: the CPU (its whole space is far larger; its CPU runs cost most of the
+#: phase)
+PAXOS4_TARGET = 10_000
 BATCH = 16_384
 SHARDS = 4
 SRC = "stateright_tpu_torch/csrc/"
@@ -255,6 +283,14 @@ PALLAS = "stateright_tpu/tpu/pallas_table.py:"
 
 def _log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def _clocked(label: str, fn, *args, **kw):
+    """``fn(*args, **kw)``, its wall time logged under ``label``."""
+    t0 = time.monotonic()
+    out = fn(*args, **kw)
+    _log(f"{label}: {time.monotonic() - t0:.1f} s")
+    return out
 
 
 def _card_line() -> str:
@@ -1051,14 +1087,16 @@ def phase_sharded_small(torch, fused, TwoPhaseSys):
          f"set_sync_debug_mode('error'), {waves} waves, no synchronisation")
 
 
-def _paxos_against_cpu(checker, want, path, found, **spawn):
+def _paxos_against_cpu(checker, want, path, found, cpu=None, **spawn):
     """``checker()``'s run on the card through ``spawn_cuda_bfs(**spawn)``
     (a ``mesh`` of ``cuda:0`` for the sharded engine) against the same run
-    on the CPU: the counts (and ``want``, where given), the kernel path,
-    the discoveries ``found`` (where given) and their chains."""
-    cpu_spawn = (dict(spawn, mesh=["cpu"] * len(spawn["mesh"]))
-                 if "mesh" in spawn else dict(spawn, device="cpu"))
-    cpu = checker().spawn_cuda_bfs(**cpu_spawn).join()
+    on the CPU (``cpu``, or made here): the counts (and ``want``, where
+    given), the kernel path, the discoveries ``found`` (where given) and
+    their chains."""
+    if cpu is None:
+        cpu_spawn = (dict(spawn, mesh=["cpu"] * len(spawn["mesh"]))
+                     if "mesh" in spawn else dict(spawn, device="cpu"))
+        cpu = checker().spawn_cuda_bfs(**cpu_spawn).join()
     gpu = checker().spawn_cuda_bfs(**spawn).join()
     got = (gpu.unique_state_count(), gpu.state_count())
     tag = f"n={getattr(gpu, '_n', 1)} {gpu.kernel_path()}"
@@ -1088,14 +1126,21 @@ def phase_paxos_small(PaxosSys, PaxosDevice):
     shrink); then a network too small for the run raises the error lane's
     error on the card, as on the CPU."""
     for clients, want in ((1, (265, 482)), (2, (16_668, 32_971))):
+        # One CPU run (the torch stages) an engine, both card paths held
+        # to it.
+        cpu = {"fused": PaxosSys(clients).checker().spawn_cuda_bfs(
+            device="cpu", batch_size=1024).join(),
+            "sharded": PaxosSys(clients).checker().spawn_cuda_bfs(
+                mesh=["cpu"] * SHARDS, batch_size=256).join()}
         for wave_kernel, paths in ((False, ("dedup_kernel", "dedup_kernel")),
                                    (True, ("megakernel", "sender_kernel"))):
-            for path, spawn in zip(paths, (
-                    dict(batch_size=1024),
-                    dict(batch_size=256, mesh=["cuda:0"] * SHARDS))):
+            for path, (engine, spawn) in zip(paths, (
+                    ("fused", dict(batch_size=1024)),
+                    ("sharded", dict(batch_size=256,
+                                     mesh=["cuda:0"] * SHARDS)))):
                 _, line = _paxos_against_cpu(
                     PaxosSys(clients).checker, want, path, ["value chosen"],
-                    wave_kernel=wave_kernel, **spawn)
+                    cpu=cpu[engine], wave_kernel=wave_kernel, **spawn)
                 _log(f"paxos {clients} {line}")
     for path, spawn in (("megakernel", dict(batch_size=1024)),
                         ("sender_kernel", dict(batch_size=256,
@@ -1732,7 +1777,7 @@ def _seed_case(torch, table_mod, engine, eng, visited, cap):
 
 def phase_checkpoint_2pc(torch, kernels, fused, table_mod, engine, ckpt_mod,
                          TwoPhaseSys, workdir, device="cuda:0", rm=10,
-                         batch=BATCH, target=200_000_000,
+                         batch=BATCH, target=60_000_000,
                          want=(FULL_UNIQUE, FULL_STATES)):
     """2pc at 10 RMs on the wave kernel, batch 16,384, stopped at
     ``target`` states: its snapshot timed in parts (the queue's rows read
@@ -2326,10 +2371,12 @@ def _card_run(torch, kernels, fused, tag, build, engine, batch, want,
     classic or sharded on ``mesh=[cuda:0] * SHARDS``), the kernels' launch
     counts set to 0 just before and read just after: the counts ``want``
     (unique, states; None for one not checked), the CPU run ``cpu``'s
-    counts and chains exactly (where given), its discoveries ``found``,
-    the launches exact. Returns the run's numbers with its discoveries'
-    chains (fingerprints and actions, replayed through ``path.py``)."""
-    gc.collect()
+    counts and chains exactly (where given), its discoveries ``found``
+    (where given), the launches exact. Returns the run's numbers with its
+    discoveries' chains (fingerprints and actions, replayed through
+    ``path.py``)."""
+    if batch == BATCH:
+        gc.collect()  # the peak of a full-width run is its own
     torch.cuda.reset_peak_memory_stats()
     for fn in kernels.values():
         fn.launches = 0
@@ -2353,7 +2400,7 @@ def _card_run(torch, kernels, fused, tag, build, engine, batch, want,
         raise AssertionError(f"{tag}: {got}, the CPU run's "
                              f"{cpu.unique_state_count()} / "
                              f"{cpu.state_count()}")
-    if sorted(c.discoveries()) != found or (
+    if (found is not None and sorted(c.discoveries()) != found) or (
             cpu is not None and _chains(c) != _chains(cpu)):
         raise AssertionError(f"{tag}: discoveries {sorted(c.discoveries())}"
                              ", or their chains differ from the CPU run")
@@ -2381,6 +2428,75 @@ def _card_run(torch, kernels, fused, tag, build, engine, batch, want,
                 counts=got, chains=chains)
 
 
+#: the states the cut runs of the largest configurations stop at (depth
+#: cut to keep the script inside its time: each configuration runs to its
+#: end once, on the fused wave kernel): the 4x3 puzzle's "solved" lies 28
+#: moves from its start, and the 50,962,543 successors of its first 29 BFS
+#: levels are all expanded by 56 M; the others at 1/12 to 1/2 of their
+#: states
+CUTS = {"single_copy 4": 300_000, "single_copy 4 sym": 15_000,
+        "puzzle 4x3": 56_000_000, "paxos 4": 500_000,
+        "paxos 4 sym liveness": 300_000, "pingpong 11": 16_000_000,
+        "vsr 4": 1_500_000}
+
+
+def _cut(tag: str) -> str:
+    """The runs' tag of ``tag``'s cut runs."""
+    return f"{tag} to {CUTS[tag]:,}"
+
+
+def _whole_and_cut(torch, kernels, fused, tag, build, want, found):
+    """``build()``'s checker at full width (batch 16,384): to its end on
+    the fused wave kernel, its counts ``want`` (None for one not checked)
+    and discoveries ``found``; then cut to ``CUTS[tag]`` states on the
+    fused, the classic and the sharded engine (4 shards), each on the
+    torch stages and on the kernels. Each engine's kernel run equals its
+    torch stages' in counts and chains; the unsharded runs' chains are the
+    fused torch stages' (the sharded engine's its own torch stages': its
+    order within a wave is not the fused engine's); every cut run stops
+    at or past the cut and short of the whole run, finds only what the
+    whole run finds, and the whole run's chains are the fused torch
+    stages' for what the cut found. Returns the runs by ``(tag, engine,
+    wave_kernel)``, the whole run's under ``tag``, the cut runs' under
+    ``_cut(tag)``."""
+    whole = _card_run(torch, kernels, fused, tag, build, "fused", BATCH,
+                      want, found, None, True)
+    cut, target = _cut(tag), CUTS[tag]
+    runs = {(tag, "fused", True): whole}
+    for engine in ("fused", "classic", "sharded"):
+        for wave_kernel in (False, True):
+            runs[cut, engine, wave_kernel] = _card_run(
+                torch, kernels, fused, cut,
+                lambda: build().target_state_count(target), engine, BATCH,
+                None, None, None, wave_kernel)
+    ref = runs[cut, "fused", False]
+    for (_, engine, wave_kernel), r in list(runs.items())[1:]:
+        where = f"{cut}, {engine}, wave_kernel={wave_kernel}"
+        if not target <= r["counts"][1] < whole["counts"][1]:
+            raise AssertionError(f"{where}: {r['counts']}, not cut at "
+                                 f"{target} states")
+        if not set(r["chains"]) <= set(whole["chains"]):
+            raise AssertionError(f"{where}: discoveries {sorted(r['chains'])}"
+                                 f", the whole run's {found}")
+        if r["counts"] != runs[cut, engine, False]["counts"]:
+            torch_counts = runs[cut, engine, False]["counts"]
+            raise AssertionError(f"{where}: {r['counts']}, the torch "
+                                 f"stages' {torch_counts}")
+        _same_runs(r, dict(ref, counts=r["counts"]) if engine != "sharded"
+                   else runs[cut, "sharded", False], where)
+    if {k: whole["chains"][k] for k in ref["chains"]} != ref["chains"]:
+        raise AssertionError(f"{tag}: the whole run's chains differ from "
+                             f"the cut runs' {sorted(ref['chains'])}")
+    lengths = [{k: len(v[0]) for k, v in r["chains"].items()}
+               for r in (whole, runs[cut, "sharded", False])]
+    _log(f"{tag}: the runs agree ({whole['counts']} to its end; cut at "
+         f"{target:,} states: {ref['counts']} fused, "
+         f"{runs[cut, 'classic', False]['counts']} classic, "
+         f"{runs[cut, 'sharded', False]['counts']} sharded; chains of "
+         f"{lengths[0]} states, the sharded cut's {lengths[1]})")
+    return runs
+
+
 def phase_registers(torch, kernels, fused, wave_mod, table_mod):
     """The register corpus on the card: kernels 2 and 3 held to their
     plain versions on single-copy 4 and ABD 2/2
@@ -2391,12 +2507,11 @@ def phase_registers(torch, kernels, fused, wave_mod, table_mod):
     and with symmetry, single-copy 2 on two servers (its linearizability
     counterexample) and ABD 2/2. The classic engine's runs are held to
     the fused engine's CPU run. Single-copy 4 makes no CPU run (the CPU's
-    were most of the phase's time): its runs are held to its pinned
-    counts, which the CPU tests hold to JAX's
-    (``tests/test_torch_registers.py``), and their chains to the card's
-    fused torch stages' (the sharded engine's to its own torch stages'),
-    as the corpus phase does for the puzzle. Single-copy's symmetric
-    counts are JAX's.
+    were most of the phase's time): it runs to its pinned counts, which
+    the CPU tests hold to JAX's (``tests/test_torch_registers.py``), once
+    on the fused wave kernel, and cut on the six paths, held to the
+    card's torch stages (``_whole_and_cut``), as the corpus phase does
+    for the puzzle. Single-copy's symmetric counts are JAX's.
     Then one replayed dispatch of single-copy 4 on the wave kernel under
     ``set_sync_debug_mode("error")``."""
     SingleCopySys, AbdSys = _register_modules()
@@ -2421,9 +2536,13 @@ def phase_registers(torch, kernels, fused, wave_mod, table_mod):
          BATCH, None, SC_COUNTS[4, True], value))
     runs = {}
     for tag, build, batch, cpu_batch, want, found in configs:
-        cpu = None
+        if not cpu_batch:
+            # No CPU run: the card's torch stages are the reference.
+            runs.update(_whole_and_cut(torch, kernels, fused, tag, build,
+                                       want, found))
+            continue
         for engine in ("fused", "classic", "sharded"):
-            if engine != "classic" and cpu_batch:
+            if engine != "classic":
                 t_cpu = time.monotonic()
                 cpu = _cpu_run(build, engine, cpu_batch).join()
                 _log(f"{tag}, {engine}, the CPU's run at batch {cpu_batch}:"
@@ -2432,14 +2551,6 @@ def phase_registers(torch, kernels, fused, wave_mod, table_mod):
                 runs[tag, engine, wave_kernel] = _card_run(
                     torch, kernels, fused, tag, build, engine, batch, want,
                     found, cpu, wave_kernel)
-        if not cpu_batch:
-            # No CPU run: the card's fused torch stages are the reference,
-            # the sharded torch stages the sharded sender's.
-            for (t, engine, wave_kernel), r in runs.items():
-                if t == tag:
-                    _same_runs(r, runs[tag, "sharded" if engine == "sharded"
-                                       else "fused", False],
-                               f"{tag}, {engine}, wave_kernel={wave_kernel}")
     t2 = time.monotonic()
     mid = (SingleCopySys(4).checker().target_state_count(SC4_MID)
            .spawn_cuda_bfs(device="cuda:0", batch_size=BATCH,
@@ -2457,7 +2568,7 @@ def phase_registers(torch, kernels, fused, wave_mod, table_mod):
          f"{t2 - t1:.1f} s, sync check {time.monotonic() - t2:.1f} s")
     for (tag, engine, wave_kernel), r in runs.items():
         path = "kernels" if wave_kernel else "torch stages"
-        _log(f"  {tag:18s} {engine:8s} {path:13s} {r['sec']:8.3f} s  peak "
+        _log(f"  {tag:28s} {engine:8s} {path:13s} {r['sec']:8.3f} s  peak "
              f"{r['peak']:>12d} B  waves {r['waves']:4d}  {r['counts']}")
     return holds, runs
 
@@ -2472,8 +2583,11 @@ def phase_registers(torch, kernels, fused, wave_mod, table_mod):
 #: with 2 moves from a corner (4 cells), 3 from an edge's middle (6) and 4
 #: from the middle (2): 19,958,400 x 34 + 1
 PUZZLE43 = (239_500_800, 678_585_601)
-#: the same at 3x3: 20,160 x (4 x 2 + 4 x 3 + 4) + 1
-PUZZLE33 = (181_440, 483_841)
+#: the 3x3 gate's cut (its 483,841 states, 20,160 x (4 x 2 + 4 x 3 + 4) +
+#: 1, are the CPU tests'): "solved" lies 16 moves from the start, and the
+#: 104,260 successors of its first 21 BFS levels (the 21st of 16,993
+#: boards, wider than a batch) are all expanded by 100,000
+PUZZLE33_CUT = 100_000
 #: paxos at 4 clients (MEASUREMENTS.md): the whole space, and its orbits
 #: under the client symmetry (the states of a symmetric run are the fused
 #: torch-stage run's)
@@ -2581,7 +2695,8 @@ def _corpus_cpu(build, batch, kind):
     """The CPU runs (the torch stages at ``batch`` rows) that each engine's
     card runs of ``build()`` are held to, by engine. A run that stops at
     its first counterexample (``kind`` "early") has counts that depend on
-    the engine and the batch: each engine meets its own CPU run. A full
+    the engine and the batch: each engine meets its own CPU run; so has
+    one cut at a state count (``target_state_count``). A full
     enumeration's counts do not, and neither do the classic engine's
     discovery chains, which are the fused engine's
     (``tests/test_torch_corpus.py::test_full_enumerations_agree_across_
@@ -2629,8 +2744,9 @@ def phase_corpus_gates(torch, kernels, fused, m):
          (438_401, 438_401), [], "full"),
         ("increment_lock 8 sym", lambda: Lock(8).checker().symmetry(),
          BATCH, (33, 61), [], "full"),
-        ("puzzle 3x3", lambda: Puzzle(3, 3).checker(), BATCH, PUZZLE33,
-         ["solved"], "found")]
+        (f"puzzle 3x3 to {PUZZLE33_CUT:,}", lambda: Puzzle(3, 3).checker()
+         .target_state_count(PUZZLE33_CUT), BATCH, None, ["solved"],
+         "early")]
     for seed in range(5):
         for tag, graph in _fuzz_graphs(m, seed):
             configs.append((tag, graph.checker, 8, None, None, "early"))
@@ -2674,24 +2790,15 @@ def _puzzle_memory(words: int) -> str:
 
 
 def phase_corpus_full(torch, kernels, fused, m):
-    """The full-width runs: the 4x3 puzzle (239,500,800 boards) on the
-    fused torch stages (the card's reference), the fused wave kernel, the
-    classic wave kernel and the sharded engine (4 shards) on the torch
-    stages and the sender kernel, batch 16,384: equal counts (the closed
-    form's), "solved" chains equal to the fused torch stages' (the sharded
-    engine's to its own torch stages': its order within a wave is not
-    the fused engine's), no "even permutation" counterexample; then
-    ``paxos check 4`` to its end
-    (2,372,188 / 4,807,983; 1,194,428 with symmetry), plain and with
-    symmetry and the liveness property (BASELINE.json's workload), on the
-    same five, held likewise."""
+    """The full-width runs (``_whole_and_cut``): the 4x3 puzzle
+    (239,500,800 boards, the closed form's counts, no "even permutation"
+    counterexample), then ``paxos check 4`` (2,372,188 / 4,807,983;
+    1,194,428 with symmetry), plain and with symmetry and the liveness
+    property (BASELINE.json's workload), each to its end on the fused
+    wave kernel and cut on the six paths."""
     Puzzle, Paxos = m["SlidingPuzzle"], m["PaxosSys"]
     _log("puzzle 4x3, memory reckoned before the runs: "
          + _puzzle_memory(Puzzle(4, 3).device_model().state_width))
-    # The sharded engine's order within a wave is not the fused engine's
-    # (as in JAX), so its chains meet its own torch-stage run's.
-    paths = (("fused", False), ("fused", True), ("classic", True),
-             ("sharded", False), ("sharded", True))
     configs = (
         ("puzzle 4x3", lambda: Puzzle(4, 3).checker(), PUZZLE43,
          ["solved"]),
@@ -2701,23 +2808,8 @@ def phase_corpus_full(torch, kernels, fused, m):
          (PAXOS4_SYM_UNIQUE, None), ["value chosen"]))
     runs = {}
     for tag, build, want, found in configs:
-        for engine, wave_kernel in paths:
-            r = _card_run(torch, kernels, fused, tag, build, engine, BATCH,
-                          want, found, None, wave_kernel)
-            runs[tag, engine, wave_kernel] = r
-        ref, sharded = runs[tag, "fused", False], runs[tag, "sharded", False]
-        for engine, wave_kernel in paths:
-            r = runs[tag, engine, wave_kernel]
-            if r["counts"] != ref["counts"]:
-                raise AssertionError(f"{tag}, {engine}, wave_kernel="
-                                     f"{wave_kernel}: {r['counts']}, the "
-                                     f"reference's {ref['counts']}")
-            _same_runs(r, sharded if engine == "sharded" else ref,
-                       f"{tag}, {engine}, wave_kernel={wave_kernel}")
-        lengths = [{k: len(v[0]) for k, v in r["chains"].items()}
-                   for r in (ref, sharded)]
-        _log(f"{tag}: the runs agree ({ref['counts']}; chains of "
-             f"{lengths[0]} states, sharded {lengths[1]})")
+        runs.update(_whole_and_cut(torch, kernels, fused, tag, build, want,
+                                   found))
     return runs
 
 
@@ -2737,7 +2829,7 @@ def phase_corpus(torch, kernels, fused, wave_mod, table_mod):
          f"{t2 - t1:.1f} s, full runs {time.monotonic() - t2:.1f} s")
     for (tag, engine, wave_kernel), r in {**gates, **full}.items():
         path = "kernels" if wave_kernel else "torch stages"
-        _log(f"  {tag:24s} {engine:8s} {path:13s} {r['sec']:8.3f} s  peak "
+        _log(f"  {tag:32s} {engine:8s} {path:13s} {r['sec']:8.3f} s  peak "
              f"{r['peak']:>12d} B  waves {r['waves']:6d}  {r['counts']}")
     return holds, gates, full
 
@@ -2745,7 +2837,7 @@ def phase_corpus(torch, kernels, fused, wave_mod, table_mod):
 def _corpus_rows(holds, gates, full):
     """The kernels line's rows of the corpus phase: kernels 2 and 3 on each
     plain model, each with its launches in the model's largest run on
-    that kernel."""
+    that kernel (the 4x3 puzzle's sender kernel: its cut run's)."""
     src, pallas = SRC, PALLAS
     rows = []
     for tag, source, sym, run, runs in (
@@ -2770,7 +2862,8 @@ def _corpus_rows(holds, gates, full):
         if not sym:
             rows.append(_kernel_row(
                 f"sender_megakernel[{name}]", src + source, pallas + "451",
-                runs[run, "sharded", True]["launches"]["sender_megakernel"],
+                runs[_cut(run) if run in CUTS else run, "sharded", True][
+                    "launches"]["sender_megakernel"],
                 0, holds[tag, "sender"][(False, True)]))
     return rows
 
@@ -2863,17 +2956,12 @@ def phase_actor_gates(torch, kernels, fused, PingPongSys, VsrSys):
 
 
 def phase_actor_full(torch, kernels, fused, PingPongSys, VsrSys):
-    """The full-width runs, batch 16,384, on the fused torch stages (the
-    card's reference), the fused and classic wave kernel and the sharded
-    engine (4 shards) on the torch stages and the sender kernel: ping-pong
-    at max_nat 11 (lossy, duplicating, 26 slots), its counts against the
-    pattern (reported) and equal across the runs, "delta within 1" held
-    and "must reach max" found; VSR at 4 replicas, max_view 1 (48 slots),
-    exactly 685,650 / 7,579,993, "agreement" held and the three sometimes
-    properties found. Discovery chains equal to the fused torch stages'
-    (the sharded engine's to its own torch stages')."""
-    paths = (("fused", False), ("fused", True), ("classic", True),
-             ("sharded", False), ("sharded", True))
+    """The full-width runs (``_whole_and_cut``): ping-pong at max_nat 11
+    (lossy, duplicating, 26 slots), its counts against the pattern
+    (reported), "delta within 1" held and "must reach max" found; VSR at
+    4 replicas, max_view 1 (48 slots), exactly 685,650 / 7,579,993,
+    "agreement" held and the three sometimes properties found; each to its
+    end on the fused wave kernel and cut on the six paths."""
     configs = (
         ("pingpong 11", lambda: PingPongSys(
             PP_MAX_NAT, lossy=True, net_slots=PP_SLOTS).checker(), None,
@@ -2882,23 +2970,12 @@ def phase_actor_full(torch, kernels, fused, PingPongSys, VsrSys):
          VSR41, VSR_FOUND))
     runs = {}
     for tag, build, want, found in configs:
-        for engine, wave_kernel in paths:
-            runs[tag, engine, wave_kernel] = _card_run(
-                torch, kernels, fused, tag, build, engine, BATCH, want,
-                found, None, wave_kernel)
-        ref, sharded = runs[tag, "fused", False], runs[tag, "sharded", False]
-        for engine, wave_kernel in paths:
-            r = runs[tag, engine, wave_kernel]
-            _same_runs(r, sharded if engine == "sharded" else ref,
-                       f"{tag}, {engine}, wave_kernel={wave_kernel}")
+        runs.update(_whole_and_cut(torch, kernels, fused, tag, build, want,
+                                   found))
         if tag == "pingpong 11":
-            _log(f"pingpong 11: {ref['counts']}, the pattern's "
-                 f"{PP_PATTERN}: "
-                 + ("equal" if ref["counts"] == PP_PATTERN else "DIFFERENT"))
-        lengths = [{k: len(v[0]) for k, v in r["chains"].items()}
-                   for r in (ref, sharded)]
-        _log(f"{tag}: the runs agree ({ref['counts']}; chains of "
-             f"{lengths[0]} states, sharded {lengths[1]})")
+            got = runs[tag, "fused", True]["counts"]
+            _log(f"pingpong 11: {got}, the pattern's {PP_PATTERN}: "
+                 + ("equal" if got == PP_PATTERN else "DIFFERENT"))
     return runs
 
 
@@ -2920,7 +2997,7 @@ def phase_actors(torch, kernels, fused, wave_mod, table_mod):
     for (tag, engine, wave_kernel), r in {**gates, **full}.items():
         path = "kernels" if wave_kernel else "torch stages"
         c = r["counts"]
-        _log(f"  {tag:20s} {engine:8s} {path:13s} {r['sec']:8.3f} s  "
+        _log(f"  {tag:28s} {engine:8s} {path:13s} {r['sec']:8.3f} s  "
              f"{c[1] / r['sec']:14.1f} states/s  peak {r['peak']:>12d} B  "
              f"waves {r['waves']:5d}  {c}")
     return holds, full
@@ -2928,8 +3005,9 @@ def phase_actors(torch, kernels, fused, wave_mod, table_mod):
 
 def _actor_rows(holds, full):
     """The kernels line's rows of the actor phase: kernels 2 and 3 on each
-    actor model, each with its launches in the model's full-width run on
-    that kernel."""
+    actor model, kernel 2 with its launches in the model's run to its end
+    on the fused wave kernel, kernel 3 in its cut run on the sender
+    kernel."""
     rows = []
     for tag, source in (("pingpong 11", "wave_pingpong.cu"),
                         ("vsr 4", "wave_vsr.cu")):
@@ -2939,8 +3017,442 @@ def _actor_rows(holds, full):
             holds[tag, "plain"]))
         rows.append(_kernel_row(
             f"sender_megakernel[{tag}]", SRC + source, PALLAS + "451",
-            full[tag, "sharded", True]["launches"]["sender_megakernel"], 0,
+            full[_cut(tag), "sharded", True]["launches"][
+                "sender_megakernel"], 0,
             holds[tag, "sender"][(False, True)]))
+    return rows
+
+
+# -- The classic sharded engine ----------------------------------------------
+
+
+def _sharded_classic_modules():
+    from stateright_tpu_torch import Property
+    from stateright_tpu_torch import sharded as sharded_mod
+    from stateright_tpu_torch.models.paxos import PaxosSys
+    from stateright_tpu_torch.models.twopc import RmState, TwoPhaseSys
+
+    class HostAbort(TwoPhaseSys):
+        """2pc with a property the host evaluates (found)."""
+
+        def properties(self):
+            return super().properties() + [Property.sometimes(
+                "host-only abort", lambda _, s: all(
+                    r is RmState.ABORTED for r in s.rm_state))]
+
+    class HostPaxos(PaxosSys):
+        """paxos with a property the host evaluates on every popped row
+        (it always holds)."""
+
+        def properties(self):
+            return super().properties() + [
+                Property.always("host-only true", lambda _, s: True)]
+
+    return sharded_mod, TwoPhaseSys, PaxosSys, HostAbort, HostPaxos
+
+
+def _sharded_classic_same(a, b, tag: str) -> None:
+    """Two classic sharded runs equal in counts, discovery chains, parent
+    maps and every wave's log fields."""
+    _classic_same(a, b, tag, fields=("bucket", "rows", "out_rows", "novel",
+                                     "overflow", "successors", "candidates",
+                                     "capacity", "load_factor", "epoch"))
+
+
+def phase_sharded_classic_small(torch):
+    """The classic sharded engine on the card against the same run on
+    the CPU, at ``SHARDS`` shards and at a ragged 3, each on the torch
+    stages and on the sender kernel: 2pc 3 (``fused=False``), 2pc 4 with a
+    visitor from a table of 2^12 slots (the builder's fallback, every
+    state visited once, a rehash on the card), 2pc 5 with symmetry and
+    paxos 1 with a property the host evaluates (the fallback, warned):
+    counts, discovery chains, parent maps and waves equal; 2pc 3 with a
+    host property found; 2pc 4 with every wave at an output rung of 8
+    rows (regathers, each a graph of its own) against the ladder off; the
+    refusals of ``fused=True`` with a visitor and of ``pipeline=True``."""
+    import warnings
+
+    (sharded_mod, TwoPhaseSys, PaxosSys, HostAbort,
+     HostPaxos) = _sharded_classic_modules()
+    from stateright_tpu_torch.fused import FusedUnsupported
+
+    visits = []
+
+    def run(build, dev, n, **kw):
+        c = build().spawn_cuda_bfs(mesh=[dev] * n, **kw).join()
+        if not isinstance(c, sharded_mod.ShardedCudaBfsChecker):
+            raise AssertionError(f"{type(c).__name__} is not the classic "
+                                 "sharded engine")
+        return c
+
+    configs = (
+        ("2pc 3", lambda: TwoPhaseSys(3).checker(), (288, 1146),
+         dict(fused=False)),
+        ("2pc 4 visitor", lambda: TwoPhaseSys(4).checker().visitor(
+            lambda _, path: visits.append(len(path.fingerprints))),
+         (1568, 8258), dict(table_capacity=1 << 12)),
+        ("2pc 5 sym", lambda: TwoPhaseSys(5).checker().symmetry(),
+         (314, 2048), dict(fused=False)),
+        ("paxos 1 host", lambda: HostPaxos(1).checker(), (265, 482), {}),
+        ("2pc 3 host", lambda: HostAbort(3).checker(), None, {}))
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        for n in (SHARDS, 3):
+            for tag, build, want, kw in configs:
+                visits.clear()
+                cpu = run(build, "cpu", n, batch_size=64, **kw)
+                for wave_kernel in (False, True):
+                    c = run(build, "cuda:0", n, batch_size=64,
+                            wave_kernel=wave_kernel, **kw)
+                    t = f"{tag} sharded classic n={n} {c.kernel_path()}"
+                    got = (c.unique_state_count(), c.state_count())
+                    if want and got != want:
+                        raise AssertionError(f"{t}: {got} != {want}")
+                    _sharded_classic_same(c, cpu, t)
+                    s = c.scheduler_stats()
+                    _log(f"{t}: unique={got[0]} states={got[1]}, {c.waves} "
+                         f"waves, {c.rehashes} rehashes, rungs "
+                         f"{s['succ_ladder']['out_rows_dispatches']}, graphs "
+                         f"{s['graphs']}; chains, parent map and waves equal "
+                         "to the CPU run's")
+                if tag == "2pc 4 visitor":
+                    if len(visits) != 3 * 1568 or not c.rehashes:
+                        raise AssertionError(
+                            f"{tag}: {len(visits)} visits, {c.rehashes} "
+                            "rehashes")
+                if tag == "2pc 3 host" and "host-only abort" not in _chains(c):
+                    raise AssertionError("the host property was not found")
+
+    try:
+        TwoPhaseSys(3).checker().visitor(lambda *_: None).spawn_cuda_bfs(
+            mesh=["cuda:0"] * SHARDS, fused=True)
+    except FusedUnsupported:
+        pass
+    else:
+        raise AssertionError("fused=True with a visitor did not raise")
+    try:
+        TwoPhaseSys(3).checker().spawn_cuda_bfs(mesh=["cuda:0"] * SHARDS,
+                                                pipeline=True)
+    except NotImplementedError:
+        pass
+    else:
+        raise AssertionError("a sharded pipeline=True did not raise")
+    _log("sharded: fused=True with a visitor raises FusedUnsupported, "
+         "pipeline=True raises NotImplementedError")
+
+    cls = sharded_mod.ShardedCudaBfsChecker
+    off = run(lambda: TwoPhaseSys(4).checker(), "cpu", SHARDS, batch_size=64,
+              fused=False, succ_ladder=False)
+    had = "_pick_out_rows" in vars(cls)
+    cls._pick_out_rows = lambda self, B: (
+        8 if self._succ_ladder_on else self._succ_full_rows(B))
+    try:
+        for wave_kernel in (False, True):
+            c = run(lambda: TwoPhaseSys(4).checker(), "cuda:0", SHARDS,
+                    batch_size=64, fused=False, wave_kernel=wave_kernel)
+            s = c.scheduler_stats()
+            regathers = s["succ_ladder"]["overflow_redispatches"]
+            if (not regathers or c._parent_map() != off._parent_map()
+                    or (c.unique_state_count(), c.state_count())
+                    != (1568, 8258)):
+                raise AssertionError(f"sharded 2pc 4 at rung 8 "
+                                     f"({c.kernel_path()}): {regathers} "
+                                     "regathers")
+            _log(f"sharded 2pc 4 with every wave at a rung of 8 rows "
+                 f"({c.kernel_path()}): {regathers} regathers of {c.waves} "
+                 f"waves, graphs {s['graphs']}; counts and parent map equal "
+                 "to the ladder-off run's")
+    finally:
+        if not had:
+            del cls._pick_out_rows
+
+
+class _ShardedPoint:
+    """A point of a mid-run classic sharded checker to time waves from:
+    every shard queue (``queued`` rows each) and a copy of the table. ``wave`` launches one wave
+    of the widest bucket through the checker's own launch, waits for its
+    outputs on the slot's event and puts the queues and the table back,
+    never processing them; the first two launches (a warm-up and a
+    capture) run in ``__init__``, so every later one is a replay."""
+
+    def __init__(self, torch, mid):
+        self.torch, self.mid = torch, mid
+        if mid._needs_growth():
+            mid._grow_table()
+        self.bucket = mid._buckets[-1]
+        self.queued = [sum(len(b[1]) for b in q) for q in mid._queues]
+        self._queues = [list(q) for q in mid._queues]
+        self._table = mid._table.clone()
+        for _ in range(2):
+            self.wave()
+
+    def key(self):
+        mid = self.mid
+        return (self.bucket, mid._capacity, mid._pick_out_rows(self.bucket),
+                mid._owner_map.epoch)
+
+    def batch(self):
+        """The next wave's stacked batch as the queues hold it, on the
+        card: ``(store int32[n, B, Wp], valid bool[n, B])``."""
+        import numpy as np
+
+        mid, B = self.mid, self.bucket
+        n, wp = mid._n, mid._layout.packed_width
+        up = np.zeros((n * B, wp), np.uint32)
+        taken = np.zeros(n, np.int64)
+        for i, q in enumerate(self._queues):
+            taken[i] = mid._take_batch(deque(q), B, up[i * B:(i + 1) * B],
+                                       np.zeros(B, np.uint64),
+                                       np.zeros(B, np.uint32))
+        store = self.torch.from_numpy(up.view(np.int32)).to(mid._device)
+        valid = (self.torch.arange(B)[None, :]
+                 < self.torch.from_numpy(taken)[:, None]).to(mid._device)
+        return store.view(n, B, wp), valid
+
+    def launch(self):
+        return self.mid._dispatch_wave(self.bucket)
+
+    def wait(self, wave):
+        out = self.mid._fetch(wave)
+        new = int(out[1][-self.mid._n:].sum())  # each shard's new rows
+        self.rewind()
+        return new
+
+    def wave(self):
+        return self.wait(self.launch())
+
+    def rewind(self) -> None:
+        mid = self.mid
+        for q, saved in zip(mid._queues, self._queues):
+            q.clear()
+            q.extend(saved)
+        mid._table.copy_(self._table)
+        self.torch.cuda.synchronize()
+
+
+def phase_sharded_classic_full(torch, kernels, config, model, want_counts,
+                               want_found, wave_kernel):
+    """``model()`` to its end on the classic sharded engine (``SHARDS``
+    shards of ``BATCH / SHARDS`` rows, graphs on), the kernels' launch
+    counts set to 0 just before and read just after: exactly
+    ``want_counts``, the discoveries ``want_found`` and no
+    counterexample, the launches exact (the dedup kernel ``SHARDS`` times
+    a wave on the owner side plus the rehash chunks; the sender kernel
+    once a wave and once a regather with ``wave_kernel``); the run's
+    seconds, waves, graphs, rungs, regathers, host us a wave, bytes down,
+    peak device memory and parent log. Returns ``(chains, launches,
+    run)``."""
+    gc.collect()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in kernels.values():
+        fn.launches = 0
+    t0 = time.monotonic()
+    c = model().checker().spawn_cuda_bfs(
+        mesh=["cuda:0"] * SHARDS, batch_size=BATCH // SHARDS, fused=False,
+        wave_kernel=wave_kernel).join()
+    torch.cuda.synchronize()
+    sec = time.monotonic() - t0
+    launches = {name: fn.launches for name, fn in kernels.items()}
+    peak = torch.cuda.max_memory_allocated()
+    unique, states = c.unique_state_count(), c.state_count()
+    s = c.scheduler_stats()
+    g = s["graphs"] or {"captures": 0, "replays": 0, "capture_sec": 0.0}
+    ladder = s["succ_ladder"]
+    waves = c.waves
+    regathers = ladder["overflow_redispatches"]
+    down = [e["bytes_down"] for e in c.dispatch_log]
+    host = {k: v * 1e6 / waves for k, v in c.host_sec.items()}
+    run = dict(sec=sec, waves=waves, captures=g["captures"],
+               replays=g["replays"], capture_sec=g["capture_sec"],
+               rungs=ladder["out_rows_dispatches"], regathers=regathers,
+               host_us=host, bytes_down=sum(down) / waves,
+               bytes_down_max=max(down), peak=peak,
+               log_bytes=c.parent_log_bytes(), rehashes=c.rehashes,
+               chunks=c.rehash_chunks, capacity=c._capacity,
+               load=max(c._shard_counts) / c._capacity)
+    _log(f"{config} sharded classic ({c.kernel_path()}, {SHARDS} x "
+         f"{BATCH // SHARDS}): unique={unique} states={states} sec={sec:.3f} "
+         f"states/s={states / sec:.1f} waves={waves} rehashes={c.rehashes} "
+         f"({c.rehash_chunks} chunks) capacity 2^"
+         f"{c._capacity.bit_length() - 1} a shard (fullest "
+         f"{run['load']:.3f} full) launches={launches} captures="
+         f"{g['captures']} replays={g['replays']} capture_sec="
+         f"{g['capture_sec']:.3f} rungs={ladder['out_rows_dispatches']} "
+         f"regathers={regathers}; host us a wave: launch "
+         f"{host['launch']:.1f}, processing {host['process']:.1f}, waiting "
+         f"{host['wait']:.1f}; bytes down a wave {run['bytes_down']:.0f} "
+         f"(most {max(down)}); peak device memory {peak} B; host parent log "
+         f"{run['log_bytes']} B")
+    if (unique, states) != want_counts:
+        raise AssertionError(f"{config} sharded classic: {(unique, states)}"
+                             f" != {want_counts}")
+    if sorted(c.discoveries()) != want_found:
+        raise AssertionError(f"{config} sharded classic discoveries: "
+                             f"{sorted(c.discoveries())}")
+    c.assert_properties()
+    want = {"dedup_and_insert": SHARDS * waves + c.rehash_chunks,
+            "wave_megakernel": 0,
+            "sender_megakernel": waves + regathers if wave_kernel else 0,
+            "append_rows": 0}
+    if launches != want:
+        raise AssertionError(f"{config} sharded classic: kernel launches "
+                             f"{launches}, expected {want}")
+    if not g["replays"]:
+        raise AssertionError(f"{config} sharded classic: no replay")
+    return _chains(c), launches, run
+
+
+def _sharded_point_timing(torch, point, run, config) -> None:
+    """One replayed wave under ``set_sync_debug_mode("error")``, three
+    timed, one under ``torch.profiler``: the card's time a wave and its
+    idle share of the full run's pace (``run``, updated)."""
+    if not point.mid._graphs.has_graph(point.key()):
+        raise AssertionError("no wave graph after two waves")
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        wave = point.launch()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    new = point.wait(wave)
+    _log(f"one replayed sharded classic wave of {SHARDS} x {point.bucket} "
+         f"rows under set_sync_debug_mode('error'): no synchronisation, "
+         f"{new} new rows")
+    steady = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        wave = point.launch()
+        t1 = time.perf_counter()
+        point.wait(wave)
+        steady.append(((t1 - t0) * 1e6, (time.perf_counter() - t0) * 1e3))
+    kern, _ = _profiled(torch, lambda _: point.wave(), point.rewind)
+    busy = sum(e.self_device_time_total for e in kern) / 1e3
+    nodes = sum(e.count for e in kern)
+    pace = run["sec"] * 1e3 / run["waves"]
+    run.update(busy_ms=busy, nodes=nodes, pace_ms=pace,
+               wave_ms=sum(w for _, w in steady) / len(steady),
+               launch_us=sum(u for u, _ in steady) / len(steady))
+    _log(f"{config} sharded classic steady wave from a point: launch "
+         f"{run['launch_us']:.1f} us, launch to outputs on the host "
+         f"{run['wave_ms']:.3f} ms; card busy {busy:.3f} ms a wave ({nodes} "
+         f"kernels and memsets, torch.profiler); the full run's pace "
+         f"{pace:.3f} ms a wave, so the card idles {1 - busy / pace:.1%} of "
+         "it")
+    for e in sorted(kern, key=lambda e: -e.self_device_time_total)[:6]:
+        _log(f"  {e.self_device_time_total / 1e3:9.3f} ms {e.count:5d}x "
+             f"{e.key[:90]}")
+
+
+def _sharded_holds(torch, wave_mod, table_mod, sharded_mod, point, tag):
+    """Kernels 3 and 1 at this path's shapes, from a mid-run point's next
+    wave: the sender kernel on its ``SHARDS`` x B rows (and ragged), and
+    the dedup kernel on shard 0's received rows (``R = SHARDS * S``)
+    against its table slice with the engine's scratch, each against its
+    plain version, timed."""
+    mid = point.mid
+    store, valid = point.batch()
+    n, B, wp = store.shape
+    sk = phase_sender_kernel(torch, wave_mod, table_mod, mid._dm,
+                             store.reshape(n * B, wp), mid._layout,
+                             f"{tag} sharded classic", syms=(False,))
+    front = sharded_mod.sharded_front(
+        mid._dm, mid._mesh, store, valid, mid._layout, False, True, None,
+        False)
+    recv_dedup = front[3]
+    k = _dedup_case(torch, table_mod, recv_dedup[0].contiguous(),
+                    mid._table[0], f"{tag} sharded classic, shard 0's "
+                    "received rows", scratch=mid._scratch)
+    return sk[(False, True)], k
+
+
+def phase_sharded_classic(torch, kernels, wave_mod, table_mod):
+    """Phase 12: the classic sharded engine's small gates against the CPU
+    (``phase_sharded_classic_small``), then 2pc at 10 RMs and ``paxos
+    check 3`` at ``SHARDS`` x 4,096 rows on the torch stages and on the
+    sender kernel, exact, the sender kernel's chains the torch stages';
+    from a mid-run point of each on each path, one replayed wave under
+    ``set_sync_debug_mode("error")`` and the card's time a wave, and on
+    the sender kernel's, kernels 3 and 1 held to their plain versions and
+    timed at this path's shapes."""
+    import functools as ft
+
+    (sharded_mod, TwoPhaseSys, PaxosSys, _, _) = _sharded_classic_modules()
+    t0 = time.monotonic()
+    phase_sharded_classic_small(torch)
+    t1 = time.monotonic()
+    configs = {
+        "2pc 10": (ft.partial(TwoPhaseSys, 10), (FULL_UNIQUE, FULL_STATES),
+                   ["abort agreement", "commit agreement"], 20_000_000),
+        "paxos 3": (ft.partial(PaxosSys, 3), (PAXOS_UNIQUE, PAXOS_STATES),
+                    ["value chosen"], PAXOS_WAVE_AT)}
+    runs, holds = {}, {}
+    for config, (model, counts, found, mid_target) in configs.items():
+        chains = {}
+        for wave_kernel in (False, True):
+            chains[wave_kernel], launches, run = _clocked(
+                f"{config}, wave_kernel={wave_kernel}, the run",
+                phase_sharded_classic_full, torch, kernels, config, model,
+                counts, found, wave_kernel)
+            runs[config, wave_kernel] = dict(launches=launches, run=run)
+        if chains[True] != chains[False]:
+            raise AssertionError(f"{config} sharded classic: the sender "
+                                 "kernel's chains differ from the torch "
+                                 "stages'")
+        for wave_kernel in (False, True):
+            t_point = time.monotonic()
+            mid = (model().checker().target_state_count(mid_target)
+                   .spawn_cuda_bfs(mesh=["cuda:0"] * SHARDS,
+                                   batch_size=BATCH // SHARDS, fused=False,
+                                   wave_kernel=wave_kernel).join())
+            point = _ShardedPoint(torch, mid)
+            _log(f"{config} sharded classic point ({mid.kernel_path()}) at "
+                 f"{mid.state_count()} states: shard queues of "
+                 f"{point.queued} rows")
+            _log(f"{config}, wave_kernel={wave_kernel}, the point: "
+                 f"{time.monotonic() - t_point:.1f} s")
+            if wave_kernel:
+                holds[config] = _clocked(
+                    f"{config}, the kernel holds", _sharded_holds, torch,
+                    wave_mod, table_mod, sharded_mod, point, config)
+            _clocked(f"{config}, wave_kernel={wave_kernel}, the timed waves",
+                     _sharded_point_timing, torch, point,
+                     runs[config, wave_kernel]["run"],
+                     f"{config}, {mid.kernel_path()}")
+            del point, mid
+    _log(f"sharded classic phase: small gates {t1 - t0:.1f} s, full runs "
+         f"and points {time.monotonic() - t1:.1f} s")
+    for (config, wave_kernel), r in runs.items():
+        run = r["run"]
+        line = (f"  {config:8s} {'sender kernel' if wave_kernel else 'torch stages':13s}"
+                f" {run['sec']:8.3f} s {run['waves']:5d} waves "
+                f"host us a wave {sum(run['host_us'].values()):8.1f} peak "
+                f"{run['peak']:>12d} B")
+        if "busy_ms" in run:
+            line += (f"; card {run['busy_ms']:.3f} ms a wave of "
+                     f"{run['pace_ms']:.3f}, idle "
+                     f"{1 - run['busy_ms'] / run['pace_ms']:.1%}")
+        _log(line)
+    return holds, runs
+
+
+def _sharded_classic_rows(holds, runs):
+    """The kernels line's rows of phase 12: kernels 3 and 1 on 2pc 10 and
+    paxos 3 at the classic sharded path's shapes, with their launches in
+    that model's full run on the sender kernel (kernel 3) and on the torch
+    stages (kernel 1)."""
+    rows = []
+    for config, source in (("2pc 10", "wave_twopc.cu"),
+                           ("paxos 3", "sender_paxos.cu")):
+        sender, dedup = holds[config]
+        rows.append(_kernel_row(
+            f"sender_megakernel[sharded classic {config}]", SRC + source,
+            PALLAS + "451",
+            runs[config, True]["launches"]["sender_megakernel"], 0, sender))
+        rows.append(_kernel_row(
+            f"dedup_and_insert[sharded classic {config}]", SRC + "table.cu",
+            PALLAS + "256",
+            runs[config, False]["launches"]["dedup_and_insert"],
+            dedup["max_abs_err"], dedup))
     return rows
 
 
@@ -2997,17 +3509,25 @@ def phase_build(_build, table_mod, wave_mod, append_mod) -> None:
 
     # One nvcc a source, all started together.
     def entries(name, kinds):
-        # Each model's params' C types (wave._kinds).
+        # Each model's params' C types (wave._kinds); the sender entry
+        # point too where it shares the wave kernel's source.
+        if name in wave_mod.SENDER_SOURCES:
+            return lambda: wave_mod._entry(name, kinds)
         return lambda: (wave_mod._entry(name, kinds),
                         wave_mod._sender_entry(name, kinds))
 
-    jobs = [("table", table_mod._lib)] + [
-        ("wave_" + name, entries(name, kinds)) for name, kinds in (
-            ("twopc", "i"), ("paxos", "ii"), ("single_copy", "iii"),
-            ("abd", "iii"), ("linear_equation", ""), ("dgraph", "p"),
-            ("increment", "i"), ("increment_lock", "i"),
-            ("sliding_puzzle", "ii"), ("pingpong", "iiiii"),
-            ("vsr", "iiiii"))] + [("append", append_mod._lib)]
+    models = (("twopc", "i"), ("paxos", "ii"), ("single_copy", "iii"),
+              ("abd", "iii"), ("linear_equation", ""), ("dgraph", "p"),
+              ("increment", "i"), ("increment_lock", "i"),
+              ("sliding_puzzle", "ii"), ("pingpong", "iiiii"),
+              ("vsr", "iiiii"))
+    jobs = ([("table", table_mod._lib)]
+            + [("wave_" + name, entries(name, kinds))
+               for name, kinds in models]
+            + [(wave_mod.SENDER_SOURCES[name], functools.partial(
+                wave_mod._sender_entry, name, kinds))
+               for name, kinds in models if name in wave_mod.SENDER_SOURCES]
+            + [("append", append_mod._lib)])
     with ThreadPoolExecutor(len(jobs)) as pool:
         builds = [pool.submit(build, name, load) for name, load in jobs]
         for fut in builds:
@@ -3031,17 +3551,22 @@ def _phase_kernels(torch, engine, fused, table_mod, wave_mod, append_mod,
                    TwoPhaseSys, PaxosSys):
     """Phases 2 to 4: each kernel against its plain version at full width,
     timed."""
-    w, rows, wave_case = phase_wave_kernel(torch, wave_mod, table_mod, engine,
-                                           TwoPhaseSys)
-    paxos_mid = _paxos_mid(PaxosSys)
-    k = phase_kernel(torch, table_mod, engine, fused, wave_case, TwoPhaseSys,
-                     paxos_mid)
-    ap = phase_append(torch, engine, wave_mod, table_mod, append_mod, rows,
-                      wave_case[1], paxos_mid)
+    w, rows, wave_case = _clocked(
+        "the wave kernel's holds", phase_wave_kernel, torch, wave_mod,
+        table_mod, engine, TwoPhaseSys)
+    paxos_mid = _clocked("paxos 3's mid-run point", _paxos_mid, PaxosSys)
+    k = _clocked("the dedup kernel's holds and the rehash", phase_kernel,
+                 torch, table_mod, engine, fused, wave_case, TwoPhaseSys,
+                 paxos_mid)
+    ap = _clocked("the append kernel's holds", phase_append, torch, engine,
+                  wave_mod, table_mod, append_mod, rows, wave_case[1],
+                  paxos_mid)
     del wave_case
-    sk = phase_sender_kernel(torch, wave_mod, table_mod, *rows)
+    sk = _clocked("the sender kernel's holds", phase_sender_kernel, torch,
+                  wave_mod, table_mod, *rows)
     del rows
-    pw, psk = phase_paxos_kernels(torch, wave_mod, table_mod, paxos_mid)
+    pw, psk = _clocked("paxos 3's kernel holds", phase_paxos_kernels, torch,
+                       wave_mod, table_mod, paxos_mid)
     del paxos_mid
     return dict(w=w, k=k, ap=ap, sk=sk, pw=pw, psk=psk)
 
@@ -3050,11 +3575,13 @@ def _phase_small(torch, fused, TwoPhaseSys, TwoPhaseDevice, PaxosSys,
                  PaxosDevice):
     """Phase 5: the small runs against the CPU, the refusals and the host
     loop's gates."""
-    phase_small(TwoPhaseSys)
-    phase_sharded_small(torch, fused, TwoPhaseSys)
-    phase_paxos_small(PaxosSys, PaxosDevice)
-    phase_refusals(TwoPhaseSys, TwoPhaseDevice)
-    phase_gates(torch, TwoPhaseSys, PaxosSys)
+    _clocked("2pc's small runs", phase_small, TwoPhaseSys)
+    _clocked("2pc's small sharded runs", phase_sharded_small, torch, fused,
+             TwoPhaseSys)
+    _clocked("paxos' small runs", phase_paxos_small, PaxosSys, PaxosDevice)
+    _clocked("the refusals", phase_refusals, TwoPhaseSys, TwoPhaseDevice)
+    _clocked("the host loop's gates", phase_gates, torch, TwoPhaseSys,
+             PaxosSys)
 
 
 def _phase_full_runs(torch, kernels, fused, TwoPhaseSys, PaxosSys):
@@ -3097,8 +3624,9 @@ def _phase_full_runs(torch, kernels, fused, TwoPhaseSys, PaxosSys):
                 sharded, wave_kernel=True, **off)),
             ("paxos 3, ladder", paxos[:5] + (0,), dict(
                 batch_size=1024, max_batch_size=BATCH, wave_kernel=True))):
-        full[tag] = dict(zip(("launches", "run"), phase_full(
-            torch, kernels, fused, *cfg, **spawn)))
+        full[tag] = dict(zip(("launches", "run"), _clocked(
+            f"{tag}, run and points", phase_full, torch, kernels, fused,
+            *cfg, **spawn)))
     for tag, r in full.items():
         run = r["run"]
         line = (f"{tag}: {run['sec']:.3f} s, {run['dispatches']} dispatches "
@@ -3181,7 +3709,7 @@ def _earlier_rows(k, w, pw, sk, psk, ap, full, ck, cl):
                     src + "wave_paxos.cu", pallas + "380",
                     cl["paxos 3, wave kernel"]["launches"]["wave_megakernel"],
                     w_err, pw["plain"]),
-        _kernel_row("sender_megakernel[paxos 3]", src + "wave_paxos.cu",
+        _kernel_row("sender_megakernel[paxos 3]", src + "sender_paxos.cu",
                     pallas + "451",
                     launched("paxos 3, sharded, sender kernel",
                              "sender_megakernel"), s_err, psk[(False, True)]),
@@ -3206,7 +3734,9 @@ def _register_rows(holds, runs):
     src, pallas = SRC, PALLAS
 
     def launched(tag, engine, name):
-        return runs[tag, engine, True]["launches"][name]
+        # a configuration run to its end once has its sharded run cut
+        key = tag if (tag, engine, True) in runs else _cut(tag)
+        return runs[key, engine, True]["launches"][name]
 
     return [
         _kernel_row("wave_megakernel[single_copy 4]",
@@ -3234,7 +3764,7 @@ def _register_rows(holds, runs):
 
 
 def _in_child(card: str, phase: str):
-    """Phase ``phase`` (9, 10 or 11) in a process of its own (``--phases
+    """Phase ``phase`` (9, 10, 11 or 12) in a process of its own (``--phases
     <phase>``), whose log it passes on and whose kernels line's rows it
     returns. After phases 2 to 8 in one process, about half of the
     profiles the register phase took there recorded no device time on the
@@ -3257,7 +3787,7 @@ def _in_child(card: str, phase: str):
 
 #: the phases ``--phases`` can name, in the order they run
 PHASES = ("kernels", "small", "full", "checkpoint", "classic", "registers",
-          "corpus", "actors")
+          "corpus", "actors", "sharded_classic")
 
 
 def _parse(argv):
@@ -3288,7 +3818,8 @@ def main(argv) -> int:
     (_build, engine, fused, table_mod, wave_mod, append_mod, ckpt_mod,
      TwoPhaseDevice, TwoPhaseSys, PaxosDevice, PaxosSys) = _modules()
     t_start = time.monotonic()
-    phase_build(_build, table_mod, wave_mod, append_mod)
+    _clocked("the build", phase_build, _build, table_mod, wave_mod,
+             append_mod)
     card = _card_line()
     _log(f"card: {card}")
     if rehash:
@@ -3301,45 +3832,56 @@ def main(argv) -> int:
     kernels = {fn.__name__: fn for fn in fused.KERNELS}
     old = {}
     if "kernels" in phases:
-        old.update(_phase_kernels(torch, engine, fused, table_mod, wave_mod,
-                                  append_mod, TwoPhaseSys, PaxosSys))
+        old.update(_clocked("phases 2 to 4", _phase_kernels, torch, engine,
+                            fused, table_mod, wave_mod, append_mod,
+                            TwoPhaseSys, PaxosSys))
     if "small" in phases:
-        _phase_small(torch, fused, TwoPhaseSys, TwoPhaseDevice, PaxosSys,
-                     PaxosDevice)
+        _clocked("phase 5", _phase_small, torch, fused, TwoPhaseSys,
+                 TwoPhaseDevice, PaxosSys, PaxosDevice)
     if "full" in phases:
-        old["full"] = _phase_full_runs(torch, kernels, fused, TwoPhaseSys,
-                                       PaxosSys)
+        old["full"] = _clocked("phase 6", _phase_full_runs, torch, kernels,
+                               fused, TwoPhaseSys, PaxosSys)
     if "checkpoint" in phases:
         # The small gates against the CPU, paxos 3 and 2pc 10 at full
         # width, the resumed table's build.
-        old["ck"] = phase_checkpoint(torch, kernels, fused, table_mod,
-                                     engine, ckpt_mod, TwoPhaseSys, PaxosSys)
+        old["ck"] = _clocked("phase 7", phase_checkpoint, torch, kernels,
+                             fused, table_mod, engine, ckpt_mod, TwoPhaseSys,
+                             PaxosSys)
     if "classic" in phases:
         # Its small gates against the CPU, then paxos 3 and 2pc 10 on both
         # successor paths beside the fused runs of phase 6.
-        old["cl"] = phase_classic(torch, kernels, ckpt_mod, TwoPhaseSys,
-                                  PaxosSys, old.get("full"))
+        old["cl"] = _clocked("phase 8", phase_classic, torch, kernels,
+                             ckpt_mod, TwoPhaseSys, PaxosSys, old.get("full"))
     rows = []
     if set(PHASES[:5]) <= phases:
         rows += _earlier_rows(**{key: old[key] for key in (
             "k", "w", "pw", "sk", "psk", "ap", "full", "ck", "cl")})
-    # Phase 9, 10 or 11 runs here when it is the only one asked for, else
-    # each in a process of its own.
+    # Phase 9, 10, 11 or 12 runs here when it is the only one asked for,
+    # else each in a process of its own.
     if phases == {"registers"}:
         rows += _register_rows(*phase_registers(torch, kernels, fused,
                                                 wave_mod, table_mod))
     elif "registers" in phases:
-        rows += _in_child(card, "registers")
+        rows += _clocked("the registers phase's process", _in_child, card,
+                         "registers")
     if phases == {"corpus"}:
         rows += _corpus_rows(*phase_corpus(torch, kernels, fused, wave_mod,
                                            table_mod))
     elif "corpus" in phases:
-        rows += _in_child(card, "corpus")
+        rows += _clocked("the corpus phase's process", _in_child, card,
+                         "corpus")
     if phases == {"actors"}:
         rows += _actor_rows(*phase_actors(torch, kernels, fused, wave_mod,
                                           table_mod))
     elif "actors" in phases:
-        rows += _in_child(card, "actors")
+        rows += _clocked("the actors phase's process", _in_child, card,
+                         "actors")
+    if phases == {"sharded_classic"}:
+        rows += _sharded_classic_rows(*phase_sharded_classic(
+            torch, kernels, wave_mod, table_mod))
+    elif "sharded_classic" in phases:
+        rows += _clocked("the sharded_classic phase's process", _in_child, card,
+                         "sharded_classic")
     print(json.dumps({"kernels": rows}))
     _log(f"chip_smoke ran {time.monotonic() - t_start:.1f} s")
     print(card)

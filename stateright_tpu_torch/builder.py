@@ -5,8 +5,9 @@ this package has: ``spawn_cuda_bfs`` runs the fused device BFS
 (``fused.py``) by default, the classic per-wave BFS (``classic.py``) where
 the fused one cannot run the model (a visitor, or a property the host
 evaluates) or the caller asks for it, or with ``sharded=True`` or a
-``mesh`` the sharded fused BFS (``sharded_fused.py``); on a CUDA device,
-or on the CPU when the caller asks. The engines are chosen by JAX's
+``mesh`` the sharded fused BFS (``sharded_fused.py``) or its classic twin
+(``sharded.py``), by the same rule; on a CUDA device, or on the CPU when
+the caller asks. The engines are chosen by JAX's
 ``spawn_tpu_bfs`` rules (``checker/builder.py`` :189-216).
 """
 
@@ -19,6 +20,7 @@ import torch
 from .classic import CudaBfsChecker
 from .fused import FusedCudaBfsChecker, FusedUnsupported
 from .mesh import Mesh
+from .sharded import ShardedCudaBfsChecker
 from .sharded_fused import ShardedFusedCudaBfsChecker
 
 __all__ = ["CheckerBuilder"]
@@ -127,8 +129,14 @@ class CheckerBuilder:
         ``exchange_novel_only`` (default on) drops a sender's repeated
         successors before the exchange. The shards must share one
         device, stacked: ``mesh=["cpu"] * n`` or ``["cuda:0"] * n``. The
-        sharded engine has no classic twin yet: a sharded spawn that
-        needs one raises ``NotImplementedError``.
+        classic sharded engine (``sharded.py``) runs by the unsharded
+        rule: where the sharded fused one cannot run the model (a
+        visitor, or a property with no device predicate) unless
+        ``fused=True``, which then raises, or with ``fused=False``; it
+        takes ``succ_ladder`` and drops the fused knobs, and its loop is
+        synchronous, so ``pipeline=True`` raises ``NotImplementedError``,
+        as in JAX. It needs a device predicate for every eventually
+        property.
 
         Checkpoints, as in JAX's ``spawn_tpu_bfs``: with
         ``checkpoint_path`` the run writes a snapshot there at a rest
@@ -158,16 +166,19 @@ class CheckerBuilder:
                            inflight_dispatches=inflight_dispatches)
         classic = fused is False or bool(pipeline)
         if mesh is not None or sharded:
-            if classic:
-                raise _no_sharded_classic("fused=False or pipeline=True")
-            try:
-                return self._spawn_sharded(
-                    device, mesh, batch_size or 512, exchange_novel_only,
-                    cuda_graph, **knobs, **fused_knobs)
-            except FusedUnsupported as e:
-                if fused:
-                    raise
-                raise _no_sharded_classic(str(e)) from e
+            args = (device, mesh, batch_size or 512, exchange_novel_only,
+                    cuda_graph)
+            classic_knobs = dict(pipeline=pipeline, succ_ladder=succ_ladder)
+            if not classic:
+                try:
+                    return self._spawn_sharded(
+                        ShardedFusedCudaBfsChecker, *args, **knobs,
+                        **fused_knobs)
+                except FusedUnsupported:
+                    if fused:
+                        raise
+            return self._spawn_sharded(ShardedCudaBfsChecker, *args,
+                                       **knobs, **classic_knobs)
         if exchange_novel_only is not None:
             raise ValueError("exchange_novel_only is a knob of the sharded "
                              "engine: pass sharded=True or a mesh")
@@ -188,8 +199,8 @@ class CheckerBuilder:
         return CudaBfsChecker(self, device, pipeline=pipeline,
                               succ_ladder=succ_ladder, **knobs)
 
-    def _spawn_sharded(self, device, mesh, batch_size, exchange_novel_only,
-                       cuda_graph, **kwargs) -> ShardedFusedCudaBfsChecker:
+    def _spawn_sharded(self, engine, device, mesh, batch_size,
+                       exchange_novel_only, cuda_graph, **kwargs):
         if mesh is None:
             if device is not None:
                 raise ValueError("sharded=True meshes every visible CUDA "
@@ -202,17 +213,10 @@ class CheckerBuilder:
         if device is not None and Mesh([device]).device != mesh.device:
             raise ValueError(f"device {device} is not the mesh's device "
                              f"{mesh.device}")
-        return ShardedFusedCudaBfsChecker(
+        return engine(
             self, mesh, batch_size=batch_size,
             exchange_novel_only=exchange_novel_only,
             cuda_graph=_graphs_on(cuda_graph, mesh.device), **kwargs)
-
-
-def _no_sharded_classic(why: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{why}: the sharded engine has no classic per-wave twin yet "
-        "(tpu/sharded.py, ROADMAP A11); spawn without sharded/mesh for "
-        "the classic engine")
 
 
 def _graphs_on(cuda_graph, device: torch.device) -> bool:

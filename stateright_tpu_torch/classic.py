@@ -159,13 +159,14 @@ class _Slot:
     and its outputs as copied down; and the device copy of its novelty
     mask for a regather."""
 
-    def __init__(self, B: int, S: int, wp: int, P: int, device):
+    def __init__(self, B: int, S: int, wp: int, P: int, device,
+                 small: int = 5):
         def pinned(shape, dtype):
             return torch.empty(shape, dtype=dtype, pin_memory=True)
 
         self.vecs = pinned((B, wp), torch.int32)
         self.valid = pinned((B,), torch.bool)
-        self.small = pinned((5,), torch.int64)
+        self.small = pinned((small,), torch.int64)
         self.conds = pinned((P * B,), torch.bool)
         self.terminal = pinned((B,), torch.bool)
         self.new_vecs = pinned((S, wp), torch.int32)
@@ -178,6 +179,9 @@ class _Slot:
 class CudaBfsChecker(BfsEngine):
     """The classic per-wave BFS: a host queue and parent log, one wave a
     launch."""
+
+    #: the shards a wave pops a batch from (the sharded subclass's mesh)
+    _n = 1
 
     def __init__(self, builder, device: torch.device, batch_size: int = 1024,
                  table_capacity: int = 1 << 16, wave_kernel: bool = False,
@@ -206,6 +210,8 @@ class CudaBfsChecker(BfsEngine):
             i for i, p in enumerate(self._properties)
             if p.expectation is Expectation.EVENTUALLY]
         self._n_dev = sum(fn is not None for fn in self._prop_fns)
+        #: fingerprint -> (row, action into it) of the visitor's replays
+        self._replayed: Dict[int, tuple] = {}
         self._start(resume_from)
 
         #: waves processed, table rehashes, the dedup kernel's calls they
@@ -226,15 +232,19 @@ class CudaBfsChecker(BfsEngine):
         self._wave_outs: Dict[tuple, tuple] = {}
         self._launched = 0
         if on_card:
-            S = self._B_max * self._F
-            wp = self._layout.packed_width
-            self._slots = [_Slot(self._B_max, S, wp, self._n_dev, device)
-                           for _ in range(_SLOTS)]
-            self._in_vecs = torch.zeros((self._B_max, wp), dtype=torch.int32,
-                                        device=device)
-            self._in_valid = torch.zeros((self._B_max,), dtype=torch.bool,
-                                         device=device)
+            self._make_slots(device)
         self._spawn_worker()
+
+    def _make_slots(self, device) -> None:
+        """The card's pinned host slots, one a wave in flight, and the
+        static device rows a wave reads its batch from."""
+        wp = self._layout.packed_width
+        self._slots = [_Slot(self._B_max, self._B_max * self._F, wp,
+                             self._n_dev, device) for _ in range(_SLOTS)]
+        self._in_vecs = torch.zeros((self._B_max, wp), dtype=torch.int32,
+                                    device=device)
+        self._in_valid = torch.zeros((self._B_max,), dtype=torch.bool,
+                                     device=device)
 
     # -- Seeding -----------------------------------------------------------
 
@@ -266,6 +276,7 @@ class CudaBfsChecker(BfsEngine):
             self._graphs.clear()
         self._wave_outs.clear()
         self._succ_hist.clear()
+        self._replayed.clear()
         self.wave_log = []
         self._table = None
 
@@ -276,7 +287,7 @@ class CudaBfsChecker(BfsEngine):
         rows of the last 8 waves (scaled to ``B``), up the ladder; the
         full ``B * F`` until the history holds 8 waves, or with the ladder
         off (engine :957-978)."""
-        full = B * self._F
+        full = self._succ_full_rows(B)
         if (not self._succ_ladder_on
                 or len(self._succ_hist) < self._succ_hist.maxlen):
             return full
@@ -287,6 +298,11 @@ class CudaBfsChecker(BfsEngine):
         for b, novel in self._succ_hist:
             want = max(want, novel * -(-B // b))
         return pick_bucket(ladder, 2 * want + 16)
+
+    def _succ_full_rows(self, B: int) -> int:
+        """A wave's whole successor space at batch ``B``: the output
+        ladder's top rung (engine :903)."""
+        return B * self._F
 
     def _wave(self, B: int, K: int, vecs, valid) -> tuple:
         """``classic_wave`` at this engine's settings, with its outputs
@@ -303,11 +319,12 @@ class CudaBfsChecker(BfsEngine):
         return (torch.stack(conds) if conds else None, small, terminal,
                 new_vecs, new_fps, new_parent, new_mask)
 
-    def _take_batch(self, rows: int, vecs, fps, ebits) -> int:
-        """Moves up to ``rows`` queued rows into ``vecs``, ``fps`` and
-        ``ebits`` (engine :1203-1242): the queue holds whole blocks, one
-        a wave, so this is array copies, with no work a row."""
-        pending = self._pending
+    @staticmethod
+    def _take_batch(pending: deque, rows: int, vecs, fps, ebits) -> int:
+        """Moves up to ``rows`` rows of the queue ``pending`` into
+        ``vecs``, ``fps`` and ``ebits`` (engine :1203-1242): the queue
+        holds whole blocks, one a wave, so this is array copies, with no
+        work a row."""
         taken = 0
         while pending and taken < rows:
             bv, bf, be = pending[0]
@@ -340,7 +357,7 @@ class CudaBfsChecker(BfsEngine):
             up = np.empty((B, wp), np.uint32)
         batch_fps = np.zeros(B, np.uint64)
         batch_ebits = np.zeros(B, np.uint32)
-        n = self._take_batch(B, up, batch_fps, batch_ebits)
+        n = self._take_batch(self._pending, B, up, batch_fps, batch_ebits)
         up[n:] = 0
         valid = np.arange(B) < n
         key = (B, self._capacity, K)
@@ -360,51 +377,66 @@ class CudaBfsChecker(BfsEngine):
                 self._in_vecs[:B].copy_(slot.vecs[:B], non_blocking=True)
                 self._in_valid[:B].copy_(slot.valid[:B], non_blocking=True)
                 args = (B, K, self._in_vecs[:B], self._in_valid[:B])
-                if self._graphs is None:
-                    outs = self._wave(*args)
-                else:
-                    def run():
-                        self._wave_outs[key] = self._wave(*args)
-
-                    meta["compiled"] = self._graphs.run(key, run)
-                    outs = self._wave_outs[key]
-                self._copy_down(slot, B, K, outs)
+                outs = self._graphed(key, lambda: self._wave(*args), meta)
+                self._copy_down(slot, outs, K < B * self._F)
         self.host_sec["launch"] += time.perf_counter() - t0
         return wave
 
-    def _copy_down(self, slot: _Slot, B: int, K: int, outs) -> None:
+    def _graphed(self, key, fn, meta=None):
+        """``fn()``'s outputs, through the graph at ``key`` when graphs are
+        on (``meta["compiled"]`` set when this call captured)."""
+        if self._graphs is None:
+            return fn()
+
+        def run():
+            self._wave_outs[key] = fn()
+
+        captured = self._graphs.run(key, run)
+        if meta is not None:
+            meta["compiled"] = captured
+        return self._wave_outs[key]
+
+    @staticmethod
+    def _copy_down(slot: _Slot, outs, regather: bool) -> None:
         """Queues the copies of a wave's outputs to its slot behind the
-        wave, and the event the host waits on."""
+        wave, and the event the host waits on; with ``regather`` (an
+        output rung below the whole successor space) the novelty mask's
+        copy to the slot's device buffer too."""
         conds, small, terminal, new_vecs, new_fps, new_parent, mask = outs
-        P = self._n_dev
         slot.small.copy_(small, non_blocking=True)
         if conds is not None:
-            slot.conds[:P * B].copy_(conds.reshape(-1), non_blocking=True)
-        slot.terminal[:B].copy_(terminal, non_blocking=True)
-        slot.new_vecs[:K].copy_(new_vecs, non_blocking=True)
-        slot.new_fps[:K].copy_(new_fps, non_blocking=True)
-        slot.new_parent[:K].copy_(new_parent, non_blocking=True)
-        if K < B * self._F:
+            slot.conds[:conds.numel()].copy_(conds.reshape(-1),
+                                             non_blocking=True)
+        slot.terminal[:terminal.numel()].copy_(terminal, non_blocking=True)
+        k = new_vecs.shape[0]
+        slot.new_vecs[:k].copy_(new_vecs, non_blocking=True)
+        slot.new_fps[:k].copy_(new_fps, non_blocking=True)
+        slot.new_parent[:k].copy_(new_parent, non_blocking=True)
+        if regather:
             # A regather needs the mask after the next wave overwrote it.
-            slot.mask[:B * self._F].copy_(mask, non_blocking=True)
+            slot.mask[:mask.numel()].copy_(mask, non_blocking=True)
         slot.event = torch.cuda.Event()
         slot.event.record()
 
     def _fetch(self, wave: dict):
         """The wave's outputs on the host, as numpy arrays: ``(conds
-        [P, B] or None, small, terminal, new_vecs, new_fps, new_parent)``;
-        on the card after a wait on the wave's own event."""
+        [P, n * B] or None, small, terminal, new_vecs [n * K, Wp],
+        new_fps, new_parent)`` for the ``n`` shards' batches of ``B`` rows
+        and rungs of ``K``; on the card after a wait on the wave's own
+        event."""
         slot = wave["slot"]
         if slot is None:
             return wave["outs"]
         t0 = time.perf_counter()
         slot.event.synchronize()
         self.host_sec["wait"] += time.perf_counter() - t0
-        B, K, P = wave["meta"]["bucket"], wave["meta"]["out_rows"], self._n_dev
-        return ((slot.conds.numpy()[:P * B].reshape(P, B) if P else None),
-                slot.small.numpy(), slot.terminal.numpy()[:B],
-                slot.new_vecs.numpy()[:K], slot.new_fps.numpy()[:K],
-                slot.new_parent.numpy()[:K])
+        nB = self._n * wave["meta"]["bucket"]
+        nK = self._n * wave["meta"]["out_rows"]
+        P = self._n_dev
+        return ((slot.conds.numpy()[:P * nB].reshape(P, nB) if P else None),
+                slot.small.numpy(), slot.terminal.numpy()[:nB],
+                slot.new_vecs.numpy()[:nK], slot.new_fps.numpy()[:nK],
+                slot.new_parent.numpy()[:nK])
 
     def _regather(self, wave: dict, k: int):
         """An overflowed wave's ``k`` new rows, regathered at the least
@@ -460,7 +492,6 @@ class CudaBfsChecker(BfsEngine):
         meta, n = wave["meta"], wave["n"]
         batch_vecs, batch_fps = wave["vecs"], wave["fps"]
         batch_ebits, valid = wave["ebits"], wave["valid"]
-        properties = self._properties
         if small[_FULL]:
             raise RuntimeError("the visited table filled up: a candidate "
                                "found no free slot")
@@ -498,32 +529,9 @@ class CudaBfsChecker(BfsEngine):
                 successors=int(small[_SUCC]), candidates=int(small[_CAND]),
                 novel=k, capacity=self._capacity,
                 load_factor=round(self._resident / self._capacity, 4)))
-            # Always/Sometimes: the first failing or matching row in
-            # queue order (bfs.rs:196-211).
-            for i, prop in enumerate(properties):
-                if prop.name in self._discoveries:
-                    continue
-                if prop.expectation is Expectation.ALWAYS:
-                    hits = valid & ~conds[i]
-                elif prop.expectation is Expectation.SOMETIMES:
-                    hits = valid & conds[i]
-                else:
-                    continue
-                rows = np.flatnonzero(hits)
-                if rows.size:
-                    self._discoveries[prop.name] = int(batch_fps[rows[0]])
-            # Eventually bits: clear the satisfied ones, then flag the
-            # terminal rows with bits left (bfs.rs:212-226, 265-272).
-            ebits_after = batch_ebits.copy()
-            for i in self._eventually_idx:
-                ebits_after &= ~np.where(conds[i], np.uint32(1 << i),
-                                         np.uint32(0))
-            for r in np.flatnonzero(terminal[:n] & (ebits_after[:n] != 0)):
-                for i in self._eventually_idx:
-                    name = properties[i].name
-                    if (ebits_after[r] >> i) & 1 \
-                            and name not in self._discoveries:
-                        self._discoveries[name] = int(batch_fps[r])
+            ebits_after = self._cleared_ebits(conds, batch_ebits)
+            self._record_discoveries(conds, valid, terminal, ebits_after,
+                                     batch_fps)
             if k:
                 self._parent_log.append(
                     (new_fps, batch_fps[parent_rows], None))
@@ -531,6 +539,44 @@ class CudaBfsChecker(BfsEngine):
                 self._pending.append(
                     (new_vecs, new_fps, ebits_after[parent_rows]))
         self.host_sec["process"] += time.perf_counter() - t0
+
+    def _cleared_ebits(self, conds, batch_ebits: np.ndarray) -> np.ndarray:
+        """The batch's eventually bits with each property's cleared where
+        its row satisfied it: the bits the row's children inherit
+        (bfs.rs:212-222)."""
+        ebits_after = batch_ebits.copy()
+        for i in self._eventually_idx:
+            ebits_after &= ~np.where(conds[i], np.uint32(1 << i),
+                                     np.uint32(0))
+        return ebits_after
+
+    def _record_discoveries(self, conds, valid: np.ndarray,
+                            terminal: np.ndarray, ebits_after: np.ndarray,
+                            batch_fps: np.ndarray) -> None:
+        """A wave's first hits, in batch order, under the lock:
+        Always/Sometimes at the first failing or matching valid row
+        (bfs.rs:196-211), then each eventually property at the first
+        valid terminal row with its bit still set (bfs.rs:223-226,
+        265-272)."""
+        properties = self._properties
+        for i, prop in enumerate(properties):
+            if prop.name in self._discoveries:
+                continue
+            if prop.expectation is Expectation.ALWAYS:
+                hits = valid & ~conds[i]
+            elif prop.expectation is Expectation.SOMETIMES:
+                hits = valid & conds[i]
+            else:
+                continue
+            rows = np.flatnonzero(hits)
+            if rows.size:
+                self._discoveries[prop.name] = int(batch_fps[rows[0]])
+        for r in np.flatnonzero(terminal & valid & (ebits_after != 0)):
+            for i in self._eventually_idx:
+                name = properties[i].name
+                if (ebits_after[r] >> i) & 1 \
+                        and name not in self._discoveries:
+                    self._discoveries[name] = int(batch_fps[r])
 
     def _check_error_lane(self, new_vecs: np.ndarray) -> None:
         """Raises if a new state set the model's error lane (engine
@@ -597,11 +643,23 @@ class CudaBfsChecker(BfsEngine):
                 self._process_wave(inflight)
             inflight = next_wave
 
+    def _load_after(self) -> int:
+        """The occupancy growth holds under half the capacity, with two
+        waves of headroom (engine :1582-1597): with a wave in flight the
+        occupancy lags its insertions by up to ``B_max * F``, and the next
+        wave adds as many."""
+        return self._resident + 2 * self._B_max * self._F
+
     def _needs_growth(self) -> bool:
-        """Two waves of headroom against the half load (engine :1582-1597):
-        with a wave in flight the occupancy lags its insertions by up to
-        ``B_max * F``, and the next wave adds as many."""
-        return self._resident + 2 * self._B_max * self._F > self._capacity // 2
+        return self._load_after() > self._capacity // 2
+
+    def _rehash(self, capacity: int) -> torch.Tensor:
+        """The table rehashed into ``capacity`` slots."""
+        table = torch.full((capacity,), SENTINEL, dtype=torch.int64,
+                           device=self._table.device)
+        if bool(self._insert_chunked(self._table, table)):
+            raise RuntimeError("rehash found no free slot")
+        return table
 
     def _grow_table(self) -> None:
         """Doubles the capacity until the headroom holds and rehashes the
@@ -613,15 +671,12 @@ class CudaBfsChecker(BfsEngine):
             self._graphs.clear()
         self._wave_outs.clear()
         cap = self._capacity
-        while self._resident + 2 * self._B_max * self._F > cap // 2:
+        while self._load_after() > cap // 2:
             cap *= 2
-        table = torch.full((cap,), SENTINEL, dtype=torch.int64,
-                           device=self._table.device)
         with (torch.cuda.device(self._device)
               if self._device.type == "cuda" else contextlib.nullcontext()):
-            if bool(self._insert_chunked(self._table, table)):
-                raise RuntimeError("rehash found no free slot")
-        self.rehash_chunks += self._chunks(self._capacity)
+            table = self._rehash(cap)
+        self.rehash_chunks += self._n * self._chunks(self._capacity)
         self._table, self._capacity = table, cap
         self.rehashes += 1
 
@@ -682,10 +737,13 @@ class CudaBfsChecker(BfsEngine):
 
     def _reconstruct_path(self, fp: int) -> Path:
         """The path to ``fp`` for the visitor: the dict is built once and
-        extended a wave at a time, as in JAX."""
+        extended a wave at a time, as in JAX. Every popped row is visited
+        after its parent, so the replay steps only the last link; the rows
+        replayed are kept (``_replayed``) for the run."""
         self._parent_map()
         return Path.from_fingerprints(self._model,
-                                      self._fingerprint_chain(fp), self._dm)
+                                      self._fingerprint_chain(fp), self._dm,
+                                      self._replayed)
 
     def parent_log_bytes(self) -> int:
         """Host bytes the parent log and dict hold (the dict at 56 bytes
@@ -722,10 +780,14 @@ class CudaBfsChecker(BfsEngine):
             child, parent, rooted = child[keep], parent[keep], rooted[keep]
         return child, parent, rooted
 
+    def _pending_blocks(self) -> list:
+        """The queue's blocks, in order (engine :563)."""
+        return list(self._pending)
+
     def _snapshot(self) -> dict:
         """The checkpoint's sections at a rest point (engine :571-627)."""
         child, parent, rooted = self._parent_sections()
-        blocks = list(self._pending)
+        blocks = self._pending_blocks()
         layout = self._layout
         wp = layout.packed_width
         header = make_header(
@@ -760,7 +822,8 @@ class CudaBfsChecker(BfsEngine):
             log = list(self.dispatch_log)
         succ = sum(e["successors"] for e in log)
         cand = sum(e["candidates"] for e in log)
-        padded = sum(e["bucket"] for e in log)
+        # A sharded wave pops a bucket a shard (engine :1055-1060).
+        padded = sum(e["bucket"] for e in log) * self._n
         buckets: Dict[str, int] = {}
         out_rows: Dict[str, int] = {}
         for e in log:

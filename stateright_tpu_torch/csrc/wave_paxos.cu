@@ -1,14 +1,17 @@
-// The single-kernel wave and the sender kernel (wave.cuh) for single-decree
-// paxos under the register workload, behind a plain C interface: the same
-// interface as wave_twopc.cu, with (client_count, net_slots) for params.
+// The single-kernel wave (wave.cuh) for single-decree paxos under the
+// register workload, behind a plain C interface: the same interface as
+// wave_twopc.cu, with (client_count, net_slots) for params. Its sender
+// kernel is sender_paxos.cu: the two entry points are two translation
+// units so that their kernels build in parallel (paxos's four client
+// counts, each unrolled, are the longest build of chip_smoke.py).
 //
-// Instantiates both kernels for models/paxos.cuh at 1 to 4 clients (3
+// Instantiates the kernel for models/paxos.cuh at 1 to 4 clients (3
 // servers, PaxosDevice's only count), each for any net_slots from 1 up to
 // its default (5 * clients + 3); a larger net_slots, or another client
-// count, returns cudaErrorInvalidValue and the wrapper raises. The packed
-// row's network lanes are sentinel lanes (packing.cuh). See wave.cuh for
-// what the kernels compute, what bounds them and how they are held to
-// their plain versions.
+// count, returns cudaErrorInvalidValue and the wrapper raises
+// (paxos_instances.cuh). The packed row's network lanes are sentinel
+// lanes (packing.cuh). See wave.cuh for what the kernels compute, what
+// bounds them and how they are held to their plain versions.
 //
 // ptxas for sm_90a (-Xptxas -v, CUDA 12.8), tile_front under
 // __launch_bounds__(256, 2), wave / sender: Paxos<1> 79 / 72 registers,
@@ -17,8 +20,7 @@
 // a 384-byte frame and 28 / 8 bytes of spill stores (the representative's
 // permutation walk of register_workload.cuh). A tile (wave.cuh's
 // WaveTile, in dynamic shared memory) of 15,600 / 17,616 bytes at 1 client
-// to 33,328 / 35,344 at 4. The build
-// takes about 52 s on the H100's machine, the longest of chip_smoke.py's.
+// to 33,328 / 35,344 at 4.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 --split-compile=0
 //        -shared -Xcompiler -fPIC (stateright_tpu_torch/_build.py); the
@@ -27,33 +29,8 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
-#include "models/paxos.cuh"
+#include "paxos_instances.cuh"
 #include "wave.cuh"
-
-namespace {
-
-// Calls fn with the model instance for clients c and net_slots e, or
-// returns cudaErrorInvalidValue when the instantiations do not hold them.
-template <class Fn>
-int with_paxos(int c, int e, Fn&& fn) {
-  switch (c) {
-    case 1:
-      if (e >= 1 && e <= sr::Paxos<1>::kMaxE) return fn(sr::Paxos<1>{e});
-      break;
-    case 2:
-      if (e >= 1 && e <= sr::Paxos<2>::kMaxE) return fn(sr::Paxos<2>{e});
-      break;
-    case 3:
-      if (e >= 1 && e <= sr::Paxos<3>::kMaxE) return fn(sr::Paxos<3>{e});
-      break;
-    case 4:
-      if (e >= 1 && e <= sr::Paxos<4>::kMaxE) return fn(sr::Paxos<4>{e});
-      break;
-  }
-  return (int)cudaErrorInvalidValue;
-}
-
-}  // namespace
 
 // client_count clients and net_slots network slots; lanes host int32[5 *
 // w] (each lane's packed word, bit offset, bits, sentinel flag and
@@ -79,36 +56,7 @@ extern "C" int sr_wave_paxos(int client_count, int net_slots, int use_sym,
       use_sym, lanes, w, wp, vecs, valid, batch, fanout, table, c_bits,
       succ_store, path_fps, sflat, slots, tally, slot_of, m_bits, new_mask,
       cand_mask, counts, device, stream);
-  return with_paxos(client_count, net_slots, [&](const auto& m) {
+  return sr::with_paxos(client_count, net_slots, [&](const auto& m) {
     return sr::launch_wave(m, a);
-  });
-}
-
-// client_count clients and net_slots network slots; lanes as above; vecs
-// int32[shards, batch, wp] and valid bool[shards, batch] (each shard's
-// batch); outputs for S = batch * fanout
-// slots a shard: succ_store int32[shards, S, wp], dedup_fps and path_fps
-// int64[shards, S], sflat and send_mask bool[shards, S]; the caller's
-// clean scratch, handed back clean and read only when local_dedup: slots
-// int64[2^m_bits, 2] (sr::Slot records) with shards << region_bits slots
-// at least and 2^region_bits >= 2S, and slot_of int32[shards, S].
-// `device` is the current device. Launches on `stream` and does not
-// synchronise. Returns a CUDA error code, 0 on success.
-extern "C" int sr_sender_paxos(int client_count, int net_slots, int use_sym,
-                               int local_dedup,
-                               const int* lanes, int w, int wp,
-                               const void* vecs, const void* valid,
-                               long long batch, long long shards,
-                               int fanout, void* succ_store,
-                               void* dedup_fps, void* path_fps, void* sflat,
-                               void* send_mask, void* slots,
-                               void* slot_of, int region_bits, int device,
-                               void* stream) {
-  const sr::SenderArgs a = sr::sender_args(
-      use_sym, local_dedup, lanes, w, wp, vecs, valid, batch, shards, fanout,
-      succ_store, dedup_fps, path_fps, sflat, send_mask, slots, slot_of,
-      region_bits, device, stream);
-  return with_paxos(client_count, net_slots, [&](const auto& m) {
-    return sr::launch_sender(m, a);
   });
 }

@@ -25,7 +25,9 @@ from typing import Sequence
 
 import torch
 
-__all__ = ["Mesh"]
+from .engine import cumsum_rows
+
+__all__ = ["Mesh", "route_home"]
 
 
 def _device(d) -> torch.device:
@@ -77,3 +79,47 @@ class Mesh:
 
     def __repr__(self) -> str:
         return f"Mesh(n={self.n}, device={self.device})"
+
+
+def _umod(fps: torch.Tensor, n: int) -> torch.Tensor:
+    """``fp % n`` of int64 bit patterns read as uint64."""
+    r = fps % n
+    return torch.where(fps < 0, (r + (1 << 64) % n) % n, r)
+
+
+def route_home(mesh, dedup_fps: torch.Tensor, send_mask: torch.Tensor,
+               assign, columns):
+    """The exchange of a sharded wave (``tpu/sharded.py`` :302-337 and
+    ``tpu/sharded_fused.py`` :274-296): each sender's rows marked in
+    ``send_mask`` (``bool[n, S]``) go to the owner of their dedup
+    fingerprint (``dedup_fps int64[n, S]``, partition ``fp % n`` through
+    ``assign``, None at the identity map), in their order. A sender's row
+    goes to slot ``owner * S + rank`` of its send buffer, ``rank`` its
+    place among the sender's rows for that owner, and a row not sent to
+    one dump row past the end; the ranks are those of JAX's stable
+    argsort, taken by a prefix sum of each owner's one-hot column instead
+    of a sort. Then ``Mesh.all_to_all``. ``columns`` are ``(tensor [n, S,
+    ...], fill)`` pairs; returns each received as ``[n, R, ...]`` with
+    ``R = n * S``: owner ``d``'s rows from sender ``s`` at ``[s * S, (s +
+    1) * S)``, the slots no row took at ``fill``. Reads nothing on the
+    host."""
+    n, S = dedup_fps.shape
+    R = n * S
+    dev = dedup_fps.device
+    part = _umod(dedup_fps, n)
+    dest = part if assign is None else assign[part]
+    owner = torch.where(send_mask, dest, n)
+    owners = torch.arange(n, dtype=torch.int64, device=dev)[:, None]
+    hot = owner[:, None, :] == owners
+    rank = cumsum_rows(hot).gather(
+        1, owner.clamp(max=n - 1)[:, None, :]).squeeze(1) - 1
+    slot = torch.where(owner < n, owners * R + owner * S + rank,
+                       n * R).view(-1)
+    out = []
+    for x, fill in columns:
+        rest = x.shape[2:]
+        buf = torch.full((n * R + 1,) + rest, fill, dtype=x.dtype,
+                         device=dev)
+        buf.index_copy_(0, slot, x.reshape((n * S,) + rest))
+        out.append(mesh.all_to_all(buf[:-1].view((n, R) + rest)))
+    return out

@@ -11,7 +11,7 @@ means the model is not deterministic.
 
 from __future__ import annotations
 
-from typing import Iterable, List, Tuple
+from typing import Iterable, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -41,8 +41,12 @@ class Path:
         self.fingerprints = fingerprints
 
     @staticmethod
-    def from_fingerprints(model, fingerprints: Iterable[int],
-                          dm=None) -> "Path":
+    def from_fingerprints(model, fingerprints: Iterable[int], dm=None,
+                          known: Optional[dict] = None) -> "Path":
+        """``known``, where given, maps each fingerprint already replayed
+        along the same parent links to ``(row, action into it)``: those
+        states are taken from it, not stepped, and every state stepped to
+        here is added, so replays that share a prefix step it once."""
         dm = dm if dm is not None else model.device_model()
         fps = [int(f) for f in fingerprints]
         if not fps:
@@ -56,20 +60,29 @@ class Path:
                 f"{[host_fp64(v) for v in inits]}")
         vecs, actions = [vec], []
         for fp in fps[1:]:
-            succ, valid = dm.step(torch.from_numpy(vec.astype(np.int64))[None])
-            succ = succ[0].numpy().astype(np.uint32)
-            for f in np.flatnonzero(valid[0].numpy()):
-                if host_fp64(succ[f]) == fp:
-                    actions.append(dm.action_label(vec, int(f)))
-                    vec = succ[f]
-                    vecs.append(vec)
-                    break
-            else:
-                raise NondeterminismError(
-                    f"{len(vecs)} state(s) of the path were replayed, but no "
-                    f"successor has the next fingerprint ({fp})")
+            hit = None if known is None else known.get(fp)
+            if hit is None:
+                hit = Path._step_to(dm, vec, fp, len(vecs))
+                if known is not None:
+                    known[fp] = hit
+            vec, action = hit
+            actions.append(action)
+            vecs.append(vec)
         pairs = [(dm.decode(v), a) for v, a in zip(vecs, actions + [None])]
         return Path(pairs, vecs, fps)
+
+    @staticmethod
+    def _step_to(dm, vec: np.ndarray, fp: int, replayed: int) -> Tuple:
+        """The successor of ``vec`` with the fingerprint ``fp``, and the
+        action to it."""
+        succ, valid = dm.step(torch.from_numpy(vec.astype(np.int64))[None])
+        succ = succ[0].numpy().astype(np.uint32)
+        for f in np.flatnonzero(valid[0].numpy()):
+            if host_fp64(succ[f]) == fp:
+                return succ[f], dm.action_label(vec, int(f))
+        raise NondeterminismError(
+            f"{replayed} state(s) of the path were replayed, but no "
+            f"successor has the next fingerprint ({fp})")
 
     def last_state(self):
         return self._pairs[-1][0]

@@ -13,10 +13,11 @@ ShardedFusedTpuBfsChecker`` on the port's fused engine (``fused.py``).
 - **A wave**, for every shard at once: properties and first hits, the
   successors' front half (the sender kernel ``wave.sender_megakernel``
   with ``wave_kernel=True``, else torch stages), eventually bits, the
-  owner bucketing into ``n * CAP`` rows a shard (``CAP = S = B * F``),
-  the exchange (``Mesh.all_to_all`` of five arrays), the owner's insert
-  into its own table slice (``table.dedup_and_insert``, one call a
-  shard), compaction, and the appends at each shard's tail (one launch of
+  owner bucketing into ``n * S`` rows a shard (``S = B * F``) and the
+  exchange (``Mesh.all_to_all`` of five arrays), both in ``route_home``,
+  which the classic sharded engine (``sharded.py``) shares; the owner's
+  insert into its own table slice (``table.dedup_and_insert``, one call
+  a shard), compaction, and the appends at each shard's tail (one launch of
   the append kernel, ``append.py``, for every shard). With
   ``exchange_novel_only`` (the default) a sender keeps only the first
   occurrence of each fingerprint among its own successors.
@@ -51,26 +52,20 @@ import numpy as np
 import torch
 
 from .append import append_rows
-from .engine import (compaction_order, cumsum_rows, eval_properties,
-                     expand_frontier, fingerprint_successors,
-                     first_occurrence_sorted, host_table_insert,
+from .engine import (compaction_order, eval_properties, expand_frontier,
+                     fingerprint_successors, first_occurrence_sorted,
                      pick_bucket)
 from .fused import (ERR_LANE, ERR_TABLE_FULL, ST_CAND, ST_DISC, ST_ERR,
                     ST_HEAD, ST_OCC, ST_SUCC, ST_TAIL, ST_TARGET, ST_WAVES,
                     FusedCudaBfsChecker, _i32, _pow2, _u32, _u64)
 from .hashing import SENTINEL, SENTINEL_U64, to_u64
 from .membership import EpochOwnership, OwnerMap
+from .mesh import _umod, route_home  # noqa: F401 (_umod: tests read it here)
 from .model import Expectation
 from .table import dedup_and_insert
 from .wave import sender_megakernel
 
 __all__ = ["ShardedFusedCudaBfsChecker"]
-
-
-def _umod(fps: torch.Tensor, n: int) -> torch.Tensor:
-    """``fp % n`` of int64 bit patterns read as uint64."""
-    r = fps % n
-    return torch.where(fps < 0, (r + (1 << 64) % n) % n, r)
 
 
 def _combine_first(disc, hit, fps):
@@ -106,26 +101,9 @@ class ShardedFusedCudaBfsChecker(EpochOwnership, FusedCudaBfsChecker):
     # -- Seeding -------------------------------------------------------------
 
     def _new_table(self, visited: np.ndarray, resumed: bool) -> torch.Tensor:
-        """The stacked table ``[n, capacity]``: shard ``i``'s slice holds
-        the fingerprints it owns (JAX :103-117), each slice built as the
-        unsharded engine builds its table (the dedup kernel in strided
-        chunks for a resumed run, the host for the seeds); sets each
-        shard's occupancy."""
-        n, cap = self._n, self._capacity
-        owner = self._owners(visited)
-        self._occs = np.bincount(owner, minlength=n).astype(np.int64)
-        if not resumed:
-            table = np.full((n, cap), SENTINEL_U64, np.uint64)
-            for i in range(n):
-                host_table_insert(table[i], visited[owner == i])
-            return torch.from_numpy(table.view(np.int64)).to(self._device)
-        table = torch.full((n, cap), SENTINEL, dtype=torch.int64,
-                           device=self._device)
-        full = torch.stack([self._insert_chunked(torch.from_numpy(
-            visited[owner == i].view(np.int64)).to(self._device), table[i])
-            for i in range(n)]).any()
-        if bool(full):
-            raise RuntimeError("the resumed visited set found no free slot")
+        """The stacked table (``_stacked_table``); sets each shard's
+        occupancy."""
+        table, self._occs = self._stacked_table(visited, resumed)
         return table
 
     def _seed(self, seed, fps, ebits, visited, resumed: bool) -> None:
@@ -190,8 +168,7 @@ class ShardedFusedCudaBfsChecker(EpochOwnership, FusedCudaBfsChecker):
         ucap, cap = self._ucap, self._capacity
         W, wp = dm.state_width, layout.packed_width
         S = B * F
-        CAP = S            # rows a sender may route to one owner
-        R = n * CAP        # rows an owner may receive
+        R = n * S          # rows an owner may receive
         P = len(self._properties)
         dev = self._device
         st = self._stats
@@ -204,8 +181,6 @@ class ShardedFusedCudaBfsChecker(EpochOwnership, FusedCudaBfsChecker):
         rb = torch.arange(B, dtype=torch.int64, device=dev)
         shard = torch.arange(n, dtype=torch.int64, device=dev)[:, None]
         arena_row = shard * (ucap + 1)    # each shard's first arena row
-        owners = torch.arange(n, dtype=torch.int64, device=dev)[:, None]
-        assign = self._assign
         arena = (self._vecs, self._fps, self._par, self._ebits)
         vecs = self._vecs.view(n * (ucap + 1), wp)
         fps_a, eb_a = self._fps.view(-1), self._ebits.view(-1)
@@ -266,32 +241,12 @@ class ShardedFusedCudaBfsChecker(EpochOwnership, FusedCudaBfsChecker):
                     disc[i] = _combine_first(disc[i], hit, bfps)
             child_ebits = cleared[:, :, None].expand(n, B, F).reshape(n, S)
 
-            # Bucket each sender's rows by owner, in their order
-            # (sharded_fused.py:274-285): a row goes to slot owner * CAP
-            # + its rank among the sender's rows for that owner, and a
-            # row not sent to one dump row past the end. The ranks are
-            # those of JAX's stable argsort, taken by a prefix sum of
-            # each owner's one-hot column instead of a sort.
-            part = _umod(dedup_fps, n)
-            dest = part if assign is None else assign[part]
-            owner = torch.where(send_mask, dest, n)
-            hot = owner[:, None, :] == owners
-            rank = cumsum_rows(hot).gather(
-                1, owner.clamp(max=n - 1)[:, None, :]).squeeze(1) - 1
-            slot = torch.where(owner < n, shard * R + owner * CAP + rank,
-                               n * R).view(-1)
-
-            def exchange(x, fill):
-                out = torch.full((n * R + 1,) + x.shape[2:], fill,
-                                 dtype=x.dtype, device=dev)
-                out.index_copy_(0, slot, x.reshape((n * S,) + x.shape[2:]))
-                return mesh.all_to_all(out[:-1].view((n, R) + x.shape[2:]))
-
-            recv_vecs = exchange(succ_store, 0)
-            recv_dedup = exchange(dedup_fps, SENTINEL)
-            recv_path = exchange(path_fps, SENTINEL)
-            recv_parent = exchange(parent_fps, SENTINEL)
-            recv_ebits = exchange(child_ebits, 0)
+            # Each sender's rows to their owners (``route_home``).
+            recv_vecs, recv_dedup, recv_path, recv_parent, recv_ebits = \
+                route_home(mesh, dedup_fps, send_mask, self._assign, (
+                    (succ_store, 0), (dedup_fps, SENTINEL),
+                    (path_fps, SENTINEL), (parent_fps, SENTINEL),
+                    (child_ebits, 0)))
 
             # The owner's insert into its own table slice.
             owned = [dedup_and_insert(recv_dedup[k], self._table[k],
@@ -384,14 +339,8 @@ class ShardedFusedCudaBfsChecker(EpochOwnership, FusedCudaBfsChecker):
         n = self._n
         R = n * bucket * self._F
         while int(self._occs.max()) + R > self._capacity // 2:
-            table = torch.full((n, 2 * self._capacity), SENTINEL,
-                               dtype=torch.int64, device=self._table.device)
-            full = torch.stack([self._insert_chunked(self._table[k],
-                                                     table[k])
-                                for k in range(n)]).any()
-            if bool(full):
-                raise RuntimeError("rehash found no free slot")
-            self._table, self._capacity = table, 2 * self._capacity
+            self._table = self._rehash(2 * self._capacity)
+            self._capacity *= 2
             self.rehashes += 1
         while int(self._tails.max()) + R > self._ucap:
             ucap = 2 * self._ucap

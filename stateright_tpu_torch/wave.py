@@ -227,10 +227,18 @@ def sender_megakernel_plain(dm, store: torch.Tensor, valid: torch.Tensor,
             path_fps.reshape(n, S), sflat, send_mask)
 
 
+#: models whose sender entry point is a source of its own
+#: (``csrc/<source>.cu``), so that its kernels build beside the wave
+#: kernel's: paxos's four client counts are the longest build
+SENDER_SOURCES = {"paxos": "sender_paxos"}
+
+
 @functools.lru_cache(maxsize=None)
 def _sender_entry(name: str, kinds: str):
-    """Likewise, its sender entry point."""
-    fn = getattr(build_and_load("wave_" + name), "sr_sender_" + name)
+    """Likewise, its sender entry point (in ``csrc/wave_<name>.cu``, or
+    ``SENDER_SOURCES[name]``)."""
+    fn = getattr(build_and_load(SENDER_SOURCES.get(name, "wave_" + name)),
+                 "sr_sender_" + name)
     fn.restype = ctypes.c_int
     i, p, ll = ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong
     fn.argtypes = ([{"i": i, "p": p}[k] for k in kinds]

@@ -43,12 +43,14 @@ from stateright_tpu.tpu.packing import compile_layout as ref_layout  # noqa: E40
 from stateright_tpu_torch import Property, carry, classic, engine  # noqa: E402
 from stateright_tpu_torch import checkpoint_format as ckpt  # noqa: E402
 from stateright_tpu_torch import wave  # noqa: E402
+from jax.sharding import Mesh as RefMesh  # noqa: E402
 from stateright_tpu_torch.classic import CudaBfsChecker  # noqa: E402
 from stateright_tpu_torch.fused import (FusedCudaBfsChecker,  # noqa: E402
                                         FusedUnsupported)
 from stateright_tpu_torch.models import twopc  # noqa: E402
 from stateright_tpu_torch.models.paxos import PaxosDevice, PaxosSys  # noqa: E402,E501
 from stateright_tpu_torch.packing import compile_layout  # noqa: E402
+from stateright_tpu_torch.sharded import ShardedCudaBfsChecker  # noqa: E402
 from stateright_tpu_torch.visitor import StateRecorder, as_visitor  # noqa: E402,E501
 from test_torch_checkpoint import _RefTwoEventually, _TwoEventually  # noqa: E402,E501
 
@@ -363,7 +365,8 @@ def test_visitor_runs_on_the_classic_engine():
     """``tests/test_fused.py``'s visitor fallback: the spawn is the
     classic engine, every state is visited once, in JAX's order, and
     ``fused=True`` refuses; a sharded spawn that needs the classic engine
-    names ROADMAP A11."""
+    gets the classic sharded engine, equal to JAX's (``pipeline=True``
+    raises, as in JAX)."""
     rrec, rstates = RefRecorder.new_with_accessor()
     rec, states = StateRecorder.new_with_accessor()
     ref = (ref_model.TwoPhaseSys(3).checker().visitor(rrec)
@@ -380,10 +383,25 @@ def test_visitor_runs_on_the_classic_engine():
     with pytest.raises(FusedUnsupported):
         (twopc.TwoPhaseSys(3).checker().visitor(rec)
          .spawn_cuda_bfs(device="cpu", batch_size=64, fused=True))
-    for kw in (dict(), dict(fused=False), dict(pipeline=True)):
-        with pytest.raises(NotImplementedError, match="A11"):
-            (twopc.TwoPhaseSys(3).checker().visitor(rec)
-             .spawn_cuda_bfs(mesh=["cpu"] * 2, **kw))
+    rrec, rstates = RefRecorder.new_with_accessor()
+    ref = (ref_model.TwoPhaseSys(3).checker().visitor(rrec)
+           .spawn_tpu_bfs(sharded=True, batch_size=16,
+                          mesh=RefMesh(np.array(jax.devices()[:2]),
+                                       ("shard",))).join())
+    want = [np.asarray(rdm.encode(s)).tolist() for s in rstates()]
+    for kw in (dict(), dict(fused=False)):
+        rec, states = StateRecorder.new_with_accessor()
+        c = (twopc.TwoPhaseSys(3).checker().visitor(rec)
+             .spawn_cuda_bfs(mesh=["cpu"] * 2, batch_size=16, **kw).join())
+        assert isinstance(c, ShardedCudaBfsChecker)
+        assert (c.unique_state_count(), c.state_count()) == (
+            ref.unique_state_count(), ref.state_count()) == (288, 1146)
+        assert _chains(c) == _ref_chains(ref)
+        assert c._parent_map() == ref._parent_map()
+        assert [dm.encode(s).tolist() for s in states()] == want
+    with pytest.raises(NotImplementedError, match="pipeline"):
+        (twopc.TwoPhaseSys(3).checker().visitor(rec)
+         .spawn_cuda_bfs(mesh=["cpu"] * 2, pipeline=True))
     seen = []
     c = (twopc.TwoPhaseSys(3).checker()
          .visitor(lambda model, path: seen.append(len(path.fingerprints)))

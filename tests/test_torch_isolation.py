@@ -1,13 +1,14 @@
 """The port stands alone: it imports neither JAX nor the JAX package.
 
 An AST scan of every file of ``stateright_tpu_torch/`` (the classic
-engine's ``classic.py`` and ``visitor.py``, the register models'
-``models/single_copy.py`` and ``models/abd.py``, and the plain models'
-``test_util.py``, ``models/increment.py``, ``models/increment_lock.py``
-and ``models/sliding_puzzle.py``, and the actor models'
-``models/pingpong.py`` and ``models/vsr.py`` among them); a fresh
-interpreter that checks 2pc at 3 RMs (on the fused engine, and on the
-classic engine with a visitor), paxos at 1 client, single-copy at 2
+engine's ``classic.py`` and ``visitor.py``, the classic sharded engine's
+``sharded.py``, the register models' ``models/single_copy.py`` and
+``models/abd.py``, and the plain models' ``test_util.py``,
+``models/increment.py``, ``models/increment_lock.py`` and
+``models/sliding_puzzle.py``, and the actor models' ``models/pingpong.py``
+and ``models/vsr.py`` among them); a fresh interpreter that checks 2pc at
+3 RMs (on the fused engine, and with a visitor on the classic engine and
+on the classic sharded engine), paxos at 1 client, single-copy at 2
 clients on one server, ABD at 2 clients on two, LinearEquation, increment
 and increment_lock at 2 threads, the 2x3 puzzle, ping-pong at max_nat 5 on
 a lossy network and VSR at 2 replicas through the port on the CPU and then
@@ -48,7 +49,8 @@ def test_no_file_of_the_port_imports_jax_or_the_jax_package():
              for f in fs if f.endswith(".py")]
     assert len(files) >= 12
     names = {os.path.relpath(f, _PKG) for f in files}
-    assert {"classic.py", "visitor.py", "models/single_copy.py",
+    assert {"classic.py", "visitor.py", "sharded.py",
+            "models/single_copy.py",
             "models/abd.py", "test_util.py", "models/increment.py",
             "models/increment_lock.py", "models/sliding_puzzle.py",
             "models/pingpong.py", "models/vsr.py"} <= names
@@ -71,6 +73,10 @@ def test_a_cpu_check_loads_neither_jax_nor_the_jax_package():
         "     .spawn_cuda_bfs(device='cpu').join())\n"
         "assert type(c).__name__ == 'CudaBfsChecker', type(c)\n"
         "assert (c.unique_state_count(), len(states())) == (288, 288)\n"
+        "c = (TwoPhaseSys(3).checker().visitor(rec)\n"
+        "     .spawn_cuda_bfs(mesh=['cpu'] * 2).join())\n"
+        "assert type(c).__name__ == 'ShardedCudaBfsChecker', type(c)\n"
+        "assert (c.unique_state_count(), len(states())) == (288, 576)\n"
         "from stateright_tpu_torch.models.paxos import PaxosSys\n"
         "c = PaxosSys(1).checker().spawn_cuda_bfs(device='cpu').join()\n"
         "assert (c.unique_state_count(), c.state_count()) == (265, 482)\n"

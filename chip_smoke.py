@@ -9,12 +9,14 @@ Usage, from the root of a checkout on a machine with an NVIDIA H100:
     python3 chip_smoke.py --phases corpus          # phase 1, then 10
     python3 chip_smoke.py --phases actors          # phase 1, then 11
     python3 chip_smoke.py --phases sharded_classic # phase 1, then 12
+    python3 chip_smoke.py --phases matmul          # phase 1, then 13
     python3 chip_smoke.py --phases kernels,full    # phase 1, 2-4 and 6
 
 ``--phases`` takes a comma-separated subset of ``kernels`` (phases 2 to
 4), ``small`` (5), ``full`` (6), ``checkpoint`` (7), ``classic`` (8),
-``registers`` (9), ``corpus`` (10), ``actors`` (11) and
-``sharded_classic`` (12), runs phase 1 and those, in this order, and prints the kernels line's rows those phases give
+``registers`` (9), ``corpus`` (10), ``actors`` (11), ``sharded_classic``
+(12) and ``matmul`` (13), runs phase 1 and those, in this order, and
+prints the kernels line's rows those phases give
 (phases 2 to 8's rows only when all of them ran). Phases, in order; any
 failure exits non-zero and prints no result line:
 
@@ -25,9 +27,11 @@ failure exits non-zero and prints no result line:
    ``wave_sliding_puzzle.cu``, ``wave_pingpong.cu``, ``wave_vsr.cu`` (the
    wave kernel's and the sender kernel's entry points for 2pc, each
    register workload, each plain model and each actor model; paxos's
-   sender in a source of its own) and ``append.cu`` for ``sm_90a``, one
-   ``nvcc`` each, all at once, and print each build time with ptxas'
-   register and spill report, and the card's name and power limit;
+   sender in a source of its own; 2pc's and the shared counters' sources
+   also hold the plan forms of both kernels) and ``append.cu`` for
+   ``sm_90a``, one ``nvcc`` each, all at once, and print each build time
+   with ptxas' register and spill report, and the card's name and power
+   limit;
 2. hold the wave kernel against its plain version at full width: 16,384
    packed rows of 2pc at 10 RMs from a mid-run arena against a 2^27-slot
    table filled to 30% plus the run's states, plain and with symmetry:
@@ -225,20 +229,41 @@ failure exits non-zero and prints no result line:
     property the host evaluates (265 / 482) and 2pc 3 with one that is
     found; 2pc 4 with every wave at an output rung of 8 rows (regathers)
     against the ladder off; ``fused=True`` with a visitor and
-    ``pipeline=True`` refused. Then, none cut, 4 shards of 4,096 rows,
-    graphs on: 2pc at 10 RMs (61,515,776 / 817,760,258) and ``paxos check
-    3`` (1,194,428 / 2,420,477, "value chosen" found) on the torch stages
-    and on the sender kernel, exact, the launches exact, the sender
-    kernel's chains the torch stages', each run's seconds, waves, host us
-    a wave, bytes down and peak device memory; from a mid-run point of
-    each on each path, one replayed wave under
+    ``pipeline=True`` refused. Then, 4 shards of 4,096 rows, graphs on:
+    2pc at 10 RMs (61,515,776 / 817,760,258) on the sender kernel and
+    ``paxos check 3`` (1,194,428 / 2,420,477, "value chosen" found) on the
+    torch stages and on the sender kernel, exact, and 2pc at 10 RMs on the
+    torch stages cut at 100,000,000 states (``SHARDED_CLASSIC_CUTS``), the
+    launches exact, the sender kernel's chains the torch stages' (the cut
+    run's those of the whole run for what it finds), each run's seconds,
+    waves, host us a wave, bytes down and peak device memory; from a
+    mid-run point of each on each path, one replayed wave under
     ``torch.cuda.set_sync_debug_mode("error")``, three timed and one
     profiled (the card's time a wave and its idle share), and on the
     sender kernel's, kernels 3 and 1 held to their plain versions and
     timed at this path's shapes (the next wave's 4 x 4,096 rows; shard
     0's 851,968 (2pc) or 294,912 (paxos) received rows against its table
     slice with the engine's scratch);
-13. the kernels line, the script's running time, the card line and the
+13. the matmul expand (``spawn_cuda_bfs(wave_matmul=True)``,
+    ``matmul_wave.py``; ``phase_matmul``, in a process of its own when
+    earlier phases ran, as phase 9), at the full widths its gate admits,
+    2pc at 7 RMs and increment_lock at 8 threads: the gate's verdict on
+    the card (the pinned reasons); kernels 2 and 3 in plan form
+    (``csrc/plan.cuh``) on the next 16,384 rows of a mid-run arena,
+    against its engine's table and scratch, held bit for bit to their
+    plain versions (``matmul_expand``) and timed, plain and with
+    symmetry, the sender as 4 shards of 4,096 with local dedup on and off
+    and ragged, and held bit for bit to their step forms; then each
+    configuration to its end (296,448 / 2,744,706 and 438,401 / 438,401)
+    on the fused, classic, sharded and classic sharded engines, with the
+    knob off on the kernels and on, on the torch stages and on the
+    kernels: counts exact, discovery chains equal to the knob-off run's,
+    ``kernel_path()``'s ``+matmul``, the ``wave_matmul`` stats and every
+    dispatch's ``expand_impl``, the launches exact; 2pc 5 with symmetry
+    (314) on every engine's kernels, on against off; and 2pc 7 on the
+    torch stages under ``torch.set_float32_matmul_precision("high")`` and
+    ``torch.backends.cuda.matmul.allow_tf32 = True``, exact;
+14. the kernels line, the script's running time, the card line and the
     result line.
 
 It imports neither JAX nor ``stateright_tpu``.
@@ -843,12 +868,13 @@ def _front_ops(dm, slots: int, n_valid: int, use_sym: bool) -> int:
 
 
 def _wave_case(torch, wave_mod, table_mod, dm, store, valid, layout, table,
-               use_sym, tag, scratch=None):
+               use_sym, tag, scratch=None, plan=None):
     """The wave kernel against its plain version on ``store`` and a copy
     of ``table``: all outputs equal, tables equal as sets; then its time
     with a caller-owned scratch (``scratch``, an engine's, or one of its
     own), by kernel and memset, beside the plain version's and the
-    bound."""
+    bound. Under a matmul ``plan`` both run its transition-table form, and
+    the bound's bytes count its tables."""
     B = store.shape[0]
     S, wp = B * dm.max_fanout, layout.packed_width
     names = ("succ_store", "path_fps", "sflat", "new_mask", "cand_mask",
@@ -857,10 +883,11 @@ def _wave_case(torch, wave_mod, table_mod, dm, store, valid, layout, table,
         fn, scratch = _scratch(torch, table_mod, wave_mod.wave_megakernel, S)
     else:
         fn = functools.partial(wave_mod.wave_megakernel, scratch=scratch)
+    fn = functools.partial(fn, plan=plan)
+    plain = functools.partial(wave_mod.wave_megakernel_plain, plan=plan)
     t_k, t_p = table.clone(), table.clone()
     got = fn(dm, store, valid, t_k, use_sym, layout)
-    want = wave_mod.wave_megakernel_plain(dm, store, valid, t_p, use_sym,
-                                          layout)
+    want = plain(dm, store, valid, t_p, use_sym, layout)
     torch.cuda.synchronize()
     for name, a, b in zip(names, got, want):
         if not torch.equal(a, b):
@@ -880,13 +907,15 @@ def _wave_case(torch, wave_mod, table_mod, dm, store, valid, layout, table,
 
     call_ms = _time_ms(torch, fn, 5, setup)
     ms, parts = _breakdown(torch, fn, 5, setup)
-    plain_ms = _time_ms(torch, wave_mod.wave_megakernel_plain, 3, setup)
+    plain_ms = _time_ms(torch, plain, 3, setup)
     # Bound: the function's own bytes, each once: the packed batch and
     # valid read, the packed successors, path fingerprints and three byte
     # masks written, and one 32-byte sector a candidate in the visited
-    # table. The dedup fingerprints and the scratch table are neither input
-    # nor output. Operations: _front_ops.
-    nbytes = 4 * B * wp + B + 4 * S * wp + 8 * S + 3 * S + 32 * cand
+    # table (and a plan's uint32 tables read once). The dedup fingerprints
+    # and the scratch table are neither input nor output. Operations:
+    # _front_ops.
+    nbytes = (4 * B * wp + B + 4 * S * wp + 8 * S + 3 * S + 32 * cand
+              + _plan_table_bytes(wave_mod, plan))
     ops = _front_ops(dm, S, n_valid, use_sym)
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     ops_ms = ops / OPS_PER_S * 1e3
@@ -903,13 +932,19 @@ def _wave_case(torch, wave_mod, table_mod, dm, store, valid, layout, table,
                 bound_by="bytes" if bytes_ms >= ops_ms else "operations")
 
 
-def _sender_equal(torch, wave_mod, fn, scratch, args, tag):
-    """The sender kernel (``fn``) against its plain version on ``args``:
-    all five outputs equal, the scratch handed back clean. Returns
-    ``(valid, sent)``."""
+def _plan_table_bytes(wave_mod, plan) -> int:
+    """The bytes of a matmul plan's tables as the kernels read them (0
+    without a plan)."""
+    return 0 if plan is None else wave_mod.plan_tables(plan).nbytes
+
+
+def _sender_equal(torch, wave_mod, fn, scratch, args, tag, plan=None):
+    """The sender kernel (``fn``) against its plain version on ``args``
+    (under ``plan`` when given): all five outputs equal, the scratch
+    handed back clean. Returns ``(valid, sent)``."""
     names = ("succ_store", "dedup_fps", "path_fps", "sflat", "send_mask")
     got = fn(*args)
-    want = wave_mod.sender_megakernel_plain(*args)
+    want = wave_mod.sender_megakernel_plain(*args, plan)
     torch.cuda.synchronize()
     for name, a, b in zip(names, got, want):
         if not torch.equal(a, b):
@@ -922,11 +957,12 @@ def _sender_equal(torch, wave_mod, fn, scratch, args, tag):
 
 
 def phase_sender_kernel(torch, wave_mod, table_mod, dm, store, layout,
-                        model="2pc 10", syms=(False, True)):
+                        model="2pc 10", syms=(False, True), plan=None):
     """The sender kernel against its plain version at the full-width
     shape: ``store``'s packed rows (of ``model``) as ``SHARDS`` shards'
     batches, with the engine's scratch, plain and with symmetry (each of
-    ``syms``); then at a ragged shape (3 shards of a row less)."""
+    ``syms``); then at a ragged shape (3 shards of a row less). Under a
+    matmul ``plan`` both run its transition-table form."""
     B, wp = store.shape[0] // SHARDS, layout.packed_width
     rows = store
     store = rows.reshape(SHARDS, B, wp).contiguous()
@@ -935,6 +971,8 @@ def phase_sender_kernel(torch, wave_mod, table_mod, dm, store, layout,
     S = B * dm.max_fanout
     fn, scratch = _scratch(torch, table_mod, wave_mod.sender_megakernel,
                            n * S, n)
+    fn = functools.partial(fn, plan=plan)
+    plain = functools.partial(wave_mod.sender_megakernel_plain, plan=plan)
     out = {}
     for use_sym in syms:
         for local_dedup in (True, False):
@@ -942,19 +980,18 @@ def phase_sender_kernel(torch, wave_mod, table_mod, dm, store, layout,
             tag = (f"{model}, {'sym' if use_sym else 'plain'}"
                    f"{'' if local_dedup else ', no local dedup'}")
             n_valid, n_send = _sender_equal(torch, wave_mod, fn, scratch,
-                                            args, tag)
+                                            args, tag, plan)
             ms, parts = _breakdown(torch, fn, 5, lambda: args)
             call_ms = _time_ms(torch, fn, 5, lambda: args)
             _check_clean(torch, scratch, f"the sender kernel ({tag}, timed)")
-            plain_ms = _time_ms(torch, wave_mod.sender_megakernel_plain, 3,
-                                lambda: args)
+            plain_ms = _time_ms(torch, plain, 3, lambda: args)
             # Bound: the function's own bytes, each once: the packed
             # batch and valid read; the packed successors, two
-            # fingerprint arrays and two byte masks written. The scratch
-            # is neither input nor output. Operations as the wave
-            # kernel's (_front_ops).
+            # fingerprint arrays and two byte masks written (and a plan's
+            # tables read once). The scratch is neither input nor output.
+            # Operations as the wave kernel's (_front_ops).
             nbytes = (4 * n * B * wp + n * B + 4 * n * S * wp + 16 * n * S
-                      + 2 * n * S)
+                      + 2 * n * S + _plan_table_bytes(wave_mod, plan))
             ops = _front_ops(dm, n * S, n_valid, use_sym)
             bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
             ops_ms = ops / OPS_PER_S * 1e3
@@ -981,11 +1018,12 @@ def phase_sender_kernel(torch, wave_mod, table_mod, dm, store, layout,
     S = B * dm.max_fanout
     fn, scratch = _scratch(torch, table_mod, wave_mod.sender_megakernel,
                            n * S, n)
+    fn = functools.partial(fn, plan=plan)
     for local_dedup in (True, False):
         tag = f"{model}, ragged{'' if local_dedup else ', no local dedup'}"
         n_valid, n_send = _sender_equal(
             torch, wave_mod, fn, scratch,
-            (dm, store, valid, False, layout, local_dedup), tag)
+            (dm, store, valid, False, layout, local_dedup), tag, plan)
         _log(f"sender kernel == plain ({tag}) at n={n} x B={B}, S={S} "
              f"({S % 256} slots in each shard's last tile): valid={n_valid} "
              f"sent={n_send}, scratch clean")
@@ -3231,23 +3269,27 @@ class _ShardedPoint:
 
 
 def phase_sharded_classic_full(torch, kernels, config, model, want_counts,
-                               want_found, wave_kernel):
+                               want_found, wave_kernel, cut=None):
     """``model()`` to its end on the classic sharded engine (``SHARDS``
-    shards of ``BATCH / SHARDS`` rows, graphs on), the kernels' launch
-    counts set to 0 just before and read just after: exactly
-    ``want_counts``, the discoveries ``want_found`` and no
-    counterexample, the launches exact (the dedup kernel ``SHARDS`` times
-    a wave on the owner side plus the rehash chunks; the sender kernel
-    once a wave and once a regather with ``wave_kernel``); the run's
-    seconds, waves, graphs, rungs, regathers, host us a wave, bytes down,
-    peak device memory and parent log. Returns ``(chains, launches,
-    run)``."""
+    shards of ``BATCH / SHARDS`` rows, graphs on), or cut at ``cut``
+    states, the kernels' launch counts set to 0 just before and read just
+    after: exactly ``want_counts``, the discoveries ``want_found`` and no
+    counterexample (a cut run: at least ``cut`` states and fewer than
+    ``want_counts``, and only discoveries of ``want_found``), the launches
+    exact (the dedup kernel ``SHARDS`` times a wave on the owner side plus
+    the rehash chunks; the sender kernel once a wave and once a regather
+    with ``wave_kernel``); the run's seconds, waves, graphs, rungs,
+    regathers, host us a wave, bytes down, peak device memory and parent
+    log. Returns ``(chains, launches, run)``."""
     gc.collect()
     torch.cuda.reset_peak_memory_stats()
     for fn in kernels.values():
         fn.launches = 0
     t0 = time.monotonic()
-    c = model().checker().spawn_cuda_bfs(
+    builder = model().checker()
+    if cut is not None:
+        builder = builder.target_state_count(cut)
+    c = builder.spawn_cuda_bfs(
         mesh=["cuda:0"] * SHARDS, batch_size=BATCH // SHARDS, fused=False,
         wave_kernel=wave_kernel).join()
     torch.cuda.synchronize()
@@ -3283,13 +3325,20 @@ def phase_sharded_classic_full(torch, kernels, config, model, want_counts,
          f"{host['wait']:.1f}; bytes down a wave {run['bytes_down']:.0f} "
          f"(most {max(down)}); peak device memory {peak} B; host parent log "
          f"{run['log_bytes']} B")
-    if (unique, states) != want_counts:
-        raise AssertionError(f"{config} sharded classic: {(unique, states)}"
-                             f" != {want_counts}")
-    if sorted(c.discoveries()) != want_found:
-        raise AssertionError(f"{config} sharded classic discoveries: "
-                             f"{sorted(c.discoveries())}")
-    c.assert_properties()
+    if cut is not None:
+        if not cut <= states < want_counts[1] or not set(
+                c.discoveries()) <= set(want_found):
+            raise AssertionError(f"{config} sharded classic cut at {cut}: "
+                                 f"{(unique, states)}, discoveries "
+                                 f"{sorted(c.discoveries())}")
+    else:
+        if (unique, states) != want_counts:
+            raise AssertionError(f"{config} sharded classic: "
+                                 f"{(unique, states)} != {want_counts}")
+        if sorted(c.discoveries()) != want_found:
+            raise AssertionError(f"{config} sharded classic discoveries: "
+                                 f"{sorted(c.discoveries())}")
+        c.assert_properties()
     want = {"dedup_and_insert": SHARDS * waves + c.rehash_chunks,
             "wave_megakernel": 0,
             "sender_megakernel": waves + regathers if wave_kernel else 0,
@@ -3365,11 +3414,20 @@ def _sharded_holds(torch, wave_mod, table_mod, sharded_mod, point, tag):
     return sk[(False, True)], k
 
 
+#: phase 12's runs cut at a state count (depth cut to keep the script
+#: inside its time when phase 13 came: 2pc 10 on the torch stages was its
+#: longest run; on the sender kernel it still runs to its end, and the cut
+#: run's chains are the whole run's for what it finds)
+SHARDED_CLASSIC_CUTS = {("2pc 10", False): 100_000_000}
+
+
 def phase_sharded_classic(torch, kernels, wave_mod, table_mod):
     """Phase 12: the classic sharded engine's small gates against the CPU
     (``phase_sharded_classic_small``), then 2pc at 10 RMs and ``paxos
     check 3`` at ``SHARDS`` x 4,096 rows on the torch stages and on the
-    sender kernel, exact, the sender kernel's chains the torch stages';
+    sender kernel, exact (2pc 10 on the torch stages cut at
+    ``SHARDED_CLASSIC_CUTS``' state count), the sender kernel's chains the
+    torch stages';
     from a mid-run point of each on each path, one replayed wave under
     ``set_sync_debug_mode("error")`` and the card's time a wave, and on
     the sender kernel's, kernels 3 and 1 held to their plain versions and
@@ -3392,9 +3450,10 @@ def phase_sharded_classic(torch, kernels, wave_mod, table_mod):
             chains[wave_kernel], launches, run = _clocked(
                 f"{config}, wave_kernel={wave_kernel}, the run",
                 phase_sharded_classic_full, torch, kernels, config, model,
-                counts, found, wave_kernel)
+                counts, found, wave_kernel,
+                SHARDED_CLASSIC_CUTS.get((config, wave_kernel)))
             runs[config, wave_kernel] = dict(launches=launches, run=run)
-        if chains[True] != chains[False]:
+        if chains[False] != {k: chains[True].get(k) for k in chains[False]}:
             raise AssertionError(f"{config} sharded classic: the sender "
                                  "kernel's chains differ from the torch "
                                  "stages'")
@@ -3456,6 +3515,285 @@ def _sharded_classic_rows(holds, runs):
     return rows
 
 
+# -- Phase 13: the matmul expand ----------------------------------------------
+
+#: the full widths the matmul gate admits (it refuses 2pc 8 and increment
+#: 16): each configuration's pinned verdict, its counts and the states its
+#: mid-run point stops at (a frontier wider than a batch)
+MATMUL_MODELS = {
+    "2pc 7": ("regular (12 key groups, 55160 macs/row)",
+              (296_448, 2_744_706), 400_000),
+    "increment_lock 8": ("regular (24 key groups, 66176 macs/row)",
+                         (438_401, 438_401), 150_000)}
+#: the engines phase 13 runs each configuration on
+MATMUL_ENGINES = ("fused", "classic", "sharded", "sharded_classic")
+
+
+def _matmul_modules():
+    from stateright_tpu_torch import matmul_wave
+    from stateright_tpu_torch.models.increment_lock import IncrementLockModel
+    from stateright_tpu_torch.models.twopc import TwoPhaseSys
+    builds = {"2pc 7": lambda: TwoPhaseSys(7).checker(),
+              "increment_lock 8": lambda: IncrementLockModel(8).checker()}
+    return matmul_wave, builds, TwoPhaseSys
+
+
+def _plan_vs_step(torch, wave_mod, table_mod, dm, store, valid, layout,
+                  table, scratch, plan, tag):
+    """Kernels 2 and 3 in plan form against their step forms on the same
+    inputs (the step form is the model's own CUDA step): every output
+    equal, the tables equal as sets, the scratch clean; plain and with
+    symmetry, the sender on ``SHARDS`` shards with local dedup. Logs the
+    wave kernel's step form's time (``_breakdown``) at this shape."""
+    names = ("succ_store", "path_fps", "sflat", "new_mask", "cand_mask",
+             "new_count", "cand_count", "full")
+    for use_sym in (False, True):
+        t_a, t_b = table.clone(), table.clone()
+        got = wave_mod.wave_megakernel(dm, store, valid, t_a, use_sym,
+                                       layout, scratch=scratch, plan=plan)
+        want = wave_mod.wave_megakernel(dm, store, valid, t_b, use_sym,
+                                        layout, scratch=scratch)
+        torch.cuda.synchronize()
+        for name, a, b in zip(names, got, want):
+            if not torch.equal(a, b):
+                raise AssertionError(f"wave kernel ({tag}, sym={use_sym}): "
+                                     f"the plan form differs from the step "
+                                     f"form on {name}")
+        if not torch.equal(torch.sort(t_a).values, torch.sort(t_b).values):
+            raise AssertionError(f"wave kernel ({tag}): the plan form's "
+                                 "table differs from the step form's")
+        _check_clean(torch, scratch, f"the wave kernel ({tag}, plan/step)")
+        del t_a, t_b, got, want
+    # The step form's time at the same shape, beside the plan form's.
+    step_ms, _ = _breakdown(
+        torch, functools.partial(wave_mod.wave_megakernel, scratch=scratch),
+        5, lambda: (dm, store, valid, table.clone(), False, layout))
+    B, wp = store.shape[0] // SHARDS, layout.packed_width
+    sstore = store.reshape(SHARDS, B, wp).contiguous()
+    svalid = valid.reshape(SHARDS, B).contiguous()
+    fn, sscratch = _scratch(torch, table_mod, wave_mod.sender_megakernel,
+                            SHARDS * B * dm.max_fanout, SHARDS)
+    for use_sym in (False, True):
+        args = (dm, sstore, svalid, use_sym, layout, True)
+        got, want = fn(*args, plan=plan), fn(*args)
+        torch.cuda.synchronize()
+        for name, a, b in zip(("succ_store", "dedup_fps", "path_fps",
+                               "sflat", "send_mask"), got, want):
+            if not torch.equal(a, b):
+                raise AssertionError(f"sender kernel ({tag}, sym={use_sym}):"
+                                     f" the plan form differs from the step "
+                                     f"form on {name}")
+        _check_clean(torch, sscratch, f"the sender kernel ({tag}, plan/step)")
+    _log(f"{tag}: kernels 2 and 3 in plan form == their step forms (plain "
+         f"and with symmetry; the sender at {SHARDS} x {B}); the wave "
+         f"kernel's step form {step_ms:.4f} ms on the card at this shape")
+
+
+def _matmul_holds(torch, wave_mod, table_mod, matmul_wave, tag, build,
+                  reason, mid_target):
+    """The gate's verdict on the card, then kernels 2 and 3 in plan form at
+    full width (the next 16,384 rows of a mid-run arena, against its
+    engine's table with its engine's scratch): against their plain
+    versions, timed (the wave kernel plain and with symmetry, the sender
+    on ``SHARDS`` shards with local dedup on and off, and ragged), and
+    against their step forms."""
+    dm = build()._model.device_model()
+    t0 = time.monotonic()
+    cls = matmul_wave.classify(dm, "cuda:0")
+    _log(f"{tag}: classified on the card in {time.monotonic() - t0:.1f} s: "
+         f"{cls.reason}; tables {cls.plan and cls.plan.table_bytes} B as "
+         f"float halves")
+    if cls.reason != reason:
+        raise AssertionError(f"{tag}: {cls.reason!r}, not {reason!r}")
+    plan = cls.plan
+    mid = (build().target_state_count(mid_target)
+           .spawn_cuda_bfs(device="cuda:0", batch_size=BATCH,
+                           wave_kernel=True, wave_matmul=True).join())
+    if mid._tail - mid._head < BATCH:
+        raise AssertionError(f"mid-run {tag} frontier of "
+                             f"{mid._tail - mid._head} rows is narrower "
+                             f"than {BATCH}")
+    dm, layout = mid._dm, mid._layout
+    store = mid._vecs[mid._head:mid._head + BATCH].clone()
+    valid = torch.ones(BATCH, dtype=torch.bool, device="cuda")
+    out = {}
+    for sub, use_sym in (("plain", False), ("sym", True)):
+        out[(tag, sub)] = _wave_case(
+            torch, wave_mod, table_mod, dm, store, valid, layout,
+            mid._table, use_sym, f"{tag}, {sub}, plan form",
+            scratch=mid._scratch, plan=plan)
+    out[(tag, "sender")] = phase_sender_kernel(
+        torch, wave_mod, table_mod, dm, store, layout, f"{tag}, plan form",
+        syms=(False,), plan=plan)[(False, True)]
+    _plan_vs_step(torch, wave_mod, table_mod, dm, store, valid, layout,
+                  mid._table, mid._scratch, plan, tag)
+    return out
+
+
+def _matmul_spawn(engine, **kw):
+    """``spawn_cuda_bfs``'s knobs for ``engine`` at full width: ``_spawn_kw``'s
+    engines and the classic sharded one (``SHARDS`` shards)."""
+    if engine == "sharded_classic":
+        return dict(mesh=["cuda:0"] * SHARDS, fused=False,
+                    batch_size=BATCH // SHARDS, **kw)
+    return _spawn_kw("cuda:0", engine, BATCH, **kw)
+
+
+def _matmul_run(torch, kernels, fused, tag, build, engine, wave_kernel,
+                wave_matmul, want):
+    """``build()``'s checker to its end on the card on ``engine`` with the
+    two knobs, the kernels' launch counts set to 0 just before and read
+    just after: the counts ``want`` (where given), ``kernel_path()`` with
+    ``+matmul`` exactly when the knob is on, the ``wave_matmul`` stats and
+    every dispatch's ``expand_impl``, the launches exact. Returns the
+    run's numbers and its discoveries' chains."""
+    for fn in kernels.values():
+        fn.launches = 0
+    spawn = _matmul_spawn(engine, wave_kernel=wave_kernel,
+                          wave_matmul=wave_matmul)
+    t0 = time.monotonic()
+    c = build().spawn_cuda_bfs(**spawn).join()
+    torch.cuda.synchronize()
+    sec = time.monotonic() - t0
+    launches = {name: fn.launches for name, fn in kernels.items()}
+    got = (c.unique_state_count(), c.state_count())
+    path = c.kernel_path()
+    where = f"{tag}, {engine}, {path}"
+    regathers = (c.scheduler_stats()["succ_ladder"]["overflow_redispatches"]
+                 if engine == "sharded_classic" else 0)
+    _log(f"{where}: unique={got[0]} states={got[1]} sec={sec:.3f} "
+         f"states/s={got[1] / sec:.1f} waves={c.waves} launches={launches}")
+    if want is not None and got != want:
+        raise AssertionError(f"{where}: {got} != {want}")
+    base = {(False, "sharded"): "dedup_kernel",
+            (False, "sharded_classic"): "dedup_kernel",
+            (True, "sharded"): "sender_kernel",
+            (True, "sharded_classic"): "sender_kernel"}.get(
+        (wave_kernel, engine), "megakernel" if wave_kernel else
+        "dedup_kernel")
+    if path != base + ("+matmul" if wave_matmul else ""):
+        raise AssertionError(f"{where}: kernel_path() is not {base}"
+                             f"{'+matmul' if wave_matmul else ''}")
+    impl = "matmul" if wave_matmul else "step"
+    stats = c.scheduler_stats()["wave_matmul"]
+    if (stats["active"], stats["expand_impl"]) != (wave_matmul, impl) or any(
+            e["expand_impl"] != impl for e in c.dispatch_log):
+        raise AssertionError(f"{where}: wave_matmul stats {stats}")
+    if engine in ("fused", "sharded"):
+        _check_launches(fused, c, launches, **spawn)
+    else:
+        n = SHARDS if engine == "sharded_classic" else 1
+        want_l = {"dedup_and_insert": c.rehash_chunks + (
+            n * c.waves if n > 1 or not wave_kernel else 0),
+            "wave_megakernel": c.waves if wave_kernel and n == 1 else 0,
+            "sender_megakernel": (c.waves + regathers
+                                  if wave_kernel and n > 1 else 0),
+            "append_rows": 0}
+        if launches != want_l:
+            raise AssertionError(f"{where}: kernel launches {launches}, "
+                                 f"expected {want_l}")
+    chains = {name: (p.fingerprints, [repr(a) for a in p.into_actions()])
+              for name, p in c.discoveries().items()}
+    return dict(sec=sec, launches=launches, waves=c.waves, counts=got,
+                chains=chains)
+
+
+def _matmul_runs(torch, kernels, fused, tag, build, want):
+    """``tag`` to its end on every engine: with the knob off on the
+    kernels, then with it on, on the torch stages and on the kernels; each
+    knob-on run's counts and discoveries' chains equal to its engine's
+    knob-off run's."""
+    runs = {}
+    for engine in MATMUL_ENGINES:
+        ref = runs[tag, engine, "off"] = _matmul_run(
+            torch, kernels, fused, tag, build, engine, True, False, want)
+        for wave_kernel in (False, True):
+            r = runs[tag, engine, wave_kernel] = _matmul_run(
+                torch, kernels, fused, tag, build, engine, wave_kernel, True,
+                want)
+            if (r["counts"], r["chains"]) != (ref["counts"], ref["chains"]):
+                raise AssertionError(
+                    f"{tag}, {engine}, wave_kernel={wave_kernel}: the knob "
+                    f"on found {sorted(r['chains'])} in {r['counts']}, off "
+                    f"{sorted(ref['chains'])} in {ref['counts']}")
+    return runs
+
+
+def _matmul_sym(torch, kernels, fused, TwoPhaseSys):
+    """2pc 5 with symmetry on every engine's kernels, the knob on against
+    off: 314 unique, equal counts and chains."""
+    def build():
+        return TwoPhaseSys(5).checker().symmetry()
+
+    for engine in MATMUL_ENGINES:
+        off, on = (_matmul_run(torch, kernels, fused, "2pc 5 sym", build,
+                               engine, True, wave_matmul, None)
+                   for wave_matmul in (False, True))
+        if on["counts"][0] != 314 or (on["counts"], on["chains"]) != (
+                off["counts"], off["chains"]):
+            raise AssertionError(f"2pc 5 sym, {engine}: {on['counts']}, "
+                                 f"off {off['counts']}")
+
+
+def _matmul_tf32(torch, kernels, fused, build, want, ref):
+    """2pc 7 on the fused torch stages with the knob on under the settings
+    that let float32 matmuls run in TF32: exact counts and the knob-off
+    run's chains (``ref``)."""
+    prev = (torch.backends.cuda.matmul.allow_tf32,
+            torch.get_float32_matmul_precision())
+    try:
+        torch.set_float32_matmul_precision("high")
+        torch.backends.cuda.matmul.allow_tf32 = True
+        r = _matmul_run(torch, kernels, fused, "2pc 7 under TF32", build,
+                        "fused", False, True, want)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev[0]
+        torch.set_float32_matmul_precision(prev[1])
+    if r["chains"] != ref["chains"]:
+        raise AssertionError("2pc 7 under TF32: the chains differ")
+    _log("2pc 7 under TF32 settings: exact")
+
+
+def phase_matmul(torch, kernels, fused, wave_mod, table_mod):
+    """Phase 13: the matmul expand on the card (see the usage text)."""
+    matmul_wave, builds, TwoPhaseSys = _matmul_modules()
+    holds, runs = {}, {}
+    for tag, (reason, want, mid_target) in MATMUL_MODELS.items():
+        holds.update(_clocked(f"{tag}'s kernel holds", _matmul_holds, torch,
+                              wave_mod, table_mod, matmul_wave, tag,
+                              builds[tag], reason, mid_target))
+        runs.update(_clocked(f"{tag}'s runs", _matmul_runs, torch, kernels,
+                             fused, tag, builds[tag], want))
+    _clocked("2pc 5 with symmetry", _matmul_sym, torch, kernels, fused,
+             TwoPhaseSys)
+    _clocked("2pc 7 under TF32", _matmul_tf32, torch, kernels, fused,
+             builds["2pc 7"], MATMUL_MODELS["2pc 7"][1],
+             runs["2pc 7", "fused", "off"])
+    return holds, runs
+
+
+def _matmul_rows(holds, runs):
+    """The kernels line's rows of phase 13: kernels 2 and 3 in plan form on
+    each configuration, their launches those of its knob-on kernel runs
+    (the wave kernel's on the fused and classic engines, the sender's on
+    both sharded ones)."""
+    rows = []
+    for tag, source in (("2pc 7", "wave_twopc.cu"),
+                        ("increment_lock 8", "wave_increment_lock.cu")):
+        wave_l = sum(runs[tag, e, True]["launches"]["wave_megakernel"]
+                     for e in ("fused", "classic"))
+        send_l = sum(runs[tag, e, True]["launches"]["sender_megakernel"]
+                     for e in ("sharded", "sharded_classic"))
+        rows += [
+            _kernel_row(f"wave_megakernel[{tag} plan]", SRC + source,
+                        PALLAS + "380", wave_l, 0, holds[tag, "plain"]),
+            _kernel_row(f"wave_megakernel[{tag} plan sym]", SRC + source,
+                        PALLAS + "380", wave_l, 0, holds[tag, "sym"]),
+            _kernel_row(f"sender_megakernel[{tag} plan]", SRC + source,
+                        PALLAS + "451", send_l, 0, holds[tag, "sender"])]
+    return rows
+
+
 def _modules():
     """The port's modules, from the checkout beside this script."""
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
@@ -3491,6 +3829,8 @@ def _log_ptxas(log: str) -> None:
             elif model:
                 name = model.group(1).replace("Server", "") + "<" + ", ".join(
                     g for g in model.groups()[1:3] if g) + ">"
+            if model and "PlanStep" in mangled:
+                name = f"PlanStep<{name}>"
             kernel = ((fn.group(1) if fn else mangled)
                       + (f"<{name}, {tail.group(1)}>" if model and tail
                          else ""))
@@ -3510,11 +3850,14 @@ def phase_build(_build, table_mod, wave_mod, append_mod) -> None:
     # One nvcc a source, all started together.
     def entries(name, kinds):
         # Each model's params' C types (wave._kinds); the sender entry
-        # point too where it shares the wave kernel's source.
+        # point too where it shares the wave kernel's source, and the plan
+        # forms where the source holds them.
         if name in wave_mod.SENDER_SOURCES:
             return lambda: wave_mod._entry(name, kinds)
-        return lambda: (wave_mod._entry(name, kinds),
-                        wave_mod._sender_entry(name, kinds))
+        plans = (True,) if name in ("twopc", "increment",
+                                    "increment_lock") else ()
+        return lambda: [fn(name, kinds, plan) for plan in (False,) + plans
+                        for fn in (wave_mod._entry, wave_mod._sender_entry)]
 
     models = (("twopc", "i"), ("paxos", "ii"), ("single_copy", "iii"),
               ("abd", "iii"), ("linear_equation", ""), ("dgraph", "p"),
@@ -3764,7 +4107,7 @@ def _register_rows(holds, runs):
 
 
 def _in_child(card: str, phase: str):
-    """Phase ``phase`` (9, 10, 11 or 12) in a process of its own (``--phases
+    """Phase ``phase`` (9 to 13) in a process of its own (``--phases
     <phase>``), whose log it passes on and whose kernels line's rows it
     returns. After phases 2 to 8 in one process, about half of the
     profiles the register phase took there recorded no device time on the
@@ -3787,7 +4130,7 @@ def _in_child(card: str, phase: str):
 
 #: the phases ``--phases`` can name, in the order they run
 PHASES = ("kernels", "small", "full", "checkpoint", "classic", "registers",
-          "corpus", "actors", "sharded_classic")
+          "corpus", "actors", "sharded_classic", "matmul")
 
 
 def _parse(argv):
@@ -3856,8 +4199,8 @@ def main(argv) -> int:
     if set(PHASES[:5]) <= phases:
         rows += _earlier_rows(**{key: old[key] for key in (
             "k", "w", "pw", "sk", "psk", "ap", "full", "ck", "cl")})
-    # Phase 9, 10, 11 or 12 runs here when it is the only one asked for,
-    # else each in a process of its own.
+    # Phase 9, 10, 11, 12 or 13 runs here when it is the only one asked
+    # for, else each in a process of its own.
     if phases == {"registers"}:
         rows += _register_rows(*phase_registers(torch, kernels, fused,
                                                 wave_mod, table_mod))
@@ -3882,6 +4225,12 @@ def main(argv) -> int:
     elif "sharded_classic" in phases:
         rows += _clocked("the sharded_classic phase's process", _in_child, card,
                          "sharded_classic")
+    if phases == {"matmul"}:
+        rows += _matmul_rows(*_clocked("phase 13", phase_matmul, torch,
+                                       kernels, fused, wave_mod, table_mod))
+    elif "matmul" in phases:
+        rows += _clocked("the matmul phase's process", _in_child, card,
+                         "matmul")
     print(json.dumps({"kernels": rows}))
     _log(f"chip_smoke ran {time.monotonic() - t_start:.1f} s")
     print(card)

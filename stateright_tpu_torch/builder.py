@@ -77,7 +77,8 @@ class CheckerBuilder:
                        async_io: Optional[bool] = None,
                        fused: Optional[bool] = None,
                        pipeline: Optional[bool] = None,
-                       succ_ladder: Optional[bool] = None):
+                       succ_ladder: Optional[bool] = None,
+                       wave_matmul: Optional[bool] = None):
         """Spawns a device BFS; call ``join()`` to wait for it.
 
         ``device=None`` means the current CUDA device and raises when
@@ -151,7 +152,20 @@ class CheckerBuilder:
         own: the same bytes, and a failure raises at the next write or at
         ``join()``. A file's sections and dtypes are the JAX package's
         (``checkpoint_format.py``), so either package resumes the
-        other's."""
+        other's.
+
+        ``wave_matmul=True`` (``None``, the default, follows the
+        ``STpu_WAVE_MATMUL`` environment variable, as in JAX) runs a
+        regular model's expand stage in its transition-table form
+        (``matmul_wave.py``) on every engine and path: classified at spawn
+        by probing the model's own step, ``matmul_expand`` on the torch
+        stages and the plan form of the kernels with ``wave_kernel=True``,
+        which on the card the entry points hold for 2pc to 8 RMs and
+        increment and increment_lock at 2, 4 and 8 threads (another
+        regular model raises there). An irregular model warns once and
+        keeps its step. It changes no result; ``kernel_path()`` ends in
+        ``+matmul`` and ``scheduler_stats()["wave_matmul"]`` says which
+        form ran and why."""
         if fused and pipeline:
             raise ValueError(
                 "fused=True and pipeline=True are mutually exclusive: "
@@ -160,7 +174,8 @@ class CheckerBuilder:
                      wave_kernel=wave_kernel, max_batch_size=max_batch_size,
                      checkpoint_path=checkpoint_path,
                      checkpoint_every_waves=checkpoint_every_waves,
-                     resume_from=resume_from, async_io=async_io)
+                     resume_from=resume_from, async_io=async_io,
+                     wave_matmul=wave_matmul)
         fused_knobs = dict(arena_capacity=arena_capacity,
                            waves_per_dispatch=waves_per_dispatch,
                            inflight_dispatches=inflight_dispatches)

@@ -12,11 +12,13 @@ and of its wave programs, in its own module because ``wave.py`` imports
   wave (``wave.wave_megakernel``, from ``build_wave_megakernel``) on the
   packed rows; then the compaction of the first ``out_rows`` new rows
   (``compaction_order`` and a gather, torch ops, as they are XLA outside
-  any Pallas kernel in JAX).
+  any Pallas kernel in JAX). Under a matmul plan (``wave_matmul``) the
+  expand stage is ``matmul_wave.matmul_expand`` in the torch stages and
+  the plan form of the wave kernel (``build_wave`` :2097, :1948-1970).
 - ``classic_regather``: ``build_regather`` (:2219). A wave whose new rows
-  outgrew its output rung is expanded again through the torch stages and
-  compacted by its own novelty mask at a rung that fits; the table is
-  not touched.
+  outgrew its output rung is expanded again through the torch stages
+  (``matmul_expand`` under a plan, :2242) and compacted by its own
+  novelty mask at a rung that fits; the table is not touched.
 - ``CudaBfsChecker``: the host loop. The queue of blocks and
   ``_take_batch`` (:1203); the host properties (``_eval_host_conds``
   :1244, one unpack and one decode pass a wave for all of them); the
@@ -70,12 +72,12 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from .engine import (compaction_order, eval_properties, expand_frontier,
-                     fingerprint_successors, pick_bucket,
-                     succ_bucket_ladder)
+from .engine import (compaction_order, eval_properties,
+                     fingerprint_successors, pick_bucket, succ_bucket_ladder)
 from .fused import KERNELS, BfsEngine, checkpoint_name
 from .graphs import DispatchGraphs
 from .hashing import SENTINEL, device_fp64
+from .matmul_wave import expand
 from .checkpoint_format import make_header
 from .model import Expectation
 from .path import Path
@@ -93,7 +95,7 @@ _SLOTS = 2
 def classic_wave(dm, vecs: torch.Tensor, valid: torch.Tensor,
                  table: torch.Tensor, layout, prop_fns=(),
                  use_sym: bool = False, out_rows: Optional[int] = None,
-                 wave_kernel: bool = False, scratch=None):
+                 wave_kernel: bool = False, scratch=None, plan=None):
     """One BFS level of ``B`` packed rows ``vecs int32[B, Wp]`` (``valid
     bool[B]``) against the visited table ``table int64[C]``, updated in
     place: ``build_wave``'s outputs ``(conds, succ_count, cand_count,
@@ -108,7 +110,9 @@ def classic_wave(dm, vecs: torch.Tensor, valid: torch.Tensor,
     fingerprints, int32 parent rows), in frontier order; ``new_mask``
     marks all of them, and ``overflow`` is ``new_count > out_rows``.
     Nothing here reads a device value on the host, so it can run ahead of
-    the host and inside a CUDA graph."""
+    the host and inside a CUDA graph. ``plan``, a
+    ``matmul_wave.MatmulPlan``, runs the expand stage in its
+    transition-table form."""
     B, F = vecs.shape[0], dm.max_fanout
     S = B * F
     K = S if out_rows is None else min(max(1, int(out_rows)), S)
@@ -117,13 +121,13 @@ def classic_wave(dm, vecs: torch.Tensor, valid: torch.Tensor,
     if wave_kernel:
         (succ_store, path_fps, sflat, new_mask, _, new_count, cand_count,
          full) = wave_megakernel(dm, vecs, valid, table, use_sym, layout,
-                                 scratch=scratch)
+                                 scratch=scratch, plan=plan)
         succ_count = sflat.sum(dtype=torch.int64)
         terminal = valid & ~sflat.reshape(B, F).any(dim=1)
         comp = compaction_order(new_mask)[:K]
         new_vecs = succ_store[comp]
     else:
-        succ, sflat, succ_count, terminal = expand_frontier(dm, rows, valid)
+        succ, sflat, succ_count, terminal = expand(dm, plan, rows, valid)
         dedup_fps, path_fps = fingerprint_successors(dm, succ, sflat,
                                                      use_sym)
         new_mask, _, new_count, cand_count, full = dedup_and_insert(
@@ -139,15 +143,17 @@ def classic_wave(dm, vecs: torch.Tensor, valid: torch.Tensor,
 
 
 def classic_regather(dm, vecs: torch.Tensor, valid: torch.Tensor,
-                     new_mask: torch.Tensor, out_rows: int, layout):
+                     new_mask: torch.Tensor, out_rows: int, layout,
+                     plan=None):
     """The output ladder's overflow recovery (``build_regather``): the
     same batch expanded again, compacted by the wave's own ``new_mask``
     at a rung of ``out_rows`` rows: ``(new_vecs, new_fps, new_parent)``
     as ``classic_wave`` would have given them at that rung. The table is
-    not touched: the wave already inserted every new row."""
+    not touched: the wave already inserted every new row. ``plan`` as
+    ``classic_wave``'s."""
     F = dm.max_fanout
     K = min(max(1, int(out_rows)), vecs.shape[0] * F)
-    succ, _, _, _ = expand_frontier(dm, layout.unpack(vecs), valid)
+    succ, _, _, _ = expand(dm, plan, layout.unpack(vecs), valid)
     comp = compaction_order(new_mask)[:K]
     rows = succ[comp]
     return (layout.pack(rows), device_fp64(rows),
@@ -188,10 +194,10 @@ class CudaBfsChecker(BfsEngine):
                  max_batch_size=None, pipeline=None, succ_ladder=None,
                  cuda_graph: bool = False, checkpoint_path=None,
                  checkpoint_every_waves: int = 64, resume_from=None,
-                 async_io=None):
+                 async_io=None, wave_matmul=None):
         self._configure(builder, device, batch_size, table_capacity,
                         wave_kernel, max_batch_size, checkpoint_path,
-                        checkpoint_every_waves, async_io)
+                        checkpoint_every_waves, async_io, wave_matmul)
         for p, fn in zip(self._properties, self._prop_fns):
             if fn is None:
                 warnings.warn(
@@ -312,7 +318,7 @@ class CudaBfsChecker(BfsEngine):
          new_fps, new_parent, new_mask, overflow, full) = classic_wave(
             self._dm, vecs, valid, self._table, self._layout,
             self._prop_fns, self._use_symmetry, K, self._wave_kernel,
-            self._scratch)
+            self._scratch, self._matmul_plan)
         small = torch.stack([succ_count, cand_count.to(torch.int64),
                              new_count.to(torch.int64),
                              overflow.to(torch.int64), full.to(torch.int64)])
@@ -362,7 +368,8 @@ class CudaBfsChecker(BfsEngine):
         valid = np.arange(B) < n
         key = (B, self._capacity, K)
         meta = {"bucket": B, "inflight": inflight, "out_rows": K, "rows": n,
-                "kernel_path": self.kernel_path(), "compiled": False}
+                "kernel_path": self.kernel_path(),
+                "expand_impl": self._expand_impl(), "compiled": False}
         wave = dict(meta=meta, vecs=up, fps=batch_fps, ebits=batch_ebits,
                     valid=valid, n=n, slot=slot)
         if not on_card:
@@ -454,7 +461,7 @@ class CudaBfsChecker(BfsEngine):
             outs = classic_regather(
                 self._dm, vecs.to(dev),
                 torch.from_numpy(wave["valid"]).to(dev), mask, k2,
-                self._layout)
+                self._layout, self._matmul_plan)
             new_vecs, new_fps, new_parent = (t.cpu().numpy() for t in outs)
         wave["meta"].update(out_rows=k2, overflow=True)
         return k2, new_vecs, new_fps, new_parent
@@ -815,7 +822,8 @@ class CudaBfsChecker(BfsEngine):
         (``tpu/engine.py::scheduler_stats`` :1032): the bucket ladder and
         the waves each bucket served, the deepest pipelining, the output
         rungs the waves took and the regathers (``succ_ladder``), the
-        candidates the local dedup left, the wave kernel's path; and the
+        candidates the local dedup left, the wave kernel's path, the
+        expand stage's form (``wave_matmul``); and the
         graphs' captures, replays and capture seconds (None with graphs
         off)."""
         with self._lock:
@@ -847,6 +855,7 @@ class CudaBfsChecker(BfsEngine):
             "wave_kernel": {"enabled": self._wave_kernel,
                             "path": self.kernel_path(),
                             "waves_per_round_trip": 1},
+            "wave_matmul": self._wave_matmul_stats(),
             "local_dedup": {
                 "successors": succ, "distinct_candidates": cand,
                 "collapse_ratio": (round(1.0 - cand / max(succ, 1), 4)

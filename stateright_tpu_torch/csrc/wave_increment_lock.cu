@@ -6,7 +6,10 @@
 // chip_smoke.py runs; IncrementLockDevice.CUDA_INSTANCES lists them); another
 // count returns cudaErrorInvalidValue, and IncrementLockDevice.cuda_model()
 // refuses it first. See wave.cuh for what the kernels compute, what
-// bounds them and how they are held to their plain versions.
+// bounds them and how they are held to their plain versions. Their plan
+// forms (sr_wave_increment_lock_plan, sr_sender_increment_lock_plan: plan.cuh's
+// transition-table step under a matmul plan) at 2, 4 and 8 threads, the
+// counts CUDA_PLAN_INSTANCES lists.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 --split-compile=0
 //        -shared -Xcompiler -fPIC (stateright_tpu_torch/_build.py); the
@@ -16,6 +19,7 @@
 #include <cuda_runtime.h>
 
 #include "models/increment_lock.cuh"
+#include "plan.cuh"
 #include "wave.cuh"
 
 namespace {
@@ -27,6 +31,21 @@ int with_increment_lock(int threads, Fn&& fn) {
   if (threads == 2) return fn(sr::IncrementLock<2>{});
   if (threads == 4) return fn(sr::IncrementLock<4>{});
   if (threads == 8) return fn(sr::IncrementLock<8>{});
+  return (int)cudaErrorInvalidValue;
+}
+
+// Likewise, the plan form at 2, 4 and 8 threads (the counts the gate
+// admits among the instances above), or cudaErrorInvalidValue when the
+// plan does not fit.
+template <class Fn>
+int with_increment_lock_plan(int threads, const int* plan, const void* tables,
+                      Fn&& fn) {
+  if (threads == 2)
+    return sr::with_plan(sr::IncrementLock<2>{}, plan, tables, fn);
+  if (threads == 4)
+    return sr::with_plan(sr::IncrementLock<4>{}, plan, tables, fn);
+  if (threads == 8)
+    return sr::with_plan(sr::IncrementLock<8>{}, plan, tables, fn);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -78,5 +97,39 @@ extern "C" int sr_sender_increment_lock(
       succ_store, dedup_fps, path_fps, sflat, send_mask, slots, slot_of,
       region_bits, device, stream);
   return with_increment_lock(threads,
+      [&](const auto& m) { return sr::launch_sender(m, a); });
+}
+
+// The plan forms: threads, then the host plan int32 (wave.py::plan_host)
+// and the device tables (wave.py::plan_tables), then the arguments of
+// sr_wave_increment_lock or sr_sender_increment_lock (plan.cuh's
+// transition-table step in place of the model's).
+extern "C" int sr_wave_increment_lock_plan(
+    int threads, const int* plan, const void* tables, int use_sym,
+    const int* lanes, int w, int wp, const void* vecs, const void* valid,
+    long long batch, int fanout, void* table, int c_bits, void* succ_store,
+    void* path_fps, void* sflat, void* slots, void* tally, void* slot_of,
+    int m_bits, void* new_mask, void* cand_mask, void* counts, int device,
+    void* stream) {
+  const sr::WaveArgs a = sr::wave_args(
+      use_sym, lanes, w, wp, vecs, valid, batch, fanout, table, c_bits,
+      succ_store, path_fps, sflat, slots, tally, slot_of, m_bits, new_mask,
+      cand_mask, counts, device, stream);
+  return with_increment_lock_plan(threads, plan, tables,
+      [&](const auto& m) { return sr::launch_wave(m, a); });
+}
+
+extern "C" int sr_sender_increment_lock_plan(
+    int threads, const int* plan, const void* tables, int use_sym,
+    int local_dedup, const int* lanes, int w, int wp, const void* vecs,
+    const void* valid, long long batch, long long shards, int fanout,
+    void* succ_store, void* dedup_fps, void* path_fps, void* sflat,
+    void* send_mask, void* slots, void* slot_of, int region_bits,
+    int device, void* stream) {
+  const sr::SenderArgs a = sr::sender_args(
+      use_sym, local_dedup, lanes, w, wp, vecs, valid, batch, shards, fanout,
+      succ_store, dedup_fps, path_fps, sflat, send_mask, slots, slot_of,
+      region_bits, device, stream);
+  return with_increment_lock_plan(threads, plan, tables,
       [&](const auto& m) { return sr::launch_sender(m, a); });
 }

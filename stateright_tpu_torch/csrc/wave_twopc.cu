@@ -8,6 +8,11 @@
 // kernel's time by a sixth (PERF.md). See wave.cuh for what the kernels
 // compute, what bounds them and how they are held to their plain versions.
 //
+// Their plan forms (sr_wave_twopc_plan, sr_sender_twopc_plan: plan.cuh's
+// transition-table step under a matmul plan) at 4 and 8 RMs only: the gate
+// admits 2pc up to 7 RMs (at 8 its probe budget is exceeded), and
+// TwoPhaseDevice.CUDA_PLAN_INSTANCES lists the counts they hold.
+//
 // ptxas for sm_90a (-Xptxas -v, CUDA 12.8), tile_front under
 // __launch_bounds__(256, 4):
 //   TwoPhase<12>: wave 64 registers, sender 64, no spill in either;
@@ -22,7 +27,26 @@
 #include <cuda_runtime.h>
 
 #include "models/twopc.cuh"
+#include "plan.cuh"
 #include "wave.cuh"
+
+namespace {
+
+// Calls fn with the plan form of 2pc at rm_count RMs, or returns
+// cudaErrorInvalidValue when no instantiation holds it or the plan does
+// not fit.
+template <class Fn>
+int with_twopc_plan(int rm_count, const int* plan, const void* tables,
+                    Fn&& fn) {
+  if (rm_count < 1) return (int)cudaErrorInvalidValue;
+  if (rm_count <= 4)
+    return sr::with_plan(sr::TwoPhase<4>{rm_count}, plan, tables, fn);
+  if (rm_count <= 8)
+    return sr::with_plan(sr::TwoPhase<8>{rm_count}, plan, tables, fn);
+  return (int)cudaErrorInvalidValue;
+}
+
+}  // namespace
 
 // rm_count RMs; lanes host int32[5 * w] (each lane's packed word, bit
 // offset, bits, sentinel flag and sentinel value); vecs int32[batch, wp]
@@ -88,4 +112,37 @@ extern "C" int sr_sender_twopc(int rm_count, int use_sym, int local_dedup,
   if (rm_count <= 28)
     return sr::launch_sender(sr::TwoPhase<28>{rm_count}, a);
   return (int)cudaErrorInvalidValue;
+}
+
+// The plan forms: rm_count, then the host plan int32 (wave.py::plan_host)
+// and the device tables (wave.py::plan_tables), then sr_wave_twopc's or
+// sr_sender_twopc's arguments.
+extern "C" int sr_wave_twopc_plan(
+    int rm_count, const int* plan, const void* tables, int use_sym,
+    const int* lanes, int w, int wp, const void* vecs, const void* valid,
+    long long batch, int fanout, void* table, int c_bits, void* succ_store,
+    void* path_fps, void* sflat, void* slots, void* tally, void* slot_of,
+    int m_bits, void* new_mask, void* cand_mask, void* counts, int device,
+    void* stream) {
+  const sr::WaveArgs a = sr::wave_args(
+      use_sym, lanes, w, wp, vecs, valid, batch, fanout, table, c_bits,
+      succ_store, path_fps, sflat, slots, tally, slot_of, m_bits, new_mask,
+      cand_mask, counts, device, stream);
+  return with_twopc_plan(rm_count, plan, tables,
+      [&](const auto& m) { return sr::launch_wave(m, a); });
+}
+
+extern "C" int sr_sender_twopc_plan(
+    int rm_count, const int* plan, const void* tables, int use_sym,
+    int local_dedup, const int* lanes, int w, int wp, const void* vecs,
+    const void* valid, long long batch, long long shards, int fanout,
+    void* succ_store, void* dedup_fps, void* path_fps, void* sflat,
+    void* send_mask, void* slots, void* slot_of, int region_bits,
+    int device, void* stream) {
+  const sr::SenderArgs a = sr::sender_args(
+      use_sym, local_dedup, lanes, w, wp, vecs, valid, batch, shards, fanout,
+      succ_store, dedup_fps, path_fps, sflat, send_mask, slots, slot_of,
+      region_bits, device, stream);
+  return with_twopc_plan(rm_count, plan, tables,
+      [&](const auto& m) { return sr::launch_sender(m, a); });
 }

@@ -59,6 +59,10 @@ class DeviceModel:
     #: makes the engine raise (an encoding capacity was exceeded). None
     #: disables the check.
     error_lane: Optional[int] = None
+    #: the sizes (the first of ``cuda_model()``'s params) at which the
+    #: kernels' entry points hold the plan form of the model's step
+    #: (``csrc/plan.cuh``, ``wave.cuda_plan``): none by default
+    CUDA_PLAN_INSTANCES: Tuple[int, ...] = ()
 
     # -- Host-side codec -------------------------------------------------
 

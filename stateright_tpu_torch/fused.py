@@ -58,6 +58,13 @@ the card and its plain version on the CPU:
 - with ``wave_kernel=True``, the single-kernel wave
   ``wave.wave_megakernel``, on the packed batch as it lies in the arena.
 
+With ``wave_matmul`` (``matmul_wave.py``) a regular model's expand stage
+runs in its transition-table form either way: ``matmul_expand`` in the
+torch stages, the plan form of the kernel (``csrc/plan.cuh``) with
+``wave_kernel=True``. The model is classified at spawn (``_configure``,
+the reference's ``tpu/engine.py`` :290-319); an irregular one warns once
+and keeps its step.
+
 The table's rehash at rest points goes through ``table.dedup_and_insert``
 either way, in chunks of at most a wave's rows with the engine's scratch.
 ``kernel_path()`` says which implementation ran.
@@ -78,17 +85,17 @@ from .checker import Checker
 from .checkpoint_format import (load_checkpoint, make_header, pending_rows,
                                 validate_header, write_atomic)
 from .engine import (batch_bucket_ladder, compaction_order, eval_properties,
-                     expand_frontier, fingerprint_successors,
-                     host_table_insert, pick_bucket)
+                     fingerprint_successors, host_table_insert, pick_bucket)
 from .graphs import DispatchGraphs
 from .hashing import SENTINEL, SENTINEL_U64, host_fp64, to_i64, to_u64
 from .io.async_io import writer_from_config
+from .matmul_wave import expand, gate, wave_matmul_on
 from .model import Expectation, property_predicates
 from .packing import compile_layout
 from .path import Path
 from .table import DedupScratch, dedup_and_insert
 from .visitor import as_visitor
-from .wave import cuda_model, sender_megakernel, wave_megakernel
+from .wave import cuda_model, cuda_plan, sender_megakernel, wave_megakernel
 
 __all__ = ["BfsEngine", "FusedCudaBfsChecker", "FusedUnsupported", "KERNELS",
            "ST_HEAD", "ST_TAIL", "ST_OCC", "ST_SUCC", "ST_CAND", "ST_TARGET",
@@ -180,7 +187,7 @@ class BfsEngine(Checker):
     def _configure(self, builder, device: torch.device, batch_size: int,
                    table_capacity: int, wave_kernel: bool, max_batch_size,
                    checkpoint_path, checkpoint_every_waves: int,
-                   async_io) -> None:
+                   async_io, wave_matmul=None) -> None:
         model = builder._model
         dm = model.device_model()
         self._model, self._dm, self._device = model, dm, device
@@ -205,8 +212,19 @@ class BfsEngine(Checker):
         self._B_max = self._buckets[-1]
         self._layout = compile_layout(dm.lane_bits(), W)
         self._wave_kernel = bool(wave_kernel)
+        # The expand stage's transition-table form: the model classified
+        # now (its step probed on this device), as the reference does at
+        # spawn; an irregular one warns once and keeps its step.
+        self._wave_matmul_on = wave_matmul_on(wave_matmul)
+        self._matmul_plan = self._matmul_reason = None
+        if self._wave_matmul_on:
+            cls = gate(dm, device)
+            self._matmul_plan, self._matmul_reason = cls.plan, cls.reason
         if self._wave_kernel and device.type == "cuda":
-            cuda_model(dm, self._layout)  # raises before any device work
+            # Both raise before any device work.
+            cuda_model(dm, self._layout)
+            if self._matmul_plan is not None:
+                cuda_plan(dm, self._layout, self._matmul_plan)
         self._ebits_all = 0
         for i, p in enumerate(self._properties):
             if p.expectation is Expectation.EVENTUALLY:
@@ -446,11 +464,32 @@ class BfsEngine(Checker):
         ``megakernel`` (the single-kernel wave) or ``dedup_kernel``
         (torch stages around the dedup kernel) on the card, and their
         plain versions ``megakernel_plain`` or ``dedup_plain`` on the
-        CPU."""
+        CPU; each with ``+matmul`` when the expand stage runs a matmul
+        plan (the reference's suffix, ``tpu/engine.py`` :925-929)."""
         on_card = self._device.type == "cuda"
         if self._wave_kernel:
-            return "megakernel" if on_card else "megakernel_plain"
-        return "dedup_kernel" if on_card else "dedup_plain"
+            path = "megakernel" if on_card else "megakernel_plain"
+        else:
+            path = "dedup_kernel" if on_card else "dedup_plain"
+        return path + self._matmul_suffix()
+
+    def _matmul_suffix(self) -> str:
+        return "+matmul" if self._matmul_plan is not None else ""
+
+    def _expand_impl(self) -> str:
+        """The expand stage the waves run: ``matmul`` (a plan's tables) or
+        ``step`` (the model's own, also an irregular model's with the knob
+        on)."""
+        return "matmul" if self._matmul_plan is not None else "step"
+
+    def _wave_matmul_stats(self) -> dict:
+        """``scheduler_stats()["wave_matmul"]``, the reference's five keys
+        (``tpu/engine.py`` :1103-1109)."""
+        plan = self._matmul_plan
+        return {"enabled": self._wave_matmul_on, "active": plan is not None,
+                "expand_impl": self._expand_impl(),
+                "reason": self._matmul_reason,
+                "matmul_ops": plan.matmul_ops if plan is not None else 0}
 
     def state_count(self) -> int:
         with self._lock:
@@ -486,14 +525,14 @@ class FusedCudaBfsChecker(BfsEngine):
                  max_batch_size=None, inflight_dispatches: int = 1,
                  cuda_graph: bool = False, checkpoint_path=None,
                  checkpoint_every_waves: int = 64, resume_from=None,
-                 async_io=None):
+                 async_io=None, wave_matmul=None):
         self._K = max(1, int(waves_per_dispatch))
         # Dispatches launched ahead of the oldest one's stats read; safe at
         # any depth, since a dispatch launched past a rest point is a no-op.
         self._depth = max(1, int(inflight_dispatches))
         self._configure(builder, device, batch_size, table_capacity,
                         wave_kernel, max_batch_size, checkpoint_path,
-                        checkpoint_every_waves, async_io)
+                        checkpoint_every_waves, async_io, wave_matmul)
         self._arena_capacity = arena_capacity
         self._start(resume_from)
 
@@ -504,8 +543,8 @@ class FusedCudaBfsChecker(BfsEngine):
         self.checkpoints = self.candidates = 0
         #: one dict a retired dispatch: its ``bucket``, the dispatches in
         #: flight at its launch (``inflight``, itself included), its
-        #: ``waves`` that expanded rows, and whether it ``compiled`` (paid
-        #: a graph capture)
+        #: ``waves`` that expanded rows, whether it ``compiled`` (paid a
+        #: graph capture) and its ``expand_impl``
         self.dispatch_log: List[dict] = []
         self._graphs = DispatchGraphs(KERNELS) if cuda_graph else None
         # The ring of host slots the stats are copied to, one a dispatch
@@ -633,14 +672,14 @@ class FusedCudaBfsChecker(BfsEngine):
                 (succ_store, path_fps, sflat, new_mask, _, new_count,
                  cand_count, full) = wave_megakernel(
                     dm, bstore, valid, self._table, self._use_symmetry,
-                    layout, scratch=self._scratch)
+                    layout, scratch=self._scratch, plan=self._matmul_plan)
                 succ_count = sflat.sum(dtype=torch.int64)
                 terminal = valid & ~sflat.reshape(B, F).any(dim=1)
                 if dm.error_lane is not None:
                     err_col = layout.lane(succ_store, dm.error_lane)
             else:
-                succ, sflat, succ_count, terminal = expand_frontier(
-                    dm, rows, valid)
+                succ, sflat, succ_count, terminal = expand(
+                    dm, self._matmul_plan, rows, valid)
                 dedup_fps, path_fps = fingerprint_successors(
                     dm, succ, sflat, self._use_symmetry)
                 new_mask, _, new_count, cand_count, full = dedup_and_insert(
@@ -752,7 +791,8 @@ class FusedCudaBfsChecker(BfsEngine):
                 copied = torch.cuda.Event()
                 copied.record()
         return host, copied, {"bucket": bucket, "inflight": inflight,
-                              "compiled": captured}
+                              "compiled": captured,
+                              "expand_impl": self._expand_impl()}
 
     def _retire(self, entry) -> None:
         """Waits for one launched dispatch's stats and applies them."""
@@ -949,9 +989,9 @@ class FusedCudaBfsChecker(BfsEngine):
         """The host loop's telemetry, under the reference's keys
         (``tpu/engine.py::scheduler_stats``): the bucket ladder, the
         dispatches each bucket served, the dispatches retired, those that
-        paid a graph capture, and the deepest pipelining reached; and the
-        dispatch graphs' captures, replays and capture seconds (None with
-        graphs off)."""
+        paid a graph capture, and the deepest pipelining reached; the
+        expand stage's form (``wave_matmul``); and the dispatch graphs'
+        captures, replays and capture seconds (None with graphs off)."""
         with self._lock:
             log = list(self.dispatch_log)
         buckets: Dict[str, int] = {}
@@ -964,6 +1004,7 @@ class FusedCudaBfsChecker(BfsEngine):
             "dispatches": len(log),
             "bucket_compiles": sum(1 for e in log if e["compiled"]),
             "max_inflight": max((e["inflight"] for e in log), default=0),
+            "wave_matmul": self._wave_matmul_stats(),
             "graphs": None if g is None else {
                 "captures": g.captures, "replays": g.replays,
                 "capture_sec": g.capture_sec}}

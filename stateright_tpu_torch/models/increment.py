@@ -77,6 +77,8 @@ class IncrementDevice(DeviceModel):
 
     #: the thread counts that ``csrc/wave_increment.cu`` instantiates
     CUDA_INSTANCES = (2, 4, 8, 16)
+    #: the thread counts whose plan form (``wave.cuda_plan``) it instantiates
+    CUDA_PLAN_INSTANCES = (2, 4, 8)
 
     def __init__(self, thread_count: int):
         self.thread_count = thread_count

@@ -67,6 +67,8 @@ class IncrementLockDevice(DeviceModel):
 
     #: the thread counts that ``csrc/wave_increment_lock.cu`` instantiates
     CUDA_INSTANCES = (2, 4, 8)
+    #: the thread counts whose plan form (``wave.cuda_plan``) it instantiates
+    CUDA_PLAN_INSTANCES = (2, 4, 8)
 
     def __init__(self, thread_count: int):
         self.thread_count = thread_count

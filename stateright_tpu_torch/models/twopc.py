@@ -87,6 +87,10 @@ class TwoPhaseSys(Model):
 
 
 class TwoPhaseDevice(DeviceModel):
+    #: the RM counts ``csrc/wave_twopc.cu``'s plan form (``wave.cuda_plan``)
+    #: holds: its instances at 4 and 8 RMs
+    CUDA_PLAN_INSTANCES = tuple(range(1, 9))
+
     def __init__(self, rm_count: int):
         if rm_count > 28:
             raise ValueError("bitmask encoding supports at most 28 RMs")

@@ -82,10 +82,11 @@ import numpy as np
 import torch
 
 from .classic import CudaBfsChecker, _Slot
-from .engine import (compaction_order, eval_properties, expand_frontier,
+from .engine import (compaction_order, eval_properties,
                      fingerprint_successors, first_occurrence_sorted,
                      pick_bucket, succ_bucket_ladder)
 from .hashing import SENTINEL, SENTINEL_U64
+from .matmul_wave import expand
 from .membership import EpochOwnership, OwnerMap
 from .mesh import route_home
 from .model import Expectation
@@ -110,7 +111,7 @@ class ExchangeIntegrityError(RuntimeError):
 
 def sharded_front(dm, mesh, store: torch.Tensor, valid: torch.Tensor,
                   layout, use_sym: bool, exchange_novel: bool, assign,
-                  wave_kernel: bool, scratch=None, rows=None):
+                  wave_kernel: bool, scratch=None, rows=None, plan=None):
     """The sender side of a sharded wave for ``n`` stacked shards of
     ``B`` packed rows (``store int32[n, B, Wp]``, ``valid bool[n, B]``)
     and the exchange home: ``(succ_count int64 0-dim, terminal bool[n,
@@ -118,21 +119,23 @@ def sharded_front(dm, mesh, store: torch.Tensor, valid: torch.Tensor,
     int64[n, R], recv_parent int32[n, R])`` with ``R = n * B * F``; a
     received row's parent is its row in the stacked batch. ``rows`` are
     the batch's unpacked rows ``[n * B, W]`` where the caller has them.
-    Reads nothing on the host."""
+    ``plan``, a ``matmul_wave.MatmulPlan``, runs the expand stage in its
+    transition-table form (JAX's ``tpu/sharded.py`` :258, :274). Reads
+    nothing on the host."""
     n, B = valid.shape
     F, wp = dm.max_fanout, layout.packed_width
     S = B * F
     if wave_kernel:
         succ_store, dedup_fps, path_fps, sflat, send_mask = \
             sender_megakernel(dm, store, valid, use_sym, layout,
-                              exchange_novel, scratch=scratch)
+                              exchange_novel, scratch=scratch, plan=plan)
         succ_count = sflat.sum(dtype=torch.int64)
         terminal = valid & ~sflat.view(n, B, F).any(dim=2)
     else:
         if rows is None:
             rows = layout.unpack(store).reshape(n * B, -1)
-        succ, sflat, succ_count, terminal = expand_frontier(
-            dm, rows, valid.reshape(n * B))
+        succ, sflat, succ_count, terminal = expand(
+            dm, plan, rows, valid.reshape(n * B))
         dedup_fps, path_fps = fingerprint_successors(dm, succ, sflat,
                                                      use_sym)
         dedup_fps, path_fps, sflat = (t.view(n, S) for t in (
@@ -164,7 +167,7 @@ def sharded_wave(dm, mesh, store: torch.Tensor, valid: torch.Tensor,
                  table: torch.Tensor, layout, prop_fns=(),
                  use_sym: bool = False, exchange_novel: bool = True,
                  assign=None, out_rows=None, wave_kernel: bool = False,
-                 scratch=None):
+                 scratch=None, plan=None):
     """One BFS level of ``n`` stacked shards against the stacked visited
     table ``table int64[n, C]``, updated in place (JAX's ``_wave_fn``
     :343-412): ``(conds, succ_count, cand_count, terminal, new_count,
@@ -187,7 +190,7 @@ def sharded_wave(dm, mesh, store: torch.Tensor, valid: torch.Tensor,
     (succ_count, terminal, recv_vecs, recv_dedup, recv_path,
      recv_parent) = sharded_front(dm, mesh, store, valid, layout, use_sym,
                                   exchange_novel, assign, wave_kernel,
-                                  scratch, rows)
+                                  scratch, rows, plan)
     # The owner's insert into its own slice, a call a shard.
     owned = [dedup_and_insert(recv_dedup[k], table[k], scratch=scratch)
              for k in range(n)]
@@ -205,7 +208,8 @@ def sharded_wave(dm, mesh, store: torch.Tensor, valid: torch.Tensor,
 def sharded_regather(dm, mesh, store: torch.Tensor, valid: torch.Tensor,
                      new_mask: torch.Tensor, out_rows: int, layout,
                      use_sym: bool = False, exchange_novel: bool = True,
-                     assign=None, wave_kernel: bool = False, scratch=None):
+                     assign=None, wave_kernel: bool = False, scratch=None,
+                     plan=None):
     """The overflow recovery (JAX's ``_regather_fn`` :414-454): the same
     batch's front half and exchange again, which route every row to the
     same slot, and each shard compacted by the wave's own ``new_mask``
@@ -216,7 +220,7 @@ def sharded_regather(dm, mesh, store: torch.Tensor, valid: torch.Tensor,
     K = min(max(1, int(out_rows)), n * B * dm.max_fanout)
     (_, _, recv_vecs, _, recv_path, recv_parent) = sharded_front(
         dm, mesh, store, valid, layout, use_sym, exchange_novel, assign,
-        wave_kernel, scratch)
+        wave_kernel, scratch, plan=plan)
     return _compact(new_mask, K, recv_vecs, recv_path, recv_parent)
 
 
@@ -316,7 +320,8 @@ class ShardedCudaBfsChecker(EpochOwnership, CudaBfsChecker):
          new_fps, new_parent, new_mask, overflow, full) = sharded_wave(
             self._dm, self._mesh, store, valid, self._table, self._layout,
             self._prop_fns, self._use_symmetry, self._exchange_novel,
-            self._assign, K, self._wave_kernel, self._scratch)
+            self._assign, K, self._wave_kernel, self._scratch,
+            self._matmul_plan)
         small = torch.cat([torch.stack([
             succ_count, cand_count, overflow.to(torch.int64),
             full.to(torch.int64)]), new_count])
@@ -330,7 +335,7 @@ class ShardedCudaBfsChecker(EpochOwnership, CudaBfsChecker):
         return tuple(t.flatten(0, 1) for t in sharded_regather(
             self._dm, self._mesh, store, valid, mask, K, self._layout,
             self._use_symmetry, self._exchange_novel, self._assign,
-            self._wave_kernel, self._scratch))
+            self._wave_kernel, self._scratch, self._matmul_plan))
 
     def _dispatch_wave(self, B: int) -> dict:
         """Takes up to ``B`` rows from each shard's queue into the
@@ -356,7 +361,8 @@ class ShardedCudaBfsChecker(EpochOwnership, CudaBfsChecker):
         epoch = self._owner_map.epoch
         meta = {"bucket": B, "inflight": 0, "out_rows": K,
                 "rows": int(valid.sum()), "kernel_path": self.kernel_path(),
-                "compiled": False, "epoch": epoch}
+                "expand_impl": self._expand_impl(), "compiled": False,
+                "epoch": epoch}
         wave = dict(meta=meta, vecs=up, fps=batch_fps, ebits=batch_ebits,
                     valid=valid, slot=slot)
         if not on_card:
@@ -561,8 +567,11 @@ class ShardedCudaBfsChecker(EpochOwnership, CudaBfsChecker):
         """Which front half the waves run: ``sender_kernel`` (the sender
         kernel) or ``dedup_kernel`` (torch stages, with the dedup kernel
         on the owner side either way) on the card, and ``sender_plain``
-        or ``dedup_plain`` on the CPU."""
+        or ``dedup_plain`` on the CPU; each with ``+matmul`` under a matmul
+        plan."""
         on_card = self._device.type == "cuda"
         if self._wave_kernel:
-            return "sender_kernel" if on_card else "sender_plain"
-        return "dedup_kernel" if on_card else "dedup_plain"
+            path = "sender_kernel" if on_card else "sender_plain"
+        else:
+            path = "dedup_kernel" if on_card else "dedup_plain"
+        return path + self._matmul_suffix()

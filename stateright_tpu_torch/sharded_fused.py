@@ -52,13 +52,14 @@ import numpy as np
 import torch
 
 from .append import append_rows
-from .engine import (compaction_order, eval_properties, expand_frontier,
+from .engine import (compaction_order, eval_properties,
                      fingerprint_successors, first_occurrence_sorted,
                      pick_bucket)
 from .fused import (ERR_LANE, ERR_TABLE_FULL, ST_CAND, ST_DISC, ST_ERR,
                     ST_HEAD, ST_OCC, ST_SUCC, ST_TAIL, ST_TARGET, ST_WAVES,
                     FusedCudaBfsChecker, _i32, _pow2, _u32, _u64)
 from .hashing import SENTINEL, SENTINEL_U64, to_u64
+from .matmul_wave import expand
 from .membership import EpochOwnership, OwnerMap
 from .mesh import _umod, route_home  # noqa: F401 (_umod: tests read it here)
 from .model import Expectation
@@ -214,12 +215,13 @@ class ShardedFusedCudaBfsChecker(EpochOwnership, FusedCudaBfsChecker):
                 succ_store, dedup_fps, path_fps, sflat, send_mask = \
                     sender_megakernel(dm, bstore, valid, self._use_symmetry,
                                       layout, self._exchange_novel,
-                                      scratch=self._scratch)
+                                      scratch=self._scratch,
+                                      plan=self._matmul_plan)
                 succ_count = sflat.sum(dtype=torch.int64)
                 terminal = valid & ~sflat.view(n, B, F).any(dim=2)
             else:
-                succ, sflat, succ_count, terminal = expand_frontier(
-                    dm, rows, valid.reshape(n * B))
+                succ, sflat, succ_count, terminal = expand(
+                    dm, self._matmul_plan, rows, valid.reshape(n * B))
                 dedup_fps, path_fps = fingerprint_successors(
                     dm, succ, sflat, self._use_symmetry)
                 dedup_fps, path_fps, sflat = (
@@ -416,8 +418,11 @@ class ShardedFusedCudaBfsChecker(EpochOwnership, FusedCudaBfsChecker):
         """Which front half the waves run: ``sender_kernel`` (the sender
         kernel) or ``dedup_kernel`` (torch stages, with the dedup kernel
         on the owner side either way) on the card, and
-        ``sender_plain`` or ``dedup_plain`` on the CPU."""
+        ``sender_plain`` or ``dedup_plain`` on the CPU; each with
+        ``+matmul`` under a matmul plan."""
         on_card = self._device.type == "cuda"
         if self._wave_kernel:
-            return "sender_kernel" if on_card else "sender_plain"
-        return "dedup_kernel" if on_card else "dedup_plain"
+            path = "sender_kernel" if on_card else "sender_plain"
+        else:
+            path = "dedup_kernel" if on_card else "dedup_plain"
+        return path + self._matmul_suffix()

@@ -30,6 +30,16 @@ it runs the plain version, ``wave_megakernel_plain``: the port's own
 stage functions in the order of ``_wave_front`` and the dedup kernel. It
 is also the reference the kernel is held to on the card. The wrapper
 never synchronises, so it can run inside a multi-wave dispatch.
+
+Under a matmul plan (``plan=``, ``matmul_wave.MatmulPlan``) both kernels
+run the plan's transition-table step (``csrc/plan.cuh::PlanStep``) in
+place of the model's: ``sr_wave_<name>_plan`` and ``sr_sender_<name>_plan``
+of the model's source, instantiated where the gate admits the model (2pc
+to 8 RMs, increment and increment_lock at 2, 4 and 8 threads;
+``DeviceModel.CUDA_PLAN_INSTANCES``), with the plan copied into the
+kernel's parameters (``plan_host``) and its tables in a device buffer
+(``plan_tables``). A plan the entry points do not take raises
+(``cuda_plan``). The plain versions run ``matmul_wave.matmul_expand``.
 """
 
 from __future__ import annotations
@@ -42,20 +52,22 @@ import torch
 
 from ._build import build_and_load
 from .engine import dedup_and_insert as dedup_and_insert_plain
-from .engine import (expand_frontier, fingerprint_successors,
-                     first_occurrence_candidates)
+from .engine import fingerprint_successors, first_occurrence_candidates
+from .matmul_wave import expand
 from .table import DedupScratch, scratch_bits
 
 __all__ = ["wave_megakernel", "wave_megakernel_plain", "sender_megakernel",
-           "sender_megakernel_plain", "cuda_model"]
+           "sender_megakernel_plain", "cuda_model", "cuda_plan", "plan_host",
+           "plan_tables"]
 
 _INT32_MAX = (1 << 31) - 1
 
 
 def wave_megakernel_plain(dm, store: torch.Tensor, valid: torch.Tensor,
-                          table: torch.Tensor, use_sym: bool, layout):
+                          table: torch.Tensor, use_sym: bool, layout,
+                          plan=None):
     """The plain version of ``wave_megakernel``, in torch ops."""
-    succ, sflat, _, _ = expand_frontier(dm, layout.unpack(store), valid)
+    succ, sflat, _, _ = expand(dm, plan, layout.unpack(store), valid)
     dedup_fps, path_fps = fingerprint_successors(dm, succ, sflat, use_sym)
     new_mask, cand_mask, new_count, cand_count, full = \
         dedup_and_insert_plain(dedup_fps, table)
@@ -120,6 +132,80 @@ def _c_params(params) -> list:
     return [p.ctypes.data if isinstance(p, np.ndarray) else p for p in params]
 
 
+#: ``csrc/plan.cuh``'s capacities: key groups, key lanes a group, entries
+#: (outputs written, all actions), constants and actions
+PLAN_GROUPS, PLAN_KEYS, PLAN_ENTRIES, PLAN_CONSTS, PLAN_ACTIONS = (
+    32, 12, 192, 64, 64)
+_CONST_GROUP = 0xFF
+
+
+def plan_host(plan) -> np.ndarray:
+    """``plan`` as ``csrc/plan.cuh``'s ``PlanStep::load`` takes it, int32:
+    the counts (groups, entries, constants, fanout, width); each group's
+    table offset in words, rows, columns, key count, keys and strides
+    (``PLAN_KEYS`` each); each action's first entry and the end; the
+    entries (``lane | group << 8 | column << 16``, a constant's group
+    ``0xFF`` and its column its index among the constants); the constants'
+    values (uint32 bit patterns). Raises ``NotImplementedError`` for a plan
+    past the struct's capacities."""
+    W, F = plan.width, plan.fanout
+    n_entries = len(plan.consts) + sum(len(g.cols) for g in plan.groups)
+    if (len(plan.groups) > PLAN_GROUPS or F > PLAN_ACTIONS or W > 254
+            or n_entries > PLAN_ENTRIES or len(plan.consts) > PLAN_CONSTS
+            or any(len(g.keys) > PLAN_KEYS for g in plan.groups)):
+        raise NotImplementedError(
+            f"a matmul plan of {len(plan.groups)} groups, {n_entries} "
+            f"entries and {len(plan.consts)} constants at fanout {F} does "
+            "not fit csrc/plan.cuh: run it with wave_kernel=False on the "
+            "card")
+    head = [len(plan.groups), n_entries, len(plan.consts), F, W]
+    groups, offset = [], 0
+    for g in plan.groups:
+        pad = [0] * (PLAN_KEYS - len(g.keys))
+        groups += ([offset, g.domain, len(g.cols), len(g.keys)]
+                   + list(g.keys) + pad + list(g.strides) + pad)
+        offset += g.domain * len(g.cols)
+    by_action = [[] for _ in range(F)]
+    for c, (a, o, _) in enumerate(plan.consts):
+        by_action[a].append(o | _CONST_GROUP << 8 | c << 16)
+    for gi, g in enumerate(plan.groups):
+        for j, (a, o) in enumerate(g.cols):
+            by_action[a].append(o | gi << 8 | j << 16)
+    first = np.cumsum([0] + [len(e) for e in by_action]).tolist()
+    entries = [e for action in by_action for e in action]
+    consts = [v for _, _, v in plan.consts]
+    return np.array(head + groups + first + entries + consts,
+                    np.int64).astype(np.uint32).view(np.int32)
+
+
+def plan_tables(plan) -> np.ndarray:
+    """Every group's table of exact outputs, uint32 ``[rows, cols]``
+    row-major, one after another (``plan_host``'s offsets), as int32 bit
+    patterns."""
+    parts = [g.table_u32().reshape(-1) for g in plan.groups]
+    return np.concatenate(parts or [np.zeros(0, np.int64)]).astype(
+        np.uint32).view(np.int32)
+
+
+def cuda_plan(dm, layout, plan) -> None:
+    """Raises ``NotImplementedError`` unless the kernels' entry points take
+    ``plan`` for ``dm``: its CUDA device code, an instance of the plan form
+    at its size (``DeviceModel.CUDA_PLAN_INSTANCES``, the first of its
+    ``cuda_model()`` params), no boundary, and a plan within
+    ``csrc/plan.cuh``'s capacities."""
+    name, params, _ = cuda_model(dm, layout)
+    instances = getattr(type(dm), "CUDA_PLAN_INSTANCES", ())
+    W = dm.state_width
+    if (not params or params[0] not in instances
+            or dm.boundary(torch.zeros((1, W), dtype=torch.int64))
+            is not None):
+        raise NotImplementedError(
+            f"csrc/wave_{name}.cu has no plan-form entry for "
+            f"{type(dm).__name__} at {params[:1]} (it holds "
+            f"{list(instances)}): run it with wave_matmul=False or "
+            "wave_kernel=False on the card")
+    plan_host(plan)
+
 def _device_index(dev: torch.device) -> int:
     """The index of CUDA device ``dev`` (the current one for a bare
     ``cuda``)."""
@@ -127,13 +213,16 @@ def _device_index(dev: torch.device) -> int:
 
 
 @functools.lru_cache(maxsize=None)
-def _entry(name: str, kinds: str):
+def _entry(name: str, kinds: str, plan: bool = False):
     """``csrc/wave_<name>.cu``'s wave entry point, its model params of the
-    C types ``kinds`` (``_kinds``)."""
-    fn = getattr(build_and_load("wave_" + name), "sr_wave_" + name)
+    C types ``kinds`` (``_kinds``); its plan form ``sr_wave_<name>_plan``,
+    which takes the host plan and the device tables after them, when
+    ``plan``."""
+    fn = getattr(build_and_load("wave_" + name),
+                 "sr_wave_" + name + ("_plan" if plan else ""))
     fn.restype = ctypes.c_int
     i, p = ctypes.c_int, ctypes.c_void_p
-    fn.argtypes = ([{"i": i, "p": p}[k] for k in kinds]
+    fn.argtypes = ([{"i": i, "p": p}[k] for k in kinds] + [p, p] * plan
                    + [i, p, i, i, p, p, ctypes.c_longlong, i,
                                       p, i, p, p, p, p, p, p, i, p, p, p, i,
                                       p])
@@ -142,7 +231,7 @@ def _entry(name: str, kinds: str):
 
 def wave_megakernel(dm, store: torch.Tensor, valid: torch.Tensor,
                     table: torch.Tensor, use_sym: bool, layout,
-                    scratch=None):
+                    scratch=None, plan=None):
     """``store int32[B, Wp]`` (packed rows), ``valid bool[B]``, ``table
     int64[C]`` (C a power of two, updated in place) -> ``(succ_store
     int32[S, Wp], path_fps int64[S], sflat bool[S], new_mask bool[S],
@@ -151,10 +240,12 @@ def wave_megakernel(dm, store: torch.Tensor, valid: torch.Tensor,
     device. ``full`` is True when a candidate found neither its key nor
     a free slot in the whole table. ``scratch``, a caller's
     ``table.DedupScratch`` for at least ``S`` rows on the tensors' device,
-    is used in place of a fresh one."""
+    is used in place of a fresh one. ``plan``, a ``matmul_wave.MatmulPlan``
+    of ``dm``, runs the plan's step in place of the model's."""
     tensors = (store, valid, table)
     if all(t.device.type == "cpu" for t in tensors):
-        return wave_megakernel_plain(dm, store, valid, table, use_sym, layout)
+        return wave_megakernel_plain(dm, store, valid, table, use_sym, layout,
+                                     plan)
     dev = store.device
     if dev.type != "cuda" or any(t.device != dev for t in tensors):
         raise ValueError(
@@ -179,11 +270,11 @@ def wave_megakernel(dm, store: torch.Tensor, valid: torch.Tensor,
     new_mask = torch.empty(S, dtype=torch.bool, device=dev)
     cand_mask = torch.empty(S, dtype=torch.bool, device=dev)
     counts = torch.empty(3, dtype=torch.int32, device=dev)
-    fn = _entry(name, _kinds(params))
+    fn, pre = _launcher(_entry, dm, layout, name, params, plan, dev)
     # The launch goes to the current device's context, which in the
     # checker's worker thread is not necessarily the tensors' device.
     with torch.cuda.device(dev):
-        rc = fn(*_c_params(params), int(use_sym), lanes.ctypes.data,
+        rc = fn(*_c_params(params), *pre, int(use_sym), lanes.ctypes.data,
                 layout.width, wp, store.data_ptr(), valid.data_ptr(), B, F,
                 table.data_ptr(), capacity.bit_length() - 1,
                 succ_store.data_ptr(),
@@ -204,18 +295,35 @@ def wave_megakernel(dm, store: torch.Tensor, valid: torch.Tensor,
 wave_megakernel.launches = 0
 
 
+def _launcher(entry, dm, layout, name, params, plan, dev):
+    """``(entry point, its plan arguments)``: the step form's, or under
+    ``plan`` the plan form's with the host plan and the device tables,
+    checked (``cuda_plan``) and made once a plan and device."""
+    if plan is None:
+        return entry(name, _kinds(params)), ()
+
+    def make():
+        cuda_plan(dm, layout, plan)
+        return plan_host(plan), torch.from_numpy(plan_tables(plan)).to(dev)
+
+    host, tables = plan.derived(("kernel", str(dev)), make)
+    return (entry(name, _kinds(params), True),
+            (host.ctypes.data, tables.data_ptr()))
+
+
 # -- The sender kernel -------------------------------------------------------
 
 
 def sender_megakernel_plain(dm, store: torch.Tensor, valid: torch.Tensor,
-                            use_sym: bool, layout, local_dedup: bool):
+                            use_sym: bool, layout, local_dedup: bool,
+                            plan=None):
     """The plain version of ``sender_megakernel``, in torch ops: the
     front half of ``wave_megakernel_plain`` over the stacked shards, then
     each shard's own first occurrence (``pallas_table.py:486-487``)."""
     n, B = valid.shape
     S = B * dm.max_fanout
     rows = layout.unpack(store).reshape(n * B, -1)
-    succ, sflat, _, _ = expand_frontier(dm, rows, valid.reshape(n * B))
+    succ, sflat, _, _ = expand(dm, plan, rows, valid.reshape(n * B))
     dedup_fps, path_fps = fingerprint_successors(dm, succ, sflat, use_sym)
     dedup_fps, sflat = dedup_fps.reshape(n, S), sflat.reshape(n, S)
     if local_dedup:
@@ -234,14 +342,14 @@ SENDER_SOURCES = {"paxos": "sender_paxos"}
 
 
 @functools.lru_cache(maxsize=None)
-def _sender_entry(name: str, kinds: str):
+def _sender_entry(name: str, kinds: str, plan: bool = False):
     """Likewise, its sender entry point (in ``csrc/wave_<name>.cu``, or
-    ``SENDER_SOURCES[name]``)."""
+    ``SENDER_SOURCES[name]``), and its plan form."""
     fn = getattr(build_and_load(SENDER_SOURCES.get(name, "wave_" + name)),
-                 "sr_sender_" + name)
+                 "sr_sender_" + name + ("_plan" if plan else ""))
     fn.restype = ctypes.c_int
     i, p, ll = ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong
-    fn.argtypes = ([{"i": i, "p": p}[k] for k in kinds]
+    fn.argtypes = ([{"i": i, "p": p}[k] for k in kinds] + [p, p] * plan
                    + [i, i, p, i, i, p, p, ll, ll, i, p, p, p, p, p, p, p, i,
                       i, p])
     return fn
@@ -249,7 +357,7 @@ def _sender_entry(name: str, kinds: str):
 
 def sender_megakernel(dm, store: torch.Tensor, valid: torch.Tensor,
                       use_sym: bool, layout, local_dedup: bool,
-                      scratch=None):
+                      scratch=None, plan=None):
     """The sharded engine's per-shard front half of a wave, for ``n``
     stacked shards: ``store int32[n, B, Wp]`` (packed rows), ``valid
     bool[n, B]`` -> ``(succ_store int32[n, S, Wp], dedup_fps int64[n, S],
@@ -260,10 +368,10 @@ def sender_megakernel(dm, store: torch.Tensor, valid: torch.Tensor,
     first occurrences when ``local_dedup``. ``scratch``, a caller's
     ``table.DedupScratch`` for at least ``n * S`` rows in ``n`` shards
     on the tensors' device, is used in place of a fresh one; without
-    ``local_dedup`` none is needed."""
+    ``local_dedup`` none is needed. ``plan`` as ``wave_megakernel``'s."""
     if store.device.type == "cpu" and valid.device.type == "cpu":
         return sender_megakernel_plain(dm, store, valid, use_sym, layout,
-                                       local_dedup)
+                                       local_dedup, plan)
     dev = store.device
     if dev.type != "cuda" or valid.device != dev:
         raise ValueError(
@@ -292,9 +400,9 @@ def sender_megakernel(dm, store: torch.Tensor, valid: torch.Tensor,
         scratch = DedupScratch.for_call(scratch, n * S, dev, shards=n)
         slots, slot_of = scratch.slots.data_ptr(), scratch.slot_of.data_ptr()
         region_bits = scratch_bits(n * S, n)[1]
-    fn = _sender_entry(name, _kinds(params))
+    fn, pre = _launcher(_sender_entry, dm, layout, name, params, plan, dev)
     with torch.cuda.device(dev):
-        rc = fn(*_c_params(params), int(use_sym), int(local_dedup),
+        rc = fn(*_c_params(params), *pre, int(use_sym), int(local_dedup),
                 lanes.ctypes.data, layout.width, wp, store.data_ptr(),
                 valid.data_ptr(), B, n, F, succ_store.data_ptr(),
                 dedup_fps.data_ptr(), path_fps.data_ptr(), sflat.data_ptr(),

@@ -28,13 +28,18 @@ reachable rows (JAX's levels, as ``test_torch_paxos.py`` and
 (random lanes, garbage and empty envelopes, unsorted networks, fewer
 network slots than the default); their ``representative`` to the
 port's; and ``packing.cuh``'s codec to ``packing.py``, sentinel lanes
-included.
+included. The plan form of the step (``plan.cuh``'s ``PlanStep``, the
+harness's models 100 + m under ``set_plan``) is held to the torch
+``matmul_wave.matmul_expand`` on every slot of random in-domain rows of
+2pc and the shared counters, and the tile loop's per-slot steps with it
+to the kernels' plain versions under the plan.
 The tile loop's shared memory, barriers and stores run only on the card
 (``chip_smoke.py``).
 """
 
 import ctypes
 import random
+import re
 import shutil
 import subprocess
 
@@ -42,7 +47,8 @@ import numpy as np
 import pytest
 import torch
 
-from stateright_tpu_torch import append, carry, table, test_util, wave
+from stateright_tpu_torch import (append, carry, matmul_wave, table,
+                                  test_util, wave)
 from stateright_tpu_torch.engine import (compaction_order, expand_frontier,
                                          fingerprint_successors,
                                          host_table_insert)
@@ -96,6 +102,7 @@ template <class T> T __ldcg(const T* p) {
     ++g_table_reads;
   return *p;
 }
+template <class T> T __ldg(const T* p) { return *p; }
 using std::max;
 using std::min;
 """
@@ -103,6 +110,7 @@ using std::min;
 HARNESS = r"""
 #include <vector>
 #include "append.cuh"
+#include "plan.cuh"
 #include "wave.cuh"
 #include "models/abd.cuh"
 #include "models/dgraph.cuh"
@@ -135,6 +143,14 @@ long long with_register(int e, Fn&& fn) {
 // The graph that model 5 runs (set_dgraph).
 sr::DGraph g_dgraph;
 
+// The matmul plan that model 100 + m runs (set_plan): the host array and
+// the tables, as the plan-form entry points take them.
+const int* g_plan = nullptr;
+const uint32_t* g_plan_tables = nullptr;
+
+template <class Fn>
+long long with_model_step(int model, int p0, int p1, int p2, Fn&& fn);
+
 // Calls fn with a model instance: model 0 is 2pc at p0 RMs, model 1 paxos
 // at p0 clients and p1 network slots, model 2 single-copy and model 3 ABD
 // at p0 clients, p2 servers and p1 network slots, model 4 LinearEquation,
@@ -144,9 +160,23 @@ sr::DGraph g_dgraph;
 // p0 and p1 network slots, its form in p2's bits (history 1, lossy 2,
 // duplicating 4); model 10 VSR at p0 replicas and p1 network slots, p2's
 // bits lossy 1 and duplicating 2 and max_view above them (the instances of
-// wave_pingpong.cu and wave_vsr.cu). -1 for a model it does not hold.
+// wave_pingpong.cu and wave_vsr.cu). Model 100 + m is model m with its
+// step replaced by the plan of the last set_plan (plan.cuh's PlanStep), -2
+// when that plan does not load. -1 for a model it does not hold.
 template <class Fn>
 long long with_model(int model, int p0, int p1, int p2, Fn&& fn) {
+  if (model < 100) return with_model_step(model, p0, p1, p2, fn);
+  return with_model_step(model - 100, p0, p1, p2,
+                         [&](const auto& m) -> long long {
+    using M = std::decay_t<decltype(m)>;
+    static sr::PlanStep<M> p;
+    if (!p.load(m, g_plan, g_plan_tables)) return -2;
+    return fn(p);
+  });
+}
+
+template <class Fn>
+long long with_model_step(int model, int p0, int p1, int p2, Fn&& fn) {
   if (model == 0) return fn(sr::TwoPhase<8>{p0});
   if (model == 9 && p1 >= 1 && p1 <= sr::PingPong<26>::kMaxE)
     return fn(sr::PingPong<26>{p1, (p2 & 1) != 0, (p2 & 2) != 0,
@@ -323,6 +353,17 @@ long long sender_t(const M& m, int use_sym, int local_dedup, const int* lanes,
 extern "C" long long set_dgraph(const int* table) {
   return g_dgraph.load(table) ? 0 : -1;
 }
+
+// Sets the plan models 100 + m run: the host array (wave.py::plan_host)
+// and the tables (wave.py::plan_tables), read at each call.
+extern "C" long long set_plan(const int* plan, const uint32_t* tables) {
+  g_plan = plan;
+  g_plan_tables = tables;
+  return 0;
+}
+
+// The bytes of the plan a kernel's parameters carry (plan.cuh's Plan).
+extern "C" long long plan_param_bytes() { return sizeof(sr::Plan); }
 
 extern "C" long long dedup_phases(const u64* fps, long long n, u64* table,
                                   int c_bits, sr::Slot* slots, int* tally,
@@ -1383,3 +1424,176 @@ def test_append_matches_the_plain_version(lib, case):
             assert np.array_equal(g[k, :end], w[k, :end].numpy().view(
                 g.dtype)), (tag, k)
             assert np.array_equal(g[k, end:], a[k, end:]), (tag, k)
+
+
+# -- The plan form of the step (csrc/plan.cuh) --------------------------------
+
+
+def _set_plan(lib, plan):
+    """Loads ``plan`` (host array and tables, as the plan-form entry points
+    take them) into the harness; returns what must outlive the calls."""
+    host = wave.plan_host(plan)
+    tables = np.ascontiguousarray(wave.plan_tables(plan).view(np.uint32))
+    assert _call(lib, "set_plan", ctypes.c_void_p(_ptr(host)),
+                 ctypes.c_void_p(_ptr(tables))) == 0
+    return host, tables
+
+
+def _plan_of(dm):
+    cls = matmul_wave.classify(dm)
+    assert cls.regular, cls.reason
+    return cls.plan
+
+
+def _in_domain(dm, n, rng):
+    """``n`` uniform in-domain rows (uint32 [n, W]) of ``dm``'s declared
+    lanes, as ``tests/test_matmul_wave.py`` draws its frontiers."""
+    layout = compile_layout(dm.lane_bits(), dm.state_width)
+    return np.stack([rng.integers(0, 1 << lane.bits, size=n,
+                                  dtype=np.uint32)
+                     for lane in layout.lanes], axis=1)
+
+
+#: the plan step's cases: 2pc at 5 RMs and increment_lock at 4 threads,
+#: and the other sizes the entry points instantiate that the tests keep
+#: small
+_PLAN_STEP_MODELS = [pytest.param(twopc.TwoPhaseDevice(5), id="twopc5"),
+                     pytest.param(increment_lock.IncrementLockDevice(4),
+                                  id="increment_lock4"),
+                     pytest.param(twopc.TwoPhaseDevice(3), id="twopc3"),
+                     pytest.param(increment.IncrementDevice(4),
+                                  id="increment4")]
+
+
+@pytest.mark.parametrize("dm", _PLAN_STEP_MODELS)
+def test_plan_step_matches_matmul_expand(lib, dm):
+    """``PlanStep``'s step on every slot of seeded random in-domain rows:
+    the successor's lanes and the enabled bit, bit for bit, against the
+    torch ``matmul_expand`` (and so against the model's own step, which
+    ``test_torch_matmul_wave.py`` holds it to), every slot, enabled or
+    not."""
+    plan = _plan_of(dm)
+    keep = _set_plan(lib, plan)
+    model, p0, p1, p2 = _params(lib, dm)
+    F, W = dm.max_fanout, dm.state_width
+    for seed in range(3):
+        rows = _in_domain(dm, 256, np.random.default_rng(seed))
+        succ = np.zeros((len(rows), F, W), np.uint32)
+        enabled = np.zeros((len(rows), F), np.bool_)
+        rc = _call(lib, "model_step", *[ctypes.c_int(a) for a in (
+            100 + model, p0, p1, p2)], ctypes.c_void_p(_ptr(rows)),
+            ctypes.c_longlong(len(rows)), ctypes.c_int(W),
+            ctypes.c_void_p(_ptr(succ)), ctypes.c_void_p(_ptr(enabled)))
+        assert rc == 0
+        want, sv, _, _ = matmul_wave.matmul_expand(
+            dm, plan, carry.rows_in(rows), torch.ones(len(rows),
+                                                      dtype=torch.bool))
+        assert np.array_equal(enabled, sv.reshape(-1, F).numpy()), seed
+        assert np.array_equal(succ.reshape(-1, W), carry.rows_out(want)), \
+            seed
+        assert enabled.any() and not enabled.all()
+    del keep
+
+
+@pytest.mark.parametrize("model, size, sym", [
+    pytest.param("twopc", 5, False, id="twopc5"),
+    pytest.param("twopc", 5, True, id="twopc5-sym"),
+    pytest.param("increment_lock", 4, True, id="increment_lock4-sym")])
+def test_plan_wave_and_sender_phases_match_the_plain_version(lib, model,
+                                                            size, sym):
+    """The tile loop's per-slot steps with ``PlanStep`` in the model's
+    place (the plan-form kernels' device code) against
+    ``wave_megakernel_plain`` and ``sender_megakernel_plain`` under the
+    plan, bit for bit: successors, fingerprints, masks, counts, the
+    table as a set, the scratch clean."""
+    rng = np.random.default_rng(_seed(size) + 40)
+    B = 48
+    dm, layout, packed, valid, host = _frontier(model, size, sym, B, rng)
+    plan = _plan_of(dm)
+    keep = _set_plan(lib, plan)
+    code, p0, p1, p2 = _params(lib, dm)
+    F, wp = dm.max_fanout, layout.packed_width
+    S = B * F
+    _, _, lanes = wave.cuda_model(dm, layout)
+    want = wave.wave_megakernel_plain(
+        dm, carry.words_in(packed), torch.from_numpy(valid),
+        t_p := carry.u64_in(host), sym, layout, plan)
+    o1, o2 = _orders(S, size)["shuffled"]
+    t, s = host.copy(), _Scratch(S)
+    succ = np.zeros((S, wp), np.uint32)
+    pfps = np.zeros(S, np.uint64)
+    sflat, new, cand = (np.zeros(S, np.bool_) for _ in range(3))
+    counts, walked = np.full(3, -7, np.int32), np.zeros(S, np.uint8)
+    p, i = ctypes.c_void_p, ctypes.c_int
+    reads = _call(lib, "wave_phases", *[i(a) for a in (100 + code, p0, p1,
+                                                        p2)],
+                  i(int(sym)), p(_ptr(lanes)), i(layout.width), i(wp),
+                  p(_ptr(packed)), p(_ptr(valid)), ctypes.c_longlong(B),
+                  i(F), p(_ptr(t)), i(len(t).bit_length() - 1),
+                  *[p(a) for a in s.args()], i(s.m_bits), p(_ptr(o1)),
+                  p(_ptr(o2)), p(_ptr(succ)), p(_ptr(pfps)), p(_ptr(sflat)),
+                  p(_ptr(new)), p(_ptr(cand)), p(_ptr(counts)),
+                  p(_ptr(walked)))
+    assert reads >= 0
+    for g, w in zip((succ, pfps, sflat, new, cand),
+                    (carry.words_out(want[0]), carry.u64_out(want[1]),
+                     want[2].numpy(), want[3].numpy(), want[4].numpy())):
+        assert np.array_equal(g, w)
+    assert counts.tolist() == [int(want[5]), int(want[6]), int(bool(want[7]))]
+    assert _as_set(t) == _as_set(carry.u64_out(t_p)) and s.is_clean()
+    assert int(want[5]) > 0
+
+    n = 2
+    spacked = np.ascontiguousarray(packed[:n * 16].reshape(n, 16, wp))
+    svalid = np.ascontiguousarray(valid[:n * 16].reshape(n, 16))
+    S = 16 * F
+    want = wave.sender_megakernel_plain(
+        dm, carry.words_in(spacked), torch.from_numpy(svalid), sym, layout,
+        True, plan)
+    s = _Scratch(n * S, n)
+    o1, o2 = _orders(n * S, size)["reverse"]
+    out = (np.zeros((n, S, wp), np.uint32), np.zeros((n, S), np.uint64),
+           np.zeros((n, S), np.uint64), np.zeros((n, S), np.bool_),
+           np.zeros((n, S), np.bool_))
+    ll = ctypes.c_longlong
+    rc = _call(lib, "sender_phases", *[i(a) for a in (100 + code, p0, p1,
+                                                       p2)],
+               i(int(sym)), i(1), p(_ptr(lanes)), i(layout.width), i(wp),
+               p(_ptr(spacked)), p(_ptr(svalid)), ll(16), ll(n), i(F),
+               p(_ptr(s.slots)), i(s.region_bits), p(_ptr(o1)), p(_ptr(o2)),
+               *[p(_ptr(a)) for a in out])
+    assert rc == 0
+    for g, w in zip(out, (carry.words_out(want[0]), carry.u64_out(want[1]),
+                          carry.u64_out(want[2]), want[3].numpy(),
+                          want[4].numpy())):
+        assert np.array_equal(g, w)
+    assert s.is_clean()
+    del keep
+
+
+def test_plan_fits_the_kernel_parameters(lib):
+    """``plan.cuh``'s capacities are ``wave.py``'s, its ``Plan`` leaves
+    room in a kernel's 4 KB of parameters, and a plan past a capacity
+    does not load (the entry point then refuses the launch)."""
+    text = (CSRC + "/plan.cuh")
+    consts = dict(re.findall(r"constexpr int (kPlan\w+) = (\d+);",
+                             open(text).read()))
+    assert [int(consts[k]) for k in ("kPlanGroups", "kPlanKeys",
+                                     "kPlanEntries", "kPlanConsts",
+                                     "kPlanActions")] == [
+        wave.PLAN_GROUPS, wave.PLAN_KEYS, wave.PLAN_ENTRIES,
+        wave.PLAN_CONSTS, wave.PLAN_ACTIONS]
+    assert _call(lib, "plan_param_bytes") <= 2800
+    dm = twopc.TwoPhaseDevice(3)
+    host = wave.plan_host(_plan_of(dm)).copy()
+    host[0] = wave.PLAN_GROUPS + 1
+    tables = np.zeros(4, np.uint32)
+    assert _call(lib, "set_plan", ctypes.c_void_p(_ptr(host)),
+                 ctypes.c_void_p(_ptr(tables))) == 0
+    rows = np.zeros((1, dm.state_width), np.uint32)
+    out = np.zeros((1, dm.max_fanout, dm.state_width), np.uint32)
+    en = np.zeros((1, dm.max_fanout), np.bool_)
+    assert _call(lib, "model_step", *[ctypes.c_int(a) for a in (
+        100, 3, 0, 0)], ctypes.c_void_p(_ptr(rows)), ctypes.c_longlong(1),
+        ctypes.c_int(dm.state_width), ctypes.c_void_p(_ptr(out)),
+        ctypes.c_void_p(_ptr(en))) == -2

@@ -6,9 +6,11 @@ engine's ``classic.py`` and ``visitor.py``, the classic sharded engine's
 ``models/abd.py``, and the plain models' ``test_util.py``,
 ``models/increment.py``, ``models/increment_lock.py`` and
 ``models/sliding_puzzle.py``, and the actor models' ``models/pingpong.py``
-and ``models/vsr.py`` among them); a fresh interpreter that checks 2pc at
-3 RMs (on the fused engine, and with a visitor on the classic engine and
-on the classic sharded engine), paxos at 1 client, single-copy at 2
+and ``models/vsr.py``, and the matmul expand's ``matmul_wave.py`` among
+them); a fresh interpreter that checks 2pc at 3 RMs (on the fused engine,
+with a visitor on the classic engine and on the classic sharded engine,
+and with ``wave_matmul=True``, classified by the port's own
+``matmul_wave``), paxos at 1 client, single-copy at 2
 clients on one server, ABD at 2 clients on two, LinearEquation, increment
 and increment_lock at 2 threads, the 2x3 puzzle, ping-pong at max_nat 5 on
 a lossy network and VSR at 2 replicas through the port on the CPU and then
@@ -53,7 +55,8 @@ def test_no_file_of_the_port_imports_jax_or_the_jax_package():
             "models/single_copy.py",
             "models/abd.py", "test_util.py", "models/increment.py",
             "models/increment_lock.py", "models/sliding_puzzle.py",
-            "models/pingpong.py", "models/vsr.py"} <= names
+            "models/pingpong.py", "models/vsr.py",
+            "matmul_wave.py"} <= names
     for path in files + [os.path.join(_REPO, "chip_smoke.py")]:
         for name in _imports(path):
             assert name.split(".")[0] not in _BANNED, (path, name)
@@ -77,6 +80,10 @@ def test_a_cpu_check_loads_neither_jax_nor_the_jax_package():
         "     .spawn_cuda_bfs(mesh=['cpu'] * 2).join())\n"
         "assert type(c).__name__ == 'ShardedCudaBfsChecker', type(c)\n"
         "assert (c.unique_state_count(), len(states())) == (288, 576)\n"
+        "c = TwoPhaseSys(3).checker().spawn_cuda_bfs(\n"
+        "    device='cpu', wave_matmul=True).join()\n"
+        "assert c.kernel_path() == 'dedup_plain+matmul', c.kernel_path()\n"
+        "assert (c.unique_state_count(), c.state_count()) == (288, 1146)\n"
         "from stateright_tpu_torch.models.paxos import PaxosSys\n"
         "c = PaxosSys(1).checker().spawn_cuda_bfs(device='cpu').join()\n"
         "assert (c.unique_state_count(), c.state_count()) == (265, 482)\n"

@@ -10,26 +10,32 @@ Usage, from the root of a checkout on a machine with an NVIDIA H100:
     python3 chip_smoke.py --phases actors          # phase 1, then 11
     python3 chip_smoke.py --phases sharded_classic # phase 1, then 12
     python3 chip_smoke.py --phases matmul          # phase 1, then 13
+    python3 chip_smoke.py --phases sizes           # phase 1, then 14
     python3 chip_smoke.py --phases kernels,full    # phase 1, 2-4 and 6
 
 ``--phases`` takes a comma-separated subset of ``kernels`` (phases 2 to
 4), ``small`` (5), ``full`` (6), ``checkpoint`` (7), ``classic`` (8),
 ``registers`` (9), ``corpus`` (10), ``actors`` (11), ``sharded_classic``
-(12) and ``matmul`` (13), runs phase 1 and those, in this order, and
+(12), ``matmul`` (13) and ``sizes`` (14), runs phase 1 and those, in this
+order, and
 prints the kernels line's rows those phases give
 (phases 2 to 8's rows only when all of them ran). Phases, in order; any
 failure exits non-zero and prints no result line:
 
 1. build ``stateright_tpu_torch/csrc/table.cu``, ``wave_twopc.cu``,
-   ``wave_paxos.cu``, ``sender_paxos.cu``, ``wave_single_copy.cu``,
-   ``wave_abd.cu``, ``wave_linear_equation.cu``, ``wave_dgraph.cu``,
+   ``wave_paxos.cu``, ``sender_paxos.cu``, ``wave_paxos4.cu``,
+   ``sender_paxos4.cu``, ``wave_single_copy.cu``,
+   ``sender_single_copy.cu``, ``wave_abd.cu``, ``sender_abd.cu``,
+   ``wave_linear_equation.cu``, ``wave_dgraph.cu``,
    ``wave_increment.cu``, ``wave_increment_lock.cu``,
-   ``wave_sliding_puzzle.cu``, ``wave_pingpong.cu``, ``wave_vsr.cu`` (the
-   wave kernel's and the sender kernel's entry points for 2pc, each
-   register workload, each plain model and each actor model; paxos's
-   sender in a source of its own; 2pc's and the shared counters' sources
-   also hold the plan forms of both kernels) and ``append.cu`` for
-   ``sm_90a``, one ``nvcc`` each, all at once, and print each build time
+   ``wave_sliding_puzzle.cu``, ``wave_pingpong.cu``, ``wave_vsr.cu``,
+   ``sender_vsr.cu`` (the wave kernel's and the sender kernel's entry
+   points for 2pc, each register workload, each plain model and each
+   actor model; paxos's, single-copy's, ABD's and VSR's senders in sources
+   of their own, and paxos's fourth client count in two more; 2pc's and
+   the shared counters' sources also hold the plan forms of both kernels)
+   and ``append.cu`` for ``sm_90a``, one ``nvcc`` each, all at once, and
+   print each build time
    with ptxas' register and spill report, and the card's name and power
    limit;
 2. hold the wave kernel against its plain version at full width: 16,384
@@ -81,7 +87,7 @@ failure exits non-zero and prints no result line:
    the sender kernel with and without local dedup; paxos at 1 and 2
    clients, unsharded and at n = 4, on the dedup kernel's path and on the
    kernels' (``wave_kernel=True``), against the CPU run: 265 / 482 and
-   16,668 / 32,971; paxos at 4 clients with symmetry to 20,000 states and
+   16,668 / 32,971; paxos at 4 clients with symmetry to 5,000 states and
    at 1 client with liveness and with 5 network slots (fewer than the
    default 8: smaller tiles) on the kernels, against the CPU run; two
    network slots raise paxos's overflow error on the kernels, unsharded
@@ -230,12 +236,12 @@ failure exits non-zero and prints no result line:
     found; 2pc 4 with every wave at an output rung of 8 rows (regathers)
     against the ladder off; ``fused=True`` with a visitor and
     ``pipeline=True`` refused. Then, 4 shards of 4,096 rows, graphs on:
-    2pc at 10 RMs (61,515,776 / 817,760,258) on the sender kernel and
     ``paxos check 3`` (1,194,428 / 2,420,477, "value chosen" found) on the
-    torch stages and on the sender kernel, exact, and 2pc at 10 RMs on the
-    torch stages cut at 100,000,000 states (``SHARDED_CLASSIC_CUTS``), the
-    launches exact, the sender kernel's chains the torch stages' (the cut
-    run's those of the whole run for what it finds), each run's seconds,
+    torch stages and on the sender kernel, exact, and 2pc at 10 RMs on
+    both cut at 100,000,000 states (``SHARDED_CLASSIC_CUTS``; the whole
+    space, 61,515,776 / 817,760,258, is phase 6's and 8's), the launches
+    exact, the sender kernel's chains and counts the torch stages', each
+    run's seconds,
     waves, host us a wave, bytes down and peak device memory; from a
     mid-run point of each on each path, one replayed wave under
     ``torch.cuda.set_sync_debug_mode("error")``, three timed and one
@@ -263,7 +269,41 @@ failure exits non-zero and prints no result line:
     (314) on every engine's kernels, on against off; and 2pc 7 on the
     torch stages under ``torch.set_float32_matmul_precision("high")`` and
     ``torch.backends.cuda.matmul.allow_tf32 = True``, exact;
-14. the kernels line, the script's running time, the card line and the
+14. kernels 2 and 3 at every model size the entry points hold
+    (``phase_sizes``; in a process of its own when earlier phases ran, as
+    phase 9): at both ends of each range and one size of each capacity
+    class (``SIZES``: increment at 1, 3, 5 and 12 threads, increment_lock
+    at 1, 3, 5, 6, 12 and 16, the puzzle on 2x2, 3x2, 2x4, 3x4 and 4x4,
+    single-copy at 1/1, 3/2, 2/6, 1/7 and 4/4 clients / servers, ABD at
+    1/1, 2/4, 3/3, 4/4 and 1/7, ping-pong at 32 and 64 network slots, VSR
+    at 1/8, 2/32, 3/48 and 4/64 replicas / slots; the plan forms at
+    increment 3 and increment_lock 3 and 5), a run of the size on the fused
+    wave kernel and one on the sharded sender kernel (graphs off; their
+    launches exact; the sharded one stops at ``SIZE_SHARDED_CUT`` states),
+    then kernel 2 against its plain version on 16,384 rows of the
+    fused run's arena (all of it and seeded adversarial rows where it holds
+    fewer) against a table of its states, plain and with symmetry where
+    the model has it, and kernel 3 as 4 shards of 4,096 with and without
+    local dedup and ragged: every output and count equal, the scratch
+    clean, each plain version timed on its one checking call, each kernel
+    by replays of a CUDA graph of one call, beside its bound. Then the
+    registry's defaults, increment and increment_lock at 3 threads, to
+    their ends on the four engines on the torch stages, the kernels and
+    the kernels in plan form, each kernel run equal to its engine's torch
+    stages in counts and chains, and increment 3 configured by
+    ``STpu_WAVE_KERNEL=1`` alone on the wave kernel; single-copy 3/2 and
+    ABD 2/4 and 3/3 (cut, ``SIZE_CUTS``) on the four engines likewise;
+    ping-pong at 32 slots and VSR 4 at 64 cut on the fused, classic and
+    sharded engines at batch 2,048 (past a few full waves; the classic
+    runs' log counts them), each on the torch stages and the kernels, the
+    kernel runs equal to the torch stages'; VSR at 3 replicas and max_view
+    3 on 48 slots to its end on the fused wave kernel at batch 4,096,
+    exactly JAX's 1,344,659 / 5,456,850 at that batch with the "agreement"
+    counterexample, its chains those of the fused torch stages' run; and
+    the 3x4 puzzle (with an always property its space keeps, so that the
+    run goes on past "solved") to its end on the fused wave kernel,
+    239,500,800 / 678,585,601 (the 4x3's, transposed);
+15. the kernels line, the script's running time, the card line and the
     result line.
 
 It imports neither JAX nor ``stateright_tpu``.
@@ -280,6 +320,7 @@ import random
 import re
 import subprocess
 import sys
+import threading
 import time
 import traceback
 from collections import deque
@@ -299,7 +340,7 @@ PAXOS_WAVE_AT, PAXOS_MID = 240_000, 50_000
 #: the states paxos at 4 clients with symmetry runs to on the card and on
 #: the CPU (its whole space is far larger; its CPU runs cost most of the
 #: phase)
-PAXOS4_TARGET = 10_000
+PAXOS4_TARGET = 5_000
 BATCH = 16_384
 SHARDS = 4
 SRC = "stateright_tpu_torch/csrc/"
@@ -1686,8 +1727,9 @@ def _resume_exact(c, want, found, tag):
     got = (c.unique_state_count(), c.state_count())
     if got != want:
         raise AssertionError(f"{tag}: {got} != {want}")
-    if sorted(c.discoveries()) != found:
-        raise AssertionError(f"{tag}: discoveries {sorted(c.discoveries())}")
+    names = sorted(c.discoveries())
+    if names != found:
+        raise AssertionError(f"{tag}: discoveries {names}")
     c.assert_properties()  # the paths replay; no counterexample
 
 
@@ -2207,9 +2249,9 @@ def phase_classic_full(torch, kernels, config, model, want_counts,
     if (unique, states) != want_counts:
         raise AssertionError(f"{config} classic: {(unique, states)} != "
                              f"{want_counts}")
-    if sorted(c.discoveries()) != want_found:
-        raise AssertionError(f"{config} classic discoveries: "
-                             f"{sorted(c.discoveries())}")
+    names = sorted(c.discoveries())
+    if names != want_found:
+        raise AssertionError(f"{config} classic discoveries: {names}")
     c.assert_properties()
     want = {"dedup_and_insert": c.rehash_chunks + (0 if wave_kernel
                                                    else waves),
@@ -2428,9 +2470,12 @@ def _card_run(torch, kernels, fused, tag, build, engine, batch, want,
     got = (c.unique_state_count(), c.state_count())
     path = c.kernel_path()
     tag = f"{tag}, {engine}, {path}"
+    full = ("" if engine != "classic" else
+            f" ({sum(e['rows'] == batch for e in c.dispatch_log)} of "
+            f"{batch} rows)")
     _log(f"{tag}: unique={got[0]} states={got[1]} sec={sec:.3f} "
-         f"states/s={got[1] / sec:.1f} waves={c.waves} peak device memory "
-         f"{peak} B launches={launches}")
+         f"states/s={got[1] / sec:.1f} waves={c.waves}{full} peak device "
+         f"memory {peak} B launches={launches}")
     if any(w is not None and g != w for g, w in zip(got, want or ())):
         raise AssertionError(f"{tag}: {got} != {want}")
     if cpu is not None and got != (cpu.unique_state_count(),
@@ -2438,9 +2483,11 @@ def _card_run(torch, kernels, fused, tag, build, engine, batch, want,
         raise AssertionError(f"{tag}: {got}, the CPU run's "
                              f"{cpu.unique_state_count()} / "
                              f"{cpu.state_count()}")
-    if (found is not None and sorted(c.discoveries()) != found) or (
-            cpu is not None and _chains(c) != _chains(cpu)):
-        raise AssertionError(f"{tag}: discoveries {sorted(c.discoveries())}"
+    paths = c.discoveries()  # each path rebuilt once
+    if (found is not None and sorted(paths) != found) or (
+            cpu is not None and {k: p.fingerprints for k, p in paths.items()}
+            != _chains(cpu)):
+        raise AssertionError(f"{tag}: discoveries {sorted(paths)}"
                              ", or their chains differ from the CPU run")
     want_path = {("fused", False): "dedup_kernel",
                  ("fused", True): "megakernel",
@@ -2461,7 +2508,7 @@ def _card_run(torch, kernels, fused, tag, build, engine, batch, want,
     else:
         _check_launches(fused, c, launches, **spawn)
     chains = {name: (p.fingerprints, [repr(a) for a in p.into_actions()])
-              for name, p in c.discoveries().items()}
+              for name, p in paths.items()}
     return dict(sec=sec, peak=peak, launches=launches, waves=c.waves,
                 counts=got, chains=chains)
 
@@ -2470,12 +2517,12 @@ def _card_run(torch, kernels, fused, tag, build, engine, batch, want,
 #: cut to keep the script inside its time: each configuration runs to its
 #: end once, on the fused wave kernel): the 4x3 puzzle's "solved" lies 28
 #: moves from its start, and the 50,962,543 successors of its first 29 BFS
-#: levels are all expanded by 56 M; the others at 1/12 to 1/2 of their
-#: states
-CUTS = {"single_copy 4": 300_000, "single_copy 4 sym": 15_000,
-        "puzzle 4x3": 56_000_000, "paxos 4": 500_000,
-        "paxos 4 sym liveness": 300_000, "pingpong 11": 16_000_000,
-        "vsr 4": 1_500_000}
+#: levels are all expanded by 56 M; the others at 1/24 to 1/3 of their
+#: states (cut further to make room for phase 14)
+CUTS = {"single_copy 4": 200_000, "single_copy 4 sym": 15_000,
+        "puzzle 4x3": 56_000_000, "paxos 4": 300_000,
+        "paxos 4 sym liveness": 200_000, "pingpong 11": 8_000_000,
+        "vsr 4": 800_000}
 
 
 def _cut(tag: str) -> str:
@@ -3305,6 +3352,7 @@ def phase_sharded_classic_full(torch, kernels, config, model, want_counts,
     down = [e["bytes_down"] for e in c.dispatch_log]
     host = {k: v * 1e6 / waves for k, v in c.host_sec.items()}
     run = dict(sec=sec, waves=waves, captures=g["captures"],
+               counts=(unique, states),
                replays=g["replays"], capture_sec=g["capture_sec"],
                rungs=ladder["out_rows_dispatches"], regathers=regathers,
                host_us=host, bytes_down=sum(down) / waves,
@@ -3325,19 +3373,22 @@ def phase_sharded_classic_full(torch, kernels, config, model, want_counts,
          f"{host['wait']:.1f}; bytes down a wave {run['bytes_down']:.0f} "
          f"(most {max(down)}); peak device memory {peak} B; host parent log "
          f"{run['log_bytes']} B")
+    # Each path rebuilt once: on this engine a link is a search of the
+    # host's parent log.
+    chains = _chains(c)
     if cut is not None:
         if not cut <= states < want_counts[1] or not set(
-                c.discoveries()) <= set(want_found):
+                chains) <= set(want_found):
             raise AssertionError(f"{config} sharded classic cut at {cut}: "
                                  f"{(unique, states)}, discoveries "
-                                 f"{sorted(c.discoveries())}")
+                                 f"{sorted(chains)}")
     else:
         if (unique, states) != want_counts:
             raise AssertionError(f"{config} sharded classic: "
                                  f"{(unique, states)} != {want_counts}")
-        if sorted(c.discoveries()) != want_found:
+        if sorted(chains) != want_found:
             raise AssertionError(f"{config} sharded classic discoveries: "
-                                 f"{sorted(c.discoveries())}")
+                                 f"{sorted(chains)}")
         c.assert_properties()
     want = {"dedup_and_insert": SHARDS * waves + c.rehash_chunks,
             "wave_megakernel": 0,
@@ -3348,7 +3399,7 @@ def phase_sharded_classic_full(torch, kernels, config, model, want_counts,
                              f"{launches}, expected {want}")
     if not g["replays"]:
         raise AssertionError(f"{config} sharded classic: no replay")
-    return _chains(c), launches, run
+    return chains, launches, run
 
 
 def _sharded_point_timing(torch, point, run, config) -> None:
@@ -3414,20 +3465,20 @@ def _sharded_holds(torch, wave_mod, table_mod, sharded_mod, point, tag):
     return sk[(False, True)], k
 
 
-#: phase 12's runs cut at a state count (depth cut to keep the script
-#: inside its time when phase 13 came: 2pc 10 on the torch stages was its
-#: longest run; on the sender kernel it still runs to its end, and the cut
-#: run's chains are the whole run's for what it finds)
-SHARDED_CLASSIC_CUTS = {("2pc 10", False): 100_000_000}
+#: phase 12's runs cut at a state count (depth cuts to keep the script
+#: inside its time: 2pc 10 on the torch stages when phase 13 came, on the
+#: sender kernel when phase 14 did; phases 6 and 8 run its whole space on
+#: the other engines)
+SHARDED_CLASSIC_CUTS = {("2pc 10", False): 100_000_000,
+                        ("2pc 10", True): 100_000_000}
 
 
 def phase_sharded_classic(torch, kernels, wave_mod, table_mod):
     """Phase 12: the classic sharded engine's small gates against the CPU
     (``phase_sharded_classic_small``), then 2pc at 10 RMs and ``paxos
     check 3`` at ``SHARDS`` x 4,096 rows on the torch stages and on the
-    sender kernel, exact (2pc 10 on the torch stages cut at
-    ``SHARDED_CLASSIC_CUTS``' state count), the sender kernel's chains the
-    torch stages';
+    sender kernel, exact (2pc 10 cut at ``SHARDED_CLASSIC_CUTS``' state
+    count), the sender kernel's chains and counts the torch stages';
     from a mid-run point of each on each path, one replayed wave under
     ``set_sync_debug_mode("error")`` and the card's time a wave, and on
     the sender kernel's, kernels 3 and 1 held to their plain versions and
@@ -3453,10 +3504,11 @@ def phase_sharded_classic(torch, kernels, wave_mod, table_mod):
                 counts, found, wave_kernel,
                 SHARDED_CLASSIC_CUTS.get((config, wave_kernel)))
             runs[config, wave_kernel] = dict(launches=launches, run=run)
-        if chains[False] != {k: chains[True].get(k) for k in chains[False]}:
+        got = [runs[config, w]["run"]["counts"] for w in (False, True)]
+        if chains[False] != chains[True] or got[0] != got[1]:
             raise AssertionError(f"{config} sharded classic: the sender "
-                                 "kernel's chains differ from the torch "
-                                 "stages'")
+                                 f"kernel's chains or counts {got[1]} "
+                                 f"differ from the torch stages' {got[0]}")
         for wave_kernel in (False, True):
             t_point = time.monotonic()
             mid = (model().checker().target_state_count(mid_target)
@@ -3497,7 +3549,7 @@ def phase_sharded_classic(torch, kernels, wave_mod, table_mod):
 def _sharded_classic_rows(holds, runs):
     """The kernels line's rows of phase 12: kernels 3 and 1 on 2pc 10 and
     paxos 3 at the classic sharded path's shapes, with their launches in
-    that model's full run on the sender kernel (kernel 3) and on the torch
+    that model's run on the sender kernel (kernel 3) and on the torch
     stages (kernel 1)."""
     rows = []
     for config, source in (("2pc 10", "wave_twopc.cu"),
@@ -3794,6 +3846,615 @@ def _matmul_rows(holds, runs):
     return rows
 
 
+# -- Kernels 2 and 3 at every model size -------------------------------------
+
+
+#: the batch of the runs that give the actor models' rows (rows of 31 to 98
+#: whole words, 36 to 68 actions): their sharded runs at full width cost
+#: most of the phase
+WIDE = dict(batch=4096)
+#: the sizes phase 14 holds kernels 2 and 3 at (both ends of each range the
+#: entry points hold, and one size of each capacity class): (tag, the
+#: model's module and system, its arguments, the state count its runs stop
+#: at (None: to the end), symmetry held, spawn knobs of its runs). A run
+#: that would pass its network's slots (ABD 1/7 overflows its 8 past about
+#: 200 states) stops short of it at a small batch.
+SIZES = (
+    ("increment 1", "increment", (1,), None, True, {}),
+    ("increment 3", "increment", (3,), None, True, {}),
+    ("increment 5", "increment", (5,), None, True, {}),
+    ("increment 12", "increment", (12,), None, True, {}),
+    ("increment_lock 1", "increment_lock", (1,), None, True, {}),
+    ("increment_lock 3", "increment_lock", (3,), None, True, {}),
+    ("increment_lock 5", "increment_lock", (5,), None, True, {}),
+    ("increment_lock 6", "increment_lock", (6,), None, True, {}),
+    ("increment_lock 12", "increment_lock", (12,), 60_000, True, {}),
+    ("increment_lock 16", "increment_lock", (16,), 60_000, True, {}),
+    ("puzzle 2x2", "sliding_puzzle", (2, 2), None, False, {}),
+    ("puzzle 3x2", "sliding_puzzle", (3, 2), None, False, {}),
+    ("puzzle 2x4", "sliding_puzzle", (2, 4), None, False, {}),
+    ("puzzle 3x4", "sliding_puzzle", (3, 4), 60_000, False, {}),
+    ("puzzle 4x4", "sliding_puzzle", (4, 4), 60_000, False, {}),
+    ("single_copy 1/1", "single_copy", (1, 1), None, True, {}),
+    ("single_copy 3/2", "single_copy", (3, 2), None, True, {}),
+    ("single_copy 2/6", "single_copy", (2, 6), None, True, {}),
+    ("single_copy 1/7", "single_copy", (1, 7), None, True, {}),
+    ("single_copy 4/4", "single_copy", (4, 4), None, True, {}),
+    ("abd 1/1", "abd", (1, 1), None, False, {}),
+    ("abd 2/4", "abd", (2, 4), 60_000, False, {}),
+    ("abd 3/3", "abd", (3, 3), 60_000, False, {}),
+    ("abd 4/4", "abd", (4, 4), 60_000, False, {}),
+    ("abd 1/7", "abd", (1, 7), 200, False, dict(batch=16)),
+    ("pingpong 32", "pingpong", (11, False, 32), 100_000, False, WIDE),
+    ("pingpong 64", "pingpong", (11, False, 64), 100_000, False, WIDE),
+    ("vsr 1/8", "vsr", (1, 1, 8), None, False, WIDE),
+    ("vsr 2/32", "vsr", (2, 2, 32), None, False, WIDE),
+    ("vsr 3/48", "vsr", (3, 3, 48), 80_000, False, WIDE),
+    ("vsr 4/64", "vsr", (4, 1, 64), 110_000, False, WIDE))
+#: the sizes whose plan form (``wave_matmul``) phase 14 holds too
+PLAN_SIZES = ("increment 3", "increment_lock 3", "increment_lock 5")
+#: each model's sources: the wave kernel's and the sender kernel's
+SIZE_SOURCES = {"increment": ("wave_increment.cu",) * 2,
+                "increment_lock": ("wave_increment_lock.cu",) * 2,
+                "sliding_puzzle": ("wave_sliding_puzzle.cu",) * 2,
+                "single_copy": ("wave_single_copy.cu",
+                                "sender_single_copy.cu"),
+                "abd": ("wave_abd.cu", "sender_abd.cu"),
+                "pingpong": ("wave_pingpong.cu",) * 2,
+                "vsr": ("wave_vsr.cu", "sender_vsr.cu")}
+#: VSR at 3 replicas and max_view 3 on 48 slots, to its end at batch
+#: 4,096: the JAX package's fused engine's counts on the CPU at that
+#: batch, with an "agreement" counterexample. The run stops once
+#: every property has a discovery, so its counts follow the batch: at
+#: 16,384 both packages give 1,352,940 / 5,496,800 (PERF.md section 6).
+VSR33, VSR33_BATCH = (1_344_659, 5_456_850), 4096
+#: the 3x4 puzzle's space: the 4x3's transposed (an isomorphism of its
+#: graph: 12! / 2 boards, 17 edges of the grid)
+PUZZLE34 = PUZZLE43
+#: the cut of ping-pong at 32 slots and VSR at 4 replicas on 64 (held on
+#: the six engine and path combinations at batch 2,048, each past a few
+#: full waves: the classic runs' log counts them), and of ABD's runs on the
+#: four engines (their spaces are larger than a gate needs)
+SIZE_CUTS = {"pingpong 32": 60_000, "vsr 4/64": 40_000,
+             "abd 2/4": 40_000, "abd 3/3": 40_000}
+#: the states each size's sharded run stops at (the run shows kernel 3
+#: launched at the size on the sharded engine; the rows come from the
+#: fused run's arena)
+SIZE_SHARDED_CUT = 20_000
+
+
+def _whole_puzzle(rows, cols):
+    """The rows x cols puzzle (an even column count) with one more always
+    property, "solvable": its tiles' inversions plus the blank's row are
+    even on every board its start reaches (a vertical move hops a tile over
+    cols - 1 others and moves the blank a row; a horizontal one changes
+    neither), so a run goes on past "solved", its one sometimes property,
+    to the space's end."""
+    from stateright_tpu_torch.model import Property
+    from stateright_tpu_torch.models.sliding_puzzle import (PuzzleDevice,
+                                                            SlidingPuzzle)
+    import torch
+
+    if cols % 2:
+        raise ValueError("the invariant is an even column count's")
+
+    def inversions(tiles):
+        t = [x for x in tiles if x != 0]
+        return sum(a > b for i, a in enumerate(t) for b in t[i + 1:])
+
+    class Device(PuzzleDevice):
+        def device_properties(self):
+            props = super().device_properties()
+            n = self.state_width
+
+            def solvable(rows):
+                i, j = torch.triu_indices(n, n, offset=1, device=rows.device)
+                a, b = rows[:, i], rows[:, j]
+                inv = ((a > b) & (a != 0) & (b != 0)).sum(dim=1)
+                blank = (rows == 0).to(torch.int64).argmax(dim=1)
+                return (inv + blank // cols) % 2 == 0
+
+            props["solvable"] = solvable
+            return props
+
+    class Whole(SlidingPuzzle):
+        def properties(self):
+            return super().properties() + [Property.always(
+                "solvable", lambda _, s: (inversions(s)
+                                          + s.index(0) // cols) % 2 == 0)]
+
+        def device_model(self):
+            return Device(self.rows, self.cols)
+
+    return Whole(rows, cols)
+
+
+def _size_modules():
+    from stateright_tpu_torch import matmul_wave
+    from stateright_tpu_torch.models import (abd, increment, increment_lock,
+                                             pingpong, single_copy,
+                                             sliding_puzzle, vsr)
+
+    def build(model, args):
+        if model == "increment":
+            return increment.IncrementModel(*args)
+        if model == "increment_lock":
+            return increment_lock.IncrementLockModel(*args)
+        if model == "sliding_puzzle":
+            return sliding_puzzle.SlidingPuzzle(*args)
+        if model == "single_copy":
+            return single_copy.SingleCopySys(*args)
+        if model == "abd":
+            return abd.AbdSys(*args)
+        if model == "pingpong":
+            max_nat, history, slots = args
+            return pingpong.PingPongSys(max_nat, history, lossy=True,
+                                        net_slots=slots)
+        n, max_view, slots = args
+        return vsr.VsrSys(n, max_view, net_slots=slots)
+
+    return build, matmul_wave
+
+
+def _size_run(torch, kernels, fused, tag, build, target, sharded, batch,
+              **kw):
+    """``build()``'s checker on the card's kernels (stopped at ``target``
+    states where given), fused at ``batch`` rows or sharded on ``SHARDS``
+    shards of ``batch / SHARDS``, the launch counts set to 0 just before
+    and read just after and held to the run's waves. Returns ``(checker,
+    launches)``."""
+    for fn in kernels.values():
+        fn.launches = 0
+    b = build().checker()
+    if target is not None:
+        b = b.target_state_count(target)
+    spawn = (dict(mesh=["cuda:0"] * SHARDS, batch_size=max(batch // SHARDS, 1))
+             if sharded else dict(device="cuda:0", batch_size=batch))
+    spawn.update(wave_kernel=True, **kw)
+    t0 = time.monotonic()
+    c = b.spawn_cuda_bfs(**spawn).join()
+    sec = time.monotonic() - t0
+    launches = {name: fn.launches for name, fn in kernels.items()}
+    _check_launches(fused, c, launches, **spawn)
+    _log(f"{tag}, {'sharded' if sharded else 'fused'}: "
+         f"{c.unique_state_count()} / {c.state_count()} states in "
+         f"{sec:.3f} s, launches {launches}")
+    want = "sender_kernel" if sharded else "megakernel"
+    if c.kernel_path().split("+")[0] != want:
+        raise AssertionError(f"{tag}: kernel_path() {c.kernel_path()}")
+    return c, launches
+
+
+def _size_rows(torch, c, B, gen):
+    """``B`` packed rows of checker ``c``'s model: the last ``B`` of its
+    arena, or where it holds fewer, all of them and seeded adversarial
+    rows (a board's tiles shuffled; else small random lanes, and on a
+    network random envelopes and empty slots, half of them sorted)."""
+    dm, layout = c._dm, c._layout
+    if c._tail >= B:
+        return _last_rows(c, B), c._tail
+    n, w = B - c._tail, dm.state_width
+    if hasattr(dm, "rows") and hasattr(dm, "cols"):
+        adv = torch.argsort(torch.rand((n, w), generator=gen, device="cuda"),
+                            dim=1)
+    else:
+        adv = torch.randint(0, 12, (n, w), generator=gen, device="cuda")
+        if getattr(dm, "net_offset", None) is not None:
+            off, e = dm.net_offset, dm.net_slots
+            top = 1 << (getattr(dm, "extra_shift", 11) + 4)
+            env = torch.randint(0, top, (n, e), generator=gen,
+                                device="cuda")
+            env = torch.where(
+                torch.rand((n, e), generator=gen, device="cuda") < 0.3,
+                torch.full_like(env, 0xFFFFFFFF), env)
+            half = torch.arange(n, device="cuda")[:, None] < n // 2
+            adv[:, off:off + e] = torch.where(
+                half, torch.sort(env, dim=1).values, env)
+        if dm.error_lane is not None:
+            adv[:, dm.error_lane] = 0
+    return torch.cat([c._vecs[:c._tail], layout.pack(adv)]).contiguous(), \
+        c._tail
+
+
+def _replay_ms(torch, fn, calls, reps=3) -> float:
+    """Device time of ``fn()`` a call: ``calls`` calls captured in one CUDA
+    graph (after a call outside it), replayed once to warm it, then
+    ``reps`` replays back to back between two CUDA events, over the calls
+    they ran. Many calls a graph keep the card busier than the host's
+    enqueue of a replay (a few microseconds), which a graph of one short
+    call would time instead. The wrappers allocate their outputs from the
+    graph's pool, as the engines' captured dispatches do."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    del graph
+    return start.elapsed_time(end) / (reps * calls)
+
+
+def _graph_calls(S: int, wp: int) -> int:
+    """Calls a timing graph holds: enough that a replay keeps the card
+    busy, few enough that their outputs (16 bytes a slot and its packed
+    words) fit the graph's pool in about 256 MB."""
+    return max(1, min(16, (1 << 28) // (S * (16 + 4 * wp))))
+
+
+def _timed_once(torch, fn, *args):
+    """``(fn(*args), its ms)``: one call between CUDA events, synchronised
+    before and after."""
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn(*args)
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def _bound(nbytes, ops):
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / OPS_PER_S * 1e3
+    return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms
+                                   else "operations")
+
+
+def _log_slots(torch, dm, layout, store, got, want, tag, most=3):
+    """The first slots where the wave kernel's successor or sflat differs
+    from its plain version's: the parent row, the action, both
+    successors' lanes and sflats."""
+    F = dm.max_fanout
+    bad = ((got[0] != want[0]).any(dim=1) | (got[2] != want[2])).nonzero()
+    _log(f"{tag}: {bad.numel()} slots differ; the first:")
+    parents = layout.unpack(store)
+    mine, theirs = layout.unpack(got[0]), layout.unpack(want[0])
+    for i in bad[:most, 0].tolist():
+        _log(f"  slot {i} (row {i // F}, action {i % F}): parent "
+             f"{parents[i // F].tolist()}\n    kernel {mine[i].tolist()} "
+             f"sflat {bool(got[2][i])}\n    plain  {theirs[i].tolist()} "
+             f"sflat {bool(want[2][i])}")
+
+
+def _size_wave(torch, wave_mod, table_mod, dm, layout, store, table, use_sym,
+               plan, tag):
+    """Kernel 2 against its plain version on ``store`` (every row valid)
+    and a copy of ``table``, with a caller-owned scratch: every output, the
+    counts and the table as a set equal, the scratch clean; the plain
+    version timed on that one call, the kernel by graph replays
+    (``_replay_ms``)."""
+    B = store.shape[0]
+    S, wp = B * dm.max_fanout, layout.packed_width
+    valid = torch.ones(B, dtype=torch.bool, device="cuda")
+    fn, scratch = _scratch(torch, table_mod, wave_mod.wave_megakernel, S)
+    fn = functools.partial(fn, plan=plan)
+    t_k, t_p = table.clone(), table.clone()
+    got = fn(dm, store, valid, t_k, use_sym, layout)
+    want, plain_ms = _timed_once(
+        torch, functools.partial(wave_mod.wave_megakernel_plain, plan=plan),
+        dm, store, valid, t_p, use_sym, layout)
+    names = ("succ_store", "path_fps", "sflat", "new_mask", "cand_mask",
+             "new_count", "cand_count", "full")
+    for name, a, b in zip(names, got, want):
+        if not torch.equal(a, b):
+            _log_slots(torch, dm, layout, store, got, want, tag)
+            raise AssertionError(f"wave kernel ({tag}) disagrees with its "
+                                 f"plain version on {name}")
+    if not torch.equal(torch.sort(t_k).values, torch.sort(t_p).values):
+        raise AssertionError(f"wave kernel's table ({tag}) differs from the "
+                             "plain version's as a set")
+    _check_clean(torch, scratch, f"the wave kernel ({tag})")
+    n_valid, cand, new = int(got[2].sum()), int(got[6]), int(got[5])
+    del t_p, got, want
+    # Each replay restores the table first, so that every call inserts
+    # what the first did; the restore's own time is taken off.
+    calls = _graph_calls(S, wp)
+    ms = (_replay_ms(torch, lambda: (t_k.copy_(table), fn(
+        dm, store, valid, t_k, use_sym, layout)), calls)
+        - _replay_ms(torch, lambda: t_k.copy_(table), calls))
+    _check_clean(torch, scratch, f"the wave kernel ({tag}, timed)")
+    del t_k
+    bound_ms, bound_by = _bound(
+        4 * B * wp + B + 4 * S * wp + 8 * S + 3 * S + 32 * cand
+        + _plan_table_bytes(wave_mod, plan),
+        _front_ops(dm, S, n_valid, use_sym))
+    _log(f"wave kernel == plain ({tag}) at B={B}, S={S}, C=2^"
+         f"{table.shape[0].bit_length() - 1}: valid={n_valid} cand={cand} "
+         f"new={new}; kernel {ms:.4f} ms a call (graph replays between "
+         f"CUDA events), plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
+         f"({bound_by})")
+    return dict(max_abs_err=0, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by)
+
+
+def _size_sender(torch, wave_mod, table_mod, dm, layout, store, syms, plan,
+                 tag):
+    """Kernel 3 against its plain version on ``store`` as ``SHARDS``
+    shards, each of ``syms`` with local dedup on and off, then ragged (3
+    shards of a row less, the last 100 rows not valid): every output equal
+    and the scratch clean; each plain version timed on its one call, the
+    kernel (plain, local dedup: the engines' form) by graph replays
+    (``_replay_ms``). Returns the timed form's numbers."""
+    rows, wp = store, layout.packed_width
+    n, B = SHARDS, store.shape[0] // SHARDS
+    S = B * dm.max_fanout
+    out = None
+    for shape in ("even", "ragged"):
+        if shape == "ragged":
+            n, B = 3, B - 1
+            S = B * dm.max_fanout
+        stack = rows[:n * B].reshape(n, B, wp).contiguous()
+        valid = torch.ones((n, B), dtype=torch.bool, device="cuda")
+        if shape == "ragged":
+            valid[2, -100:] = False
+        fn, scratch = _scratch(torch, table_mod, wave_mod.sender_megakernel,
+                               n * S, n)
+        fn = functools.partial(fn, plan=plan)
+        for use_sym in syms if shape == "even" else (False,):
+            for local_dedup in (True, False):
+                args = (dm, stack, valid, use_sym, layout, local_dedup)
+                where = (f"{tag}, {shape}, {'sym' if use_sym else 'plain'}"
+                         f"{'' if local_dedup else ', no local dedup'}")
+                got = fn(*args)
+                want, plain_ms = _timed_once(
+                    torch, wave_mod.sender_megakernel_plain, *args, plan)
+                for name, a, b in zip(("succ_store", "dedup_fps", "path_fps",
+                                       "sflat", "send_mask"), got, want):
+                    if not torch.equal(a, b):
+                        raise AssertionError(
+                            f"sender kernel ({where}) disagrees with its "
+                            f"plain version on {name}")
+                _check_clean(torch, scratch, f"the sender kernel ({where})")
+                n_valid, sent = int(got[3].sum()), int(got[4].sum())
+                if out is None and local_dedup and not use_sym:
+                    ms = _replay_ms(torch, lambda: fn(*args),
+                                    _graph_calls(n * S, wp))
+                    _check_clean(torch, scratch,
+                                 f"the sender kernel ({where}, timed)")
+                    bound_ms, bound_by = _bound(
+                        4 * n * B * wp + n * B + 4 * n * S * wp + 16 * n * S
+                        + 2 * n * S + _plan_table_bytes(wave_mod, plan),
+                        _front_ops(dm, n * S, n_valid, False))
+                    out = dict(max_abs_err=0, ms=ms, plain_ms=plain_ms,
+                               bound_ms=bound_ms, bound_by=bound_by)
+                    _log(f"sender kernel == plain ({where}) at n={n} x "
+                         f"B={B}: valid={n_valid} sent={sent}; kernel "
+                         f"{ms:.4f} ms a call, plain {plain_ms:.4f} ms, "
+                         f"bound {bound_ms:.4f} ms ({bound_by})")
+        del fn, scratch
+    _log(f"sender kernel == plain ({tag}): every form, ragged too, scratch "
+         "clean")
+    return out
+
+
+def _size_holds(torch, kernels, fused, engine, wave_mod, table_mod,
+                build_model, matmul_wave):
+    """Kernels 2 and 3 at each size of ``SIZES`` (and ``PLAN_SIZES`` in plan
+    form): a run of the size on the fused wave kernel and one on the
+    sharded sender kernel, each stopped at its target; kernel 2 against
+    its plain version on 16,384 rows of the fused run's arena (all of it
+    and seeded adversarial rows where it holds fewer), against a table of
+    the run's states with the run's scratch, plain and with symmetry where
+    the model has it; kernel 3 on the same rows as 4 shards of 4,096 and
+    ragged. Returns the kernels line's rows."""
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    rows, failed = [], []
+    for tag, model, args, target, sym, kw in SIZES:
+        try:
+            rows += _size_hold(torch, kernels, fused, engine, wave_mod,
+                               table_mod, build_model, matmul_wave, gen, tag,
+                               model, args, target, sym, kw)
+        except AssertionError as e:
+            # Every size is held before the phase fails, so that one run
+            # shows each size that disagrees.
+            _log(f"{tag}: FAILED: {e}")
+            failed.append(tag)
+    if failed:
+        raise AssertionError(f"kernels 2 and 3 failed at {failed}")
+    return rows
+
+
+def _size_hold(torch, kernels, fused, engine, wave_mod, table_mod,
+               build_model, matmul_wave, gen, tag, model, args, target, sym,
+               kw):
+    """``_size_holds`` at one size: its kernels line's rows."""
+    rows = []
+    t0 = time.monotonic()
+    batch = kw.get("batch", BATCH)
+    forms = [(False, None)]
+    if tag in PLAN_SIZES:
+        plan = matmul_wave.classify(build_model(model, args)
+                                    .device_model()).plan
+        if plan is None:
+            raise AssertionError(f"{tag}: the gate found no plan")
+        forms.append((True, plan))
+    for planned, plan in forms:
+        build = functools.partial(build_model, model, args)
+        c, lw = _size_run(torch, kernels, fused, tag, build, target,
+                          False, batch, wave_matmul=planned,
+                          cuda_graph=False)
+        _, ls = _size_run(torch, kernels, fused, tag, build,
+                          min(target or SIZE_SHARDED_CUT, SIZE_SHARDED_CUT),
+                          True, batch, wave_matmul=planned, cuda_graph=False)
+        dm, layout = c._dm, c._layout
+        store, reached = _size_rows(torch, c, BATCH, gen)
+        keys = c._table[c._table != -1]
+        S = BATCH * dm.max_fanout
+        table = torch.full((_pow2(max(2 * (keys.numel() + S), 1 << 16)),),
+                           -1, dtype=torch.int64, device="cuda")
+        for chunk in keys.split(1 << 22):
+            engine.global_insert(chunk, torch.ones_like(
+                chunk, dtype=torch.bool), table)
+        name = tag + (" plan" if planned else "")
+        _log(f"{name}: {reached} rows of the run's arena "
+             f"({c.unique_state_count()} / {c.state_count()} states, "
+             f"waves {c.waves})")
+        held = _size_wave(torch, wave_mod, table_mod, dm, layout, store,
+                          table, False, plan, name)
+        if sym:
+            _size_wave(torch, wave_mod, table_mod, dm, layout, store,
+                       table, True, plan, name + ", sym")
+        sent = _size_sender(torch, wave_mod, table_mod, dm, layout, store,
+                            (False, True) if sym else (False,), plan,
+                            name)
+        wave_src, send_src = SIZE_SOURCES[model]
+        rows += [
+            _kernel_row(f"wave_megakernel[{name}]", SRC + wave_src,
+                        PALLAS + "380", lw["wave_megakernel"], 0, held),
+            _kernel_row(f"sender_megakernel[{name}]", SRC + send_src,
+                        PALLAS + "451", ls["sender_megakernel"], 0,
+                        sent)]
+        del c, store, table, keys
+    _log(f"{tag}: held in {time.monotonic() - t0:.1f} s")
+    return rows
+
+
+def _registry_runs(torch, kernels, fused, build_model):
+    """The registry's defaults, increment and increment_lock at 3 threads,
+    on the four engines: the torch stages, the kernels, and the kernels in
+    plan form (``wave_matmul``), each to its end; each engine's kernel runs
+    equal in counts and chains to its torch stages'. Then one run
+    configured by ``STpu_WAVE_KERNEL=1`` alone, on the wave kernel."""
+    runs = {}
+    for model in ("increment", "increment_lock"):
+        tag = f"{model} 3"
+        build = functools.partial(
+            lambda m: build_model(m, (3,)).checker(), model)
+        for engine in MATMUL_ENGINES:
+            ref = runs[tag, engine, "torch"] = _matmul_run(
+                torch, kernels, fused, tag, build, engine, False, False,
+                None)
+            for key, wave_matmul in (("kernel", False), ("plan", True)):
+                r = runs[tag, engine, key] = _matmul_run(
+                    torch, kernels, fused, tag, build, engine, True,
+                    wave_matmul, None)
+                _same_runs(r, ref, f"{tag}, {engine}, {key}")
+        counts = {runs[tag, e, "torch"]["counts"] for e in MATMUL_ENGINES}
+        _log(f"{tag}: every engine's kernel runs equal its torch stages' "
+             f"({sorted(counts)})")
+    old = os.environ.get("STpu_WAVE_KERNEL")
+    os.environ["STpu_WAVE_KERNEL"] = "1"
+    try:
+        for fn in kernels.values():
+            fn.launches = 0
+        c = (build_model("increment", (3,)).checker()
+             .spawn_cuda_bfs(device="cuda:0", batch_size=BATCH).join())
+        launches = {name: fn.launches for name, fn in kernels.items()}
+    finally:
+        if old is None:
+            del os.environ["STpu_WAVE_KERNEL"]
+        else:
+            os.environ["STpu_WAVE_KERNEL"] = old
+    _check_launches(fused, c, launches, wave_kernel=True)
+    ref = runs["increment 3", "fused", "kernel"]
+    if c.kernel_path() != "megakernel" or launches["wave_megakernel"] == 0 \
+            or (c.unique_state_count(), c.state_count()) != ref["counts"]:
+        raise AssertionError(f"STpu_WAVE_KERNEL=1: {c.kernel_path()}, "
+                             f"launches {launches}")
+    _log(f"increment 3 configured by STpu_WAVE_KERNEL=1 alone: "
+         f"{c.kernel_path()}, launches {launches}")
+    return runs
+
+
+def _four_engine_runs(torch, kernels, fused, tag, build):
+    """``build()`` on the four engines, each on the torch stages and the
+    kernels, the kernel runs equal to their torch stages' in counts and
+    chains."""
+    runs = {}
+    for engine in MATMUL_ENGINES:
+        ref = runs[tag, engine, False] = _matmul_run(
+            torch, kernels, fused, tag, build, engine, False, False, None)
+        r = runs[tag, engine, True] = _matmul_run(
+            torch, kernels, fused, tag, build, engine, True, False, None)
+        _same_runs(r, ref, f"{tag}, {engine}")
+    return runs
+
+
+def _cut_runs(torch, kernels, fused, tag, build, target, batch=2048):
+    """``build()`` cut at ``target`` states on the fused, classic and
+    sharded engines at ``batch`` rows (a quarter of that a shard), each on
+    the torch stages and the kernels: each engine's kernel run equal to
+    its torch stages' in counts and chains, every run at or past the
+    cut."""
+    runs = {}
+    for engine in ("fused", "classic", "sharded"):
+        for wave_kernel in (False, True):
+            runs[tag, engine, wave_kernel] = r = _card_run(
+                torch, kernels, fused, tag,
+                lambda: build().checker().target_state_count(target), engine,
+                batch, None, None, None, wave_kernel)
+            if r["counts"][1] < target:
+                raise AssertionError(f"{tag}, {engine}: {r['counts']} not "
+                                     f"cut at {target}")
+        _same_runs(runs[tag, engine, True], runs[tag, engine, False],
+                   f"{tag}, {engine}")
+    return runs
+
+
+def phase_sizes(torch, kernels, fused, engine, wave_mod, table_mod):
+    """Phase 14: kernels 2 and 3 at every model size (see the usage
+    text). Returns ``(rows, runs)``."""
+    build_model, matmul_wave = _size_modules()
+    rows = _clocked("the sizes' kernel holds", _size_holds, torch, kernels,
+                    fused, engine, wave_mod, table_mod, build_model,
+                    matmul_wave)
+    runs = _clocked("the registry's defaults", _registry_runs, torch,
+                    kernels, fused, build_model)
+    for tag, args in (("single_copy 3/2", ("single_copy", (3, 2))),
+                      ("abd 2/4", ("abd", (2, 4))),
+                      ("abd 3/3", ("abd", (3, 3)))):
+        target = SIZE_CUTS.get(tag)
+        build = functools.partial(
+            lambda a, t: (build_model(*a).checker() if t is None else
+                          build_model(*a).checker().target_state_count(t)),
+            args, target)
+        runs.update(_clocked(f"{tag} on the four engines",
+                             _four_engine_runs, torch, kernels, fused, tag,
+                             build))
+    for tag, args in (("pingpong 32", ("pingpong", (11, False, 32))),
+                      ("vsr 4/64", ("vsr", (4, 1, 64)))):
+        runs.update(_clocked(f"{tag} cut", _cut_runs, torch, kernels, fused,
+                             tag, functools.partial(build_model, *args),
+                             SIZE_CUTS[tag]))
+    runs["puzzle 3x4", "fused", True] = _clocked(
+        "puzzle 3x4, to its end", _card_run, torch, kernels, fused,
+        "puzzle 3x4", lambda: _whole_puzzle(3, 4).checker(), "fused", BATCH,
+        PUZZLE34, ["solved"], None, True)
+
+    def vsr():
+        return build_model("vsr", (3, 3, 48)).checker()
+
+    whole = _clocked("vsr 3/3 on 48 slots, to its end", _card_run, torch,
+                     kernels, fused, "vsr 3/3", vsr, "fused", VSR33_BATCH,
+                     None, None, None, True)
+    ref = _clocked("vsr 3/3 on 48 slots, the torch stages", _card_run, torch,
+                   kernels, fused, "vsr 3/3", vsr, "fused", VSR33_BATCH,
+                   None, None, None, False)
+    _same_runs(whole, ref, "vsr 3/3, 48 slots")
+    _log(f"vsr 3/3 on 48 slots: {whole['counts']} (JAX's fused engine on "
+         f"the CPU at the same batch: {VSR33}), found "
+         f"{sorted(whole['chains'])}")
+    if whole["counts"] != VSR33 or "agreement" not in whole["chains"]:
+        raise AssertionError(f"vsr 3/3, 48 slots: {whole['counts']} and "
+                             f"{sorted(whole['chains'])}, JAX's {VSR33} and "
+                             "an agreement counterexample")
+    runs["vsr 3/3", "fused", True] = whole
+    return rows, runs
+
+
 def _modules():
     """The port's modules, from the checkout beside this script."""
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
@@ -3821,14 +4482,15 @@ def _log_ptxas(log: str) -> None:
             model = re.search(r"(TwoPhase|PaxosServer|SingleCopyServer"
                               r"|AbdServer|IncrementLock|Increment"
                               r"|SlidingPuzzle|PingPong|Vsr)ILi(\d+)E"
-                              r"(?:Li(\d+)E)?"
+                              r"(?:Li(\d+)E)?(?:Li(\d+)E)?(?:Lb(\d)E)?"
                               r"|(LinearEquation|DGraph)", mangled)
             tail = re.search(r"(WaveTail|SenderTail)", mangled)
-            if model and model.group(4):
-                name = model.group(4)
+            if model and model.group(6):
+                name = model.group(6)
             elif model:
                 name = model.group(1).replace("Server", "") + "<" + ", ".join(
-                    g for g in model.groups()[1:3] if g) + ">"
+                    g for g in model.groups()[1:4] if g) + (
+                    ", true" if model.group(5) == "1" else "") + ">"
             if model and "PlanStep" in mangled:
                 name = f"PlanStep<{name}>"
             kernel = ((fn.group(1) if fn else mangled)
@@ -3848,28 +4510,34 @@ def phase_build(_build, table_mod, wave_mod, append_mod) -> None:
         return name, time.monotonic() - t0
 
     # One nvcc a source, all started together.
-    def entries(name, kinds):
+    def entries(name, kinds, source):
         # Each model's params' C types (wave._kinds); the sender entry
         # point too where it shares the wave kernel's source, and the plan
         # forms where the source holds them.
-        if name in wave_mod.SENDER_SOURCES:
-            return lambda: wave_mod._entry(name, kinds)
+        if source in wave_mod.SENDER_SOURCES:
+            return lambda: wave_mod._entry(name, kinds, source=source)
         plans = (True,) if name in ("twopc", "increment",
                                     "increment_lock") else ()
         return lambda: [fn(name, kinds, plan) for plan in (False,) + plans
                         for fn in (wave_mod._entry, wave_mod._sender_entry)]
 
-    models = (("twopc", "i"), ("paxos", "ii"), ("single_copy", "iii"),
-              ("abd", "iii"), ("linear_equation", ""), ("dgraph", "p"),
-              ("increment", "i"), ("increment_lock", "i"),
-              ("sliding_puzzle", "ii"), ("pingpong", "iiiii"),
-              ("vsr", "iiiii"))
+    # (model, its params' C types, the source's name: wave._source)
+    models = (("twopc", "i", "twopc"), ("paxos", "ii", "paxos"),
+              ("paxos", "ii", "paxos4"),
+              ("single_copy", "iii", "single_copy"),
+              ("abd", "iii", "abd"), ("linear_equation", "",
+                                      "linear_equation"),
+              ("dgraph", "p", "dgraph"), ("increment", "i", "increment"),
+              ("increment_lock", "i", "increment_lock"),
+              ("sliding_puzzle", "ii", "sliding_puzzle"),
+              ("pingpong", "iiiii", "pingpong"), ("vsr", "iiiii", "vsr"))
     jobs = ([("table", table_mod._lib)]
-            + [("wave_" + name, entries(name, kinds))
-               for name, kinds in models]
-            + [(wave_mod.SENDER_SOURCES[name], functools.partial(
-                wave_mod._sender_entry, name, kinds))
-               for name, kinds in models if name in wave_mod.SENDER_SOURCES]
+            + [("wave_" + source, entries(name, kinds, source))
+               for name, kinds, source in models]
+            + [(wave_mod.SENDER_SOURCES[source], functools.partial(
+                wave_mod._sender_entry, name, kinds, source=source))
+               for name, kinds, source in models
+               if source in wave_mod.SENDER_SOURCES]
             + [("append", append_mod._lib)])
     with ThreadPoolExecutor(len(jobs)) as pool:
         builds = [pool.submit(build, name, load) for name, load in jobs]
@@ -4106,31 +4774,80 @@ def _register_rows(holds, runs):
                     holds["abd 2", "sender"][(False, True)])]
 
 
-def _in_child(card: str, phase: str):
-    """Phase ``phase`` (9 to 13) in a process of its own (``--phases
-    <phase>``), whose log it passes on and whose kernels line's rows it
-    returns. After phases 2 to 8 in one process, about half of the
+class _Children:
+    """Phases 9 to 14 (``later``, in order), each in a process of its own
+    (``--phases <phase>``) whose log it passes on and whose kernels line's
+    rows it returns. After phases 2 to 8 in one process, about half of the
     profiles the register phase took there recorded no device time on the
-    card; a fresh process records them all."""
-    child = subprocess.run(
-        [sys.executable, os.path.abspath(__file__), "--phases", phase],
-        capture_output=True, text=True, timeout=900)
-    rows = None
-    for line in child.stdout.splitlines():
-        if line.startswith('{"kernels": '):
-            rows = json.loads(line)["kernels"]
-        elif not line.startswith(('{"ok": ', "card: ")) and line != card:
-            _log(line)
-    sys.stderr.write(child.stderr)
-    if child.returncode != 0 or rows is None:
-        raise AssertionError(f"the {phase} phase's process failed (rc "
-                             f"{child.returncode})")
-    return rows
+    card; a fresh process records them all. Each process is started a turn
+    ahead (``ahead``, then as the one before it is let go): it imports the
+    port, loads its kernels and the card, and waits for a line on its
+    standard input (``CHIP_SMOKE_WAIT``), so that its start overlaps the
+    phase before it."""
+
+    def __init__(self, card: str, later):
+        self.card, self.queue, self.procs = card, list(later), {}
+
+    def _start(self, phase: str) -> None:
+        proc = subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--phases", phase],
+            stdin=subprocess.PIPE, stdout=subprocess.PIPE, text=True,
+            env=dict(os.environ, CHIP_SMOKE_WAIT="1"))
+        # A phase that hangs is killed: its output then ends, and it fails.
+        timer = threading.Timer(900, proc.kill)
+        timer.daemon = True
+        timer.start()
+        self.procs[phase] = (proc, timer)
+
+    def ahead(self) -> None:
+        """Starts the first waiting phase's process, if none is running."""
+        if self.queue and self.queue[0] not in self.procs:
+            self._start(self.queue[0])
+
+    def run(self, phase: str):
+        """Lets ``phase``'s process go (the next one starts meanwhile) and
+        returns its rows once it has printed its result line."""
+        assert self.queue and self.queue[0] == phase
+        self.ahead()
+        proc, _ = self.procs[phase]
+        proc.stdin.write("go\n")
+        proc.stdin.close()
+        self.queue.pop(0)
+        self.ahead()
+        rows = ok = None
+        for line in proc.stdout:
+            line = line.rstrip("\n")
+            if line.startswith('{"kernels": '):
+                rows = json.loads(line)["kernels"]
+            elif line.startswith('{"ok": '):
+                ok = json.loads(line)
+                break
+            elif not line.startswith("card: ") and line != self.card:
+                _log(line)
+        rc = proc.wait() if ok is None else 0
+        if rc != 0 or rows is None or not ok:
+            raise AssertionError(f"the {phase} phase's process failed (rc "
+                                 f"{proc.wait()})")
+        return rows
+
+    def close(self) -> None:
+        """Waits for every process it started (each past its result line
+        only exits), stopping any still waiting or running."""
+        for proc, timer in self.procs.values():
+            if proc.poll() is None and not proc.stdin.closed:
+                proc.stdin.close()  # a waiting phase reads no go: it ends
+            try:
+                proc.wait(timeout=60)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait()
+            timer.cancel()
+            proc.stdout.close()
 
 
 #: the phases ``--phases`` can name, in the order they run
 PHASES = ("kernels", "small", "full", "checkpoint", "classic", "registers",
-          "corpus", "actors", "sharded_classic", "matmul")
+          "corpus", "actors", "sharded_classic", "matmul", "sizes")
 
 
 def _parse(argv):
@@ -4165,6 +4882,15 @@ def main(argv) -> int:
              append_mod)
     card = _card_line()
     _log(f"card: {card}")
+    if os.environ.get("CHIP_SMOKE_WAIT"):
+        # Started a turn ahead (``_Children``): the port, its kernels and
+        # the card are loaded; the phase runs once the parent says so, and
+        # not at all when its input ends first.
+        torch.zeros(1, device="cuda")
+        torch.cuda.synchronize()
+        if not sys.stdin.readline():
+            return 1
+        t_start = time.monotonic()
     if rehash:
         r = phase_rehash(torch, table_mod, engine, fused, TwoPhaseSys)
         print(json.dumps({"rehash": {
@@ -4190,7 +4916,26 @@ def main(argv) -> int:
         old["ck"] = _clocked("phase 7", phase_checkpoint, torch, kernels,
                              fused, table_mod, engine, ckpt_mod, TwoPhaseSys,
                              PaxosSys)
+    # Phases 9 to 14 each in a process of its own, unless it is the only
+    # one asked for; the first starts while phase 8 runs.
+    alone = len(phases) == 1
+    children = _Children(card, [] if alone else
+                         [p for p in PHASES[5:] if p in phases])
+    try:
+        return _later_phases(torch, kernels, fused, engine, wave_mod,
+                             table_mod, ckpt_mod, TwoPhaseSys, PaxosSys,
+                             phases, old, card, children, t_start)
+    finally:
+        children.close()
+
+
+def _later_phases(torch, kernels, fused, engine, wave_mod, table_mod,
+                  ckpt_mod, TwoPhaseSys, PaxosSys, phases, old, card,
+                  children, t_start) -> int:
+    """Phases 8 to 15 of ``main``."""
+    alone = len(phases) == 1
     if "classic" in phases:
+        children.ahead()
         # Its small gates against the CPU, then paxos 3 and 2pc 10 on both
         # successor paths beside the fused runs of phase 6.
         old["cl"] = _clocked("phase 8", phase_classic, torch, kernels,
@@ -4199,38 +4944,28 @@ def main(argv) -> int:
     if set(PHASES[:5]) <= phases:
         rows += _earlier_rows(**{key: old[key] for key in (
             "k", "w", "pw", "sk", "psk", "ap", "full", "ck", "cl")})
-    # Phase 9, 10, 11, 12 or 13 runs here when it is the only one asked
-    # for, else each in a process of its own.
-    if phases == {"registers"}:
-        rows += _register_rows(*phase_registers(torch, kernels, fused,
-                                                wave_mod, table_mod))
-    elif "registers" in phases:
-        rows += _clocked("the registers phase's process", _in_child, card,
-                         "registers")
-    if phases == {"corpus"}:
-        rows += _corpus_rows(*phase_corpus(torch, kernels, fused, wave_mod,
-                                           table_mod))
-    elif "corpus" in phases:
-        rows += _clocked("the corpus phase's process", _in_child, card,
-                         "corpus")
-    if phases == {"actors"}:
-        rows += _actor_rows(*phase_actors(torch, kernels, fused, wave_mod,
-                                          table_mod))
-    elif "actors" in phases:
-        rows += _clocked("the actors phase's process", _in_child, card,
-                         "actors")
-    if phases == {"sharded_classic"}:
-        rows += _sharded_classic_rows(*phase_sharded_classic(
-            torch, kernels, wave_mod, table_mod))
-    elif "sharded_classic" in phases:
-        rows += _clocked("the sharded_classic phase's process", _in_child, card,
-                         "sharded_classic")
-    if phases == {"matmul"}:
-        rows += _matmul_rows(*_clocked("phase 13", phase_matmul, torch,
-                                       kernels, fused, wave_mod, table_mod))
-    elif "matmul" in phases:
-        rows += _clocked("the matmul phase's process", _in_child, card,
-                         "matmul")
+    here = {
+        "registers": lambda: _register_rows(*phase_registers(
+            torch, kernels, fused, wave_mod, table_mod)),
+        "corpus": lambda: _corpus_rows(*phase_corpus(
+            torch, kernels, fused, wave_mod, table_mod)),
+        "actors": lambda: _actor_rows(*phase_actors(
+            torch, kernels, fused, wave_mod, table_mod)),
+        "sharded_classic": lambda: _sharded_classic_rows(
+            *phase_sharded_classic(torch, kernels, wave_mod, table_mod)),
+        "matmul": lambda: _matmul_rows(*_clocked(
+            "phase 13", phase_matmul, torch, kernels, fused, wave_mod,
+            table_mod)),
+        "sizes": lambda: _clocked("phase 14", phase_sizes, torch, kernels,
+                                  fused, engine, wave_mod, table_mod)[0]}
+    for phase in PHASES[5:]:
+        if phase not in phases:
+            continue
+        if alone:
+            rows += here[phase]()
+        else:
+            rows += _clocked(f"the {phase} phase's process", children.run,
+                             phase)
     print(json.dumps({"kernels": rows}))
     _log(f"chip_smoke ran {time.monotonic() - t_start:.1f} s")
     print(card)

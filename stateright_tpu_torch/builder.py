@@ -13,6 +13,7 @@ the caller asks. The engines are chosen by JAX's
 
 from __future__ import annotations
 
+import os
 from typing import Optional
 
 import torch
@@ -66,7 +67,8 @@ class CheckerBuilder:
                        table_capacity: int = 1 << 16,
                        arena_capacity: Optional[int] = None,
                        waves_per_dispatch: int = 16,
-                       wave_kernel: bool = False, sharded=None, mesh=None,
+                       wave_kernel: Optional[bool] = None, sharded=None,
+                       mesh=None,
                        exchange_novel_only=None,
                        max_batch_size: Optional[int] = None,
                        inflight_dispatches: int = 1,
@@ -85,10 +87,15 @@ class CheckerBuilder:
         there is none: the port never falls back to the CPU on its own.
         ``device="cpu"`` runs the same engine with the kernels' plain
         versions. ``wave_kernel=True`` runs each wave's successor path
-        as one kernel (``wave.py``); on the card it needs a model with
-        CUDA device code (``DeviceModel.cuda_model()``) and raises for
-        one without. Every model of ``models/`` and ``test_util.py`` has
-        one, at the sizes its entry point instantiates: 2pc; the actor
+        as one kernel (``wave.py``; the sender kernel on a sharded
+        engine); ``None``, the default, follows the ``STpu_WAVE_KERNEL``
+        environment variable, as in JAX (unset, empty or ``"0"`` is off,
+        anything else on), and an explicit value wins. On the card it
+        needs a model with CUDA device code (``DeviceModel.cuda_model()``)
+        and raises for one without, or for a size its entry point holds
+        no instance of; ``kernel_path()`` says which path ran. Every
+        model of ``models/`` and ``test_util.py`` has one, at the sizes
+        its entry point holds (``CUDA_INSTANCES``): 2pc; the actor
         models on ``csrc/models/actor_net.cuh`` (every network form:
         duplicating or not, lossy or not, with timers), the register
         workloads paxos, single-copy and ABD, and ping-pong and
@@ -160,9 +167,9 @@ class CheckerBuilder:
         (``matmul_wave.py``) on every engine and path: classified at spawn
         by probing the model's own step, ``matmul_expand`` on the torch
         stages and the plan form of the kernels with ``wave_kernel=True``,
-        which on the card the entry points hold for 2pc to 8 RMs and
-        increment and increment_lock at 2, 4 and 8 threads (another
-        regular model raises there). An irregular model warns once and
+        which on the card the entry points hold for 2pc, increment and
+        increment_lock at 1 to 8 RMs or threads (another regular model
+        raises there). An irregular model warns once and
         keeps its step. It changes no result; ``kernel_path()`` ends in
         ``+matmul`` and ``scheduler_stats()["wave_matmul"]`` says which
         form ran and why."""
@@ -171,7 +178,8 @@ class CheckerBuilder:
                 "fused=True and pipeline=True are mutually exclusive: "
                 "pipelining is a classic-engine knob")
         knobs = dict(table_capacity=table_capacity,
-                     wave_kernel=wave_kernel, max_batch_size=max_batch_size,
+                     wave_kernel=wave_kernel_on(wave_kernel),
+                     max_batch_size=max_batch_size,
                      checkpoint_path=checkpoint_path,
                      checkpoint_every_waves=checkpoint_every_waves,
                      resume_from=resume_from, async_io=async_io,
@@ -232,6 +240,15 @@ class CheckerBuilder:
             self, mesh, batch_size=batch_size,
             exchange_novel_only=exchange_novel_only,
             cuda_graph=_graphs_on(cuda_graph, mesh.device), **kwargs)
+
+
+def wave_kernel_on(wave_kernel) -> bool:
+    """``spawn_cuda_bfs``'s ``wave_kernel`` resolved: ``None`` follows the
+    ``STpu_WAVE_KERNEL`` environment variable, as the reference's does
+    (``stateright_tpu/tpu/engine.py:278-281``)."""
+    if wave_kernel is None:
+        return os.environ.get("STpu_WAVE_KERNEL", "") not in ("", "0")
+    return bool(wave_kernel)
 
 
 def _graphs_on(cuda_graph, device: torch.device) -> bool:

@@ -72,15 +72,19 @@ class Checker:
 
     def assert_properties(self) -> None:
         """Examples exist for every sometimes property, and no
-        counterexample for any always or eventually property."""
+        counterexample for any always or eventually property. The paths
+        are rebuilt once for all the properties."""
+        found = self.discoveries()
         for p in self.model().properties():
             if p.expectation is Expectation.SOMETIMES:
-                self.assert_any_discovery(p.name)
+                self.assert_any_discovery(p.name, found)
             else:
-                self.assert_no_discovery(p.name)
+                self.assert_no_discovery(p.name, found)
 
-    def assert_any_discovery(self, name: str) -> Path:
-        found = self.discovery(name)
+    def assert_any_discovery(self, name: str, discoveries=None) -> Path:
+        """``discoveries``, where given, is ``self.discoveries()``."""
+        found = (self.discovery(name) if discoveries is None
+                 else discoveries.get(name))
         if found is not None:
             return found
         if not self.is_done():
@@ -88,8 +92,10 @@ class Checker:
                                  "model checking is incomplete.")
         raise AssertionError(f'Discovery for "{name}" not found.')
 
-    def assert_no_discovery(self, name: str) -> None:
-        found = self.discovery(name)
+    def assert_no_discovery(self, name: str, discoveries=None) -> None:
+        """``discoveries`` as ``assert_any_discovery``'s."""
+        found = (self.discovery(name) if discoveries is None
+                 else discoveries.get(name))
         if found is not None:
             raise AssertionError(
                 f'Unexpected "{name}" {self.discovery_classification(name)} '

@@ -14,6 +14,11 @@
 // client-permutation group is trivial on every configuration that has a
 // device form (kC <= kS), so the representative is the row itself and the
 // policy has no symmetry hooks.
+//
+// AbdServer<kC, kS, kMinS, kRunTime> holds kMinS to kS servers, the count
+// s at run time where kRunTime (register_workload.cuh): the row at the
+// capacity keeps kS response lanes a server, and a response, peer, ack and
+// quorum past s is guarded by s. with_abd picks the instance for a pair.
 
 #pragma once
 
@@ -23,7 +28,7 @@
 
 namespace sr {
 
-template <int kC_, int kS_>
+template <int kC_, int kS_, int kMinS_ = kS_, bool kRunTime_ = (kMinS_ < kS_)>
 struct AbdServer : RegisterEnv<kC_> {
   using B = RegisterEnv<kC_>;
   using typename B::Env;
@@ -35,12 +40,19 @@ struct AbdServer : RegisterEnv<kC_> {
   using B::kPut;
   using B::kPutOk;
 
-  static constexpr int kS = kS_;
-  static_assert(kS >= 1 && kS + kC <= 8, "the actor field is 3 bits");
-  static_assert(kC <= kS, "request ids collide: no device form");
+  static constexpr int kS = kS_, kMinS = kMinS_;
+  static constexpr bool kServersAtRunTime = kRunTime_;
+  static_assert(kMinS >= 1 && kMinS <= kS && kS + kC <= 8,
+                "the actor field is 3 bits");
+  static_assert(kC <= kMinS, "request ids collide: no device form");
+  __host__ __device__ static constexpr int server_lanes(int s) {
+    return 7 + s;
+  }
+  __host__ __device__ static constexpr int max_out(int s) {
+    return s > 2 ? s - 1 : 1;
+  }
   static constexpr int kServerLanes = 7 + kS;
   static constexpr int kMaxOut = kS > 2 ? kS - 1 : 1;
-  static constexpr uint32_t kMajority = kS / 2 + 1;
   static constexpr int kSeqMax = kC * kS + kS - 1;
   static constexpr int kExtraBits = max_int(1, bit_length(kSeqMax));
   static constexpr int kServerBits =
@@ -51,14 +63,18 @@ struct AbdServer : RegisterEnv<kC_> {
   static constexpr uint32_t kQuery = 4, kAckQuery = 5, kRecord = 6,
                             kAckRecord = 7;
 
-  // AbdActor.on_msg at server D: every branch computes, and each lane
+  // AbdActor.on_msg at server D of s: every branch computes, and each lane
   // selects its value, as the torch code does; the kinds exclude each
-  // other.
-  template <int D, int W>
+  // other. D is a constant after inlining where the workload dispatches on
+  // it (every lane index then a constant), and at run time where the
+  // server count is (the row in local memory, one copy of this body).
+  template <int W>
   static __device__ __forceinline__ bool server(uint32_t (&v)[W],
                                                 const Env& m,
-                                                uint32_t (&outs)[kMaxOut]) {
-    constexpr int o = D * kServerLanes;
+                                                uint32_t (&outs)[kMaxOut],
+                                                int s, int D) {
+    const int o = D * kServerLanes;
+    const uint32_t S = (uint32_t)s, majority = S / 2 + 1;
     const uint32_t seq = v[o], val = v[o + 1], ph_kind = v[o + 2],
                    ph_req = v[o + 3], ph_write = v[o + 4],
                    ph_read = v[o + 5], ph_acks = v[o + 6];
@@ -75,15 +91,15 @@ struct AbdServer : RegisterEnv<kC_> {
     uint32_t count = 0, most = 0;
 #pragma unroll
     for (int j = 0; j < kS; ++j) {
-      resp2[j] = m.src == (uint32_t)j ? m_resp : v[o + 7 + j];
+      resp2[j] = j >= s ? 0u : m.src == (uint32_t)j ? m_resp : v[o + 7 + j];
       count += resp2[j] != 0 ? 1u : 0u;
       most = max(most, resp2[j]);
     }
-    const bool quorum_q = count == kMajority;
+    const bool quorum_q = count == majority;
     const uint32_t best = most - 1;  // distinct seqs: the max code's seq
     const uint32_t best_seq = best / (kC + 1), best_val = best % (kC + 1);
     const bool is_write = ph_write != 0;
-    const uint32_t new_seq = is_write ? (best_seq / kS + 1) * kS + D
+    const uint32_t new_seq = is_write ? (best_seq / S + 1) * S + (uint32_t)D
                                       : best_seq;
     const uint32_t new_val = is_write ? ph_write : best_val;
     const bool adopt = quorum_q && new_seq > seq;  // the self-sent Record
@@ -96,8 +112,8 @@ struct AbdServer : RegisterEnv<kC_> {
     const uint32_t acks2 = ph_acks | (1u << m.src);
     uint32_t acked = 0;
 #pragma unroll
-    for (int j = 0; j < kS; ++j) acked += (acks2 >> j) & 1u;
-    const bool quorum_r = acked == kMajority;
+    for (int j = 0; j < kS; ++j) acked += j < s ? (acks2 >> j) & 1u : 0u;
+    const bool quorum_r = acked == majority;
 
     if (start) {
       v[o + 2] = 1;
@@ -138,7 +154,7 @@ struct AbdServer : RegisterEnv<kC_> {
 #pragma unroll
     for (int p = 0; p < kS; ++p) {
       const uint32_t x =
-          p == D ? kEmpty
+          p == D || p >= s ? kEmpty
           : start ? env_of(p, D, kQuery, m.req, 0, 0)
           : ackq && quorum_q ? env_of(p, D, kRecord, ph_req, new_val, new_seq)
                              : kEmpty;
@@ -150,7 +166,7 @@ struct AbdServer : RegisterEnv<kC_> {
       }
     }
     // The reply slot (never live together with a broadcast).
-    const uint32_t requester = kS + (ph_req & 3u);
+    const uint32_t requester = S + (ph_req & 3u);
     const uint32_t reply =
         query ? env_of(m.src, D, kAckQuery, m.req, val, seq)
         : record ? env_of(m.src, D, kAckRecord, m.req, 0, 0)
@@ -164,7 +180,36 @@ struct AbdServer : RegisterEnv<kC_> {
   }
 };
 
-template <int kC, int kS>
-using Abd = RegisterWorkload<AbdServer<kC, kS>>;
+template <int kC, int kS, int kMinS = kS, bool kRunTime = (kMinS < kS)>
+using Abd = RegisterWorkload<AbdServer<kC, kS, kMinS, kRunTime>>;
+
+// Calls fn with the instance that holds c clients, s servers and net_slots
+// e (at most the default at s servers' capacity): every pair of 1 to 4
+// clients and 1 to 7 servers, at most 8 actors, whose request ids do not
+// collide (c <= s; 16 pairs). The pairs that had exact instances before
+// the servers came at run time keep them, the fastest form for their
+// sizes: 2 / 2 (linearizable-register check 2, whose kernel rows later PRs
+// compare) and 2 / 3. The others run on an instance a client count with
+// the servers at run time, 4 / 4 (the only pair at 4 clients) too: its
+// exact instance's four server bodies on a row of 84 lanes took 49 s of
+// nvcc, this one 10 (PERF.md section 6). `none` for another pair or more
+// slots.
+template <class Fn>
+long long with_abd(int c, int s, int e, long long none, Fn&& fn) {
+  if (c < 1 || c > s || c + s > 8) return none;
+  switch (c) {
+    case 1:
+      return with_register<Abd<1, 7, 1>>(e, s, none, fn);
+    case 2:
+      if (s == 2) return with_register<Abd<2, 2>>(e, s, none, fn);
+      if (s == 3) return with_register<Abd<2, 3>>(e, s, none, fn);
+      return with_register<Abd<2, 6, 3>>(e, s, none, fn);
+    case 3:
+      return with_register<Abd<3, 5, 3>>(e, s, none, fn);
+    case 4:
+      return with_register<Abd<4, 4, 4, true>>(e, s, none, fn);
+  }
+  return none;
+}
 
 }  // namespace sr

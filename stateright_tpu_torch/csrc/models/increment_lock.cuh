@@ -15,6 +15,9 @@
 // lock (lock = 1, pc = 1; enabled when the lock is free), read (t = i, pc
 // = 2), write (i = t + 1, pc = 3), or else release (lock = 0, pc = 4;
 // enabled at pc 3 with the lock held). No boundary, no error lane.
+//
+// The thread count t is at run time under a capacity (kMaxT), as in
+// increment.cuh, and with_increment_lock picks the instance.
 
 #pragma once
 
@@ -25,24 +28,29 @@
 
 namespace sr {
 
-template <int kT>
+template <int kMaxT_>
 struct IncrementLock {
-  static constexpr int kMaxW = 2 + 2 * kT;
+  static constexpr int kMaxT = kMaxT_;
+  static constexpr int kMaxW = 2 + 2 * kMaxT;
   // t_bits-bit counter and read values, a 1-bit lock, 3-bit pcs
-  // (lane_bits()).
-  static constexpr int kTBits = kT < 4 ? 2 : (kT < 8 ? 3 : (kT < 16 ? 4 : 5));
-  static constexpr int kMaxWords = ((kT + 1) * kTBits + 1 + 3 * kT + 31) / 32;
-  static constexpr int kMinFanout = kT;
+  // (lane_bits()); the most words of any t <= kMaxT.
+  static constexpr int kTBits =
+      kMaxT < 4 ? 2 : (kMaxT < 8 ? 3 : (kMaxT < 16 ? 4 : 5));
+  static constexpr int kMaxWords =
+      ((kMaxT + 1) * kTBits + 1 + 3 * kMaxT + 31) / 32;
+  static constexpr int kMinFanout = kMaxT > 2 ? kMaxT / 2 + 1 : 1;
 
-  __host__ __device__ int width() const { return kMaxW; }
-  __host__ __device__ int fanout() const { return kT; }
+  int t;  // threads, 1 <= t <= kMaxT
+
+  __host__ __device__ int width() const { return 2 + 2 * t; }
+  __host__ __device__ int fanout() const { return t; }
 
   // Applies action f (thread f's step) to the state in v, in place, and
   // returns whether it is enabled; a disabled action's successor is
   // computed all the same, as the torch and JAX steps do.
   __device__ __forceinline__ bool step(uint32_t (&v)[kMaxW], int f) const {
     const uint32_t lock = v[1];
-    const uint32_t t = get_lane(v, 2 + 2 * f);
+    const uint32_t tv = get_lane(v, 2 + 2 * f);
     const uint32_t pc = get_lane(v, 3 + 2 * f);
     uint32_t next_pc;
     if (pc == 0) {  // take the lock
@@ -52,7 +60,7 @@ struct IncrementLock {
       set_lane(v, 2 + 2 * f, v[0]);
       next_pc = 2u;
     } else if (pc == 2) {  // write
-      v[0] = t + 1u;
+      v[0] = tv + 1u;
       next_pc = 3u;
     } else {  // release
       v[1] = 0u;
@@ -66,8 +74,20 @@ struct IncrementLock {
   // The threads sorted by their (t, pc) pairs, keyed t * 8 + pc.
   __device__ __forceinline__ void representative(
       uint32_t (&v)[kMaxW]) const {
-    sort_threads<kT, 8, 2>(v);
+    sort_threads<kMaxT, 8, 2>(v, t);
   }
 };
+
+// Calls fn with the instance that holds `threads` threads, the least
+// capacity of 2, 4, 8 and 16 at or above the count; `none` when none does.
+template <class Fn>
+long long with_increment_lock(int threads, long long none, Fn&& fn) {
+  if (threads < 1) return none;
+  if (threads <= 2) return fn(IncrementLock<2>{threads});
+  if (threads <= 4) return fn(IncrementLock<4>{threads});
+  if (threads <= 8) return fn(IncrementLock<8>{threads});
+  if (threads <= 16) return fn(IncrementLock<16>{threads});
+  return none;
+}
 
 }  // namespace sr

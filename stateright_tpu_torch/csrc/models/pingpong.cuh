@@ -11,7 +11,8 @@
 // lane 4 (actor_net.cuh) and the overflow flag. Envelope: value << 3 |
 // kind << 2 | src << 1 | dst, kind Ping 0 and Pong 1. The network's form
 // (lossy, duplicating) and the history are runtime flags, so one
-// instantiation holds all eight forms, at up to kMaxE slots. No timers, no
+// instantiation holds all eight forms, at up to kMaxE slots; with_pingpong
+// picks the smaller of two that holds a run's slots. No timers, no
 // symmetry; every lane a whole word.
 
 #pragma once
@@ -76,5 +77,18 @@ struct PingPong {
   // No symmetry: the row is its own representative.
   __device__ __forceinline__ void representative(uint32_t (&)[kMaxW]) const {}
 };
+
+// Calls fn with the smaller instance that holds e network slots, PingPong<26>
+// (the 26 of max_nat 11's full run) or PingPong<64>, the form and max_nat
+// at run time; `none` when neither does.
+template <class Fn>
+long long with_pingpong(int history, int lossy, int duplicating, int max_nat,
+                        int e, long long none, Fn&& fn) {
+  const bool h = history != 0, l = lossy != 0, d = duplicating != 0;
+  if (e < 1 || max_nat < 0) return none;
+  if (e <= 26) return fn(PingPong<26>{e, h, l, d, (uint32_t)max_nat});
+  if (e <= 64) return fn(PingPong<64>{e, h, l, d, (uint32_t)max_nat});
+  return none;
+}
 
 }  // namespace sr

@@ -13,12 +13,22 @@
 // A model is RegisterWorkload<P> for a server policy P (paxos.cuh,
 // single_copy.cuh, abd.cuh), a stateless struct that derives from
 // RegisterEnv<kC> and gives:
-//   kC, kS                 clients and servers;
+//   kC, kS                 clients and servers (the most servers, where
+//                          the policy takes the count at run time);
+//   kMinS                  (only such a policy) its least server count;
+//   kServersAtRunTime      (likewise) whether the count is at run time:
+//                          where kMinS < kS, or where the policy asks for
+//                          it at one count (a row so wide that its one
+//                          server body and codec on words in memory build
+//                          in a fifth of the time);
 //   kServerLanes, kMaxOut  lanes a server, sends a delivery;
 //   kServerBits            packed bits of one server's lanes;
 //   kExtraBits             the envelope's extra field (0: none);
 //   server<D>(v, m, outs)  the delivery of envelope m to server D, in
-//                          place on the row v: whether it is handled;
+//                          place on the row v: whether it is handled
+//                          (server(v, m, outs, s, D) at s servers, in a
+//                          policy that gives kMinS);
+//   max_out(s)             (likewise) the sends a delivery at s servers;
 //   sym_server(lane, x, sg), sym_extra(kind, extra, sg),
 //   sym_internal_req(kind, req, sg)
 //                          a server lane, an envelope's extra bits and an
@@ -47,6 +57,23 @@
 // over kMaxE slots, and the runtime net_slots e (1 <= e <= kMaxE, the
 // model's default) guards each slot as TwoPhase's n does.
 //
+// A policy with kServersAtRunTime takes its server count s at run time
+// (kMinS <= s <= kS), so that one instance holds a range of counts; the
+// client count stays a template parameter, since the symmetry's
+// permutations depend on it alone. Its step and representative work on
+// the row laid out at the capacity, each server's lanes at a stride of
+// kServerLanes and the clients and the network after kS servers: the row
+// comes in through a gather at run-time indices (to_capacity) and goes out
+// through the matching scatter (from_capacity), both through a copy of the
+// row in local memory. Each server, send and residue class past s is
+// guarded by s; the delivery runs one server body with the server at run
+// time, and the packed row takes the codec on words in memory
+// (kIndexedCodec): a kernel of such an instance, with rows of up to 111
+// lanes, builds in a fifth of the time of one with every index a constant
+// (PERF.md section 6). A policy without it (paxos's, and the exact
+// instances of the corpus's runs) runs on its row as it is, every server
+// lane at a constant index.
+//
 // A client permutation sg packs sigma (old client index -> new) 2 bits a
 // client. The representative walks the group (the permutations that keep
 // every client in its residue class mod kS: all of them at one server)
@@ -58,6 +85,7 @@
 #pragma once
 
 #include <cstdint>
+#include <type_traits>
 
 #include "../packing.cuh"
 #include "actor_net.cuh"
@@ -116,25 +144,54 @@ struct RegisterEnv {
   }
 };
 
+// Whether policy P takes its server count at run time (it gives kMinS),
+// its least count, and the sends of a delivery at that count.
+template <class P, class = void>
+struct ServerRange {
+  static constexpr bool kTakesCount = false;  // server<D>(v, m, outs)
+  static constexpr bool kRuntime = false;
+  static constexpr int kMin = P::kS;
+  static constexpr int kMinOut = P::kMaxOut;
+};
+template <class P>
+struct ServerRange<P, std::void_t<decltype(P::kMinS)>> {
+  static constexpr bool kTakesCount = true;  // server(v, m, outs, s, D)
+  static constexpr bool kRuntime = P::kServersAtRunTime;
+  static constexpr int kMin = P::kMinS;
+  static constexpr int kMinOut = P::max_out(P::kMinS);
+};
+
 template <class P>
 struct RegisterWorkload {
   static constexpr int kC = P::kC, kS = P::kS;
   static constexpr int kServerLanes = P::kServerLanes, kMaxOut = P::kMaxOut;
+  static constexpr bool kRuntimeS = ServerRange<P>::kRuntime;
+  // Such an instance's rows (up to 111 lanes) take the codec on words in
+  // memory (wave.cuh's IndexedCodec).
+  static constexpr bool kIndexedCodec = kRuntimeS;
+  static constexpr int kMinS = ServerRange<P>::kMin;
+  // The offsets at kS servers (the layout at the capacity).
   static constexpr int kPhaseOff = kS * kServerLanes;
   static constexpr int kHistOff = kPhaseOff + kC;
   static constexpr int kNetOff = kHistOff + 3 * kC;
-  // The default net_slots: max(5C + 3, C * (max_out + 2)).
-  static constexpr int kMaxE = max_int(5 * kC + 3, kC * (kMaxOut + 2));
+  // The default net_slots at s servers: max(5C + 3, C * (max_out + 2)).
+  static constexpr int default_slots(int max_out) {
+    return max_int(5 * kC + 3, kC * (max_out + 2));
+  }
+  static constexpr int kMaxE = default_slots(kMaxOut);
   static constexpr int kMaxW = kNetOff + kMaxE + 1;
-  static constexpr int kMinFanout = kMaxE;
+  // The fewest slots at any count the instance holds.
+  static constexpr int kMinFanout =
+      default_slots(ServerRange<P>::kMinOut);
   static constexpr uint32_t kEmpty = P::kEmpty;
   static constexpr uint32_t kValueMask = P::kValueMask;
-  // The group is trivial unless two clients share a residue class mod kS.
-  static constexpr bool kSymmetric = kC > kS;
+  // The group is trivial unless two clients share a residue class mod s.
+  static constexpr bool kSymmetric = kC > kMinS;
 
-  // Bits of a packed row at kMaxE (lane_bits()), hence kMaxWords: a
-  // network lane is a sentinel lane of the envelope's bits plus one,
-  // unless the envelope fills 32 bits.
+  // Bits of a packed row at kMaxE and kS servers (lane_bits(); the most of
+  // any count the instance holds), hence kMaxWords: a network lane is a
+  // sentinel lane of the envelope's bits plus one, unless the envelope
+  // fills 32 bits.
   static constexpr int kEnvBits = P::kExtraShift + P::kExtraBits;
   static constexpr int kNetLaneBits = kEnvBits >= 32 ? 32 : kEnvBits + 1;
   static constexpr int kRowBits = kS * P::kServerBits + 2 * kC +
@@ -144,9 +201,25 @@ struct RegisterWorkload {
 
   using Env = typename P::Env;
 
-  int e;  // net_slots, 1 <= e <= kMaxE
+  int e;      // net_slots, 1 <= e <= kMaxE
+  int s_run;  // servers at run time, kMinS <= s_run <= kS (kRuntimeS)
 
-  __host__ __device__ int width() const { return kNetOff + e + 1; }
+  // The server count: a constant unless the policy takes it at run time.
+  __host__ __device__ int servers() const { return kRuntimeS ? s_run : kS; }
+  // A server's lanes, and the row's first lane past the servers.
+  __host__ __device__ int server_lanes() const {
+    if constexpr (kRuntimeS)
+      return P::server_lanes(s_run);
+    else
+      return kServerLanes;
+  }
+  __host__ __device__ int row_phase_off() const {
+    return servers() * server_lanes();
+  }
+
+  __host__ __device__ int width() const {
+    return row_phase_off() + 4 * kC + e + 1;
+  }
   __host__ __device__ int fanout() const { return e; }
 
   // The actor layer's hooks (actor_net.cuh): no timers, and a delivered
@@ -160,13 +233,75 @@ struct RegisterWorkload {
   // overflow lane). Returns whether the action is enabled: a real envelope
   // that its destination handles.
   __device__ __forceinline__ bool step(uint32_t (&v)[kMaxW], int f) const {
-    return actor_step(*this, v, f);
+    if constexpr (kRuntimeS) {
+      uint32_t u[kMaxW];
+      to_capacity(v, u);
+      const bool enabled = actor_step(*this, u, f);
+      from_capacity(u, v);
+      return enabled;
+    } else {
+      return actor_step(*this, v, f);
+    }
+  }
+
+  // The capacity's lane k of the row v (at servers() servers), 0 where the
+  // row has no such lane.
+  __device__ __forceinline__ void to_capacity(const uint32_t (&v)[kMaxW],
+                                              uint32_t (&u)[kMaxW]) const {
+    // Indexed at run time: held in local memory.
+    uint32_t t[kMaxW];
+#pragma unroll
+    for (int k = 0; k < kMaxW; ++k) t[k] = v[k];
+    const int s = servers(), sl = server_lanes(), off = row_phase_off();
+    const int w = width();
+#pragma unroll
+    for (int k = 0; k < kMaxW; ++k) {
+      int j = -1;
+      if (k < kPhaseOff) {
+        const int d = k / kServerLanes, l = k % kServerLanes;
+        if (d < s && l < sl) j = d * sl + l;
+      } else if (off + (k - kPhaseOff) < w) {
+        j = off + (k - kPhaseOff);
+      }
+      u[k] = j >= 0 ? t[j] : 0u;
+    }
+  }
+
+  // The row v of the capacity's lanes u: the inverse of to_capacity on the
+  // row's lanes; v's lanes past its width stay as they are.
+  __device__ __forceinline__ void from_capacity(const uint32_t (&u)[kMaxW],
+                                                uint32_t (&v)[kMaxW]) const {
+    uint32_t t[kMaxW];  // as in to_capacity
+#pragma unroll
+    for (int k = 0; k < kMaxW; ++k) t[k] = v[k];
+    const int s = servers(), sl = server_lanes(), off = row_phase_off();
+    const int w = width();
+#pragma unroll
+    for (int k = 0; k < kMaxW; ++k) {
+      if (k < kPhaseOff) {
+        const int d = k / kServerLanes, l = k % kServerLanes;
+        if (d < s && l < sl) t[d * sl + l] = u[k];
+      } else if (off + (k - kPhaseOff) < w) {
+        t[off + (k - kPhaseOff)] = u[k];
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < kMaxW; ++k) v[k] = t[k];
   }
 
   __device__ __forceinline__ bool on_deliver(uint32_t (&v)[kMaxW],
                                              uint32_t env,
                                              uint32_t (&outs)[kMaxOut]) const {
-    return deliver<0>(v, P::fields(env), outs);
+    const Env m = P::fields(env);
+    if constexpr (kRuntimeS) {
+      // One server body, its server at run time: a body a server would
+      // be kS copies of the policy's largest code.
+      if (m.dst < (uint32_t)s_run)
+        return P::server(v, m, outs, s_run, (int)m.dst);
+      return client(v, m, outs);
+    } else {
+      return deliver<0>(v, m, outs);
+    }
   }
 
   // RegisterWorkloadDevice.deliver: server D's delivery when the envelope
@@ -175,7 +310,12 @@ struct RegisterWorkload {
   __device__ __forceinline__ bool deliver(uint32_t (&v)[kMaxW], const Env& m,
                                           uint32_t (&outs)[kMaxOut]) const {
     if constexpr (D < kS) {
-      if (m.dst == (uint32_t)D) return P::template server<D>(v, m, outs);
+      if (m.dst == (uint32_t)D) {
+        if constexpr (ServerRange<P>::kTakesCount)
+          return P::server(v, m, outs, kS, D);
+        else
+          return P::template server<D>(v, m, outs);
+      }
       return deliver<D + 1>(v, m, outs);
     } else {
       return client(v, m, outs);
@@ -186,7 +326,8 @@ struct RegisterWorkload {
   // dst - S and its history triple.
   __device__ __forceinline__ bool client(uint32_t (&v)[kMaxW], const Env& m,
                                          uint32_t (&outs)[kMaxOut]) const {
-    const uint32_t k = m.dst - kS;  // wraps for a server: never selected
+    const uint32_t S = (uint32_t)servers();
+    const uint32_t k = m.dst - S;  // wraps for a server: never selected
     const uint32_t kc = min(k, (uint32_t)(kC - 1));
     uint32_t phase = 0;
 #pragma unroll
@@ -220,7 +361,7 @@ struct RegisterWorkload {
       }
     }
     // After PutOk the client Gets from server (actor + 1) % S.
-    outs[0] = putok ? P::env_of((m.dst + 1) % kS, m.dst, P::kGet,
+    outs[0] = putok ? P::env_of((m.dst + 1) % S, m.dst, P::kGet,
                                 4u | min(k, 3u), 0, 0)
                     : kEmpty;
     return putok || getok;
@@ -228,19 +369,18 @@ struct RegisterWorkload {
 
   // -- Client symmetry ------------------------------------------------------
 
-  static __device__ __forceinline__ uint32_t sym_actor(uint32_t a,
-                                                       uint32_t sg) {
-    return a >= (uint32_t)kS && a < (uint32_t)(kS + kC)
-               ? kS + P::pick(sg, a - kS)
-               : a;
+  __device__ __forceinline__ uint32_t sym_actor(uint32_t a,
+                                                uint32_t sg) const {
+    const uint32_t S = (uint32_t)servers();
+    return a >= S && a < S + kC ? S + P::pick(sg, a - S) : a;
   }
   static __device__ __forceinline__ uint32_t sym_req(uint32_t r,
                                                      uint32_t sg) {
     return (r & 3u) < (uint32_t)kC ? (r & 4u) | P::pick(sg, r & 3u) : r;
   }
   // One network lane under the permutation (the empty one stays).
-  static __device__ __forceinline__ uint32_t sym_env(uint32_t x,
-                                                     uint32_t sg) {
+  __device__ __forceinline__ uint32_t sym_env(uint32_t x,
+                                              uint32_t sg) const {
     if (x == kEmpty) return x;
     const Env m = P::fields(x);
     return P::env_of(sym_actor(m.dst, sg), sym_actor(m.src, sg), m.kind,
@@ -283,82 +423,106 @@ struct RegisterWorkload {
   // The least encoded row of v's class, in place.
   __device__ __forceinline__ void representative(uint32_t (&v)[kMaxW]) const {
     if constexpr (kSymmetric) {
-      // The running least: v itself (orig) or v under best_sg.
-      bool orig = true;
-      uint32_t best_sg = 0, best_inv = 0;
-      uint32_t bn[kMaxE];
-#pragma unroll
-      for (int i = 0; i < kMaxE; ++i) bn[i] = i < e ? v[kNetOff + i] : kEmpty;
-      // Every permutation but the identity (p = 0), as its Lehmer code.
-#pragma unroll 1
-      for (int p = 1; p < factorial(kC); ++p) {
-        uint32_t sg = 0, inv = 0, avail = 0xE4u;  // 0, 1, 2, 3
-        int rest = p;
-        bool in_class = true;
-#pragma unroll
-        for (int k = 0; k < kC; ++k) {
-          const int fact = factorial(kC - 1 - k);
-          const unsigned d = (unsigned)(rest / fact);
-          rest -= (int)d * fact;
-          const uint32_t x = (avail >> (2 * d)) & 3u;
-          avail = (avail & ((1u << (2 * d)) - 1)) |
-                  ((avail >> (2 * d + 2)) << (2 * d));
-          sg |= x << (2 * k);
-          inv |= (uint32_t)k << (2 * x);
-          in_class = in_class && x % kS == (uint32_t)(k % kS);
-        }
-        if (!in_class) continue;
-        // The lanes before the network, compared as they come.
-        int cmp = 0;
-#pragma unroll
-        for (int j = 0; j < kNetOff; ++j) {
-          const uint32_t c = sym_lane(v, j, sg, inv);
-          const uint32_t b = orig ? v[j] : sym_lane(v, j, best_sg, best_inv);
-          if (cmp == 0 && c != b) cmp = c < b ? -1 : 1;
-        }
-        if (cmp > 0) continue;
-        // The network rewritten, then sorted again (an insertion sort
-        // unrolled into a network; the padding is kEmpty, which sorts last).
-        uint32_t cn[kMaxE];
-#pragma unroll
-        for (int i = 0; i < kMaxE; ++i)
-          cn[i] = sym_env(i < e ? v[kNetOff + i] : kEmpty, sg);
-#pragma unroll
-        for (int a = 1; a < kMaxE; ++a) {
-#pragma unroll
-          for (int b = a; b > 0; --b) {
-            const uint32_t lo = min(cn[b - 1], cn[b]);
-            const uint32_t hi = max(cn[b - 1], cn[b]);
-            cn[b - 1] = lo;
-            cn[b] = hi;
-          }
-        }
-#pragma unroll
-        for (int i = 0; i < kMaxE; ++i)
-          if (i < e && cmp == 0 && cn[i] != bn[i])
-            cmp = cn[i] < bn[i] ? -1 : 1;
-        // The overflow lane is the same in both.
-        if (cmp < 0) {
-          orig = false;
-          best_sg = sg;
-          best_inv = inv;
-#pragma unroll
-          for (int i = 0; i < kMaxE; ++i) bn[i] = cn[i];
-        }
-      }
-      if (!orig) {
-        uint32_t pre[kNetOff];
-#pragma unroll
-        for (int j = 0; j < kNetOff; ++j)
-          pre[j] = sym_lane(v, j, best_sg, best_inv);
-#pragma unroll
-        for (int j = 0; j < kNetOff; ++j) v[j] = pre[j];
-#pragma unroll
-        for (int i = 0; i < kMaxE; ++i)
-          if (i < e) v[kNetOff + i] = bn[i];
+      if (kC <= servers()) return;  // a trivial group at this count
+      if constexpr (kRuntimeS) {
+        uint32_t u[kMaxW];
+        to_capacity(v, u);
+        least(u);
+        from_capacity(u, v);
+      } else {
+        least(v);
       }
     }
   }
+
+  // The least member of the class of the row in v, laid out at the
+  // capacity: the lanes of servers past servers() are 0 in every member,
+  // so they never decide a comparison.
+  __device__ __forceinline__ void least(uint32_t (&v)[kMaxW]) const {
+    const uint32_t S = (uint32_t)servers();
+    // The running least: v itself (orig) or v under best_sg.
+    bool orig = true;
+    uint32_t best_sg = 0, best_inv = 0;
+    uint32_t bn[kMaxE];
+#pragma unroll
+    for (int i = 0; i < kMaxE; ++i) bn[i] = i < e ? v[kNetOff + i] : kEmpty;
+    // Every permutation but the identity (p = 0), as its Lehmer code.
+#pragma unroll 1
+    for (int p = 1; p < factorial(kC); ++p) {
+      uint32_t sg = 0, inv = 0, avail = 0xE4u;  // 0, 1, 2, 3
+      int rest = p;
+      bool in_class = true;
+#pragma unroll
+      for (int k = 0; k < kC; ++k) {
+        const int fact = factorial(kC - 1 - k);
+        const unsigned d = (unsigned)(rest / fact);
+        rest -= (int)d * fact;
+        const uint32_t x = (avail >> (2 * d)) & 3u;
+        avail = (avail & ((1u << (2 * d)) - 1)) |
+                ((avail >> (2 * d + 2)) << (2 * d));
+        sg |= x << (2 * k);
+        inv |= (uint32_t)k << (2 * x);
+        in_class = in_class && x % S == (uint32_t)k % S;
+      }
+      if (!in_class) continue;
+      // The lanes before the network, compared as they come.
+      int cmp = 0;
+#pragma unroll
+      for (int j = 0; j < kNetOff; ++j) {
+        const uint32_t c = sym_lane(v, j, sg, inv);
+        const uint32_t b = orig ? v[j] : sym_lane(v, j, best_sg, best_inv);
+        if (cmp == 0 && c != b) cmp = c < b ? -1 : 1;
+      }
+      if (cmp > 0) continue;
+      // The network rewritten, then sorted again (an insertion sort
+      // unrolled into a network; the padding is kEmpty, which sorts last).
+      uint32_t cn[kMaxE];
+#pragma unroll
+      for (int i = 0; i < kMaxE; ++i)
+        cn[i] = sym_env(i < e ? v[kNetOff + i] : kEmpty, sg);
+#pragma unroll
+      for (int a = 1; a < kMaxE; ++a) {
+#pragma unroll
+        for (int b = a; b > 0; --b) {
+          const uint32_t lo = min(cn[b - 1], cn[b]);
+          const uint32_t hi = max(cn[b - 1], cn[b]);
+          cn[b - 1] = lo;
+          cn[b] = hi;
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < kMaxE; ++i)
+        if (i < e && cmp == 0 && cn[i] != bn[i])
+          cmp = cn[i] < bn[i] ? -1 : 1;
+      // The overflow lane is the same in both.
+      if (cmp < 0) {
+        orig = false;
+        best_sg = sg;
+        best_inv = inv;
+#pragma unroll
+        for (int i = 0; i < kMaxE; ++i) bn[i] = cn[i];
+      }
+    }
+    if (!orig) {
+      uint32_t pre[kNetOff];
+#pragma unroll
+      for (int j = 0; j < kNetOff; ++j)
+        pre[j] = sym_lane(v, j, best_sg, best_inv);
+#pragma unroll
+      for (int j = 0; j < kNetOff; ++j) v[j] = pre[j];
+#pragma unroll
+      for (int i = 0; i < kMaxE; ++i)
+        if (i < e) v[kNetOff + i] = bn[i];
+    }
+  }
 };
+
+// Calls fn with model M at net_slots e and s servers; `none` when M does
+// not hold them.
+template <class M, class Fn>
+long long with_register(int e, int s, long long none, Fn&& fn) {
+  if (e < 1 || e > M::kMaxE || s < M::kMinS || s > M::kS) return none;
+  return fn(M{e, s});
+}
 
 }  // namespace sr

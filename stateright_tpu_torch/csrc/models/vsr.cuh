@@ -22,8 +22,8 @@
 // on completion) exclude each other by kind and fill sends 0 to N - 2, the
 // unicast (PrepareOk, DoViewChange) send N - 1. A timeout is always handled.
 // The network's form (lossy, duplicating) and max_view are runtime; N
-// (2 to 4) and kMaxE are the instance's. No symmetry; every lane a whole
-// word.
+// (1 to 4) and kMaxE are the instance's, and with_vsr picks the smallest
+// instance that holds a run's slots. No symmetry; every lane a whole word.
 
 #pragma once
 
@@ -259,5 +259,35 @@ struct Vsr {
   // No symmetry: the row is its own representative.
   __device__ __forceinline__ void representative(uint32_t (&)[kMaxW]) const {}
 };
+
+// Calls fn with the smallest instance that holds n replicas and e network
+// slots (the form and max_view at run time): Vsr<2, 16>, Vsr<3, 40> and
+// Vsr<4, 48> (the default 8n slots, and at 3 and 4 replicas the most a
+// max_view of 2 and 1 need), else Vsr<n, 64>; `none` when none does.
+template <class Fn>
+long long with_vsr(int n, int lossy, int duplicating, int max_view, int e,
+                   long long none, Fn&& fn) {
+  const bool l = lossy != 0, d = duplicating != 0;
+  const uint32_t mv = (uint32_t)max_view;
+  if (e < 1 || max_view < 0) return none;
+  switch (n) {
+    case 1:
+      if (e <= 64) return fn(Vsr<1, 64>{e, l, d, mv});
+      break;
+    case 2:
+      if (e <= 16) return fn(Vsr<2, 16>{e, l, d, mv});
+      if (e <= 64) return fn(Vsr<2, 64>{e, l, d, mv});
+      break;
+    case 3:
+      if (e <= 40) return fn(Vsr<3, 40>{e, l, d, mv});
+      if (e <= 64) return fn(Vsr<3, 64>{e, l, d, mv});
+      break;
+    case 4:
+      if (e <= 48) return fn(Vsr<4, 48>{e, l, d, mv});
+      if (e <= 64) return fn(Vsr<4, 64>{e, l, d, mv});
+      break;
+  }
+  return none;
+}
 
 }  // namespace sr

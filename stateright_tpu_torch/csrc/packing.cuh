@@ -105,4 +105,47 @@ __device__ __forceinline__ void pack(const Layout<kMaxW, kMaxWords>& L,
   }
 }
 
+// The same codec on a row whose packed words lie in memory (global or
+// shared), each lane's words read or written at its run-time index: O(w)
+// code, where unpack and pack above are O(w x wp) selects. The widest
+// rows' kernels take it (wave.cuh's IndexedCodec).
+template <int kMaxW, int kMaxWords>
+__device__ __forceinline__ void unpack_from(const Layout<kMaxW, kMaxWords>& L,
+                                            const uint32_t* p,
+                                            uint32_t (&v)[kMaxW]) {
+#pragma unroll
+  for (int j = 0; j < kMaxW; ++j) {
+    v[j] = 0;
+    if (j < L.w) {
+      const int wd = L.word[j];
+      const uint32_t lo = wd < L.wp ? p[wd] : 0u;
+      const uint32_t hi = wd + 1 < L.wp ? p[wd + 1] : 0u;
+      const unsigned long long x =
+          (((unsigned long long)hi << 32) | lo) >> L.offset[j];
+      const uint32_t mask = (uint32_t)((1ull << L.bits[j]) - 1);
+      const uint32_t f = (uint32_t)x & mask;
+      v[j] = L.has_sentinel[j] && f == mask ? L.sentinel[j] : f;
+    }
+  }
+}
+
+template <int kMaxW, int kMaxWords>
+__device__ __forceinline__ void pack_into(const Layout<kMaxW, kMaxWords>& L,
+                                          const uint32_t (&v)[kMaxW],
+                                          uint32_t* p) {
+  for (int k = 0; k < L.wp; ++k) p[k] = 0;
+#pragma unroll
+  for (int j = 0; j < kMaxW; ++j) {
+    if (j < L.w) {
+      const uint32_t mask = (uint32_t)((1ull << L.bits[j]) - 1);
+      const unsigned long long f =
+          L.has_sentinel[j] ? min(v[j], mask) : v[j] & mask;
+      const unsigned long long x = f << L.offset[j];
+      const int wd = L.word[j];
+      if (wd < L.wp) p[wd] |= (uint32_t)x;
+      if (wd + 1 < L.wp) p[wd + 1] |= (uint32_t)(x >> 32);
+    }
+  }
+}
+
 }  // namespace sr

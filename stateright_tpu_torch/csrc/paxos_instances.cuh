@@ -1,7 +1,7 @@
-// The paxos instances that wave_paxos.cu and sender_paxos.cu build:
-// models/paxos.cuh at 1 to 4 clients (3 servers, PaxosDevice's only
-// count), each for any net_slots from 1 up to its default (5 * clients +
-// 3).
+// The paxos instances that wave_paxos.cu and sender_paxos.cu (1 to 3
+// clients) and wave_paxos4.cu and sender_paxos4.cu (4 clients) build:
+// models/paxos.cuh (3 servers, PaxosDevice's only count), each for any
+// net_slots from 1 up to its default (5 * clients + 3).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -11,24 +11,20 @@
 namespace sr {
 
 // Calls fn with the model instance for clients c and net_slots e, or
-// returns cudaErrorInvalidValue when the instantiations do not hold them.
-template <class Fn>
+// returns cudaErrorInvalidValue when the instantiations do not hold them:
+// the clients kLo to kHi (each source holds a range of them, so that the
+// client counts build in parallel).
+template <int kLo, int kHi, class Fn>
 inline int with_paxos(int c, int e, Fn&& fn) {
-  switch (c) {
-    case 1:
-      if (e >= 1 && e <= Paxos<1>::kMaxE) return fn(Paxos<1>{e});
-      break;
-    case 2:
-      if (e >= 1 && e <= Paxos<2>::kMaxE) return fn(Paxos<2>{e});
-      break;
-    case 3:
-      if (e >= 1 && e <= Paxos<3>::kMaxE) return fn(Paxos<3>{e});
-      break;
-    case 4:
-      if (e >= 1 && e <= Paxos<4>::kMaxE) return fn(Paxos<4>{e});
-      break;
+  if constexpr (kLo <= kHi) {
+    if (c == kLo) {
+      if (e >= 1 && e <= Paxos<kLo>::kMaxE) return fn(Paxos<kLo>{e});
+      return (int)cudaErrorInvalidValue;
+    }
+    return with_paxos<kLo + 1, kHi>(c, e, fn);
+  } else {
+    return (int)cudaErrorInvalidValue;
   }
-  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace sr

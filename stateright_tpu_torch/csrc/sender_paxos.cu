@@ -13,6 +13,13 @@
 #include <cuda_runtime.h>
 
 #include "paxos_instances.cuh"
+
+// The client counts this translation unit holds: 1 to 3 here, 4 in
+// sender_paxos4.cu, which includes this file.
+#ifndef SR_PAXOS_LO
+#define SR_PAXOS_LO 1
+#define SR_PAXOS_HI 3
+#endif
 #include "wave.cuh"
 
 // client_count clients and net_slots network slots; lanes host int32[5 *
@@ -40,7 +47,8 @@ extern "C" int sr_sender_paxos(int client_count, int net_slots, int use_sym,
       use_sym, local_dedup, lanes, w, wp, vecs, valid, batch, shards, fanout,
       succ_store, dedup_fps, path_fps, sflat, send_mask, slots, slot_of,
       region_bits, device, stream);
-  return sr::with_paxos(client_count, net_slots, [&](const auto& m) {
+  return sr::with_paxos<SR_PAXOS_LO, SR_PAXOS_HI>(
+      client_count, net_slots, [&](const auto& m) {
     return sr::launch_sender(m, a);
   });
 }

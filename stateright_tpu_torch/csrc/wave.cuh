@@ -107,23 +107,30 @@ template <class M>
 struct WholeWords<M, std::void_t<decltype(M::kWholeWords)>>
     : std::bool_constant<M::kWholeWords> {};
 
-// Successor f of the unpacked row v (clobbered) of a row that is valid or
-// not: returns sflat (enabled, of a valid row); q gets the successor's
-// packed words, *pfp its path fingerprint and *dfp its dedup fingerprint,
-// the representative's under symmetry and the sentinel when not sflat.
+// Whether model M's rows use the codec on words in memory
+// (M::kIndexedCodec: packing.cuh's unpack_from and pack_into), O(W) code
+// in place of the select's O(W x Wp): the register workloads' instances
+// that take the server count at run time, whose rows of up to 111 lanes
+// and 18 words otherwise made their kernels the build's longest.
+template <class M, class = void>
+struct IndexedCodec : std::false_type {};
 template <class M>
+struct IndexedCodec<M, std::void_t<decltype(M::kIndexedCodec)>>
+    : std::bool_constant<M::kIndexedCodec> {};
+
+// Successor f of the unpacked row v (clobbered) of a row that is valid or
+// not: returns sflat (enabled, of a valid row); store(v) takes the
+// successor's lanes (to pack them), *pfp gets its path fingerprint and
+// *dfp its dedup fingerprint, the representative's under symmetry and the
+// sentinel when not sflat.
+template <class M, class Store>
 __device__ __forceinline__ bool expand_slot(
     const M& m, const Layout<M::kMaxW, M::kMaxWords>& L,
     uint32_t (&v)[M::kMaxW], int f, bool row_valid, bool use_sym,
-    uint32_t (&q)[M::kMaxWords], u64* pfp, u64* dfp) {
+    Store&& store, u64* pfp, u64* dfp) {
   const bool sf = m.step(v, f) && row_valid;
   *pfp = fp64(v, L.w);
-  if constexpr (WholeWords<M>::value) {
-#pragma unroll
-    for (int k = 0; k < M::kMaxWords; ++k) q[k] = k < L.w ? v[k] : 0u;
-  } else {
-    pack(L, v, q);
-  }
+  store(v);
   *dfp = kSentinel;
   if (sf) {
     *dfp = *pfp;
@@ -182,17 +189,24 @@ template <class M, bool kDedupOut>
 __device__ __forceinline__ void stage_row(
     const Layout<M::kMaxW, M::kMaxWords>& L, const uint32_t* p, bool valid,
     WaveTile<M, kDedupOut>& tile, unsigned r) {
-  uint32_t w[M::kMaxWords];
-#pragma unroll
-  for (int k = 0; k < M::kMaxWords; ++k) w[k] = k < L.wp ? p[k] : 0u;
-  if constexpr (WholeWords<M>::value) {
-#pragma unroll
-    for (int j = 0; j < M::kMaxW; ++j) tile.lanes[r][j] = w[j];
-  } else {
+  if constexpr (IndexedCodec<M>::value) {
     uint32_t v[M::kMaxW];
-    unpack(L, w, v);
+    unpack_from(L, p, v);
 #pragma unroll
     for (int j = 0; j < M::kMaxW; ++j) tile.lanes[r][j] = v[j];
+  } else {
+    uint32_t w[M::kMaxWords];
+#pragma unroll
+    for (int k = 0; k < M::kMaxWords; ++k) w[k] = k < L.wp ? p[k] : 0u;
+    if constexpr (WholeWords<M>::value) {
+#pragma unroll
+      for (int j = 0; j < M::kMaxW; ++j) tile.lanes[r][j] = w[j];
+    } else {
+      uint32_t v[M::kMaxW];
+      unpack(L, w, v);
+#pragma unroll
+      for (int j = 0; j < M::kMaxW; ++j) tile.lanes[r][j] = v[j];
+    }
   }
   tile.valid[r] = valid;
 }
@@ -208,13 +222,31 @@ __device__ __forceinline__ u64 stage_slot(
   uint32_t v[M::kMaxW];
 #pragma unroll
   for (int j = 0; j < M::kMaxW; ++j) v[j] = tile.lanes[r][j];
-  uint32_t q[M::kMaxWords];
   u64 pfp, dfp;
-  tile.sflat[t] = expand_slot(m, L, v, f, tile.valid[r], use_sym, q, &pfp,
-                              &dfp);
+  if constexpr (IndexedCodec<M>::value) {
+    uint32_t* dst = tile.succ + t * L.wp;
+    tile.sflat[t] = expand_slot(
+        m, L, v, f, tile.valid[r], use_sym,
+        [&](const uint32_t (&x)[M::kMaxW]) { pack_into(L, x, dst); }, &pfp,
+        &dfp);
+  } else {
+    uint32_t q[M::kMaxWords];
+    tile.sflat[t] = expand_slot(
+        m, L, v, f, tile.valid[r], use_sym,
+        [&](const uint32_t (&x)[M::kMaxW]) {
+          if constexpr (WholeWords<M>::value) {
 #pragma unroll
-  for (int k = 0; k < M::kMaxWords; ++k)
-    if (k < L.wp) tile.succ[t * L.wp + k] = q[k];
+            for (int k = 0; k < M::kMaxWords; ++k)
+              q[k] = k < L.w ? x[k] : 0u;
+          } else {
+            pack(L, x, q);
+          }
+        },
+        &pfp, &dfp);
+#pragma unroll
+    for (int k = 0; k < M::kMaxWords; ++k)
+      if (k < L.wp) tile.succ[t * L.wp + k] = q[k];
+  }
   tile.pfp[t] = pfp;
   if (kDedupOut) tile.dfp[t] = dfp;
   return dfp;

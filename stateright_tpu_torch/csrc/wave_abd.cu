@@ -1,21 +1,25 @@
-// The single-kernel wave and the sender kernel (wave.cuh) for the ABD
-// quorum register, behind a plain C interface: the same interface as
-// wave_paxos.cu, with (client_count, server_count, net_slots) for params.
+// The single-kernel wave (wave.cuh) for the ABD quorum register, behind a
+// plain C interface: the same interface as wave_paxos.cu, with
+// (client_count, server_count, net_slots) for params. Its sender kernel is
+// sender_abd.cu's, a source of its own so that the two build in parallel.
 //
-// Instantiates both kernels for models/abd.cuh at 2 clients on two servers
-// (linearizable-register check 2, the configuration chip_smoke.py checks)
-// and on three (its one broadcast of two sends), each for any net_slots
-// from 1 up to its default (5 * clients + 3); another configuration, or a
-// larger net_slots, returns cudaErrorInvalidValue and the wrapper raises.
-// The client-symmetry group is trivial at both, so the representative is
-// the row itself. See wave.cuh for what the kernels compute, what bounds
-// them and how they are held to their plain versions.
+// Instantiates the kernel for models/abd.cuh at every pair of 1 to 4 clients
+// and 1 to 7 servers of at most 8 actors whose request ids do not collide
+// (clients <= servers: 16 pairs; AbdDevice.CUDA_INSTANCES), each for any
+// net_slots from 1 up to its default, through sr::with_abd: exact instances at
+// 2 clients on two servers (linearizable-register check 2) and on three, and
+// one instance a client count with the servers at run time for the rest:
+// Abd<1, 7, 1>, Abd<2, 6, 3>, Abd<3, 5, 3> and Abd<4, 4, 4, true> (the one
+// pair at 4 clients, on the run-time form's code; register_workload.cuh's row
+// at the capacity). Another configuration, or a larger net_slots, returns
+// cudaErrorInvalidValue, and the wrapper refuses it first. The client-symmetry
+// group is trivial at every pair, so the representative is the row itself. See
+// wave.cuh for what the kernels compute, what bounds them and how they are
+// held to their plain versions.
 //
 // ptxas for sm_90a (-Xptxas -v, CUDA 12.8), tile_front under
 // __launch_bounds__(256, 2), wave / sender: Abd<2, 2> 80 / 79 registers,
-// <2, 3> 95 / 96; no spill, a stack frame of 272 and 320 bytes; static
-// shared memory 16,992 to 21,040 bytes. The build takes about 19 s on the
-// H100's machine.
+// <2, 3> 95 / 96, no spill; the others: PERF.md section 6.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 --split-compile=0
 //        -shared -Xcompiler -fPIC (stateright_tpu_torch/_build.py); the
@@ -26,27 +30,6 @@
 
 #include "models/abd.cuh"
 #include "wave.cuh"
-
-namespace {
-
-// Calls fn with the model instance for c clients, s servers and net_slots
-// e, or returns cudaErrorInvalidValue when the instantiations do not hold
-// them.
-template <int kC, int kS, class Fn>
-int with_instance(int e, Fn&& fn) {
-  using M = sr::Abd<kC, kS>;
-  if (e >= 1 && e <= M::kMaxE) return fn(M{e});
-  return (int)cudaErrorInvalidValue;
-}
-
-template <class Fn>
-int with_abd(int c, int s, int e, Fn&& fn) {
-  if (c == 2 && s == 2) return with_instance<2, 2>(e, fn);
-  if (c == 2 && s == 3) return with_instance<2, 3>(e, fn);
-  return (int)cudaErrorInvalidValue;
-}
-
-}  // namespace
 
 // client_count clients, server_count servers and net_slots network
 // slots; lanes host int32[5 * w] (each lane's packed word, bit offset,
@@ -71,31 +54,7 @@ extern "C" int sr_wave_abd(
       use_sym, lanes, w, wp, vecs, valid, batch, fanout, table, c_bits,
       succ_store, path_fps, sflat, slots, tally, slot_of, m_bits, new_mask,
       cand_mask, counts, device, stream);
-  return with_abd(client_count, server_count, net_slots,
+  return (int)sr::with_abd(
+      client_count, server_count, net_slots, cudaErrorInvalidValue,
       [&](const auto& m) { return sr::launch_wave(m, a); });
-}
-
-// client_count clients, server_count servers and net_slots network
-// slots; lanes as above; vecs int32[shards, batch, wp] and valid
-// bool[shards, batch] (each shard's batch); outputs for S = batch * fanout
-// slots a shard: succ_store int32[shards, S, wp], dedup_fps and path_fps
-// int64[shards, S], sflat and send_mask bool[shards, S]; the caller's
-// clean scratch, handed back clean and read only when local_dedup: slots
-// int64[2^m_bits, 2] (sr::Slot records) with shards << region_bits slots
-// at least and 2^region_bits >= 2S, and slot_of int32[shards, S].
-// `device` is the current device. Launches on `stream` and does not
-// synchronise. Returns a CUDA error code, 0 on success.
-extern "C" int sr_sender_abd(
-    int client_count, int server_count, int net_slots, int use_sym,
-    int local_dedup, const int* lanes, int w, int wp, const void* vecs,
-    const void* valid, long long batch, long long shards, int fanout,
-    void* succ_store, void* dedup_fps, void* path_fps, void* sflat,
-    void* send_mask, void* slots, void* slot_of, int region_bits,
-    int device, void* stream) {
-  const sr::SenderArgs a = sr::sender_args(
-      use_sym, local_dedup, lanes, w, wp, vecs, valid, batch, shards, fanout,
-      succ_store, dedup_fps, path_fps, sflat, send_mask, slots, slot_of,
-      region_bits, device, stream);
-  return with_abd(client_count, server_count, net_slots,
-      [&](const auto& m) { return sr::launch_sender(m, a); });
 }

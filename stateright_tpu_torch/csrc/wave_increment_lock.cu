@@ -2,14 +2,16 @@
 // counter behind a lock (models/increment_lock.cuh), behind a plain C
 // interface: wave_twopc.cu's, with the thread count for its model param.
 //
-// Instantiates both kernels at 2, 4 and 8 threads (the counts
-// chip_smoke.py runs; IncrementLockDevice.CUDA_INSTANCES lists them); another
-// count returns cudaErrorInvalidValue, and IncrementLockDevice.cuda_model()
-// refuses it first. See wave.cuh for what the kernels compute, what
-// bounds them and how they are held to their plain versions. Their plan
-// forms (sr_wave_increment_lock_plan, sr_sender_increment_lock_plan: plan.cuh's
-// transition-table step under a matmul plan) at 2, 4 and 8 threads, the
-// counts CUDA_PLAN_INSTANCES lists.
+// Instantiates both kernels at capacities of 2, 4, 8 and 16 threads with
+// the count at run time (sr::with_increment_lock: the least capacity that
+// holds it), so every count from 1 to 16 runs; another count returns
+// cudaErrorInvalidValue, and IncrementLockDevice.cuda_model() refuses it
+// first (IncrementLockDevice.CUDA_INSTANCES lists the counts held). See
+// wave.cuh for what the kernels compute, what bounds them and how they are
+// held to their plain versions. Their plan forms (sr_wave_increment_lock_plan,
+// sr_sender_increment_lock_plan: plan.cuh's transition-table step under a
+// matmul plan) on the capacities 2, 4 and 8, every count from 1 to 8 (the
+// counts the gate admits; CUDA_PLAN_INSTANCES).
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 --split-compile=0
 //        -shared -Xcompiler -fPIC (stateright_tpu_torch/_build.py); the
@@ -17,6 +19,7 @@
 
 #include <cstdint>
 #include <cuda_runtime.h>
+#include <type_traits>
 
 #include "models/increment_lock.cuh"
 #include "plan.cuh"
@@ -27,26 +30,21 @@ namespace {
 // Calls fn with the model instance for `threads` threads, or returns
 // cudaErrorInvalidValue when no instantiation holds it.
 template <class Fn>
-int with_increment_lock(int threads, Fn&& fn) {
-  if (threads == 2) return fn(sr::IncrementLock<2>{});
-  if (threads == 4) return fn(sr::IncrementLock<4>{});
-  if (threads == 8) return fn(sr::IncrementLock<8>{});
-  return (int)cudaErrorInvalidValue;
+int with_model(int threads, Fn&& fn) {
+  return (int)sr::with_increment_lock(threads, cudaErrorInvalidValue, fn);
 }
 
-// Likewise, the plan form at 2, 4 and 8 threads (the counts the gate
-// admits among the instances above), or cudaErrorInvalidValue when the
-// plan does not fit.
+// Likewise, the plan form at 1 to 8 threads (the capacities 2, 4 and 8),
+// or cudaErrorInvalidValue when the plan does not fit.
 template <class Fn>
-int with_increment_lock_plan(int threads, const int* plan, const void* tables,
-                      Fn&& fn) {
-  if (threads == 2)
-    return sr::with_plan(sr::IncrementLock<2>{}, plan, tables, fn);
-  if (threads == 4)
-    return sr::with_plan(sr::IncrementLock<4>{}, plan, tables, fn);
-  if (threads == 8)
-    return sr::with_plan(sr::IncrementLock<8>{}, plan, tables, fn);
-  return (int)cudaErrorInvalidValue;
+int with_model_plan(int threads, const int* plan, const void* tables,
+                    Fn&& fn) {
+  return with_model(threads, [&](const auto& m) -> int {
+    if constexpr (std::decay_t<decltype(m)>::kMaxT > 8)
+      return (int)cudaErrorInvalidValue;
+    else
+      return sr::with_plan(m, plan, tables, fn);
+  });
 }
 
 }  // namespace
@@ -72,7 +70,7 @@ extern "C" int sr_wave_increment_lock(
       use_sym, lanes, w, wp, vecs, valid, batch, fanout, table, c_bits,
       succ_store, path_fps, sflat, slots, tally, slot_of, m_bits, new_mask,
       cand_mask, counts, device, stream);
-  return with_increment_lock(threads,
+  return with_model(threads,
       [&](const auto& m) { return sr::launch_wave(m, a); });
 }
 
@@ -96,7 +94,7 @@ extern "C" int sr_sender_increment_lock(
       use_sym, local_dedup, lanes, w, wp, vecs, valid, batch, shards, fanout,
       succ_store, dedup_fps, path_fps, sflat, send_mask, slots, slot_of,
       region_bits, device, stream);
-  return with_increment_lock(threads,
+  return with_model(threads,
       [&](const auto& m) { return sr::launch_sender(m, a); });
 }
 
@@ -115,7 +113,7 @@ extern "C" int sr_wave_increment_lock_plan(
       use_sym, lanes, w, wp, vecs, valid, batch, fanout, table, c_bits,
       succ_store, path_fps, sflat, slots, tally, slot_of, m_bits, new_mask,
       cand_mask, counts, device, stream);
-  return with_increment_lock_plan(threads, plan, tables,
+  return with_model_plan(threads, plan, tables,
       [&](const auto& m) { return sr::launch_wave(m, a); });
 }
 
@@ -130,6 +128,6 @@ extern "C" int sr_sender_increment_lock_plan(
       use_sym, local_dedup, lanes, w, wp, vecs, valid, batch, shards, fanout,
       succ_store, dedup_fps, path_fps, sflat, send_mask, slots, slot_of,
       region_bits, device, stream);
-  return with_increment_lock_plan(threads, plan, tables,
+  return with_model_plan(threads, plan, tables,
       [&](const auto& m) { return sr::launch_sender(m, a); });
 }

@@ -2,16 +2,18 @@
 // register workload, behind a plain C interface: the same interface as
 // wave_twopc.cu, with (client_count, net_slots) for params. Its sender
 // kernel is sender_paxos.cu: the two entry points are two translation
-// units so that their kernels build in parallel (paxos's four client
-// counts, each unrolled, are the longest build of chip_smoke.py).
+// units so that their kernels build in parallel, and the fourth client
+// count is a third and fourth (wave_paxos4.cu, sender_paxos4.cu): paxos's
+// client counts, each unrolled, are the longest build of chip_smoke.py.
 //
-// Instantiates the kernel for models/paxos.cuh at 1 to 4 clients (3
-// servers, PaxosDevice's only count), each for any net_slots from 1 up to
-// its default (5 * clients + 3); a larger net_slots, or another client
-// count, returns cudaErrorInvalidValue and the wrapper raises
-// (paxos_instances.cuh). The packed row's network lanes are sentinel
-// lanes (packing.cuh). See wave.cuh for what the kernels compute, what
-// bounds them and how they are held to their plain versions.
+// Instantiates the kernel for models/paxos.cuh at 1 to 3 clients (3 servers,
+// PaxosDevice's only count; 4 clients in wave_paxos4.cu), each for any
+// net_slots from 1 up to its default (5 * clients + 3); a larger net_slots, or
+// another client count, returns cudaErrorInvalidValue and the wrapper
+// (wave.py, which picks the source by the client count: SPLIT_SOURCES) raises
+// (paxos_instances.cuh). The packed row's network lanes are sentinel lanes
+// (packing.cuh). See wave.cuh for what the kernels compute, what bounds them
+// and how they are held to their plain versions.
 //
 // ptxas for sm_90a (-Xptxas -v, CUDA 12.8), tile_front under
 // __launch_bounds__(256, 2), wave / sender: Paxos<1> 79 / 72 registers,
@@ -30,6 +32,13 @@
 #include <cuda_runtime.h>
 
 #include "paxos_instances.cuh"
+
+// The client counts this translation unit holds: 1 to 3 here, 4 in
+// wave_paxos4.cu, which includes this file.
+#ifndef SR_PAXOS_LO
+#define SR_PAXOS_LO 1
+#define SR_PAXOS_HI 3
+#endif
 #include "wave.cuh"
 
 // client_count clients and net_slots network slots; lanes host int32[5 *
@@ -56,7 +65,8 @@ extern "C" int sr_wave_paxos(int client_count, int net_slots, int use_sym,
       use_sym, lanes, w, wp, vecs, valid, batch, fanout, table, c_bits,
       succ_store, path_fps, sflat, slots, tally, slot_of, m_bits, new_mask,
       cand_mask, counts, device, stream);
-  return sr::with_paxos(client_count, net_slots, [&](const auto& m) {
+  return sr::with_paxos<SR_PAXOS_LO, SR_PAXOS_HI>(
+      client_count, net_slots, [&](const auto& m) {
     return sr::launch_wave(m, a);
   });
 }

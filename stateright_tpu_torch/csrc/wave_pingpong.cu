@@ -3,13 +3,15 @@
 // interface: wave_twopc.cu's, with the form, max_nat and net_slots for the
 // model's params.
 //
-// Instantiates both kernels once, at up to 26 network slots
-// (PingPongDevice.CUDA_MAX_SLOTS; 31 lanes), with the history and the
-// network's form (lossy, duplicating) as runtime flags: all eight forms.
-// More slots return cudaErrorInvalidValue, and PingPongDevice.cuda_model()
-// refuses them first. The rows are whole words, copied, not packed
-// (wave.cuh's WholeWords). ptxas' report: PERF.md section 7. See wave.cuh for what the kernels compute, what
-// bounds them and how they are held to their plain versions.
+// Instantiates both kernels at up to 26 network slots (31 lanes: max_nat
+// 11's full run) and at up to 64 (69 lanes), with the history and the
+// network's form (lossy, duplicating) as runtime flags: all eight forms;
+// sr::with_pingpong picks the smaller that holds a run
+// (PingPongDevice.CUDA_INSTANCES). More slots return cudaErrorInvalidValue,
+// and PingPongDevice.cuda_model() refuses them first. The rows are whole
+// words, copied, not packed (wave.cuh's WholeWords). ptxas' report: PERF.md
+// section 6. See wave.cuh for what the kernels compute, what bounds them
+// and how they are held to their plain versions.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 --split-compile=0
 //        -shared -Xcompiler -fPIC (stateright_tpu_torch/_build.py); the
@@ -23,17 +25,13 @@
 
 namespace {
 
-using Model = sr::PingPong<26>;
-
 // Calls fn with the model instance of these params, or returns
-// cudaErrorInvalidValue when the instantiation does not hold them.
+// cudaErrorInvalidValue when no instantiation holds them.
 template <class Fn>
-int with_pingpong(int history, int lossy, int duplicating, int max_nat,
-                  int e, Fn&& fn) {
-  if (e < 1 || e > Model::kMaxE || max_nat < 0)
-    return (int)cudaErrorInvalidValue;
-  return fn(Model{e, history != 0, lossy != 0, duplicating != 0,
-                  (uint32_t)max_nat});
+int with_model(int history, int lossy, int duplicating, int max_nat, int e,
+               Fn&& fn) {
+  return (int)sr::with_pingpong(history, lossy, duplicating, max_nat, e,
+                                cudaErrorInvalidValue, fn);
 }
 
 }  // namespace
@@ -61,7 +59,7 @@ extern "C" int sr_wave_pingpong(
       use_sym, lanes, w, wp, vecs, valid, batch, fanout, table, c_bits,
       succ_store, path_fps, sflat, slots, tally, slot_of, m_bits, new_mask,
       cand_mask, counts, device, stream);
-  return with_pingpong(history, lossy, duplicating, max_nat, net_slots,
+  return with_model(history, lossy, duplicating, max_nat, net_slots,
       [&](const auto& m) { return sr::launch_wave(m, a); });
 }
 
@@ -87,6 +85,6 @@ extern "C" int sr_sender_pingpong(
       use_sym, local_dedup, lanes, w, wp, vecs, valid, batch, shards, fanout,
       succ_store, dedup_fps, path_fps, sflat, send_mask, slots, slot_of,
       region_bits, device, stream);
-  return with_pingpong(history, lossy, duplicating, max_nat, net_slots,
+  return with_model(history, lossy, duplicating, max_nat, net_slots,
       [&](const auto& m) { return sr::launch_sender(m, a); });
 }

@@ -3,14 +3,16 @@
 // wave_twopc.cu's, with the board's rows and columns for its model
 // params.
 //
-// Instantiates both kernels on the 2x3, 3x3 and 4x3 boards (the ones
-// chip_smoke.py runs; PuzzleDevice.CUDA_INSTANCES lists them); another
-// board returns cudaErrorInvalidValue, and PuzzleDevice.cuda_model()
-// refuses it first. Every lane is a cell, so the row is kR * kC registers,
-// and every lane index is a constant: the blank's cell picks its
-// neighbours (models/sliding_puzzle.cuh says why). See wave.cuh for what
-// the kernels compute, what bounds them and how they are held to their
-// plain versions.
+// Instantiates both kernels at capacities of 4, 6, 9, 12 and 16 cells
+// with the board's rows and columns at run time (sr::with_puzzle: the
+// least capacity that holds it), so every board of 2 to 16 cells runs
+// (PuzzleDevice.CUDA_INSTANCES); another board returns
+// cudaErrorInvalidValue, and PuzzleDevice.cuda_model() refuses it first.
+// Every lane is a cell, so the row is kCells registers, and every lane
+// index is a constant: the blank's cell picks its moves from a table in the
+// kernel's parameters (models/sliding_puzzle.cuh says why). See wave.cuh
+// for what the kernels compute, what bounds them and how they are held to
+// their plain versions.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 --split-compile=0
 //        -shared -Xcompiler -fPIC (stateright_tpu_torch/_build.py); the
@@ -27,11 +29,8 @@ namespace {
 // Calls fn with the model instance for a rows x cols board, or returns
 // cudaErrorInvalidValue when no instantiation holds it.
 template <class Fn>
-int with_puzzle(int rows, int cols, Fn&& fn) {
-  if (rows == 2 && cols == 3) return fn(sr::SlidingPuzzle<2, 3>{});
-  if (rows == 3 && cols == 3) return fn(sr::SlidingPuzzle<3, 3>{});
-  if (rows == 4 && cols == 3) return fn(sr::SlidingPuzzle<4, 3>{});
-  return (int)cudaErrorInvalidValue;
+int with_model(int rows, int cols, Fn&& fn) {
+  return (int)sr::with_puzzle(rows, cols, cudaErrorInvalidValue, fn);
 }
 
 }  // namespace
@@ -57,7 +56,7 @@ extern "C" int sr_wave_sliding_puzzle(
       use_sym, lanes, w, wp, vecs, valid, batch, fanout, table, c_bits,
       succ_store, path_fps, sflat, slots, tally, slot_of, m_bits, new_mask,
       cand_mask, counts, device, stream);
-  return with_puzzle(rows, cols,
+  return with_model(rows, cols,
       [&](const auto& m) { return sr::launch_wave(m, a); });
 }
 
@@ -81,6 +80,6 @@ extern "C" int sr_sender_sliding_puzzle(
       use_sym, local_dedup, lanes, w, wp, vecs, valid, batch, shards, fanout,
       succ_store, dedup_fps, path_fps, sflat, send_mask, slots, slot_of,
       region_bits, device, stream);
-  return with_puzzle(rows, cols,
+  return with_model(rows, cols,
       [&](const auto& m) { return sr::launch_sender(m, a); });
 }

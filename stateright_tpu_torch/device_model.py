@@ -29,7 +29,7 @@ from typing import Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-__all__ = ["DeviceModel", "DeviceFormUnavailable", "cuda_instance"]
+__all__ = ["DeviceModel", "DeviceFormUnavailable", "cuda_instance", "held"]
 
 
 class DeviceFormUnavailable(NotImplementedError):
@@ -37,15 +37,25 @@ class DeviceFormUnavailable(NotImplementedError):
     can express (the port has no host engine to fall back to)."""
 
 
+def held(instances) -> str:
+    """``instances`` (sizes an entry point holds) for a message: a run of
+    consecutive ints as its ends (``1 to 16``), else the list."""
+    sizes = list(instances)
+    if (len(sizes) > 2 and all(isinstance(k, int) for k in sizes)
+            and sizes == list(range(sizes[0], sizes[-1] + 1))):
+        return f"{sizes[0]} to {sizes[-1]}"
+    return str(sizes)
+
+
 def cuda_instance(name: str, key, instances, what: str) -> None:
     """Raises ``NotImplementedError`` unless ``csrc/wave_<name>.cu``
-    instantiates its kernels at ``key``, one of ``instances`` (``what``
-    names ``key`` in the message): a model's ``cuda_model()`` refuses a
-    size before any launch."""
+    holds its kernels at ``key``, one of ``instances`` (``what`` names
+    ``key`` in the message, which names the sizes held): a model's
+    ``cuda_model()`` refuses a size before any launch."""
     if key not in instances:
         raise NotImplementedError(
             f"csrc/wave_{name}.cu has no instance at {what} (it holds "
-            f"{list(instances)}): run it with wave_kernel=False on the card")
+            f"{held(instances)}): run it with wave_kernel=False on the card")
 
 
 class DeviceModel:

@@ -173,14 +173,18 @@ class AbdDevice(RegisterWorkloadDevice):
         self.max_out = max(server_count - 1, 1)
         super().__init__(client_count, server_count, net_slots=net_slots)
 
-    #: (clients, servers) that ``csrc/wave_abd.cu`` instantiates
-    CUDA_INSTANCES = ((2, 2), (2, 3))
+    #: (clients, servers) that ``csrc/wave_abd.cu`` holds: every pair of 1
+    #: to 4 clients and 1 to 7 servers of at most 8 actors whose request
+    #: ids do not collide, clients <= servers (16; ``sr::with_abd`` names
+    #: the instance of each)
+    CUDA_INSTANCES = tuple((c, s) for c in range(1, 5) for s in range(1, 8)
+                           if c <= s and c + s <= 8)
 
     def cuda_model(self):
         """``csrc/models/abd.cuh`` at this client and server count and
         ``net_slots`` (the entry point refuses more slots than the
         default's). Raises for counts it holds no instance of."""
-        cuda_instance("abd", self.C, self.S, self.CUDA_INSTANCES)
+        cuda_instance("abd", self, self.CUDA_INSTANCES)
         return "abd", (self.C, self.S, self.net_slots)
 
     # -- Packed-row layout ---------------------------------------------------

@@ -75,10 +75,11 @@ def sort_threads(rows: torch.Tensor, first: int, pc_span: int):
 
 class IncrementDevice(DeviceModel):
 
-    #: the thread counts that ``csrc/wave_increment.cu`` instantiates
-    CUDA_INSTANCES = (2, 4, 8, 16)
-    #: the thread counts whose plan form (``wave.cuda_plan``) it instantiates
-    CUDA_PLAN_INSTANCES = (2, 4, 8)
+    #: the thread counts that ``csrc/wave_increment.cu`` holds (instances
+    #: at capacities of 2, 4, 8 and 16 threads, the count at run time)
+    CUDA_INSTANCES = tuple(range(1, 17))
+    #: the thread counts whose plan form (``wave.cuda_plan``) it holds
+    CUDA_PLAN_INSTANCES = tuple(range(1, 9))
 
     def __init__(self, thread_count: int):
         self.thread_count = thread_count
@@ -93,7 +94,7 @@ class IncrementDevice(DeviceModel):
 
     def cuda_model(self):
         """``csrc/models/increment.cuh`` at this thread count. Raises for
-        a count it holds no instance of."""
+        a count it holds no instance of (past 16 threads)."""
         T = self.thread_count
         cuda_instance("increment", T, self.CUDA_INSTANCES, f"{T} threads")
         return "increment", (self.thread_count,)

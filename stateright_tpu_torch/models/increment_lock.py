@@ -65,10 +65,12 @@ class IncrementLockModel(Model):
 
 class IncrementLockDevice(DeviceModel):
 
-    #: the thread counts that ``csrc/wave_increment_lock.cu`` instantiates
-    CUDA_INSTANCES = (2, 4, 8)
-    #: the thread counts whose plan form (``wave.cuda_plan``) it instantiates
-    CUDA_PLAN_INSTANCES = (2, 4, 8)
+    #: the thread counts that ``csrc/wave_increment_lock.cu`` holds
+    #: (instances at capacities of 2, 4, 8 and 16 threads, the count at
+    #: run time)
+    CUDA_INSTANCES = tuple(range(1, 17))
+    #: the thread counts whose plan form (``wave.cuda_plan``) it holds
+    CUDA_PLAN_INSTANCES = tuple(range(1, 9))
 
     def __init__(self, thread_count: int):
         self.thread_count = thread_count
@@ -83,7 +85,7 @@ class IncrementLockDevice(DeviceModel):
 
     def cuda_model(self):
         """``csrc/models/increment_lock.cuh`` at this thread count. Raises
-        for a count it holds no instance of."""
+        for a count it holds no instance of (past 16 threads)."""
         T = self.thread_count
         cuda_instance("increment_lock", T, self.CUDA_INSTANCES,
                       f"{T} threads")

@@ -173,8 +173,13 @@ class PaxosDevice(RegisterWorkloadDevice):
 
     def cuda_model(self):
         """``csrc/models/paxos.cuh`` at this client count and
-        ``net_slots`` (the entry point refuses more slots than the
-        default's)."""
+        ``net_slots``; raises for more slots than the default's, which its
+        instances hold at most."""
+        if not 1 <= self.net_slots <= self.default_slots:
+            raise NotImplementedError(
+                f"csrc/wave_paxos.cu holds 1 to {self.default_slots} network "
+                f"slots at {self.C} clients, not {self.net_slots}: run it "
+                "with wave_kernel=False on the card")
         return "paxos", (self.C, self.net_slots)
 
     # -- Packed-row layout -------------------------------------------------

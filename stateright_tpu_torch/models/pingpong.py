@@ -100,10 +100,11 @@ class PingPongSys(Model):
 class PingPongDevice(ActorDeviceModel):
     max_out = 1
 
-    #: the most network slots ``csrc/wave_pingpong.cu`` instantiates, in
-    #: every form (the history and the network's form are runtime flags
-    #: there)
-    CUDA_MAX_SLOTS = 26
+    #: the network slots of ``csrc/wave_pingpong.cu``'s instances, each
+    #: holding every count up to its own in every form (the history and
+    #: the network's form are runtime flags there), and the most of them
+    CUDA_INSTANCES = (26, 64)
+    CUDA_MAX_SLOTS = max(CUDA_INSTANCES)
 
     def __init__(self, max_nat: int, maintains_history: bool = False,
                  net_slots: int = 16, duplicating: bool = True,
@@ -119,10 +120,11 @@ class PingPongDevice(ActorDeviceModel):
 
     def cuda_model(self):
         """``csrc/models/pingpong.cuh`` at this form, ``max_nat`` and
-        ``net_slots``; raises past the instance's network slots."""
-        if self.net_slots > self.CUDA_MAX_SLOTS:
+        ``net_slots``; raises past the largest instance's network slots
+        (the message names the range held)."""
+        if not 1 <= self.net_slots <= self.CUDA_MAX_SLOTS:
             raise NotImplementedError(
-                f"csrc/wave_pingpong.cu holds at most {self.CUDA_MAX_SLOTS}"
+                f"csrc/wave_pingpong.cu holds 1 to {self.CUDA_MAX_SLOTS}"
                 f" network slots, not {self.net_slots}: run it with "
                 "wave_kernel=False on the card")
         return "pingpong", (int(self.maintains_history), int(self.lossy),

@@ -67,14 +67,17 @@ class SingleCopyDevice(RegisterWorkloadDevice):
     SERVER_LANES = ("value",)
     max_out = 1
 
-    #: (clients, servers) that ``csrc/wave_single_copy.cu`` instantiates
-    CUDA_INSTANCES = ((2, 1), (3, 1), (4, 1), (2, 2))
+    #: (clients, servers) that ``csrc/wave_single_copy.cu`` holds: every
+    #: pair of 1 to 4 clients and 1 to 7 servers of at most 8 actors (22;
+    #: ``sr::with_single_copy`` names the instance of each)
+    CUDA_INSTANCES = tuple((c, s) for c in range(1, 5) for s in range(1, 8)
+                           if c + s <= 8)
 
     def cuda_model(self):
         """``csrc/models/single_copy.cuh`` at this client and server count
-        and ``net_slots`` (the entry point refuses more slots than the
-        default's). Raises for counts it holds no instance of."""
-        cuda_instance("single_copy", self.C, self.S, self.CUDA_INSTANCES)
+        and ``net_slots``. Raises for counts it holds no instance of, or
+        more slots than the default's."""
+        cuda_instance("single_copy", self, self.CUDA_INSTANCES)
         return "single_copy", (self.C, self.S, self.net_slots)
 
     def server_lane_bits(self) -> tuple:

@@ -19,7 +19,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..device_model import DeviceModel, cuda_instance
+from ..device_model import DeviceModel
 from ..model import Model, Property
 
 __all__ = ["MOVES", "SlidingPuzzle", "PuzzleDevice"]
@@ -73,9 +73,11 @@ class PuzzleDevice(DeviceModel):
     the board invalid. An invalid slot holds what JAX's does: the blank
     swapped with the clamped cell index."""
 
-    #: the (rows, cols) boards that ``csrc/wave_sliding_puzzle.cu``
-    #: instantiates
-    CUDA_INSTANCES = ((2, 3), (3, 3), (4, 3))
+    #: the (rows, cols) boards that ``csrc/wave_sliding_puzzle.cu`` holds:
+    #: every board of 2 to 16 cells (instances at capacities of 4, 6, 9, 12
+    #: and 16 cells, the board at run time)
+    CUDA_INSTANCES = tuple((r, c) for r in range(1, 17)
+                           for c in range(1, 17) if 2 <= r * c <= 16)
 
     def __init__(self, rows: int, cols: int):
         self.rows = rows
@@ -85,10 +87,13 @@ class PuzzleDevice(DeviceModel):
 
     def cuda_model(self):
         """``csrc/models/sliding_puzzle.cuh`` on this board. Raises for a
-        board it holds no instance of."""
+        board it holds no instance of (one of more than 16 cells)."""
         board = (self.rows, self.cols)
-        cuda_instance("sliding_puzzle", board, self.CUDA_INSTANCES,
-                      f"{self.rows}x{self.cols}")
+        if board not in self.CUDA_INSTANCES:
+            raise NotImplementedError(
+                f"csrc/wave_sliding_puzzle.cu has no instance at "
+                f"{self.rows}x{self.cols} (it holds every board of 2 to 16 "
+                "cells): run it with wave_kernel=False on the card")
         return "sliding_puzzle", (self.rows, self.cols)
 
     def action_names(self):

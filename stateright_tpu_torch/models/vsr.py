@@ -174,9 +174,10 @@ class VsrSys(Model):
 
 
 class VsrDevice(ActorDeviceModel):
-    #: replica counts that ``csrc/wave_vsr.cu`` instantiates, each with
-    #: the most network slots it takes
-    CUDA_INSTANCES = {2: 16, 3: 40, 4: 48}
+    #: replica counts that ``csrc/wave_vsr.cu`` and ``sender_vsr.cu``
+    #: instantiate, each with its instances' network slots (an instance
+    #: holds every count up to its own; the smallest that holds a run runs)
+    CUDA_INSTANCES = {1: (64,), 2: (16, 64), 3: (40, 64), 4: (48, 64)}
 
     def __init__(self, n: int, max_view: int, lossy: bool = False,
                  duplicating: bool = True, net_slots: int = None):
@@ -200,12 +201,15 @@ class VsrDevice(ActorDeviceModel):
     def cuda_model(self):
         """``csrc/models/vsr.cuh`` at this replica count, form,
         ``max_view`` and ``net_slots``; raises for a count it holds no
-        instance of, or more slots than its instance takes."""
-        if self.net_slots > self.CUDA_INSTANCES.get(self.n, 0):
+        instance of, or more slots than its largest instance takes (the
+        message names the range held)."""
+        most = max(self.CUDA_INSTANCES.get(self.n, (0,)))
+        if not 1 <= self.net_slots <= most:
+            top = max(map(max, self.CUDA_INSTANCES.values()))
             raise NotImplementedError(
                 f"csrc/wave_vsr.cu has no instance at {self.n} replicas "
-                f"and {self.net_slots} network slots (it holds replicas: "
-                f"most slots {self.CUDA_INSTANCES}): run it with "
+                f"and {self.net_slots} network slots (it holds 1 to 4 "
+                f"replicas at 1 to {top} slots): run it with "
                 "wave_kernel=False on the card")
         return "vsr", (self.n, int(self.lossy), int(self.duplicating),
                        self.max_view, self.net_slots)

@@ -59,14 +59,18 @@ __all__ = ["RegisterWorkloadDevice", "register_init_state", "perm_tables",
 PUT, GET, PUTOK, GETOK = range(4)
 
 
-def cuda_instance(name: str, client_count: int, server_count: int,
-                  instances) -> None:
+def cuda_instance(name: str, dm, instances) -> None:
     """Raises ``NotImplementedError`` unless ``csrc/wave_<name>.cu``
-    instantiates its kernels at ``(client_count, server_count)``, one of
-    ``instances``."""
-    device_model.cuda_instance(
-        name, (client_count, server_count), instances,
-        f"{client_count} clients / {server_count} servers")
+    holds its kernels at ``dm``'s ``(clients, servers)``, one of
+    ``instances``, and its ``net_slots``, 1 up to the default (each
+    message names what is held)."""
+    device_model.cuda_instance(name, (dm.C, dm.S), instances,
+                               f"{dm.C} clients / {dm.S} servers")
+    if not 1 <= dm.net_slots <= dm.default_slots:
+        raise NotImplementedError(
+            f"csrc/wave_{name}.cu holds 1 to {dm.default_slots} network "
+            f"slots at {dm.C} clients / {dm.S} servers, not "
+            f"{dm.net_slots}: run it with wave_kernel=False on the card")
 
 
 def register_init_state(server_states, client_count: int) -> ActorModelState:
@@ -244,8 +248,9 @@ class RegisterWorkloadDevice(ActorDeviceModel):
         self.extra_shift = 13 + self.value_bits
         # The reference's bound: ~5 envelopes in flight a client, and room
         # for a broadcast; an overflow raises, naming the bound.
-        self.net_slots = net_slots or max(5 * client_count + 3,
-                                          client_count * (self.max_out + 2))
+        self.default_slots = max(5 * client_count + 3,
+                                 client_count * (self.max_out + 2))
+        self.net_slots = net_slots or self.default_slots
         nsl = len(self.SERVER_LANES)
         self.phase_off = nsl * server_count
         self.hist_off = self.phase_off + client_count

@@ -34,8 +34,8 @@ never synchronises, so it can run inside a multi-wave dispatch.
 Under a matmul plan (``plan=``, ``matmul_wave.MatmulPlan``) both kernels
 run the plan's transition-table step (``csrc/plan.cuh::PlanStep``) in
 place of the model's: ``sr_wave_<name>_plan`` and ``sr_sender_<name>_plan``
-of the model's source, instantiated where the gate admits the model (2pc
-to 8 RMs, increment and increment_lock at 2, 4 and 8 threads;
+of the model's source, held where the gate admits the model (2pc and
+increment and increment_lock at 1 to 8 RMs or threads;
 ``DeviceModel.CUDA_PLAN_INSTANCES``), with the plan copied into the
 kernel's parameters (``plan_host``) and its tables in a device buffer
 (``plan_tables``). A plan the entry points do not take raises
@@ -51,6 +51,7 @@ import numpy as np
 import torch
 
 from ._build import build_and_load
+from .device_model import held
 from .engine import dedup_and_insert as dedup_and_insert_plain
 from .engine import fingerprint_successors, first_occurrence_candidates
 from .matmul_wave import expand
@@ -202,7 +203,7 @@ def cuda_plan(dm, layout, plan) -> None:
         raise NotImplementedError(
             f"csrc/wave_{name}.cu has no plan-form entry for "
             f"{type(dm).__name__} at {params[:1]} (it holds "
-            f"{list(instances)}): run it with wave_matmul=False or "
+            f"{held(instances)}): run it with wave_matmul=False or "
             "wave_kernel=False on the card")
     plan_host(plan)
 
@@ -212,13 +213,29 @@ def _device_index(dev: torch.device) -> int:
     return torch.cuda.current_device() if dev.index is None else dev.index
 
 
+#: sources that hold some of a model's instances, by the model's name and
+#: its first param: paxos at 4 clients builds from ``csrc/wave_paxos4.cu``
+#: and ``sender_paxos4.cu``, beside its sources of 1 to 3 clients (its
+#: fourth client count alone takes about as long to build as the others)
+SPLIT_SOURCES = {"paxos": {4: "paxos4"}}
+
+
+def _source(name: str, params) -> str:
+    """The name of the sources (``csrc/wave_<source>.cu``, and the sender's
+    ``SENDER_SOURCES[source]``) that hold model ``name`` at ``params``
+    (another model's params may be arrays: only a split model's are
+    looked up)."""
+    split = SPLIT_SOURCES.get(name)
+    return split.get(params[0], name) if split else name
+
+
 @functools.lru_cache(maxsize=None)
-def _entry(name: str, kinds: str, plan: bool = False):
-    """``csrc/wave_<name>.cu``'s wave entry point, its model params of the
-    C types ``kinds`` (``_kinds``); its plan form ``sr_wave_<name>_plan``,
-    which takes the host plan and the device tables after them, when
-    ``plan``."""
-    fn = getattr(build_and_load("wave_" + name),
+def _entry(name: str, kinds: str, plan: bool = False, source=None):
+    """``csrc/wave_<source>.cu``'s wave entry point (``source`` is
+    ``name`` unless given), its model params of the C types ``kinds``
+    (``_kinds``); its plan form ``sr_wave_<name>_plan``, which takes the
+    host plan and the device tables after them, when ``plan``."""
+    fn = getattr(build_and_load("wave_" + (source or name)),
                  "sr_wave_" + name + ("_plan" if plan else ""))
     fn.restype = ctypes.c_int
     i, p = ctypes.c_int, ctypes.c_void_p
@@ -299,15 +316,16 @@ def _launcher(entry, dm, layout, name, params, plan, dev):
     """``(entry point, its plan arguments)``: the step form's, or under
     ``plan`` the plan form's with the host plan and the device tables,
     checked (``cuda_plan``) and made once a plan and device."""
+    source = _source(name, params)
     if plan is None:
-        return entry(name, _kinds(params)), ()
+        return entry(name, _kinds(params), source=source), ()
 
     def make():
         cuda_plan(dm, layout, plan)
         return plan_host(plan), torch.from_numpy(plan_tables(plan)).to(dev)
 
     host, tables = plan.derived(("kernel", str(dev)), make)
-    return (entry(name, _kinds(params), True),
+    return (entry(name, _kinds(params), True, source=source),
             (host.ctypes.data, tables.data_ptr()))
 
 
@@ -337,15 +355,20 @@ def sender_megakernel_plain(dm, store: torch.Tensor, valid: torch.Tensor,
 
 #: models whose sender entry point is a source of its own
 #: (``csrc/<source>.cu``), so that its kernels build beside the wave
-#: kernel's: paxos's four client counts are the longest build
-SENDER_SOURCES = {"paxos": "sender_paxos"}
+#: kernel's: paxos's client counts are the longest build, then VSR's,
+#: single-copy's and ABD's instances (keyed by ``_source``)
+SENDER_SOURCES = {"paxos": "sender_paxos", "paxos4": "sender_paxos4",
+                  "vsr": "sender_vsr", "single_copy": "sender_single_copy",
+                  "abd": "sender_abd"}
 
 
 @functools.lru_cache(maxsize=None)
-def _sender_entry(name: str, kinds: str, plan: bool = False):
-    """Likewise, its sender entry point (in ``csrc/wave_<name>.cu``, or
-    ``SENDER_SOURCES[name]``), and its plan form."""
-    fn = getattr(build_and_load(SENDER_SOURCES.get(name, "wave_" + name)),
+def _sender_entry(name: str, kinds: str, plan: bool = False, source=None):
+    """Likewise, its sender entry point (in ``csrc/wave_<source>.cu``, or
+    ``SENDER_SOURCES[source]``), and its plan form."""
+    source = source or name
+    fn = getattr(build_and_load(SENDER_SOURCES.get(source,
+                                                   "wave_" + source)),
                  "sr_sender_" + name + ("_plan" if plan else ""))
     fn.restype = ctypes.c_int
     i, p, ll = ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong

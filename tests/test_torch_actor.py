@@ -204,21 +204,34 @@ def test_cuda_model_names_each_form(form):
 
 
 def test_cuda_model_refuses_more_slots_than_its_instance():
-    dm = PingPongDevice(5, net_slots=27)
+    """Past the largest instance's 64 slots the wave kernel's setup
+    refuses, naming the range held; 27 slots, past the earlier instance's
+    26, now run on the instance of 64."""
+    dm = PingPongDevice(5, net_slots=65)
     layout = compile_layout(None, dm.state_width)
     with pytest.raises(NotImplementedError, match="wave_kernel=False"):
         wave.cuda_model(dm, layout)
+    with pytest.raises(NotImplementedError, match="holds 1 to 64"):
+        wave.cuda_model(dm, layout)
+    dm = PingPongDevice(5, net_slots=27)
+    name, params, _ = wave.cuda_model(dm, compile_layout(None,
+                                                         dm.state_width))
+    assert (name, params[-1]) == ("pingpong", 27)
 
 
 def test_cuda_instance_matches_the_entry_point():
-    """``CUDA_MAX_SLOTS`` is the one instance of ``csrc/wave_pingpong.cu``
-    (the form is runtime there: all eight forms)."""
-    src = os.path.join(os.path.dirname(wave.__file__), "csrc",
-                       "wave_pingpong.cu")
+    """``CUDA_INSTANCES`` are the instances the dispatch of
+    ``csrc/models/pingpong.cuh`` (which ``csrc/wave_pingpong.cu`` calls)
+    picks from, smaller first (the form is runtime there: all eight
+    forms), and ``CUDA_MAX_SLOTS`` the larger."""
+    src = os.path.join(os.path.dirname(wave.__file__), "csrc", "models",
+                       "pingpong.cuh")
     with open(src) as f:
-        found = re.findall(r"sr::PingPong<(\d+)>", f.read())
-    assert found and {int(x) for x in found} == {
-        PingPongDevice.CUDA_MAX_SLOTS}
+        found = re.findall(r"if \(e <= (\d+)\) return fn\(PingPong<(\d+)>",
+                           f.read())
+    assert found and all(a == b for a, b in found)
+    assert tuple(int(a) for a, _ in found) == PingPongDevice.CUDA_INSTANCES
+    assert PingPongDevice.CUDA_MAX_SLOTS == 64
 
 
 class _OwnDelivery(PingPongDevice):

@@ -277,23 +277,43 @@ def test_dgraph_cuda_model_carries_its_table():
         wave.cuda_model(big.device_model(), layout)
 
 
+@pytest.mark.parametrize("dm", [increment.IncrementDevice(17),
+                                increment_lock.IncrementLockDevice(17),
+                                sliding_puzzle.PuzzleDevice(4, 5),
+                                sliding_puzzle.PuzzleDevice(1, 17)],
+                         ids=["increment-17", "increment_lock-17",
+                              "puzzle-4x5", "puzzle-1x17"])
+def test_cuda_model_refuses_sizes_with_no_instance(dm):
+    """A size past every instance the entry point holds is refused when
+    the wave kernel is set up, with the range it holds and the hint to run
+    it on the torch stages."""
+    layout = compile_layout(dm.lane_bits(), dm.state_width)
+    with pytest.raises(NotImplementedError, match="wave_kernel=False"):
+        wave.cuda_model(dm, layout)
+    with pytest.raises(NotImplementedError, match="1 to 16|2 to 16 cells"):
+        wave.cuda_model(dm, layout)
+
+
 @pytest.mark.parametrize("dm", [increment.IncrementDevice(3),
                                 increment_lock.IncrementLockDevice(6),
                                 sliding_puzzle.PuzzleDevice(2, 2),
                                 sliding_puzzle.PuzzleDevice(3, 4)],
                          ids=["increment-3", "increment_lock-6", "puzzle-2x2",
                               "puzzle-3x4"])
-def test_cuda_model_refuses_sizes_with_no_instance(dm):
-    """A size the entry point does not instantiate is refused when the
-    wave kernel is set up, with the hint to run it on the torch stages."""
+def test_cuda_model_holds_sizes_the_fixed_instances_refused(dm):
+    """Sizes the entry points once refused (they held fixed sizes): the
+    registry's default of three threads, a count between two capacities,
+    and boards other than 2x3, 3x3 and 4x3 now have an instance."""
     layout = compile_layout(dm.lane_bits(), dm.state_width)
-    with pytest.raises(NotImplementedError, match="wave_kernel=False"):
-        wave.cuda_model(dm, layout)
+    name, params, lanes = wave.cuda_model(dm, layout)
+    assert params == ((dm.thread_count,) if hasattr(dm, "thread_count")
+                      else (dm.rows, dm.cols))
+    assert lanes.shape == (5 * dm.state_width,)
 
 
 def _instances(name):
     src = os.path.join(os.path.dirname(wave.__file__), "csrc",
-                       f"wave_{name}.cu")
+                       f"{name}.cuh")
     with open(src) as f:
         return f.read()
 
@@ -302,21 +322,32 @@ def _instances(name):
     ("increment", increment.IncrementDevice),
     ("increment_lock", increment_lock.IncrementLockDevice)])
 def test_thread_instances_match_the_entry_point(name, cls):
-    """``CUDA_INSTANCES`` lists exactly the thread counts that
-    ``csrc/wave_<name>.cu`` instantiates."""
-    found = re.findall(r"if \(threads == (\d+)\) return fn\(sr::\w+<(\d+)>",
-                       _instances(name))
+    """``CUDA_INSTANCES`` lists exactly the thread counts that the dispatch
+    of ``csrc/models/<name>.cuh`` (which ``csrc/wave_<name>.cu`` calls)
+    holds: each capacity from one past the last to its own."""
+    found = re.findall(r"if \(threads <= (\d+)\) return fn\(\w+<(\d+)>"
+                       r"\{threads\}\)", _instances("models/" + name))
     assert found and all(a == b for a, b in found)
-    assert sorted(int(a) for a, _ in found) == sorted(cls.CUDA_INSTANCES)
+    caps = [int(a) for a, _ in found]
+    assert caps == sorted(caps)
+    assert "if (threads < 1) return none;" in _instances("models/" + name)
+    assert tuple(range(1, caps[-1] + 1)) == tuple(cls.CUDA_INSTANCES)
 
 
 def test_puzzle_instances_match_the_entry_point():
-    found = re.findall(r"if \(rows == (\d) && cols == (\d)\) return "
-                       r"fn\(sr::SlidingPuzzle<(\d), (\d)>",
-                       _instances("sliding_puzzle"))
-    assert found and all(a == c and b == d for a, b, c, d in found)
-    assert sorted((int(a), int(b)) for a, b, _, _ in found) == sorted(
-        sliding_puzzle.PuzzleDevice.CUDA_INSTANCES)
+    """``CUDA_INSTANCES`` lists exactly the boards the dispatch of
+    ``csrc/models/sliding_puzzle.cuh`` holds: every board of 2 cells up to
+    its largest capacity."""
+    text = _instances("models/sliding_puzzle")
+    found = re.findall(r"if \(n <= (\d+)\) return fn\(SlidingPuzzle<(\d+)>"
+                       r"::make\(rows, cols\)\)", text)
+    assert found and all(a == b for a, b in found)
+    assert "if (n < 2) return none;" in text
+    most = max(int(a) for a, _ in found)
+    boards = {(r, c) for r in range(1, most + 1) for c in range(1, most + 1)
+              if 2 <= r * c <= most}
+    assert set(sliding_puzzle.PuzzleDevice.CUDA_INSTANCES) == boards
+    assert len(sliding_puzzle.PuzzleDevice.CUDA_INSTANCES) == len(boards)
 
 
 class _OwnStep(increment.IncrementDevice):

@@ -132,14 +132,6 @@ using sr::u64;
 
 namespace {
 
-// Calls fn with register workload M<kC, kS> at net_slots e, -1 when e is
-// not in 1..kMaxE.
-template <int kC, int kS, template <int, int> class M, class Fn>
-long long with_register(int e, Fn&& fn) {
-  if (e < 1 || e > M<kC, kS>::kMaxE) return -1;
-  return fn(M<kC, kS>{e});
-}
-
 // The graph that model 5 runs (set_dgraph).
 sr::DGraph g_dgraph;
 
@@ -155,89 +147,73 @@ long long with_model_step(int model, int p0, int p1, int p2, Fn&& fn);
 // at p0 clients and p1 network slots, model 2 single-copy and model 3 ABD
 // at p0 clients, p2 servers and p1 network slots, model 4 LinearEquation,
 // model 5 the DGraph of the last set_dgraph, model 6 increment and model 7
-// increment_lock at p0 threads, model 8 the p0 x p1 sliding puzzle (each
-// at the sizes its entry point instantiates); model 9 ping-pong at max_nat
-// p0 and p1 network slots, its form in p2's bits (history 1, lossy 2,
-// duplicating 4); model 10 VSR at p0 replicas and p1 network slots, p2's
-// bits lossy 1 and duplicating 2 and max_view above them (the instances of
-// wave_pingpong.cu and wave_vsr.cu). Model 100 + m is model m with its
-// step replaced by the plan of the last set_plan (plan.cuh's PlanStep), -2
-// when that plan does not load. -1 for a model it does not hold.
+// increment_lock at p0 threads, model 8 the p0 x p1 sliding puzzle; model
+// 9 ping-pong at max_nat p0 and p1 network slots, its form in p2's bits
+// (history 1, lossy 2, duplicating 4); model 10 VSR at p0 replicas and p1
+// network slots, p2's bits lossy 1 and duplicating 2 and max_view above
+// them. Each through the instance dispatch its entry point uses
+// (sr::with_increment, with_puzzle, with_single_copy, with_abd,
+// with_pingpong, with_vsr, ...), so at the sizes it holds. Model 100 + m
+// is model m with its step replaced by the plan of the last set_plan
+// (plan.cuh's PlanStep), -2 when that plan does not load. -1 for a model
+// or size it does not hold.
 template <class Fn>
 long long with_model(int model, int p0, int p1, int p2, Fn&& fn) {
   if (model < 100) return with_model_step(model, p0, p1, p2, fn);
-  return with_model_step(model - 100, p0, p1, p2,
-                         [&](const auto& m) -> long long {
+  auto planned = [&](const auto& m) -> long long {
     using M = std::decay_t<decltype(m)>;
     static sr::PlanStep<M> p;
     if (!p.load(m, g_plan, g_plan_tables)) return -2;
     return fn(p);
-  });
+  };
+  // The models with a plan form (2pc and the shared counters).
+  switch (model - 100) {
+    case 0:
+      return planned(sr::TwoPhase<8>{p0});
+    case 6:
+      return sr::with_increment(p0, -1, planned);
+    case 7:
+      return sr::with_increment_lock(p0, -1, planned);
+  }
+  return -1;
 }
 
 template <class Fn>
 long long with_model_step(int model, int p0, int p1, int p2, Fn&& fn) {
-  if (model == 0) return fn(sr::TwoPhase<8>{p0});
-  if (model == 9 && p1 >= 1 && p1 <= sr::PingPong<26>::kMaxE)
-    return fn(sr::PingPong<26>{p1, (p2 & 1) != 0, (p2 & 2) != 0,
-                               (p2 & 4) != 0, (uint32_t)p0});
-  if (model == 10 && p1 >= 1) {
-    const bool l = (p2 & 1) != 0, d = (p2 & 2) != 0;
-    const uint32_t mv = (uint32_t)(p2 >> 2);
-    if (p0 == 2 && p1 <= 16) return fn(sr::Vsr<2, 16>{p1, l, d, mv});
-    if (p0 == 3 && p1 <= 40) return fn(sr::Vsr<3, 40>{p1, l, d, mv});
-    if (p0 == 4 && p1 <= 48) return fn(sr::Vsr<4, 48>{p1, l, d, mv});
-  }
-  if (model == 4) return fn(sr::LinearEquation{});
-  if (model == 5) return fn(g_dgraph);
-  if (model == 6) {
-    if (p0 == 2) return fn(sr::Increment<2>{});
-    if (p0 == 4) return fn(sr::Increment<4>{});
-    if (p0 == 8) return fn(sr::Increment<8>{});
-    if (p0 == 16) return fn(sr::Increment<16>{});
-  }
-  if (model == 7) {
-    if (p0 == 2) return fn(sr::IncrementLock<2>{});
-    if (p0 == 4) return fn(sr::IncrementLock<4>{});
-    if (p0 == 8) return fn(sr::IncrementLock<8>{});
-  }
-  if (model == 8) {
-    const int k = p0 * 10 + p1;
-    if (k == 23) return fn(sr::SlidingPuzzle<2, 3>{});
-    if (k == 33) return fn(sr::SlidingPuzzle<3, 3>{});
-    if (k == 43) return fn(sr::SlidingPuzzle<4, 3>{});
-  }
-  if (model == 1 && p1 >= 1) {
-    switch (p0) {
-      case 1:
-        if (p1 <= sr::Paxos<1>::kMaxE) return fn(sr::Paxos<1>{p1});
-        break;
-      case 2:
-        if (p1 <= sr::Paxos<2>::kMaxE) return fn(sr::Paxos<2>{p1});
-        break;
-      case 3:
-        if (p1 <= sr::Paxos<3>::kMaxE) return fn(sr::Paxos<3>{p1});
-        break;
-      case 4:
-        if (p1 <= sr::Paxos<4>::kMaxE) return fn(sr::Paxos<4>{p1});
-        break;
-    }
-  }
-  if (model == 2) {
-    const int k = p0 * 10 + p2;
-    if (k == 11) return with_register<1, 1, sr::SingleCopy>(p1, fn);
-    if (k == 21) return with_register<2, 1, sr::SingleCopy>(p1, fn);
-    if (k == 31) return with_register<3, 1, sr::SingleCopy>(p1, fn);
-    if (k == 41) return with_register<4, 1, sr::SingleCopy>(p1, fn);
-    if (k == 22) return with_register<2, 2, sr::SingleCopy>(p1, fn);
-    if (k == 32) return with_register<3, 2, sr::SingleCopy>(p1, fn);
-  }
-  if (model == 3) {
-    const int k = p0 * 10 + p2;
-    if (k == 11) return with_register<1, 1, sr::Abd>(p1, fn);
-    if (k == 22) return with_register<2, 2, sr::Abd>(p1, fn);
-    if (k == 23) return with_register<2, 3, sr::Abd>(p1, fn);
-    if (k == 33) return with_register<3, 3, sr::Abd>(p1, fn);
+  switch (model) {
+    case 0:
+      return fn(sr::TwoPhase<8>{p0});
+    case 1:
+      switch (p0) {
+        case 1:
+          return sr::with_register<sr::Paxos<1>>(p1, 3, -1, fn);
+        case 2:
+          return sr::with_register<sr::Paxos<2>>(p1, 3, -1, fn);
+        case 3:
+          return sr::with_register<sr::Paxos<3>>(p1, 3, -1, fn);
+        case 4:
+          return sr::with_register<sr::Paxos<4>>(p1, 3, -1, fn);
+      }
+      return -1;
+    case 2:
+      return sr::with_single_copy(p0, p2, p1, -1, fn);
+    case 3:
+      return sr::with_abd(p0, p2, p1, -1, fn);
+    case 4:
+      return fn(sr::LinearEquation{});
+    case 5:
+      return fn(g_dgraph);
+    case 6:
+      return sr::with_increment(p0, -1, fn);
+    case 7:
+      return sr::with_increment_lock(p0, -1, fn);
+    case 8:
+      return sr::with_puzzle(p0, p1, -1, fn);
+    case 9:
+      return sr::with_pingpong(p2 & 1, (p2 >> 1) & 1, (p2 >> 2) & 1, p0, p1,
+                               -1, fn);
+    case 10:
+      return sr::with_vsr(p0, p2 & 1, (p2 >> 1) & 1, p2 >> 2, p1, -1, fn);
   }
   return -1;
 }
@@ -477,8 +453,9 @@ extern "C" long long model_representative(int model, int p0, int p1, int p2,
   });
 }
 
-// The codec of the model's layout (lanes as the kernels take them): n rows
-// of w lanes packed into wp words a row (pack != 0), or back.
+// The codec of the model's layout (lanes as the kernels take them; the
+// codec on words in memory where the model takes it): n rows of w lanes
+// packed into wp words a row (pack != 0), or back.
 extern "C" long long layout_codec(int model, int p0, int p1, int p2,
                                   int pack, const int* lanes, int w, int wp,
                                   const uint32_t* in, long long n,
@@ -491,11 +468,17 @@ extern "C" long long layout_codec(int model, int p0, int p1, int p2,
       uint32_t v[M::kMaxW] = {}, p[M::kMaxWords] = {};
       if (pack) {
         for (int j = 0; j < w; ++j) v[j] = in[b * w + j];
-        sr::pack(L, v, p);
+        if constexpr (sr::IndexedCodec<M>::value)
+          sr::pack_into(L, v, p);
+        else
+          sr::pack(L, v, p);
         for (int k = 0; k < wp; ++k) out[b * wp + k] = p[k];
       } else {
         for (int k = 0; k < wp; ++k) p[k] = in[b * wp + k];
-        sr::unpack(L, p, v);
+        if constexpr (sr::IndexedCodec<M>::value)
+          sr::unpack_from(L, p, v);
+        else
+          sr::unpack(L, p, v);
         for (int j = 0; j < w; ++j) out[b * w + j] = v[j];
       }
     }
@@ -675,7 +658,20 @@ _MODELS = {"twopc": (0, twopc.TwoPhaseSys, twopc.TwoPhaseDevice, 3, 1 << 20),
                         lambda m: pingpong.PingPongDevice(m, lossy=True), 8,
                         1 << 32),
            "vsr": (10, lambda n: vsr.VsrSys(n, 1),
-                   lambda n: vsr.VsrDevice(n, 1), 6, 1 << 32)}
+                   lambda n: vsr.VsrDevice(n, 1), 6, 1 << 32),
+           # the sizes whose instances take a size at run time: the
+           # registers at (clients, servers), ping-pong at net_slots, VSR
+           # at (replicas, net_slots)
+           "sc": (2, lambda cs: single_copy.SingleCopySys(*cs),
+                  lambda cs: single_copy.SingleCopyDevice(*cs), 4, 1 << 32),
+           "abd_cs": (3, lambda cs: abd.AbdSys(*cs),
+                      lambda cs: abd.AbdDevice(*cs), 6, 1 << 32),
+           "pingpong_e": (9, lambda e: pingpong.PingPongSys(
+               5, lossy=True, net_slots=e), lambda e: pingpong.PingPongDevice(
+               5, lossy=True, net_slots=e), 8, 1 << 32),
+           "vsr_e": (10, lambda ne: vsr.VsrSys(ne[0], 1, net_slots=ne[1]),
+                     lambda ne: vsr.VsrDevice(ne[0], 1, net_slots=ne[1]), 6,
+                     1 << 32)}
 
 
 def _graph(seed):
@@ -774,8 +770,21 @@ _ACTOR_CASES = [pytest.param(m, size, False, id=f"{m}{size}")
                                 ("vsr", 4))]
 
 
+#: one size of each kind of instance that takes its size at run time
+#: (below the capacity): a capacity class of the shared counters, a puzzle
+#: board, single-copy with symmetry at 2 servers, ABD at a runtime server
+#: count, ping-pong and VSR past their earlier slot caps
+_RANGE_CASES = [pytest.param(m, size, sym, id=f"{m}{size}-{sym}")
+                for m, size, sym in (
+                    ("increment", 3, True), ("increment_lock", 12, True),
+                    ("puzzle", (3, 4), False), ("sc", (3, 2), True),
+                    ("abd_cs", (1, 7), False), ("abd_cs", (2, 4), False),
+                    ("pingpong_e", 32, False), ("vsr_e", (3, 48), False))]
+
+
 @pytest.mark.parametrize("model, size, sym", _CASES + _PAXOS_CASES
-                         + _REGISTER_CASES + _PLAIN_CASES + _ACTOR_CASES)
+                         + _REGISTER_CASES + _PLAIN_CASES + _ACTOR_CASES
+                         + _RANGE_CASES)
 def test_wave_phases_match_the_plain_version(lib, model, size, sym):
     rng = np.random.default_rng(_seed(size))
     B = 48
@@ -850,7 +859,7 @@ def _sender_rows(model, size, sym, n, rng):
     c for c in _PAXOS_CASES + _REGISTER_CASES
     if c.id in ("paxos1-False", "paxos2-False", "paxos4-True",
                 "single_copy4-True", "abd2-False")] + _PLAIN_CASES
-    + _ACTOR_CASES[:2])
+    + _ACTOR_CASES[:2] + _RANGE_CASES)
 def test_sender_phases_match_the_plain_version(lib, model, size, sym,
                                                local_dedup, n):
     """The sender kernel's per-slot work and pass 2 against
@@ -1082,12 +1091,49 @@ def register_rows():
             (single_copy.SingleCopyDevice, 2, 2): _levels(sc(2, 2)),
             (abd.AbdDevice, 2, 2): _levels(ab(2, 2)),
             (abd.AbdDevice, 2, 3): _levels(ab(2, 3), levels=14, cap=40,
-                                           seed=5)}
+                                           seed=5),
+            **{key: _port_rows(key) for key in _REGISTER_RANGE}}
 
 
+def _port_rows(key, levels=14, cap=40):
+    """Rows the port's own step reaches level by level from the init of
+    ``key``'s system (a seeded sample of at most ``cap`` a level): the
+    sizes whose CUDA instance takes the server count at run time (the
+    port's step is held to JAX's by ``test_torch_registers.py``)."""
+    cls, c, s = key
+    system = (single_copy.SingleCopySys if cls is single_copy.SingleCopyDevice
+              else abd.AbdSys)(c, s)
+    dm = system.device_model()
+    rng = np.random.default_rng(10 * c + s)
+    rows = np.stack([dm.encode(x) for x in system.init_states()])
+    seen, out = {r.tobytes() for r in rows}, [rows]
+    for _ in range(levels):
+        succ, valid = dm.step(carry.rows_in(rows))
+        nxt = []
+        for r in carry.rows_out(succ)[valid.numpy()]:
+            if r.tobytes() not in seen:
+                seen.add(r.tobytes())
+                nxt.append(r)
+        if not nxt:
+            break
+        rows = np.stack(nxt)
+        if len(rows) > cap:
+            rows = rows[np.sort(rng.choice(len(rows), cap, replace=False))]
+        out.append(rows)
+    return np.concatenate(out)
+
+
+#: the pairs on the instances that take the server count at run time (one
+#: a capacity class, and both ends of the one-client ranges): single-copy
+#: 1/7, 3/2, 2/6 and 4/4 (1/1 is an end too, listed below), ABD 1/1, 1/7,
+#: 2/4, 3/3 and 4/4 (its own instance on the run-time code)
+_REGISTER_RANGE = [(single_copy.SingleCopyDevice, c, s)
+                   for c, s in ((1, 7), (3, 2), (2, 6), (4, 4))] + [
+    (abd.AbdDevice, c, s) for c, s in ((1, 1), (1, 7), (2, 4), (3, 3),
+                                       (4, 4))]
 _REGISTER_MODELS = [(single_copy.SingleCopyDevice, c, s)
                     for c, s in ((1, 1), (2, 1), (3, 1), (4, 1), (2, 2))] + [
-    (abd.AbdDevice, 2, 2), (abd.AbdDevice, 2, 3)]
+    (abd.AbdDevice, 2, 2), (abd.AbdDevice, 2, 3)] + _REGISTER_RANGE
 
 
 def _register_id(key):
@@ -1116,7 +1162,10 @@ def test_register_step_matches_the_port_on_reachable_rows(lib, register_rows,
     ((single_copy.SingleCopyDevice, 2, 2), 0),
     ((single_copy.SingleCopyDevice, 3, 1), 4),
     ((abd.AbdDevice, 2, 2), 0), ((abd.AbdDevice, 2, 3), 0),
-    ((abd.AbdDevice, 2, 2), 3)],
+    ((abd.AbdDevice, 2, 2), 3), ((single_copy.SingleCopyDevice, 2, 6), 0),
+    ((single_copy.SingleCopyDevice, 3, 2), 5),
+    ((abd.AbdDevice, 1, 7), 0), ((abd.AbdDevice, 2, 4), 4),
+    ((abd.AbdDevice, 3, 3), 0)],
     ids=lambda k: _register_id(k) if isinstance(k, tuple) else str(k))
 def test_register_step_matches_the_port_on_adversarial_rows(lib, key,
                                                             net_slots):
@@ -1148,23 +1197,29 @@ def test_register_representative_matches_the_port(lib, register_rows, key):
     got = _device_representative(lib, dm, rows)
     want = dm.representative(carry.rows_in(rows))
     assert np.array_equal(got, carry.rows_out(want))
-    assert (got != rows).any() == (key[2] == 1 and key[1] > 1)
+    assert (got != rows).any() == (
+        key[0] is single_copy.SingleCopyDevice and key[1] > key[2])
 
 
 # -- The plain device models' steps and representatives ----------------------
 
 
-#: every instantiated size of the plain device models (two random graphs
-#: of the differential fuzz), with the system that gives its init states
+#: the plain device models at the sizes their entry points hold: the two
+#: fixtures (two random graphs of the differential fuzz), the shared
+#: counters at each end and one count of each capacity class (and the
+#: counts of the earlier fixed instances), the puzzle on a board of each
+#: capacity class; each with the system that gives its init states
+_THREADS = (1, 2, 3, 4, 5, 8, 12, 16)
+_LOCK_THREADS = (1, 2, 3, 4, 6, 8, 12, 16)
+_BOARDS = ((2, 3), (3, 3), (4, 3), (2, 2), (3, 2), (2, 4), (3, 4), (4, 4))
 _PLAIN_MODELS = (
     [(test_util.LinearEquation(2, 4, 7), "linear_equation"),
      (_graph(1000), "dgraph 1000"), (_graph(1003), "dgraph 1003")]
-    + [(increment.IncrementModel(t), f"increment {t}")
-       for t in increment.IncrementDevice.CUDA_INSTANCES]
+    + [(increment.IncrementModel(t), f"increment {t}") for t in _THREADS]
     + [(increment_lock.IncrementLockModel(t), f"increment_lock {t}")
-       for t in increment_lock.IncrementLockDevice.CUDA_INSTANCES]
+       for t in _LOCK_THREADS]
     + [(sliding_puzzle.SlidingPuzzle(r, c), f"puzzle {r}x{c}")
-       for r, c in sliding_puzzle.PuzzleDevice.CUDA_INSTANCES])
+       for r, c in _BOARDS])
 
 
 def _plain_rows(model, rng, levels=12, cap=64, n_adv=400):
@@ -1227,7 +1282,7 @@ def test_plain_model_representative_matches_the_port(lib, model, tag):
         assert np.array_equal(got, rows)
     else:
         assert np.array_equal(got, carry.rows_out(want))
-        assert (got != rows).any()
+        assert (got != rows).any() == (dm.max_fanout > 1)
 
 
 @pytest.mark.parametrize("model, tag", [m for m in _PLAIN_MODELS
@@ -1462,7 +1517,16 @@ _PLAN_STEP_MODELS = [pytest.param(twopc.TwoPhaseDevice(5), id="twopc5"),
                                   id="increment_lock4"),
                      pytest.param(twopc.TwoPhaseDevice(3), id="twopc3"),
                      pytest.param(increment.IncrementDevice(4),
-                                  id="increment4")]
+                                  id="increment4"),
+                     # the capacities 2, 4 and 8 below their own counts
+                     pytest.param(increment.IncrementDevice(3),
+                                  id="increment3"),
+                     pytest.param(increment_lock.IncrementLockDevice(3),
+                                  id="increment_lock3"),
+                     pytest.param(increment_lock.IncrementLockDevice(5),
+                                  id="increment_lock5"),
+                     pytest.param(increment.IncrementDevice(1),
+                                  id="increment1")]
 
 
 @pytest.mark.parametrize("dm", _PLAN_STEP_MODELS)
@@ -1498,7 +1562,9 @@ def test_plan_step_matches_matmul_expand(lib, dm):
 @pytest.mark.parametrize("model, size, sym", [
     pytest.param("twopc", 5, False, id="twopc5"),
     pytest.param("twopc", 5, True, id="twopc5-sym"),
-    pytest.param("increment_lock", 4, True, id="increment_lock4-sym")])
+    pytest.param("increment_lock", 4, True, id="increment_lock4-sym"),
+    pytest.param("increment", 3, True, id="increment3-sym"),
+    pytest.param("increment_lock", 5, False, id="increment_lock5")])
 def test_plan_wave_and_sender_phases_match_the_plain_version(lib, model,
                                                             size, sym):
     """The tile loop's per-slot steps with ``PlanStep`` in the model's
@@ -1597,3 +1663,142 @@ def test_plan_fits_the_kernel_parameters(lib):
         100, 3, 0, 0)], ctypes.c_void_p(_ptr(rows)), ctypes.c_longlong(1),
         ctypes.c_int(dm.state_width), ctypes.c_void_p(_ptr(out)),
         ctypes.c_void_p(_ptr(en))) == -2
+
+
+# -- Every size the entry points hold -----------------------------------------
+
+
+def _range_models():
+    """A device model at every size the entry points hold, by the
+    instance dispatch their sources share: increment and increment_lock at
+    1 to 16 threads, the puzzle on every board of 2 to 16 cells, single-copy
+    at its 22 (clients, servers) pairs and ABD at its 16, ping-pong and VSR
+    at 1 to 4 replicas on each instance's most slots and the least slots of
+    the next instance."""
+    out = [increment.IncrementDevice(t) for t in range(1, 17)]
+    out += [increment_lock.IncrementLockDevice(t) for t in range(1, 17)]
+    out += [sliding_puzzle.PuzzleDevice(r, c)
+            for r, c in sliding_puzzle.PuzzleDevice.CUDA_INSTANCES]
+    out += [single_copy.SingleCopyDevice(c, s)
+            for c, s in single_copy.SingleCopyDevice.CUDA_INSTANCES]
+    out += [abd.AbdDevice(c, s) for c, s in abd.AbdDevice.CUDA_INSTANCES]
+    out += [pingpong.PingPongDevice(3, lossy=True, net_slots=e)
+            for e in (1, 26, 27, 64)]
+    out += [vsr.VsrDevice(n, 2, lossy=n % 2 == 1, net_slots=e)
+            for n, caps in vsr.VsrDevice.CUDA_INSTANCES.items()
+            for e in sorted({caps[0], caps[0] + 1, caps[-1]} - {65})]
+    return out
+
+
+def _range_id(dm):
+    if isinstance(dm, (increment.IncrementDevice,
+                       increment_lock.IncrementLockDevice)):
+        return f"{type(dm).__name__}-{dm.thread_count}"
+    if isinstance(dm, sliding_puzzle.PuzzleDevice):
+        return f"puzzle-{dm.rows}x{dm.cols}"
+    if isinstance(dm, (single_copy.SingleCopyDevice, abd.AbdDevice)):
+        return f"{type(dm).__name__}-{dm.C}-{dm.S}"
+    if isinstance(dm, vsr.VsrDevice):
+        return f"vsr{dm.n}-e{dm.net_slots}"
+    return f"pingpong-e{dm.net_slots}"
+
+
+def _range_rows(dm, rng, n=160):
+    """Seeded rows for ``dm``: a board's tiles shuffled (and some garbage
+    boards), else random lanes, most of them small, and on a network
+    random envelopes of the model's fields and empty slots, half sorted."""
+    w = dm.state_width
+    if isinstance(dm, sliding_puzzle.PuzzleDevice):
+        rows = np.stack([rng.permutation(w) for _ in range(n)])
+        rows[: n // 8] = rng.integers(0, w + 2, (n // 8, w))
+        return rows.astype(np.uint32)
+    if isinstance(dm, (single_copy.SingleCopyDevice, abd.AbdDevice)):
+        from test_torch_registers import _perturbed
+        return np.concatenate([_adversarial(dm, n, rng),
+                               _perturbed(_adversarial(dm, 8, rng), dm, n,
+                                          rng)])
+    rows = rng.integers(0, 1 << 32, (n, w), dtype=np.uint64)
+    small = rng.random((n, w)) < 0.8
+    rows[small] = rng.integers(0, 6, small.sum())
+    if hasattr(dm, "net_offset"):
+        off, e = dm.net_offset, dm.net_slots
+        env = rng.integers(0, 1 << 15, (n, e), dtype=np.uint64)
+        env[rng.random((n, e)) < 0.3] = EMPTY_ENV
+        ordered = rng.random(n) < 0.5
+        env[ordered] = np.sort(env[ordered], axis=1)
+        rows[:, off:off + e] = env
+        rows[:, dm.error_lane] = 0
+    return rows.astype(np.uint32)
+
+
+@pytest.mark.parametrize("dm", _range_models(), ids=_range_id)
+def test_every_held_size_matches_the_port(lib, dm):
+    """The device step at every size the entry points hold, through the
+    instance dispatch they use (``sr::with_increment``, ``with_puzzle``,
+    ``with_single_copy``, ``with_abd``, ``with_pingpong``, ``with_vsr``):
+    every slot of seeded rows, the successor bit for bit and the enabled
+    bit (inside the boundary, for the actor models) as the port's torch
+    step's; the representative as the port's; a packed model's codec both
+    ways as ``packing.py``'s (the codec on words in memory, where an
+    instance takes it). The instances that take a size at run time lay the
+    row out at their capacity, so a lane of theirs that moved, or a pad
+    that leaked into a row, shows here."""
+    rng = np.random.default_rng(dm.state_width * 31 + dm.max_fanout)
+    rows = _range_rows(dm, rng)
+    succ, enabled = _device_step(lib, dm, rows)
+    want, valid = dm.step(carry.rows_in(rows))
+    inside = dm.boundary(want.reshape(-1, dm.state_width))
+    if inside is not None:
+        valid = valid & inside.view(valid.shape)
+    assert np.array_equal(succ, carry.rows_out(want))
+    assert np.array_equal(enabled, valid.numpy())
+    assert enabled.any()
+    rep = dm.representative(carry.rows_in(rows))
+    got = _device_representative(lib, dm, rows)
+    assert np.array_equal(got, rows if rep is None else carry.rows_out(rep))
+    bits = dm.lane_bits()
+    if bits is None:
+        return
+    layout = compile_layout(bits, dm.state_width)
+    w, wp = layout.width, layout.packed_width
+    _, _, lanes = wave.cuda_model(dm, layout)
+    n = len(rows)
+
+    def codec(pack, src, out):
+        assert _call(lib, "layout_codec",
+                     *[ctypes.c_int(a) for a in _params(lib, dm)],
+                     ctypes.c_int(pack), ctypes.c_void_p(_ptr(lanes)),
+                     ctypes.c_int(w), ctypes.c_int(wp),
+                     ctypes.c_void_p(_ptr(src)), ctypes.c_longlong(n),
+                     ctypes.c_void_p(_ptr(out))) == 0
+        return out
+
+    packed = codec(1, rows, np.zeros((n, wp), np.uint32))
+    assert np.array_equal(packed, carry.words_out(
+        layout.pack(carry.rows_in(rows))))
+    words = rng.integers(0, 1 << 32, (n, wp), dtype=np.uint64).astype(
+        np.uint32)
+    words[::3] = 0xFFFFFFFF
+    unpacked = codec(0, words, np.zeros((n, w), np.uint32))
+    assert np.array_equal(unpacked, carry.rows_out(
+        layout.unpack(carry.words_in(words))))
+
+
+@pytest.mark.parametrize("model, p0, p1, p2", [
+    (6, 17, 0, 0), (7, 17, 0, 0), (7, 0, 0, 0), (8, 4, 5, 0), (8, 1, 1, 0),
+    (2, 5, 8, 1), (2, 1, 60, 8), (3, 3, 8, 2), (3, 1, 60, 8), (9, 3, 65, 2),
+    (10, 1, 65, 0), (10, 5, 8, 0), (10, 4, 65, 0)],
+    ids=["increment-17", "increment_lock-17", "increment_lock-0",
+         "puzzle-4x5", "puzzle-1x1", "single_copy-5-1", "single_copy-1-8",
+         "abd-3-2", "abd-1-8", "pingpong-e65", "vsr1-e65", "vsr5",
+         "vsr4-e65"])
+def test_sizes_past_the_instances_are_refused(lib, model, p0, p1, p2):
+    """The dispatch holds nothing past its ranges: the first size past
+    each capacity (and a size below the least) finds no instance."""
+    rows = np.zeros((1, 8), np.uint32)
+    out = np.zeros((1, 64, 8), np.uint32)
+    en = np.zeros((1, 64), np.bool_)
+    assert _call(lib, "model_step", *[ctypes.c_int(a) for a in (
+        model, p0, p1, p2)], ctypes.c_void_p(_ptr(rows)),
+        ctypes.c_longlong(1), ctypes.c_int(8), ctypes.c_void_p(_ptr(out)),
+        ctypes.c_void_p(_ptr(en))) == -1

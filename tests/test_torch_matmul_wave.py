@@ -178,7 +178,12 @@ def test_classification_is_memoized_by_the_cuda_model():
     a = matmul_wave.classify(twopc.TwoPhaseSys(3).device_model())
     assert a is matmul_wave.classify(twopc.TwoPhaseSys(3).device_model())
     b = matmul_wave.classify(increment.IncrementModel(3).device_model())
-    c = matmul_wave.classify(increment.IncrementModel(3).device_model())
+    assert b is matmul_wave.classify(increment.IncrementModel(3).device_model())
+    # A graph of 41 nodes: past the 32 that csrc/wave_dgraph.cu holds.
+    big = test_util.DGraph.with_property(
+        test_util.Property.always("p")).with_path([0, 40])
+    b = matmul_wave.classify(big.device_model())
+    c = matmul_wave.classify(big.device_model())
     assert b is not c and b.reason == c.reason
     assert matmul_wave.plan_bytes(a.plan, 64) == (
         4 * 64 * max(g.domain for g in a.plan.groups) + a.plan.table_bytes)
@@ -430,9 +435,9 @@ def test_irregular_model_warns_once_and_keeps_its_step():
 def test_env_knob_and_the_card_refusals(monkeypatch):
     """``wave_matmul=None`` follows ``STpu_WAVE_MATMUL``; an explicit
     value wins. On the card a plan-form launch needs an entry point that
-    holds it: 2pc to 8 RMs, increment and increment_lock at 2, 4 and 8
-    threads; another regular model raises (a size the CUDA code does
-    not hold, or a plan past ``csrc/plan.cuh``'s capacities)."""
+    holds it: 2pc, increment and increment_lock at 1 to 8 RMs or threads;
+    another regular model raises (a size the CUDA code does not hold, or
+    a plan past ``csrc/plan.cuh``'s capacities)."""
     monkeypatch.setenv("STpu_WAVE_MATMUL", "1")
     c = twopc.TwoPhaseSys(2).checker().spawn_cuda_bfs(
         device="cpu", batch_size=16, fused=False).join()
@@ -445,14 +450,20 @@ def test_env_knob_and_the_card_refusals(monkeypatch):
         device="cpu", batch_size=16).join()
     assert not c._wave_matmul_on and c._matmul_plan is None
     for model in (twopc.TwoPhaseSys(4), increment.IncrementModel(2),
-                  increment_lock.IncrementLockModel(4)):
+                  increment_lock.IncrementLockModel(4),
+                  increment.IncrementModel(3)):
         dm = model.device_model()
         layout = compile_layout(dm.lane_bits(), dm.state_width)
         wave.cuda_plan(dm, layout, matmul_wave.classify(dm).plan)
-    dm = increment.IncrementModel(3).device_model()
+    plan3 = matmul_wave.classify(increment.IncrementDevice(3)).plan
+    dm = increment.IncrementModel(17).device_model()
     layout = compile_layout(dm.lane_bits(), dm.state_width)
     with pytest.raises(NotImplementedError, match="no instance"):
-        wave.cuda_plan(dm, layout, matmul_wave.classify(dm).plan)
+        wave.cuda_plan(dm, layout, plan3)
+    dm = increment.IncrementDevice(9)
+    layout = compile_layout(dm.lane_bits(), dm.state_width)
+    with pytest.raises(NotImplementedError, match="no plan-form entry"):
+        wave.cuda_plan(dm, layout, plan3)
     dm = twopc.TwoPhaseDevice(3)
     layout = compile_layout(dm.lane_bits(), dm.state_width)
     plan = matmul_wave.classify(dm).plan
@@ -462,22 +473,63 @@ def test_env_knob_and_the_card_refusals(monkeypatch):
         wave.cuda_plan(dm, layout, big)
 
 
+def test_wave_kernel_env_knob_on_every_engine(monkeypatch):
+    """``wave_kernel=None`` (the default) follows ``STpu_WAVE_KERNEL`` by
+    JAX's rule (``stateright_tpu/tpu/engine.py:278-281``): unset, empty or
+    ``"0"`` off, anything else on, on all four engines (the sharded ones
+    take the sender kernel); an explicit value wins. ``kernel_path()``
+    says which path ran (the kernels' plain versions on the CPU)."""
+    engines = {"fused": dict(device="cpu"),
+               "classic": dict(device="cpu", fused=False),
+               "sharded": dict(mesh=["cpu"] * 2),
+               "sharded_classic": dict(mesh=["cpu"] * 2, fused=False)}
+    on = {"fused": "megakernel_plain", "classic": "megakernel_plain",
+          "sharded": "sender_plain", "sharded_classic": "sender_plain"}
+
+    def path(**kw):
+        c = twopc.TwoPhaseSys(2).checker().spawn_cuda_bfs(
+            batch_size=16, **kw).join()
+        assert c.unique_state_count() == 56
+        return c.kernel_path()
+
+    monkeypatch.delenv("STpu_WAVE_KERNEL", raising=False)
+    for engine, kw in engines.items():
+        assert on[engine] not in path(**kw), engine
+    for value in ("1", "yes"):
+        monkeypatch.setenv("STpu_WAVE_KERNEL", value)
+        for engine, kw in engines.items():
+            assert on[engine] in path(**kw), (engine, value)
+        assert on["fused"] not in path(wave_kernel=False, device="cpu")
+    for value in ("0", ""):
+        monkeypatch.setenv("STpu_WAVE_KERNEL", value)
+        assert on["fused"] not in path(device="cpu")
+        assert on["sharded"] not in path(mesh=["cpu"] * 2)
+        assert on["fused"] in path(wave_kernel=True, device="cpu")
+
+
 def test_plan_instances_match_the_cuda_sources():
     """``CUDA_PLAN_INSTANCES`` lists what each source's plan form holds:
     ``wave_twopc.cu`` at 4 and 8 RMs (every count up to 8), the shared
-    counters' at 2, 4 and 8 threads."""
+    counters' on their capacities of 2, 4 and 8 threads (every count up to
+    8: the instances past 8 have no plan form)."""
     import re
 
     src = os.path.join(os.path.dirname(wave.__file__), "csrc")
 
-    def plan_sizes(name, tmpl):
-        text = open(os.path.join(src, f"wave_{name}.cu")).read()
-        return sorted(int(k) for k in re.findall(
-            r"with_plan\(sr::" + tmpl + r"<(\d+)>", text))
+    def read(name):
+        return open(os.path.join(src, name)).read()
 
-    assert plan_sizes("twopc", "TwoPhase") == [4, 8]
+    assert sorted(int(k) for k in re.findall(
+        r"with_plan\(sr::TwoPhase<(\d+)>", read("wave_twopc.cu"))) == [4, 8]
     assert twopc.TwoPhaseDevice.CUDA_PLAN_INSTANCES == tuple(range(1, 9))
-    assert plan_sizes("increment", "Increment") == list(
-        increment.IncrementDevice.CUDA_PLAN_INSTANCES) == [2, 4, 8]
-    assert plan_sizes("increment_lock", "IncrementLock") == list(
-        increment_lock.IncrementLockDevice.CUDA_PLAN_INSTANCES) == [2, 4, 8]
+    for name, cls in (("increment", increment.IncrementDevice),
+                      ("increment_lock", increment_lock.IncrementLockDevice)):
+        text = read(f"wave_{name}.cu")
+        assert re.search(r"if constexpr \(std::decay_t<decltype\(m\)>::kMaxT "
+                         r"> 8\)\n\s+return \(int\)cudaErrorInvalidValue;",
+                         text)
+        caps = [int(k) for k in re.findall(r"if \(threads <= (\d+)\)",
+                                           read(f"models/{name}.cuh"))]
+        assert cls.CUDA_PLAN_INSTANCES == tuple(
+            range(1, max(c for c in caps if c <= 8) + 1)) == tuple(
+            range(1, 9))

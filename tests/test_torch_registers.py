@@ -337,31 +337,50 @@ def test_cuda_model_names_each_model_with_its_sentinel_lanes(dm):
                                 AbdDevice(3, 3), AbdDevice(1, 1)],
                          ids=["single_copy-3-2", "single_copy-1-1", "abd-3-3",
                               "abd-1-1"])
-def test_cuda_model_refuses_counts_with_no_instance(dm):
-    """A client and server count that the entry point does not instantiate
-    is refused when the wave kernel is set up, with the hint to run it on
-    the torch stages, before any launch."""
+def test_cuda_model_holds_counts_the_fixed_instances_refused(dm):
+    """Client and server counts the entry points once refused (they held
+    four and two fixed pairs) now have an instance: each names its model
+    with its counts and network size."""
     layout = compile_layout(dm.lane_bits(), dm.state_width)
-    with pytest.raises(NotImplementedError, match="wave_kernel=False"):
-        wave.cuda_model(dm, layout)
+    name, params, lanes = wave.cuda_model(dm, layout)
+    assert params == (dm.C, dm.S, dm.net_slots)
+    assert lanes.shape == (5 * dm.state_width,)
 
 
-@pytest.mark.parametrize("name, cls", [("single_copy", SingleCopyDevice),
-                                       ("abd", AbdDevice)])
-def test_cuda_instances_match_the_entry_point(name, cls):
+def _held_pairs(text: str, fn: str):
+    """The (clients, servers) pairs the dispatch ``fn`` of a model header
+    holds: each ``case c:`` block's exact instances (``if (s == k)``) and
+    its instance with the servers at run time (``<c, most, least>``),
+    within the function's own guards."""
+    body = text[text.index(f"long long {fn}("):]
+    body = body[:body.index("\n}\n")]
+    pairs = set()
+    for c, block in re.findall(r"case (\d):\n(.*?)(?=\n    case |\n  \})",
+                               body, re.S):
+        for kc, ks, least in re.findall(
+                r"<\w+<(\d), (\d)(?:, (\d))?(?:, true)?>>", block):
+            assert kc == c
+            pairs |= {(int(c), s)
+                      for s in range(int(least or ks), int(ks) + 1)}
+    return pairs
+
+
+@pytest.mark.parametrize("name, fn, cls", [
+    ("single_copy", "with_single_copy", SingleCopyDevice),
+    ("abd", "with_abd", AbdDevice)])
+def test_cuda_instances_match_the_entry_point(name, fn, cls):
     """``CUDA_INSTANCES`` lists exactly the (clients, servers) pairs that
-    ``csrc/wave_<name>.cu`` instantiates."""
-    src = os.path.join(os.path.dirname(wave.__file__), "csrc",
-                       f"wave_{name}.cu")
+    the dispatch of ``csrc/models/<name>.cuh`` (which ``csrc/wave_<name>.cu``
+    and ``sender_<name>.cu`` call) holds: 22 for single-copy, 16 for ABD
+    (no pair whose request ids collide)."""
+    src = os.path.join(os.path.dirname(wave.__file__), "csrc", "models",
+                       f"{name}.cuh")
     with open(src) as f:
         text = f.read()
-    pairs = re.findall(r"if \(([cs]) == (\d) && ([cs]) == (\d)\) return "
-                       r"with_instance<(\d), (\d)>", text)
-    assert pairs
-    for a, x, b, y, kc, ks in pairs:
-        assert dict([(a, x), (b, y)]) == {"c": kc, "s": ks}
-    assert sorted((int(kc), int(ks)) for *_, kc, ks in pairs) == \
-        sorted(cls.CUDA_INSTANCES)
+    assert _held_pairs(text, fn) == set(cls.CUDA_INSTANCES)
+    assert len(cls.CUDA_INSTANCES) == {"single_copy": 22, "abd": 16}[name]
+    for c, s in cls.CUDA_INSTANCES:
+        cls(c, s)  # every pair has a device form
 
 
 class _OwnServer(SingleCopyDevice):

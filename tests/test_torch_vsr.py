@@ -131,23 +131,45 @@ def test_cuda_model_names_each_instance(n, net_slots):
     assert lanes.shape == (5 * dm.state_width,)
 
 
-@pytest.mark.parametrize("n, net_slots", [(1, None), (2, 17), (3, 41),
-                                          (4, 49)])
+@pytest.mark.parametrize("n, net_slots", [(1, 65), (2, 65), (3, 65),
+                                          (4, 65)])
 def test_cuda_model_refuses_what_no_instance_holds(n, net_slots):
+    """Past the largest instance's 64 slots the wave kernel's setup
+    refuses, naming the range held."""
     dm = VsrDevice(n, 1, net_slots=net_slots)
     with pytest.raises(NotImplementedError, match="wave_kernel=False"):
         wave.cuda_model(dm, compile_layout(None, dm.state_width))
+    with pytest.raises(NotImplementedError, match="at 1 to 64 slots"):
+        wave.cuda_model(dm, compile_layout(None, dm.state_width))
+
+
+@pytest.mark.parametrize("n, net_slots", [(1, None), (2, 17), (3, 41),
+                                          (4, 49)])
+def test_cuda_model_holds_what_the_fixed_instances_refused(n, net_slots):
+    """One replica, and the first slot count past each earlier instance,
+    now run on the instance of 64 slots."""
+    dm = VsrDevice(n, 1, net_slots=net_slots)
+    name, params, _ = wave.cuda_model(dm, compile_layout(None,
+                                                         dm.state_width))
+    assert (name, params[0], params[-1]) == ("vsr", n, dm.net_slots)
 
 
 def test_cuda_instances_match_the_entry_point():
-    """``CUDA_INSTANCES`` lists exactly the (replicas, most slots) that
-    ``csrc/wave_vsr.cu`` instantiates."""
-    src = os.path.join(os.path.dirname(wave.__file__), "csrc", "wave_vsr.cu")
+    """``CUDA_INSTANCES`` lists exactly the (replicas, slots) instances
+    that the dispatch of ``csrc/models/vsr.cuh`` (which ``wave_vsr.cu``
+    and ``sender_vsr.cu`` call) picks from, smallest first."""
+    src = os.path.join(os.path.dirname(wave.__file__), "csrc", "models",
+                       "vsr.cuh")
     with open(src) as f:
-        found = re.findall(r"case (\d):\n\s+if \(e <= sr::Vsr<(\d), (\d+)>",
-                           f.read())
-    assert found and all(a == b for a, b, _ in found)
-    assert {int(a): int(c) for a, _, c in found} == VsrDevice.CUDA_INSTANCES
+        text = f.read()
+    found = {}
+    for n, block in re.findall(r"case (\d):\n(.*?)break;", text, re.S):
+        caps = re.findall(r"if \(e <= (\d+)\) return fn\(Vsr<(\d), (\d+)>",
+                          block)
+        assert caps and all(a == c and b == n for a, b, c in caps)
+        found[int(n)] = tuple(int(a) for a, _, _ in caps)
+    assert found == VsrDevice.CUDA_INSTANCES
+    assert all(list(v) == sorted(v) for v in found.values())
 
 
 # -- The whole slice ----------------------------------------------------------

@@ -11,13 +11,14 @@ Usage, from the root of a checkout on a machine with an NVIDIA H100:
     python3 chip_smoke.py --phases sharded_classic # phase 1, then 12
     python3 chip_smoke.py --phases matmul          # phase 1, then 13
     python3 chip_smoke.py --phases sizes           # phase 1, then 14
+    python3 chip_smoke.py --phases fallback        # phase 1, then 15
     python3 chip_smoke.py --phases kernels,full    # phase 1, 2-4 and 6
 
 ``--phases`` takes a comma-separated subset of ``kernels`` (phases 2 to
 4), ``small`` (5), ``full`` (6), ``checkpoint`` (7), ``classic`` (8),
 ``registers`` (9), ``corpus`` (10), ``actors`` (11), ``sharded_classic``
-(12), ``matmul`` (13) and ``sizes`` (14), runs phase 1 and those, in this
-order, and
+(12), ``matmul`` (13), ``sizes`` (14) and ``fallback`` (15), runs phase 1
+and those, in this order, and
 prints the kernels line's rows those phases give
 (phases 2 to 8's rows only when all of them ran). Phases, in order; any
 failure exits non-zero and prints no result line:
@@ -299,11 +300,26 @@ failure exits non-zero and prints no result line:
     kernel runs equal to the torch stages'; VSR at 3 replicas and max_view
     3 on 48 slots to its end on the fused wave kernel at batch 4,096,
     exactly JAX's 1,344,659 / 5,456,850 at that batch with the "agreement"
-    counterexample, its chains those of the fused torch stages' run; and
+    counterexample, and both fused paths cut at 1,000,000 states, the
+    kernel's run equal to the torch stages'; and
     the 3x4 puzzle (with an always property its space keeps, so that the
     run goes on past "solved") to its end on the fused wave kernel,
     239,500,800 / 678,585,601 (the 4x3's, transposed);
-15. the kernels line, the script's running time, the card line and the
+15. the host BFS as ``spawn_cuda_bfs``'s fallback (``phase_fallback``; in
+    a process of its own when earlier phases ran, as phase 9): paxos 2
+    clients / 5 servers at a target of 1,000 states, single-copy 5 / 1 at
+    2,000 and ABD 3 / 2 at 200 (``FALLBACKS``), configurations with no
+    device form, through ``spawn_cuda_bfs()``: each warns that it falls
+    back, returns the host ``BfsChecker`` and gives the counts and
+    discoveries JAX's ``spawn_tpu_bfs()`` gives at the same target, with
+    the host's states/s logged; the three refusals (``checkpoint_path``,
+    ``resume_from``, ``fused=True`` raise ``DeviceFormUnavailable`` naming
+    the knob); and what never falls back: 2pc 3 through
+    ``spawn_cuda_bfs()`` is the fused engine on ``cuda:0`` on the dedup
+    kernel (288 / 1,146), and increment at 17 threads with
+    ``wave_kernel=True`` raises ``NotImplementedError`` (no instance),
+    neither with a warning;
+16. the kernels line, the script's running time, the card line and the
     result line.
 
 It imports neither JAX nor ``stateright_tpu``.
@@ -320,6 +336,7 @@ import random
 import re
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 import traceback
@@ -3908,6 +3925,9 @@ SIZE_SOURCES = {"increment": ("wave_increment.cu",) * 2,
 #: every property has a discovery, so its counts follow the batch: at
 #: 16,384 both packages give 1,352,940 / 5,496,800 (PERF.md section 6).
 VSR33, VSR33_BATCH = (1_344_659, 5_456_850), 4096
+#: the states its runs on the fused torch stages and wave kernel, held
+#: against each other, stop at (a fifth of the whole run's)
+VSR33_CUT = 1_000_000
 #: the 3x4 puzzle's space: the 4x3's transposed (an isomorphism of its
 #: graph: 12! / 2 boards, 17 edges of the grid)
 PUZZLE34 = PUZZLE43
@@ -4437,13 +4457,21 @@ def phase_sizes(torch, kernels, fused, engine, wave_mod, table_mod):
     def vsr():
         return build_model("vsr", (3, 3, 48)).checker()
 
+    def vsr_cut():
+        return vsr().target_state_count(VSR33_CUT)
+
     whole = _clocked("vsr 3/3 on 48 slots, to its end", _card_run, torch,
                      kernels, fused, "vsr 3/3", vsr, "fused", VSR33_BATCH,
                      None, None, None, True)
-    ref = _clocked("vsr 3/3 on 48 slots, the torch stages", _card_run, torch,
-                   kernels, fused, "vsr 3/3", vsr, "fused", VSR33_BATCH,
-                   None, None, None, False)
-    _same_runs(whole, ref, "vsr 3/3, 48 slots")
+    cut = [_clocked(f"vsr 3/3 on 48 slots to {VSR33_CUT:,}, wave_kernel="
+                    f"{wave_kernel}", _card_run, torch, kernels, fused,
+                    "vsr 3/3", vsr_cut, "fused", VSR33_BATCH, None, None,
+                    None, wave_kernel)
+           for wave_kernel in (False, True)]
+    _same_runs(cut[1], cut[0], f"vsr 3/3, 48 slots, to {VSR33_CUT:,}")
+    if not VSR33_CUT <= cut[0]["counts"][1] < whole["counts"][1]:
+        raise AssertionError(f"vsr 3/3, 48 slots: {cut[0]['counts']}, not "
+                             f"cut at {VSR33_CUT} states")
     _log(f"vsr 3/3 on 48 slots: {whole['counts']} (JAX's fused engine on "
          f"the CPU at the same batch: {VSR33}), found "
          f"{sorted(whole['chains'])}")
@@ -4453,6 +4481,102 @@ def phase_sizes(torch, kernels, fused, engine, wave_mod, table_mod):
                              "an agreement counterexample")
     runs["vsr 3/3", "fused", True] = whole
     return rows, runs
+
+
+#: the configurations phase 15 checks on the host BFS through
+#: ``spawn_cuda_bfs()``: (tag, the model's module and class, its
+#: arguments, the target, JAX's ``spawn_tpu_bfs()`` at that target on the
+#: CPU: (states, unique) and the discoveries, and what the warning names)
+FALLBACKS = (
+    ("paxos 2/5", "paxos", "PaxosSys", (2, 5), 1_000, (8_615, 3_465), [],
+     "3 servers"),
+    ("single_copy 5/1", "single_copy", "SingleCopySys", (5, 1), 2_000,
+     (7_380, 4_529), ["value chosen"], "1 to 4 clients"),
+    ("abd 3/2", "abd", "AbdSys", (3, 2), 200, (3_450, 1_862),
+     ["value chosen"], "request ids collide"))
+
+
+def _spawn_warned(spawn):
+    """``spawn()`` and the warnings it gave."""
+    import warnings
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        c = spawn()
+    return c, [str(w.message) for w in caught]
+
+
+def phase_fallback(torch):
+    """Phase 15: the host BFS where ``spawn_cuda_bfs`` falls back to it,
+    and the spawns that must not (see the usage text). Returns no kernel
+    rows: the host BFS launches none."""
+    import importlib
+
+    from stateright_tpu_torch.device_model import DeviceFormUnavailable
+    from stateright_tpu_torch.models.increment import IncrementModel
+    from stateright_tpu_torch.models.twopc import TwoPhaseSys
+
+    def sys_of(module, name):
+        return getattr(importlib.import_module(
+            f"stateright_tpu_torch.models.{module}"), name)
+
+    for tag, module, name, args, target, want, found, why in FALLBACKS:
+        t0 = time.monotonic()
+        c, warned = _spawn_warned(lambda: sys_of(module, name)(
+            *args).checker().target_state_count(target).spawn_cuda_bfs())
+        c.join()
+        sec = time.monotonic() - t0
+        got = (c.state_count(), c.unique_state_count())
+        _log(f"{tag} through spawn_cuda_bfs(): {type(c).__name__}, "
+             f"states={got[0]} unique={got[1]} sec={sec:.3f} "
+             f"states/s={got[0] / sec:.1f} (the host's), found "
+             f"{sorted(c.discoveries())}; warned {warned}")
+        if (type(c).__name__ != "BfsChecker" or len(warned) != 1
+                or "falling back to the host BFS engine" not in warned[0]
+                or why not in warned[0]):
+            raise AssertionError(f"{tag}: {type(c)} and {warned}, not the "
+                                 "host BFS with the fallback's warning")
+        if got != want or sorted(c.discoveries()) != found:
+            raise AssertionError(f"{tag}: {got}, {sorted(c.discoveries())}; "
+                                 f"JAX's {want}, {found}")
+    paxos = sys_of("paxos", "PaxosSys")
+    # A refusal that regressed into a fallback stops at the target.
+    with tempfile.TemporaryDirectory(
+            dir=os.path.dirname(os.path.abspath(__file__))) as tmp:
+        ckpt = os.path.join(tmp, "paxos.npz")
+        for knob, kw in (("checkpoint_path", dict(checkpoint_path=ckpt)),
+                         ("resume_from", dict(resume_from=ckpt)),
+                         ("fused=True", dict(fused=True))):
+            try:
+                paxos(2, 5).checker().target_state_count(
+                    1_000).spawn_cuda_bfs(**kw)
+            except DeviceFormUnavailable as e:
+                if f"cannot honor ['{knob}']" not in str(e):
+                    raise AssertionError(f"{knob}: {e}") from e
+                _log(f"paxos 2/5 with {knob} refuses: {e}")
+            else:
+                raise AssertionError(f"paxos 2/5 with {knob} fell back")
+    c, warned = _spawn_warned(lambda: TwoPhaseSys(3).checker()
+                              .spawn_cuda_bfs())
+    c.join()
+    got = (c.state_count(), c.unique_state_count())
+    _log(f"2pc 3 through spawn_cuda_bfs(): {type(c).__name__} on "
+         f"{c._device}, {c.kernel_path()}, {got}")
+    if (type(c).__name__ != "FusedCudaBfsChecker" or warned
+            or str(c._device) != "cuda:0" or c.kernel_path() != "dedup_kernel"
+            or got != (1_146, 288)):
+        raise AssertionError(f"2pc 3: {type(c)} on {c._device}, "
+                             f"{c.kernel_path()}, {got}, warned {warned}")
+    try:
+        _spawn_warned(lambda: IncrementModel(17).checker().spawn_cuda_bfs(
+            wave_kernel=True))
+    except DeviceFormUnavailable as e:
+        raise AssertionError(f"increment 17 fell back: {e}") from e
+    except NotImplementedError as e:
+        _log(f"increment 17 with wave_kernel=True raises: {e}")
+    else:
+        raise AssertionError("increment 17 with wave_kernel=True ran")
+    return []
 
 
 def _modules():
@@ -4847,7 +4971,8 @@ class _Children:
 
 #: the phases ``--phases`` can name, in the order they run
 PHASES = ("kernels", "small", "full", "checkpoint", "classic", "registers",
-          "corpus", "actors", "sharded_classic", "matmul", "sizes")
+          "corpus", "actors", "sharded_classic", "matmul", "sizes",
+          "fallback")
 
 
 def _parse(argv):
@@ -4932,7 +5057,7 @@ def main(argv) -> int:
 def _later_phases(torch, kernels, fused, engine, wave_mod, table_mod,
                   ckpt_mod, TwoPhaseSys, PaxosSys, phases, old, card,
                   children, t_start) -> int:
-    """Phases 8 to 15 of ``main``."""
+    """Phases 8 to 16 of ``main``."""
     alone = len(phases) == 1
     if "classic" in phases:
         children.ahead()
@@ -4957,7 +5082,8 @@ def _later_phases(torch, kernels, fused, engine, wave_mod, table_mod,
             "phase 13", phase_matmul, torch, kernels, fused, wave_mod,
             table_mod)),
         "sizes": lambda: _clocked("phase 14", phase_sizes, torch, kernels,
-                                  fused, engine, wave_mod, table_mod)[0]}
+                                  fused, engine, wave_mod, table_mod)[0],
+        "fallback": lambda: _clocked("phase 15", phase_fallback, torch)}
     for phase in PHASES[5:]:
         if phase not in phases:
             continue

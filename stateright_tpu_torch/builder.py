@@ -1,24 +1,28 @@
 """``CheckerBuilder``: configures and spawns the port's engines.
 
 The port's copy of ``stateright_tpu/checker/builder.py`` for the engines
-this package has: ``spawn_cuda_bfs`` runs the fused device BFS
-(``fused.py``) by default, the classic per-wave BFS (``classic.py``) where
-the fused one cannot run the model (a visitor, or a property the host
-evaluates) or the caller asks for it, or with ``sharded=True`` or a
-``mesh`` the sharded fused BFS (``sharded_fused.py``) or its classic twin
-(``sharded.py``), by the same rule; on a CUDA device, or on the CPU when
-the caller asks. The engines are chosen by JAX's
-``spawn_tpu_bfs`` rules (``checker/builder.py`` :189-216).
+this package has: ``spawn_bfs`` runs the host BFS (``bfs.py``);
+``spawn_cuda_bfs`` runs the fused device BFS (``fused.py``) by default,
+the classic per-wave BFS (``classic.py``) where the fused one cannot run
+the model (a visitor, or a property the host evaluates) or the caller
+asks for it, or with ``sharded=True`` or a ``mesh`` the sharded fused BFS
+(``sharded_fused.py``) or its classic twin (``sharded.py``), by the same
+rule; on a CUDA device, or on the CPU when the caller asks; and the host
+BFS, with a warning, for a configuration with no device form. The
+engines are chosen by JAX's ``spawn_tpu_bfs`` rules
+(``checker/builder.py`` :147-216).
 """
 
 from __future__ import annotations
 
 import os
+import warnings
 from typing import Optional
 
 import torch
 
 from .classic import CudaBfsChecker
+from .device_model import DeviceFormUnavailable
 from .fused import FusedCudaBfsChecker, FusedUnsupported
 from .mesh import Mesh
 from .sharded import ShardedCudaBfsChecker
@@ -35,6 +39,7 @@ class CheckerBuilder:
         self._model = model
         self._symmetry = False
         self._target_state_count: Optional[int] = None
+        self._thread_count = 1
         self._visitor = None
 
     def symmetry(self) -> "CheckerBuilder":
@@ -47,15 +52,32 @@ class CheckerBuilder:
         """Symmetry with an explicit canonicaliser of host states. The
         device engines dedup by the device model's ``representative``
         either way, as JAX's do (``tpu/engine.py`` :228); the function is
-        kept for the host engines the port does not have."""
+        kept for the host DFS the port does not have yet (ROADMAP A17: the
+        host BFS ignores symmetry, as JAX's does)."""
         self._symmetry = representative
+        return self
+
+    def threads(self, thread_count: int) -> "CheckerBuilder":
+        """The host BFS's worker count (1 by default, which makes its
+        discovery paths shortest); the device engines ignore it."""
+        self._thread_count = thread_count
         return self
 
     def visitor(self, visitor) -> "CheckerBuilder":
         """A function ``f(model, path)`` or a ``CheckerVisitor`` run on
-        every state the checker evaluates (the classic engine's)."""
+        every state the checker evaluates (the host BFS's or the classic
+        engine's)."""
         self._visitor = visitor
         return self
+
+    def spawn_bfs(self):
+        """Spawns the host BFS (``bfs.BfsChecker``) on the model's host
+        transitions and conditions, with ``threads()`` workers; call
+        ``join()`` to wait for it. A model whose host form the port lacks
+        raises ``NotImplementedError`` naming the ROADMAP item."""
+        from .bfs import BfsChecker
+
+        return BfsChecker(self)
 
     def target_state_count(self, count: int) -> "CheckerBuilder":
         """Stops once about ``count`` states were generated (never fewer
@@ -64,17 +86,17 @@ class CheckerBuilder:
         return self
 
     def spawn_cuda_bfs(self, device=None, batch_size: Optional[int] = None,
-                       table_capacity: int = 1 << 16,
+                       table_capacity: Optional[int] = None,
                        arena_capacity: Optional[int] = None,
-                       waves_per_dispatch: int = 16,
+                       waves_per_dispatch: Optional[int] = None,
                        wave_kernel: Optional[bool] = None, sharded=None,
                        mesh=None,
                        exchange_novel_only=None,
                        max_batch_size: Optional[int] = None,
-                       inflight_dispatches: int = 1,
+                       inflight_dispatches: Optional[int] = None,
                        cuda_graph: Optional[bool] = None,
                        checkpoint_path: Optional[str] = None,
-                       checkpoint_every_waves: int = 64,
+                       checkpoint_every_waves: Optional[int] = None,
                        resume_from: Optional[str] = None,
                        async_io: Optional[bool] = None,
                        fused: Optional[bool] = None,
@@ -172,21 +194,43 @@ class CheckerBuilder:
         raises there). An irregular model warns once and
         keeps its step. It changes no result; ``kernel_path()`` ends in
         ``+matmul`` and ``scheduler_stats()["wave_matmul"]`` says which
-        form ran and why."""
+        form ran and why.
+
+        A configuration with no device form (``device_model()`` raises
+        ``DeviceFormUnavailable``: paxos on other than 3 servers, a
+        register workload past 4 clients, ABD where request ids collide)
+        runs on the host BFS (``spawn_bfs()``), by JAX's rules: a
+        ``RuntimeWarning`` names the reason and every knob passed that
+        the host BFS drops, and this happens before the device is
+        resolved, so it needs no card. Under ``checkpoint_path``,
+        ``resume_from`` or ``fused=True``, which the host BFS cannot
+        honour, it raises ``DeviceFormUnavailable`` instead. Nothing else
+        falls back: no card, a kernel that fails, a size the kernels do
+        not hold, ``FusedUnsupported``."""
+        # The engine knobs as passed (every parameter but the engine
+        # choice), for the fallback's warning.
+        passed = {k: v for k, v in locals().items()
+                  if k not in ("self", "sharded", "mesh", "fused")}
         if fused and pipeline:
             raise ValueError(
                 "fused=True and pipeline=True are mutually exclusive: "
                 "pipelining is a classic-engine knob")
-        knobs = dict(table_capacity=table_capacity,
-                     wave_kernel=wave_kernel_on(wave_kernel),
-                     max_batch_size=max_batch_size,
-                     checkpoint_path=checkpoint_path,
-                     checkpoint_every_waves=checkpoint_every_waves,
-                     resume_from=resume_from, async_io=async_io,
-                     wave_matmul=wave_matmul)
-        fused_knobs = dict(arena_capacity=arena_capacity,
-                           waves_per_dispatch=waves_per_dispatch,
-                           inflight_dispatches=inflight_dispatches)
+        try:
+            dm = self._model.device_model()
+        except DeviceFormUnavailable as e:
+            return self._host_fallback(e, passed, fused,
+                                       mesh is not None or bool(sharded))
+        # A knob left unset takes the engine's own default.
+        knobs = _given(device_model=dm, table_capacity=table_capacity,
+                       wave_kernel=wave_kernel_on(wave_kernel),
+                       max_batch_size=max_batch_size,
+                       checkpoint_path=checkpoint_path,
+                       checkpoint_every_waves=checkpoint_every_waves,
+                       resume_from=resume_from, async_io=async_io,
+                       wave_matmul=wave_matmul)
+        fused_knobs = _given(arena_capacity=arena_capacity,
+                             waves_per_dispatch=waves_per_dispatch,
+                             inflight_dispatches=inflight_dispatches)
         classic = fused is False or bool(pipeline)
         if mesh is not None or sharded:
             args = (device, mesh, batch_size or 512, exchange_novel_only,
@@ -222,6 +266,31 @@ class CheckerBuilder:
         return CudaBfsChecker(self, device, pipeline=pipeline,
                               succ_ladder=succ_ladder, **knobs)
 
+    def _host_fallback(self, e: DeviceFormUnavailable, passed: dict, fused,
+                       sharded: bool):
+        """The host BFS for a configuration with no device form, by JAX's
+        rules (``stateright_tpu/checker/builder.py`` :160-186): refused
+        under the knobs it cannot honour, else a warning naming the
+        dropped ones."""
+        critical = [k for k in ("resume_from", "checkpoint_path")
+                    if passed[k] is not None]
+        if fused:
+            critical.append("fused=True")
+        if critical:
+            raise DeviceFormUnavailable(
+                f"{e}; refusing the host-BFS fallback because it cannot "
+                f"honor {critical} — drop those knobs or use a "
+                "device-formable configuration") from e
+        dropped = sorted(k for k, v in passed.items() if v is not None)
+        if sharded:
+            dropped.append("mesh/sharded")
+        warnings.warn(
+            f"no device form for this configuration ({e}); falling back "
+            "to the host BFS engine"
+            + (f" (dropping engine knobs {dropped})" if dropped else ""),
+            RuntimeWarning, stacklevel=3)
+        return self.spawn_bfs()
+
     def _spawn_sharded(self, engine, device, mesh, batch_size,
                        exchange_novel_only, cuda_graph, **kwargs):
         if mesh is None:
@@ -240,6 +309,11 @@ class CheckerBuilder:
             self, mesh, batch_size=batch_size,
             exchange_novel_only=exchange_novel_only,
             cuda_graph=_graphs_on(cuda_graph, mesh.device), **kwargs)
+
+
+def _given(**knobs) -> dict:
+    """``knobs`` without those left ``None``."""
+    return {k: v for k, v in knobs.items() if v is not None}
 
 
 def wave_kernel_on(wave_kernel) -> bool:

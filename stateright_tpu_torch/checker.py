@@ -8,7 +8,7 @@ from __future__ import annotations
 
 import sys
 import time
-from typing import Dict, Optional
+from typing import Dict, List, Optional
 
 from .model import Expectation
 from .path import Path
@@ -18,7 +18,7 @@ __all__ = ["Checker"]
 
 class Checker:
     """Model checking in progress or done. Instantiate through
-    ``model.checker().spawn_cuda_bfs()``."""
+    ``model.checker().spawn_cuda_bfs()`` or ``.spawn_bfs()``."""
 
     def model(self):
         raise NotImplementedError
@@ -103,3 +103,41 @@ class Checker:
         if not self.is_done():
             raise AssertionError(f'Discovery for "{name}" not found, but '
                                  "model checking is incomplete.")
+
+    def assert_discovery(self, name: str, actions: List) -> None:
+        """Raises unless ``actions``, replayed on the model's host
+        transitions from an init state, demonstrate a discovery of
+        ``name`` by its expectation (the reference's
+        ``checker.rs:292-337``)."""
+        additional_info: List[str] = []
+        found = self.assert_any_discovery(name)
+        model = self.model()
+        prop = model.property(name)
+        for init_state in model.init_states():
+            path = Path.from_actions(model, init_state, actions)
+            if path is None:
+                continue
+            if prop.expectation is Expectation.ALWAYS:
+                if not prop.condition(model, path.last_state()):
+                    return
+            elif prop.expectation is Expectation.EVENTUALLY:
+                states = path.into_states()
+                is_liveness_satisfied = any(
+                    prop.condition(model, s) for s in states)
+                last_actions: List = []
+                model.actions(states[-1], last_actions)
+                is_path_terminal = not last_actions
+                if not is_liveness_satisfied and is_path_terminal:
+                    return
+                if is_liveness_satisfied:
+                    additional_info.append("incorrect counterexample "
+                                           "satisfies eventually property")
+                if not is_path_terminal:
+                    additional_info.append(
+                        "incorrect counterexample is nonterminal")
+            elif prop.condition(model, path.last_state()):  # SOMETIMES
+                return
+        extra = f" ({'; '.join(additional_info)})" if additional_info else ""
+        raise AssertionError(
+            f'Invalid discovery for "{name}"{extra}, but a valid one was '
+            f"found. found={found.into_actions()!r}")

@@ -194,10 +194,11 @@ class CudaBfsChecker(BfsEngine):
                  max_batch_size=None, pipeline=None, succ_ladder=None,
                  cuda_graph: bool = False, checkpoint_path=None,
                  checkpoint_every_waves: int = 64, resume_from=None,
-                 async_io=None, wave_matmul=None):
+                 async_io=None, wave_matmul=None, device_model=None):
         self._configure(builder, device, batch_size, table_capacity,
                         wave_kernel, max_batch_size, checkpoint_path,
-                        checkpoint_every_waves, async_io, wave_matmul)
+                        checkpoint_every_waves, async_io, wave_matmul,
+                        device_model)
         for p, fn in zip(self._properties, self._prop_fns):
             if fn is None:
                 warnings.warn(
@@ -748,9 +749,9 @@ class CudaBfsChecker(BfsEngine):
         after its parent, so the replay steps only the last link; the rows
         replayed are kept (``_replayed``) for the run."""
         self._parent_map()
-        return Path.from_fingerprints(self._model,
-                                      self._fingerprint_chain(fp), self._dm,
-                                      self._replayed)
+        return Path.from_device_fingerprints(
+            self._model, self._fingerprint_chain(fp), self._dm,
+            self._replayed)
 
     def parent_log_bytes(self) -> int:
         """Host bytes the parent log and dict hold (the dict at 56 bytes

@@ -34,7 +34,9 @@ __all__ = ["DeviceModel", "DeviceFormUnavailable", "cuda_instance", "held"]
 
 class DeviceFormUnavailable(NotImplementedError):
     """The model's configuration lies outside what its device encoding
-    can express (the port has no host engine to fall back to)."""
+    can express. ``spawn_cuda_bfs`` catches it from ``device_model()`` and
+    falls back to the host BFS engine with a warning, as JAX's
+    ``spawn_tpu_bfs`` does."""
 
 
 def held(instances) -> str:

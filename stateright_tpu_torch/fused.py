@@ -187,9 +187,10 @@ class BfsEngine(Checker):
     def _configure(self, builder, device: torch.device, batch_size: int,
                    table_capacity: int, wave_kernel: bool, max_batch_size,
                    checkpoint_path, checkpoint_every_waves: int,
-                   async_io, wave_matmul=None) -> None:
+                   async_io, wave_matmul=None, dm=None) -> None:
         model = builder._model
-        dm = model.device_model()
+        if dm is None:  # not resolved by ``spawn_cuda_bfs`` already
+            dm = model.device_model()
         self._model, self._dm, self._device = model, dm, device
         self._properties = model.properties()
         if len(self._properties) > 32:
@@ -502,7 +503,7 @@ class BfsEngine(Checker):
     def discoveries(self) -> Dict[str, Path]:
         with self._lock:
             found = list(self._discoveries.items())
-        return {name: Path.from_fingerprints(
+        return {name: Path.from_device_fingerprints(
                     self._model, self._fingerprint_chain(fp), self._dm)
                 for name, fp in found}
 
@@ -525,14 +526,15 @@ class FusedCudaBfsChecker(BfsEngine):
                  max_batch_size=None, inflight_dispatches: int = 1,
                  cuda_graph: bool = False, checkpoint_path=None,
                  checkpoint_every_waves: int = 64, resume_from=None,
-                 async_io=None, wave_matmul=None):
+                 async_io=None, wave_matmul=None, device_model=None):
         self._K = max(1, int(waves_per_dispatch))
         # Dispatches launched ahead of the oldest one's stats read; safe at
         # any depth, since a dispatch launched past a rest point is a no-op.
         self._depth = max(1, int(inflight_dispatches))
         self._configure(builder, device, batch_size, table_capacity,
                         wave_kernel, max_batch_size, checkpoint_path,
-                        checkpoint_every_waves, async_io, wave_matmul)
+                        checkpoint_every_waves, async_io, wave_matmul,
+                        device_model)
         self._arena_capacity = arena_capacity
         self._start(resume_from)
 

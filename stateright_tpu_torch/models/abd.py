@@ -1,15 +1,15 @@
 """The ABD quorum register: the host model and its device form.
 
 The port's copy of ``examples/linearizable_register.py`` (the internal
-messages, the server's phases and state, ``AbdModelCfg.into_model()``,
-whose server is ``AbdActor``) and of ``stateright_tpu/tpu/models/abd.py``
-(the device encoding), after the reference's
-``examples/linearizable-register.rs`` (Attiya, Bar-Noy, Dolev: "Sharing
-Memory Robustly in Message-Passing Systems"). Reads and writes both run a
-query phase (collect (seq, value) from a quorum), then a record phase
-(install the chosen pair at a quorum). Checked for "linearizable"
-(always) and "value chosen" (sometimes). Gate: 544 unique / 875 states at
-2 clients / 2 servers.
+messages, the server's phases and state, the server ``AbdActor`` and the
+model, ``AbdModelCfg.into_model()``) and of
+``stateright_tpu/tpu/models/abd.py`` (the device encoding), after the
+reference's ``examples/linearizable-register.rs`` (Attiya, Bar-Noy,
+Dolev: "Sharing Memory Robustly in Message-Passing Systems"). Reads and
+writes both run a query phase (collect (seq, value) from a quorum), then
+a record phase (install the chosen pair at a quorum). Checked for
+"linearizable" (always) and "value chosen" (sometimes). Gate: 544 unique
+/ 875 states at 2 clients / 2 servers.
 
 The device form is the register workload's (``register_workload.py``).
 Sequencers ``(clock, server id)`` are encoded as ``clock * S + id``, so
@@ -31,22 +31,22 @@ so the representative is the row itself. Its CUDA device code
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
-from ..actor import NO_VALUE, Id
+from ..actor import (NO_VALUE, Actor, ActorModel, Get, GetOk, Id, Internal,
+                     Out, Put, PutOk, majority, model_peers)
 from ..actor_device import EMPTY_ENV, M32, compact_envs
 from ..device_model import DeviceFormUnavailable
-from ..model import Model, Property
 from ..register_workload import (GET, GETOK, PUT, PUTOK,
                                  RegisterWorkloadDevice, cuda_instance,
-                                 register_init_state)
+                                 register_model)
 
 __all__ = ["Query", "AckQuery", "Record", "AckRecord", "Phase1", "Phase2",
-           "AbdState", "AbdSys", "AbdDevice"]
+           "AbdState", "AbdActor", "AbdSys", "AbdDevice"]
 
 # Internal kind codes follow the public four.
 QUERY, ACKQUERY, RECORD, ACKRECORD = 4, 5, 6, 7
@@ -121,31 +121,102 @@ class AbdState:
     phase: Optional[object]
 
 
-class AbdSys(Model):
+class AbdActor(Actor):
+    """An ABD server (the reference's ``linearizable-register.rs:56-186``):
+    a Put or a Get starts a query phase at a quorum, then a record phase
+    of the chosen (seq, value), then the reply."""
+
+    def __init__(self, peers):
+        self.peers = list(peers)
+
+    def on_start(self, id: Id, o: Out) -> AbdState:
+        return AbdState(seq=(0, id), val=NO_VALUE, phase=None)
+
+    def on_msg(self, id: Id, state: AbdState, src: Id, msg, o: Out):
+        if type(msg) in (Put, Get) and state.phase is None:
+            o.broadcast(self.peers, Internal(Query(msg.request_id)))
+            return replace(state, phase=Phase1(
+                request_id=msg.request_id, requester_id=src,
+                write=msg.value if type(msg) is Put else None,
+                responses=((id, (state.seq, state.val)),)))
+        if type(msg) is not Internal:
+            return None
+        inner = msg.msg
+
+        if type(inner) is Query:
+            o.send(src, Internal(
+                AckQuery(inner.request_id, state.seq, state.val)))
+            return None
+
+        if (type(inner) is AckQuery and type(state.phase) is Phase1
+                and state.phase.request_id == inner.request_id):
+            phase = state.phase
+            responses = dict(phase.responses)
+            responses[src] = (inner.seq, inner.value)
+            responses = tuple(sorted(responses.items()))
+            if len(responses) == majority(len(self.peers) + 1):
+                # A quorum: the record phase, with the latest pair
+                # (sequencers are distinct, linearizable-register.rs:111-116).
+                _, (seq, val) = max(responses, key=lambda kv: kv[1][0])
+                read = None
+                if phase.write is not None:
+                    seq, val = (seq[0] + 1, id), phase.write
+                else:
+                    read = val
+                o.broadcast(self.peers,
+                            Internal(Record(phase.request_id, seq, val)))
+                # Its own Record and AckRecord, as if sent to itself.
+                new_seq, new_val = state.seq, state.val
+                if seq > state.seq:
+                    new_seq, new_val = seq, val
+                return replace(state, seq=new_seq, val=new_val,
+                               phase=Phase2(request_id=phase.request_id,
+                                            requester_id=phase.requester_id,
+                                            read=read, acks=(id,)))
+            return replace(state, phase=replace(phase, responses=responses))
+
+        if type(inner) is Record:
+            o.send(src, Internal(AckRecord(inner.request_id)))
+            if inner.seq > state.seq:
+                return replace(state, seq=inner.seq, val=inner.value)
+            return None
+
+        if (type(inner) is AckRecord and type(state.phase) is Phase2
+                and state.phase.request_id == inner.request_id
+                and src not in state.phase.acks):
+            phase = state.phase
+            acks = tuple(sorted(set(phase.acks) | {src}))
+            if len(acks) == majority(len(self.peers) + 1):
+                if phase.read is not None:
+                    o.send(phase.requester_id,
+                           GetOk(phase.request_id, phase.read))
+                else:
+                    o.send(phase.requester_id, PutOk(phase.request_id))
+                return replace(state, phase=None)
+            return replace(state, phase=replace(phase, acks=acks))
+        return None
+
+
+class AbdSys(ActorModel):
     """``client_count`` Put-then-Get clients of ``server_count`` ABD
-    servers: ``AbdModelCfg(client_count, server_count).into_model()``."""
+    servers: ``AbdModelCfg(client_count, server_count).into_model()``.
+    The device form has no configuration whose request ids collide (more
+    clients than servers); ``spawn_cuda_bfs`` checks one on the host BFS,
+    with a warning."""
 
     #: the JAX package's model is an ``ActorModel``: the same name lets
     #: each package resume the other's checkpoints
     checkpoint_name = "ActorModel"
 
     def __init__(self, client_count: int, server_count: int = 2):
+        super().__init__(cfg=self)
         self.client_count = client_count
         self.server_count = server_count
+        register_model(self, [AbdActor(model_peers(i, server_count))
+                              for i in range(server_count)], client_count)
 
     def device_model(self) -> "AbdDevice":
         return AbdDevice(self.client_count, self.server_count)
-
-    def init_states(self):
-        """``AbdActor.on_start``: server ``i`` holds ``((0, Id(i)),
-        NO_VALUE)`` and no phase."""
-        return [register_init_state(
-            [AbdState(seq=(0, Id(i)), val=NO_VALUE, phase=None)
-             for i in range(self.server_count)], self.client_count)]
-
-    def properties(self):
-        return [Property.always("linearizable"),
-                Property.sometimes("value chosen")]
 
 
 class AbdDevice(RegisterWorkloadDevice):

@@ -46,6 +46,10 @@ class IncrementModel(Model):
     """``increment.rs:155-197``. Actions: ``("read", tid)`` and
     ``("write", tid)``."""
 
+    #: its host transitions are not ported yet: it runs on the device
+    #: engines only
+    host_form_item = "A16"
+
     def __init__(self, thread_count: int):
         self.thread_count = thread_count
 

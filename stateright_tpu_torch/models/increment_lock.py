@@ -45,6 +45,10 @@ class IncrementLockModel(Model):
     """``increment_lock.rs:48-107``. Actions: ``("lock" | "read" |
     "write" | "release", tid)``."""
 
+    #: its host transitions are not ported yet: it runs on the device
+    #: engines only
+    host_form_item = "A16"
+
     def __init__(self, thread_count: int):
         self.thread_count = thread_count
 

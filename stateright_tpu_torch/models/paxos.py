@@ -2,16 +2,18 @@
 its device form.
 
 The port's copy of ``examples/paxos.py`` (the message and server state
-types, the init state, the properties) and of
-``stateright_tpu/tpu/models/paxos.py`` (the device encoding), after the
-reference's ``examples/paxos.rs``: 3 Paxos servers and ``client_count``
-clients that each Put one value and then Get, with a linearizability
-tester riding along as history, checked for "linearizable" (always) and
-"value chosen" (sometimes), and with ``liveness`` also "eventually
-chosen". Gates: 265 / 482 states at 1 client, 16,668 unique at 2, and
-1,194,428 unique / 2,420,477 at 3.
+types, the server ``PaxosActor``, and the model,
+``PaxosModelCfg.into_model()``) and of ``stateright_tpu/tpu/models/paxos.py``
+(the device encoding), after the reference's ``examples/paxos.rs``:
+``server_count`` Paxos servers (3 in the reference's example) and
+``client_count`` clients that each Put one value and then Get, with a
+linearizability tester riding along as history, checked for
+"linearizable" (always) and "value chosen" (sometimes), and with
+``liveness`` also "eventually chosen". Gates: 265 / 482 states at 1
+client, 16,668 unique at 2, and 1,194,428 unique / 2,420,477 at 3.
 
-The device form implements the register workload's server over bounded
+The host BFS runs the model at any size. The device form takes 3 servers
+and 1 to 4 clients, and implements the register workload's server over bounded
 universes:
 
 - **values**: 0 = NO_VALUE, ``1 + k`` = client k's value;
@@ -32,21 +34,23 @@ kernel run on the card.
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
-from ..actor import Id
+from ..actor import (Actor, ActorModel, Get, GetOk, Id, Internal, Out, Put,
+                     PutOk, majority, model_peers)
 from ..actor_device import EMPTY_ENV, M32
 from ..device_model import DeviceFormUnavailable
-from ..model import Model, Property
+from ..model import Expectation
 from ..register_workload import (GET, GETOK, PUT, PUTOK,
-                                 RegisterWorkloadDevice, register_init_state)
+                                 RegisterWorkloadDevice, register_model,
+                                 value_chosen)
 
 __all__ = ["Prepare", "Prepared", "Accept", "Accepted", "Decided",
-           "PaxosState", "PaxosSys", "PaxosDevice"]
+           "PaxosState", "PaxosActor", "PaxosSys", "PaxosDevice"]
 
 # Internal kind codes follow the public four.
 PREPARE, PREPARED, ACCEPT, ACCEPTED, DECIDED = range(4, 9)
@@ -112,9 +116,103 @@ class PaxosState:
     is_decided: bool
 
 
-class PaxosSys(Model):
-    """``server_count`` Paxos servers (the device form takes 3) and
-    ``client_count`` (1 to 4) Put-then-Get clients."""
+def _prepares_insert(prepares: Tuple, id: Id, last_accepted) -> Tuple:
+    entries = dict(prepares)
+    entries[id] = last_accepted
+    return tuple(sorted(entries.items()))
+
+
+def _accepted_key(last_accepted):
+    # Option order: None before Some(v), then by value (paxos.rs:175-177).
+    return (0,) if last_accepted is None else (1, last_accepted)
+
+
+class PaxosActor(Actor):
+    """A Paxos server (the reference's ``paxos.rs:96-222``): it proposes a
+    client's Put, runs the prepare and accept phases with its peers, and
+    answers a Get once decided."""
+
+    def __init__(self, peer_ids):
+        self.peer_ids = list(peer_ids)
+
+    def on_start(self, id: Id, o: Out) -> PaxosState:
+        return PaxosState(ballot=(0, Id(0)), proposal=None, prepares=(),
+                          accepts=(), accepted=None, is_decided=False)
+
+    def on_msg(self, id: Id, state: PaxosState, src: Id, msg, o: Out):
+        if state.is_decided:
+            if type(msg) is Get:
+                # Undecided servers do not reply: a value may be decided
+                # elsewhere with its delivery pending (paxos.rs:118-126).
+                _, (_, _, value) = state.accepted
+                o.send(src, GetOk(msg.request_id, value))
+            return None
+
+        if type(msg) is Put and state.proposal is None:
+            ballot = (state.ballot[0] + 1, id)
+            o.broadcast(self.peer_ids, Internal(Prepare(ballot)))
+            # Its own Prepare and Prepared, as if sent to itself.
+            return replace(state, proposal=(msg.request_id, src, msg.value),
+                           ballot=ballot,
+                           prepares=_prepares_insert((), id, state.accepted),
+                           accepts=())
+        if type(msg) is not Internal:
+            return None
+        inner = msg.msg
+
+        if type(inner) is Prepare and state.ballot < inner.ballot:
+            o.send(src, Internal(Prepared(ballot=inner.ballot,
+                                          last_accepted=state.accepted)))
+            return replace(state, ballot=inner.ballot)
+
+        if type(inner) is Prepared and inner.ballot == state.ballot:
+            prepares = _prepares_insert(state.prepares, src,
+                                        inner.last_accepted)
+            state = replace(state, prepares=prepares)
+            if len(prepares) == majority(len(self.peer_ids) + 1):
+                # The quorum's latest accepted proposal wins
+                # (paxos.rs:158-179).
+                best = max((la for _, la in prepares), key=_accepted_key)
+                proposal = best[1] if best is not None else state.proposal
+                o.broadcast(self.peer_ids,
+                            Internal(Accept(inner.ballot, proposal)))
+                # Its own Accept and Accepted, as if sent to itself.
+                state = replace(
+                    state, proposal=proposal,
+                    accepted=(inner.ballot, proposal),
+                    accepts=tuple(sorted(set(state.accepts) | {id})))
+            return state
+
+        if type(inner) is Accept and state.ballot <= inner.ballot:
+            o.send(src, Internal(Accepted(inner.ballot)))
+            return replace(state, ballot=inner.ballot,
+                           accepted=(inner.ballot, inner.proposal))
+
+        if type(inner) is Accepted and inner.ballot == state.ballot:
+            accepts = tuple(sorted(set(state.accepts) | {src}))
+            state = replace(state, accepts=accepts)
+            if len(accepts) == majority(len(self.peer_ids) + 1):
+                proposal = state.proposal
+                o.broadcast(self.peer_ids,
+                            Internal(Decided(inner.ballot, proposal)))
+                request_id, requester_id, _ = proposal
+                o.send(requester_id, PutOk(request_id))
+                state = replace(state, is_decided=True)
+            return state
+
+        if type(inner) is Decided:
+            return replace(state, ballot=inner.ballot,
+                           accepted=(inner.ballot, inner.proposal),
+                           is_decided=True)
+        return None
+
+
+class PaxosSys(ActorModel):
+    """``server_count`` Paxos servers and ``client_count`` Put-then-Get
+    clients: ``PaxosModelCfg(client_count, server_count,
+    liveness).into_model()``. The device form takes 3 servers and 1 to 4
+    clients; ``spawn_cuda_bfs`` checks another configuration on the host
+    BFS, with a warning."""
 
     #: the model name checkpoints record: the JAX package's paxos is
     #: ``examples/paxos.py``'s ``PaxosModelCfg.into_model()``, an
@@ -124,32 +222,18 @@ class PaxosSys(Model):
 
     def __init__(self, client_count: int, server_count: int = 3,
                  liveness: bool = False):
-        if server_count != 3:
-            raise DeviceFormUnavailable(
-                "the device encoding is sized for 3 servers (the "
-                "reference example's count); the port has no host engine "
-                "for others")
+        super().__init__(cfg=self)
         self.client_count = client_count
         self.server_count = server_count
         self.liveness = liveness
+        register_model(self, [PaxosActor(model_peers(i, server_count))
+                              for i in range(server_count)], client_count)
+        if liveness:
+            self.property(Expectation.EVENTUALLY, "eventually chosen",
+                          value_chosen)
 
     def device_model(self) -> "PaxosDevice":
         return PaxosDevice(self.client_count, self.server_count)
-
-    def init_states(self):
-        """Every server fresh; each client has sent its Put to server
-        ``index % S``, and the history holds the Put's write in flight."""
-        return [register_init_state([PaxosState(
-            ballot=(0, Id(0)), proposal=None, prepares=(), accepts=(),
-            accepted=None, is_decided=False)] * self.server_count,
-            self.client_count)]
-
-    def properties(self):
-        props = [Property.always("linearizable"),
-                 Property.sometimes("value chosen")]
-        if self.liveness:
-            props.append(Property.eventually("eventually chosen"))
-        return props
 
 
 class PaxosDevice(RegisterWorkloadDevice):
@@ -163,7 +247,9 @@ class PaxosDevice(RegisterWorkloadDevice):
                  net_slots: int = 0):
         if server_count != 3:
             raise DeviceFormUnavailable(
-                "the device encoding is sized for 3 servers")
+                "the device encoding is sized for 3 servers (the "
+                "reference example's count, paxos.rs:326-328); other "
+                "counts run on the host engine")
         super().__init__(client_count, server_count, net_slots=net_slots)
         # extra = ballot[0:4] | proposal | last accepted; the proposal
         # field widens with the value field at 4 clients.

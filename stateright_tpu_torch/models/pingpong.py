@@ -1,8 +1,9 @@
 """Ping-pong: the actor layer's test fixture, host model and device form.
 
-The port's copy of ``stateright_tpu/actor/actor_test_util.py`` (the model:
-``PingPongCfg(maintains_history, max_nat).into_model()``, after the
-reference's ``actor_test_util.rs:4-96``) and of
+The port's copy of ``stateright_tpu/actor/actor_test_util.py`` (the actor
+``PingPongActor`` and the model, ``PingPongCfg(maintains_history,
+max_nat).into_model()``, after the reference's ``actor_test_util.rs:4-96``;
+the host ``ActorModel``'s fixture for its network forms and history) and of
 ``stateright_tpu/tpu/models/pingpong.py`` (the device encoding). Two
 actors bounce ``Ping``/``Pong`` messages: actor 0 sends ``Ping(0)`` to
 actor 1 on start, and each actor whose count equals a message's value
@@ -26,15 +27,17 @@ sender kernel run on the card.
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import Optional
 
 import numpy as np
 import torch
 
-from ..actor import ActorModelState, Envelope, Id, Network
+from ..actor import (Actor, ActorModel, ActorModelState, Envelope, Id,
+                     Network, Out)
 from ..actor_device import EMPTY_ENV, M32, ActorDeviceModel
-from ..model import Model, Property
+from ..model import Expectation
 
-__all__ = ["Ping", "Pong", "PingPongSys", "PingPongDevice"]
+__all__ = ["Ping", "Pong", "PingPongActor", "PingPongSys", "PingPongDevice"]
 
 _PING, _PONG = 0, 1
 
@@ -55,10 +58,52 @@ class Pong:
         return f"Pong({self.value})"
 
 
-class PingPongSys(Model):
+class PingPongActor(Actor):
+    """Sends ``Ping(0)`` on start when it serves a peer, and answers a
+    ``Ping`` or a ``Pong`` whose value equals its count (the reference's
+    ``actor_test_util.rs:13-37``). State: its count."""
+
+    def __init__(self, serve_to: Optional[Id] = None):
+        self.serve_to = serve_to
+
+    def on_start(self, id: Id, o: Out) -> int:
+        if self.serve_to is not None:
+            o.send(self.serve_to, Ping(0))
+        return 0
+
+    def on_msg(self, id: Id, state: int, src: Id, msg, o: Out):
+        if type(msg) is Pong and state == msg.value:
+            o.send(src, Ping(msg.value + 1))
+            return state + 1
+        if type(msg) is Ping and state == msg.value:
+            o.send(src, Pong(msg.value))
+            return state + 1
+        return None
+
+
+def _record_in(cfg, history, env):
+    if cfg.maintains_history:
+        msgs_in, msgs_out = history
+        return (msgs_in + 1, msgs_out)
+    return None
+
+
+def _record_out(cfg, history, env):
+    if cfg.maintains_history:
+        msgs_in, msgs_out = history
+        return (msgs_in, msgs_out + 1)
+    return None
+
+
+def _reaches(model, state, count) -> bool:
+    return any(c == count for c in state.actor_states)
+
+
+class PingPongSys(ActorModel):
     """The two counters up to ``max_nat``, with the ``(in, out)`` history
     when ``maintains_history``, on a network that duplicates and loses
-    messages as asked (the host model's defaults: duplicating, not lossy),
+    messages as asked (the host model's defaults: duplicating, not lossy;
+    ``with_lossy_network`` / ``with_duplicating_network`` change them),
     bounded on the device at ``net_slots`` envelopes in flight."""
 
     #: the JAX package's model is an ``ActorModel``: the same name lets
@@ -68,33 +113,37 @@ class PingPongSys(Model):
     def __init__(self, max_nat: int, maintains_history: bool = False,
                  lossy: bool = False, duplicating: bool = True,
                  net_slots: int = 16):
+        super().__init__(cfg=self, init_history=(0, 0))
         self.max_nat = max_nat
         self.maintains_history = maintains_history
-        self.lossy = lossy
-        self.duplicating = duplicating
         self.net_slots = net_slots
+        always, sometimes = Expectation.ALWAYS, Expectation.SOMETIMES
+        eventually = Expectation.EVENTUALLY
+        (self.actor(PingPongActor(serve_to=Id(1)))
+         .actor(PingPongActor(serve_to=None))
+         .record_msg_in(_record_in).record_msg_out(_record_out)
+         .with_boundary(lambda cfg, state: all(
+             count <= cfg.max_nat for count in state.actor_states))
+         .with_lossy_network(lossy).with_duplicating_network(duplicating)
+         .property(always, "delta within 1", lambda _, state:
+                   max(state.actor_states) - min(state.actor_states) <= 1)
+         .property(sometimes, "can reach max",
+                   lambda m, s: _reaches(m, s, m.cfg.max_nat))
+         .property(eventually, "must reach max",
+                   lambda m, s: _reaches(m, s, m.cfg.max_nat))
+         # falsifiable, because of the boundary
+         .property(eventually, "must exceed max",
+                   lambda m, s: _reaches(m, s, m.cfg.max_nat + 1))
+         .property(always, "#in <= #out",
+                   lambda _, state: state.history[0] <= state.history[1])
+         .property(eventually, "#out <= #in + 1",
+                   lambda _, state: state.history[1] <= state.history[0] + 1))
 
     def device_model(self) -> "PingPongDevice":
         return PingPongDevice(self.max_nat, self.maintains_history,
                               net_slots=self.net_slots,
-                              duplicating=self.duplicating, lossy=self.lossy)
-
-    def init_states(self):
-        """Actor 0's ``on_start`` sends ``Ping(0)`` to actor 1, a send
-        the history records."""
-        return [ActorModelState(
-            actor_states=[0, 0],
-            network=Network([Envelope(Id(0), Id(1), Ping(0))]),
-            is_timer_set=[],
-            history=(0, 1) if self.maintains_history else (0, 0))]
-
-    def properties(self):
-        return [Property.always("delta within 1"),
-                Property.sometimes("can reach max"),
-                Property.eventually("must reach max"),
-                Property.eventually("must exceed max"),
-                Property.always("#in <= #out"),
-                Property.eventually("#out <= #in + 1")]
+                              duplicating=self.duplicating_network,
+                              lossy=self.lossy_network)
 
 
 class PingPongDevice(ActorDeviceModel):

@@ -1,7 +1,7 @@
 """The single-copy register: the host model and its device form.
 
-The port's copy of ``examples/single_copy_register.py`` (the model:
-``SingleCopyModelCfg.into_model()``, whose server is ``SingleCopyActor``)
+The port's copy of ``examples/single_copy_register.py`` (the server
+``SingleCopyActor`` and the model, ``SingleCopyModelCfg.into_model()``)
 and of ``stateright_tpu/tpu/models/single_copy.py`` (the device
 encoding), after the reference's ``examples/single-copy-register.rs``:
 ``server_count`` servers, each one value cell (a Put overwrites it and
@@ -27,40 +27,53 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..actor import NO_VALUE
+from ..actor import (NO_VALUE, Actor, ActorModel, Get, GetOk, Id, Out, Put,
+                     PutOk)
 from ..actor_device import EMPTY_ENV
-from ..model import Model, Property
 from ..register_workload import (GET, GETOK, PUT, PUTOK,
                                  RegisterWorkloadDevice, cuda_instance,
-                                 register_init_state)
+                                 register_model)
 
-__all__ = ["SingleCopySys", "SingleCopyDevice"]
+__all__ = ["SingleCopyActor", "SingleCopySys", "SingleCopyDevice"]
 
 
-class SingleCopySys(Model):
-    """``client_count`` (1 to 4) Put-then-Get clients of ``server_count``
+class SingleCopyActor(Actor):
+    """A single-copy server (the reference's
+    ``single-copy-register.rs:18-38``): its state is the stored value; a
+    Put stores its value and acks, a Get replies with the value."""
+
+    def on_start(self, id: Id, o: Out) -> str:
+        return NO_VALUE
+
+    def on_msg(self, id: Id, state: str, src: Id, msg, o: Out):
+        if type(msg) is Put:
+            o.send(src, PutOk(msg.request_id))
+            return msg.value
+        if type(msg) is Get:
+            o.send(src, GetOk(msg.request_id, state))
+        return None
+
+
+class SingleCopySys(ActorModel):
+    """``client_count`` Put-then-Get clients of ``server_count``
     single-copy servers: ``SingleCopyModelCfg(client_count,
-    server_count).into_model()``."""
+    server_count).into_model()``. The device form takes 1 to 4 clients
+    and at most 8 actors; ``spawn_cuda_bfs`` checks another configuration
+    on the host BFS, with a warning."""
 
     #: the JAX package's model is an ``ActorModel``: the same name lets
     #: each package resume the other's checkpoints
     checkpoint_name = "ActorModel"
 
     def __init__(self, client_count: int, server_count: int = 1):
+        super().__init__(cfg=self)
         self.client_count = client_count
         self.server_count = server_count
+        register_model(self, [SingleCopyActor()
+                              for _ in range(server_count)], client_count)
 
     def device_model(self) -> "SingleCopyDevice":
         return SingleCopyDevice(self.client_count, self.server_count)
-
-    def init_states(self):
-        """``SingleCopyActor.on_start``: every server holds NO_VALUE."""
-        return [register_init_state([NO_VALUE] * self.server_count,
-                                    self.client_count)]
-
-    def properties(self):
-        return [Property.always("linearizable"),
-                Property.sometimes("value chosen")]
 
 
 class SingleCopyDevice(RegisterWorkloadDevice):

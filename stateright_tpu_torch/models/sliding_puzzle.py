@@ -39,6 +39,10 @@ def _is_even_permutation(tiles) -> bool:
 class SlidingPuzzle(Model):
     """``rows x cols`` sliding puzzle from a fixed scrambled start."""
 
+    #: its host transitions are not ported yet: it runs on the device
+    #: engines only
+    host_form_item = "A16"
+
     def __init__(self, rows: int = 2, cols: int = 3):
         self.rows = rows
         self.cols = cols

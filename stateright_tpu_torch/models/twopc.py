@@ -1,8 +1,9 @@
 """Two-phase commit: the host types, the model, and its device form.
 
 The port's copy of ``examples/two_phase_commit.py`` (the host state
-types and ``TwoPhaseSys``) and ``stateright_tpu/tpu/models/twopc.py``
-(the device encoding), after the reference's ``examples/2pc.rs``.
+types and ``TwoPhaseSys``, with its host transitions and conditions) and
+of ``stateright_tpu/tpu/models/twopc.py`` (the device encoding), after
+the reference's ``examples/2pc.rs``.
 
 State lanes (``W = rm_count + 3``, each a uint32 value):
 
@@ -64,7 +65,9 @@ class TwoPhaseState:
 
 
 class TwoPhaseSys(Model):
-    """Two-phase commit with ``rm_count`` resource managers."""
+    """Two-phase commit with ``rm_count`` resource managers. Its host
+    actions are bare tuples, ``("TmCommit",)``, ``("RmPrepare", rm)`` and
+    so on (``2pc.rs:43-121``), the device form's action labels."""
 
     def __init__(self, rm_count: int):
         self.rm_count = rm_count
@@ -80,10 +83,59 @@ class TwoPhaseSys(Model):
             msgs=frozenset(),
         )]
 
+    def actions(self, state, actions):
+        if state.tm_state is TmState.INIT and all(state.tm_prepared):
+            actions.append(("TmCommit",))
+        if state.tm_state is TmState.INIT:
+            actions.append(("TmAbort",))
+        for rm in range(self.rm_count):
+            if (state.tm_state is TmState.INIT
+                    and prepared(rm) in state.msgs):
+                actions.append(("TmRcvPrepared", rm))
+            if state.rm_state[rm] is RmState.WORKING:
+                actions.append(("RmPrepare", rm))
+                actions.append(("RmChooseToAbort", rm))
+            if COMMIT in state.msgs:
+                actions.append(("RmRcvCommitMsg", rm))
+            if ABORT in state.msgs:
+                actions.append(("RmRcvAbortMsg", rm))
+
+    def next_state(self, state, action):
+        kind = action[0]
+        rm_state = list(state.rm_state)
+        tm_prepared = list(state.tm_prepared)
+        tm_state = state.tm_state
+        msgs = state.msgs
+        if kind == "TmRcvPrepared":
+            tm_prepared[action[1]] = True
+        elif kind == "TmCommit":
+            tm_state = TmState.COMMITTED
+            msgs = msgs | {COMMIT}
+        elif kind == "TmAbort":
+            tm_state = TmState.ABORTED
+            msgs = msgs | {ABORT}
+        elif kind == "RmPrepare":
+            rm_state[action[1]] = RmState.PREPARED
+            msgs = msgs | {prepared(action[1])}
+        elif kind == "RmChooseToAbort":
+            rm_state[action[1]] = RmState.ABORTED
+        elif kind == "RmRcvCommitMsg":
+            rm_state[action[1]] = RmState.COMMITTED
+        else:  # RmRcvAbortMsg
+            rm_state[action[1]] = RmState.ABORTED
+        return TwoPhaseState(tuple(rm_state), tm_state,
+                             tuple(tm_prepared), msgs)
+
     def properties(self):
-        return [Property.sometimes("abort agreement"),
-                Property.sometimes("commit agreement"),
-                Property.always("consistent")]
+        return [
+            Property.sometimes("abort agreement", lambda _, s: all(
+                r is RmState.ABORTED for r in s.rm_state)),
+            Property.sometimes("commit agreement", lambda _, s: all(
+                r is RmState.COMMITTED for r in s.rm_state)),
+            Property.always("consistent", lambda _, s: not (
+                any(r is RmState.ABORTED for r in s.rm_state)
+                and any(r is RmState.COMMITTED for r in s.rm_state))),
+        ]
 
 
 class TwoPhaseDevice(DeviceModel):

@@ -142,6 +142,10 @@ class VsrSys(Model):
     network that duplicates and loses messages as asked, bounded on the
     device at ``net_slots`` envelopes in flight (``8n`` by default)."""
 
+    #: its host transitions are not ported yet: it runs on the device
+    #: engines only
+    host_form_item = "A16"
+
     #: the JAX package's model is an ``ActorModel``: the same name lets
     #: each package resume the other's checkpoints
     checkpoint_name = "ActorModel"

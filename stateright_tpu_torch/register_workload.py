@@ -1,10 +1,18 @@
-"""The device form of register workloads, checked for linearizability.
+"""Register workloads, checked for linearizability: host and device forms.
 
-The port's copy of ``stateright_tpu/tpu/register_workload.py``, batch-first.
 A register workload has ``S`` servers behind the Put/Get interface and
 ``C`` clients that each Put one value and then Get it, round robin over
-the servers, with a linearizability tester riding along as history. This
-base owns what every such protocol shares:
+the servers, with a linearizability tester riding along as history.
+
+The host form is the port's copy of ``stateright_tpu/actor/register.py``:
+``RegisterActor`` (the scripted client, and the wrapper of a protocol's
+server actor), the history hooks ``record_invocations`` /
+``record_returns``, and ``register_model``, which builds a protocol's
+``ActorModel`` as each example's ``into_model()`` does.
+
+The device form is the port's copy of
+``stateright_tpu/tpu/register_workload.py``, batch-first. Its base owns
+what every such protocol shares:
 
 - the envelope layout, the client's state machine with its history
   recording, and the host codec of clients, history and network;
@@ -40,19 +48,23 @@ from __future__ import annotations
 
 from functools import lru_cache
 from itertools import permutations, product
+from typing import Optional
 
 import numpy as np
 import torch
 
-from .actor import (NO_VALUE, ActorModelState, Envelope, Get, GetOk, Id,
-                    Internal, LinearizabilityTester, Network, Put, PutOk,
-                    Read, ReadOk, Register, RegisterClientState,
-                    RegisterServerState, Write, WriteOk)
+from .actor import (NO_VALUE, Actor, ActorModel, ActorModelState, Envelope,
+                    Get, GetOk, Id, Internal, LinearizabilityTester, Network,
+                    Out, Put, PutOk, Read, ReadOk, Register,
+                    RegisterClientState, RegisterServerState, Write, WriteOk)
 from .actor_device import EMPTY_ENV, M32, ActorDeviceModel
 from . import device_model
 from .device_model import DeviceFormUnavailable
+from .model import Expectation
 
-__all__ = ["RegisterWorkloadDevice", "register_init_state", "perm_tables",
+__all__ = ["RegisterWorkloadDevice", "RegisterActor", "register_model",
+           "record_invocations", "record_returns", "linearizable",
+           "value_chosen", "perm_tables",
            "observation_tables", "packed_observation_tables",
            "serialization_tables", "PUT", "GET", "PUTOK", "GETOK"]
 
@@ -73,20 +85,123 @@ def cuda_instance(name: str, dm, instances) -> None:
             f"{dm.net_slots}: run it with wave_kernel=False on the card")
 
 
-def register_init_state(server_states, client_count: int) -> ActorModelState:
-    """The init state of a register workload: each server in its given
-    state; each client has sent its Put to server ``index % S``, and the
-    history holds the Put's write in flight."""
-    s = len(server_states)
-    servers = [RegisterServerState(st) for st in server_states]
-    history = LinearizabilityTester(Register(NO_VALUE))
-    clients, envs = [], []
-    for index in range(s, s + client_count):
-        value = chr(ord("A") + index - s)
-        envs.append(Envelope(Id(index), Id(index % s), Put(index, value)))
-        history.on_invoke(Id(index), Write(value))
-        clients.append(RegisterClientState(awaiting=index, op_count=1))
-    return ActorModelState(servers + clients, Network(envs), [], history)
+def record_invocations(cfg, history, env):
+    """``ActorModel.record_msg_out`` of a register workload: a Put sent
+    records a Write invoked, a Get a Read, on the sending actor's thread
+    (the reference's ``register.rs:37-58``)."""
+    msg = env.msg
+    if type(msg) is Get:
+        op = Read()
+    elif type(msg) is Put:
+        op = Write(msg.value)
+    else:
+        return None
+    history = history.clone()
+    try:
+        history.on_invoke(env.src, op)
+    except ValueError:
+        pass  # an invalid history fails the "linearizable" search
+    return history
+
+
+def record_returns(cfg, history, env):
+    """``ActorModel.record_msg_in`` of a register workload: a GetOk
+    delivered records a ReadOk returned, a PutOk a WriteOk, on the
+    receiving actor's thread (``register.rs:64-87``)."""
+    msg = env.msg
+    if type(msg) is GetOk:
+        ret = ReadOk(msg.value)
+    elif type(msg) is PutOk:
+        ret = WriteOk()
+    else:
+        return None
+    history = history.clone()
+    try:
+        history.on_return(env.dst, ret)
+    except ValueError:
+        pass
+    return history
+
+
+class RegisterActor(Actor):
+    """A register workload's actor: a scripted client (``client``: it
+    Puts one value to a server, then Gets from the next) or
+    a wrapped server (``wrap``), as ``stateright_tpu/actor/register.py``
+    (the reference's ``register.rs:90-217``). Servers come first in the
+    actor list, so a client finds a server by its index modulo the server
+    count."""
+
+    def __init__(self, *, server_count: Optional[int] = None,
+                 server: Optional[Actor] = None):
+        self.server = server
+        self.server_count = server_count
+
+    @staticmethod
+    def client(server_count: int) -> "RegisterActor":
+        return RegisterActor(server_count=server_count)
+
+    @staticmethod
+    def wrap(server: Actor) -> "RegisterActor":
+        return RegisterActor(server=server)
+
+    def on_start(self, id: Id, o: Out):
+        if self.server is not None:
+            return RegisterServerState(self.server.on_start(id, o))
+        index, server_count = int(id), self.server_count
+        if index < server_count:
+            raise ValueError("RegisterActor clients must be added to the "
+                             "model after servers.")
+        value = chr(ord("A") + (index - server_count))
+        o.send(Id(index % server_count), Put(index, value))
+        return RegisterClientState(awaiting=index, op_count=1)
+
+    def on_msg(self, id: Id, state, src: Id, msg, o: Out):
+        if self.server is not None:
+            inner = self.server.on_msg(id, state.state, src, msg, o)
+            return None if inner is None else RegisterServerState(inner)
+        if state.awaiting is None:
+            return None
+        index, server_count = int(id), self.server_count
+        if type(msg) is PutOk and msg.request_id == state.awaiting:
+            request_id = (state.op_count + 1) * index
+            dst = Id((index + state.op_count) % server_count)
+            o.send(dst, Get(request_id))
+            return RegisterClientState(awaiting=request_id,
+                                       op_count=state.op_count + 1)
+        if type(msg) is GetOk and msg.request_id == state.awaiting:
+            return RegisterClientState(awaiting=None,
+                                       op_count=state.op_count + 1)
+        return None
+
+
+def register_model(model: ActorModel, servers, client_count: int
+                   ) -> ActorModel:
+    """``model`` made the register workload of ``servers`` (one actor a
+    server) and ``client_count`` Put-then-Get clients, as each example's
+    ``into_model()``: a network that does not duplicate, a
+    linearizability tester as history, and "linearizable" (always) and
+    "value chosen" (sometimes)."""
+    model.init_history = LinearizabilityTester(Register(NO_VALUE))
+    for server in servers:
+        model.actor(RegisterActor.wrap(server))
+    for _ in range(client_count):
+        model.actor(RegisterActor.client(server_count=len(servers)))
+    return (model.with_duplicating_network(False)
+            .property(Expectation.ALWAYS, "linearizable", linearizable)
+            .property(Expectation.SOMETIMES, "value chosen", value_chosen)
+            .record_msg_in(record_returns)
+            .record_msg_out(record_invocations))
+
+
+def value_chosen(_model, state: ActorModelState) -> bool:
+    """"value chosen": a ``GetOk`` of a written value is in flight."""
+    return any(type(env.msg) is GetOk and env.msg.value != NO_VALUE
+               for env in state.network)
+
+
+def linearizable(_model, state: ActorModelState) -> bool:
+    """"linearizable": the history serializes."""
+    return state.history.serialized_history() is not None
 
 
 @lru_cache(maxsize=None)

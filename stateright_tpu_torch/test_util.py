@@ -1,18 +1,21 @@
 """Deterministic toy models for the port's tests and card gates.
 
-The port's copy of ``stateright_tpu/test_util.py``, cut to the two
-fixtures with a device form, after the reference's ``src/test_util.rs``:
+The port's copy of ``stateright_tpu/test_util.py``, after the reference's
+``src/test_util.rs``:
 
+- ``BinaryClock``, a machine that cycles between two states;
 - ``DGraph``, a directed graph given by paths from its initial states,
   whose device form is a dense successor table (it pins the engines'
   eventually-bit semantics, and the differential fuzz runs random ones);
+- ``FnModel``, a model given by one function;
 - ``LinearEquation``, which looks for u8 ``x, y`` with ``a*x + b*y = c
   (mod 256)``: 65,536 states at full coverage, and a short ``solvable``
   chain when there is a solution.
 
-``BinaryClock`` and ``FnModel`` have no device form: they wait for a host
-engine in the port. Each device form's CUDA step (``cuda_model()``) is
-``csrc/models/dgraph.cuh`` or ``csrc/models/linear_equation.cuh``.
+Each has its host transitions, for the host BFS. ``BinaryClock`` and
+``FnModel`` have no device form; the others' CUDA steps
+(``cuda_model()``) are ``csrc/models/dgraph.cuh`` and
+``csrc/models/linear_equation.cuh``.
 """
 
 from __future__ import annotations
@@ -27,8 +30,32 @@ import torch
 from .device_model import DeviceModel
 from .model import Model, Property
 
-__all__ = ["DGraph", "DGraphDevice", "Guess", "LinearEquation",
-           "LinearEquationDevice", "random_graph"]
+__all__ = ["BinaryClock", "BinaryClockAction", "DGraph", "DGraphDevice",
+           "FnModel", "Guess", "LinearEquation", "LinearEquationDevice",
+           "random_graph"]
+
+
+class BinaryClockAction(Enum):
+    GO_LOW = 0
+    GO_HIGH = 1
+
+
+class BinaryClock(Model):
+    """A machine that cycles between two states (``test_util.rs:4-46``)."""
+
+    def init_states(self):
+        return [0, 1]
+
+    def actions(self, state, actions):
+        actions.append(BinaryClockAction.GO_HIGH if state == 0
+                       else BinaryClockAction.GO_LOW)
+
+    def next_state(self, state, action):
+        return 1 if action is BinaryClockAction.GO_HIGH else 0
+
+    def properties(self):
+        return [Property.always("in [0, 1]",
+                                lambda _, state: 0 <= state <= 1)]
 
 
 class DGraph(Model):
@@ -69,8 +96,18 @@ class DGraph(Model):
         """The same graph and predicates under another property."""
         return DGraph(property, self._inits, self._edges, self._device_preds)
 
+    def check(self):
+        """The host BFS of this graph, joined."""
+        return self.checker().spawn_bfs().join()
+
     def init_states(self):
         return sorted(self._inits)
+
+    def actions(self, state, actions):
+        actions.extend(sorted(self._edges.get(state, ())))
+
+    def next_state(self, state, action):
+        return action
 
     def properties(self):
         return [self._property]
@@ -174,6 +211,26 @@ class DGraphDevice(DeviceModel):
         return "dgraph", (table.astype(np.int32),)
 
 
+class FnModel(Model):
+    """A model given by ``fn(prev_state_or_None, out)`` (``test_util.rs:
+    120-138``): given ``None`` it appends the init states to ``out``,
+    given a state its successors; an action is the state it leads to."""
+
+    def __init__(self, fn: Callable):
+        self._fn = fn
+
+    def init_states(self):
+        states: List = []
+        self._fn(None, states)
+        return states
+
+    def actions(self, state, actions):
+        self._fn(state, actions)
+
+    def next_state(self, state, action):
+        return action
+
+
 class Guess(Enum):
     INCREASE_X = 0
     INCREASE_Y = 1
@@ -194,6 +251,16 @@ class LinearEquation(Model):
 
     def init_states(self):
         return [(0, 0)]
+
+    def actions(self, state, actions):
+        actions.append(Guess.INCREASE_X)
+        actions.append(Guess.INCREASE_Y)
+
+    def next_state(self, state, action):
+        x, y = state
+        if action is Guess.INCREASE_X:
+            return ((x + 1) % 256, y)
+        return (x, (y + 1) % 256)
 
     def properties(self):
         def solvable(model, solution):

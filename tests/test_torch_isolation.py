@@ -6,15 +6,18 @@ engine's ``classic.py`` and ``visitor.py``, the classic sharded engine's
 ``models/abd.py``, and the plain models' ``test_util.py``,
 ``models/increment.py``, ``models/increment_lock.py`` and
 ``models/sliding_puzzle.py``, and the actor models' ``models/pingpong.py``
-and ``models/vsr.py``, and the matmul expand's ``matmul_wave.py`` among
-them); a fresh interpreter that checks 2pc at 3 RMs (on the fused engine,
+and ``models/vsr.py``, and the matmul expand's ``matmul_wave.py``, and the
+host engine's ``bfs.py``, ``_market.py``, ``fingerprint.py`` and
+``semantics.py`` among them); a fresh interpreter that checks 2pc at 3 RMs
+(on the host BFS, on the fused engine,
 with a visitor on the classic engine and on the classic sharded engine,
 and with ``wave_matmul=True``, classified by the port's own
 ``matmul_wave``), paxos at 1 client, single-copy at 2
 clients on one server, ABD at 2 clients on two, LinearEquation, increment
 and increment_lock at 2 threads, the 2x3 puzzle, ping-pong at max_nat 5 on
-a lossy network and VSR at 2 replicas through the port on the CPU and then
-finds neither ``jax`` nor ``stateright_tpu`` loaded; and
+a lossy network and VSR at 2 replicas through the port on the CPU, and
+paxos on 5 servers through a ``spawn_cuda_bfs()`` that falls back to the
+host BFS, and then finds neither ``jax`` nor ``stateright_tpu`` loaded; and
 the entry point's default device, which is CUDA and raises on a box
 without one.
 """
@@ -56,7 +59,8 @@ def test_no_file_of_the_port_imports_jax_or_the_jax_package():
             "models/abd.py", "test_util.py", "models/increment.py",
             "models/increment_lock.py", "models/sliding_puzzle.py",
             "models/pingpong.py", "models/vsr.py",
-            "matmul_wave.py"} <= names
+            "matmul_wave.py", "bfs.py", "_market.py", "fingerprint.py",
+            "semantics.py"} <= names
     for path in files + [os.path.join(_REPO, "chip_smoke.py")]:
         for name in _imports(path):
             assert name.split(".")[0] not in _BANNED, (path, name)
@@ -122,6 +126,18 @@ def test_a_cpu_check_loads_neither_jax_nor_the_jax_package():
         "c = VsrSys(2, 1).checker().spawn_cuda_bfs(device='cpu').join()\n"
         "assert (c.unique_state_count(), c.state_count()) == (63, 169)\n"
         "c.assert_properties()\n"
+        "c = TwoPhaseSys(3).checker().spawn_bfs().join()\n"
+        "assert type(c).__name__ == 'BfsChecker', type(c)\n"
+        "assert (c.unique_state_count(), c.state_count()) == (288, 1146)\n"
+        "c.assert_properties()\n"
+        "import warnings\n"
+        "with warnings.catch_warnings(record=True) as w:\n"
+        "    warnings.simplefilter('always')\n"
+        "    c = (PaxosSys(2, server_count=5).checker()\n"
+        "         .target_state_count(1000).spawn_cuda_bfs().join())\n"
+        "assert type(c).__name__ == 'BfsChecker', type(c)\n"
+        "assert 'falling back to the host BFS' in str(w[0].message)\n"
+        "assert (c.unique_state_count(), c.state_count()) == (3465, 8615)\n"
         "bad = [m for m in sys.modules\n"
         "       if m.split('.')[0] in ('jax', 'jaxlib', 'stateright_tpu')]\n"
         "assert not bad, bad\n"

@@ -368,8 +368,10 @@ def test_network_overflow_raises_on_both_sides():
 
 
 def test_unsupported_configurations_raise():
+    # As in JAX, the model exists at any server count and its device form
+    # refuses (``spawn_cuda_bfs`` then falls back to the host BFS).
     with pytest.raises(DeviceFormUnavailable, match="3 servers"):
-        PaxosSys(1, 4)
+        PaxosSys(1, 4).device_model()
     with pytest.raises(DeviceFormUnavailable, match="3 servers"):
         PaxosDevice(1, 4)
     with pytest.raises(DeviceFormUnavailable, match="1 to 4 clients"):

@@ -308,8 +308,11 @@ def test_abd_collision_guard_matches_jax(c, s):
     else:
         with pytest.raises(DeviceFormUnavailable, match="collide"):
             AbdDevice(c, s)
-        with pytest.raises(DeviceFormUnavailable, match="collide"):
-            AbdSys(c, s).checker().spawn_cuda_bfs(device="cpu")
+        # As JAX's spawn_tpu_bfs, the spawn falls back to the host BFS.
+        with pytest.warns(RuntimeWarning, match="collide"):
+            checker = (AbdSys(c, s).checker().target_state_count(50)
+                       .spawn_cuda_bfs(device="cpu").join())
+        assert type(checker).__name__ == "BfsChecker"
     assert ref_ok == (c <= s)
 
 

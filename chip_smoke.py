@@ -11,14 +11,14 @@ Usage, from the root of a checkout on a machine with an NVIDIA H100:
     python3 chip_smoke.py --phases sharded_classic # phase 1, then 12
     python3 chip_smoke.py --phases matmul          # phase 1, then 13
     python3 chip_smoke.py --phases sizes           # phase 1, then 14
-    python3 chip_smoke.py --phases fallback        # phase 1, then 15
+    python3 chip_smoke.py --phases fallback        # phase 1, 15 and 16
     python3 chip_smoke.py --phases kernels,full    # phase 1, 2-4 and 6
 
 ``--phases`` takes a comma-separated subset of ``kernels`` (phases 2 to
 4), ``small`` (5), ``full`` (6), ``checkpoint`` (7), ``classic`` (8),
 ``registers`` (9), ``corpus`` (10), ``actors`` (11), ``sharded_classic``
-(12), ``matmul`` (13), ``sizes`` (14) and ``fallback`` (15), runs phase 1
-and those, in this order, and
+(12), ``matmul`` (13), ``sizes`` (14) and ``fallback`` (15 and 16),
+runs phase 1 and those, in this order, and
 prints the kernels line's rows those phases give
 (phases 2 to 8's rows only when all of them ran). Phases, in order; any
 failure exits non-zero and prints no result line:
@@ -319,7 +319,19 @@ failure exits non-zero and prints no result line:
     kernel (288 / 1,146), and increment at 17 threads with
     ``wave_kernel=True`` raises ``NotImplementedError`` (no instance),
     neither with a warning;
-16. the kernels line, the script's running time, the card line and the
+16. the host DFS and the host forms (``phase_host``, in phase 15's
+    process, after it): the host DFS on 2pc 5 to 8,832 states and with
+    ``symmetry()`` to 665; single-copy 2 / 1 on the host DFS with
+    ``symmetry_fn(host_representative)`` and on the card's fused wave
+    kernel with ``symmetry()`` (the device representative), both 47; and
+    VSR 2 / 1 (169 / 63 and the three "sometimes" found), increment at 3
+    threads (with a property never met, so that both run to their ends),
+    increment_lock at 3 and the 2x3 puzzle (841 / 360) on the host BFS,
+    each equal in counts and discoveries to the card's fused wave kernel
+    (``spawn_cuda_bfs(wave_kernel=True)`` on ``cuda:0``, which must run
+    ``megakernel``); each host run's states/s logged as the card
+    machine's CPU's;
+17. the kernels line, the script's running time, the card line and the
     result line.
 
 It imports neither JAX nor ``stateright_tpu``.
@@ -4579,6 +4591,118 @@ def phase_fallback(torch):
     return []
 
 
+def _host_run(tag: str, build, spawn: str):
+    """A host engine's run of ``build()`` (a configured builder), its
+    checker and its states/s on this machine's CPU logged."""
+    t0 = time.monotonic()
+    c = getattr(build(), spawn)().join()
+    sec = time.monotonic() - t0
+    _log(f"{tag} on the host {spawn[6:].upper()}: states="
+         f"{c.state_count()} unique={c.unique_state_count()} sec={sec:.3f} "
+         f"states/s={c.state_count() / sec:.1f} (the card machine's CPU), "
+         f"found {sorted(c.discoveries())}")
+    return c
+
+
+def _wave_kernel_run(torch, tag: str, build):
+    """``build().spawn_cuda_bfs(wave_kernel=True)`` on ``cuda:0``: the fused
+    engine on the wave kernel, which it must launch."""
+    from stateright_tpu_torch.wave import wave_megakernel
+
+    wave_megakernel.launches = 0
+    c = build().spawn_cuda_bfs(device="cuda:0", wave_kernel=True).join()
+    torch.cuda.synchronize()
+    launches = wave_megakernel.launches
+    _log(f"{tag} on the card: states={c.state_count()} "
+         f"unique={c.unique_state_count()}, {c.kernel_path()}, "
+         f"{launches} wave kernel launches, found {sorted(c.discoveries())}")
+    if (type(c).__name__ != "FusedCudaBfsChecker"
+            or c.kernel_path() != "megakernel" or launches < 1):
+        raise AssertionError(f"{tag}: {type(c).__name__} on "
+                             f"{c.kernel_path()} ({launches} launches), "
+                             "not the wave kernel")
+    return c
+
+
+def _full_increment(IncrementModel, Property, torch):
+    """Increment with a property never met (on the host and the device),
+    so that every engine runs it to its end despite the race it finds
+    (``tests/test_examples.py::_FullIncrement``)."""
+
+    class FullIncrement(IncrementModel):
+        def properties(self):
+            return super().properties() + [
+                Property.sometimes("unreachable", lambda _m, _s: False)]
+
+        def device_model(self):
+            dm = super().device_model()
+            preds = dm.device_properties()
+            dm.device_properties = lambda: {
+                **preds, "unreachable": lambda rows: torch.zeros(
+                    rows.shape[0], dtype=torch.bool, device=rows.device)}
+            return dm
+
+    return FullIncrement
+
+
+def phase_host(torch, card: str):
+    """Phase 16: the host DFS with symmetry and the host forms of VSR,
+    increment, increment_lock and the puzzle, each held to its exact
+    counts and, where the card runs the model, to the card's fused wave
+    kernel (see the usage text). Returns no kernel rows: the host engines
+    launch none, and the card runs are checks of the host."""
+    from stateright_tpu_torch import Property
+    from stateright_tpu_torch.models.increment import IncrementModel
+    from stateright_tpu_torch.models.increment_lock import (
+        IncrementLockModel)
+    from stateright_tpu_torch.models.single_copy import SingleCopySys
+    from stateright_tpu_torch.models.sliding_puzzle import SlidingPuzzle
+    from stateright_tpu_torch.models.twopc import TwoPhaseSys
+    from stateright_tpu_torch.models.vsr import VsrSys
+
+    _log(f"phase 16 host rates: the card machine's CPU, beside {card}")
+    for tag, build, want in (
+            ("2pc 5", lambda: TwoPhaseSys(5).checker(), 8_832),
+            ("2pc 5 symmetry", lambda: TwoPhaseSys(5).checker().symmetry(),
+             665)):
+        c = _host_run(tag, build, "spawn_dfs")
+        if c.unique_state_count() != want:
+            raise AssertionError(f"{tag}: {c.unique_state_count()}, not "
+                                 f"{want}")
+        c.assert_properties()
+
+    sc = SingleCopySys(2, 1)
+    rep = sc.device_model().host_representative
+    host = _host_run("single-copy 2/1 symmetry_fn(host_representative)",
+                     lambda: sc.checker().symmetry_fn(rep), "spawn_dfs")
+    card_sc = _wave_kernel_run(
+        torch, "single-copy 2/1 symmetry",
+        lambda: SingleCopySys(2, 1).checker().symmetry())
+    if not host.unique_state_count() == card_sc.unique_state_count() == 47:
+        raise AssertionError(
+            f"single-copy 2/1 orbits: host {host.unique_state_count()}, "
+            f"card {card_sc.unique_state_count()}, not 47")
+    host.assert_properties()
+    card_sc.assert_properties()
+
+    full_increment = _full_increment(IncrementModel, Property, torch)
+    for tag, build, want in (
+            ("vsr 2/1", lambda: VsrSys(2, 1).checker(), (169, 63)),
+            ("increment 3", lambda: full_increment(3).checker(), None),
+            ("increment_lock 3", lambda: IncrementLockModel(3).checker(),
+             None),
+            ("puzzle 2x3", lambda: SlidingPuzzle(2, 3).checker(),
+             (841, 360))):
+        host = _host_run(tag, build, "spawn_bfs")
+        card_run = _wave_kernel_run(torch, tag, build)
+        got = [(c.state_count(), c.unique_state_count(),
+                sorted(c.discoveries())) for c in (host, card_run)]
+        if got[0] != got[1] or want not in (None, got[0][:2]):
+            raise AssertionError(f"{tag}: host {got[0]}, card {got[1]}, "
+                                 f"want {want}")
+    return []
+
+
 def _modules():
     """The port's modules, from the checkout beside this script."""
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
@@ -5057,7 +5181,7 @@ def main(argv) -> int:
 def _later_phases(torch, kernels, fused, engine, wave_mod, table_mod,
                   ckpt_mod, TwoPhaseSys, PaxosSys, phases, old, card,
                   children, t_start) -> int:
-    """Phases 8 to 16 of ``main``."""
+    """Phases 8 to 17 of ``main``."""
     alone = len(phases) == 1
     if "classic" in phases:
         children.ahead()
@@ -5083,7 +5207,8 @@ def _later_phases(torch, kernels, fused, engine, wave_mod, table_mod,
             table_mod)),
         "sizes": lambda: _clocked("phase 14", phase_sizes, torch, kernels,
                                   fused, engine, wave_mod, table_mod)[0],
-        "fallback": lambda: _clocked("phase 15", phase_fallback, torch)}
+        "fallback": lambda: _clocked("phase 15", phase_fallback, torch)
+        + _clocked("phase 16", phase_host, torch, card)}
     for phase in PHASES[5:]:
         if phase not in phases:
             continue

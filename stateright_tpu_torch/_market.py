@@ -1,4 +1,4 @@
-"""The worker pool behind the host BFS's ``threads(n)``.
+"""The worker pool behind the host engines' ``threads(n)``.
 
 The port's copy of ``stateright_tpu/checker/_market.py``, after the
 reference's ``JobMarket`` (a mutex, a condition variable and a list of
@@ -135,3 +135,4 @@ def _worker_loop(
         elif job_len(pending) == 0:
             with market.lock:
                 market.wait_count += 1
+

@@ -3,11 +3,15 @@
 The port's copy of ``stateright_tpu/actor/core.py``, ``model_state.py``
 and ``model.py`` (after the reference's ``src/actor.rs`` and
 ``src/actor/model.rs``), with the register messages of
-``stateright_tpu/actor/register.py``. An actor is a state machine that
+``stateright_tpu/actor/register.py`` and the compositions of
+``actor/choice.py`` (``Choice``: actor types mixed in one system) and
+``actor/ordered_reliable_link.py`` (``ActorWrapper``). An actor is a state machine that
 handles messages and timeouts; ``ActorModel`` makes a list of actors and
 a network into a ``Model`` whose actions are the delivery of an envelope
 in flight, its loss on a lossy network, and the timeout of an armed
-timer, so the host BFS (``bfs.py``) explores every interleaving. A
+timer, so the host engines (``bfs.py``, ``dfs.py``) explore every
+interleaving; ``ActorModelState.representative`` sorts the actors for
+``symmetry()`` (``symmetry.py``). A
 history rides along in the state, updated by the ``record_msg_in`` /
 ``record_msg_out`` hooks: the consistency testers plug in there
 (``semantics.py``, ``register_workload.py``).
@@ -31,8 +35,9 @@ from .semantics import (LinearizabilityTester, Read, ReadOk, Register, Write,
 
 __all__ = ["Id", "Envelope", "Network", "ActorModelState", "SendCmd",
            "SetTimerCmd", "CancelTimerCmd", "Out", "Actor", "majority",
-           "model_peers", "ActorModel", "DeliverAction", "DropAction",
-           "TimeoutAction", "Internal", "Put", "Get", "PutOk", "GetOk",
+           "model_peers", "model_timeout", "Choice", "ChoiceState",
+           "ActorWrapper", "OrlDeliver", "OrlAck", "OrlState", "ActorModel",
+           "DeliverAction", "DropAction", "TimeoutAction", "Internal", "Put", "Get", "PutOk", "GetOk",
            "RegisterClientState", "RegisterServerState", "NO_VALUE",
            "Register", "Read", "ReadOk", "Write", "WriteOk",
            "LinearizabilityTester"]
@@ -145,6 +150,14 @@ class ActorModelState:
                 f"is_timer_set: {self.is_timer_set!r}, "
                 f"history: {self.history!r} }}")
 
+    def representative(self) -> "ActorModelState":
+        """The state with its actors sorted and the ids elsewhere in it
+        rewritten to match (``actor/model_state.rs:103-118``): what
+        ``symmetry()`` dedups by on the host DFS."""
+        from .symmetry import actor_model_representative
+
+        return actor_model_representative(self)
+
 
 # -- Actors ----------------------------------------------------------------
 
@@ -191,6 +204,12 @@ class Out:
     def cancel_timer(self) -> None:
         self.commands.append(CancelTimerCmd())
 
+    def __len__(self) -> int:
+        return len(self.commands)
+
+    def __iter__(self):
+        return iter(self.commands)
+
     def __repr__(self) -> str:
         return repr(self.commands)
 
@@ -214,6 +233,12 @@ class Actor:
 def majority(cluster_size: int) -> int:
     """The number of nodes that make a majority."""
     return cluster_size // 2 + 1
+
+
+def model_timeout() -> Tuple[float, float]:
+    """A timer's duration range: irrelevant under the checker
+    (``actor/model.rs:74-76``)."""
+    return (0.0, 0.0)
 
 
 def model_peers(self_ix: int, count: int) -> List[Id]:
@@ -283,6 +308,10 @@ class ActorModel(Model):
 
     def actor(self, actor: Actor) -> "ActorModel":
         self.actors.append(actor)
+        return self
+
+    def with_actors(self, actors: Iterable[Actor]) -> "ActorModel":
+        self.actors.extend(actors)
         return self
 
     def with_duplicating_network(self, duplicating: bool) -> "ActorModel":
@@ -442,6 +471,178 @@ class ActorModel(Model):
 
     def within_boundary(self, state: ActorModelState) -> bool:
         return self._within_boundary(self.cfg, state)
+
+
+# -- Composition: variants and the ordered reliable link -------------------
+
+
+@dataclass(frozen=True)
+class ChoiceState:
+    """An inner actor state tagged with its variant's index."""
+
+    index: int
+    state: Any
+
+
+class Choice(Actor):
+    """One variant of a family of actor types sharing a message type (the
+    reference's ``Choice``, ``actor.rs:285-399``). Its state is tagged
+    with the variant (``ChoiceState``), so two variants whose inner
+    states are equal stay distinct states, as ``L(x)`` and ``R(x)`` do in
+    the reference."""
+
+    def __init__(self, index: int, actor: Actor):
+        if index < 0:
+            raise ValueError("variant index must be nonnegative")
+        self.index = index
+        self.actor = actor
+
+    def _inner(self, id: Id, state: ChoiceState):
+        if state.index != self.index:
+            raise RuntimeError(
+                f"Choice actor {int(id)} (variant {self.index}) received "
+                f"state tagged for variant {state.index}")
+        return state.state
+
+    def _tag(self, inner):
+        return None if inner is None else ChoiceState(self.index, inner)
+
+    def on_start(self, id: Id, o: Out):
+        return ChoiceState(self.index, self.actor.on_start(id, o))
+
+    def on_msg(self, id: Id, state: ChoiceState, src: Id, msg, o: Out):
+        return self._tag(self.actor.on_msg(id, self._inner(id, state), src,
+                                           msg, o))
+
+    def on_timeout(self, id: Id, state: ChoiceState, o: Out):
+        return self._tag(self.actor.on_timeout(id, self._inner(id, state),
+                                               o))
+
+
+@dataclass(frozen=True)
+class OrlDeliver:
+    """A sequenced payload of the ordered reliable link."""
+
+    seq: int
+    msg: Any
+
+    def __repr__(self):
+        return f"Deliver({self.seq}, {self.msg!r})"
+
+
+@dataclass(frozen=True)
+class OrlAck:
+    """The acknowledgement of a sequence number."""
+
+    seq: int
+
+    def __repr__(self):
+        return f"Ack({self.seq})"
+
+
+@dataclass(frozen=True)
+class OrlState:
+    """The link's state around the wrapped actor's. Its maps are sorted
+    tuples of pairs, so a state stays hashable and canonical."""
+
+    next_send_seq: int
+    msgs_pending_ack: Tuple   # ((seq, (dst, msg)), ...)
+    last_delivered_seqs: Tuple  # ((src, seq), ...)
+    wrapped_state: Any
+
+    def __repr__(self):
+        return (f"OrlState(seq={self.next_send_seq}, "
+                f"pending={self.msgs_pending_ack!r}, "
+                f"delivered={self.last_delivered_seqs!r}, "
+                f"wrapped={self.wrapped_state!r})")
+
+
+def _map_get(pairs: Tuple, key, default=None):
+    for k, v in pairs:
+        if k == key:
+            return v
+    return default
+
+
+def _map_set(pairs: Tuple, key, value) -> Tuple:
+    return tuple(sorted(
+        [(k, v) for k, v in pairs if k != key] + [(key, value)]))
+
+
+def _map_remove(pairs: Tuple, key) -> Tuple:
+    return tuple((k, v) for k, v in pairs if k != key)
+
+
+class ActorWrapper(Actor):
+    """The ordered reliable link around ``wrapped_actor``
+    (``ordered_reliable_link.rs:21-139``): each send is sequenced
+    (``OrlDeliver``) and kept until acknowledged, everything pending is
+    sent again on the resend timer, every delivery is acknowledged and a
+    sequence number already delivered is dropped, and a delivery the
+    inner actor ignores does not advance the sequencer, so it stays
+    deliverable. Order holds per (source, destination) pair. The inner
+    actor may not set timers, as in the reference."""
+
+    def __init__(self, wrapped_actor: Actor):
+        self.wrapped_actor = wrapped_actor
+
+    def _process_output(self, state: OrlState, inner_out: Out,
+                        o: Out) -> OrlState:
+        """Sequences the inner actor's sends
+        (``ordered_reliable_link.rs:121-139``)."""
+        seq = state.next_send_seq
+        pending = state.msgs_pending_ack
+        for command in inner_out:
+            if type(command) is not SendCmd:
+                raise NotImplementedError(
+                    "inner timers are not supported by the ordered "
+                    "reliable link (ordered_reliable_link.rs:126-131)")
+            o.send(command.dst, OrlDeliver(seq, command.msg))
+            pending = _map_set(pending, seq, (command.dst, command.msg))
+            seq += 1
+        return OrlState(seq, pending, state.last_delivered_seqs,
+                        state.wrapped_state)
+
+    def on_start(self, id: Id, o: Out) -> OrlState:
+        o.set_timer(model_timeout())
+        inner_out = Out()
+        state = OrlState(
+            next_send_seq=1, msgs_pending_ack=(), last_delivered_seqs=(),
+            wrapped_state=self.wrapped_actor.on_start(id, inner_out))
+        return self._process_output(state, inner_out, o)
+
+    def on_msg(self, id: Id, state: OrlState, src: Id, msg, o: Out):
+        if type(msg) is OrlDeliver:
+            # Always acknowledged, to stop the resends; dropped if
+            # already delivered.
+            o.send(src, OrlAck(msg.seq))
+            if msg.seq <= _map_get(state.last_delivered_seqs, src, 0):
+                return None
+            inner_out = Out()
+            inner_next = self.wrapped_actor.on_msg(
+                id, state.wrapped_state, src, msg.msg, inner_out)
+            if inner_next is None and not len(inner_out):
+                return None  # not delivered: the sequencer stays
+            next_state = OrlState(
+                state.next_send_seq, state.msgs_pending_ack,
+                _map_set(state.last_delivered_seqs, src, msg.seq),
+                state.wrapped_state if inner_next is None else inner_next)
+            return self._process_output(next_state, inner_out, o)
+        if type(msg) is OrlAck:
+            # A new state even when the seq was cleared already, as the
+            # reference's unconditional update gives
+            # (ordered_reliable_link.rs:107-109).
+            return OrlState(
+                state.next_send_seq,
+                _map_remove(state.msgs_pending_ack, msg.seq),
+                state.last_delivered_seqs, state.wrapped_state)
+        return None
+
+    def on_timeout(self, id: Id, state: OrlState, o: Out):
+        o.set_timer(model_timeout())
+        for seq, (dst, msg) in state.msgs_pending_ack:
+            o.send(dst, OrlDeliver(seq, msg))
+        return None
 
 
 # -- Register messages and actor states ----------------------------------

@@ -23,67 +23,35 @@ which belong to the ports of ``obs`` (ROADMAP A8) and ``resilience``
 
 from __future__ import annotations
 
-import threading
 from collections import deque
 from typing import Dict, List, Optional
 
-from ._market import JobMarket, SharedCount, run_worker_loop
-from .checker import Checker
 from .fingerprint import fingerprint
-from .model import Expectation, Model, require_host_form
+from .host import HostChecker
 from .path import Path
-from .visitor import as_visitor
 
 __all__ = ["BfsChecker"]
 
 
-class BfsChecker(Checker):
+class BfsChecker(HostChecker):
     """A host BFS in progress or done. Instantiate through
     ``model.checker().spawn_bfs()``."""
 
     def __init__(self, builder):
-        model = builder._model
-        properties = model.properties()
-        require_host_form(model, properties)
-        self._model = model
-        self._properties = properties
-        self._thread_count = builder._thread_count
-        self._visitor = (as_visitor(builder._visitor)
-                         if builder._visitor else None)
-
-        init_states = [s for s in model.init_states()
-                       if model.within_boundary(s)]
-        self._state_count = SharedCount(len(init_states))
+        super().__init__(builder)
         generated: Dict[int, Optional[int]] = {}
-        for s in init_states:
+        for s in self._init_states:
             generated.setdefault(fingerprint(s), None)
         self._generated = generated
-        ebits = frozenset(i for i, p in enumerate(properties)
-                          if p.expectation is Expectation.EVENTUALLY)
-        pending = deque((s, fingerprint(s), ebits) for s in init_states)
-        self._discoveries: Dict[str, int] = {}
-
-        self._market = JobMarket(self._thread_count, pending)
-        self._handles = []
-        for _ in range(self._thread_count):
-            t = threading.Thread(
-                target=run_worker_loop,
-                args=(self._market, self._thread_count, self._check_block,
-                      self._discoveries, len(properties),
-                      builder._target_state_count, self._state_count),
-                kwargs=dict(empty_job=deque, job_len=len,
-                            split_off=_split_off_deque),
-                daemon=True)
-            t.start()
-            self._handles.append(t)
+        self._start(builder, deque((s, fingerprint(s), self._ebits)
+                                   for s in self._init_states),
+                    deque, _split_off_deque)
 
     def _check_block(self, pending: deque, max_count: int) -> None:
         """Takes up to ``max_count`` states from ``pending`` (the
         reference's ``check_block``, ``bfs.rs:165-274``)."""
         model = self._model
-        properties = self._properties
         generated = self._generated
-        discoveries = self._discoveries
         visitor = self._visitor
 
         actions: List = []
@@ -96,27 +64,9 @@ class BfsChecker(Checker):
                 state, state_fp, ebits = pending.pop()
                 if visitor is not None:
                     visitor.visit(model, self._reconstruct_path(state_fp))
-
                 # Done once every property has a discovery.
-                is_awaiting_discoveries = False
-                for i, prop in enumerate(properties):
-                    if prop.name in discoveries:
-                        continue
-                    if prop.expectation is Expectation.ALWAYS:
-                        if not prop.condition(model, state):
-                            discoveries[prop.name] = state_fp
-                        else:
-                            is_awaiting_discoveries = True
-                    elif prop.expectation is Expectation.SOMETIMES:
-                        if prop.condition(model, state):
-                            discoveries[prop.name] = state_fp
-                        else:
-                            is_awaiting_discoveries = True
-                    else:  # EVENTUALLY: found only at terminal states
-                        is_awaiting_discoveries = True
-                        if prop.condition(model, state):
-                            ebits = ebits - {i}
-                if not is_awaiting_discoveries:
+                is_awaiting, ebits = self._evaluate(state, ebits, state_fp)
+                if not is_awaiting:
                     return
 
                 is_terminal = True
@@ -139,9 +89,7 @@ class BfsChecker(Checker):
                     generated[next_fp] = state_fp
                     pending.appendleft((next_state, next_fp, ebits))
                 if is_terminal:
-                    for i, prop in enumerate(properties):
-                        if i in ebits:
-                            discoveries[prop.name] = state_fp
+                    self._terminal(ebits, state_fp)
         finally:
             self._state_count.add(generated_count)
 
@@ -158,34 +106,9 @@ class BfsChecker(Checker):
             next_fp = source
         return Path.from_fingerprints(self._model, fingerprints)
 
-    # -- Checker API -----------------------------------------------------
-
-    def model(self) -> Model:
-        return self._model
-
-    def state_count(self) -> int:
-        return self._state_count.value
-
-    def unique_state_count(self) -> int:
-        return len(self._generated)
-
     def discoveries(self) -> Dict[str, Path]:
         return {name: self._reconstruct_path(fp)
                 for name, fp in list(self._discoveries.items())}
-
-    def join(self) -> "BfsChecker":
-        for h in self._handles:
-            h.join()
-        self._handles = []
-        if self._market.errors:
-            raise self._market.errors[0]
-        return self
-
-    def is_done(self) -> bool:
-        with self._market.lock:
-            idle = (not self._market.jobs
-                    and self._market.wait_count == self._thread_count)
-        return idle or len(self._discoveries) == len(self._properties)
 
 
 def _split_off_deque(pending: deque, size: int) -> deque:

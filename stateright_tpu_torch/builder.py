@@ -1,7 +1,8 @@
 """``CheckerBuilder``: configures and spawns the port's engines.
 
 The port's copy of ``stateright_tpu/checker/builder.py`` for the engines
-this package has: ``spawn_bfs`` runs the host BFS (``bfs.py``);
+this package has: ``spawn_bfs`` runs the host BFS (``bfs.py``),
+``spawn_dfs`` the host DFS (``dfs.py``, with symmetry);
 ``spawn_cuda_bfs`` runs the fused device BFS (``fused.py``) by default,
 the classic per-wave BFS (``classic.py``) where the fused one cannot run
 the model (a visitor, or a property the host evaluates) or the caller
@@ -37,23 +38,25 @@ class CheckerBuilder:
 
     def __init__(self, model):
         self._model = model
-        self._symmetry = False
+        self._symmetry = None
         self._target_state_count: Optional[int] = None
         self._thread_count = 1
         self._visitor = None
 
     def symmetry(self) -> "CheckerBuilder":
-        """Dedups by the device model's ``representative``; paths keep
-        the original states."""
-        self._symmetry = True
-        return self
+        """Symmetry reduction by the states' own ``representative()``
+        (``checker.rs:149-153``): the host DFS dedups by the host
+        representative's fingerprint, and the device engines by the
+        device model's ``representative``; paths keep the original
+        states. The host BFS ignores it, as JAX's does."""
+        return self.symmetry_fn(lambda state: state.representative())
 
     def symmetry_fn(self, representative) -> "CheckerBuilder":
-        """Symmetry with an explicit canonicaliser of host states. The
-        device engines dedup by the device model's ``representative``
-        either way, as JAX's do (``tpu/engine.py`` :228); the function is
-        kept for the host DFS the port does not have yet (ROADMAP A17: the
-        host BFS ignores symmetry, as JAX's does)."""
+        """Symmetry reduction by ``representative(state)``, a
+        canonicaliser of host states, which the host DFS runs. The device
+        engines dedup by the device model's ``representative`` all the
+        same, as JAX's do (``tpu/engine.py`` :228), and the host BFS
+        ignores symmetry, as JAX's does."""
         self._symmetry = representative
         return self
 
@@ -73,11 +76,21 @@ class CheckerBuilder:
     def spawn_bfs(self):
         """Spawns the host BFS (``bfs.BfsChecker``) on the model's host
         transitions and conditions, with ``threads()`` workers; call
-        ``join()`` to wait for it. A model whose host form the port lacks
-        raises ``NotImplementedError`` naming the ROADMAP item."""
+        ``join()`` to wait for it. A model with no host transitions
+        raises ``NotImplementedError``."""
         from .bfs import BfsChecker
 
         return BfsChecker(self)
+
+    def spawn_dfs(self):
+        """Spawns the host DFS (``dfs.DfsChecker``) on the model's host
+        transitions and conditions, with ``threads()`` workers: less
+        memory than the BFS, but its discovery paths need not be
+        shortest. It honours ``symmetry()`` / ``symmetry_fn()``. Call
+        ``join()`` to wait for it."""
+        from .dfs import DfsChecker
+
+        return DfsChecker(self)
 
     def target_state_count(self, count: int) -> "CheckerBuilder":
         """Stops once about ``count`` states were generated (never fewer

@@ -3,7 +3,8 @@
 The port's copy of ``stateright_tpu/model.py``. A model is a transition
 system: its initial states, and on the host the enabled ``actions`` of a
 state and the ``next_state`` an action leads to, which the host BFS
-(``bfs.py``) and host paths (``path.py``) run. Its device form
+(``bfs.py``), the host DFS (``dfs.py``) and host paths (``path.py``)
+run. Its device form
 (``device_model()``) holds the same transition function over encoded
 rows, for the device engines. A property is a name, an expectation and a
 host ``condition(model, state)``; on the device its predicate is the
@@ -11,9 +12,8 @@ device model's (``device_properties``) where it has one, and the classic
 engine (``classic.py``) evaluates a property that has none by its
 condition, on decoded states, a wave at a time.
 
-A model of the port whose host transitions are not ported yet sets
-``host_form_item`` to the ROADMAP item that brings them; its ``actions``
-raises ``NotImplementedError`` naming it, and so does ``spawn_bfs()``.
+A model with no host transitions (a device form alone) raises
+``NotImplementedError`` from ``actions``, and so do the host engines.
 """
 
 from __future__ import annotations
@@ -86,9 +86,6 @@ class Model:
     #: class's name: the name the JAX package writes for the same model,
     #: so that a checkpoint crosses between the packages
     checkpoint_name = None
-    #: for a model of the port whose host transition function is not
-    #: ported yet, the ROADMAP item that brings it
-    host_form_item: Optional[str] = None
 
     def init_states(self) -> List:
         """The initial states, as host objects (the device model encodes
@@ -153,17 +150,13 @@ class Model:
 
 
 def _no_host_form(model) -> str:
-    name = type(model).__name__
-    if model.host_form_item is not None:
-        return (f"{name} has no host transition function in the port yet "
-                f"(ROADMAP {model.host_form_item} brings it); check it on "
-                "the device with spawn_cuda_bfs()")
-    return (f"{name} has no host transition function: implement actions() "
-            "and next_state() to run it on the host engine")
+    return (f"{type(model).__name__} has no host transition function: "
+            "implement actions() and next_state() to run it on the host "
+            "engines")
 
 
 def require_host_form(model, properties) -> None:
-    """Raises ``NotImplementedError`` unless the host engine can run
+    """Raises ``NotImplementedError`` unless the host engines can run
     ``model``: it has ``actions`` and every property has a host
     condition."""
     if type(model).actions is Model.actions:
@@ -172,9 +165,7 @@ def require_host_form(model, properties) -> None:
     if bare:
         raise NotImplementedError(
             f"properties {bare} of {type(model).__name__} have no host "
-            "condition, which the host engine evaluates"
-            + (f" (ROADMAP {model.host_form_item})"
-               if model.host_form_item is not None else ""))
+            "condition, which the host engines evaluate")
 
 
 def _fmt(value: Any) -> str:

@@ -15,7 +15,8 @@ done). One action a thread, in thread order: read when pc == 1, write
 when pc == 2.
 
 The representative sorts the threads by their whole ``(t, pc)`` pair, an
-exact canonical form. Its CUDA device code (``cuda_model()``) is
+exact canonical form, on the host (``IncrementState.representative``, the
+host DFS's ``symmetry()``) and on the device alike. Its CUDA device code (``cuda_model()``) is
 ``csrc/models/increment.cuh``.
 """
 
@@ -41,20 +42,37 @@ class IncrementState:
     i: int                          # shared counter
     s: Tuple[Tuple[int, int], ...]  # per-thread (t, pc)
 
+    def representative(self) -> "IncrementState":
+        return IncrementState(self.i, tuple(sorted(self.s)))
+
 
 class IncrementModel(Model):
     """``increment.rs:155-197``. Actions: ``("read", tid)`` and
     ``("write", tid)``."""
-
-    #: its host transitions are not ported yet: it runs on the device
-    #: engines only
-    host_form_item = "A16"
 
     def __init__(self, thread_count: int):
         self.thread_count = thread_count
 
     def init_states(self):
         return [IncrementState(0, ((0, 1),) * self.thread_count)]
+
+    def actions(self, state, actions):
+        for tid in range(self.thread_count):
+            pc = state.s[tid][1]
+            if pc == 1:
+                actions.append(("read", tid))
+            elif pc == 2:
+                actions.append(("write", tid))
+
+    def next_state(self, state, action):
+        kind, tid = action
+        s = list(state.s)
+        if kind == "read":
+            s[tid] = (state.i, 2)
+            return IncrementState(state.i, tuple(s))
+        t = state.s[tid][0]  # write
+        s[tid] = (t, 3)
+        return IncrementState(t + 1, tuple(s))
 
     def properties(self):
         return [Property.always("fin", lambda _, state: sum(

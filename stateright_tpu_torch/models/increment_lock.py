@@ -13,7 +13,8 @@ about to write, 3 holds the lock after the write, 4 done). One action a
 thread, in thread order, chosen by its pc.
 
 The representative sorts the threads by their whole ``(t, pc)`` pair, as
-``increment.py``'s does. Its CUDA device code (``cuda_model()``) is
+``increment.py``'s does, on the host (``LockState.representative``) and
+on the device. Its CUDA device code (``cuda_model()``) is
 ``csrc/models/increment_lock.cuh``.
 """
 
@@ -40,20 +41,47 @@ class LockState:
     lock: bool
     s: Tuple[Tuple[int, int], ...]  # per-thread (t, pc)
 
+    def representative(self) -> "LockState":
+        return LockState(self.i, self.lock, tuple(sorted(self.s)))
+
 
 class IncrementLockModel(Model):
     """``increment_lock.rs:48-107``. Actions: ``("lock" | "read" |
     "write" | "release", tid)``."""
-
-    #: its host transitions are not ported yet: it runs on the device
-    #: engines only
-    host_form_item = "A16"
 
     def __init__(self, thread_count: int):
         self.thread_count = thread_count
 
     def init_states(self):
         return [LockState(0, False, ((0, 0),) * self.thread_count)]
+
+    def actions(self, state, actions):
+        for tid in range(self.thread_count):
+            pc = state.s[tid][1]
+            if pc == 0 and not state.lock:
+                actions.append(("lock", tid))
+            elif pc == 1:
+                actions.append(("read", tid))
+            elif pc == 2:
+                actions.append(("write", tid))
+            elif pc == 3 and state.lock:
+                actions.append(("release", tid))
+
+    def next_state(self, state, action):
+        kind, tid = action
+        s = list(state.s)
+        t, pc = state.s[tid]
+        if kind == "lock":
+            s[tid] = (t, 1)
+            return LockState(state.i, True, tuple(s))
+        if kind == "read":
+            s[tid] = (state.i, 2)
+            return LockState(state.i, state.lock, tuple(s))
+        if kind == "write":
+            s[tid] = (t, 3)
+            return LockState(t + 1, state.lock, tuple(s))
+        s[tid] = (t, 4)  # release
+        return LockState(state.i, False, tuple(s))
 
     def properties(self):
         return [

@@ -27,6 +27,7 @@ __all__ = ["MOVES", "SlidingPuzzle", "PuzzleDevice"]
 #: the four moves of the blank, in the host's action order (the device's
 #: slot order)
 MOVES = ("up", "down", "left", "right")
+_DELTA = {"up": (-1, 0), "down": (1, 0), "left": (0, -1), "right": (0, 1)}
 
 
 def _is_even_permutation(tiles) -> bool:
@@ -38,10 +39,6 @@ def _is_even_permutation(tiles) -> bool:
 
 class SlidingPuzzle(Model):
     """``rows x cols`` sliding puzzle from a fixed scrambled start."""
-
-    #: its host transitions are not ported yet: it runs on the device
-    #: engines only
-    host_form_item = "A16"
 
     def __init__(self, rows: int = 2, cols: int = 3):
         self.rows = rows
@@ -57,6 +54,20 @@ class SlidingPuzzle(Model):
     def init_states(self):
         return [self._start]
 
+    def actions(self, state, actions):
+        actions += list(MOVES)
+
+    def next_state(self, state, action):
+        r, c = divmod(state.index(0), self.cols)
+        dr, dc = _DELTA[action]
+        nr, nc = r + dr, c + dc
+        if not (0 <= nr < self.rows and 0 <= nc < self.cols):
+            return None  # off the board: the action is ignored
+        t = list(state)
+        i, j = r * self.cols + c, nr * self.cols + nc
+        t[i], t[j] = t[j], t[i]
+        return tuple(t)
+
     def properties(self):
         props = [Property.sometimes(
             "solved", lambda model, s: s == model._solved)]
@@ -67,6 +78,9 @@ class SlidingPuzzle(Model):
                 "even permutation",
                 lambda model, s: _is_even_permutation(s)))
         return props
+
+    def format_action(self, action):
+        return f"slide blank {action}"
 
     def device_model(self) -> "PuzzleDevice":
         return PuzzleDevice(self.rows, self.cols)

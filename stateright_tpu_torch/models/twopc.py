@@ -29,6 +29,7 @@ import torch
 
 from ..device_model import DeviceModel
 from ..model import Model, Property
+from ..symmetry import RewritePlan
 
 __all__ = ["RmState", "TmState", "TwoPhaseState", "COMMIT", "ABORT",
            "prepared", "TwoPhaseSys", "TwoPhaseDevice"]
@@ -62,6 +63,23 @@ class TwoPhaseState:
     tm_state: TmState
     tm_prepared: Tuple[bool, ...]
     msgs: FrozenSet[Tuple]
+
+    def representative(self) -> "TwoPhaseState":
+        """The RMs sorted by state, with the RM indices in the messages
+        rewritten to match (``2pc.rs:165-182``): the host DFS's
+        ``symmetry()``. A heuristic, as the reference's: 665 classes at 5
+        RMs, where the device form's exact representative finds 314."""
+        plan = RewritePlan.from_values_to_sort(
+            [s.value for s in self.rm_state])
+        return TwoPhaseState(
+            rm_state=tuple(self.rm_state[i] for i in plan.reindex_mapping),
+            tm_state=self.tm_state,
+            tm_prepared=tuple(
+                self.tm_prepared[i] for i in plan.reindex_mapping),
+            msgs=frozenset(
+                ("prepared", plan.rewrite(m[1])) if m[0] == "prepared" else m
+                for m in self.msgs),
+        )
 
 
 class TwoPhaseSys(Model):

@@ -13,7 +13,9 @@ accepted operation, which adopts the maximum and announces it with
 each timeout, so a Timeout is always enabled (a quiescent replica's is a
 self-loop that counts in the states); the ``max_view`` boundary bounds
 the space. Checked for "agreement" (always) and three sometimes
-properties. Gates: 63 / 169 at n = 2, 5,531 / 32,006 at n = 3.
+properties. Gates: 63 / 169 at n = 2, 5,531 / 32,006 at n = 3. The host
+form is ``VsrReplica`` on the host ``ActorModel``, which the host engines
+run on every network form.
 
 Lanes (``W = 8n + 1 + net_slots + 1``): each replica's eight
 ``ReplicaState`` fields in their order (view, status, op_val, committed,
@@ -34,28 +36,24 @@ symmetry; every lane a whole word. Its CUDA device code
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 
 import numpy as np
 import torch
 
-from ..actor import ActorModelState, Envelope, Id, Network
+from ..actor import (Actor, ActorModel, ActorModelState, Envelope, Id,
+                     Network, Out, majority, model_peers, model_timeout)
 from ..actor_device import EMPTY_ENV, M32, ActorDeviceModel
-from ..model import Model, Property
+from ..model import Expectation
 
-__all__ = ["VsrSys", "VsrDevice", "ReplicaState", "Prepare", "PrepareOk",
-           "Commit", "StartViewChange", "DoViewChange", "StartView",
-           "majority"]
+__all__ = ["VsrSys", "VsrReplica", "VsrDevice", "ReplicaState", "Prepare",
+           "PrepareOk", "Commit", "StartViewChange", "DoViewChange",
+           "StartView", "majority"]
 
 _PREPARE, _PREPARE_OK, _COMMIT = 0, 1, 2
 _START_VC, _DO_VC, _START_VIEW = 3, 4, 5
 #: a replica's lanes, ReplicaState's field order
 _VIEW, _STATUS, _OP, _COMMITTED, _OKS, _SVC, _DVC, _BEST = range(8)
-
-
-def majority(cluster_size: int) -> int:
-    """The nodes of a majority (the reference's ``actor.rs:437-439``)."""
-    return cluster_size // 2 + 1
 
 
 # -- Messages and the replica's state -----------------------------------------
@@ -137,14 +135,171 @@ _KINDS = {Prepare: _PREPARE, PrepareOk: _PREPARE_OK, Commit: _COMMIT,
           StartView: _START_VIEW}
 
 
-class VsrSys(Model):
+def _primary(view: int, n: int) -> int:
+    return view % n
+
+
+def _popcount(mask: int) -> int:
+    return bin(mask).count("1")
+
+
+class VsrReplica(Actor):
+    """One replica of an ``n``-replica group (``viewstamped.py``'s): its
+    state is a ``ReplicaState``. The timer is armed at start and re-armed
+    on every timeout, so the proposal and the suspicion stay enabled;
+    the ``max_view`` boundary prunes runaway view changes."""
+
+    def __init__(self, n: int):
+        self.n = n
+
+    def on_start(self, id: Id, o: Out) -> ReplicaState:
+        o.set_timer(model_timeout())
+        return ReplicaState()
+
+    def on_timeout(self, id: Id, s: ReplicaState, o: Out):
+        o.set_timer(model_timeout())
+        i, n = int(id), self.n
+        if s.status == 0 and _primary(s.view, n) == i and s.op_val == 0:
+            # The proposal: value view + 1, which orders proposals by
+            # view, as the view change's max needs.
+            val = s.view + 1
+            o.broadcast(model_peers(i, n), Prepare(s.view, val))
+            return replace(s, op_val=val, oks=1 << i)
+        if s.status == 0 and _primary(s.view, n) != i:
+            # Suspect the primary: change to view + 1.
+            nv = s.view + 1
+            o.broadcast(model_peers(i, n), StartViewChange(nv))
+            return replace(s, view=nv, status=1, oks=0,
+                           svc=1 << i, dvc=0, dvc_best=0)
+        return None  # the timer re-armed, the state unchanged
+
+    def on_msg(self, id: Id, s: ReplicaState, src: Id, msg, o: Out):
+        i, n = int(id), self.n
+        kind = type(msg)
+        if kind is Prepare:
+            return self._on_prepare(i, s, src, msg, o)
+        if kind is PrepareOk:
+            return self._on_prepare_ok(i, n, s, src, msg, o)
+        if kind is Commit:
+            return self._on_commit(s, msg)
+        if kind is StartViewChange:
+            return self._on_start_view_change(i, n, s, src, msg, o)
+        if kind is DoViewChange:
+            return self._on_do_view_change(i, n, s, src, msg, o)
+        if kind is StartView:
+            return self._on_start_view(s, src, msg, o)
+        return None
+
+    def _on_prepare(self, i, s, src, msg, o):
+        if msg.view > s.view:
+            # Catch up into the proposing view and accept.
+            o.send(src, PrepareOk(msg.view))
+            return ReplicaState(view=msg.view, status=0,
+                                op_val=msg.val, committed=s.committed)
+        if (msg.view == s.view and s.status == 0
+                and _primary(msg.view, self.n) != i and s.op_val == 0):
+            o.send(src, PrepareOk(msg.view))
+            return replace(s, op_val=msg.val)
+        return None  # a stale view or a duplicate
+
+    def _on_prepare_ok(self, i, n, s, src, msg, o):
+        if not (msg.view == s.view and s.status == 0
+                and _primary(s.view, n) == i
+                and s.op_val != 0 and s.committed == 0):
+            return None
+        oks = s.oks | (1 << int(src)) | (1 << i)
+        if oks == s.oks:
+            return None  # a duplicate ack
+        if _popcount(oks) >= majority(n):
+            o.broadcast(model_peers(i, n), Commit(s.view, s.op_val))
+            return replace(s, oks=oks, committed=s.op_val)
+        return replace(s, oks=oks)
+
+    def _on_commit(self, s, msg):
+        if s.committed != 0:
+            return None  # final; a disagreement is "agreement"'s to find
+        if msg.view > s.view:
+            return ReplicaState(view=msg.view, status=0,
+                                op_val=msg.val, committed=msg.val)
+        return replace(s, committed=msg.val,
+                       op_val=s.op_val if s.op_val else msg.val)
+
+    def _on_start_view_change(self, i, n, s, src, msg, o):
+        if msg.view > s.view:
+            svc = (1 << i) | (1 << int(src))
+            o.broadcast(model_peers(i, n), StartViewChange(msg.view))
+            if _popcount(svc) >= majority(n):
+                o.send(Id(_primary(msg.view, n)),
+                       DoViewChange(msg.view, s.op_val))
+            return replace(s, view=msg.view, status=1, oks=0,
+                           svc=svc, dvc=0, dvc_best=0)
+        if msg.view == s.view and s.status == 1:
+            svc = s.svc | (1 << int(src))
+            if svc == s.svc:
+                return None  # a duplicate
+            if (_popcount(svc) >= majority(n)
+                    and _popcount(s.svc) < majority(n)):
+                # The quorum reached first: hand the accepted op over.
+                o.send(Id(_primary(msg.view, n)),
+                       DoViewChange(msg.view, s.op_val))
+            return replace(s, svc=svc)
+        return None
+
+    def _on_do_view_change(self, i, n, s, src, msg, o):
+        if _primary(msg.view, n) != i:
+            return None
+        if msg.view > s.view:
+            dvc = (1 << i) | (1 << int(src))
+            best = max(s.op_val, msg.op_val)
+            st = replace(s, view=msg.view, status=1, oks=0, svc=0,
+                         dvc=dvc, dvc_best=best)
+            if _popcount(dvc) >= majority(n):
+                return self._complete_view_change(i, n, st, o)
+            return st
+        if msg.view == s.view and s.status == 1:
+            dvc = s.dvc | (1 << int(src)) | (1 << i)
+            best = max(s.dvc_best, s.op_val, msg.op_val)
+            if dvc == s.dvc and best == s.dvc_best:
+                return None  # a duplicate
+            st = replace(s, dvc=dvc, dvc_best=best)
+            if (_popcount(dvc) >= majority(n)
+                    and _popcount(s.dvc) < majority(n)):
+                return self._complete_view_change(i, n, st, o)
+            return st
+        return None  # stale, or the view change is done
+
+    def _complete_view_change(self, i, n, st, o):
+        """The new primary adopts the greatest accepted op of its
+        majority (0, none: a fresh proposal waits for the timer) and
+        announces the view."""
+        best = st.dvc_best
+        o.broadcast(model_peers(i, n), StartView(st.view, best))
+        return replace(st, status=0, op_val=best,
+                       oks=(1 << i) if best else 0,
+                       svc=0, dvc=0, dvc_best=0)
+
+    def _on_start_view(self, s, src, msg, o):
+        if msg.view > s.view or (msg.view == s.view and s.status == 1):
+            if msg.op_val != 0 and s.committed == 0:
+                # Acknowledge the carried op again, so that it can commit
+                # in the new view.
+                o.send(src, PrepareOk(msg.view))
+            return ReplicaState(view=msg.view, status=0,
+                                op_val=msg.op_val, committed=s.committed)
+        return None
+
+
+def _committed(state) -> list:
+    return [s.committed for s in state.actor_states if s.committed != 0]
+
+
+class VsrSys(ActorModel):
     """``n`` replicas (1 to 4) bounded at ``max_view`` view changes, on a
     network that duplicates and loses messages as asked, bounded on the
-    device at ``net_slots`` envelopes in flight (``8n`` by default)."""
-
-    #: its host transitions are not ported yet: it runs on the device
-    #: engines only
-    host_form_item = "A16"
+    device at ``net_slots`` envelopes in flight (``8n`` by default). The
+    host model is ``VsrCfg(n, max_view, lossy, duplicating).into_model()``
+    (``viewstamped.py:296-335``): ``with_lossy_network`` and
+    ``with_duplicating_network`` reach the device form too."""
 
     #: the JAX package's model is an ``ActorModel``: the same name lets
     #: each package resume the other's checkpoints
@@ -152,29 +307,30 @@ class VsrSys(Model):
 
     def __init__(self, n: int = 3, max_view: int = 1, lossy: bool = False,
                  duplicating: bool = True, net_slots: int = None):
+        super().__init__(cfg=self)
         self.n = n
         self.max_view = max_view
-        self.lossy = lossy
-        self.duplicating = duplicating
         self.net_slots = net_slots
+        always, sometimes = Expectation.ALWAYS, Expectation.SOMETIMES
+        (self.with_actors(VsrReplica(n) for _ in range(n))
+         .with_duplicating_network(duplicating).with_lossy_network(lossy)
+         .with_boundary(lambda cfg, state: all(
+             s.view <= cfg.max_view for s in state.actor_states))
+         .property(always, "agreement",
+                   lambda _, state: len(set(_committed(state))) <= 1)
+         .property(sometimes, "can commit",
+                   lambda _, state: bool(_committed(state)))
+         .property(sometimes, "view change completes",
+                   lambda _, state: any(s.view > 0 and s.status == 0
+                                        for s in state.actor_states))
+         .property(sometimes, "commit survives view change",
+                   lambda _, state: any(s.committed != 0 and s.view > 0
+                                        for s in state.actor_states)))
 
     def device_model(self) -> "VsrDevice":
-        return VsrDevice(self.n, self.max_view, lossy=self.lossy,
-                         duplicating=self.duplicating,
+        return VsrDevice(self.n, self.max_view, lossy=self.lossy_network,
+                         duplicating=self.duplicating_network,
                          net_slots=self.net_slots)
-
-    def init_states(self):
-        """``VsrReplica.on_start``: every replica fresh, its timer armed,
-        nothing in flight."""
-        return [ActorModelState(
-            actor_states=[ReplicaState() for _ in range(self.n)],
-            network=Network(), is_timer_set=[True] * self.n, history=None)]
-
-    def properties(self):
-        return [Property.always("agreement"),
-                Property.sometimes("can commit"),
-                Property.sometimes("view change completes"),
-                Property.sometimes("commit survives view change")]
 
 
 class VsrDevice(ActorDeviceModel):

@@ -730,6 +730,18 @@ class RegisterWorkloadDevice(ActorDeviceModel):
             return None
         return best
 
+    def host_representative(self, state):
+        """The host canonicaliser for ``CheckerBuilder.symmetry_fn``: the
+        partition of ``representative``, through the encoding (encode,
+        the least row over the client permutations on the CPU, decode),
+        as JAX's ``host_representative`` makes it."""
+        rows = torch.from_numpy(self.encode(state).astype(np.int64))[None]
+        best = self.representative(rows)
+        if best is None:
+            raise NotImplementedError(
+                f"{type(self).__name__} has no client-symmetry rewrite")
+        return self.decode(best[0].numpy().astype(np.uint32))
+
     # -- Host state codec ----------------------------------------------------
 
     def encode(self, state) -> np.ndarray:

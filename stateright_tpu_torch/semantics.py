@@ -1,8 +1,8 @@
 """Consistency semantics: sequential reference objects and history testers.
 
-The port's copy of what the host models need from
-``stateright_tpu/semantics/`` (``base.py``, ``linearizability.py`` and
-``register.py``), after the reference's ``src/semantics/``. A concurrent
+The port's copy of ``stateright_tpu/semantics/`` (``base.py``,
+``linearizability.py``, ``sequential_consistency.py``, ``register.py``
+and ``vec.py``), after the reference's ``src/semantics/``. A concurrent
 system is correct against a *sequential reference object*
 (``SequentialSpec``); a ``ConsistencyTester`` records an operation
 history, per thread, and decides whether it can be serialized. A tester
@@ -24,8 +24,9 @@ from typing import Any, Optional
 from .fingerprint import fingerprint
 
 __all__ = ["SequentialSpec", "ConsistencyTester", "RecordingTester",
-           "LinearizabilityTester", "Register", "Read", "ReadOk", "Write",
-           "WriteOk"]
+           "LinearizabilityTester", "SequentialConsistencyTester",
+           "Register", "Read", "ReadOk", "Write", "WriteOk", "VecSpec",
+           "Push", "Pop", "Len", "PushOk", "PopOk", "LenOk"]
 
 
 class SequentialSpec:
@@ -39,6 +40,11 @@ class SequentialSpec:
     def is_valid_step(self, op, ret) -> bool:
         """Whether invoking ``op`` may return ``ret``."""
         return self.invoke(op) == ret
+
+    def is_valid_history(self, ops) -> bool:
+        """Whether a sequential history of ``(op, ret)`` pairs is
+        valid."""
+        return all(self.is_valid_step(op, ret) for op, ret in ops)
 
     def clone(self) -> "SequentialSpec":
         raise NotImplementedError
@@ -58,6 +64,11 @@ class ConsistencyTester:
 
     def is_consistent(self) -> bool:
         raise NotImplementedError
+
+    def on_invret(self, thread_id, op, ret) -> "ConsistencyTester":
+        """Records an operation and its return together."""
+        self.on_invoke(thread_id, op)
+        return self.on_return(thread_id, ret)
 
 
 class RecordingTester(ConsistencyTester):
@@ -142,6 +153,23 @@ class RecordingTester(ConsistencyTester):
         t.init_ref_obj = self.init_ref_obj
         t.history_by_thread = dict(self.history_by_thread)
         t.in_flight_by_thread = dict(self.in_flight_by_thread)
+        t.is_valid_history = self.is_valid_history
+        t._fp = None
+        return t
+
+    def __rewrite__(self, plan):
+        """The tester with its thread ids (actor ``Id``s, as an actor
+        model's history) rewritten by a symmetry ``plan``."""
+        from .symmetry import rewrite_value
+
+        t = type(self).__new__(type(self))
+        t.init_ref_obj = self.init_ref_obj
+        t.history_by_thread = {
+            rewrite_value(tid, plan): rewrite_value(h, plan)
+            for tid, h in self.history_by_thread.items()}
+        t.in_flight_by_thread = {
+            rewrite_value(tid, plan): rewrite_value(v, plan)
+            for tid, v in self.in_flight_by_thread.items()}
         t.is_valid_history = self.is_valid_history
         t._fp = None
         return t
@@ -255,6 +283,67 @@ def _serialize(valid_history, ref_obj, remaining, in_flight):
     return None
 
 
+class SequentialConsistencyTester(RecordingTester):
+    """Sequential consistency (``sequential_consistency.rs``): the ops
+    can be put in a total order that keeps each thread's order and that
+    the reference object accepts. A history entry is an ``(op, ret)``
+    pair and an in-flight one the bare op: program order is the only
+    constraint across threads."""
+
+    __slots__ = ()
+
+    def _invoke_entry(self, thread_id, op):
+        return op
+
+    def _complete_entry(self, op, ret):
+        return (op, ret)
+
+    def _in_flight_op(self, entry):
+        return entry
+
+    def serialized_history(self) -> Optional[list]:
+        """A valid total order of the ops as ``(op, ret)`` pairs (an
+        in-flight op may take effect or not), or ``None``
+        (``sequential_consistency.rs:151-213``)."""
+        if not self.is_valid_history:
+            return None
+        remaining = {t: self.history_by_thread[t]
+                     for t in sorted(self.history_by_thread)}
+        return _serialize_sc([], self.init_ref_obj, remaining,
+                             dict(self.in_flight_by_thread))
+
+
+def _serialize_sc(valid_history, ref_obj, remaining, in_flight):
+    if all(not h for h in remaining.values()):
+        return valid_history
+    for thread_id in remaining:
+        history = remaining[thread_id]
+        if not history:
+            # Only this thread's in-flight op, if it has one.
+            if thread_id not in in_flight:
+                continue
+            op = in_flight[thread_id]
+            next_ref = ref_obj.clone()
+            ret = next_ref.invoke(op)
+            next_in_flight = dict(in_flight)
+            del next_in_flight[thread_id]
+            result = _serialize_sc(valid_history + [(op, ret)], next_ref,
+                                   remaining, next_in_flight)
+        else:
+            # The thread's next completed op.
+            op, ret = history[0]
+            next_ref = ref_obj.clone()
+            if not next_ref.is_valid_step(op, ret):
+                continue
+            next_remaining = dict(remaining)
+            next_remaining[thread_id] = history[1:]
+            result = _serialize_sc(valid_history + [(op, ret)], next_ref,
+                                   next_remaining, in_flight)
+        if result is not None:
+            return result
+    return None
+
+
 # -- The register -----------------------------------------------------------
 
 
@@ -322,3 +411,92 @@ class Register(SequentialSpec):
 
     def __repr__(self):
         return f"Register({self.value!r})"
+
+
+# -- The stack-like vec -------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class Push:
+    value: Any
+
+    def __repr__(self):
+        return f"Push({self.value!r})"
+
+
+@dataclass(frozen=True)
+class Pop:
+    def __repr__(self):
+        return "Pop"
+
+
+@dataclass(frozen=True)
+class Len:
+    def __repr__(self):
+        return "Len"
+
+
+@dataclass(frozen=True)
+class PushOk:
+    def __repr__(self):
+        return "PushOk"
+
+
+@dataclass(frozen=True)
+class PopOk:
+    value: Optional[Any]
+
+    def __repr__(self):
+        return f"PopOk({self.value!r})"
+
+
+@dataclass(frozen=True)
+class LenOk:
+    len: int
+
+    def __repr__(self):
+        return f"LenOk({self.len})"
+
+
+class VecSpec(SequentialSpec):
+    """A stack over a list (``vec.rs``): ``Push``, ``Pop`` (``None``
+    when empty) and ``Len``."""
+
+    __slots__ = ("items",)
+
+    def __init__(self, items: Optional[list] = None):
+        self.items = list(items) if items else []
+
+    def invoke(self, op):
+        if type(op) is Push:
+            self.items.append(op.value)
+            return PushOk()
+        if type(op) is Pop:
+            return PopOk(self.items.pop() if self.items else None)
+        return LenOk(len(self.items))
+
+    def is_valid_step(self, op, ret) -> bool:
+        if type(op) is Push and type(ret) is PushOk:
+            self.items.append(op.value)
+            return True
+        if type(op) is Pop and type(ret) is PopOk:
+            popped = self.items.pop() if self.items else None
+            return popped == ret.value
+        if type(op) is Len and type(ret) is LenOk:
+            return len(self.items) == ret.len
+        return False
+
+    def clone(self) -> "VecSpec":
+        return VecSpec(self.items)
+
+    def __eq__(self, other):
+        return isinstance(other, VecSpec) and self.items == other.items
+
+    def __hash__(self):
+        return hash(("VecSpec", tuple(self.items)))
+
+    def __fingerprint__(self):
+        return ("VecSpec", self.items)
+
+    def __repr__(self):
+        return f"VecSpec({self.items!r})"

@@ -5,6 +5,8 @@ models of ``models/`` and ``test_util.py``) and JAX's (``checker/bfs.py``
 on ``examples/`` and ``stateright_tpu/test_util.py``), one worker each:
 the host fingerprints of every state generated are the same set (a port
 state has JAX's classes' names and fields, so it has JAX's fingerprint),
+on every model with a host form (VSR, increment, increment_lock and the
+sliding puzzle among them),
 and the counts, the discoveries, each discovery path's fingerprint chain
 (``encode()``) and the reprs of its states and actions are equal. Then
 the port arms of JAX's host-engine tests: ``tests/test_checker_bfs.py``,
@@ -23,13 +25,17 @@ import pytest
 sys.path.insert(0, os.path.join(
     os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "examples"))
 
+import increment as ref_inc  # noqa: E402
+import increment_lock as ref_lock  # noqa: E402
 import linearizable_register as ref_abd  # noqa: E402
 import paxos as ref_paxos  # noqa: E402
 import single_copy_register as ref_sc  # noqa: E402
+import sliding_puzzle as ref_puzzle  # noqa: E402
 import two_phase_commit as ref_2pc  # noqa: E402
 from stateright_tpu import Property as RefProperty  # noqa: E402
 from stateright_tpu import test_util as ref_util  # noqa: E402
 from stateright_tpu.actor.actor_test_util import PingPongCfg  # noqa: E402
+from stateright_tpu.actor.viewstamped import VsrCfg  # noqa: E402
 from stateright_tpu_torch import Expectation, Model, Property  # noqa: E402
 from stateright_tpu_torch import test_util  # noqa: E402
 from stateright_tpu_torch.actor import (ActorModel, ActorModelState,  # noqa: E402,E501
@@ -37,10 +43,15 @@ from stateright_tpu_torch.actor import (ActorModel, ActorModelState,  # noqa: E4
 from stateright_tpu_torch.bfs import BfsChecker  # noqa: E402
 from stateright_tpu_torch.fingerprint import fingerprint  # noqa: E402
 from stateright_tpu_torch.models.abd import AbdSys  # noqa: E402
+from stateright_tpu_torch.models.increment import IncrementModel  # noqa: E402
+from stateright_tpu_torch.models.increment_lock import (  # noqa: E402
+    IncrementLockModel)
 from stateright_tpu_torch.models.paxos import PaxosSys  # noqa: E402
 from stateright_tpu_torch.models.pingpong import Ping, PingPongSys, Pong  # noqa: E402,E501
 from stateright_tpu_torch.models.single_copy import SingleCopySys  # noqa: E402,E501
+from stateright_tpu_torch.models.sliding_puzzle import SlidingPuzzle  # noqa: E402,E501
 from stateright_tpu_torch.models.twopc import TwoPhaseSys  # noqa: E402
+from stateright_tpu_torch.models.vsr import VsrSys  # noqa: E402
 from stateright_tpu_torch.path import NondeterminismError, Path  # noqa: E402
 from stateright_tpu_torch.visitor import StateRecorder  # noqa: E402
 
@@ -61,8 +72,8 @@ def _fn(prev, out):
         out += [(prev * 2) % 7, (prev + 3) % 7]
 
 
-#: each case's JAX and port models, built afresh; the first six also
-#: hold the host fingerprint sets
+#: each case's JAX and port models, built afresh; the first six and the
+#: last four also hold the host fingerprint sets
 CASES = {
     "2pc 3": (lambda: ref_2pc.TwoPhaseSys(3), lambda: TwoPhaseSys(3)),
     "paxos 1/3": (lambda: ref_paxos.PaxosModelCfg(1, 3).into_model(),
@@ -88,8 +99,15 @@ CASES = {
                lambda: _graph(test_util, Property)),
     "linear equation": (lambda: ref_util.LinearEquation(2, 10, 14),
                         lambda: test_util.LinearEquation(2, 10, 14)),
+    "vsr 2/1": (lambda: VsrCfg(2, 1).into_model(), lambda: VsrSys(2, 1)),
+    "increment 2": (lambda: ref_inc.IncrementModel(2),
+                    lambda: IncrementModel(2)),
+    "increment_lock 2": (lambda: ref_lock.IncrementLockModel(2),
+                         lambda: IncrementLockModel(2)),
+    "puzzle 2x3": (lambda: ref_puzzle.SlidingPuzzle(2, 3),
+                   lambda: SlidingPuzzle(2, 3)),
 }
-FP_CASES = list(CASES)[:6]
+FP_CASES = list(CASES)[:6] + list(CASES)[-4:]
 
 
 def _summary(c):
@@ -151,14 +169,39 @@ def test_the_gate_counts():
 
 
 def test_device_only_models_refuse_with_their_roadmap_item():
-    from stateright_tpu_torch.models.increment import IncrementModel
-    from stateright_tpu_torch.models.vsr import VsrSys
+    """Every model of the port has its host form now, so no refusal
+    names a ROADMAP item: the one left is that of a model with no host
+    transitions (a device form alone), on both host engines, and of a
+    property with no host condition."""
 
-    for model in (VsrSys(2, 1), IncrementModel(2)):
-        with pytest.raises(NotImplementedError, match="ROADMAP A16"):
-            model.checker().spawn_bfs()
-    with pytest.raises(NotImplementedError, match="no host transition"):
-        Model().checker().spawn_bfs()
+    class DeviceOnly(Model):
+        def init_states(self):
+            return [0]
+
+    class BareProperty(Model):
+        def init_states(self):
+            return [0]
+
+        def actions(self, state, actions):
+            actions.append("step")
+
+        def next_state(self, state, action):
+            return state + 1
+
+        def properties(self):
+            return [Property.always("bare")]
+
+    for model in (Model(), DeviceOnly()):
+        for spawn in ("spawn_bfs", "spawn_dfs"):
+            with pytest.raises(NotImplementedError,
+                               match="no host transition function"):
+                getattr(model.checker(), spawn)()
+    with pytest.raises(NotImplementedError, match=r"\['bare'\] .* no host "
+                       "condition"):
+        BareProperty().checker().spawn_dfs()
+    for model in (VsrSys(2, 1), IncrementModel(2), IncrementLockModel(2),
+                  SlidingPuzzle(2, 3)):
+        assert model.checker().spawn_bfs().join().unique_state_count() > 0
 
 
 # -- tests/test_checker_bfs.py, the port's arm -------------------------------

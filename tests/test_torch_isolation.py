@@ -8,14 +8,18 @@ engine's ``classic.py`` and ``visitor.py``, the classic sharded engine's
 ``models/sliding_puzzle.py``, and the actor models' ``models/pingpong.py``
 and ``models/vsr.py``, and the matmul expand's ``matmul_wave.py``, and the
 host engine's ``bfs.py``, ``_market.py``, ``fingerprint.py`` and
-``semantics.py`` among them); a fresh interpreter that checks 2pc at 3 RMs
+``semantics.py``, the shared ``host.py``, and the host DFS's ``dfs.py``
+and ``symmetry.py`` and
+the host actor layer's ``actor.py`` among them); a fresh interpreter that checks 2pc at 3 RMs
 (on the host BFS, on the fused engine,
 with a visitor on the classic engine and on the classic sharded engine,
 and with ``wave_matmul=True``, classified by the port's own
 ``matmul_wave``), paxos at 1 client, single-copy at 2
 clients on one server, ABD at 2 clients on two, LinearEquation, increment
 and increment_lock at 2 threads, the 2x3 puzzle, ping-pong at max_nat 5 on
-a lossy network and VSR at 2 replicas through the port on the CPU, and
+a lossy network and VSR at 2 replicas through the port on the CPU, 2pc
+at 5 RMs and single-copy at 2 clients with symmetry on the host DFS,
+VSR at 2 replicas on the host BFS, and
 paxos on 5 servers through a ``spawn_cuda_bfs()`` that falls back to the
 host BFS, and then finds neither ``jax`` nor ``stateright_tpu`` loaded; and
 the entry point's default device, which is CUDA and raises on a box
@@ -60,7 +64,8 @@ def test_no_file_of_the_port_imports_jax_or_the_jax_package():
             "models/increment_lock.py", "models/sliding_puzzle.py",
             "models/pingpong.py", "models/vsr.py",
             "matmul_wave.py", "bfs.py", "_market.py", "fingerprint.py",
-            "semantics.py"} <= names
+            "semantics.py", "dfs.py", "symmetry.py", "actor.py",
+            "host.py"} <= names
     for path in files + [os.path.join(_REPO, "chip_smoke.py")]:
         for name in _imports(path):
             assert name.split(".")[0] not in _BANNED, (path, name)
@@ -126,6 +131,15 @@ def test_a_cpu_check_loads_neither_jax_nor_the_jax_package():
         "c = VsrSys(2, 1).checker().spawn_cuda_bfs(device='cpu').join()\n"
         "assert (c.unique_state_count(), c.state_count()) == (63, 169)\n"
         "c.assert_properties()\n"
+        "c = TwoPhaseSys(5).checker().symmetry().spawn_dfs().join()\n"
+        "assert type(c).__name__ == 'DfsChecker', type(c)\n"
+        "assert c.unique_state_count() == 665, c.unique_state_count()\n"
+        "m = SingleCopySys(2)\n"
+        "c = (m.checker().symmetry_fn(m.device_model().host_representative)\n"
+        "     .spawn_dfs().join())\n"
+        "assert c.unique_state_count() == 47, c.unique_state_count()\n"
+        "c = VsrSys(2, 1).checker().spawn_bfs().join()\n"
+        "assert (c.unique_state_count(), c.state_count()) == (63, 169)\n"
         "c = TwoPhaseSys(3).checker().spawn_bfs().join()\n"
         "assert type(c).__name__ == 'BfsChecker', type(c)\n"
         "assert (c.unique_state_count(), c.state_count()) == (288, 1146)\n"

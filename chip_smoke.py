@@ -12,16 +12,20 @@ Usage, from the root of a checkout on a machine with an NVIDIA H100:
     python3 chip_smoke.py --phases matmul          # phase 1, then 13
     python3 chip_smoke.py --phases sizes           # phase 1, then 14
     python3 chip_smoke.py --phases fallback        # phase 1, 15 and 16
+    python3 chip_smoke.py --phases tiered          # phase 1, then 17
     python3 chip_smoke.py --phases kernels,full    # phase 1, 2-4 and 6
 
 ``--phases`` takes a comma-separated subset of ``kernels`` (phases 2 to
 4), ``small`` (5), ``full`` (6), ``checkpoint`` (7), ``classic`` (8),
 ``registers`` (9), ``corpus`` (10), ``actors`` (11), ``sharded_classic``
-(12), ``matmul`` (13), ``sizes`` (14) and ``fallback`` (15 and 16),
-runs phase 1 and those, in this order, and
+(12), ``matmul`` (13), ``sizes`` (14), ``fallback`` (15 and 16) and
+``tiered`` (17), runs phase 1 and those, in this order, and
 prints the kernels line's rows those phases give
-(phases 2 to 8's rows only when all of them ran). Phases, in order; any
-failure exits non-zero and prints no result line:
+(phases 2 to 8's rows only when all of them ran). The CPU reference runs
+that phases 5, 8, 9, 10 and 11 hold the card's runs to are made ahead in two
+worker processes of the process that runs those phases (``_CpuRefs``:
+after the build, or while a phase's process waits for its turn). Phases,
+in order; any failure exits non-zero and prints no result line:
 
 1. build ``stateright_tpu_torch/csrc/table.cu``, ``wave_twopc.cu``,
    ``wave_paxos.cu``, ``sender_paxos.cu``, ``wave_paxos4.cu``,
@@ -331,7 +335,29 @@ failure exits non-zero and prints no result line:
     (``spawn_cuda_bfs(wave_kernel=True)`` on ``cuda:0``, which must run
     ``megakernel``); each host run's states/s logged as the card
     machine's CPU's;
-17. the kernels line, the script's running time, the card line and the
+17. the tiered store (``phase_tiered``; in a process of its own when
+    earlier phases ran, as phase 9), each capped run held exactly to the
+    uncapped run of the same path (counts, discoveries and chains), its
+    launches exact: (a) 2pc at 10 RMs to its end on the fused wave kernel
+    under a 2 GiB device budget (``TIER_FUSED_BUDGET``), where the arena
+    must roll its expanded prefix off the card (spans, rows and bytes
+    rolled, pressure notes, peak device memory against the budget and the
+    uncapped peak, seconds against the uncapped run's); (b) the classic
+    engine, 2pc 10 on the wave kernel and ``paxos check 3`` on the torch
+    stages, each to its end under a table budget of half its uncapped
+    final table and a host budget of an eighth of its visited set, with a
+    segment directory (``_tier_tmp/`` beside the script, removed after),
+    so that partitions go warm and then cold: spills by tier, probes and
+    hits, the resident ratio, the host's ms a wave beside the uncapped
+    run's, the logical visited set (hot and cold) equal; (c) paxos 3's
+    capped run stopped after its first cold spill, checkpointed (its v5
+    ``store`` refs) and resumed on the card with a store and without one,
+    each to the uncapped counts, chains and logical visited set; (d) the
+    sharded fused engine on 2pc 6 at 4 shards of 8 rows with a 512-row
+    arena a shard under 300,000 B (each shard's roll), and the classic
+    sharded engine on ``paxos check 3`` (4 x 4,096, the sender kernel)
+    under half its uncapped tables;
+18. the kernels line, the script's running time, the card line and the
     result line.
 
 It imports neither JAX nor ``stateright_tpu``.
@@ -1101,19 +1127,183 @@ def phase_sender_kernel(torch, wave_mod, table_mod, dm, store, layout,
 
 
 def _chains(c):
+    if isinstance(c, _RefRun):
+        return c.chains
     return {name: p.fingerprints for name, p in c.discoveries().items()}
 
 
+def _model(kind, *args, **kw):
+    """The port's model ``kind`` built from ``args``: what a CPU
+    reference run's picklable build (``_checker``) names."""
+    from stateright_tpu_torch.models import (abd, increment, increment_lock,
+                                             paxos, pingpong, single_copy,
+                                             sliding_puzzle, twopc, vsr)
+    from stateright_tpu_torch import test_util
+
+    return {"twopc": twopc.TwoPhaseSys, "paxos": paxos.PaxosSys,
+            "single_copy": single_copy.SingleCopySys, "abd": abd.AbdSys,
+            "increment": increment.IncrementModel,
+            "increment_lock": increment_lock.IncrementLockModel,
+            "puzzle": sliding_puzzle.SlidingPuzzle,
+            "linear_equation": test_util.LinearEquation,
+            "pingpong": pingpong.PingPongSys,
+            "vsr": vsr.VsrSys}[kind](*args, **kw)
+
+
+def _checker(kind, *args, sym=False, target=None, **kw):
+    """``_model(kind, *args, **kw)``'s checker builder, with symmetry and
+    a target state count where given."""
+    b = _model(kind, *args, **kw).checker()
+    if sym:
+        b = b.symmetry()
+    return b.target_state_count(target) if target else b
+
+
+def _build(kind, *args, **kw):
+    """A picklable ``build`` of ``_checker(kind, *args, **kw)``."""
+    return functools.partial(_checker, kind, *args, **kw)
+
+
+class _RefRun:
+    """What a card run is held to of a CPU reference run: its counts and
+    its discoveries' fingerprint chains, and a classic engine's parent map
+    and waves' log fields (``_classic_same``); picklable, so a worker
+    process can make it."""
+
+    #: the log fields ``_classic_same`` may compare
+    FIELDS = ("bucket", "rows", "out_rows", "novel", "overflow",
+              "successors", "candidates", "capacity", "load_factor", "epoch")
+
+    def __init__(self, c):
+        self.unique, self.states = c.unique_state_count(), c.state_count()
+        self.chains = _chains(c)
+        self.parents = (c._parent_map() if hasattr(c, "_parent_map")
+                        else None)
+        self.dispatch_log = [{f: e[f] for f in self.FIELDS if f in e}
+                             for e in c.dispatch_log]
+
+    def unique_state_count(self):
+        return self.unique
+
+    def state_count(self):
+        return self.states
+
+    def discoveries(self):
+        return self.chains
+
+    def _parent_map(self):
+        return self.parents
+
+
+def _ref_run(build, spawn):
+    """One CPU reference run (in a worker process)."""
+    import torch
+
+    torch.set_num_threads(2)
+    return _RefRun(build().spawn_cuda_bfs(**spawn).join())
+
+
+class _CpuRefs:
+    """The CPU reference runs (the torch stages on the CPU) that the
+    phases hold their card runs to. A process asks for its phases' runs
+    ahead (``ahead``, after the build or while it waits for its turn):
+    two worker processes make them while the card runs earlier phases,
+    and ``run`` takes the result, or makes the run inline where none was
+    asked for (a build that is not ``_build``'s, a run not listed)."""
+
+    def __init__(self):
+        self._pool, self._futs = None, {}
+
+    @staticmethod
+    def _key(build, spawn):
+        if not isinstance(build, functools.partial) or \
+                build.func is not _checker:
+            return None
+        return (build.args, tuple(sorted(build.keywords.items())),
+                tuple(sorted((k, tuple(v) if isinstance(v, list) else v)
+                             for k, v in spawn.items())))
+
+    def ahead(self, jobs) -> None:
+        import multiprocessing
+        from concurrent.futures import ProcessPoolExecutor
+
+        for build, spawn in jobs:
+            key = self._key(build, spawn)
+            if key is None or key in self._futs:
+                continue
+            if self._pool is None:
+                self._pool = ProcessPoolExecutor(
+                    2, mp_context=multiprocessing.get_context("spawn"))
+            self._futs[key] = self._pool.submit(_ref_run, build, spawn)
+
+    def run(self, build, spawn):
+        key = self._key(build, spawn)
+        if key in self._futs:
+            try:
+                return self._futs[key].result()
+            except Exception as e:  # noqa: BLE001 — the worker, not the run
+                _log(f"a CPU reference run's worker failed ({e!r}); the "
+                     "run is made here")
+        return _ref_run(build, spawn)
+
+    def close(self) -> None:
+        if self._pool is not None:
+            self._pool.shutdown(wait=True, cancel_futures=True)
+            self._pool = None
+
+
+_REFS = _CpuRefs()
+
+
+#: phase 5's 2pc configurations: (RMs, unique, states, symmetry)
+SMALL_2PC = ((3, 288, 1146, False), (5, 8832, 58146, False),
+             (5, 314, 2048, True))
+
+
+def _small_refs():
+    """Phase 5's CPU reference runs, as ``_CpuRefs.ahead`` takes them."""
+    jobs = []
+    for n, _, _, sym in SMALL_2PC:
+        jobs.append((_build("twopc", n, sym=sym),
+                     dict(device="cpu", batch_size=1024)))
+        for shards in (1, SHARDS):
+            jobs.append((_build("twopc", n, sym=sym),
+                         dict(mesh=["cpu"] * shards, batch_size=256)))
+    jobs += [(_build("twopc", 5), _spawn3("cpu", novel, wave_kernel=True))
+             for novel in (True, False)]
+    for clients in (1, 2):
+        jobs += [(_build("paxos", clients), kw) for kw in (
+            dict(device="cpu", batch_size=1024),
+            dict(mesh=["cpu"] * SHARDS, batch_size=256))]
+    jobs += [(_build("paxos", 4, sym=True, target=PAXOS4_TARGET),
+              _on_cpu(dict(wave_kernel=True, **kw)))
+             for kw in _PAXOS_ENGINES]
+    jobs.append((_build("paxos", 1, liveness=True), _on_cpu(dict(
+        wave_kernel=True, batch_size=1024))))
+    return jobs
+
+
+def _spawn3(device, novel, **kw):
+    """2pc 5's odd-S sharded spawn: 3 shards of 255 rows."""
+    return dict(mesh=[device] * 3, batch_size=255,
+                exchange_novel_only=novel, **kw)
+
+
+def _on_cpu(spawn):
+    """``spawn`` with the card made the CPU."""
+    return (dict(spawn, mesh=["cpu"] * len(spawn["mesh"])) if "mesh" in spawn
+            else dict(spawn, device="cpu"))
+
+
 def phase_small(TwoPhaseSys):
-    for n, unique, states, sym in ((3, 288, 1146, False),
-                                   (5, 8832, 58146, False),
-                                   (5, 314, 2048, True)):
+    for n, unique, states, sym in SMALL_2PC:
         def spawn(**kw):
             b = TwoPhaseSys(n).checker()
             return (b.symmetry() if sym else b).spawn_cuda_bfs(
                 batch_size=1024, **kw).join()
 
-        cpu = spawn(device="cpu")
+        cpu = _REFS.run(_build("twopc", n, sym=sym),
+                        dict(device="cpu", batch_size=1024))
         for wave_kernel, path in ((False, "dedup_kernel"),
                                   (True, "megakernel")):
             gpu = spawn(wave_kernel=wave_kernel)
@@ -1134,16 +1324,15 @@ def phase_small(TwoPhaseSys):
 def phase_sharded_small(torch, fused, TwoPhaseSys):
     """The sharded engine on the card at n = 1 and ``SHARDS`` against its
     CPU run at the same n."""
-    for n, unique, states, sym in ((3, 288, 1146, False),
-                                   (5, 8832, 58146, False),
-                                   (5, 314, 2048, True)):
+    for n, unique, states, sym in SMALL_2PC:
         for shards in (1, SHARDS):
             def spawn(device, **kw):
                 b = TwoPhaseSys(n).checker()
                 return (b.symmetry() if sym else b).spawn_cuda_bfs(
                     mesh=[device] * shards, batch_size=256, **kw).join()
 
-            cpu = spawn("cpu")
+            cpu = _REFS.run(_build("twopc", n, sym=sym),
+                            dict(mesh=["cpu"] * shards, batch_size=256))
             for wave_kernel, path in ((False, "dedup_kernel"),
                                       (True, "sender_kernel")):
                 gpu = spawn("cuda:0", wave_kernel=wave_kernel)
@@ -1163,13 +1352,10 @@ def phase_sharded_small(torch, fused, TwoPhaseSys):
                      f"{sorted(_chains(gpu))} equal to the CPU run's")
     # An odd S a shard, on a shard count that is not a power of two.
     for novel in (True, False):
-        def spawn3(device, **kw):
-            return TwoPhaseSys(5).checker().spawn_cuda_bfs(
-                mesh=[device] * 3, batch_size=255,
-                exchange_novel_only=novel, **kw).join()
-
-        cpu, gpu = spawn3("cpu", wave_kernel=True), spawn3(
-            "cuda:0", wave_kernel=True)
+        cpu = _REFS.run(_build("twopc", 5),
+                        _spawn3("cpu", novel, wave_kernel=True))
+        gpu = TwoPhaseSys(5).checker().spawn_cuda_bfs(
+            **_spawn3("cuda:0", novel, wave_kernel=True)).join()
         got = (gpu.unique_state_count(), gpu.state_count())
         tag = f"2pc 5 n=3 B=255 sender_kernel, exchange_novel_only={novel}"
         if got != (8832, 58146) or got != (cpu.unique_state_count(),
@@ -1202,9 +1388,7 @@ def _paxos_against_cpu(checker, want, path, found, cpu=None, **spawn):
     given), the kernel path, the discoveries ``found`` (where given) and
     their chains."""
     if cpu is None:
-        cpu_spawn = (dict(spawn, mesh=["cpu"] * len(spawn["mesh"]))
-                     if "mesh" in spawn else dict(spawn, device="cpu"))
-        cpu = checker().spawn_cuda_bfs(**cpu_spawn).join()
+        cpu = _REFS.run(checker, _on_cpu(spawn))
     gpu = checker().spawn_cuda_bfs(**spawn).join()
     got = (gpu.unique_state_count(), gpu.state_count())
     tag = f"n={getattr(gpu, '_n', 1)} {gpu.kernel_path()}"
@@ -1223,6 +1407,11 @@ def _paxos_against_cpu(checker, want, path, found, cpu=None, **spawn):
         f"{sorted(_chains(gpu))} equal to the CPU run's"
 
 
+#: paxos 4's card spawns in phase 5: fused, and sharded on the card
+_PAXOS_ENGINES = (dict(device="cuda:0", batch_size=1024),
+                  dict(batch_size=256, mesh=["cuda:0"] * SHARDS))
+
+
 def phase_paxos_small(PaxosSys, PaxosDevice):
     """paxos on the card against the same run on the CPU, each path
     unsharded and sharded on ``mesh=[cuda:0] * SHARDS``: at 1 and 2
@@ -1236,10 +1425,11 @@ def phase_paxos_small(PaxosSys, PaxosDevice):
     for clients, want in ((1, (265, 482)), (2, (16_668, 32_971))):
         # One CPU run (the torch stages) an engine, both card paths held
         # to it.
-        cpu = {"fused": PaxosSys(clients).checker().spawn_cuda_bfs(
-            device="cpu", batch_size=1024).join(),
-            "sharded": PaxosSys(clients).checker().spawn_cuda_bfs(
-                mesh=["cpu"] * SHARDS, batch_size=256).join()}
+        cpu = {engine: _REFS.run(_build("paxos", clients), kw)
+               for engine, kw in (("fused", dict(device="cpu",
+                                                  batch_size=1024)),
+                                  ("sharded", dict(mesh=["cpu"] * SHARDS,
+                                                   batch_size=256)))}
         for wave_kernel, paths in ((False, ("dedup_kernel", "dedup_kernel")),
                                    (True, ("megakernel", "sender_kernel"))):
             for path, (engine, spawn) in zip(paths, (
@@ -1250,18 +1440,16 @@ def phase_paxos_small(PaxosSys, PaxosDevice):
                     PaxosSys(clients).checker, want, path, ["value chosen"],
                     cpu=cpu[engine], wave_kernel=wave_kernel, **spawn)
                 _log(f"paxos {clients} {line}")
-    for path, spawn in (("megakernel", dict(batch_size=1024)),
-                        ("sender_kernel", dict(batch_size=256,
-                                               mesh=["cuda:0"] * SHARDS))):
+    for path, spawn in zip(("megakernel", "sender_kernel"), _PAXOS_ENGINES):
         gpu, line = _paxos_against_cpu(
-            lambda: PaxosSys(4).checker().symmetry().target_state_count(
-                PAXOS4_TARGET), None, path, None, wave_kernel=True, **spawn)
+            _build("paxos", 4, sym=True, target=PAXOS4_TARGET), None, path,
+            None, wave_kernel=True, **spawn)
         if gpu.state_count() < PAXOS4_TARGET:
             raise AssertionError(f"paxos 4 sym {line}: stopped short of "
                                  f"{PAXOS4_TARGET} states")
         _log(f"paxos 4 sym to {PAXOS4_TARGET} states {line}")
     _, line = _paxos_against_cpu(
-        PaxosSys(1, liveness=True).checker, (265, 482), "megakernel",
+        _build("paxos", 1, liveness=True), (265, 482), "megakernel",
         ["value chosen"], wave_kernel=True, batch_size=1024)
     _log(f"paxos 1 liveness {line}, no 'eventually chosen' counterexample")
 
@@ -2029,6 +2217,21 @@ def _classic_same(a, b, tag: str,
         raise AssertionError(f"{tag}: the waves' {fields} differ")
 
 
+#: phase 8's runs against the CPU: (tag, checker, counts, batch)
+CLASSIC_SMALL = (
+    ("2pc 3", _build("twopc", 3), (288, 1146), 64),
+    ("2pc 5", _build("twopc", 5), (8832, 58146), 64),
+    ("2pc 5 sym", _build("twopc", 5, sym=True), (314, 2048), 64),
+    ("paxos 1", _build("paxos", 1), (265, 482), 64),
+    ("paxos 2", _build("paxos", 2), (16_668, 32_971), 1024))
+
+
+def _classic_cpu(**kw):
+    """A phase 8 CPU run's spawn: the classic engine, pipelined, as the
+    card's run is by default."""
+    return dict(kw, device="cpu", fused=False, pipeline=True)
+
+
 def phase_classic_small(torch, ckpt_mod, TwoPhaseSys, PaxosSys, workdir,
                         device="cuda:0"):
     """The classic engine (``fused=False``) on ``device`` against the
@@ -2056,10 +2259,10 @@ def phase_classic_small(torch, ckpt_mod, TwoPhaseSys, PaxosSys, workdir,
                                  "engine")
         return c
 
-    def against_cpu(tag, model, want, **kw):
-        cpu = run(model(), "cpu", **kw)
+    def against_cpu(tag, build, want, **kw):
+        cpu = _REFS.run(build, _classic_cpu(**kw))
         for wave_kernel in (False, True):
-            c = run(model(), device, wave_kernel=wave_kernel, **kw)
+            c = run(build(), device, wave_kernel=wave_kernel, **kw)
             t = f"{tag} classic {c.kernel_path()}"
             if want and (c.unique_state_count(), c.state_count()) != want:
                 raise AssertionError(f"{t}: {c.unique_state_count()}, "
@@ -2072,17 +2275,8 @@ def phase_classic_small(torch, ckpt_mod, TwoPhaseSys, PaxosSys, workdir,
                  f"max_inflight {s['max_inflight']}, graphs {s['graphs']}; "
                  "chains, parent map and waves equal to the CPU run's")
 
-    for n, sym, want in ((3, False, (288, 1146)), (5, False, (8832, 58146)),
-                         (5, True, (314, 2048))):
-        def model(n=n, sym=sym):
-            b = TwoPhaseSys(n).checker()
-            return b.symmetry() if sym else b
-        against_cpu(f"2pc {n}{' sym' if sym else ''}", model, want,
-                    batch_size=64)
-    against_cpu("paxos 1", lambda: PaxosSys(1).checker(), (265, 482),
-                batch_size=64)
-    against_cpu("paxos 2", lambda: PaxosSys(2).checker(), (16_668, 32_971),
-                batch_size=1024)
+    for tag, build, want, batch in CLASSIC_SMALL:
+        against_cpu(tag, build, want, batch_size=batch)
 
     rec, states = StateRecorder.new_with_accessor()
     c = (TwoPhaseSys(3).checker().visitor(rec)
@@ -2460,9 +2654,9 @@ def phase_register_kernels(torch, wave_mod, table_mod, SingleCopySys,
 
 def _cpu_run(build, engine, batch):
     """The CPU run of ``build()``'s checker on ``engine`` at ``batch`` rows
-    (``batch / SHARDS`` a shard on the sharded engine), the torch
-    stages."""
-    return build().spawn_cuda_bfs(**_spawn_kw("cpu", engine, batch))
+    (``batch / SHARDS`` a shard on the sharded engine), the torch stages:
+    its ``_RefRun``, made ahead where it was asked for."""
+    return _REFS.run(build, _spawn_kw("cpu", engine, batch))
 
 
 def _spawn_kw(device, engine, batch, **kw):
@@ -2611,6 +2805,30 @@ def _whole_and_cut(torch, kernels, fused, tag, build, want, found):
     return runs
 
 
+def _register_configs():
+    """Phase 9's runs: (tag, checker, batch, the CPU run's batch, counts,
+    discoveries)."""
+    value = ["value chosen"]
+    return (
+        ("single_copy 3", _build("single_copy", 3), 1024, 1024,
+         SC_COUNTS[3, False], value),
+        ("single_copy 3 sym", _build("single_copy", 3, sym=True), 1024,
+         1024, SC_COUNTS[3, True], value),
+        ("single_copy 2/2", _build("single_copy", 2, 2), 1024, 1024, None,
+         ["linearizable", "value chosen"]),
+        ("abd 2", _build("abd", 2, 2), 1024, 1024, ABD_COUNTS, value),
+        ("single_copy 4", _build("single_copy", 4), BATCH, None,
+         SC_COUNTS[4, False], value),
+        ("single_copy 4 sym", _build("single_copy", 4, sym=True), BATCH,
+         None, SC_COUNTS[4, True], value))
+
+
+def _register_refs():
+    return [(build, _spawn_kw("cpu", engine, cpu_batch))
+            for _, build, _, cpu_batch, _, _ in _register_configs()
+            if cpu_batch for engine in ("fused", "sharded")]
+
+
 def phase_registers(torch, kernels, fused, wave_mod, table_mod):
     """The register corpus on the card: kernels 2 and 3 held to their
     plain versions on single-copy 4 and ABD 2/2
@@ -2633,23 +2851,8 @@ def phase_registers(torch, kernels, fused, wave_mod, table_mod):
     holds = phase_register_kernels(torch, wave_mod, table_mod,
                                    SingleCopySys, AbdSys)
     t1 = time.monotonic()
-    value = ["value chosen"]
-    # (tag, checker, batch, the CPU run's batch, counts, discoveries)
-    configs = (
-        ("single_copy 3", lambda: SingleCopySys(3).checker(), 1024, 1024,
-         SC_COUNTS[3, False], value),
-        ("single_copy 3 sym", lambda: SingleCopySys(3).checker().symmetry(),
-         1024, 1024, SC_COUNTS[3, True], value),
-        ("single_copy 2/2", lambda: SingleCopySys(2, 2).checker(), 1024,
-         1024, None, ["linearizable", "value chosen"]),
-        ("abd 2", lambda: AbdSys(2, 2).checker(), 1024, 1024, ABD_COUNTS,
-         value),
-        ("single_copy 4", lambda: SingleCopySys(4).checker(), BATCH, None,
-         SC_COUNTS[4, False], value),
-        ("single_copy 4 sym", lambda: SingleCopySys(4).checker().symmetry(),
-         BATCH, None, SC_COUNTS[4, True], value))
     runs = {}
-    for tag, build, batch, cpu_batch, want, found in configs:
+    for tag, build, batch, cpu_batch, want, found in _register_configs():
         if not cpu_batch:
             # No CPU run: the card's torch stages are the reference.
             runs.update(_whole_and_cut(torch, kernels, fused, tag, build,
@@ -2658,7 +2861,7 @@ def phase_registers(torch, kernels, fused, wave_mod, table_mod):
         for engine in ("fused", "classic", "sharded"):
             if engine != "classic":
                 t_cpu = time.monotonic()
-                cpu = _cpu_run(build, engine, cpu_batch).join()
+                cpu = _cpu_run(build, engine, cpu_batch)
                 _log(f"{tag}, {engine}, the CPU's run at batch {cpu_batch}:"
                      f" {time.monotonic() - t_cpu:.1f} s")
             for wave_kernel in (False, True):
@@ -2820,12 +3023,52 @@ def _corpus_cpu(build, batch, kind):
     ``tests/test_torch_corpus.py``), and no CPU run is made."""
     if kind == "full":
         return dict.fromkeys(("fused", "classic", "sharded"))
-    fused = _cpu_run(build, "fused", batch).join()
+    fused = _cpu_run(build, "fused", batch)
     out = {"fused": fused, "classic": fused,
-           "sharded": _cpu_run(build, "sharded", batch).join()}
+           "sharded": _cpu_run(build, "sharded", batch)}
     if kind == "early":
-        out["classic"] = _cpu_run(build, "classic", batch).join()
+        out["classic"] = _cpu_run(build, "classic", batch)
     return out
+
+
+def _corpus_refs(configs):
+    """``_corpus_cpu``'s runs of ``configs`` ((tag, build, batch, ...,
+    kind) tuples), as ``_CpuRefs.ahead`` takes them."""
+    jobs = []
+    for tag, build, batch, *_, kind in configs:
+        engines = {"full": (), "found": ("fused", "sharded")}.get(
+            kind, ("fused", "sharded", "classic"))
+        jobs += [(build, _spawn_kw("cpu", e, batch)) for e in engines]
+    return jobs
+
+
+def _corpus_configs():
+    """Phase 10's small configurations but the fuzz graphs: (tag,
+    checker, batch, counts, discoveries, the CPU runs' kind)."""
+    return [
+        ("linear_equation 2 4 7", _build("linear_equation", 2, 4, 7), 1024,
+         (65_536, 131_073), [], "full"),
+        ("linear_equation 2 10 14", _build("linear_equation", 2, 10, 14),
+         1024, None, ["solvable"], "early"),
+        ("increment 2", _build("increment", 2), 1024, (13, 15), ["fin"],
+         "early"),
+        ("increment 2 sym", _build("increment", 2, sym=True), 1024, (8, 10),
+         ["fin"], "early"),
+        ("increment 16", _build("increment", 16), 1024, None, ["fin"],
+         "early"),
+        ("increment 16 sym", _build("increment", 16, sym=True), 1024, None,
+         ["fin"], "early"),
+        ("increment_lock 2", _build("increment_lock", 2), 1024, (17, 17),
+         [], "full"),
+        ("increment_lock 2 sym", _build("increment_lock", 2, sym=True),
+         1024, (9, 10), [], "full"),
+        ("increment_lock 8", _build("increment_lock", 8), BATCH,
+         (438_401, 438_401), [], "full"),
+        ("increment_lock 8 sym", _build("increment_lock", 8, sym=True),
+         BATCH, (33, 61), [], "full"),
+        (f"puzzle 3x3 to {PUZZLE33_CUT:,}", _build(
+            "puzzle", 3, 3, target=PUZZLE33_CUT), BATCH, None, ["solved"],
+         "early")]
 
 
 def phase_corpus_gates(torch, kernels, fused, m):
@@ -2834,33 +3077,7 @@ def phase_corpus_gates(torch, kernels, fused, m):
     kernels, exact against its counts and against a CPU run at the same
     batch (``_corpus_cpu``: discoveries and their chains too), the
     kernels' launches exact. Returns the runs' numbers."""
-    LE, Inc = m["LinearEquation"], m["IncrementModel"]
-    Lock, Puzzle = m["IncrementLockModel"], m["SlidingPuzzle"]
-    # (tag, checker, batch, counts, discoveries, the CPU runs' kind)
-    configs = [
-        ("linear_equation 2 4 7", lambda: LE(2, 4, 7).checker(), 1024,
-         (65_536, 131_073), [], "full"),
-        ("linear_equation 2 10 14", lambda: LE(2, 10, 14).checker(), 1024,
-         None, ["solvable"], "early"),
-        ("increment 2", lambda: Inc(2).checker(), 1024, (13, 15), ["fin"],
-         "early"),
-        ("increment 2 sym", lambda: Inc(2).checker().symmetry(), 1024,
-         (8, 10), ["fin"], "early"),
-        ("increment 16", lambda: Inc(16).checker(), 1024, None, ["fin"],
-         "early"),
-        ("increment 16 sym", lambda: Inc(16).checker().symmetry(), 1024,
-         None, ["fin"], "early"),
-        ("increment_lock 2", lambda: Lock(2).checker(), 1024, (17, 17), [],
-         "full"),
-        ("increment_lock 2 sym", lambda: Lock(2).checker().symmetry(), 1024,
-         (9, 10), [], "full"),
-        ("increment_lock 8", lambda: Lock(8).checker(), BATCH,
-         (438_401, 438_401), [], "full"),
-        ("increment_lock 8 sym", lambda: Lock(8).checker().symmetry(),
-         BATCH, (33, 61), [], "full"),
-        (f"puzzle 3x3 to {PUZZLE33_CUT:,}", lambda: Puzzle(3, 3).checker()
-         .target_state_count(PUZZLE33_CUT), BATCH, None, ["solved"],
-         "early")]
+    configs = _corpus_configs()
     for seed in range(5):
         for tag, graph in _fuzz_graphs(m, seed):
             configs.append((tag, graph.checker, 8, None, None, "early"))
@@ -3040,6 +3257,17 @@ def phase_actor_kernels(torch, wave_mod, table_mod, PingPongSys, VsrSys):
     return out
 
 
+#: phase 11's small configurations: (tag, checker, counts)
+ACTOR_CONFIGS = (
+    ("pingpong 1 lossy", _build("pingpong", 1, lossy=True), (14, 21)),
+    ("pingpong 5 lossy", _build("pingpong", 5, lossy=True), (4_094, 21_505)),
+    ("pingpong 5 perfect", _build("pingpong", 5, duplicating=False),
+     (11, 11)),
+    ("pingpong 3 history", _build("pingpong", 3, True, lossy=True),
+     (254, 833)),
+    ("vsr 2", _build("vsr", 2, 1), (63, 169)))
+
+
 def phase_actor_gates(torch, kernels, fused, PingPongSys, VsrSys):
     """The small configurations to their ends on the fused, the classic
     and the sharded engine (4 shards), each on the torch stages and on the
@@ -3047,18 +3275,8 @@ def phase_actor_gates(torch, kernels, fused, PingPongSys, VsrSys):
     batch (``_corpus_cpu``): ping-pong's 14 (lossy, max_nat 1), 4,094
     (lossy and duplicating, 5), 11 (a perfect network, 5) and its history
     form at max_nat 3 (254 / 833, JAX's); VSR at 2 replicas, 63 / 169."""
-    configs = (
-        ("pingpong 1 lossy", lambda: PingPongSys(1, lossy=True).checker(),
-         (14, 21)),
-        ("pingpong 5 lossy", lambda: PingPongSys(5, lossy=True).checker(),
-         (4_094, 21_505)),
-        ("pingpong 5 perfect", lambda: PingPongSys(
-            5, duplicating=False).checker(), (11, 11)),
-        ("pingpong 3 history", lambda: PingPongSys(
-            3, True, lossy=True).checker(), (254, 833)),
-        ("vsr 2", lambda: VsrSys(2, 1).checker(), (63, 169)))
     runs = {}
-    for tag, build, want in configs:
+    for tag, build, want in ACTOR_CONFIGS:
         cpu = _corpus_cpu(build, 1024, "found")
         for engine in ("fused", "classic", "sharded"):
             for wave_kernel in (False, True):
@@ -4703,6 +4921,382 @@ def phase_host(torch, card: str):
     return []
 
 
+#: phase 17's device budget for the fused 2pc 10 run: under its uncapped
+#: peak of 3,123,973,632 B (PERF.md section 5), of which its 2^27-slot table
+#: is 1 GiB
+TIER_FUSED_BUDGET = 2 << 30
+#: the uncapped final tables (slots) of phase 17's classic runs at
+#: batch 16,384, whose halves are their table budgets, and of its classic
+#: sharded paxos 3 (a shard, 4 x 4,096): each held to the uncapped run's
+TIER_CLASSIC_TABLE = {"twopc": 1 << 27, "paxos": 1 << 22}
+TIER_SHARDED_TABLE = 1 << 21
+#: phase 17's classic runs: (tag, model, spawn, counts, discoveries)
+TIER_CLASSIC = (
+    ("2pc 10, wave kernel", ("twopc", 10), dict(wave_kernel=True),
+     (FULL_UNIQUE, FULL_STATES), ["abort agreement", "commit agreement"]),
+    ("paxos 3, torch stages", ("paxos", 3), dict(),
+     (PAXOS_UNIQUE, PAXOS_STATES), ["value chosen"]))
+
+
+def _tier_model(name, size):
+    from stateright_tpu_torch.models.paxos import PaxosSys
+    from stateright_tpu_torch.models.twopc import TwoPhaseSys
+
+    return (TwoPhaseSys if name == "twopc" else PaxosSys)(size)
+
+
+def _tier_run(torch, kernels, tag, build, **spawn):
+    """``build()``'s checker through ``spawn_cuda_bfs(**spawn)``, the
+    kernels' launch counts set to 0 just before and read just after:
+    ``(checker, seconds, peak device memory, launches)``, the launches
+    held exact: per wave (the dedup kernel a shard on the torch stages
+    and on a sharded engine's owner side, the wave kernel or the sender
+    kernel on the kernels, the append kernel a wave of a fused engine;
+    a fused engine's dispatches launch K waves each, a sharded classic
+    regather its sender again) plus the dedup kernel's calls at rest
+    points (``table_chunks``: rehashes, a resumed table, a table rebuilt
+    after a visited spill)."""
+    gc.collect()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in kernels.values():
+        fn.launches = 0
+    t0 = time.monotonic()
+    c = build().spawn_cuda_bfs(**spawn).join()
+    torch.cuda.synchronize()
+    sec = time.monotonic() - t0
+    peak = torch.cuda.max_memory_allocated()
+    launches = {name: fn.launches for name, fn in kernels.items()}
+    n = getattr(c, "_n", 1)
+    wk = spawn.get("wave_kernel", False)
+    if hasattr(c, "_K"):
+        waves = c._K * c.dispatches
+        want = {"dedup_and_insert": c.table_chunks + (
+                    n * waves if n > 1 or not wk else 0),
+                "wave_megakernel": waves if wk and n == 1 else 0,
+                "sender_megakernel": waves if wk and n > 1 else 0,
+                "append_rows": waves}
+    else:
+        waves = c.waves
+        regathers = c.scheduler_stats()["succ_ladder"][
+            "overflow_redispatches"]
+        sharded = hasattr(c, "_shard_counts")
+        want = {"dedup_and_insert": c.table_chunks + (
+                    n * waves if sharded or not wk else 0),
+                "wave_megakernel": waves if wk and not sharded else 0,
+                "sender_megakernel": waves + regathers if wk and sharded
+                else 0, "append_rows": 0}
+    if launches != want:
+        raise AssertionError(f"{tag}: kernel launches {launches}, expected "
+                             f"{want}")
+    if not any(launches.values()):
+        raise AssertionError(f"{tag}: no kernel launched")
+    return c, sec, peak, launches
+
+
+def _logical_visited(c, load_cold_refs):
+    """The visited set a checkpoint of ``c`` would carry, with its cold
+    segments read: its logical set, each fingerprint once."""
+    import numpy as np
+
+    visited, refs = c._visited_section()
+    if refs:
+        visited = np.concatenate([visited, load_cold_refs(refs)])
+    return np.unique(visited)
+
+
+def _spill_transients(torch, run):
+    """``run()`` (a ``_tier_run``) with the classic engines' visited
+    spill wrapped: ``(its result, (the most device memory a spill held
+    above what was allocated as it began, the table's bytes then))``. The
+    peak counter is reset as each spill begins; the run's peak before
+    each reset is kept and goes into the result's peak."""
+    from stateright_tpu_torch.classic import CudaBfsChecker
+
+    real = CudaBfsChecker._spill_for_headroom
+    seen = {"run": 0, "spill": 0, "table": 0}
+
+    def spill(self):
+        torch.cuda.synchronize()
+        seen["run"] = max(seen["run"], torch.cuda.max_memory_allocated())
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        try:
+            return real(self)
+        finally:
+            torch.cuda.synchronize()
+            seen["spill"] = max(seen["spill"],
+                                torch.cuda.max_memory_allocated() - base)
+            seen["table"] = max(seen["table"], self._table.numel() * 8)
+
+    CudaBfsChecker._spill_for_headroom = spill
+    try:
+        c, sec, peak, launches = run()
+    finally:
+        CudaBfsChecker._spill_for_headroom = real
+    if not seen["table"]:
+        raise AssertionError("no visited spill ran")
+    return (c, sec, max(peak, seen["run"]), launches), (seen["spill"],
+                                                        seen["table"])
+
+
+def _tier_summary(c, logical=None):
+    """What a capped run is held to of a run: its counts and its
+    discoveries' chains, and with ``logical`` (``load_cold_refs``) its
+    logical visited set."""
+    return ((c.unique_state_count(), c.state_count()), _chains(c),
+            None if logical is None else _logical_visited(c, logical))
+
+
+def _tier_same(tag, got, want, counts) -> None:
+    """Exactly the uncapped run's counts, discoveries and chains (and
+    logical visited set, where both have it)."""
+    import numpy as np
+
+    if got[:2] != want[:2] or got[0] != counts or (
+            got[2] is not None and want[2] is not None
+            and not np.array_equal(got[2], want[2])):
+        raise AssertionError(f"{tag}: {got[0]} {sorted(got[1])}, the "
+                             f"uncapped run's {want[0]} {sorted(want[1])}, "
+                             f"or the logical visited sets differ")
+
+
+def _captures(c):
+    return (c.scheduler_stats()["graphs"] or {}).get("captures")
+
+
+def _store_line(st) -> str:
+    return (f"spills host {st['spills']['host']} / disk "
+            f"{st['spills']['disk']} ({st['spill_bytes']} B), warm "
+            f"{st['host']['rows']} rows, cold {st['disk']['rows']} rows in "
+            f"{st['disk']['segments']} segments, probes {st['probes']} "
+            f"(hits {st['probe_hits']}), resident ratio "
+            f"{st.get('resident_ratio')}, device {st.get('device')}, "
+            f"frontier {st['frontier']}")
+
+
+def phase_tiered(torch, kernels):
+    """Phase 17: the tiered store on the card, each capped run exactly the
+    uncapped run of the same path. Each capped run goes first, and is
+    summarised and dropped before its uncapped twin, so that each peak of
+    device memory is its run's own."""
+    import shutil
+
+    from stateright_tpu_torch.checkpoint_format import verify_file
+    from stateright_tpu_torch.models.twopc import TwoPhaseSys
+    from stateright_tpu_torch.store.tiered import load_cold_refs
+
+    workdir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "_tier_tmp")
+    shutil.rmtree(workdir, ignore_errors=True)
+    os.makedirs(workdir)
+    try:
+        return _phase_tiered(torch, kernels, TwoPhaseSys, load_cold_refs,
+                             verify_file, workdir)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+
+
+def _phase_tiered(torch, kernels, TwoPhaseSys, load_cold_refs, verify_file,
+                  workdir):
+    out = {}
+    # (a) The fused engine, 2pc 10 on the wave kernel, under a device
+    # budget its arena must roll to keep.
+    spawn = dict(device="cuda:0", batch_size=BATCH, wave_kernel=True)
+    c, sec, peak, launches = _clocked(
+        "(a) the capped run", _tier_run, torch, kernels,
+        "2pc 10 fused, capped", TwoPhaseSys(10).checker,
+        tier_device_bytes=TIER_FUSED_BUDGET, **spawn)
+    st, got = c.store_stats(), _tier_summary(c)
+    rolls, ucap, grows, notes, caps = (c.rolls, c._ucap, c.arena_grows,
+                                       c._store.pressure_notes, _captures(c))
+    del c
+    if not rolls or st["arena_spans"]["spills"] != rolls:
+        raise AssertionError(f"2pc 10 fused, capped: {rolls} rolls, "
+                             f"{st['arena_spans']}")
+    free, sec0, peak0, l0 = _clocked(
+        "(a) the uncapped run", _tier_run, torch, kernels, "2pc 10 fused",
+        TwoPhaseSys(10).checker, **spawn)
+    _tier_same("2pc 10 fused, capped", got, _tier_summary(free),
+               (FULL_UNIQUE, FULL_STATES))
+    _log(f"(a) 2pc 10 fused on the wave kernel under {TIER_FUSED_BUDGET} B: "
+         f"unique={got[0][0]} states={got[0][1]} and chains equal to the "
+         f"uncapped run's; {rolls} arena-span rolls "
+         f"({st['arena_spans']['rows']} rows, {st['arena_spans']['bytes']} "
+         f"B), {notes} pressure notes, arena {ucap} rows (uncapped "
+         f"{free._ucap}), {grows} doublings (uncapped {free.arena_grows}); "
+         f"peak device memory {peak} B ({peak / TIER_FUSED_BUDGET:.3f} of "
+         f"the budget; uncapped {peak0} B); {sec:.3f} s, the process's "
+         f"first run, against the uncapped {sec0:.3f} s; graph captures "
+         f"{caps} (uncapped {_captures(free)}); launches {launches} "
+         f"(uncapped {l0})")
+    out["fused"] = dict(sec=sec, sec0=sec0, peak=peak, peak0=peak0,
+                        rolls=rolls, launches=launches)
+    del free
+
+    # (b) The classic engine under a table budget of half its uncapped
+    # final table and a host budget of an eighth of its visited set:
+    # partitions go warm, then cold.
+    for tag, (name, size), extra, counts, found in TIER_CLASSIC:
+        spawn = dict(device="cuda:0", fused=False, batch_size=BATCH, **extra)
+        build = functools.partial(lambda n, s: _tier_model(n, s).checker(),
+                                  name, size)
+        budget = TIER_CLASSIC_TABLE[name] * 8 // 2
+        host = counts[0]  # an eighth of the visited set's bytes
+        tier = dict(tier_device_bytes=budget, tier_host_bytes=host,
+                    tier_dir=os.path.join(workdir, name))
+        # The visited sets are compared on paxos 3 (2pc 10's are 0.5 GB).
+        logical = load_cold_refs if name == "paxos" else None
+        (c, sec, peak, launches), spill = _spill_transients(
+            torch, lambda: _clocked(
+                f"(b) {tag}, the capped run", _tier_run, torch, kernels,
+                f"{tag} classic, capped", build, **tier, **spawn))
+        st, got, cap = c.store_stats(), _tier_summary(c, logical), c._capacity
+        bitmap = c._store._filter.nbytes
+        ms = sum(c.host_sec.values()) * 1e3 / c.waves
+        chunks, at = c.table_chunks, next(
+            (e["states"] for e in c.dispatch_log if e.get("tier_disk_rows")),
+            None)
+        del c
+        if sorted(got[1]) != found:
+            raise AssertionError(f"{tag}: discoveries {sorted(got[1])}")
+        if not (st["spills"]["host"] and st["spills"]["disk"]
+                and st["probe_hits"] and st["resident_ratio"] < 1):
+            raise AssertionError(f"{tag} classic, capped: {st}")
+        if cap * 8 > budget:
+            raise AssertionError(f"{tag} classic, capped: the table grew "
+                                 f"to {cap} slots")
+        free, sec0, peak0, l0 = _clocked(
+            f"(b) {tag}, the uncapped run", _tier_run, torch, kernels,
+            f"{tag} classic", build, **spawn)
+        if free._capacity != TIER_CLASSIC_TABLE[name]:
+            raise AssertionError(f"{tag} classic: the final table is "
+                                 f"{free._capacity} slots")
+        want = _tier_summary(free, logical)
+        _tier_same(f"{tag} classic, capped", got, want, counts)
+        ms0 = sum(free.host_sec.values()) * 1e3 / free.waves
+        _log(f"(b) {tag} classic under a table budget of {budget} B (half "
+             f"the uncapped final table's {free._capacity} slots) and a "
+             f"host budget of {host} B: counts and chains"
+             f"{' and the logical visited set' if logical else ''} equal "
+             f"to the uncapped run's; {_store_line(st)}; the probe's filter "
+             f"{bitmap} B of the host tier's; table {cap} slots, "
+             f"{chunks} chunk calls at rest (uncapped {free.table_chunks}); "
+             f"host {ms:.3f} ms a wave (uncapped {ms0:.3f}); {sec:.3f} s "
+             f"against {sec0:.3f} s; peak device memory {peak} B "
+             f"({peak / budget:.3f} of the table budget, the wave's buffers "
+             f"included; uncapped {peak0} B), a spill at most {spill[0]} B "
+             f"above what it began with ({spill[0] / spill[1]:.3f} of the "
+             f"{spill[1]} B table); launches {launches} (uncapped {l0})")
+        out[tag] = dict(sec=sec, sec0=sec0, ms=ms, ms0=ms0, store=st,
+                        peak=peak, peak0=peak0, spill=spill,
+                        launches=launches)
+        del free
+        if name == "paxos":
+            _clocked("(c) the resumes", _tier_resume, torch, kernels, tag,
+                     build, spawn, tier, at, want, verify_file,
+                     load_cold_refs, workdir)
+
+    # (d) The sharded engines, small: the sharded fused engine's per-shard
+    # roll (JAX's slow arm, 2pc 6 on 4 shards of 8 rows, a 512-row arena
+    # a shard under 300 KB) and the classic sharded engine's visited spill
+    # on the sender kernel (paxos check 3, 4 x 4,096).
+    small = dict(mesh=["cuda:0"] * SHARDS, batch_size=8, table_capacity=4096,
+                 wave_kernel=True)
+    c, sec, _, launches = _clocked(
+        "(d) 2pc 6 sharded fused, the capped run", _tier_run, torch,
+        kernels, "2pc 6 sharded fused, capped", TwoPhaseSys(6).checker,
+        arena_capacity=512, tier_device_bytes=300_000,
+        tier_host_bytes=1 << 20, tier_dir=os.path.join(workdir, "sf"),
+        **small)
+    spans, notes, got = (c.store_stats()["arena_spans"],
+                         c._store.pressure_notes, _tier_summary(c))
+    del c
+    free, sec0, _, _ = _clocked(
+        "(d) 2pc 6 sharded fused, the uncapped run", _tier_run, torch,
+        kernels, "2pc 6 sharded fused", TwoPhaseSys(6).checker, **small)
+    _tier_same("2pc 6 sharded fused, capped", got, _tier_summary(free),
+               (50_816, 402_306))
+    del free
+    if not spans["spills"]:
+        raise AssertionError(f"2pc 6 sharded fused, capped: {spans}")
+    _log(f"(d) 2pc 6 sharded fused on the sender kernel, {SHARDS} x 8 rows, "
+         f"a 512-row arena a shard under 300,000 B: equal to the uncapped "
+         f"run; spans {spans}, {notes} pressure notes; {sec:.3f} s against "
+         f"{sec0:.3f} s; launches {launches}")
+    out["sharded fused"] = dict(sec=sec, sec0=sec0, spans=spans,
+                                launches=launches)
+    sharded = dict(mesh=["cuda:0"] * SHARDS, batch_size=BATCH // SHARDS,
+                   fused=False, wave_kernel=True)
+    build = functools.partial(lambda: _tier_model("paxos", 3).checker())
+    budget = SHARDS * TIER_SHARDED_TABLE * 8 // 2
+    c, sec, _, launches = _clocked(
+        "(d) paxos 3 sharded classic, the capped run", _tier_run, torch,
+        kernels, "paxos 3 sharded classic, capped", build,
+        tier_device_bytes=budget, tier_dir=os.path.join(workdir, "sc"),
+        **sharded)
+    st, got = c.store_stats(), _tier_summary(c)
+    del c
+    free, sec0, _, _ = _clocked(
+        "(d) paxos 3 sharded classic, the uncapped run", _tier_run, torch,
+        kernels, "paxos 3 sharded classic", build, **sharded)
+    if free._capacity != TIER_SHARDED_TABLE:
+        raise AssertionError(f"paxos 3 sharded classic: the final tables "
+                             f"are {free._capacity} slots a shard")
+    _tier_same("paxos 3 sharded classic, capped", got, _tier_summary(free),
+               (PAXOS_UNIQUE, PAXOS_STATES))
+    del free
+    if not st["spills"]["host"] or not st["probe_hits"]:
+        raise AssertionError(f"paxos 3 sharded classic, capped: {st}")
+    _log(f"(d) paxos 3 sharded classic on the sender kernel under {budget} "
+         f"B (half its uncapped tables): equal to the uncapped run; "
+         f"{_store_line(st)}; {sec:.3f} s against {sec0:.3f} s; launches "
+         f"{launches}")
+    out["sharded classic"] = dict(sec=sec, sec0=sec0, store=st,
+                                  launches=launches)
+    return out
+
+
+def _tier_resume(torch, kernels, tag, build, spawn, tier, at, want,
+                 verify_file, load_cold_refs, workdir):
+    """(c) The capped paxos run stopped after the wave of its first cold
+    spill (``at`` states), checkpointed, and resumed with a store and
+    without one, each to the uncapped run's counts, chains and logical
+    visited set ``want``."""
+    path = os.path.join(workdir, "paxos3-tiered.npz")
+    cut, _, _, _ = _tier_run(
+        torch, kernels, f"{tag} classic, capped, to {at}",
+        lambda: build().target_state_count(at),
+        **dict(tier, tier_dir=os.path.join(workdir, "cut")), **spawn)
+    cold, states = cut.store_stats()["disk"]["segments"], cut.state_count()
+    cut.checkpoint(path)
+    del cut
+    refs = verify_file(path).get("store") or {"cold": []}
+    if not cold or len(refs["cold"]) != cold:
+        raise AssertionError(f"(c) the checkpoint at {states} states holds "
+                             f"{refs} for {cold} cold segments")
+    for arm, knobs in (("with a store", dict(
+            tier, tier_dir=os.path.join(workdir, "resume"))),
+            ("without one", {})):
+        r, rsec, _, rl = _tier_run(
+            torch, kernels, f"(c) resumed {arm}", build, resume_from=path,
+            **knobs, **spawn)
+        disk = r.store_stats().get("disk")
+        _tier_same(f"(c) resumed {arm}", _tier_summary(r, load_cold_refs),
+                   want, want[0])
+        del r
+        _log(f"(c) paxos 3's capped checkpoint at {states} states ({cold} "
+             f"cold segments referenced) resumed {arm}: counts, chains and "
+             f"the logical visited set equal to the uncapped run's in "
+             f"{rsec:.3f} s; store {disk}; launches {rl}")
+
+
+def _tiered_rows(torch, kernels):
+    """Phase 17, which gives no rows of its own: its runs' launches are
+    held exact in the phase and logged."""
+    _clocked("phase 17", phase_tiered, torch, kernels)
+    return []
+
+
 def _modules():
     """The port's modules, from the checkout beside this script."""
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
@@ -5023,7 +5617,7 @@ def _register_rows(holds, runs):
 
 
 class _Children:
-    """Phases 9 to 14 (``later``, in order), each in a process of its own
+    """Phases 9 to 17 (``later``, in order), each in a process of its own
     (``--phases <phase>``) whose log it passes on and whose kernels line's
     rows it returns. After phases 2 to 8 in one process, about half of the
     profiles the register phase took there recorded no device time on the
@@ -5093,10 +5687,19 @@ class _Children:
             proc.stdout.close()
 
 
+#: each phase's CPU reference runs, as ``_CpuRefs.ahead`` takes them
+_PHASE_REFS = {
+    "small": _small_refs, "registers": _register_refs,
+    "classic": lambda: [(build, _classic_cpu(batch_size=batch))
+                        for _, build, _, batch in CLASSIC_SMALL],
+    "corpus": lambda: _corpus_refs(_corpus_configs()),
+    "actors": lambda: _corpus_refs([(tag, build, 1024, "found")
+                                    for tag, build, _ in ACTOR_CONFIGS])}
+
 #: the phases ``--phases`` can name, in the order they run
 PHASES = ("kernels", "small", "full", "checkpoint", "classic", "registers",
           "corpus", "actors", "sharded_classic", "matmul", "sizes",
-          "fallback")
+          "fallback", "tiered")
 
 
 def _parse(argv):
@@ -5114,6 +5717,13 @@ def _parse(argv):
 
 
 def main(argv) -> int:
+    try:
+        return _main(argv)
+    finally:
+        _REFS.close()
+
+
+def _main(argv) -> int:
     parsed = _parse(argv)
     if parsed is None:
         print(__doc__, file=sys.stderr)
@@ -5131,6 +5741,12 @@ def main(argv) -> int:
              append_mod)
     card = _card_line()
     _log(f"card: {card}")
+    # The CPU reference runs of the phases this process runs, made ahead
+    # in worker processes (``_CpuRefs``): phases 9 to 17 run in processes
+    # of their own unless one is asked for alone.
+    here = phases if len(phases) == 1 else phases & set(PHASES[:5])
+    _REFS.ahead(job for phase in PHASES if phase in here
+                for job in _PHASE_REFS.get(phase, list)())
     if os.environ.get("CHIP_SMOKE_WAIT"):
         # Started a turn ahead (``_Children``): the port, its kernels and
         # the card are loaded; the phase runs once the parent says so, and
@@ -5165,7 +5781,7 @@ def main(argv) -> int:
         old["ck"] = _clocked("phase 7", phase_checkpoint, torch, kernels,
                              fused, table_mod, engine, ckpt_mod, TwoPhaseSys,
                              PaxosSys)
-    # Phases 9 to 14 each in a process of its own, unless it is the only
+    # Phases 9 to 17 each in a process of its own, unless it is the only
     # one asked for; the first starts while phase 8 runs.
     alone = len(phases) == 1
     children = _Children(card, [] if alone else
@@ -5181,7 +5797,7 @@ def main(argv) -> int:
 def _later_phases(torch, kernels, fused, engine, wave_mod, table_mod,
                   ckpt_mod, TwoPhaseSys, PaxosSys, phases, old, card,
                   children, t_start) -> int:
-    """Phases 8 to 17 of ``main``."""
+    """Phases 8 to 18 of ``main``."""
     alone = len(phases) == 1
     if "classic" in phases:
         children.ahead()
@@ -5208,7 +5824,8 @@ def _later_phases(torch, kernels, fused, engine, wave_mod, table_mod,
         "sizes": lambda: _clocked("phase 14", phase_sizes, torch, kernels,
                                   fused, engine, wave_mod, table_mod)[0],
         "fallback": lambda: _clocked("phase 15", phase_fallback, torch)
-        + _clocked("phase 16", phase_host, torch, card)}
+        + _clocked("phase 16", phase_host, torch, card),
+        "tiered": lambda: _tiered_rows(torch, kernels)}
     for phase in PHASES[5:]:
         if phase not in phases:
             continue

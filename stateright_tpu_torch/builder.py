@@ -115,7 +115,11 @@ class CheckerBuilder:
                        fused: Optional[bool] = None,
                        pipeline: Optional[bool] = None,
                        succ_ladder: Optional[bool] = None,
-                       wave_matmul: Optional[bool] = None):
+                       wave_matmul: Optional[bool] = None,
+                       tier_device_bytes: Optional[int] = None,
+                       tier_host_bytes: Optional[int] = None,
+                       tier_dir: Optional[str] = None,
+                       tier_partitions: Optional[int] = None):
         """Spawns a device BFS; call ``join()`` to wait for it.
 
         ``device=None`` means the current CUDA device and raises when
@@ -209,6 +213,30 @@ class CheckerBuilder:
         ``+matmul`` and ``scheduler_stats()["wave_matmul"]`` says which
         form ran and why.
 
+        The tiered store (``store/tiered.py``), as in JAX, on every
+        engine: ``tier_device_bytes`` caps the card's table (and arena),
+        ``tier_host_bytes`` the host's spilled rows and queued blocks,
+        ``tier_dir`` is where cold segments and paged-out blocks go, and
+        ``tier_partitions`` (default 16) how many ``fp % P`` partitions
+        the visited set spills by. Each left ``None`` follows its
+        environment variable, ``STpu_TIER_DEVICE_BYTES``,
+        ``STpu_TIER_HOST_BYTES`` (both take ``k``/``m``/``g`` suffixes) and
+        ``STpu_TIER_DIR``; with none of the three set the store is off.
+        The classic engines evict whole partitions from the table where
+        its growth would pass the device budget and drop a spilled state
+        generated again on the host; the fused engines roll the arena's
+        expanded prefix off the card instead of doubling it past the
+        budget. The budgets count the table and arena, and the warm rows,
+        the queued blocks and the probe's filter (a bitmap made past 2^20
+        spilled keys, at most half the host budget): a spill holds the
+        kept keys beside the table for a moment (under half its bytes),
+        and the host's sorts and merges take copies. Neither changes a
+        result;
+        ``scheduler_stats()["store"]``
+        (``store_stats()``) counts the spills, and a checkpoint carries
+        the cold segments as v5 references, which either package resumes
+        with a store or without one.
+
         A configuration with no device form (``device_model()`` raises
         ``DeviceFormUnavailable``: paxos on other than 3 servers, a
         register workload past 4 clients, ABD where request ids collide)
@@ -240,7 +268,10 @@ class CheckerBuilder:
                        checkpoint_path=checkpoint_path,
                        checkpoint_every_waves=checkpoint_every_waves,
                        resume_from=resume_from, async_io=async_io,
-                       wave_matmul=wave_matmul)
+                       wave_matmul=wave_matmul,
+                       tier_device_bytes=tier_device_bytes,
+                       tier_host_bytes=tier_host_bytes, tier_dir=tier_dir,
+                       tier_partitions=tier_partitions)
         fused_knobs = _given(arena_capacity=arena_capacity,
                              waves_per_dispatch=waves_per_dispatch,
                              inflight_dispatches=inflight_dispatches)

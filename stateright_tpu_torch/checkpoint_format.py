@@ -14,17 +14,30 @@ bit-packed as the header says), ``pending_fps`` (``uint64``),
 Version history (the reference's): v1 unpacked rows; v2 packed rows with
 a self-describing layout; v3 CRCs and keep-last-2 rotation; v4 the
 elastic workers' ``shard`` and ``elastic`` sections; v5 the tiered
-store's ``store`` section. The port writes v5 headers with none of the
-v4/v5 sections, and reads every version; an engine refuses a header that
-carries one of them (the modules behind them are not ported). The
-reference's fault plan (``resilience/faults.py``) is not ported either,
-so ``write_atomic`` injects nothing.
+store's ``store`` section, which references cold visited segments by
+content hash (``{"segment_dir", "cold": [{"partition", "file", "sha",
+"rows"}, ...]}``, each ref with its own ``dir`` where the segment lives
+elsewhere), and the ``store_segment`` header that marks a file as one
+cold segment (``{"partition", "rows", "sha"}``). A segment is written by
+``write_atomic(..., compress=False)``, each member's data 64-byte
+aligned in the file, so that its ``visited`` section memory-maps in
+place as an aligned array (``store.tiered.map_segment_visited``), and is a
+valid checkpoint shard: ``verify_file`` checks it. The port reads every
+version and writes v5, with a ``store`` section where its tiered store
+(``store/tiered.py``) holds cold segments; an engine refuses a header
+with a v4 section (the elastic workers are not ported). The reference's
+fault plan (``resilience/faults.py``) is not ported, so ``write_atomic``
+injects nothing.
 """
 
 from __future__ import annotations
 
+import hashlib
+import io
 import json
 import os
+import struct
+import time
 import zipfile
 import zlib
 
@@ -32,11 +45,18 @@ import numpy as np
 
 from .packing import compile_layout
 
-__all__ = ["CKPT_VERSION", "PREV_SUFFIX", "make_header", "validate_header",
-           "verify_sections", "verify_file", "load_checkpoint",
-           "pending_rows", "write_atomic"]
+__all__ = ["CKPT_VERSION", "PREV_SUFFIX", "content_hash", "make_header",
+           "validate_header", "verify_sections", "verify_file",
+           "load_checkpoint", "pending_rows", "write_atomic"]
 
 CKPT_VERSION = 5
+
+
+def content_hash(arr) -> str:
+    """The hash a v5 ``store`` section references a cold segment by:
+    blake2b over the array's raw bytes, an 8-byte digest in hex."""
+    return hashlib.blake2b(
+        np.ascontiguousarray(arr).tobytes(), digest_size=8).hexdigest()
 
 #: Where :func:`write_atomic` rotates the previous generation
 #: (keep-last-2: a torn current write falls back here).
@@ -46,14 +66,17 @@ PREV_SUFFIX = ".prev"
 def make_header(*, model_name: str, state_width: int, state_count: int,
                 unique_count: int, use_symmetry: bool, discoveries: dict,
                 row_format: str = "u32", lane_bits=None,
-                packed_width=None) -> np.ndarray:
+                packed_width=None, store=None,
+                store_segment=None) -> np.ndarray:
     """The header payload, json encoded as a ``uint8`` array.
     ``discoveries`` maps a property name to its uint64 fingerprint
     (stringified, since json has no uint64), sorted by name so that the
     bytes do not depend on the order of discovery. ``state_width`` is the
     unpacked width; ``row_format`` (``"u32"`` or ``"packed"``),
     ``lane_bits`` and ``packed_width`` say how ``pending_vecs`` is
-    stored."""
+    stored. ``store`` is the tiered store's references to its cold
+    segments, ``store_segment`` marks the file as one segment (both v5,
+    optional)."""
     if row_format not in ("u32", "packed"):
         raise ValueError(f"unknown row_format {row_format!r}")
     if row_format == "packed" and lane_bits is None:
@@ -75,6 +98,10 @@ def make_header(*, model_name: str, state_width: int, state_count: int,
         header["lane_bits"] = [list(b) if isinstance(b, (tuple, list))
                                else int(b) for b in lane_bits]
         header["packed_width"] = int(packed_width)
+    if store is not None:
+        header["store"] = store
+    if store_segment is not None:
+        header["store_segment"] = dict(store_segment)
     return np.frombuffer(json.dumps(header).encode(), np.uint8)
 
 
@@ -207,7 +234,7 @@ def write_atomic(path: str, payload: dict, compress: bool = True) -> None:
     payload = dict(payload)
     payload["crcs"] = _crcs_of(payload)
     tmp = f"{path}.tmp-{os.getpid()}"
-    writer = np.savez_compressed if compress else np.savez
+    writer = np.savez_compressed if compress else _savez_aligned
     try:
         with open(tmp, "wb") as f:
             writer(f, **payload)
@@ -220,6 +247,44 @@ def write_atomic(path: str, payload: dict, compress: bool = True) -> None:
         except OSError:
             pass
         raise
+
+
+#: the file offset each member's array data starts at a multiple of, in
+#: an uncompressed file
+_ALIGN = 64
+#: the extra field that pads a member's local header (zipalign's id;
+#: readers skip an extra field they do not know)
+_PAD_ID = 0xD935
+
+
+def _savez_aligned(f, **payload) -> None:
+    """``np.savez``'s file (the same members, each the same ``.npy``
+    bytes), with each member's array data at a file offset that is a
+    multiple of ``_ALIGN``: a padding extra field in its local header
+    makes up the difference. A section memory-mapped in place is then
+    aligned, and numpy searches it where it lies; unaligned, each search
+    copies the whole array first."""
+    with zipfile.ZipFile(f, "w", zipfile.ZIP_STORED) as z:
+        for key, value in payload.items():
+            value = np.ascontiguousarray(value)
+            header = io.BytesIO()
+            np.lib.format.write_array_header_1_0(
+                header, np.lib.format.header_data_from_array_1_0(value))
+            header = header.getvalue()
+            name = key + ".npy"
+            info = zipfile.ZipInfo(name, time.localtime(time.time())[:6])
+            info.file_size = len(header) + value.nbytes
+            # The local header: 30 bytes, the name, the padding field (4
+            # bytes and its pad), zipfile's zip64 field where the member
+            # is large.
+            start = (f.tell() + 30 + len(name.encode()) + 4 + len(header)
+                     + (20 if info.file_size * 1.05 > zipfile.ZIP64_LIMIT
+                        else 0))
+            pad = -start % _ALIGN
+            info.extra = struct.pack("<HH", _PAD_ID, pad) + bytes(pad)
+            with z.open(info, "w") as out:
+                out.write(header)
+                out.write(value.view(np.uint8).reshape(-1).data)
 
 
 def _rotatable(path: str) -> bool:

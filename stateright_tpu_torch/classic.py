@@ -57,13 +57,25 @@ first entry of a child winning (JAX's ``setdefault``); a snapshot takes
 each child's first entry by a stable dedup of the concatenated log.
 ``_parent_map()`` builds the dict (the tests' and a visitor's).
 
-The tiered store, the mux, profiling, fault injection, preemption and
-the tracer of the JAX engine are not ported (ROADMAP A6, A8, A10, A13).
+**The tiered store** (``store/tiered.py``, the ``tier_*`` keywords;
+engine :1613-1716): where the table's next growth would pass the device
+budget, whole ``fp % P`` partitions go to the store's warm tier (cold
+segments under host pressure) and the table is rebuilt at the same
+capacity through the dedup kernel (``_spill_for_headroom``); each wave's
+new rows are probed against the spilled partitions on the host, right
+after the error lane, and a row found there is dropped before the
+counts, the parent log and the queue (``_resident``, the table's
+occupancy, still counts it: it is back in the table). Under a host
+budget, queue blocks page out to disk (``FrontierRef``) and back.
+
+The mux, profiling, fault injection, preemption and the tracer of the
+JAX engine are not ported (ROADMAP A8, A10, A13).
 """
 
 from __future__ import annotations
 
 import contextlib
+import itertools
 import time
 import warnings
 from collections import deque
@@ -74,13 +86,15 @@ import torch
 
 from .engine import (compaction_order, eval_properties,
                      fingerprint_successors, pick_bucket, succ_bucket_ladder)
-from .fused import KERNELS, BfsEngine, checkpoint_name
+from .fused import KERNELS, BfsEngine, _tier_knobs, _u64, checkpoint_name
 from .graphs import DispatchGraphs
 from .hashing import SENTINEL, device_fp64
+from .mesh import _umod
 from .matmul_wave import expand
 from .checkpoint_format import make_header
 from .model import Expectation
 from .path import Path
+from .store.tiered import FrontierRef
 from .table import dedup_and_insert
 from .wave import wave_megakernel
 
@@ -188,17 +202,19 @@ class CudaBfsChecker(BfsEngine):
 
     #: the shards a wave pops a batch from (the sharded subclass's mesh)
     _n = 1
+    _VISITED_SPILL_CAPABLE = True
 
     def __init__(self, builder, device: torch.device, batch_size: int = 1024,
                  table_capacity: int = 1 << 16, wave_kernel: bool = False,
                  max_batch_size=None, pipeline=None, succ_ladder=None,
                  cuda_graph: bool = False, checkpoint_path=None,
                  checkpoint_every_waves: int = 64, resume_from=None,
-                 async_io=None, wave_matmul=None, device_model=None):
+                 async_io=None, wave_matmul=None, device_model=None,
+                 **tier):
         self._configure(builder, device, batch_size, table_capacity,
                         wave_kernel, max_batch_size, checkpoint_path,
                         checkpoint_every_waves, async_io, wave_matmul,
-                        device_model)
+                        device_model, _tier_knobs(tier))
         for p, fn in zip(self._properties, self._prop_fns):
             if fn is None:
                 warnings.warn(
@@ -271,17 +287,17 @@ class CudaBfsChecker(BfsEngine):
         self._parent_log: list = [self._parents]
         self._parents: Dict[int, Optional[int]] = {}
         self._parents_consumed = 0
+        visited = self._spill_seed(visited)
         while self._capacity < 4 * len(visited) + 2 * self._B_max * self._F:
             self._capacity *= 2
         self._table = self._new_table(visited, resume_from is not None)
-        #: the table's occupancy
+        #: the table's occupancy, which lags the unique count once the
+        #: store evicted visited partitions
         self._resident = len(visited)
 
     def _reset_engine_state(self) -> None:
         """Drops what a restart rebuilds (engine :707-724)."""
-        if self._graphs is not None:
-            self._graphs.clear()
-        self._wave_outs.clear()
+        self._drop_graphs()
         self._succ_hist.clear()
         self._replayed.clear()
         self.wave_log = []
@@ -326,14 +342,21 @@ class CudaBfsChecker(BfsEngine):
         return (torch.stack(conds) if conds else None, small, terminal,
                 new_vecs, new_fps, new_parent, new_mask)
 
-    @staticmethod
-    def _take_batch(pending: deque, rows: int, vecs, fps, ebits) -> int:
+    def _take_batch(self, pending: deque, rows: int, vecs, fps, ebits) -> int:
         """Moves up to ``rows`` rows of the queue ``pending`` into
         ``vecs``, ``fps`` and ``ebits`` (engine :1203-1242): the queue
         holds whole blocks, one a wave, so this is array copies, with no
-        work a row."""
+        work a row. A block the store paged out is read back first, and
+        the next paged-out ones are read ahead: one, or four with
+        ``async_io``, within the next 8 (32) blocks."""
         taken = 0
         while pending and taken < rows:
+            if isinstance(pending[0], FrontierRef):
+                width, depth = (4, 32) if self._aio.enabled else (1, 8)
+                ahead = [b for b in itertools.islice(pending, 1, depth)
+                         if isinstance(b, FrontierRef)][:width]
+                pending[0] = self._store.fetch_frontier(
+                    pending[0], prefetch=ahead or None)
             bv, bf, be = pending[0]
             k = len(bf)
             take = min(k, rows - taken)
@@ -523,20 +546,35 @@ class CudaBfsChecker(BfsEngine):
         new_fps = new_fps[:k].view(np.uint64).copy()
         parent_rows = new_parent[:k].astype(np.int64)
         self._check_error_lane(new_vecs)
+        # The table knows only its resident rows: a spilled state
+        # generated again looks new there (and is back in it), so the
+        # store's probe drops it before the counts, the parent log and
+        # the queue (engine :1460-1478).
+        k_dev = k
+        if self._store.active and k and self._store.spilled_rows:
+            present = self._store.probe(
+                self._store_probe_fps(new_vecs, new_fps))
+            if present.any():
+                keep = ~present
+                new_vecs, new_fps = new_vecs[keep], new_fps[keep]
+                parent_rows = parent_rows[keep]
+                k = len(new_fps)
 
         with self._lock:
             self._state_count += int(small[_SUCC])
-            self._resident += k
-            self._succ_hist.append((meta["bucket"], k))
+            self._resident += k_dev
+            self._succ_hist.append((meta["bucket"], k_dev))
             now = time.monotonic()
             self.wave_log.append((now, self._state_count))
             self.waves += 1
-            self.dispatch_log.append(dict(
+            entry = dict(
                 meta, t=now, states=self._state_count,
                 unique=self._unique_count + k, waves=1,
                 successors=int(small[_SUCC]), candidates=int(small[_CAND]),
                 novel=k, capacity=self._capacity,
-                load_factor=round(self._resident / self._capacity, 4)))
+                load_factor=round(self._resident / self._capacity, 4))
+            self._tier_gauges(entry)
+            self.dispatch_log.append(entry)
             ebits_after = self._cleared_ebits(conds, batch_ebits)
             self._record_discoveries(conds, valid, terminal, ebits_after,
                                      batch_fps)
@@ -546,7 +584,18 @@ class CudaBfsChecker(BfsEngine):
                 self._unique_count += k
                 self._pending.append(
                     (new_vecs, new_fps, ebits_after[parent_rows]))
+        if self._store.active and k:
+            # The host tier's budget: the queue's last blocks page out.
+            self._store.balance_frontier((self._pending,))
         self.host_sec["process"] += time.perf_counter() - t0
+
+    def _tier_gauges(self, entry: dict) -> None:
+        """Adds the store's tier gauges to a wave's log entry (engine
+        :1508-1513)."""
+        if self._store.active:
+            entry.update(self._store.gauges(),
+                         tier_device_rows=self._resident,
+                         tier_device_bytes=self._table_bytes(self._capacity))
 
     def _cleared_ebits(self, conds, batch_ebits: np.ndarray) -> np.ndarray:
         """The batch's eventually bits with each property's cleared where
@@ -636,7 +685,7 @@ class CudaBfsChecker(BfsEngine):
                     growth_due = False
             queued = 0
             for b in pending:
-                queued += len(b[1])
+                queued += _block_rows(b)
                 if queued >= self._B_max:
                     break
             next_wave = None
@@ -661,6 +710,13 @@ class CudaBfsChecker(BfsEngine):
     def _needs_growth(self) -> bool:
         return self._load_after() > self._capacity // 2
 
+    def _grow_target(self) -> int:
+        """The capacity growth would take now (engine :1599-1606)."""
+        cap = self._capacity
+        while self._load_after() > cap // 2:
+            cap *= 2
+        return cap
+
     def _rehash(self, capacity: int) -> torch.Tensor:
         """The table rehashed into ``capacity`` slots."""
         table = torch.full((capacity,), SENTINEL, dtype=torch.int64,
@@ -674,19 +730,144 @@ class CudaBfsChecker(BfsEngine):
         table into it once (engine :1802-1818), through the dedup kernel
         in strided chunks with the engine's scratch, as the fused engines
         do (``_insert_chunked``). Every wave graph goes: they hold the old
-        table."""
-        if self._graphs is not None:
-            self._graphs.clear()
-        self._wave_outs.clear()
-        cap = self._capacity
-        while self._load_after() > cap // 2:
-            cap *= 2
+        table. Where the new capacity would pass the tiered store's
+        device budget, visited partitions spill instead, and the growth
+        may then be needed no more (engine :1780-1795)."""
+        if self._spill_for_headroom() and not self._needs_growth():
+            return
+        self._drop_graphs()
+        cap = self._grow_target()
         with (torch.cuda.device(self._device)
               if self._device.type == "cuda" else contextlib.nullcontext()):
             table = self._rehash(cap)
         self.rehash_chunks += self._n * self._chunks(self._capacity)
         self._table, self._capacity = table, cap
         self.rehashes += 1
+
+    def _drop_graphs(self) -> None:
+        """Drops every wave graph and its outputs: they hold the table."""
+        if self._graphs is not None:
+            self._graphs.clear()
+        self._wave_outs.clear()
+
+    # -- The tiered store ------------------------------------------------------
+
+    def _device_rows(self) -> int:
+        return self._resident
+
+    def _spill_seed(self, visited: np.ndarray) -> np.ndarray:
+        """The keys a new table is built from, fresh or resumed (engine
+        :1623-1651): where all of ``visited`` would size the table past
+        the device budget, whole partitions go to the warm tier first
+        and the rest are returned."""
+        store = self._store
+        if (not store.active or store.device_budget is None
+                or not len(visited)):
+            return visited
+        visited = np.asarray(visited, np.uint64)
+
+        def cap_for(n_rows: int) -> int:
+            cap = self._capacity
+            while cap < 4 * n_rows + 2 * self._B_max * self._F:
+                cap *= 2
+            return cap
+
+        def fits(keep) -> bool:
+            return (self._table_bytes(cap_for(len(keep)))
+                    <= store.device_budget)
+
+        if fits(visited):
+            return visited
+        mask = store.spill_mask(visited, fits)
+        if not mask.any():
+            return visited
+        store.spill_visited(visited[mask])
+        return visited[~mask]
+
+    def _spill_for_headroom(self) -> bool:
+        """The spill in place of a growth past the device budget (engine
+        :1653-1686): whole ``fp % P`` partitions of the table go to the
+        warm tier until the rest leaves headroom, and the table is
+        rebuilt in place at the same capacity (``_refill_table``), so the
+        graphs stay. False where nothing spilled: the growth stays inside the
+        budget, or even an empty table would leave no headroom (the
+        store notes the pressure, and the table grows past the
+        budget)."""
+        store = self._store
+        if not store.active or store.device_budget is None:
+            return False
+        target = self._grow_target()
+        if self._table_bytes(target) <= store.device_budget:
+            return False
+        # The partitions are picked from counts taken on the device (JAX's
+        # ``spill_mask`` choice), so only the evicted keys leave the card.
+        # The table is read a chunk at a time, and the kept keys wait in
+        # one buffer a slice sized from the counts: beside the table the
+        # spill holds those keys and one chunk's temporaries, under JAX's
+        # extra table.
+        P, n = store.partitions, self._n
+        slices = self._table.view(n, -1)
+        hist = torch.zeros((P, n), dtype=torch.int64, device=slices.device)
+        for i, keys in _resident_chunks(slices):
+            hist[:, i] += torch.bincount(_partition_ids(keys, P),
+                                         minlength=P)
+        hist = hist.cpu().numpy()
+        taken = (store.spill_partitions(hist, self._spill_enough_counts)
+                 if self._spill_enough_counts(np.zeros(n, np.int64))
+                 else [])
+        if not taken:
+            store.note_device_pressure(self._table_bytes(target),
+                                       store.device_budget)
+            return False
+        out = torch.zeros(P, dtype=torch.bool, device=slices.device)
+        out[taken] = True
+        counts = hist.sum(axis=0) - hist[taken].sum(axis=0)
+        # Each buffer padded with sentinels to a whole number of the
+        # refill's chunks, so ``_insert_chunked`` copies none of it.
+        chunks = [self._chunks(int(c)) for c in counts]
+        kept = [slices.new_full((-(-int(c) // k) * k,), SENTINEL)
+                for c, k in zip(counts, chunks)]
+        at, spilled = [0] * n, []
+        for i, keys in _resident_chunks(slices):
+            gone = out[_partition_ids(keys, P)]
+            spilled.append(_u64(keys[gone]))
+            stay = keys[~gone]
+            kept[i][at[i]:at[i] + stay.numel()] = stay
+            at[i] += stay.numel()
+        store.spill_visited(np.concatenate(spilled))
+        with (torch.cuda.device(self._device)
+              if self._device.type == "cuda" else contextlib.nullcontext()):
+            self._refill_table(kept, counts)
+        return True
+
+    def _refill_table(self, kept, counts: np.ndarray) -> None:
+        """Empties the table in place and inserts each slice's int64 keys
+        ``kept[i]`` (on its device, sentinel-padded; ``counts[i]`` of
+        them) again, through the dedup kernel in strided chunks: the wave
+        graphs, which hold the table, stay."""
+        self._table.fill_(SENTINEL)
+        if bool(self._insert_chunked(kept[0], self._table)):
+            raise RuntimeError("the table's rebuild found no free slot")
+        self._resident = int(counts.sum())
+
+    def _spill_enough_counts(self, kept: np.ndarray) -> bool:
+        """Whether keeping ``kept`` rows (their counts by shard) in the
+        table leaves two waves of headroom at the current capacity (the
+        reference's ``_spill_enough``, engine :1615-1621)."""
+        return int(kept.sum()) + 2 * self._B_max * self._F \
+            <= self._capacity // 2
+
+    def _store_probe_fps(self, new_vecs: np.ndarray,
+                         new_fps: np.ndarray) -> np.ndarray:
+        """The fingerprints a wave's new rows are probed by: under
+        symmetry the table (and so the spilled partitions) holds the
+        representatives' fingerprints, not the rows' own, so they are
+        computed here, on the engine's device (engine :1688-1716)."""
+        if not self._use_symmetry or not len(new_vecs):
+            return new_fps
+        rows = self._layout.unpack(torch.from_numpy(
+            np.ascontiguousarray(new_vecs).view(np.int32)).to(self._device))
+        return _u64(device_fp64(self._dm.representative(rows)))
 
     # -- The parent log and paths --------------------------------------------
 
@@ -789,8 +970,13 @@ class CudaBfsChecker(BfsEngine):
         return child, parent, rooted
 
     def _pending_blocks(self) -> list:
-        """The queue's blocks, in order (engine :563)."""
-        return list(self._pending)
+        """The queue's blocks, in order (engine :563); a block the store
+        paged out is read, its file kept."""
+        return self._materialized(self._pending)
+
+    def _materialized(self, blocks) -> list:
+        return [self._store.load_ref(b) if isinstance(b, FrontierRef)
+                else b for b in blocks]
 
     def _snapshot(self) -> dict:
         """The checkpoint's sections at a rest point (engine :571-627)."""
@@ -798,6 +984,7 @@ class CudaBfsChecker(BfsEngine):
         blocks = self._pending_blocks()
         layout = self._layout
         wp = layout.packed_width
+        visited, refs = self._visited_section()
         header = make_header(
             model_name=checkpoint_name(self._model),
             state_width=self._dm.state_width, state_count=self._state_count,
@@ -805,9 +992,9 @@ class CudaBfsChecker(BfsEngine):
             use_symmetry=self._use_symmetry, discoveries=self._discoveries,
             row_format="packed" if layout.packs else "u32",
             lane_bits=layout.specs if layout.packs else None,
-            packed_width=wp if layout.packs else None)
+            packed_width=wp if layout.packs else None, store=refs)
         return dict(
-            header=header, visited=self._visited_sorted(),
+            header=header, visited=visited,
             pending_vecs=(np.concatenate([b[0] for b in blocks]) if blocks
                           else np.zeros((0, wp), np.uint32)),
             pending_fps=(np.concatenate([b[1] for b in blocks]) if blocks
@@ -857,6 +1044,7 @@ class CudaBfsChecker(BfsEngine):
                             "path": self.kernel_path(),
                             "waves_per_round_trip": 1},
             "wave_matmul": self._wave_matmul_stats(),
+            "store": self.store_stats(),
             "local_dedup": {
                 "successors": succ, "distinct_candidates": cand,
                 "collapse_ratio": (round(1.0 - cand / max(succ, 1), 4)
@@ -864,3 +1052,30 @@ class CudaBfsChecker(BfsEngine):
             "graphs": None if g is None else {
                 "captures": g.captures, "replays": g.replays,
                 "capture_sec": g.capture_sec}}
+
+
+#: the most table slots ``_spill_for_headroom`` reads at a time
+_SPILL_CHUNK = 1 << 21
+
+
+def _resident_chunks(slices: torch.Tensor):
+    """``(i, keys)``: the keys of table slice ``i`` (``slices[i]``), a
+    sixteenth of the slice (at most ``_SPILL_CHUNK`` slots) at a time,
+    sentinels dropped, in slot order: a chunk's temporaries stay a small
+    share of the table's bytes at every size."""
+    step = max(1, min(_SPILL_CHUNK, slices.shape[1] // 16))
+    for i in range(slices.shape[0]):
+        for lo in range(0, slices.shape[1], step):
+            chunk = slices[i, lo:lo + step]
+            yield i, chunk[chunk != SENTINEL]
+
+
+def _partition_ids(keys: torch.Tensor, P: int) -> torch.Tensor:
+    """``fp % P`` of int64 bit patterns (a mask where ``P`` is a power of
+    two: a 64-bit division is slow)."""
+    return keys & (P - 1) if not P & (P - 1) else _umod(keys, P)
+
+
+def _block_rows(block) -> int:
+    """A queue block's rows, paged out or not."""
+    return block.rows if isinstance(block, FrontierRef) else len(block[1])

@@ -25,7 +25,7 @@ and the builder spawns the classic engine.
   On the card a dispatch is one CUDA graph (``graphs.py``): JAX's one
   program a dispatch.
 - **The host loop** (``_run_waves``, the reference's :460-816 without
-  the arena-span spill and the tracer) launches up to
+  the tracer) launches up to
   ``inflight_dispatches`` dispatches ahead of its stats reads: after each
   launch it copies the stats to a pinned host slot of its own and waits
   for that copy alone when it retires the dispatch. The width of each
@@ -35,9 +35,17 @@ and the builder spawns the classic engine.
   (a rehash through the same dedup kernel) or the arena when the next
   dispatch could overflow either, once every dispatch in flight is
   retired, and retires discoveries.
+- **The tiered store** (``store/tiered.py``, the ``tier_*`` keywords):
+  where an arena doubling would pass the device budget, the arena rolls
+  instead (``_roll_span``, the reference's :700-750): the expanded prefix
+  ``[0, head)`` leaves the card, its parent rows for host blocks, and the
+  live window shifts to row 0 in place, with the stats, so the dispatch
+  graphs stay. The visited table is never spilled: the dedup runs on the
+  card across a dispatch, too late for a host probe.
 - **Paths.** Parents stay in the arena; a path reconstruction reads its
   chain from there on demand, and from the host's parent map (the seeds,
-  or a checkpoint's parent sections) for the rows it does not hold.
+  or a checkpoint's parent sections, then the rows the rolls moved) for
+  the rows it does not hold.
 - **Checkpoints** (the reference's ``tpu/engine.py`` :552-800 and the
   fused hooks): with ``checkpoint_path`` the loop writes a snapshot at a
   rest point once ``checkpoint_every_waves * batch_size`` new states
@@ -73,6 +81,7 @@ either way, in chunks of at most a wave's rows with the engine's scratch.
 from __future__ import annotations
 
 import contextlib
+import os
 import threading
 from collections import deque
 from typing import Dict, List
@@ -93,6 +102,7 @@ from .matmul_wave import expand, gate, wave_matmul_on
 from .model import Expectation, property_predicates
 from .packing import compile_layout
 from .path import Path
+from .store.tiered import load_cold_refs, store_from_config
 from .table import DedupScratch, dedup_and_insert
 from .visitor import as_visitor
 from .wave import cuda_model, cuda_plan, sender_megakernel, wave_megakernel
@@ -118,8 +128,6 @@ KERNELS = (dedup_and_insert, wave_megakernel, sender_megakernel,
 #: the header sections of modules the port has not ported, which no
 #: resume may drop
 _UNPORTED = {
-    "store": "references cold segments of the tiered store "
-             "(stateright_tpu/store/tiered.py, ROADMAP A6)",
     "shard": "marks one partition of an elastic run "
              "(stateright_tpu/resilience/elastic.py, ROADMAP A13)",
     "elastic": "marks an elastic run's manifest "
@@ -184,10 +192,16 @@ class BfsEngine(Checker):
     A subclass sets up its own state in ``_start`` and runs its host loop
     in ``_run_waves``."""
 
+    #: whether the tiered store may evict visited partitions from this
+    #: engine's table: only an engine with a host step a wave, which can
+    #: drop a spilled fingerprint generated again before it is counted
+    #: (the reference's flag, ``tpu/engine.py`` :156-163)
+    _VISITED_SPILL_CAPABLE = False
+
     def _configure(self, builder, device: torch.device, batch_size: int,
                    table_capacity: int, wave_kernel: bool, max_batch_size,
                    checkpoint_path, checkpoint_every_waves: int,
-                   async_io, wave_matmul=None, dm=None) -> None:
+                   async_io, wave_matmul=None, dm=None, tier=None) -> None:
         model = builder._model
         if dm is None:  # not resolved by ``spawn_cuda_bfs`` already
             dm = model.device_model()
@@ -235,6 +249,19 @@ class BfsEngine(Checker):
         # One checkpoint writer an engine: inline, or its own thread.
         self._aio = writer_from_config(
             async_io, name=f"stpu-aio-{type(self).__name__}")
+        # The tiered store (``store/tiered.py``), made before any
+        # checkpoint load, since a v5 resume attaches its cold segments;
+        # its cold writes share the checkpoints' writer (engine
+        # :362-386). ``tier`` holds the ``tier_*`` keywords.
+        tier = tier or {}
+        self._store = store_from_config(
+            device_bytes=tier.get("tier_device_bytes"),
+            host_bytes=tier.get("tier_host_bytes"),
+            segment_dir=tier.get("tier_dir"),
+            n_partitions=tier.get("tier_partitions"),
+            meta={"model_name": checkpoint_name(model), "state_width": W,
+                  "use_symmetry": self._use_symmetry})
+        self._store.attach_async(self._aio)
 
         # The kernels' scratch for a wave's rows, handed to every call
         # (the table's chunked inserts too) and back clean from each.
@@ -247,6 +274,10 @@ class BfsEngine(Checker):
         self._capacity = 1 << max(12, (int(table_capacity) - 1).bit_length())
         self._discoveries: Dict[str, int] = {}
         self._lock = threading.Lock()
+        #: the dedup kernel's calls at rest points (``_insert_chunked``'s
+        #: chunks: rehashes, a resumed table, a table rebuilt after a
+        #: visited spill)
+        self.table_chunks = 0
 
     def _check_support(self) -> None:
         """Raises for a configuration this engine cannot run (the
@@ -363,6 +394,7 @@ class BfsEngine(Checker):
             keys = torch.cat([keys, keys.new_full((pad,), SENTINEL)])
         if not keys.numel():
             return torch.zeros((), dtype=torch.bool, device=table.device)
+        self.table_chunks += n
         cols = keys.view(-1, n)
         return torch.stack([
             dedup_and_insert(cols[:, k].contiguous(), table,
@@ -375,6 +407,19 @@ class BfsEngine(Checker):
         the unsigned values they stand for."""
         keys = self._table[self._table != SENTINEL]
         return _u64(torch.sort(keys ^ _I64_MIN).values ^ _I64_MIN)
+
+    def _visited_section(self):
+        """``(visited, store refs)`` of a snapshot (engine :593-612): the
+        table's keys and the store's warm ones, sorted (a spilled key
+        admitted to the table again is in both, as in JAX); the cold
+        segments travel as the v5 refs (None without cold ones)."""
+        visited = self._visited_sorted()
+        if not self._store.active:
+            return visited, None
+        warm = self._store.warm_fps()
+        if len(warm):
+            visited = np.sort(np.concatenate([visited, warm]))
+        return visited, self._store.checkpoint_refs()
 
     def _write_checkpoint(self, path: str) -> None:
         """Writes one generation at a rest point (engine :629-662): joins
@@ -421,6 +466,10 @@ class BfsEngine(Checker):
         self._discoveries = {}
         self.dispatch_log = []
         self._reset_engine_state()
+        if self._store.active:
+            # The warm and cold tiers come back from the file's refs, not
+            # from the failed run (engine :725-731).
+            self._store.reset()
         self._start(path)
         self._spawn_worker()
         return self
@@ -430,7 +479,11 @@ class BfsEngine(Checker):
         checkpoint at ``path`` (engine :755-800) and returns its seed
         rows as ``_init_rows`` does: the pending rows packed in this
         engine's layout (a ``u32`` or ``packed`` file alike), their
-        fingerprints and eventually bits, and the visited set."""
+        fingerprints and eventually bits, and the visited set. Cold
+        segments a v5 ``store`` section references are attached to this
+        engine's store where it can evict visited rows, else read into
+        the visited set (engine :788-812), each checked by its CRCs and
+        its content hash."""
         W = self._dm.state_width
         with load_checkpoint(path) as data:
             header = validate_header(
@@ -451,11 +504,45 @@ class BfsEngine(Checker):
                 np.asarray(data["parent_parent"], np.uint64),
                 np.asarray(data["parent_rooted"], bool))
             visited = np.asarray(data["visited"], np.uint64)
+        refs = header.get("store")
+        if refs:
+            base_dir = os.path.dirname(os.path.abspath(path))
+            if self._store.active and self._VISITED_SPILL_CAPABLE:
+                self._store.attach_refs(refs, base_dir=base_dir)
+            else:
+                cold = load_cold_refs(refs, base_dir=base_dir)
+                if len(cold):
+                    visited = np.concatenate([visited, cold])
         self._state_count = self._base_states = int(header["state_count"])
         self._unique_count = int(header["unique_count"])
         self._discoveries = {k: int(v)
                              for k, v in header["discoveries"].items()}
         return seed, fps, ebits, visited
+
+    def _table_bytes(self, capacity: int) -> int:
+        """The visited table's device bytes at ``capacity`` slots (the
+        sharded engines count every shard)."""
+        return capacity * 8
+
+    def _device_rows(self) -> int:
+        """The table's occupancy, which lags the unique count once the
+        store evicted visited partitions."""
+        return self._occ
+
+    def store_stats(self) -> dict:
+        """The tiered store's settings and counters, and the device tier:
+        ``scheduler_stats()["store"]`` (engine :1717-1735)."""
+        stats = self._store.stats()
+        if self._store.active:
+            with self._lock:
+                resident = int(self._device_rows())
+                unique = self._unique_count
+            stats["device"] = {
+                "rows": resident,
+                "table_bytes": self._table_bytes(self._capacity),
+                "budget": self._store.device_budget}
+            stats["resident_ratio"] = round(resident / max(1, unique), 4)
+        return stats
 
     def model(self):
         return self._model
@@ -526,7 +613,8 @@ class FusedCudaBfsChecker(BfsEngine):
                  max_batch_size=None, inflight_dispatches: int = 1,
                  cuda_graph: bool = False, checkpoint_path=None,
                  checkpoint_every_waves: int = 64, resume_from=None,
-                 async_io=None, wave_matmul=None, device_model=None):
+                 async_io=None, wave_matmul=None, device_model=None,
+                 **tier):
         self._K = max(1, int(waves_per_dispatch))
         # Dispatches launched ahead of the oldest one's stats read; safe at
         # any depth, since a dispatch launched past a rest point is a no-op.
@@ -534,15 +622,15 @@ class FusedCudaBfsChecker(BfsEngine):
         self._configure(builder, device, batch_size, table_capacity,
                         wave_kernel, max_batch_size, checkpoint_path,
                         checkpoint_every_waves, async_io, wave_matmul,
-                        device_model)
+                        device_model, _tier_knobs(tier))
         self._arena_capacity = arena_capacity
         self._start(resume_from)
 
         #: waves that expanded rows, dispatches run, table rehashes,
-        #: arena doublings and checkpoints written, and candidates that
-        #: reached the table probe
+        #: arena doublings, arena-span rolls and checkpoints written, and
+        #: candidates that reached the table probe
         self.waves = self.dispatches = self.rehashes = self.arena_grows = 0
-        self.checkpoints = self.candidates = 0
+        self.rolls = self.checkpoints = self.candidates = 0
         #: one dict a retired dispatch: its ``bucket``, the dispatches in
         #: flight at its launch (``inflight``, itself included), its
         #: ``waves`` that expanded rows, whether it ``compiled`` (paid a
@@ -609,8 +697,11 @@ class FusedCudaBfsChecker(BfsEngine):
         self._ebits[:n_seed] = torch.from_numpy(ebits.view(np.int32))
 
         # The seed rows' parents are in the host map: the arena's own
-        # part of the parent map starts after them.
+        # part of the parent map starts after them. An arena-span roll
+        # moves the expanded prefix's parents to host blocks
+        # (``_parent_blocks``) and shifts this bound down with the rows.
         self._n_seed = n_seed
+        self._parent_blocks: List[tuple] = []
         self._head, self._tail, self._occ = 0, n_seed, len(visited)
         P = len(self._properties)
         stats = [0] * (ST_DISC + P)
@@ -803,9 +894,18 @@ class FusedCudaBfsChecker(BfsEngine):
             copied.synchronize()
         st = host.numpy()
         self._process(st)
+        meta = dict(meta, waves=int(st[..., ST_WAVES].reshape(-1)[0]))
+        if self._store.active:
+            # The tier gauges (fused :607-615): the device tier is the
+            # live arenas and the table.
+            n = getattr(self, "_n", 1)
+            meta.update(self._store.gauges(),
+                        tier_device_rows=int(self._device_rows()),
+                        tier_device_bytes=n * (
+                            self._ucap * self._arena_row_bytes()
+                            + self._capacity * 8))
         with self._lock:
-            self.dispatch_log.append(dict(
-                meta, waves=int(st[..., ST_WAVES].reshape(-1)[0])))
+            self.dispatch_log.append(meta)
 
     def _pick_bucket(self) -> int:
         """The next dispatch's width: the least rung that covers the
@@ -862,11 +962,15 @@ class FusedCudaBfsChecker(BfsEngine):
         not grow past 2^30) and which would set the peak of device memory.
         The old keys are distinct, so chunks change neither the set the new
         table holds nor its occupancy, and sentinel slots stay invalid
-        rows; slot order has no meaning."""
-        if self._graphs is not None:
-            self._graphs.clear()
+        rows; slot order has no meaning.
+
+        Under the tiered store's device budget, an arena that must grow
+        past it rolls instead while it has an expanded prefix
+        (``_roll_span``, fused :700-750); that keeps the dispatch graphs,
+        which growth drops."""
         S = bucket * self._F
         while self._occ + S > self._capacity // 2:
+            self._drop_graphs()
             table = torch.full((2 * self._capacity,), SENTINEL,
                                dtype=torch.int64, device=self._table.device)
             if bool(self._insert_chunked(self._table, table)):
@@ -874,6 +978,10 @@ class FusedCudaBfsChecker(BfsEngine):
             self._table, self._capacity = table, 2 * self._capacity
             self.rehashes += 1
         while self._tail + S > self._ucap:
+            if self._span_over_budget(self._head):
+                self._roll_span()
+                continue
+            self._drop_graphs()
             ucap = 2 * self._ucap
 
             def grown(a, fill):
@@ -889,6 +997,67 @@ class FusedCudaBfsChecker(BfsEngine):
                 self._ebits = grown(self._ebits, 0)
                 self._ucap = ucap
             self.arena_grows += 1
+
+    def _drop_graphs(self) -> None:
+        if self._graphs is not None:
+            self._graphs.clear()
+
+    # -- The arena-span roll (the tiered store's device valve) -------------
+
+    def _arena_row_bytes(self) -> int:
+        """Device bytes an arena row takes: its packed words, its
+        fingerprint, its parent's and its eventually bits."""
+        return 4 * self._vecs.shape[-1] + 8 + 8 + 4
+
+    def _arena_device_bytes(self) -> int:
+        """Device bytes of the arenas and the table after an arena
+        doubling: the reference's roll test (fused :701-705, sharded
+        :691-695, whose ``n`` shards each hold both)."""
+        n = getattr(self, "_n", 1)
+        return n * (2 * self._ucap * self._arena_row_bytes()
+                    + self._capacity * 8)
+
+    def _span_over_budget(self, head: int) -> bool:
+        """Whether the arena must roll rather than double: an arena
+        doubling would pass the store's device budget and ``head`` (the
+        largest shard head) rows are expanded. Where it would pass the
+        budget with nothing to roll, the store notes the pressure and the
+        arena doubles."""
+        store = self._store
+        if not store.active or store.device_budget is None:
+            return False
+        if self._arena_device_bytes() <= store.device_budget:
+            return False
+        if head > 0:
+            return True
+        store.note_device_pressure(self._arena_device_bytes(),
+                                   store.device_budget)
+        return False
+
+    def _roll_span(self) -> None:
+        """Moves the expanded prefix ``[0, head)`` off the card and shifts
+        the live window ``[head, tail)`` to row 0, in place (fused
+        :706-743): the prefix's parent rows go to the host blocks first,
+        in arena order, so the parent sections and chains stay JAX's.
+        The stats are rewritten in place, so the dispatch graphs stay.
+        The whole roll holds the lock, which a walk of the parent links
+        takes to search the arena (``_fingerprint_chain``)."""
+        with self._lock:
+            shift, lo = self._head, self._n_seed
+            if shift > lo:
+                # Copies: on the CPU the arrays would share the arena's
+                # memory, which the shift overwrites.
+                self._parent_blocks.append(
+                    (_u64(self._fps[lo:shift]).copy(),
+                     _u64(self._par[lo:shift]).copy()))
+            for a in (self._vecs, self._fps, self._par, self._ebits):
+                _shift_down(a, shift, self._tail)
+            self._n_seed = max(lo - shift, 0)
+            self._head, self._tail = 0, self._tail - shift
+            self.rolls += 1
+        self._stats[ST_HEAD] = 0
+        self._stats[ST_TAIL] = self._tail
+        self._store.note_arena_span(shift, shift * self._arena_row_bytes())
 
     # -- Checkpoints ---------------------------------------------------------
 
@@ -910,16 +1079,21 @@ class FusedCudaBfsChecker(BfsEngine):
     def _parent_sections(self):
         """``(child, parent, rooted)``, in the order of JAX's
         ``_parent_map`` (engine :1825): the host map (the seeds as roots,
-        or the parent sections a run resumed from), then the arena's rows
-        in the order JAX fetches them, each child's first entry kept (the
+        or the parent sections a run resumed from), then the rows the
+        arena-span rolls moved to the host, then the arena's rows in the
+        order JAX fetches them, each child's first entry kept (the
         reference's ``setdefault``)."""
         h_child, h_parent, h_rooted = self._parents
         a_child, a_parent = self._parent_rows()
-        keys = torch.cat([torch.from_numpy(h_child.view(np.int64)).to(
-            a_child.device), a_child])
-        child = np.concatenate([h_child, _u64(a_child)])
-        parent = np.concatenate([h_parent, _u64(a_parent)])
-        rooted = np.concatenate([h_rooted, np.zeros(len(a_child), bool)])
+        blocks = self._parent_blocks
+        b_child = [c for c, _ in blocks]
+        keys = torch.cat([torch.from_numpy(c.view(np.int64)).to(
+            a_child.device) for c in [h_child] + b_child] + [a_child])
+        child = np.concatenate([h_child] + b_child + [_u64(a_child)])
+        parent = np.concatenate([h_parent] + [p for _, p in blocks]
+                                + [_u64(a_parent)])
+        rooted = np.concatenate([h_rooted, np.zeros(
+            len(child) - len(h_rooted), bool)])
         first = _first_occurrences(keys)
         if not bool(first.all()):
             keep = first.cpu().numpy()
@@ -932,6 +1106,7 @@ class FusedCudaBfsChecker(BfsEngine):
         child, parent, rooted = self._parent_sections()
         blocks = self._pending_blocks()
         layout = self._layout
+        visited, refs = self._visited_section()
         header = make_header(
             model_name=checkpoint_name(self._model),
             state_width=self._dm.state_width, state_count=self._state_count,
@@ -939,8 +1114,9 @@ class FusedCudaBfsChecker(BfsEngine):
             use_symmetry=self._use_symmetry, discoveries=self._discoveries,
             row_format="packed" if layout.packs else "u32",
             lane_bits=layout.specs if layout.packs else None,
-            packed_width=layout.packed_width if layout.packs else None)
-        return dict(header=header, visited=self._visited_sorted(),
+            packed_width=layout.packed_width if layout.packs else None,
+            store=refs)
+        return dict(header=header, visited=visited,
                     pending_vecs=np.concatenate([b[0] for b in blocks]),
                     pending_fps=np.concatenate([b[1] for b in blocks]),
                     pending_ebits=np.concatenate([b[2] for b in blocks]),
@@ -949,8 +1125,7 @@ class FusedCudaBfsChecker(BfsEngine):
 
     def _reset_engine_state(self) -> None:
         """Drops the device state a restart rebuilds (fused :882-893)."""
-        if self._graphs is not None:
-            self._graphs.clear()
+        self._drop_graphs()
         self._table = self._vecs = self._fps = self._par = None
         self._ebits = self._stats = None
 
@@ -958,31 +1133,58 @@ class FusedCudaBfsChecker(BfsEngine):
 
     def _arena_parent(self, cur: int):
         """The parent (int64 bit pattern) of arena row fingerprint
-        ``cur`` among the rows whose parents the arena holds, or None."""
-        with self._lock:
-            fps, par = self._parent_rows()
+        ``cur`` among the rows whose parents the arena holds, or None.
+        The caller holds the lock."""
+        fps, par = self._parent_rows()
         hit = torch.nonzero(fps == cur)
         return int(par[hit[0, 0]]) if len(hit) else None
+
+    @staticmethod
+    def _moved_parent(blocks, key):
+        """The parent of ``key`` in the rows the rolls moved to the host
+        (``blocks``, earliest first), or None."""
+        return next((p[j[0]] for c, p in blocks
+                     for j in [np.flatnonzero(c == key)] if len(j)), None)
 
     def _fingerprint_chain(self, fp: int) -> List[int]:
         """The uint64 fingerprints from an init state to ``fp``: each
         link from the host map (its roots end the chain), else from the
-        arena's parent column, as JAX's ``_reconstruct_path`` walks its
-        parent map."""
+        rows the rolls moved to the host, else from the arena's parent
+        column, as JAX's ``_reconstruct_path`` walks its parent map. A
+        walk during a run may meet a roll, which moves arena rows to the
+        host blocks: where the arena misses a link and a roll came since
+        the blocks were read, they are read again and the link sought
+        again."""
         h_child, h_parent, h_rooted = self._parents
+        with self._lock:
+            blocks, rolls = list(self._parent_blocks), self.rolls
         chain = []
         cur = to_i64(fp)
         while True:
             chain.append(to_u64(cur))
-            i = np.flatnonzero(h_child == np.uint64(to_u64(cur)))
+            key = np.uint64(to_u64(cur))
+            i = np.flatnonzero(h_child == key)
             if len(i):
                 if h_rooted[i[0]]:
                     break
                 cur = to_i64(int(h_parent[i[0]]))
                 continue
-            cur = self._arena_parent(cur)
-            if cur is None:
+            moved = self._moved_parent(blocks, key)
+            if moved is not None:
+                cur = to_i64(int(moved))
+                continue
+            with self._lock:
+                stale = self.rolls != rolls
+                if stale:
+                    blocks, rolls = list(self._parent_blocks), self.rolls
+                else:
+                    parent = self._arena_parent(cur)
+            if stale:
+                chain.pop()
+                continue
+            if parent is None:
                 break
+            cur = parent
         return chain[::-1]
 
     # -- Checker API -------------------------------------------------------
@@ -1007,6 +1209,32 @@ class FusedCudaBfsChecker(BfsEngine):
             "bucket_compiles": sum(1 for e in log if e["compiled"]),
             "max_inflight": max((e["inflight"] for e in log), default=0),
             "wave_matmul": self._wave_matmul_stats(),
+            "store": self.store_stats(),
             "graphs": None if g is None else {
                 "captures": g.captures, "replays": g.replays,
                 "capture_sec": g.capture_sec}}
+
+
+def _shift_down(a: torch.Tensor, shift: int, end: int) -> None:
+    """Moves rows ``[shift, end)`` of ``a`` to ``[0, end - shift)`` in
+    place, front to back in chunks of at most ``shift`` rows, so that no
+    chunk's source overlaps its destination (``copy_`` refuses an overlap)
+    and no second buffer the arena's size is needed."""
+    src = shift
+    while shift and src < end:
+        n = min(shift, end - src)
+        a[src - shift:src - shift + n].copy_(a[src:src + n])
+        src += n
+
+
+#: the ``spawn_cuda_bfs`` keywords of the tiered store
+TIER_KNOBS = ("tier_device_bytes", "tier_host_bytes", "tier_dir",
+              "tier_partitions")
+
+
+def _tier_knobs(knobs: dict) -> dict:
+    """An engine's extra keywords, which may only be the store's."""
+    bad = sorted(set(knobs) - set(TIER_KNOBS))
+    if bad:
+        raise TypeError(f"unexpected keyword arguments {bad}")
+    return knobs

@@ -2,8 +2,9 @@
 
 The port's copy of ``stateright_tpu/io/async_io.py`` (``SyncWriter``,
 ``AsyncWriter``, ``writer_from_config`` and the ``STpu_ASYNC_IO``
-default), for the writes the port has: checkpoints (the tiered store's
-spills come with its port). An engine keeps one writer. At a rest point
+default), for the writes the port has: checkpoints and the tiered
+store's cold segments (``store/tiered.py``). An engine keeps one writer,
+which both share. At a rest point
 it takes the snapshot itself, so the bytes are those a write on the spot
 would give, and hands only the CRCs, the compression, the rotation and
 the rename to the writer.

@@ -80,6 +80,11 @@ class EpochOwnership:
         return assign[(fps % np.uint64(self._owner_map.n_partitions))
                       .astype(np.int64)]
 
+    def _table_bytes(self, capacity: int) -> int:
+        """Every shard's slice (JAX's ``tpu/sharded.py`` :192-194 and
+        ``tpu/sharded_fused.py`` :120-122)."""
+        return self._n * capacity * 8
+
     def _stacked_table(self, visited: np.ndarray, resumed: bool):
         """The stacked table holding the ``uint64`` fingerprints
         ``visited``, and each shard's occupancy (``int64[n]``): shard

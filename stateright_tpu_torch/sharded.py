@@ -68,9 +68,16 @@ engine.
   queue in the pending rows, shard by shard (JAX :126-136); a file
   crosses between this engine, the port's other engines and JAX's.
 
+- **The tiered store** (the classic engine's, JAX :190-210, :661-680,
+  :774-776): the table's bytes count every shard (``n * C * 8``); a
+  spill keeps the fullest shard's survivors within a wave's headroom;
+  each shard's new block is probed against the spilled partitions, the
+  device's new counts still feeding the shards' occupancy; the host
+  budget pages blocks out of every shard's queue.
+
 Fault injection (``_inject_exchange_faults`` :456, ROADMAP A13), the
-tiered store (A6), the tracer and the profiler (A8) are not ported, as
-they are not on the classic engine.
+tracer and the profiler (A8) are not ported, as they are not on the
+classic engine.
 """
 
 from __future__ import annotations
@@ -81,7 +88,7 @@ from collections import deque
 import numpy as np
 import torch
 
-from .classic import CudaBfsChecker, _Slot
+from .classic import CudaBfsChecker, _block_rows, _Slot
 from .engine import (compaction_order, eval_properties,
                      fingerprint_successors, first_occurrence_sorted,
                      pick_bucket, succ_bucket_ladder)
@@ -295,13 +302,31 @@ class ShardedCudaBfsChecker(EpochOwnership, CudaBfsChecker):
         """The rows a shard may receive in one wave (JAX :214-216)."""
         return self._n * B * self._F
 
+    def _refill_table(self, kept, counts: np.ndarray) -> None:
+        """Empties every table slice in place and inserts slice ``i``'s
+        int64 keys ``kept[i]`` (sentinel-padded; ``counts[i]`` of them)
+        into it again, which sets its occupancy; the wave graphs stay."""
+        self._table.fill_(SENTINEL)
+        full = torch.stack([self._insert_chunked(kept[i], self._table[i])
+                            for i in range(self._n)]).any()
+        if bool(full):
+            raise RuntimeError("the table's rebuild found no free slot")
+        self._shard_counts = [int(c) for c in counts]
+        self._resident = int(counts.sum())
+
+    def _spill_enough_counts(self, kept: np.ndarray) -> bool:
+        """Whether the fullest shard's kept rows (``kept``, by shard)
+        leave a wave's headroom at the current capacity (JAX :196-210)."""
+        return int(kept.max()) + self._n * self._B_max * self._F \
+            <= self._capacity // 2
+
     def _pending_blocks(self) -> list:
         """The pre-split queue, then every shard's queue in shard order
-        (JAX :126-136)."""
+        (JAX :126-136), paged-out blocks read."""
         blocks = list(self._pending)
         for q in getattr(self, "_queues", ()):
             blocks.extend(q)
-        return blocks
+        return self._materialized(blocks)
 
     def _reset_engine_state(self) -> None:
         """A restart drops the failed run's shard queues too (JAX
@@ -486,6 +511,10 @@ class ShardedCudaBfsChecker(EpochOwnership, CudaBfsChecker):
         blocks = self._shard_blocks(K, new_count, new_vecs, new_fps,
                                     new_parent)
         self._check_exchange(blocks, new_count)
+        if self._store.active and self._store.spilled_rows:
+            # A spilled state generated again is back in its owner's
+            # slice, but not new (JAX :660-680).
+            blocks = [self._unspilled(b) for b in blocks]
         ebits_after = self._cleared_ebits(conds, batch_ebits)
         with self._lock:
             self._state_count += succ
@@ -506,16 +535,31 @@ class ShardedCudaBfsChecker(EpochOwnership, CudaBfsChecker):
             self.waves += 1
             # The fullest shard's load factor, the quantity growth gates
             # on.
-            self.dispatch_log.append(dict(
+            entry = dict(
                 meta, t=now, states=self._state_count,
                 unique=self._unique_count, waves=1, successors=succ,
                 candidates=cand, novel=novel, capacity=self._capacity,
                 load_factor=round(max(self._shard_counts) / self._capacity,
-                                  4)))
+                                  4))
+            self._tier_gauges(entry)
+            self.dispatch_log.append(entry)
             # The first hits in stacked-batch order (JAX :751-774).
             self._record_discoveries(conds, valid, terminal, ebits_after,
                                      batch_fps)
+        if self._store.active and novel:
+            self._store.balance_frontier(self._queues)
         self.host_sec["process"] += time.perf_counter() - t0
+
+    def _unspilled(self, block):
+        """A shard's new block without the rows the store holds."""
+        vecs, fps, parent_rows = block
+        if not len(fps):
+            return block
+        present = self._store.probe(self._store_probe_fps(vecs, fps))
+        if not present.any():
+            return block
+        keep = ~present
+        return vecs[keep], fps[keep], parent_rows[keep]
 
     # -- Host loop -------------------------------------------------------------
 
@@ -554,7 +598,7 @@ class ShardedCudaBfsChecker(EpochOwnership, CudaBfsChecker):
             for q in queues:
                 rows = 0
                 for blk in q:
-                    rows += len(blk[1])
+                    rows += _block_rows(blk)
                     if rows >= self._B_max:
                         break
                 widest = max(widest, rows)

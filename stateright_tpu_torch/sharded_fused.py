@@ -39,9 +39,12 @@ ShardedFusedTpuBfsChecker`` on the port's fused engine (``fused.py``).
   set over the table slices by owner, each slice built by the dedup
   kernel. A file crosses between the two engines either way.
 
-The tiered store and span roll, profiling, fault injection and the
-tracer of the JAX engine are not ported (ROADMAP A6, A8 and A13), and
-neither is an ownership remap (A13).
+- **The tiered store** (``store/tiered.py``): the arena-span roll for
+  each shard (``_roll_span``) under a device budget, as the unsharded
+  fused engine's; the visited table is never spilled.
+
+Profiling, fault injection and the tracer of the JAX engine are not
+ported (ROADMAP A8 and A13), and neither is an ownership remap (A13).
 """
 
 from __future__ import annotations
@@ -57,7 +60,8 @@ from .engine import (compaction_order, eval_properties,
                      pick_bucket)
 from .fused import (ERR_LANE, ERR_TABLE_FULL, ST_CAND, ST_DISC, ST_ERR,
                     ST_HEAD, ST_OCC, ST_SUCC, ST_TAIL, ST_TARGET, ST_WAVES,
-                    FusedCudaBfsChecker, _i32, _pow2, _u32, _u64)
+                    FusedCudaBfsChecker, _i32, _pow2, _shift_down, _u32,
+                    _u64)
 from .hashing import SENTINEL, SENTINEL_U64, to_u64
 from .matmul_wave import expand
 from .membership import EpochOwnership, OwnerMap
@@ -142,6 +146,7 @@ class ShardedFusedCudaBfsChecker(EpochOwnership, FusedCudaBfsChecker):
         # sections in the segments each sync took, shard by shard.
         self._n_seeds, self._shard_synced = tails.copy(), tails.copy()
         self._segments: List[tuple] = []
+        self._parent_blocks: List[tuple] = []
         P = len(self._properties)
         stats = np.zeros((n, ST_DISC + P), np.int64)
         stats[:, ST_TAIL] = tails
@@ -326,25 +331,33 @@ class ShardedFusedCudaBfsChecker(EpochOwnership, FusedCudaBfsChecker):
                 if fp != SENTINEL and prop.name not in self._discoveries:
                     self._discoveries[prop.name] = to_u64(fp)
 
+    def _device_rows(self) -> int:
+        return int(self._occs.sum())
+
     def _grow(self, bucket: int) -> None:
-        """Growth at a rest point (``_run_waves`` :670-766 without the
-        span roll), the dispatch graphs dropped first: every table slice
-        doubles, each re-inserted through the dedup kernel
-        (``_rehash_fn``; JAX in one call a slice, the port's
-        ``_insert_chunked`` in chunks through the engine's scratch, for the
-        reasons ``FusedCudaBfsChecker._grow`` gives), until the fullest
-        keeps its load at most 1/2 after a dispatch of ``bucket`` rows a
-        shard; every arena doubles (``_grow_fn``) until the fullest takes
-        such a dispatch's appends."""
-        if self._graphs is not None:
-            self._graphs.clear()
+        """Growth at a rest point (``_run_waves`` :670-766), the dispatch
+        graphs dropped where a slice or an arena grows: every table slice
+        doubles, each re-inserted
+        through the dedup kernel (``_rehash_fn``; JAX in one call a slice,
+        the port's ``_insert_chunked`` in chunks through the engine's
+        scratch, for the reasons ``FusedCudaBfsChecker._grow`` gives),
+        until the fullest keeps its load at most 1/2 after a dispatch of
+        ``bucket`` rows a shard; every arena doubles (``_grow_fn``) until
+        the fullest takes such a dispatch's appends, or, past the tiered
+        store's device budget, rolls each shard's expanded prefix off the
+        card (``_roll_span``, :691-743), keeping the graphs."""
         n = self._n
         R = n * bucket * self._F
         while int(self._occs.max()) + R > self._capacity // 2:
+            self._drop_graphs()
             self._table = self._rehash(2 * self._capacity)
             self._capacity *= 2
             self.rehashes += 1
         while int(self._tails.max()) + R > self._ucap:
+            if self._span_over_budget(int(self._heads.max())):
+                self._roll_span()
+                continue
+            self._drop_graphs()
             ucap = 2 * self._ucap
 
             def grown(a, fill):
@@ -360,6 +373,37 @@ class ShardedFusedCudaBfsChecker(EpochOwnership, FusedCudaBfsChecker):
                 self._ebits = grown(self._ebits, 0)
                 self._ucap = ucap
             self.arena_grows += 1
+
+    def _roll_span(self) -> None:
+        """Each shard's expanded prefix ``[0, head_i)`` off the card and
+        its live window shifted down by its own head, in place
+        (:696-743): every shard's parent rows synced first (JAX's
+        ``_fetch_parents(None)``) and every synced segment moved to the
+        host blocks, in order; the tails, and with them the baseline the
+        next dispatch's new rows are counted from, move down by the
+        shifts; the stats are rewritten in place, so the graphs stay. The
+        whole roll holds the lock, as the fused engine's does."""
+        with self._lock:
+            self._sync_segments()
+            for i, lo, hi in self._segments:
+                self._parent_blocks.append(
+                    (_u64(self._fps[i, lo:hi]).copy(),
+                     _u64(self._par[i, lo:hi]).copy()))
+            self._segments = []
+            shifts = self._heads.copy()
+            for i in range(self._n):
+                for a in (self._vecs, self._fps, self._par, self._ebits):
+                    _shift_down(a[i], int(shifts[i]), int(self._tails[i]))
+            self._tails = self._tails - shifts
+            self._heads = np.zeros(self._n, np.int64)
+            self._shard_synced = self._shard_synced - shifts
+            self._n_seeds = np.maximum(self._n_seeds - shifts, 0)
+            self.rolls += 1
+        dev = self._stats.device
+        self._stats[:, ST_HEAD] = 0
+        self._stats[:, ST_TAIL] = torch.from_numpy(self._tails).to(dev)
+        rows = int(shifts.sum())
+        self._store.note_arena_span(rows, rows * self._arena_row_bytes())
 
     # -- Checkpoints ----------------------------------------------------------
 
@@ -379,16 +423,21 @@ class ShardedFusedCudaBfsChecker(EpochOwnership, FusedCudaBfsChecker):
                            np.zeros(0, np.uint32)))
         return blocks
 
-    def _parent_rows(self):
-        """The arenas' part of the parent map in JAX's per-shard sync
-        order (:820-836): each snapshot first syncs every shard's rows
-        ``[synced_i, tail_i)``, shard by shard, and the map holds every
-        segment synced so far, in order."""
+    def _sync_segments(self) -> None:
+        """JAX's parent sync (:820-836): every shard's rows ``[synced_i,
+        tail_i)``, shard by shard, become the next segments."""
         for i in range(self._n):
             lo, hi = int(self._shard_synced[i]), int(self._tails[i])
             if hi > lo:
                 self._segments.append((i, lo, hi))
                 self._shard_synced[i] = hi
+
+    def _parent_rows(self):
+        """The arenas' part of the parent map in JAX's per-shard sync
+        order: each snapshot first syncs every shard (``_sync_segments``),
+        and the map holds every segment synced since the last roll, in
+        order (the rolls moved the earlier ones to the host blocks)."""
+        self._sync_segments()
         empty = self._fps.new_empty(0)
         return (torch.cat([empty] + [self._fps[i, lo:hi]
                                      for i, lo, hi in self._segments]),
@@ -399,10 +448,9 @@ class ShardedFusedCudaBfsChecker(EpochOwnership, FusedCudaBfsChecker):
 
     def _arena_parent(self, cur: int):
         """The parent of fingerprint ``cur`` among every shard's rows
-        ``[n_seed_i, tail_i)``, or None."""
-        with self._lock:
-            fps, par = self._fps, self._par
-            lo, hi = self._n_seeds.copy(), self._tails.copy()
+        ``[n_seed_i, tail_i)``, or None. The caller holds the lock."""
+        fps, par = self._fps, self._par
+        lo, hi = self._n_seeds.copy(), self._tails.copy()
         cols = torch.arange(fps.shape[1], device=fps.device)[None, :]
         live = ((cols >= torch.from_numpy(lo).to(fps.device)[:, None])
                 & (cols < torch.from_numpy(hi).to(fps.device)[:, None]))

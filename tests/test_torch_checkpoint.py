@@ -461,10 +461,14 @@ def test_restart_from_the_periodic_file_after_a_failed_dispatch(
 
 
 @pytest.mark.parametrize("section", [
+    # The tiered store is ported: a ref no segment on disk matches raises.
     ("store", {"segment_dir": "s", "cold": [{"partition": 0, "file": "f",
-                                              "sha": "0", "rows": 1}]}),
-    ("shard", {"index": 0, "of": 2, "round": 1, "epoch": 0}),
-    ("elastic", {"round": 1, "epoch": 0, "partitions": 2, "workers": 2})],
+                                              "sha": "0", "rows": 1}]},
+     ValueError, "cold segment"),
+    ("shard", {"index": 0, "of": 2, "round": 1, "epoch": 0},
+     NotImplementedError, "shard"),
+    ("elastic", {"round": 1, "epoch": 0, "partitions": 2, "workers": 2},
+     NotImplementedError, "elastic")],
     ids=["store", "shard", "elastic"])
 def test_sections_of_unported_modules_raise(tmp_path, section):
     path = str(tmp_path / "c.npz")
@@ -476,7 +480,7 @@ def test_sections_of_unported_modules_raise(tmp_path, section):
     payload["header"] = np.frombuffer(json.dumps(h).encode(), np.uint8)
     ckpt.write_atomic(path, payload)
     for where in (dict(device="cpu"), dict(mesh=["cpu"] * 2)):
-        with pytest.raises(NotImplementedError, match=section[0]):
+        with pytest.raises(section[2], match=section[3]):
             twopc.TwoPhaseSys(4).checker().spawn_cuda_bfs(resume_from=path,
                                                           **where)
 

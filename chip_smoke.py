@@ -13,13 +13,15 @@ Usage, from the root of a checkout on a machine with an NVIDIA H100:
     python3 chip_smoke.py --phases sizes           # phase 1, then 14
     python3 chip_smoke.py --phases fallback        # phase 1, 15 and 16
     python3 chip_smoke.py --phases tiered          # phase 1, then 17
+    python3 chip_smoke.py --phases obs             # phase 1, then 18
     python3 chip_smoke.py --phases kernels,full    # phase 1, 2-4 and 6
 
 ``--phases`` takes a comma-separated subset of ``kernels`` (phases 2 to
 4), ``small`` (5), ``full`` (6), ``checkpoint`` (7), ``classic`` (8),
 ``registers`` (9), ``corpus`` (10), ``actors`` (11), ``sharded_classic``
-(12), ``matmul`` (13), ``sizes`` (14), ``fallback`` (15 and 16) and
-``tiered`` (17), runs phase 1 and those, in this order, and
+(12), ``matmul`` (13), ``sizes`` (14), ``fallback`` (15 and 16),
+``tiered`` (17) and ``obs`` (18), runs phase 1 and those, in this order,
+and
 prints the kernels line's rows those phases give
 (phases 2 to 8's rows only when all of them ran). The CPU reference runs
 that phases 5, 8, 9, 10 and 11 hold the card's runs to are made ahead in two
@@ -119,8 +121,8 @@ in order; any failure exits non-zero and prints no result line:
    three kernel paths (2pc 10 on the wave kernel, paxos 3 on the wave
    kernel and sharded on the sender kernel) again with
    ``cuda_graph=False``, side by side; 2pc 10 on
-   the wave kernel with graphs on at one dispatch in flight and at two,
-   alternately, twice each (the in-flight depth's own effect); and
+   the wave kernel with graphs on at two dispatches in flight, beside its
+   run on the defaults (one; the in-flight depth's own effect); and
    ``paxos check 3`` on a ladder from 1,024 to 16,384 rows, exact. Then
    for each run but the ladder's, dispatches of a mid-run checker through
    the engine's own launch (a replay once its key is captured): one
@@ -357,7 +359,23 @@ in order; any failure exits non-zero and prints no result line:
     arena a shard under 300,000 B (each shard's roll), and the classic
     sharded engine on ``paxos check 3`` (4 x 4,096, the sender kernel)
     under half its uncapped tables;
-18. the kernels line, the script's running time, the card line and the
+18. the run telemetry (``phase_obs``; in a process of its own when
+    earlier phases ran, as phase 9) with ``STpu_TRACE``, ``STpu_PROF``
+    (cadence 1), ``STpu_HIST``, ``STpu_SLO`` and ``STpu_ANOMALY`` set: 2pc
+    10 on the fused wave kernel and ``paxos check 3`` on the classic wave
+    kernel, each disarmed, armed, disarmed, armed, exact, the armed
+    seconds beside the disarmed; each armed run's trace valid under the
+    port's schema (``obs/schema.py``), its waves' new rows summing to
+    the unique count, every program key with a ``profile_snapshot``
+    whose declared cost is there and whose roofline share is at most
+    1.05; the armed hooks' host us a dispatch (``_obs_hook_us``); a
+    replay of each armed under ``set_sync_debug_mode("error")``, and the
+    fused graph's launches a wave armed equal to disarmed; then
+    ``measure_wave_breakdown`` of paxos 3 and 2pc 10 at batch 4,096 on
+    the card (``profiling.py``), with kernel 1's ``dedup_insert`` and
+    kernel 2's ``wave_kernel`` stages timed, the stages' shares and the
+    ``host`` stage printed;
+19. the kernels line, the script's running time, the card line and the
     result line.
 
 It imports neither JAX nor ``stateright_tpu``.
@@ -565,11 +583,10 @@ def _dedup_case(torch, table_mod, fps, table, tag: str, scratch=None):
     call_ms = _time_ms(torch, fn, 5, setup)
     ms, parts = _breakdown(torch, fn, 5, setup)
     plain_ms = _time_ms(torch, table_mod.dedup_and_insert_plain, 3, setup)
-    # Bound: the bytes of the function itself, each once: the fps read,
-    # the two masks written, and one 32-byte sector a candidate in the
-    # visited table. The kernel's scratch table is neither input nor
-    # output.
-    nbytes = 8 * S + 2 * S + 32 * cand
+    # Bound: the kernel's declared cost (``table.dedup_cost``: the fps
+    # read, the two masks written, a 32-byte sector a candidate), the
+    # profiler's count too.
+    nbytes = table_mod.dedup_cost(S, cand)["bytes"]
     bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
     _log(f"dedup kernel == plain ({tag}) at S={S}, C=2^"
          f"{table.shape[0].bit_length() - 1}: new={new} cand={cand} "
@@ -716,14 +733,12 @@ def _append_case(torch, engine, append_mod, tag, src, new_mask, div, tails):
     call_ms = _time_ms(torch, append_mod.append_rows, 5, lambda: args)
     plain_ms = _time_ms(torch, append_mod.append_rows_plain, 3,
                         lambda: args)
-    # Bound: the function's own bytes, each once: a new row's compaction
-    # index (8 B) and source row read (4 Wp + 8 B: the packed words and
-    # its fingerprint), its arena row written (4 Wp + 20 B: those, its
-    # parent's fingerprint and eventually bits), and the parent's 12 B
-    # read once a distinct parent of the new rows (siblings share one).
+    # Bound: the kernel's declared cost (``append.append_cost``: a new
+    # row's index, source row and arena row, a distinct parent's 12 B
+    # once), the profiler's count too.
     parents = sum(int(torch.unique(comp[k, :int(new_count[k])] // div)
                       .numel()) for k in range(n))
-    nbytes = new * (2 * (4 * wp + 8) + 8 + 12) + 12 * parents
+    nbytes = append_mod.append_cost(wp, new, parents)["bytes"]
     bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
     _log(f"append kernel == plain ({tag}) at n={n} x R={R}, Wp={wp}: "
          f"new={new} of {n * R} from {parents} parents, tails {tails}, no "
@@ -882,9 +897,9 @@ def phase_rehash(torch, table_mod, engine, fused, TwoPhaseSys):
         _check_clean(torch, eng._scratch, f"the rehash ({key})")
     plain_ms = _time_ms(torch, table_mod.dedup_and_insert_plain, 1,
                         lambda: (old,) + setup())
-    # Bound: the function's bytes, each once: the old table read, two
-    # masks written, one 32-byte sector a key in the new table.
-    nbytes = 8 * C + 2 * C + 32 * cand
+    # Bound: kernel 1's declared cost over the old table's C slots (the
+    # old table read, two masks written, a sector a key).
+    nbytes = table_mod.dedup_cost(C, cand)["bytes"]
     bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
     _log(f"rehash: {cand} keys, chunked {out['chunked']['ms']:.4f} ms "
          f"against runs {out['runs']['ms']:.4f} ms and one call "
@@ -932,37 +947,6 @@ def phase_wave_kernel(torch, wave_mod, table_mod, engine, TwoPhaseSys):
     return out, (dm, store, layout), (dedup_fps, table)
 
 
-def _sym_ops(dm) -> int:
-    """32-bit integer operations of one representative beyond its
-    fingerprint: 2pc's sort network over its RMs' keys, the shared
-    counters' over their threads' pairs; a register workload's network
-    rewritten and sorted again, and its lanes compared, once a
-    non-identity client permutation (none where the group is
-    trivial: paxos below 4 clients, ABD; 23 at single-copy 4 on one
-    server)."""
-    if hasattr(dm, "rm_count"):
-        return 2 * dm.rm_count ** 2
-    if hasattr(dm, "thread_count"):
-        # The shared counters' stable sort of (key, t, pc) triples: T(T-1)/2
-        # compare-exchanges of about 8 operations each.
-        return 4 * dm.thread_count ** 2
-    return len(dm.client_permutations()) * (2 * dm.net_slots ** 2
-                                            + 8 * dm.state_width)
-
-
-def _front_ops(dm, slots: int, n_valid: int, use_sym: bool) -> int:
-    """32-bit integer operations of the kernels' front: the path
-    fingerprint, unpack, step and re-pack of every slot, and the
-    representative and its fingerprint of each valid slot under
-    symmetry."""
-    W = dm.state_width
-    fp_ops = 2 * (6 * W + 9) + 4
-    ops = slots * (fp_ops + 8 * W)
-    if use_sym:
-        ops += n_valid * (fp_ops + _sym_ops(dm))
-    return ops
-
-
 def _wave_case(torch, wave_mod, table_mod, dm, store, valid, layout, table,
                use_sym, tag, scratch=None, plan=None):
     """The wave kernel against its plain version on ``store`` and a copy
@@ -1004,15 +988,10 @@ def _wave_case(torch, wave_mod, table_mod, dm, store, valid, layout, table,
     call_ms = _time_ms(torch, fn, 5, setup)
     ms, parts = _breakdown(torch, fn, 5, setup)
     plain_ms = _time_ms(torch, plain, 3, setup)
-    # Bound: the function's own bytes, each once: the packed batch and
-    # valid read, the packed successors, path fingerprints and three byte
-    # masks written, and one 32-byte sector a candidate in the visited
-    # table (and a plan's uint32 tables read once). The dedup fingerprints
-    # and the scratch table are neither input nor output. Operations:
-    # _front_ops.
-    nbytes = (4 * B * wp + B + 4 * S * wp + 8 * S + 3 * S + 32 * cand
-              + _plan_table_bytes(wave_mod, plan))
-    ops = _front_ops(dm, S, n_valid, use_sym)
+    # Bound: the kernel's declared cost (``wave.wave_cost``: bytes each
+    # once, the front's operations), the profiler's count too.
+    cost = wave_mod.wave_cost(dm, B, wp, use_sym, plan, n_valid, cand)
+    nbytes, ops = cost["bytes"], cost["ops"]
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     ops_ms = ops / OPS_PER_S * 1e3
     bound_ms = max(bytes_ms, ops_ms)
@@ -1026,12 +1005,6 @@ def _wave_case(torch, wave_mod, table_mod, dm, store, valid, layout, table,
     return dict(max_abs_err=0, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                 parts=parts,
                 bound_by="bytes" if bytes_ms >= ops_ms else "operations")
-
-
-def _plan_table_bytes(wave_mod, plan) -> int:
-    """The bytes of a matmul plan's tables as the kernels read them (0
-    without a plan)."""
-    return 0 if plan is None else wave_mod.plan_tables(plan).nbytes
 
 
 def _sender_equal(torch, wave_mod, fn, scratch, args, tag, plan=None):
@@ -1081,14 +1054,11 @@ def phase_sender_kernel(torch, wave_mod, table_mod, dm, store, layout,
             call_ms = _time_ms(torch, fn, 5, lambda: args)
             _check_clean(torch, scratch, f"the sender kernel ({tag}, timed)")
             plain_ms = _time_ms(torch, plain, 3, lambda: args)
-            # Bound: the function's own bytes, each once: the packed
-            # batch and valid read; the packed successors, two
-            # fingerprint arrays and two byte masks written (and a plan's
-            # tables read once). The scratch is neither input nor output.
-            # Operations as the wave kernel's (_front_ops).
-            nbytes = (4 * n * B * wp + n * B + 4 * n * S * wp + 16 * n * S
-                      + 2 * n * S + _plan_table_bytes(wave_mod, plan))
-            ops = _front_ops(dm, n * S, n_valid, use_sym)
+            # Bound: the kernel's declared cost (``wave.sender_cost``),
+            # the profiler's count too.
+            cost = wave_mod.sender_cost(dm, n, B, wp, use_sym, plan,
+                                        n_valid)
+            nbytes, ops = cost["bytes"], cost["ops"]
             bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
             ops_ms = ops / OPS_PER_S * 1e3
             bound_ms = max(bytes_ms, ops_ms)
@@ -2055,9 +2025,8 @@ def _seed_case(torch, table_mod, engine, eng, visited, cap):
     torch.from_numpy(host.view(np.int64)).to(dev)
     torch.cuda.synchronize()
     t2 = time.monotonic()
-    # Bound: the function's bytes, each once: the keys read, two masks
-    # written, one 32-byte sector a key in the table.
-    nbytes = 8 * n + 2 * n + 32 * n
+    # Bound: kernel 1's declared cost, every key a candidate.
+    nbytes = table_mod.dedup_cost(n, n)["bytes"]
     bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
     chunks = eng._chunks(n)
     _log(f"resumed table's build: {n} keys into 2^{cap.bit_length() - 1} "
@@ -2446,7 +2415,7 @@ def phase_classic_full(torch, kernels, config, model, want_counts,
     g = s["graphs"] or {"captures": 0, "replays": 0, "capture_sec": 0.0}
     ladder = s["succ_ladder"]
     waves = c.waves
-    down = [e["bytes_down"] for e in c.dispatch_log]
+    down = list(c.bytes_down)
     host = {k: v * 1e6 / waves for k, v in c.host_sec.items()}
     log_bytes = c.parent_log_bytes()
     wave_kernel = spawn.get("wave_kernel", False)
@@ -3596,7 +3565,7 @@ def phase_sharded_classic_full(torch, kernels, config, model, want_counts,
     ladder = s["succ_ladder"]
     waves = c.waves
     regathers = ladder["overflow_redispatches"]
-    down = [e["bytes_down"] for e in c.dispatch_log]
+    down = list(c.bytes_down)
     host = {k: v * 1e6 / waves for k, v in c.host_sec.items()}
     run = dict(sec=sec, waves=waves, captures=g["captures"],
                counts=(unique, states),
@@ -4356,9 +4325,10 @@ def _timed_once(torch, fn, *args):
     return out, start.elapsed_time(end)
 
 
-def _bound(nbytes, ops):
-    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = ops / OPS_PER_S * 1e3
+def _bound(cost):
+    """``(bound_ms, bound_by)`` of a kernel's declared ``cost``."""
+    bytes_ms = cost["bytes"] / HBM_BYTES_PER_S * 1e3
+    ops_ms = cost["ops"] / OPS_PER_S * 1e3
     return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms
                                    else "operations")
 
@@ -4417,10 +4387,8 @@ def _size_wave(torch, wave_mod, table_mod, dm, layout, store, table, use_sym,
         - _replay_ms(torch, lambda: t_k.copy_(table), calls))
     _check_clean(torch, scratch, f"the wave kernel ({tag}, timed)")
     del t_k
-    bound_ms, bound_by = _bound(
-        4 * B * wp + B + 4 * S * wp + 8 * S + 3 * S + 32 * cand
-        + _plan_table_bytes(wave_mod, plan),
-        _front_ops(dm, S, n_valid, use_sym))
+    bound_ms, bound_by = _bound(wave_mod.wave_cost(
+        dm, B, wp, use_sym, plan, n_valid, cand))
     _log(f"wave kernel == plain ({tag}) at B={B}, S={S}, C=2^"
          f"{table.shape[0].bit_length() - 1}: valid={n_valid} cand={cand} "
          f"new={new}; kernel {ms:.4f} ms a call (graph replays between "
@@ -4474,10 +4442,8 @@ def _size_sender(torch, wave_mod, table_mod, dm, layout, store, syms, plan,
                                     _graph_calls(n * S, wp))
                     _check_clean(torch, scratch,
                                  f"the sender kernel ({where}, timed)")
-                    bound_ms, bound_by = _bound(
-                        4 * n * B * wp + n * B + 4 * n * S * wp + 16 * n * S
-                        + 2 * n * S + _plan_table_bytes(wave_mod, plan),
-                        _front_ops(dm, n * S, n_valid, False))
+                    bound_ms, bound_by = _bound(wave_mod.sender_cost(
+                        dm, n, B, wp, False, plan, n_valid))
                     out = dict(max_abs_err=0, ms=ms, plain_ms=plain_ms,
                                bound_ms=bound_ms, bound_by=bound_by)
                     _log(f"sender kernel == plain ({where}) at n={n} x "
@@ -5297,6 +5263,337 @@ def _tiered_rows(torch, kernels):
     return []
 
 
+#: the variables phase 18 arms, and their values (the trace's path apart)
+OBS_ARMED = {"STpu_PROF": "1", "STpu_PROF_SAMPLE": "1", "STpu_HIST": "1",
+             "STpu_SLO": "1", "STpu_ANOMALY": "1"}
+#: phase 18's runs: the fused wave kernel on 2pc 10, the classic wave
+#: kernel on ``paxos check 3``; the states a mid-run point stops at
+OBS_RUNS = (("2pc 10", dict(wave_kernel=True), 20_000_000),
+            ("paxos 3", dict(wave_kernel=True, fused=False), PAXOS_MID))
+#: each run's turns, disarmed and armed alternately, disarmed first
+OBS_TURNS = {"2pc 10": 4, "paxos 3": 6}
+
+
+def _obs_warm(torch) -> None:
+    """What phase 18's process runs while it waits for its turn: a small
+    run on each of its paths, so that its first timed turn finds the
+    kernels loaded."""
+    from stateright_tpu_torch.models.paxos import PaxosSys
+    from stateright_tpu_torch.models.twopc import TwoPhaseSys
+
+    TwoPhaseSys(3).checker().spawn_cuda_bfs(
+        device="cuda:0", batch_size=64, wave_kernel=True).join()
+    PaxosSys(1).checker().spawn_cuda_bfs(
+        device="cuda:0", batch_size=64, wave_kernel=True,
+        fused=False).join()
+    torch.cuda.synchronize()
+    _WARMED.add("obs")
+
+
+#: the phases whose process has warmed up
+_WARMED: set = set()
+
+
+#: the phases whose process warms up while it waits for its turn
+_WARM = {"obs": _obs_warm}
+
+
+def _obs_env(trace=None) -> None:
+    """Every phase-18 variable unset, then, with ``trace`` a path, all
+    armed with the trace going there."""
+    for var in ("STpu_TRACE", *OBS_ARMED):
+        os.environ.pop(var, None)
+    if trace is not None:
+        os.environ.update(OBS_ARMED, STpu_TRACE=trace)
+
+
+def _obs_run(torch, kernels, fused, obs, tag, spawn, trace=None):
+    """One run of ``tag`` (``OBS_RUNS``) to its end on the card, armed
+    when ``trace`` is a path: exact, its kernels launched (the fused
+    run's exactly), the null objects held when disarmed. Returns
+    ``(checker, seconds)``."""
+    from stateright_tpu_torch.models.paxos import PaxosSys
+    from stateright_tpu_torch.models.twopc import TwoPhaseSys
+
+    build, want, found = {
+        "2pc 10": (functools.partial(TwoPhaseSys, 10),
+                   (FULL_UNIQUE, FULL_STATES),
+                   ["abort agreement", "commit agreement"]),
+        "paxos 3": (functools.partial(PaxosSys, 3),
+                    (PAXOS_UNIQUE, PAXOS_STATES), ["value chosen"])}[tag]
+    _obs_env(trace)
+    try:
+        gc.collect()
+        for fn in kernels.values():
+            fn.launches = 0
+        t0 = time.monotonic()
+        c = build().checker().spawn_cuda_bfs(
+            device="cuda:0", batch_size=BATCH, **spawn).join()
+        torch.cuda.synchronize()
+        sec = time.monotonic() - t0
+    finally:
+        _obs_env()
+    launches = {name: fn.launches for name, fn in kernels.items()}
+    got = (c.unique_state_count(), c.state_count())
+    if got != want or sorted(c.discoveries()) != found:
+        raise AssertionError(f"{tag} ({'armed' if trace else 'disarmed'}): "
+                             f"{got}, {sorted(c.discoveries())}")
+    c.assert_properties()
+    if spawn.get("fused", True):
+        _check_launches(fused, c, launches, **spawn)
+    elif launches["wave_megakernel"] != len(c.dispatch_log):
+        raise AssertionError(f"{tag} classic: launches {launches} for "
+                             f"{len(c.dispatch_log)} waves")
+    nulls = (c._tracer is obs.NULL_TRACER, c._prof is obs.NULL_PROF,
+             c._wave_obs is obs.NULL_OBS)
+    if nulls != ((trace is None,) * 3):
+        raise AssertionError(f"{tag}: the null objects {nulls}, armed "
+                             f"{trace is not None}")
+    g = c.scheduler_stats()["graphs"] or {}
+    host = {k: round(v * 1e6 / len(c.dispatch_log), 1)
+            for k, v in getattr(c, "host_sec", {}).items()}
+    _log(f"{tag} ({'armed' if trace else 'disarmed'}): {sec:.3f} s, "
+         f"{len(c.dispatch_log)} dispatches, {g.get('captures')} captures "
+         f"in {g.get('capture_sec', 0):.3f} s, {g.get('replays')} replays"
+         + (f"; host us a wave {host}" if host else ""))
+    return c, sec
+
+
+def _obs_trace(obs, c, path, tag) -> dict:
+    """Phase 18's checks of an armed run's trace: every line valid under
+    the port's schema, every wave field-exact, the waves' new rows
+    summing to the run's unique count less its seeds, every program key
+    with a ``profile_snapshot`` whose operations or bytes are declared
+    and whose roofline share is at most 1.05, the histograms' snapshots
+    consistent. Returns the trace's numbers."""
+    lines = open(path, encoding="utf-8").read().splitlines()
+    errors = [e for line in lines for e in obs.validate_line(line)]
+    if errors:
+        raise AssertionError(f"{tag}'s trace: {errors[:3]}")
+    events = [json.loads(line) for line in lines]
+    waves = [e for e in events if e["type"] == "wave"]
+    if any(set(w) != set(obs.WAVE_FIELDS) for w in waves):
+        raise AssertionError(f"{tag}: a wave event off the schema's fields")
+    seeds = waves[0]["unique"] - waves[0]["novel"]
+    if (not 1 <= seeds <= c._base_states
+            or waves[-1]["unique"] != c.unique_state_count()
+            or sum(w["novel"] for w in waves) + seeds
+            != c.unique_state_count()):
+        raise AssertionError(f"{tag}: the waves' novel sum to "
+                             f"{sum(w['novel'] for w in waves)} + {seeds}")
+    snaps: dict = {}
+    for e in events:
+        if e["type"] == "profile_snapshot":
+            snaps.setdefault(e["key"], []).append(e)
+    programs = c.scheduler_stats()["prof"]["programs"]
+    if set(programs) != set(snaps):
+        raise AssertionError(f"{tag}: program keys {sorted(programs)} "
+                             f"against snapshots {sorted(snaps)}")
+    shares = []
+    for key, got in snaps.items():
+        for e in got:
+            if e["flops"] is None and e["bytes"] is None:
+                raise AssertionError(f"{tag}: {key} declares no cost")
+            if e["share"] > 1.05:
+                raise AssertionError(f"{tag}: {key} reached {e['share']} of "
+                                     "its bound")
+            shares.append(e["share"])
+    hists = [e for e in events if e["type"] == "hist_snapshot"]
+    for h in hists:
+        for series, data in h["hists"].items():
+            if sum(data["buckets"]) != data["count"]:
+                raise AssertionError(f"{tag}: {series}'s buckets")
+    out = dict(lines=len(lines), waves=len(waves), snaps=len(shares),
+               keys=len(snaps), hist_snapshots=len(hists),
+               share_max=max(shares), share_mean=sum(shares) / len(shares),
+               measured_ms=sum(e["measured_s"] for v in snaps.values()
+                               for e in v) * 1e3,
+               anomalies=sum(e["type"] == "anomaly" for e in events),
+               breaches=sum(e["type"] == "slo_breach" for e in events),
+               bytes=os.path.getsize(path))
+    _log(f"{tag}'s trace: {out['lines']} lines ({out['bytes']} B), "
+         f"{out['waves']} waves, {out['snaps']} profile snapshots of "
+         f"{out['keys']} program keys (roofline share {out['share_mean']:.4f}"
+         f" mean, {out['share_max']:.4f} most), {out['hist_snapshots']} "
+         f"histogram snapshots, {out['anomalies']} anomalies, "
+         f"{out['breaches']} SLO breaches; valid, novel sums exact")
+    return out
+
+
+def _obs_hook_us(torch, obs, c, path, n=2000) -> dict:
+    """The armed hooks' host us a dispatch on the finished armed fused run
+    ``c``, its trace reopened at ``path``: the profiler's start and stop
+    around a launch (two CUDA events recorded), the cost stamp with its
+    ``profile_snapshot`` (the events' elapsed time read), and the wave
+    event's publish (flight ring, trace, histograms, SLOs, detector)."""
+    c._tracer = obs.RunTracer(path, c._ENGINE_ID)
+    key = ("dispatch", c._B, c._capacity, c._ucap, c._K)
+    last = {k: v for k, v in c.dispatch_log[-1].items()
+            if not k.startswith("cost_")}
+    out = {}
+    with torch.cuda.device(c._device):
+        # A sampled dispatch's riders, its two events done (as a stats
+        # read leaves them), for the stamp alone.
+        riders = c._prof_stop(c._prof_start(key, list))
+        torch.cuda.synchronize()
+        for name, fn in (
+                ("start+stop", lambda: c._prof_stop(c._prof_start(
+                    key, lambda: c._dispatch_costs(c._B)))),
+                ("stamp", lambda: c._stamp_cost(dict(last, **riders))),
+                ("publish", lambda: c._publish(dict(last)))):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+            out[name] = (time.perf_counter() - t0) / n * 1e6
+    c._tracer.close()
+    _log("armed hooks' host us a dispatch (2pc 10's fused engine, "
+         + ", ".join(f"{k} {v:.1f}" for k, v in out.items())
+         + f"; {n} each): {sum(out.values()):.1f} in all")
+    return out
+
+
+def _obs_points(torch, fused, tag, spawn, mid_target, trace):
+    """A mid-run point of ``tag`` armed (``trace`` a path) or not: one
+    replay under ``set_sync_debug_mode("error")`` and, fused, the graph's
+    kernel launches a launched wave (``torch.profiler``). Returns those
+    launches (None for the classic engine)."""
+    from stateright_tpu_torch.models.paxos import PaxosSys
+    from stateright_tpu_torch.models.twopc import TwoPhaseSys
+
+    build = {"2pc 10": functools.partial(TwoPhaseSys, 10),
+             "paxos 3": functools.partial(PaxosSys, 3)}[tag]
+    how = "armed" if trace else "disarmed"
+    _obs_env(trace)
+    try:
+        mid = (build().checker().target_state_count(mid_target)
+               .spawn_cuda_bfs(device="cuda:0", batch_size=BATCH, **spawn)
+               .join())
+        if spawn.get("fused", True):
+            mid._stats[..., fused.ST_TARGET] = 1 << 62
+            point = _Point(torch, fused, mid)
+            waves, dev_ms, _, host_us, replay = _timed_dispatch(
+                torch, point, sync_check=True)
+            _log(f"{tag} ({how}): one replayed dispatch under "
+                 f"set_sync_debug_mode('error'): {waves} waves, no "
+                 f"synchronisation, {dev_ms:.3f} ms, {host_us:.1f} us in "
+                 "the host's launch")
+            return phase_profile(torch, point)[1]
+        point = _ClassicPoint(torch, mid)
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            wave = point.launch()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        new = point.wait(wave)
+        _log(f"{tag} ({how}): one replayed classic wave under "
+             f"set_sync_debug_mode('error'): no synchronisation, {new} new "
+             "rows")
+        return None
+    finally:
+        _obs_env()
+
+
+def phase_obs(torch, kernels, fused):
+    """Phase 18: the run telemetry on the card (``obs``, every variable
+    armed, the profiler at cadence 1) on 2pc 10 on the fused wave kernel
+    and ``paxos check 3`` on the classic wave kernel: each disarmed,
+    armed, disarmed, armed in turn, exact; each armed run's trace checked
+    (``_obs_trace``); a replay of each armed under
+    ``set_sync_debug_mode("error")``, and the fused graph's launches a
+    wave armed and disarmed, equal; then ``measure_wave_breakdown`` on
+    paxos 3 and 2pc 10 at batch 4,096 on the card, kernel 1's and kernel
+    2's stages timed."""
+    import shutil
+
+    from stateright_tpu_torch import obs
+    from stateright_tpu_torch.models.paxos import PaxosSys
+    from stateright_tpu_torch.models.twopc import TwoPhaseSys
+    from stateright_tpu_torch.obs import prof
+    from stateright_tpu_torch.profiling import measure_wave_breakdown
+
+    if (prof.HBM_BYTES_PER_S, prof.OPS_PER_S) != (HBM_BYTES_PER_S,
+                                                  OPS_PER_S):
+        raise AssertionError("the profiler's peaks are not the script's")
+    if "obs" not in _WARMED:  # run alone, not started ahead
+        _clocked("phase 18's warm-up", _obs_warm, torch)
+    workdir = tempfile.mkdtemp(prefix="stpu-obs-")
+    out = {}
+    try:
+        for tag, spawn, mid_target in OBS_RUNS:
+            secs = {"disarmed": [], "armed": []}
+            for turn in range(OBS_TURNS[tag]):
+                trace = (os.path.join(workdir, f"{tag}-{turn}.jsonl")
+                         if turn % 2 else None)
+                c, sec = _obs_run(torch, kernels, fused, obs, tag, spawn,
+                                  trace)
+                secs["armed" if trace else "disarmed"].append(sec)
+                if trace:
+                    out[tag, turn] = _obs_trace(obs, c, trace, tag)
+                    if turn == OBS_TURNS[tag] - 1 and spawn.get("fused",
+                                                               True):
+                        out[tag, "hooks"] = _obs_hook_us(
+                            torch, obs, c, os.path.join(workdir,
+                                                        "hooks.jsonl"))
+                    stats = c.scheduler_stats()
+                    _log(f"{tag} armed: slo healthy "
+                         f"{stats['slo']['healthy']}, "
+                         f"{len(stats['anomalies'])} recent anomalies")
+                del c
+            med = {k: sorted(v)[(len(v) - 1) // 2] for k, v in secs.items()}
+            _log(f"{tag}: disarmed {secs['disarmed']} s, armed "
+                 f"{secs['armed']} s (alternate turns, disarmed first); "
+                 f"medians (the lower of two middles): disarmed "
+                 f"{med['disarmed']:.3f} s, armed {med['armed']:.3f} s "
+                 f"({med['armed'] / med['disarmed'] - 1:+.1%})")
+            out[tag] = secs
+            if spawn.get("fused", True):
+                pw = [_obs_points(torch, fused, tag, spawn, mid_target, t)
+                      for t in (None, os.path.join(workdir, "point.jsonl"))]
+                if pw[0] != pw[1]:
+                    raise AssertionError(f"{tag}: graph launches a wave "
+                                         f"{pw[0]} disarmed, {pw[1]} armed")
+                _log(f"{tag}: {pw[1]:.1f} kernel launches a launched wave "
+                     "armed and disarmed")
+            else:
+                _obs_points(torch, fused, tag, spawn, mid_target,
+                            os.path.join(workdir, "point.jsonl"))
+        for tag, build, waves in (("paxos 3", functools.partial(PaxosSys, 3),
+                                   6),
+                                  ("2pc 10", functools.partial(
+                                      TwoPhaseSys, 10), 6)):
+            t0 = time.monotonic()
+            bd = measure_wave_breakdown(build(), batch_size=4096,
+                                        table_capacity=1 << 22,
+                                        max_waves=waves, device="cuda:0")
+            sec = time.monotonic() - t0
+            st = bd["stages_sec"]
+            if st["dedup_insert"] <= 0 or st["wave_kernel"] <= 0:
+                raise AssertionError(f"{tag} breakdown: {st}")
+            roof = {k: v["share"] for k, v in bd["roofline"].items()
+                    if v["share"] is not None}
+            _log(f"{tag} wave breakdown at batch 4,096 ({sec:.1f} s): "
+                 f"{bd['waves']} waves, {bd['states']} states; seconds "
+                 f"{st}; shares {bd['stages_share']}; staged "
+                 f"{bd['staged_total_sec']} s against the production wave "
+                 f"{bd['fused_wave_sec']} s (ladder "
+                 f"{bd['fused_wave_ladder_sec']} s); roofline shares "
+                 f"{roof}; host stage {st['host']} s of "
+                 f"{bd['staged_total_sec']}")
+            out[tag, "breakdown"] = bd
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    return out
+
+
+def _obs_rows(torch, kernels, fused):
+    """Phase 18, which gives no rows of its own (it launches the kernels
+    of phases 2 to 6 and holds their launches)."""
+    _clocked("phase 18", phase_obs, torch, kernels, fused)
+    return []
+
+
 def _modules():
     """The port's modules, from the checkout beside this script."""
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
@@ -5459,10 +5756,9 @@ def _phase_full_runs(torch, kernels, fused, TwoPhaseSys, PaxosSys):
                                                 wave_kernel=True)),
             ("2pc 10, wave kernel, off", twopc, dict(
                 batch_size=BATCH, wave_kernel=True, **off)),
-            *((f"2pc 10, wave kernel, depth {d} ({turn})", twopc[:5] + (0,),
-               dict(batch_size=BATCH, wave_kernel=True,
-                    inflight_dispatches=d))
-              for turn in ("a", "b") for d in (1, 2)),
+            ("2pc 10, wave kernel, depth 2", twopc[:5] + (0,),
+             dict(batch_size=BATCH, wave_kernel=True,
+                  inflight_dispatches=2)),
             ("2pc 10, sharded, sender kernel", twopc, dict(
                 sharded, wave_kernel=True)),
             ("paxos 3", paxos, dict(batch_size=BATCH)),
@@ -5496,10 +5792,10 @@ def _phase_full_runs(torch, kernels, fused, TwoPhaseSys, PaxosSys):
                      f"{run['wave_ms']:.3f}, idle "
                      f"{1 - run['busy_ms'] / run['wave_ms']:.1%}")
         _log(line)
-    depth_sec = {d: [full[f"2pc 10, wave kernel, depth {d} ({turn})"]
-                     ["run"]["sec"] for turn in ("a", "b")] for d in (1, 2)}
     _log(f"2pc 10 on the wave kernel, graphs on, the in-flight depth alone: "
-         f"depth 1 {depth_sec[1]} s, depth 2 {depth_sec[2]} s (turns a, b)")
+         f"depth 1 {full['2pc 10, wave kernel']['run']['sec']} s (the "
+         f"defaults), depth 2 "
+         f"{full['2pc 10, wave kernel, depth 2']['run']['sec']} s")
     buckets = full["paxos 3, ladder"]["run"]["buckets"]
     if len(buckets) < 2:
         raise AssertionError(f"paxos 3 on a ladder used one bucket: "
@@ -5617,7 +5913,7 @@ def _register_rows(holds, runs):
 
 
 class _Children:
-    """Phases 9 to 17 (``later``, in order), each in a process of its own
+    """Phases 9 to 18 (``later``, in order), each in a process of its own
     (``--phases <phase>``) whose log it passes on and whose kernels line's
     rows it returns. After phases 2 to 8 in one process, about half of the
     profiles the register phase took there recorded no device time on the
@@ -5699,7 +5995,7 @@ _PHASE_REFS = {
 #: the phases ``--phases`` can name, in the order they run
 PHASES = ("kernels", "small", "full", "checkpoint", "classic", "registers",
           "corpus", "actors", "sharded_classic", "matmul", "sizes",
-          "fallback", "tiered")
+          "fallback", "tiered", "obs")
 
 
 def _parse(argv):
@@ -5742,7 +6038,7 @@ def _main(argv) -> int:
     card = _card_line()
     _log(f"card: {card}")
     # The CPU reference runs of the phases this process runs, made ahead
-    # in worker processes (``_CpuRefs``): phases 9 to 17 run in processes
+    # in worker processes (``_CpuRefs``): phases 9 to 18 run in processes
     # of their own unless one is asked for alone.
     here = phases if len(phases) == 1 else phases & set(PHASES[:5])
     _REFS.ahead(job for phase in PHASES if phase in here
@@ -5753,6 +6049,8 @@ def _main(argv) -> int:
         # not at all when its input ends first.
         torch.zeros(1, device="cuda")
         torch.cuda.synchronize()
+        for phase in phases & set(_WARM):
+            _WARM[phase](torch)
         if not sys.stdin.readline():
             return 1
         t_start = time.monotonic()
@@ -5781,7 +6079,7 @@ def _main(argv) -> int:
         old["ck"] = _clocked("phase 7", phase_checkpoint, torch, kernels,
                              fused, table_mod, engine, ckpt_mod, TwoPhaseSys,
                              PaxosSys)
-    # Phases 9 to 17 each in a process of its own, unless it is the only
+    # Phases 9 to 18 each in a process of its own, unless it is the only
     # one asked for; the first starts while phase 8 runs.
     alone = len(phases) == 1
     children = _Children(card, [] if alone else
@@ -5797,7 +6095,7 @@ def _main(argv) -> int:
 def _later_phases(torch, kernels, fused, engine, wave_mod, table_mod,
                   ckpt_mod, TwoPhaseSys, PaxosSys, phases, old, card,
                   children, t_start) -> int:
-    """Phases 8 to 18 of ``main``."""
+    """Phases 8 to 19 of ``main``."""
     alone = len(phases) == 1
     if "classic" in phases:
         children.ahead()
@@ -5825,7 +6123,8 @@ def _later_phases(torch, kernels, fused, engine, wave_mod, table_mod,
                                   fused, engine, wave_mod, table_mod)[0],
         "fallback": lambda: _clocked("phase 15", phase_fallback, torch)
         + _clocked("phase 16", phase_host, torch, card),
-        "tiered": lambda: _tiered_rows(torch, kernels)}
+        "tiered": lambda: _tiered_rows(torch, kernels),
+        "obs": lambda: _obs_rows(torch, kernels, fused)}
     for phase in PHASES[5:]:
         if phase not in phases:
             continue

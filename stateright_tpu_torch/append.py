@@ -30,7 +30,21 @@ import torch
 
 from ._build import build_and_load
 
-__all__ = ["append_rows", "append_rows_plain"]
+__all__ = ["append_rows", "append_rows_plain", "append_cost"]
+
+
+def append_cost(wp: int, new: int, parents=None, div: int = 1) -> dict:
+    """The work ``append_rows`` must do to append ``new`` rows of ``wp``
+    packed words from ``parents`` distinct parents (default: one a
+    ``div`` new rows, as a full wave of fan-out ``div`` has):
+    ``{"bytes", "ops"}``. Bytes, each once: a new row's compaction index
+    (8 B) and source row read (its words and fingerprint), its arena row
+    written (those, its parent's fingerprint and eventually bits), and a
+    parent's 12 B read once. No arithmetic beyond addressing."""
+    parents = -(-int(new) // max(1, int(div))) if parents is None \
+        else int(parents)
+    return {"bytes": new * (2 * (4 * wp + 8) + 8 + 12) + 12 * parents,
+            "ops": 0}
 
 
 def append_rows_plain(arena, src, comp: torch.Tensor,

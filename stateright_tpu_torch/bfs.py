@@ -16,9 +16,9 @@ with the reference's caveat kept for parity (a revisit counts as not
 terminal, and the bits follow the first path to a state only,
 ``bfs.rs:239-259``). Symmetry is ignored, as in the JAX package.
 
-Left out: the JAX engine's run tracer, fault plan and wave telemetry,
-which belong to the ports of ``obs`` (ROADMAP A8) and ``resilience``
-(A13).
+Its wave events (``STpu_TRACE``, one a worker block, engine id
+``host_bfs``) are ``host.HostChecker``'s. Left out: the JAX engine's
+fault plan, which belongs to the port of ``resilience`` (ROADMAP A13).
 """
 
 from __future__ import annotations
@@ -36,6 +36,8 @@ __all__ = ["BfsChecker"]
 class BfsChecker(HostChecker):
     """A host BFS in progress or done. Instantiate through
     ``model.checker().spawn_bfs()``."""
+
+    _ENGINE_ID = "host_bfs"
 
     def __init__(self, builder):
         super().__init__(builder)
@@ -56,12 +58,14 @@ class BfsChecker(HostChecker):
 
         actions: List = []
         generated_count = 0  # added to the shared count once a block
+        popped = novel_count = 0  # the block's wave event
         try:
             while max_count > 0:
                 max_count -= 1
                 if not pending:
                     return
                 state, state_fp, ebits = pending.pop()
+                popped += 1
                 if visitor is not None:
                     visitor.visit(model, self._reconstruct_path(state_fp))
                 # Done once every property has a discovery.
@@ -87,11 +91,14 @@ class BfsChecker(HostChecker):
                     if next_fp in generated:
                         continue
                     generated[next_fp] = state_fp
+                    novel_count += 1
                     pending.appendleft((next_state, next_fp, ebits))
                 if is_terminal:
                     self._terminal(ebits, state_fp)
         finally:
             self._state_count.add(generated_count)
+            if popped and (self._tracer.enabled or self._wave_obs.enabled):
+                self._emit_wave(popped, generated_count, novel_count)
 
     def _reconstruct_path(self, fp: int) -> Path:
         """Walks the parent links back to an init state, then replays the

@@ -68,8 +68,18 @@ counts, the parent log and the queue (``_resident``, the table's
 occupancy, still counts it: it is back in the table). Under a host
 budget, queue blocks page out to disk (``FrontierRef``) and back.
 
-The mux, profiling, fault injection, preemption and the tracer of the
-JAX engine are not ported (ROADMAP A8, A10, A13).
+**Telemetry** (``obs``; engine :473-524, :1410-1566): each processed
+wave's dispatch-log entry is the schema's wave event (``bytes_per_state``,
+``table_bytes``, ``io_stall_s``, ``arena_bytes`` null: the queue is on
+the host), logged, recorded in the flight ring and traced; an overflowed
+wave's regather emits ``overflow_redispatch`` first, a growth one
+``grow`` with the old and new capacity, and the profiler's record of a
+wave is kernel 2's declared cost, or kernel 1's after the torch stages.
+The bytes each wave's outputs took to the host are ``bytes_down``, one a
+wave.
+
+The mux, fault injection and preemption of the JAX engine are not ported
+(ROADMAP A10, A13).
 """
 
 from __future__ import annotations
@@ -95,8 +105,8 @@ from .checkpoint_format import make_header
 from .model import Expectation
 from .path import Path
 from .store.tiered import FrontierRef
-from .table import dedup_and_insert
-from .wave import wave_megakernel
+from .table import dedup_and_insert, dedup_cost
+from .wave import wave_cost, wave_megakernel
 
 __all__ = ["CudaBfsChecker", "classic_wave", "classic_regather"]
 
@@ -200,6 +210,7 @@ class CudaBfsChecker(BfsEngine):
     """The classic per-wave BFS: a host queue and parent log, one wave a
     launch."""
 
+    _ENGINE_ID = "classic"
     #: the shards a wave pops a batch from (the sharded subclass's mesh)
     _n = 1
     _VISITED_SPILL_CAPABLE = True
@@ -243,11 +254,12 @@ class CudaBfsChecker(BfsEngine):
         self.checkpoints = 0
         #: (monotonic time, state count): one at the run's start, one a wave
         self.wave_log: list = []
-        #: one dict a processed wave, under JAX's keys (``bucket``,
-        #: ``inflight``, ``out_rows``, ``rows``, ``novel``, ``overflow``,
-        #: ...), with the bytes its outputs took to the host
-        #: (``bytes_down``)
+        #: one dict a processed wave: its wave event, under the schema's
+        #: keys (``bucket``, ``inflight``, ``out_rows``, ``rows``,
+        #: ``novel``, ``overflow``, ...)
         self.dispatch_log: List[dict] = []
+        #: the bytes each processed wave's outputs took to the host
+        self.bytes_down: List[int] = []
         #: host seconds in the launches, in processing the outputs, and
         #: waiting for them
         self.host_sec = {"launch": 0.0, "process": 0.0, "wait": 0.0}
@@ -396,9 +408,13 @@ class CudaBfsChecker(BfsEngine):
                 "expand_impl": self._expand_impl(), "compiled": False}
         wave = dict(meta=meta, vecs=up, fps=batch_fps, ebits=batch_ebits,
                     valid=valid, n=n, slot=slot)
+        prof = (self._prof_start(key, lambda: self._wave_costs(B))
+                if self._prof.enabled else None)
         if not on_card:
             outs = self._wave(B, K, torch.from_numpy(up.view(np.int32)),
                               torch.from_numpy(valid))
+            if prof is not None:
+                meta.update(self._prof_stop(prof))
             wave["outs"] = [None if t is None else t.numpy()
                             for t in outs[:6]]
             wave["mask"] = outs[6]
@@ -409,9 +425,20 @@ class CudaBfsChecker(BfsEngine):
                 self._in_valid[:B].copy_(slot.valid[:B], non_blocking=True)
                 args = (B, K, self._in_vecs[:B], self._in_valid[:B])
                 outs = self._graphed(key, lambda: self._wave(*args), meta)
+                if prof is not None:
+                    meta.update(self._prof_stop(prof))
                 self._copy_down(slot, outs, K < B * self._F)
         self.host_sec["launch"] += time.perf_counter() - t0
         return wave
+
+    def _wave_costs(self, B: int) -> list:
+        """The declared cost of the kernel a wave of ``B`` rows launches,
+        at the shape's full work: kernel 2, or kernel 1 after the torch
+        stages."""
+        if self._wave_kernel:
+            return [wave_cost(self._dm, B, self._layout.packed_width,
+                              self._use_symmetry, self._matmul_plan)]
+        return [dedup_cost(B * self._F)]
 
     def _graphed(self, key, fn, meta=None):
         """``fn()``'s outputs, through the graph at ``key`` when graphs are
@@ -488,6 +515,9 @@ class CudaBfsChecker(BfsEngine):
                 self._layout, self._matmul_plan)
             new_vecs, new_fps, new_parent = (t.cpu().numpy() for t in outs)
         wave["meta"].update(out_rows=k2, overflow=True)
+        if self._tracer.enabled:
+            self._tracer.event("overflow_redispatch", bucket=B, out_rows=k2,
+                               novel=k)
         return k2, new_vecs, new_fps, new_parent
 
     def _eval_host_conds(self, conds_out, batch_vecs, rows):
@@ -533,14 +563,12 @@ class CudaBfsChecker(BfsEngine):
                                     self._reconstruct_path(int(batch_fps[r])))
         k = int(small[_NEW])
         K = meta["out_rows"]
-        meta["bytes_down"] = (
-            K * (new_vecs.itemsize * new_vecs.shape[1] + 12)
-            + len(terminal) * (1 + self._n_dev) + small.nbytes)
+        down = (K * (new_vecs.itemsize * new_vecs.shape[1] + 12)
+                + len(terminal) * (1 + self._n_dev) + small.nbytes)
         meta["overflow"] = False
         if small[_OVERFLOW]:
             k2, new_vecs, new_fps, new_parent = self._regather(wave, k)
-            meta["bytes_down"] += k2 * (new_vecs.itemsize
-                                        * new_vecs.shape[1] + 12)
+            down += k2 * (new_vecs.itemsize * new_vecs.shape[1] + 12)
         # Copies: the slot's rows are overwritten two waves on.
         new_vecs = new_vecs[:k].view(np.uint32).copy()
         new_fps = new_fps[:k].view(np.uint64).copy()
@@ -572,9 +600,13 @@ class CudaBfsChecker(BfsEngine):
                 unique=self._unique_count + k, waves=1,
                 successors=int(small[_SUCC]), candidates=int(small[_CAND]),
                 novel=k, capacity=self._capacity,
-                load_factor=round(self._resident / self._capacity, 4))
+                load_factor=round(self._resident / self._capacity, 4),
+                **self._wave_gauges())
             self._tier_gauges(entry)
+            if self._prof.enabled:
+                self._stamp_cost(entry)
             self.dispatch_log.append(entry)
+            self.bytes_down.append(down)
             ebits_after = self._cleared_ebits(conds, batch_ebits)
             self._record_discoveries(conds, valid, terminal, ebits_after,
                                      batch_fps)
@@ -587,7 +619,17 @@ class CudaBfsChecker(BfsEngine):
         if self._store.active and k:
             # The host tier's budget: the queue's last blocks page out.
             self._store.balance_frontier((self._pending,))
+        self._publish(entry)
         self.host_sec["process"] += time.perf_counter() - t0
+
+    def _wave_gauges(self) -> dict:
+        """A wave event's byte gauges and its I/O stall (engine
+        :1493-1507): a row's stored bytes, the table's, and no arena (the
+        queue is on the host)."""
+        return dict(bytes_per_state=4 * self._layout.packed_width,
+                    arena_bytes=None,
+                    table_bytes=self._table_bytes(self._capacity),
+                    io_stall_s=self._take_io_stall())
 
     def _tier_gauges(self, entry: dict) -> None:
         """Adds the store's tier gauges to a wave's log entry (engine
@@ -737,6 +779,9 @@ class CudaBfsChecker(BfsEngine):
             return
         self._drop_graphs()
         cap = self._grow_target()
+        if self._tracer.enabled:
+            self._tracer.event("grow", kind="table", old=self._capacity,
+                               new=cap)
         with (torch.cuda.device(self._device)
               if self._device.type == "cuda" else contextlib.nullcontext()):
             table = self._rehash(cap)
@@ -1051,7 +1096,8 @@ class CudaBfsChecker(BfsEngine):
                                    if succ else 0.0)},
             "graphs": None if g is None else {
                 "captures": g.captures, "replays": g.replays,
-                "capture_sec": g.capture_sec}}
+                "capture_sec": g.capture_sec},
+            **self._obs_stats()}
 
 
 #: the most table slots ``_spill_for_headroom`` reads at a time

@@ -17,8 +17,8 @@ state's fingerprint. Jumping to the canonical member could leave the
 collected path with no valid extension (the regression at
 ``dfs.rs:399-425``).
 
-Left out: the JAX engine's run tracer and wave telemetry, which belong
-to the port of ``obs`` (ROADMAP A8).
+Its wave events (``STpu_TRACE``, one a worker block, engine id
+``host_dfs``) are ``host.HostChecker``'s.
 """
 
 from __future__ import annotations
@@ -35,6 +35,8 @@ __all__ = ["DfsChecker"]
 class DfsChecker(HostChecker):
     """A host DFS in progress or done. Instantiate through
     ``model.checker().spawn_dfs()``."""
+
+    _ENGINE_ID = "host_dfs"
 
     def __init__(self, builder):
         super().__init__(builder)
@@ -58,12 +60,14 @@ class DfsChecker(HostChecker):
 
         actions: List = []
         generated_count = 0  # added to the shared count once a block
+        popped = novel_count = 0  # the block's wave event
         try:
             while max_count > 0:
                 max_count -= 1
                 if not pending:
                     return
                 state, fingerprints, ebits = pending.pop()
+                popped += 1
                 if visitor is not None:
                     visitor.visit(
                         model, Path.from_fingerprints(model, fingerprints))
@@ -92,6 +96,7 @@ class DfsChecker(HostChecker):
                     if seen_fp in generated:
                         continue
                     generated.add(seen_fp)
+                    novel_count += 1
                     next_fp = (seen_fp if symmetry is None
                                else fingerprint(next_state))
                     pending.append(
@@ -100,6 +105,8 @@ class DfsChecker(HostChecker):
                     self._terminal(ebits, fingerprints)
         finally:
             self._state_count.add(generated_count)
+            if popped and (self._tracer.enabled or self._wave_obs.enabled):
+                self._emit_wave(popped, generated_count, novel_count)
 
     def discoveries(self) -> Dict[str, Path]:
         return {name: Path.from_fingerprints(self._model, fps)

@@ -24,8 +24,8 @@ and the builder spawns the classic engine.
   layout, in place into the static ``_stats`` tensor the next one reads.
   On the card a dispatch is one CUDA graph (``graphs.py``): JAX's one
   program a dispatch.
-- **The host loop** (``_run_waves``, the reference's :460-816 without
-  the tracer) launches up to
+- **The host loop** (``_run_waves``, the reference's :460-816) launches
+  up to
   ``inflight_dispatches`` dispatches ahead of its stats reads: after each
   launch it copies the stats to a pinned host slot of its own and waits
   for that copy alone when it retires the dispatch. The width of each
@@ -76,20 +76,34 @@ and keeps its step.
 The table's rehash at rest points goes through ``table.dedup_and_insert``
 either way, in chunks of at most a wave's rows with the engine's scratch.
 ``kernel_path()`` says which implementation ran.
+
+**Telemetry** (``obs``; ``BfsEngine._arm_obs``, shared by the four
+device engines): each retired dispatch's dispatch-log entry is the
+schema's wave event (fused :585-637), recorded in the flight ring,
+traced (``STpu_TRACE``) and fed to the histograms, SLOs and slow-wave
+detector; growth emits ``grow`` at each doubling, checkpoints
+``ckpt_begin`` / ``ckpt_done``, and a run that raises dumps the ring
+(``flight_dump``). With ``STpu_PROF`` the dispatch graph's record is the
+sum of its kernels' declared costs (``_dispatch_costs``), a sampled
+dispatch timed by CUDA events around its launch or replay and read at
+its stats read. Nothing is added inside a dispatch, and with no variable
+set each switch is one attribute check.
 """
 
 from __future__ import annotations
 
 import contextlib
+import hashlib
 import os
 import threading
+import time
 from collections import deque
 from typing import Dict, List
 
 import numpy as np
 import torch
 
-from .append import append_rows
+from .append import append_cost, append_rows
 from .checker import Checker
 from .checkpoint_format import (load_checkpoint, make_header, pending_rows,
                                 validate_header, write_atomic)
@@ -100,12 +114,16 @@ from .hashing import SENTINEL, SENTINEL_U64, host_fp64, to_i64, to_u64
 from .io.async_io import writer_from_config
 from .matmul_wave import expand, gate, wave_matmul_on
 from .model import Expectation, property_predicates
+from .obs import (prof_from_env, recorder_from_env, tracer_from_env,
+                  wave_obs_from_env)
+from .obs.prof import elapsed_s, has_record, mark, sum_costs
 from .packing import compile_layout
 from .path import Path
 from .store.tiered import load_cold_refs, store_from_config
-from .table import DedupScratch, dedup_and_insert
+from .table import DedupScratch, dedup_and_insert, dedup_cost
 from .visitor import as_visitor
-from .wave import cuda_model, cuda_plan, sender_megakernel, wave_megakernel
+from .wave import (cuda_model, cuda_plan, sender_megakernel, wave_cost,
+                   wave_megakernel)
 
 __all__ = ["BfsEngine", "FusedCudaBfsChecker", "FusedUnsupported", "KERNELS",
            "ST_HEAD", "ST_TAIL", "ST_OCC", "ST_SUCC", "ST_CAND", "ST_TARGET",
@@ -260,7 +278,7 @@ class BfsEngine(Checker):
             segment_dir=tier.get("tier_dir"),
             n_partitions=tier.get("tier_partitions"),
             meta={"model_name": checkpoint_name(model), "state_width": W,
-                  "use_symmetry": self._use_symmetry})
+                  "use_symmetry": self._use_symmetry}, owner=self)
         self._store.attach_async(self._aio)
 
         # The kernels' scratch for a wave's rows, handed to every call
@@ -283,8 +301,42 @@ class BfsEngine(Checker):
         """Raises for a configuration this engine cannot run (the
         reference's hook of the same name)."""
 
+    def _arm_obs(self) -> None:
+        """The run telemetry (``obs``; the reference's ``tpu/engine.py``
+        :473-524): the tracer (``STpu_TRACE``) with the run's settings in
+        its ``run_start`` and, under a matmul plan, the ``matmul_ops``
+        gauge; the flight ring (on unless ``STpu_FLIGHT=0``), whose dump
+        a failed run's ``flight_dump`` names; the histograms, SLOs and
+        slow-wave detector (``STpu_HIST`` / ``STpu_SLO`` /
+        ``STpu_ANOMALY``); the wave profiler (``STpu_PROF``). Each is a
+        shared null object when its variable is unset, and a dispatch
+        then pays one attribute check for it."""
+        self._tracer = tracer_from_env(self._ENGINE_ID, meta={
+            "model": type(self._model).__name__, "batch_size": self._B,
+            "bucket_ladder": list(self._buckets),
+            "table_capacity": self._capacity,
+            "table_impl": "cuda" if self._device.type == "cuda" else "plain",
+            "max_fanout": self._F, "state_width": self._dm.state_width})
+        if self._tracer.enabled and self._matmul_plan is not None:
+            self._tracer.event("gauge", name="matmul_ops",
+                               value=float(self._matmul_plan.matmul_ops))
+        self._flight = recorder_from_env(f"{self._ENGINE_ID}-{os.getpid()}")
+        #: the newest postmortem's path (a failed run sets it)
+        self.flight_dump = None
+        self._wave_obs = wave_obs_from_env(self._ENGINE_ID)
+        if self._wave_obs.enabled and self._flight.armed:
+            self._flight.set_hist_source(self._wave_obs.final_snapshot_event)
+        self._prof = prof_from_env(self._ENGINE_ID)
+        #: host seconds the loop waited on checkpoint writes since the
+        #: last wave event (the v10 ``io_stall_s``)
+        self._io_stall_s = 0.0
+        self._ckpt_gen = 0
+
     def _spawn_worker(self) -> None:
-        """Starts the worker thread that runs ``_run``."""
+        """Starts the worker thread that runs ``_run`` (the telemetry armed
+        first, once)."""
+        if getattr(self, "_tracer", None) is None:
+            self._arm_obs()
         self._done = threading.Event()
         self._error = None
         self._thread = threading.Thread(target=self._run, daemon=True)
@@ -367,7 +419,15 @@ class BfsEngine(Checker):
             self._aio.join()
         except BaseException as e:  # surfaced at join()
             self._error = e
+            if self._flight.armed:
+                # The postmortem of a run that raised (engine :1186-1193).
+                self.flight_dump = self._flight.dump(
+                    f"{type(e).__name__}: {e}")
         finally:
+            if self._wave_obs.enabled:
+                # A short run may never reach the snapshot cadence.
+                self._wave_obs.close(self._tracer)
+            self._tracer.close()
             self._done.set()
 
     def _chunks(self, n: int) -> int:
@@ -424,11 +484,103 @@ class BfsEngine(Checker):
     def _write_checkpoint(self, path: str) -> None:
         """Writes one generation at a rest point (engine :629-662): joins
         the last write first (its failure raises here), takes the
-        snapshot on this thread, and hands the write to the writer."""
+        snapshot on this thread, and hands the write to the writer; with
+        the ``ckpt_begin`` and ``ckpt_done`` events, the latter from the
+        thread that wrote. The time the loop spent here is its
+        ``io_stall_s``."""
+        t0 = time.monotonic()
         self._aio.join()
         payload = self._snapshot()
-        self._aio.submit(lambda: write_atomic(path, payload))
+        self._ckpt_gen += 1
+        gen, tracer = self._ckpt_gen, self._tracer
+        if tracer.enabled:
+            tracer.event("ckpt_begin", gen=gen, path=path,
+                         **{"async": bool(self._aio.enabled)})
+
+        def land() -> None:
+            w0 = time.monotonic()
+            write_atomic(path, payload)
+            if tracer.enabled:
+                tracer.event("ckpt_done", gen=gen, path=path,
+                             write_s=round(time.monotonic() - w0, 6))
+
+        self._aio.submit(land)
         self.checkpoints += 1
+        self._io_stall_s += time.monotonic() - t0
+
+    def _take_io_stall(self) -> float:
+        """The loop's I/O stall since the last wave event, drained."""
+        s, self._io_stall_s = self._io_stall_s, 0.0
+        return round(s, 6)
+
+    # -- Wave events ---------------------------------------------------------
+
+    def _prof_key(self, key: tuple) -> str:
+        """The profiler's program identity (the reference's): the engine
+        id, a digest of what fixes the program beyond its shapes, and the
+        graph key."""
+        prefix = (type(self._dm).__name__, self._dm.state_width,
+                  self._dm.max_fanout, self._layout.packed_width,
+                  self._wave_kernel, self._use_symmetry,
+                  self._matmul_plan is not None, self._device.type)
+        digest = hashlib.blake2s(repr(prefix).encode(),
+                                 digest_size=4).hexdigest()
+        return f"{self._ENGINE_ID}|{digest}|{key!r}"
+
+    def _prof_start(self, key: tuple, costs):
+        """Before a launch, armed profiler only: the dispatch's program key
+        (from the graph key ``key``), whether it is new, the card's peak
+        memory before it, and the start mark when the dispatch is sampled,
+        with ``costs`` (a callable giving its kernels' declared costs),
+        for ``_prof_stop``."""
+        pkey = self._prof_key(key)
+        new = not has_record(pkey)
+        base = (torch.cuda.max_memory_allocated(self._device)
+                if new and self._device.type == "cuda" else None)
+        start = (mark(self._device) if self._prof.should_sample(pkey)
+                 else None)
+        return pkey, start, new, base, costs
+
+    def _prof_stop(self, token) -> dict:
+        """Right after the launch: captures a new key's record (its peak
+        the growth of the card's peak memory over the launch) and marks
+        the end of a sampled dispatch. Returns the wave entry's riders."""
+        pkey, start, new, base, costs = token
+        if new:
+            peak = (torch.cuda.max_memory_allocated(self._device) - base
+                    if base is not None else None)
+            self._prof.capture(pkey, sum_costs(costs()), peak)
+        riders = {"_prof_key": pkey}
+        if start is not None:
+            riders["_prof_t"] = (start, mark(self._device))
+        return riders
+
+    def _stamp_cost(self, entry: dict) -> None:
+        """Armed profiler only: pops a wave entry's riders, stamps its cost
+        fields and emits the sampled dispatch's ``profile_snapshot``. The
+        stats read before this waited for the dispatch, so its end mark
+        is complete."""
+        t = entry.pop("_prof_t", None)
+        self._prof.wave(entry, entry.pop("_prof_key", None),
+                        None if t is None else elapsed_s(*t),
+                        self._tracer, self._flight)
+
+    def _publish(self, entry: dict) -> None:
+        """A logged wave entry to the flight ring, the tracer and the
+        wave-obs facade (engine :1515-1566), each behind its switch."""
+        if self._flight.armed:
+            self._flight.record(entry)
+        if self._tracer.enabled:
+            self._tracer.wave(entry)
+        if self._wave_obs.enabled:
+            self._wave_obs.wave(entry, self._tracer, self._flight)
+
+    def _obs_stats(self) -> dict:
+        """``scheduler_stats()``'s ``slo``, ``anomalies`` and ``prof``
+        (engine :1164-1169)."""
+        return {"slo": self._wave_obs.slo_status(),
+                "anomalies": self._wave_obs.anomalies(),
+                "prof": self._prof.stats() if self._prof.enabled else None}
 
     def checkpoint(self, path: str) -> None:
         """Writes a resumable snapshot to ``path``, once the run has
@@ -462,6 +614,7 @@ class BfsEngine(Checker):
                 "(or wait for the failure) first")
         self._thread.join()
         self._aio.reset()
+        self._io_stall_s = 0.0
         self._error = None
         self._discoveries = {}
         self.dispatch_log = []
@@ -471,6 +624,8 @@ class BfsEngine(Checker):
             # from the failed run (engine :725-731).
             self._store.reset()
         self._start(path)
+        self._tracer = tracer_from_env(self._ENGINE_ID, meta={
+            "model": type(self._model).__name__, "restarted_from": path})
         self._spawn_worker()
         return self
 
@@ -606,6 +761,8 @@ class BfsEngine(Checker):
 
 class FusedCudaBfsChecker(BfsEngine):
     """Device-arena BFS with multi-wave dispatches."""
+
+    _ENGINE_ID = "fused"
 
     def __init__(self, builder, device: torch.device, batch_size: int = 1024,
                  table_capacity: int = 1 << 16, arena_capacity=None,
@@ -869,13 +1026,20 @@ class FusedCudaBfsChecker(BfsEngine):
         slot: ``(host slot, copy's event or None, meta)`` for
         ``_retire``."""
         on_card = self._device.type == "cuda"
+        prof = None
         with torch.cuda.device(self._device) if on_card else contextlib.nullcontext():
+            if self._prof.enabled:
+                prof = self._prof_start(
+                    ("dispatch", bucket, self._capacity, self._ucap, self._K),
+                    lambda: self._dispatch_costs(bucket))
             if self._graphs is None:
                 self._dispatch(bucket)
                 captured = False
             else:
                 captured = self._graphs.run(
                     bucket, lambda: self._dispatch(bucket))
+            if prof is not None:
+                prof = self._prof_stop(prof)
             host = self._host_stats[self._launched % self._depth]
             self._launched += 1
             host.copy_(self._stats, non_blocking=on_card)
@@ -883,18 +1047,36 @@ class FusedCudaBfsChecker(BfsEngine):
             if on_card:
                 copied = torch.cuda.Event()
                 copied.record()
-        return host, copied, {"bucket": bucket, "inflight": inflight,
-                              "compiled": captured,
-                              "expand_impl": self._expand_impl()}
+        meta = {"bucket": bucket, "inflight": inflight, "compiled": captured,
+                "kernel_path": self.kernel_path(),
+                "expand_impl": self._expand_impl()}
+        if prof is not None:
+            meta.update(prof)
+        return host, copied, meta
+
+    def _dispatch_costs(self, bucket: int) -> list:
+        """The declared costs of the kernels one dispatch of ``bucket``
+        rows launches, at the shape's full work: K waves of the wave kernel
+        (or the dedup kernel after the torch stages) and the append."""
+        S, wp = bucket * self._F, self._layout.packed_width
+        if self._wave_kernel:
+            front = wave_cost(self._dm, bucket, wp, self._use_symmetry,
+                              self._matmul_plan)
+        else:
+            front = dedup_cost(S)
+        return [front, append_cost(wp, S, div=self._F)] * self._K
 
     def _retire(self, entry) -> None:
-        """Waits for one launched dispatch's stats and applies them."""
+        """Waits for one launched dispatch's stats, applies them and logs
+        the dispatch's wave event (fused :546-637)."""
         host, copied, meta = entry
         if copied is not None:
             copied.synchronize()
         st = host.numpy()
+        prev = self._wave_prev()
         self._process(st)
-        meta = dict(meta, waves=int(st[..., ST_WAVES].reshape(-1)[0]))
+        with self._lock:
+            meta = self._wave_entry(st, meta, prev)
         if self._store.active:
             # The tier gauges (fused :607-615): the device tier is the
             # live arenas and the table.
@@ -904,8 +1086,37 @@ class FusedCudaBfsChecker(BfsEngine):
                         tier_device_bytes=n * (
                             self._ucap * self._arena_row_bytes()
                             + self._capacity * 8))
+        if self._prof.enabled:
+            self._stamp_cost(meta)
         with self._lock:
             self.dispatch_log.append(meta)
+        self._publish(meta)
+
+    def _wave_prev(self) -> tuple:
+        """What a wave event's deltas are taken against: the queue's head
+        and the totals as last retired."""
+        return (self._head, self._state_count, self.candidates,
+                self._unique_count)
+
+    def _wave_entry(self, st: np.ndarray, meta: dict, prev: tuple) -> dict:
+        """A retired dispatch's wave event under the schema's keys (fused
+        :585-606), from its stats ``st`` and ``prev`` (``_wave_prev``
+        before they were applied). The caller holds the lock."""
+        head_prev, states_prev, cand_prev, unique_prev = prev
+        wp = self._layout.packed_width
+        return dict(
+            meta, t=time.monotonic(), states=self._state_count,
+            unique=self._unique_count, waves=int(st[ST_WAVES]),
+            successors=self._state_count - states_prev,
+            candidates=self.candidates - cand_prev,
+            novel=self._unique_count - unique_prev,
+            rows=self._head - head_prev, out_rows=None,
+            capacity=self._capacity,
+            load_factor=round(self._occ / self._capacity, 4),
+            overflow=False, bytes_per_state=4 * wp,
+            arena_bytes=self._ucap * self._arena_row_bytes(),
+            table_bytes=self._capacity * 8,
+            io_stall_s=self._take_io_stall())
 
     def _pick_bucket(self) -> int:
         """The next dispatch's width: the least rung that covers the
@@ -970,6 +1181,9 @@ class FusedCudaBfsChecker(BfsEngine):
         which growth drops."""
         S = bucket * self._F
         while self._occ + S > self._capacity // 2:
+            if self._tracer.enabled:
+                self._tracer.event("grow", kind="table", old=self._capacity,
+                                   new=2 * self._capacity)
             self._drop_graphs()
             table = torch.full((2 * self._capacity,), SENTINEL,
                                dtype=torch.int64, device=self._table.device)
@@ -983,6 +1197,9 @@ class FusedCudaBfsChecker(BfsEngine):
                 continue
             self._drop_graphs()
             ucap = 2 * self._ucap
+            if self._tracer.enabled:
+                self._tracer.event("grow", kind="arena", old=self._ucap,
+                                   new=ucap)
 
             def grown(a, fill):
                 out = torch.full((ucap + 1,) + a.shape[1:], fill,
@@ -1212,7 +1429,8 @@ class FusedCudaBfsChecker(BfsEngine):
             "store": self.store_stats(),
             "graphs": None if g is None else {
                 "captures": g.captures, "replays": g.replays,
-                "capture_sec": g.capture_sec}}
+                "capture_sec": g.capture_sec},
+            **self._obs_stats()}
 
 
 def _shift_down(a: torch.Tensor, shift: int, end: int) -> None:

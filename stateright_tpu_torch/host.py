@@ -3,20 +3,38 @@
 The host BFS (``bfs.py``) and DFS (``dfs.py``) both run the model's host
 transitions and conditions with ``threads(n)`` workers on the
 ``_market.py`` pool. This layer holds what they have in common: starting
-the workers, the evaluation of the properties at a state taken, and the
-``Checker`` API but the discoveries.
+the workers, the evaluation of the properties at a state taken, the
+``Checker`` API but the discoveries, and the run telemetry (``obs``; the
+reference's ``checker/base.py::_emit_wave``): with ``STpu_TRACE`` or any
+of ``STpu_HIST`` / ``STpu_SLO`` / ``STpu_ANOMALY`` set, one wave event a
+worker block, whose ``capacity`` / ``load_factor`` / ``table_bytes`` are
+the visited store's (a CPython dict or set: its slot capacity under the
+growth policy, and its measured bytes).
 """
 
 from __future__ import annotations
 
+import sys
 import threading
+import time
 
 from ._market import JobMarket, SharedCount, run_worker_loop
 from .checker import Checker
 from .model import Expectation, Model, require_host_form
+from .obs import tracer_from_env, wave_obs_from_env
 from .visitor import as_visitor
 
-__all__ = ["HostChecker"]
+__all__ = ["HostChecker", "host_store_capacity"]
+
+
+def host_store_capacity(rows: int) -> int:
+    """The host visited store's slot capacity at ``rows`` entries, from
+    CPython's dict growth policy (power-of-two slots, growth at 2/3
+    load, 8 at least): the host engines' ``capacity`` wave gauge."""
+    cap = 8
+    while 3 * max(0, int(rows)) >= 2 * cap:
+        cap *= 2
+    return cap
 
 
 class HostChecker(Checker):
@@ -42,6 +60,41 @@ class HostChecker(Checker):
             i for i, p in enumerate(self._properties)
             if p.expectation is Expectation.EVENTUALLY)
         self._discoveries: dict = {}
+        self._tracer = tracer_from_env(self._ENGINE_ID, meta={
+            "model": type(model).__name__, "threads": self._thread_count})
+        self._wave_obs = wave_obs_from_env(self._ENGINE_ID)
+        #: serialises a wave event's counter reads and its write
+        self._emit_lock = threading.Lock()
+
+    def _emit_wave(self, bucket: int, successors: int, novel: int) -> None:
+        """One wave event for a worker block of ``bucket`` states taken,
+        ``successors`` generated and ``novel`` new (the reference's
+        ``Checker._emit_wave``). Called only with the tracer or the
+        wave-obs facade on. The counters are read and the event written
+        under one lock, so that with several workers the cumulative
+        counts a stream holds never go backwards."""
+        with self._emit_lock:
+            unique = self.unique_state_count()
+            capacity = host_store_capacity(unique)
+            table_bytes = sys.getsizeof(self._generated)
+            entry = {
+                "t": time.monotonic(), "states": self.state_count(),
+                "unique": unique, "bucket": bucket,
+                "waves": 1, "inflight": 0, "compiled": False,
+                "successors": successors, "candidates": successors,
+                "novel": novel, "out_rows": novel,
+                "capacity": capacity,
+                "load_factor": round(unique / capacity, 4),
+                "overflow": False,
+                "bytes_per_state": None, "arena_bytes": None,
+                "table_bytes": table_bytes,
+                # The host store is the host tier.
+                "tier_host_rows": unique,
+                "tier_host_bytes": table_bytes}
+            if self._tracer.enabled:
+                self._tracer.wave(entry)
+            if self._wave_obs.enabled:
+                self._wave_obs.wave(entry, self._tracer)
 
     def _start(self, builder, pending, empty_job, split_off) -> None:
         """Starts the workers on the job ``pending``."""
@@ -106,6 +159,9 @@ class HostChecker(Checker):
         for h in self._handles:
             h.join()
         self._handles = []
+        if self._wave_obs.enabled:
+            self._wave_obs.close(self._tracer)
+        self._tracer.close()
         if self._market.errors:
             raise self._market.errors[0]
         return self

@@ -20,6 +20,10 @@ the rename to the writer.
 ``SyncWriter`` has the same surface and runs each task inline: the
 default, unless ``async_io=True`` or the ``STpu_ASYNC_IO`` environment
 variable (the reference's, read the same way) turns the writer on.
+
+The time an engine's loop spends in a checkpoint's join, snapshot and
+submit (the whole write, inline) is the next wave event's ``io_stall_s`` (schema v10; ``fused.BfsEngine.
+_write_checkpoint``, ``_take_io_stall``), as in the reference's engines.
 """
 
 from __future__ import annotations

@@ -75,9 +75,15 @@ engine.
   device's new counts still feeding the shards' occupancy; the host
   budget pages blocks out of every shard's queue.
 
-Fault injection (``_inject_exchange_faults`` :456, ROADMAP A13), the
-tracer and the profiler (A8) are not ported, as they are not on the
-classic engine.
+- **Telemetry** (``obs``): the classic engine's, each wave's event with
+  JAX's fields (:700-750: the rows of every shard, the fullest slice's
+  load factor, every slice's bytes, the ownership ``epoch``), an
+  ``overflow_redispatch`` before a regathered wave's; the profiler's
+  record of a wave is the sender kernel's declared cost (with the wave
+  kernel on) and the ``n`` owner-side inserts'.
+
+Fault injection (``_inject_exchange_faults`` :456, ROADMAP A13) is not
+ported.
 """
 
 from __future__ import annotations
@@ -97,8 +103,8 @@ from .matmul_wave import expand
 from .membership import EpochOwnership, OwnerMap
 from .mesh import route_home
 from .model import Expectation
-from .table import dedup_and_insert
-from .wave import sender_megakernel
+from .table import dedup_and_insert, dedup_cost
+from .wave import sender_cost, sender_megakernel
 
 __all__ = ["ShardedCudaBfsChecker", "ExchangeIntegrityError",
            "sharded_front", "sharded_wave", "sharded_regather"]
@@ -234,6 +240,8 @@ def sharded_regather(dm, mesh, store: torch.Tensor, valid: torch.Tensor,
 class ShardedCudaBfsChecker(EpochOwnership, CudaBfsChecker):
     """The classic engine over a mesh of stacked shards. ``batch_size`` is
     per shard."""
+
+    _ENGINE_ID = "sharded"
 
     def __init__(self, builder, mesh, batch_size: int = 512,
                  exchange_novel_only=None, pipeline=None, **kwargs):
@@ -390,9 +398,14 @@ class ShardedCudaBfsChecker(EpochOwnership, CudaBfsChecker):
                 "epoch": epoch}
         wave = dict(meta=meta, vecs=up, fps=batch_fps, ebits=batch_ebits,
                     valid=valid, slot=slot)
+        prof = (self._prof_start((B, self._capacity, K, epoch),
+                                 lambda: self._wave_costs(B))
+                if self._prof.enabled else None)
         if not on_card:
             outs = self._wave(B, K, torch.from_numpy(up.view(np.int32)).view(
                 n, B, wp), torch.from_numpy(valid).view(n, B))
+            if prof is not None:
+                meta.update(self._prof_stop(prof))
             wave["outs"] = [None if t is None else t.numpy()
                             for t in outs[:6]]
             wave["mask"] = outs[6]
@@ -405,10 +418,24 @@ class ShardedCudaBfsChecker(EpochOwnership, CudaBfsChecker):
                         self._in_valid[:nB].view(n, B))
                 outs = self._graphed((B, self._capacity, K, epoch),
                                      lambda: self._wave(*args), meta)
+                if prof is not None:
+                    meta.update(self._prof_stop(prof))
                 self._copy_down(slot, outs,
                                 regather=K < self._succ_full_rows(B))
         self.host_sec["launch"] += time.perf_counter() - t0
         return wave
+
+    def _wave_costs(self, B: int) -> list:
+        """The declared costs of a wave's kernels at the shape's full
+        work: the sender kernel (wave kernel on) and the ``n`` owner-side
+        inserts of ``R = n * B * F`` rows."""
+        n = self._n
+        costs = [dedup_cost(self._succ_full_rows(B))] * n
+        if self._wave_kernel:
+            costs.append(sender_cost(self._dm, n, B,
+                                     self._layout.packed_width,
+                                     self._use_symmetry, self._matmul_plan))
+        return costs
 
     def _regather(self, wave: dict, worst: int):
         """An overflowed wave's new rows, regathered at the least rung
@@ -445,6 +472,9 @@ class ShardedCudaBfsChecker(EpochOwnership, CudaBfsChecker):
                 slot.new_vecs.numpy()[:nK], slot.new_fps.numpy()[:nK],
                 slot.new_parent.numpy()[:nK])
         wave["meta"].update(out_rows=K)
+        if self._tracer.enabled:
+            self._tracer.event("overflow_redispatch", bucket=B, out_rows=K,
+                               novel=worst)
         return K, new_vecs, new_fps, new_parent
 
     def _shard_blocks(self, K: int, new_count, new_vecs, new_fps,
@@ -495,13 +525,13 @@ class ShardedCudaBfsChecker(EpochOwnership, CudaBfsChecker):
         succ, cand = int(small[_SUCC]), int(small[_CAND])
         K = meta["out_rows"]
         row_bytes = new_vecs.itemsize * new_vecs.shape[1] + 12
-        meta["bytes_down"] = (n * K * row_bytes + small.nbytes
-                              + len(terminal) * (1 + self._n_dev))
+        down = (n * K * row_bytes + small.nbytes
+                + len(terminal) * (1 + self._n_dev))
         meta["overflow"] = bool(small[_OVERFLOW])
         if meta["overflow"]:
             K, new_vecs, new_fps, new_parent = self._regather(
                 wave, int(new_count.max()))
-            meta["bytes_down"] += n * K * row_bytes
+            down += n * K * row_bytes
         popped = np.flatnonzero(valid)
         conds = self._eval_host_conds(conds_out, batch_vecs, popped)
         if self._visitor is not None:
@@ -540,14 +570,18 @@ class ShardedCudaBfsChecker(EpochOwnership, CudaBfsChecker):
                 unique=self._unique_count, waves=1, successors=succ,
                 candidates=cand, novel=novel, capacity=self._capacity,
                 load_factor=round(max(self._shard_counts) / self._capacity,
-                                  4))
+                                  4), **self._wave_gauges())
             self._tier_gauges(entry)
+            if self._prof.enabled:
+                self._stamp_cost(entry)
             self.dispatch_log.append(entry)
+            self.bytes_down.append(down)
             # The first hits in stacked-batch order (JAX :751-774).
             self._record_discoveries(conds, valid, terminal, ebits_after,
                                      batch_fps)
         if self._store.active and novel:
             self._store.balance_frontier(self._queues)
+        self._publish(entry)
         self.host_sec["process"] += time.perf_counter() - t0
 
     def _unspilled(self, block):

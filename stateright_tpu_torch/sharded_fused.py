@@ -43,18 +43,26 @@ ShardedFusedTpuBfsChecker`` on the port's fused engine (``fused.py``).
   each shard (``_roll_span``) under a device budget, as the unsharded
   fused engine's; the visited table is never spilled.
 
-Profiling, fault injection and the tracer of the JAX engine are not
-ported (ROADMAP A8 and A13), and neither is an ownership remap (A13).
+- **Telemetry** (``obs``): the fused engine's, each dispatch's wave
+  event with the reference's fields (:588-643: the rows every shard
+  consumed, the fullest slice's load factor, every shard's arena and
+  slice bytes, the ownership ``epoch``), ``grow`` events at each
+  doubling, the profiler's record from the sender kernel's, the ``n``
+  inserts' and the append's declared costs.
+
+Fault injection is not ported (ROADMAP A13), and neither is an ownership
+remap (A13).
 """
 
 from __future__ import annotations
 
+import time
 from typing import List
 
 import numpy as np
 import torch
 
-from .append import append_rows
+from .append import append_cost, append_rows
 from .engine import (compaction_order, eval_properties,
                      fingerprint_successors, first_occurrence_sorted,
                      pick_bucket)
@@ -67,8 +75,8 @@ from .matmul_wave import expand
 from .membership import EpochOwnership, OwnerMap
 from .mesh import _umod, route_home  # noqa: F401 (_umod: tests read it here)
 from .model import Expectation
-from .table import dedup_and_insert
-from .wave import sender_megakernel
+from .table import dedup_and_insert, dedup_cost
+from .wave import sender_cost, sender_megakernel
 
 __all__ = ["ShardedFusedCudaBfsChecker"]
 
@@ -87,6 +95,8 @@ def _combine_first(disc, hit, fps):
 class ShardedFusedCudaBfsChecker(EpochOwnership, FusedCudaBfsChecker):
     """The fused engine over a mesh of stacked shards. ``batch_size`` is
     per shard."""
+
+    _ENGINE_ID = "sharded_fused"
 
     def __init__(self, builder, mesh, batch_size: int = 512,
                  exchange_novel_only=None, **kwargs):
@@ -334,6 +344,42 @@ class ShardedFusedCudaBfsChecker(EpochOwnership, FusedCudaBfsChecker):
     def _device_rows(self) -> int:
         return int(self._occs.sum())
 
+    def _dispatch_costs(self, bucket: int) -> list:
+        """The declared costs of one dispatch's kernels at the shape's full
+        work: K waves of the sender kernel (with the wave kernel on), the
+        ``n`` owner-side inserts of ``R = n * S`` rows, and the append."""
+        n, S, wp = self._n, bucket * self._F, self._layout.packed_width
+        R = n * S
+        wave = [dedup_cost(R)] * n + [append_cost(wp, n * R)]
+        if self._wave_kernel:
+            wave.append(sender_cost(self._dm, n, bucket, wp,
+                                    self._use_symmetry, self._matmul_plan))
+        return wave * self._K
+
+    def _wave_prev(self) -> tuple:
+        return (self._heads.copy(), self._state_count, self.candidates,
+                self._unique_count)
+
+    def _wave_entry(self, st: np.ndarray, meta: dict, prev: tuple) -> dict:
+        """A retired dispatch's wave event (sharded_fused :588-612): the
+        rows consumed over every shard, the fullest slice's load, the
+        bytes of every shard's arena and slice, the ownership epoch."""
+        heads_prev, states_prev, cand_prev, unique_prev = prev
+        n, wp = self._n, self._layout.packed_width
+        return dict(
+            meta, t=time.monotonic(), states=self._state_count,
+            unique=self._unique_count, waves=int(st[0, ST_WAVES]),
+            successors=self._state_count - states_prev,
+            candidates=self.candidates - cand_prev,
+            novel=self._unique_count - unique_prev,
+            rows=int((self._heads - heads_prev).sum()), out_rows=None,
+            capacity=self._capacity,
+            load_factor=round(int(self._occs.max()) / self._capacity, 4),
+            overflow=False, bytes_per_state=4 * wp,
+            arena_bytes=n * self._ucap * self._arena_row_bytes(),
+            table_bytes=n * self._capacity * 8,
+            io_stall_s=self._take_io_stall(), epoch=self._owner_map.epoch)
+
     def _grow(self, bucket: int) -> None:
         """Growth at a rest point (``_run_waves`` :670-766), the dispatch
         graphs dropped where a slice or an arena grows: every table slice
@@ -349,6 +395,9 @@ class ShardedFusedCudaBfsChecker(EpochOwnership, FusedCudaBfsChecker):
         n = self._n
         R = n * bucket * self._F
         while int(self._occs.max()) + R > self._capacity // 2:
+            if self._tracer.enabled:
+                self._tracer.event("grow", kind="table", old=self._capacity,
+                                   new=2 * self._capacity)
             self._drop_graphs()
             self._table = self._rehash(2 * self._capacity)
             self._capacity *= 2
@@ -359,6 +408,9 @@ class ShardedFusedCudaBfsChecker(EpochOwnership, FusedCudaBfsChecker):
                 continue
             self._drop_graphs()
             ucap = 2 * self._ucap
+            if self._tracer.enabled:
+                self._tracer.event("grow", kind="arena", old=self._ucap,
+                                   new=ucap)
 
             def grown(a, fill):
                 out = torch.full((n, ucap + 1) + a.shape[2:], fill,

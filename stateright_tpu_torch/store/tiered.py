@@ -28,9 +28,11 @@ counts, the parent log or the queue. The fused engines never evict
 visited rows (their dedup is on the card across a dispatch): their valve
 is the arena-span roll (``note_arena_span``).
 
-Not ported yet: the reference's fault points (``spill_fail``,
-``disk_full``, ``page_in_torn``; ``resilience/faults.py``) inject
-nothing, and its tracer events go nowhere. Every counter that ``stats()``
+Its ``spill`` / ``page_in`` / ``pressure`` events go to the owning
+engine's tracer and flight ring (``owner``, read at each event, as the
+reference's ``_event``), at the reference's points. Not ported yet: the
+reference's fault points (``spill_fail``, ``disk_full``, ``page_in_torn``;
+``resilience/faults.py``) inject nothing. Every counter that ``stats()``
 reports is kept.
 
 The disarmed store is the shared ``NULL_STORE`` (``active`` False): an
@@ -41,6 +43,7 @@ from __future__ import annotations
 
 import os
 import threading
+import weakref
 import zipfile
 from typing import Dict, List, Optional
 
@@ -328,8 +331,13 @@ class TieredStore:
     def __init__(self, *, device_budget: Optional[int] = None,
                  host_budget: Optional[int] = None,
                  segment_dir: Optional[str] = None,
-                 n_partitions: int = 16, meta: Optional[dict] = None):
+                 n_partitions: int = 16, meta: Optional[dict] = None,
+                 owner=None):
         self.device_budget = device_budget
+        # The engine whose ``_tracer`` and ``_flight`` take the events, held
+        # weakly: the engine holds the store, and a cycle would keep the
+        # engine's device memory until the collector ran.
+        self._owner = None if owner is None else weakref.ref(owner)
         self.host_budget = host_budget
         self.segment_dir = segment_dir
         if segment_dir:
@@ -376,6 +384,19 @@ class TieredStore:
         (``io.async_io``), whose join at a rest point covers both; with
         a ``SyncWriter`` they stay inline."""
         self._aio = writer
+
+    # -- Events --------------------------------------------------------------
+
+    def _event(self, etype: str, **fields) -> None:
+        """One event to the owner's tracer (flushed at once, as the
+        reference's) and flight ring, where they are on."""
+        owner = None if self._owner is None else self._owner()
+        tracer = getattr(owner, "_tracer", None)
+        if tracer is not None and tracer.enabled:
+            tracer.event(etype, _flush=True, **fields)
+        flight = getattr(owner, "_flight", None)
+        if flight is not None and flight.armed:
+            flight.record_event(etype, **fields)
 
     # -- Tier accounting --------------------------------------------------
 
@@ -460,6 +481,8 @@ class TieredStore:
             self._spill_bytes += 8 * len(fps)
             self._host_high_water = max(self._host_high_water,
                                         self.warm_bytes)
+        self._event("spill", tier="host", kind="visited",
+                    rows=int(len(fps)), bytes=8 * int(len(fps)))
         self.enforce_host_budget()
 
     def enforce_host_budget(self, frontier_bytes: int = 0) -> None:
@@ -471,6 +494,9 @@ class TieredStore:
         if self.host_used(frontier_bytes) <= self.host_budget:
             return
         if not self.segment_dir:
+            self._event("pressure", tier="host",
+                        used=int(self.host_used(frontier_bytes)),
+                        budget=int(self.host_budget))
             return
         if self._aio.enabled:
             self._enforce_host_budget_async(frontier_bytes)
@@ -481,6 +507,9 @@ class TieredStore:
             if sizes[p] == 0:
                 break
             self._spill_partition_to_disk(p)
+        self._event("pressure", tier="host",
+                    used=int(self.host_used(frontier_bytes)),
+                    budget=int(self.host_budget))
 
     def _enforce_host_budget_async(self, frontier_bytes: int) -> None:
         """The budget loop on the writer: partitions are picked here, on
@@ -510,6 +539,8 @@ class TieredStore:
                 self._spill_partition_to_disk(p, warm_rows=warm))
             used -= 8 * sizes[p]
             sizes[p] = 0
+        self._event("pressure", tier="host", used=int(max(used, 0)),
+                    budget=int(self.host_budget))
 
     def _segment_path(self, p: int) -> str:
         return os.path.join(self.segment_dir,
@@ -593,6 +624,8 @@ class TieredStore:
             self._spill_bytes += 8 * int(len(union))
             self._disk_high_water = max(self._disk_high_water,
                                         self.cold_bytes)
+        self._event("spill", tier="disk", kind="visited",
+                    rows=int(len(union)), bytes=8 * int(len(union)))
 
     # -- Membership probe --------------------------------------------------
 
@@ -646,6 +679,8 @@ class TieredStore:
             self._spill_bytes += 8 * len(fps)
             self._host_high_water = max(self._host_high_water,
                                         self.warm_bytes)
+        self._event("spill", tier="host", kind="visited",
+                    rows=int(len(fps)), bytes=8 * int(len(fps)))
         self.enforce_host_budget()
 
     def probe_partition(self, p: int, vals: np.ndarray) -> np.ndarray:
@@ -697,6 +732,7 @@ class TieredStore:
                     total += b[0].nbytes + b[1].nbytes + b[2].nbytes
         if self.host_used(total) <= self.host_budget:
             return
+        moved = False
         while self.host_used(total) > self.host_budget:
             best, best_bytes = None, 0
             for q in queues:
@@ -713,6 +749,11 @@ class TieredStore:
             q, i = best
             q[i] = self._stash_block(q[i])
             total -= best_bytes
+            moved = True
+        if moved:
+            self._event("pressure", tier="host",
+                        used=int(self.host_used(total)),
+                        budget=int(self.host_budget))
 
     def _stash_block(self, block) -> FrontierRef:
         arrays = [np.ascontiguousarray(a) for a in block]
@@ -734,6 +775,8 @@ class TieredStore:
             self._frontier_bytes += nbytes
             self._disk_high_water = max(self._disk_high_water,
                                         self.cold_bytes)
+        self._event("spill", tier="disk", kind="frontier",
+                    rows=int(len(block[1])), bytes=int(nbytes))
         return FrontierRef(log.path, int(len(block[1])), nbytes, tuple(
             (a.dtype, a.shape) for a in arrays), offset)
 
@@ -798,6 +841,11 @@ class TieredStore:
                     log.close()
             self._frontier_bytes = max(0, self._frontier_bytes - ref.nbytes)
             self._page_ins += 1
+        self._event("page_in", tier="disk", kind="frontier",
+                    rows=int(ref.rows), bytes=int(ref.nbytes))
+        # A tier shrank: the lint's monotonicity window resets here.
+        self._event("pressure", tier="disk", used=int(self.cold_bytes),
+                    budget=int(self.host_budget or 0))
         if isinstance(prefetch, (list, tuple)):
             self.prefetch_window(prefetch)
         else:
@@ -822,12 +870,16 @@ class TieredStore:
             self._host_high_water = max(
                 self._host_high_water,
                 self.warm_bytes + self._arena_span_bytes)
+        self._event("spill", tier="host", kind="arena_span",
+                    rows=int(rows), bytes=int(nbytes))
 
     def note_device_pressure(self, used: int, budget: int) -> None:
         """Counts a device structure that had to pass its budget with
         nothing left to spill (``pressure_notes``)."""
         with self._lock:
             self.pressure_notes += 1
+        self._event("pressure", tier="device", used=int(used),
+                    budget=int(budget))
 
     # -- Checkpoints (format v5) -------------------------------------------
 
@@ -972,7 +1024,8 @@ def load_cold_refs(refs: dict, base_dir: Optional[str] = None) -> np.ndarray:
 
 
 def store_from_config(*, device_bytes=None, host_bytes=None,
-                      segment_dir=None, n_partitions=None, meta=None):
+                      segment_dir=None, n_partitions=None, meta=None,
+                      owner=None):
     """The engines' store: each keyword given wins over its ``STpu_TIER_*``
     variable; nothing configured gives the shared ``NULL_STORE``."""
     device_bytes = (_parse_bytes(os.environ.get(TIER_DEVICE_ENV))
@@ -987,4 +1040,4 @@ def store_from_config(*, device_bytes=None, host_bytes=None,
         device_budget=device_bytes, host_budget=host_bytes,
         segment_dir=segment_dir,
         n_partitions=int(n_partitions) if n_partitions else 16,
-        meta=meta)
+        meta=meta, owner=owner)

@@ -34,9 +34,23 @@ from .engine import dedup_and_insert as dedup_and_insert_plain
 from .engine import scratch_slots
 
 __all__ = ["dedup_and_insert", "dedup_and_insert_plain", "DedupScratch",
-           "scratch_bits"]
+           "scratch_bits", "dedup_cost"]
 
 _INT32_MAX = (1 << 31) - 1
+
+
+def dedup_cost(n: int, cand=None) -> dict:
+    """The work ``dedup_and_insert`` must do on ``n`` fingerprints of
+    which ``cand`` are candidates (default: all of them, the most ``n``
+    rows can take): ``{"bytes", "ops"}``. Bytes, each once: the
+    fingerprints read, the two masks written, and one 32-byte sector a
+    candidate in the visited table; the scratch is neither input nor
+    output. Operations are not counted (a probe is a few integer
+    operations beside its sector), so the bound is the bytes'. The
+    profiler's records (``obs/prof.py``) and ``chip_smoke.py``'s bounds
+    both come from here."""
+    cand = n if cand is None else int(cand)
+    return {"bytes": 8 * n + 2 * n + 32 * cand, "ops": 0}
 
 
 #: a clean scratch slot (``sr::Slot``, two int64 words): the sentinel

@@ -59,7 +59,8 @@ from .table import DedupScratch, scratch_bits
 
 __all__ = ["wave_megakernel", "wave_megakernel_plain", "sender_megakernel",
            "sender_megakernel_plain", "cuda_model", "cuda_plan", "plan_host",
-           "plan_tables"]
+           "plan_tables", "plan_table_bytes", "wave_cost", "sender_cost",
+           "front_ops", "sym_ops"]
 
 _INT32_MAX = (1 << 31) - 1
 
@@ -186,6 +187,77 @@ def plan_tables(plan) -> np.ndarray:
     parts = [g.table_u32().reshape(-1) for g in plan.groups]
     return np.concatenate(parts or [np.zeros(0, np.int64)]).astype(
         np.uint32).view(np.int32)
+
+
+def plan_table_bytes(plan) -> int:
+    """The bytes of a matmul plan's tables as the kernels read them (0
+    without a plan)."""
+    return 0 if plan is None else plan_tables(plan).nbytes
+
+
+def sym_ops(dm) -> int:
+    """32-bit integer operations of one representative beyond its
+    fingerprint: 2pc's sort network over its RMs' keys, the shared
+    counters' over their threads' pairs; a register workload's network
+    rewritten and sorted again, and its lanes compared, once a
+    non-identity client permutation (none where the group is trivial:
+    paxos below 4 clients, ABD; 23 at single-copy 4 on one server)."""
+    if hasattr(dm, "rm_count"):
+        return 2 * dm.rm_count ** 2
+    if hasattr(dm, "thread_count"):
+        # The shared counters' stable sort of (key, t, pc) triples: T(T-1)/2
+        # compare-exchanges of about 8 operations each.
+        return 4 * dm.thread_count ** 2
+    return len(dm.client_permutations()) * (2 * dm.net_slots ** 2
+                                            + 8 * dm.state_width)
+
+
+def front_ops(dm, slots: int, n_valid: int, use_sym: bool) -> int:
+    """32-bit integer operations of the kernels' front: the path
+    fingerprint, unpack, step and re-pack of every slot, and the
+    representative and its fingerprint of each of ``n_valid`` valid
+    successors under symmetry."""
+    W = dm.state_width
+    fp_ops = 2 * (6 * W + 9) + 4
+    ops = slots * (fp_ops + 8 * W)
+    if use_sym:
+        ops += n_valid * (fp_ops + sym_ops(dm))
+    return ops
+
+
+def wave_cost(dm, B: int, wp: int, use_sym: bool = False, plan=None,
+              n_valid=None, cand=None) -> dict:
+    """The work ``wave_megakernel`` must do on ``B`` packed rows of
+    ``wp`` words, ``S = B * F`` successor slots of which ``n_valid`` are
+    valid and ``cand`` candidates (default: all ``S``, the most the shape
+    can take): ``{"bytes", "ops"}``. Bytes, each once: the packed batch
+    and valid read, the packed successors, path fingerprints and three
+    byte masks written, one 32-byte sector a candidate in the visited
+    table, and a plan's tables read once; the dedup fingerprints and the
+    scratch are neither input nor output. Operations: ``front_ops``.
+    The profiler's records and ``chip_smoke.py``'s bounds both come from
+    here."""
+    S = B * dm.max_fanout
+    n_valid = S if n_valid is None else int(n_valid)
+    cand = S if cand is None else int(cand)
+    return {"bytes": (4 * B * wp + B + 4 * S * wp + 8 * S + 3 * S
+                      + 32 * cand + plan_table_bytes(plan)),
+            "ops": front_ops(dm, S, n_valid, use_sym)}
+
+
+def sender_cost(dm, n: int, B: int, wp: int, use_sym: bool = False,
+                plan=None, n_valid=None) -> dict:
+    """The work ``sender_megakernel`` must do on ``n`` shards of ``B``
+    packed rows (``n_valid`` of the ``n * S`` slots valid; default all):
+    ``{"bytes", "ops"}``. Bytes, each once: the packed batch and valid
+    read; the packed successors, two fingerprint arrays and two byte
+    masks written; a plan's tables read once. Operations: ``front_ops``
+    over the ``n * S`` slots."""
+    S = B * dm.max_fanout
+    n_valid = n * S if n_valid is None else int(n_valid)
+    return {"bytes": (4 * n * B * wp + n * B + 4 * n * S * wp + 16 * n * S
+                      + 2 * n * S + plan_table_bytes(plan)),
+            "ops": front_ops(dm, n * S, n_valid, use_sym)}
 
 
 def cuda_plan(dm, layout, plan) -> None:

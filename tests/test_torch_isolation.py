@@ -10,7 +10,8 @@ and ``models/vsr.py``, and the matmul expand's ``matmul_wave.py``, and the
 host engine's ``bfs.py``, ``_market.py``, ``fingerprint.py`` and
 ``semantics.py``, the shared ``host.py``, and the host DFS's ``dfs.py``
 and ``symmetry.py`` and
-the host actor layer's ``actor.py`` among them); a fresh interpreter that checks 2pc at 3 RMs
+the host actor layer's ``actor.py``, and the run telemetry's ``obs/``
+package and ``profiling.py`` among them); a fresh interpreter that checks 2pc at 3 RMs
 (on the host BFS, on the fused engine,
 with a visitor on the classic engine and on the classic sharded engine,
 and with ``wave_matmul=True``, classified by the port's own
@@ -65,7 +66,9 @@ def test_no_file_of_the_port_imports_jax_or_the_jax_package():
             "models/pingpong.py", "models/vsr.py",
             "matmul_wave.py", "bfs.py", "_market.py", "fingerprint.py",
             "semantics.py", "dfs.py", "symmetry.py", "actor.py",
-            "host.py"} <= names
+            "host.py", "profiling.py", "obs/__init__.py", "obs/schema.py",
+            "obs/tracer.py", "obs/flight.py", "obs/hist.py", "obs/slo.py",
+            "obs/anomaly.py", "obs/prof.py"} <= names
     for path in files + [os.path.join(_REPO, "chip_smoke.py")]:
         for name in _imports(path):
             assert name.split(".")[0] not in _BANNED, (path, name)

@@ -14,13 +14,15 @@ Usage, from the root of a checkout on a machine with an NVIDIA H100:
     python3 chip_smoke.py --phases fallback        # phase 1, 15 and 16
     python3 chip_smoke.py --phases tiered          # phase 1, then 17
     python3 chip_smoke.py --phases obs             # phase 1, then 18
+    python3 chip_smoke.py --phases mux             # phase 1, then 19
     python3 chip_smoke.py --phases kernels,full    # phase 1, 2-4 and 6
 
 ``--phases`` takes a comma-separated subset of ``kernels`` (phases 2 to
 4), ``small`` (5), ``full`` (6), ``checkpoint`` (7), ``classic`` (8),
 ``registers`` (9), ``corpus`` (10), ``actors`` (11), ``sharded_classic``
 (12), ``matmul`` (13), ``sizes`` (14), ``fallback`` (15 and 16),
-``tiered`` (17) and ``obs`` (18), runs phase 1 and those, in this order,
+``tiered`` (17), ``obs`` (18) and ``mux`` (19), runs phase 1 and those,
+in this order,
 and
 prints the kernels line's rows those phases give
 (phases 2 to 8's rows only when all of them ran). The CPU reference runs
@@ -98,8 +100,9 @@ in order; any failure exits non-zero and prints no result line:
    at 1 client with liveness and with 5 network slots (fewer than the
    default 8: smaller tiles) on the kernels, against the CPU run; two
    network slots raise paxos's overflow error on the kernels, unsharded
-   and sharded; a mesh over distinct devices and either kernel for a
-   model without CUDA device code raise on the card. Then the on/off
+   and sharded; a mesh over distinct devices raises on the card, and a
+   model without CUDA device code under either kernel's knob runs the
+   torch stages with kernel 1 there, with one warning (288 unique). Then the on/off
    gates of the host loop: 2pc 5 and paxos 2, fused and at n = 4, on the
    kernels at 2 waves a dispatch (so that dispatches replay), with the
    defaults (graphs on, one dispatch in flight, no ladder) against ``cuda_graph=False``, ``inflight_dispatches=2`` and a
@@ -320,11 +323,12 @@ in order; any failure exits non-zero and prints no result line:
     discoveries JAX's ``spawn_tpu_bfs()`` gives at the same target, with
     the host's states/s logged; the three refusals (``checkpoint_path``,
     ``resume_from``, ``fused=True`` raise ``DeviceFormUnavailable`` naming
-    the knob); and what never falls back: 2pc 3 through
+    the knob); and what never falls back to the host: 2pc 3 through
     ``spawn_cuda_bfs()`` is the fused engine on ``cuda:0`` on the dedup
-    kernel (288 / 1,146), and increment at 17 threads with
-    ``wave_kernel=True`` raises ``NotImplementedError`` (no instance),
-    neither with a warning;
+    kernel (288 / 1,146) with no warning, and increment at 17 threads with
+    ``wave_kernel=True`` (past the kernels' sizes) is the fused engine on
+    the torch stages with kernel 1 (``dedup_kernel``), with one warning
+    naming the size;
 16. the host DFS and the host forms (``phase_host``, in phase 15's
     process, after it): the host DFS on 2pc 5 to 8,832 states and with
     ``symmetry()`` to 665; single-copy 2 / 1 on the host DFS with
@@ -375,7 +379,34 @@ in order; any failure exits non-zero and prints no result line:
     the card (``profiling.py``), with kernel 1's ``dedup_insert`` and
     kernel 2's ``wave_kernel`` stages timed, the stages' shares and the
     ``host`` stage printed;
-19. the kernels line, the script's running time, the card line and the
+19. the size gate, the program cache and the mux (``phase_mux``; in a
+    process of its own when earlier phases ran, as phase 9): (a) the
+    first size past each range the kernels hold (``_mux_past_sizes``:
+    increment and increment_lock at 17 threads, increment's plan form at
+    9, the 3x6 puzzle, ping-pong and VSR at 65 network slots,
+    paxos 2 one slot past its default, a DGraph of 33 nodes and 2pc 5 on
+    a device model with no CUDA code) with ``wave_kernel=True`` on the
+    fused and the classic engine to ``MUX_PAST_TARGET`` states: one
+    warning naming the size, ``kernel_path()`` ``dedup_kernel`` (with
+    ``+matmul`` under the plan), kernel 2 never launched and kernel 1
+    launched, the counts and chains equal to ``wave_kernel=False`` on the
+    card and to the CPU's torch stages; (b) two fused spawns of 2pc 7 of
+    one registry key with ``wave_matmul=True`` on the wave kernel through
+    one ``WaveProgramCache``: the second a hit, both spawns' seconds; (c)
+    ``MuxGroup``: 8 tenants of 2pc 7 at batch 16,384 in one group
+    (``max_jobs=8``), each equal to the port's solo classic run in counts,
+    discovery chains and checkpoint sections, the group's seconds, waves
+    and peak memory beside 8 solo runs in turn, one replayed wave under
+    ``set_sync_debug_mode("error")``, and kernel 1 on the tagged
+    fingerprints of its 40th wave held to its plain version and timed
+    (the kernels line's ``dedup_and_insert[mux wave]``), with the mux
+    wave's launches counted by the profiler, and the group's table rebuilt
+    from all 8 tenants' tagged fingerprints on the card (kernel 1) beside
+    JAX's host insert and its upload, equal as sets; then 2 tenants of the
+    registry's paxos (2 clients, 16,668 unique), tenant 0 preempted at
+    the third wave and resumed from its checkpoint in a fresh group, both
+    equal to the solo run likewise;
+20. the kernels line, the script's running time, the card line and the
     result line.
 
 It imports neither JAX nor ``stateright_tpu``.
@@ -1454,9 +1485,10 @@ def phase_paxos_small(PaxosSys, PaxosDevice):
 
 
 def phase_refusals(TwoPhaseSys, TwoPhaseDevice):
-    """On the card, what the port lacks raises and never runs elsewhere:
-    a mesh over distinct devices, and the kernels of a model without CUDA
-    device code."""
+    """On the card, what the port lacks raises and never runs elsewhere (a
+    mesh over distinct devices), and a model without CUDA device code
+    takes the torch stages with kernel 1 under either kernel's knob, on
+    the card, with one warning (JAX's contract past its kernels' gate)."""
 
     class NoCode(TwoPhaseDevice):
         def cuda_model(self):
@@ -1466,20 +1498,31 @@ def phase_refusals(TwoPhaseSys, TwoPhaseDevice):
         def device_model(self):
             return NoCode(self.rm_count)
 
+    try:
+        TwoPhaseSys(3).checker().spawn_cuda_bfs(
+            mesh=["cuda:0", "cpu"]).join()
+    except NotImplementedError as e:
+        _log(f"a mesh over cuda:0 and the CPU raises: {e}")
+    else:
+        raise AssertionError("a mesh over cuda:0 and the CPU ran instead "
+                             "of raising")
     for what, spawn in (
-            ("a mesh over cuda:0 and the CPU", lambda: TwoPhaseSys(
-                3).checker().spawn_cuda_bfs(mesh=["cuda:0", "cpu"])),
             ("the sender kernel without device code", lambda: NoCodeSys(
                 3).checker().spawn_cuda_bfs(mesh=["cuda:0"] * SHARDS,
                                             wave_kernel=True)),
             ("the wave kernel without device code", lambda: NoCodeSys(
                 3).checker().spawn_cuda_bfs(wave_kernel=True))):
-        try:
-            spawn().join()
-        except NotImplementedError as e:
-            _log(f"{what} raises: {e}")
-        else:
-            raise AssertionError(f"{what} ran instead of raising")
+        c, warned = _spawn_warned(spawn)
+        c.join()
+        fell = [w for w in warned if "NoCode has no CUDA step" in w]
+        _log(f"{what}: {c.kernel_path()}, {c.unique_state_count()} unique, "
+             f"warned {fell}")
+        if (len(fell) != 1 or c.kernel_path() != "dedup_kernel"
+                or c.unique_state_count() != 288
+                or str(c._device) != "cuda:0"):
+            raise AssertionError(f"{what}: {c.kernel_path()} on "
+                                 f"{c._device}, {c.unique_state_count()}, "
+                                 f"warned {warned}")
 
 
 def _state(c):
@@ -4763,15 +4806,21 @@ def phase_fallback(torch):
             or got != (1_146, 288)):
         raise AssertionError(f"2pc 3: {type(c)} on {c._device}, "
                              f"{c.kernel_path()}, {got}, warned {warned}")
-    try:
-        _spawn_warned(lambda: IncrementModel(17).checker().spawn_cuda_bfs(
-            wave_kernel=True))
-    except DeviceFormUnavailable as e:
-        raise AssertionError(f"increment 17 fell back: {e}") from e
-    except NotImplementedError as e:
-        _log(f"increment 17 with wave_kernel=True raises: {e}")
-    else:
-        raise AssertionError("increment 17 with wave_kernel=True ran")
+    # Past the kernels' sizes the card keeps JAX's contract: the torch
+    # stages with kernel 1 on the card, one warning, never the host BFS.
+    c, warned = _spawn_warned(lambda: IncrementModel(17).checker()
+                              .target_state_count(2_000)
+                              .spawn_cuda_bfs(wave_kernel=True))
+    c.join()
+    _log(f"increment 17 with wave_kernel=True: {type(c).__name__}, "
+         f"{c.kernel_path()}, {c.unique_state_count()} unique; warned "
+         f"{warned}")
+    if (type(c).__name__ != "FusedCudaBfsChecker"
+            or c.kernel_path() != "dedup_kernel" or len(warned) != 1
+            or "17 threads" not in warned[0]
+            or "host BFS" in warned[0]):
+        raise AssertionError(f"increment 17: {type(c)}, {c.kernel_path()}, "
+                             f"warned {warned}")
     return []
 
 
@@ -5594,6 +5643,466 @@ def _obs_rows(torch, kernels, fused):
     return []
 
 
+# -- Phase 19: the size gate's fallback, the program cache, the mux ----------
+
+#: the first size past each range the kernels hold (ROADMAP B): a tag, the
+#: model's build, the spawn's extra knobs and what the fallback's warning
+#: names; each run to ``MUX_PAST_TARGET`` states at ``MUX_PAST_BATCH`` rows
+MUX_PAST_TARGET, MUX_PAST_BATCH = 500, 128
+
+
+def _mux_past_sizes():
+    from stateright_tpu_torch import test_util
+    from stateright_tpu_torch.model import Property
+    from stateright_tpu_torch.models import (increment, increment_lock,
+                                             paxos, pingpong,
+                                             sliding_puzzle, twopc, vsr)
+
+    class PaxosPastSlots(paxos.PaxosSys):
+        def device_model(self):
+            dm = paxos.PaxosDevice(self.client_count)
+            return paxos.PaxosDevice(self.client_count,
+                                     net_slots=dm.default_slots + 1)
+
+    class NoCode(twopc.TwoPhaseDevice):
+        def cuda_model(self):
+            return None
+
+    class Own(twopc.TwoPhaseSys):
+        def device_model(self):
+            return NoCode(self.rm_count)
+
+    return (
+        ("increment 17", lambda: increment.IncrementModel(17), {},
+         "17 threads (it holds 1 to 16)"),
+        ("increment_lock 17", lambda: increment_lock.IncrementLockModel(17),
+         {}, "17 threads (it holds 1 to 16)"),
+        ("increment 9 plan", lambda: increment.IncrementModel(9),
+         {"wave_matmul": True}, "(9,) (it holds 1 to 8)"),
+        ("puzzle 3x6", lambda: sliding_puzzle.SlidingPuzzle(3, 6), {},
+         "3x6 (it holds every board of 2 to 16 cells)"),
+        ("pingpong 65 slots",
+         lambda: pingpong.PingPongSys(5, lossy=True, net_slots=65), {},
+         "1 to 64 network slots, not 65"),
+        ("vsr 3/65 slots", lambda: vsr.VsrSys(3, 1, net_slots=65), {},
+         "65 network slots"),
+        ("paxos 2 past its slots", lambda: PaxosPastSlots(2), {},
+         "network slots"),
+        ("dgraph 33 nodes", lambda: test_util.DGraph.with_property(
+            Property.always("p", lambda _, s: s < 33)).with_path(
+                list(range(33))).with_device_predicate(
+                    "p", lambda r: r[:, 0] < 33), {},
+         "at most 32 nodes"),
+        ("own 2pc 5", lambda: Own(5), {}, "NoCode has no CUDA step"))
+
+
+def _mux_past_run(torch, kernels, tag, build, knobs, held, engine):
+    """One first-past-the-range configuration on ``engine`` (``fused`` or
+    ``classic``): ``wave_kernel=True`` on the card (one warning naming
+    the size, ``dedup_kernel`` with the plan's suffix, kernel 2 never
+    launched, kernel 1 launched), held to ``wave_kernel=False`` on the
+    card and to the torch stages' run on the CPU: counts and chains."""
+    # Two waves a fused dispatch: a dispatch past the target runs its
+    # waves masked, which costs the CPU's reference run as much as live
+    # ones. The classic engine's pipeline (on by default on the card) can
+    # process one wave more at the target: off on both sides. The CPU's
+    # run takes no matmul plan (its classification on the CPU costs
+    # seconds; the plan changes no count).
+    engine_knobs = (dict(fused=False, pipeline=False) if engine == "classic"
+                    else dict(waves_per_dispatch=2))
+    spawn = dict(batch_size=MUX_PAST_BATCH, **engine_knobs)
+
+    def run(**kw):
+        return build().checker().target_state_count(
+            MUX_PAST_TARGET).spawn_cuda_bfs(**spawn, **kw)
+
+    cpu = run(device="cpu").join()
+    for k in kernels.values():
+        k.launches = 0
+    t0 = time.monotonic()
+    c, warned = _spawn_warned(lambda: run(device="cuda:0", wave_kernel=True,
+                                          **knobs))
+    c.join()
+    sec = time.monotonic() - t0
+    launched = {name: k.launches for name, k in kernels.items()}
+    staged = run(device="cuda:0", wave_kernel=False, **knobs).join()
+    path = "dedup_kernel" + ("+matmul" if knobs.get("wave_matmul") else "")
+    got = [(x.unique_state_count(), x.state_count()) for x in (c, staged,
+                                                                cpu)]
+    fell = [w for w in warned if "torch stages with kernel 1" in w]
+    _log(f"{tag} {engine}, wave_kernel=True: {c.kernel_path()}, "
+         f"{got[0]}, {sec:.3f} s, launches {launched}; warned {fell}")
+    if (len(fell) != 1 or held not in fell[0]
+            or c.kernel_path() != path or not c._wave_kernel_on
+            or launched["wave_megakernel"]
+            or not launched["dedup_and_insert"]):
+        raise AssertionError(f"{tag} {engine}: {c.kernel_path()}, "
+                             f"launches {launched}, warned {warned}")
+    if len(set(got)) != 1 or not _chains(c) == _chains(staged) == \
+            _chains(cpu):
+        raise AssertionError(f"{tag} {engine}: counts {got} (kernel, "
+                             "staged, CPU) or chains differ")
+
+
+def _mux_cache_spawns(torch, kernels):
+    """(b) Two fused spawns of 2pc 7 of one registry key with
+    ``wave_matmul=True`` on the wave kernel: the second hits the program
+    cache and classifies nothing; both spawns' seconds logged."""
+    from stateright_tpu_torch.jit_cache import WaveProgramCache
+    from stateright_tpu_torch.service import default_registry
+
+    registry, cache = default_registry(), WaveProgramCache()
+    key = registry.program_key("twopc", {"rm_count": 7})
+    out = []
+    for turn in range(2):
+        model, _ = registry.build("twopc", {"rm_count": 7})
+        t0 = time.monotonic()
+        c = model.checker().spawn_cuda_bfs(
+            batch_size=BATCH, wave_kernel=True, wave_matmul=True,
+            program_cache=cache, program_key=key)
+        spawn_s = time.monotonic() - t0
+        c.join()
+        stats = c.scheduler_stats()["program_cache"]
+        out.append((spawn_s, stats, c.unique_state_count(),
+                    c.kernel_path()))
+        _log(f"2pc 7 fused spawn {turn + 1} of one key: {spawn_s:.3f} s "
+             f"to spawn, program_cache {stats}, {c.unique_state_count()} "
+             f"unique, {c.kernel_path()}")
+    if ([o[1]["hits"] for o in out] != [0, 1]
+            or {o[2] for o in out} != {296_448}
+            or {o[3] for o in out} != {"megakernel+matmul"}):
+        raise AssertionError(f"the program cache's spawns: {out}")
+    _log(f"the cache: {cache.stats()}")
+
+
+def _mux_solo(model, tag, ckpt, **kw):
+    """The port's solo classic run of a tenant's model on the card:
+    ``((unique, states, discovery chains), seconds, peak device memory)``,
+    logged; the checker is dropped (its table and graphs with it)."""
+    import torch
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    c = model.checker().spawn_cuda_bfs(fused=False, checkpoint_path=ckpt,
+                                       checkpoint_every_waves=1 << 20,
+                                       **kw).join()
+    sec = time.monotonic() - t0
+    peak = torch.cuda.max_memory_allocated()
+    _log(f"{tag} solo classic: {c.unique_state_count()} unique / "
+         f"{c.state_count()} states, {len(c.dispatch_log)} waves, "
+         f"{sec:.3f} s, peak {peak} B")
+    return (c.unique_state_count(), c.state_count(), _chains(c)), sec, peak
+
+
+def _mux_tenants_equal(handles, solo, ckpts, solo_ckpt, tag):
+    """Each tenant's counts, discovery chains and (where it wrote one)
+    checkpoint sections equal its solo run's (``solo``: ``_mux_solo``'s
+    unique, states and chains)."""
+    want = solo
+    sa = None if solo_ckpt is None else _sections(solo_ckpt)
+    for h, ckpt in zip(handles, ckpts):
+        got = (h.unique_state_count(), h.state_count(), _chains(h))
+        if got != want:
+            raise AssertionError(f"{tag}: a tenant's {got[:2]} against the "
+                                 f"solo run's {want[:2]}, or their chains")
+        if ckpt is None:
+            continue
+        sb = _sections(ckpt)
+        bad = sorted(k for k in set(sa) | set(sb) if sa.get(k) != sb.get(k))
+        if bad:
+            raise AssertionError(f"{tag}: sections {bad} differ from the "
+                                 "solo run's")
+
+
+def _mux_group(torch, model, key, knobs, jobs, tag, workdir, hook=None):
+    """One group of ``jobs`` tenants of ``model`` on the card, every
+    admission made before the first wave, each tenant's checkpoint
+    written at its end unless ``workdir`` is None; ``hook(group,
+    handles)`` may wrap the group's methods first. Returns the handles,
+    their checkpoint paths, the group, its seconds and peak device
+    memory."""
+    from stateright_tpu_torch.jit_cache import WaveProgramCache
+    from stateright_tpu_torch.service import MuxGroup
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    g = MuxGroup(model, knobs=knobs, program_cache=WaveProgramCache(),
+                 program_key=key, max_jobs=max(jobs, 2))
+    ckpts = [None if workdir is None else
+             os.path.join(workdir, f"{tag}-{i}.npz") for i in range(jobs)]
+    with g._cv:
+        handles = [g.admit(f"{tag}-{i}", checkpoint_path=ckpts[i])
+                   for i in range(jobs)]
+        if hook is not None:
+            hook(g, handles)
+    for h in handles:
+        h.join()
+    g.join(timeout=120)
+    sec = time.monotonic() - t0
+    peak = torch.cuda.max_memory_allocated()
+    stats = handles[0].scheduler_stats()
+    _log(f"{tag}: {jobs} tenants in one group, {g._wave_count} waves, "
+         f"{sec:.3f} s, peak {peak} B, high water "
+         f"{stats['jobs_in_group_high_water']}, program_cache "
+         f"{[h.scheduler_stats()['program_cache'] for h in handles]}, "
+         f"table {g._capacity} slots, rebuilds {len(g.rebuilds)} "
+         f"({sum(g.rebuilds) * 1e3:.3f} ms), joins {len(g.joins)}")
+    return handles, ckpts, g, sec, peak
+
+
+def _mux_mid_wave(torch, g, captured):
+    """Wraps the group's launch: at its ``MUX_MID_WAVE``-th wave the batch,
+    valid rows, tags and a copy of the table before the wave are kept in
+    ``captured``, and the next wave that replays a captured graph runs
+    under ``set_sync_debug_mode("error")``."""
+    real = g._launch
+
+    def launch(bucket, batch_vecs, valid):
+        n = g._wave_count
+        if n == MUX_MID_WAVE:
+            captured.update(vecs=batch_vecs.copy(), valid=valid.copy(),
+                            tags=g._tag_dev.clone(),
+                            table=g._visited.clone())
+        replay = (n > MUX_MID_WAVE and "replayed" not in captured
+                  and g._graphs.has_graph((bucket, g._capacity)))
+        if not replay:
+            return real(bucket, batch_vecs, valid)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            out = real(bucket, batch_vecs, valid)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        captured["replayed"] = n
+        return out
+
+    g._launch = launch
+
+
+#: the mux wave whose tagged fingerprints kernel 1 is held and timed on
+MUX_MID_WAVE = 40
+
+
+def _mux_clock(g, parts):
+    """Wraps the group's wave (the batch's assembly and the three below),
+    launch (the host's, a graph's capture included), fetch (the wait for
+    the card included), split, retirement (checkpoints included) and the
+    table's rebuild, each adding its seconds to ``parts``."""
+    for name in ("_wave", "_launch", "_fetch", "_process", "_retire",
+                 "_rebuild_table"):
+        real = getattr(g, name)
+
+        def timed(*args, real=real, name=name, **kw):
+            t0 = time.perf_counter()
+            try:
+                return real(*args, **kw)
+            finally:
+                parts[name] = parts.get(name, 0.0) + time.perf_counter() - t0
+
+        setattr(g, name, timed)
+
+
+def _mux_kernel_hold(torch, table_mod, dm, g, captured, launches):
+    """Kernel 1 on the mid-run mux wave's tagged fingerprints (the
+    group's wave rebuilt from its batch: the step, the fingerprints, the
+    tags XORed in), held to its plain version and timed against the
+    group's table as it was before the wave, with the group's scratch;
+    and the mux wave's launches counted by the profiler (the nodes its
+    graph captures)."""
+    from stateright_tpu_torch.engine import expand_frontier, mux_wave
+    from stateright_tpu_torch.hashing import device_fp64
+
+    dev = torch.device("cuda")
+    vecs = torch.from_numpy(captured["vecs"].view("int32")).to(dev)
+    valid = torch.from_numpy(captured["valid"]).to(dev)
+    tags, layout, F = captured["tags"], g._mux, dm.max_fanout
+    succ, sflat, _, _ = expand_frontier(dm, layout.unpack(vecs), valid)
+    slots = layout.tenant(vecs).clamp(0, tags.shape[0] - 1)
+    tagged = torch.where(sflat, device_fp64(succ)
+                         ^ tags[slots.repeat_interleave(F)],
+                         torch.full_like(succ[:, 0], -1))
+    r = _dedup_case(torch, table_mod, tagged, captured["table"],
+                    f"mux wave {MUX_MID_WAVE}", scratch=g._scratch)
+    kern, _ = _profiled(torch, lambda t: mux_wave(
+        dm, vecs, valid, tags, t, layout, g._prop_fns, scratch=g._scratch),
+        lambda: captured["table"].clone())
+    nodes = sum(e.count for e in kern)
+    _log(f"the mux wave at {vecs.shape[0]} rows: {nodes} kernel launches "
+         "and memsets a wave (its graph's nodes)")
+    return _kernel_row("dedup_and_insert[mux wave]",
+                       SRC + "table.cu", PALLAS + "256", launches, 0, r)
+
+
+def _mux_rebuild_timing(torch, g, handles):
+    """The group's table rebuilt from every tenant's tagged fingerprints
+    at the end (the most a rebuild of this group inserts), two ways, each
+    timed to a table on the card: the port's, kernel 1's strided chunks
+    with the group's scratch (``MuxGroup._insert``), and JAX's,
+    ``host_table_insert`` on the host and the upload. The two tables hold
+    one set."""
+    import numpy as np
+
+    from stateright_tpu_torch.engine import host_table_insert
+
+    keys = np.concatenate([np.concatenate(h._t.visited_blocks)
+                           ^ np.uint64(h._t.tag) for h in handles])
+    cap = g._capacity
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    table = torch.full((cap,), -1, dtype=torch.int64, device="cuda")
+    g._insert(torch.from_numpy(keys.view(np.int64)).to("cuda"), table)
+    card_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    host = np.full(cap, np.uint64(2 ** 64 - 1), np.uint64)
+    host_table_insert(host, keys)
+    up = torch.from_numpy(host.view(np.int64)).to("cuda")
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    if not torch.equal(torch.sort(table).values, torch.sort(up).values):
+        raise AssertionError("the card's rebuild and the host's differ as "
+                             "sets")
+    _log(f"the mux table rebuilt from {len(keys)} tagged keys into {cap} "
+         f"slots: on the card (kernel 1's chunks) {card_ms:.3f} ms, on the "
+         f"host (host_table_insert, JAX's design) and uploaded "
+         f"{host_ms:.3f} ms")
+
+
+def _mux_2pc7(torch, kernels, table_mod, registry, knobs, workdir):
+    """(c) on 2pc 7: the solo runs, the timed group of 8, the checkpointed
+    group of 8, kernel 1's hold on the 40th wave and the table's rebuild
+    two ways. Returns the kernels line row."""
+    model, _ = registry.build("twopc", {"rm_count": 7})
+    key = registry.program_key("twopc", {"rm_count": 7})
+    solo_ckpt = os.path.join(workdir, "solo-2pc7.npz")
+    solo, _, _ = _mux_solo(model, "2pc 7 (its checkpoint)", solo_ckpt,
+                           batch_size=BATCH)
+    # Each turn's checker is dropped before the next, as a service's.
+    solo_runs = [_mux_solo(model, f"2pc 7 turn {i + 1}", None,
+                           batch_size=BATCH)[1:] for i in range(8)]
+    solo_s = [r[0] for r in solo_runs]
+    solo_peak = max(r[1] for r in solo_runs)
+    captured, parts = {}, {}
+    for k in kernels.values():
+        k.launches = 0
+
+    def hook(g, _):
+        _mux_mid_wave(torch, g, captured)
+        _mux_clock(g, parts)
+
+    handles, _, g, sec, peak = _mux_group(
+        torch, model, key, knobs, 8, "2pc7", None, hook=hook)
+    launches = kernels["dedup_and_insert"].launches
+    _mux_tenants_equal(handles, solo, [None] * 8, None, "2pc 7 x 8")
+    if "replayed" not in captured or not launches:
+        raise AssertionError(f"the mux run: replay checked "
+                             f"{captured.get('replayed')}, kernel 1's "
+                             f"launches {launches}")
+    _log(f"2pc 7: 8 tenants in one group {sec:.3f} s, peak {peak} B; "
+         f"8 solo runs in turn {sum(solo_s):.3f} s (each "
+         f"{[round(s, 3) for s in solo_s]}), peak {solo_peak} B; "
+         f"kernel 1 {launches} launches in the group; wave "
+         f"{captured['replayed']} replayed under "
+         "set_sync_debug_mode('error'); the group's host, s: "
+         + ", ".join(f"{k.strip('_')} {v:.3f}" for k, v in
+                     sorted(parts.items())))
+    t0 = time.monotonic()
+    ck_handles, ckpts, _, ck_sec, _ = _mux_group(
+        torch, model, key, knobs, 8, "2pc7-ckpt", workdir)
+    _mux_tenants_equal(ck_handles, solo, ckpts, solo_ckpt,
+                       "2pc 7 x 8, checkpointed")
+    _log(f"2pc 7: 8 tenants with their checkpoints {ck_sec:.3f} s, each "
+         "tenant's sections equal to the solo run's (held in "
+         f"{time.monotonic() - t0 - ck_sec:.1f} s)")
+    row = _clocked("kernel 1's hold on the mux wave", _mux_kernel_hold,
+                   torch, table_mod, model.device_model(), g, captured,
+                   launches)
+    _clocked("the rebuild two ways", _mux_rebuild_timing, torch, g, handles)
+    return row
+
+
+def _mux_paxos(torch, registry, knobs, workdir):
+    """(c) on paxos 2: two tenants against the solo run, tenant 0
+    preempted at the third wave and resumed in a fresh group."""
+    model, _ = registry.build("paxos")
+    key = registry.program_key("paxos")
+    solo_ckpt = os.path.join(workdir, "solo-paxos.npz")
+    solo, _, _ = _mux_solo(model, "paxos 2", solo_ckpt, batch_size=BATCH)
+    if solo[0] != 16_668:
+        raise AssertionError(f"paxos 2: {solo[:2]}")
+
+    def preempt_at(g, handles):
+        real = g._wave
+
+        def wave():
+            real()
+            if g._wave_count == 3:
+                handles[0].preempt()
+
+        g._wave = wave
+
+    handles, ckpts, _, _, _ = _mux_group(
+        torch, model, key, dict(knobs, batch_size=1_024), 2, "paxos",
+        workdir, hook=preempt_at)
+    _mux_tenants_equal(handles[1:], solo, ckpts[1:], solo_ckpt,
+                       "paxos 2, the co-tenant")
+    if not handles[0].preempted:
+        raise AssertionError("paxos 2's tenant 0 was not preempted")
+    _log(f"paxos 2 tenant 0 preempted at "
+         f"{handles[0].unique_state_count()} unique")
+    resumed = _mux_resume(model, key, knobs, ckpts[0])
+    _mux_tenants_equal([resumed], solo, [ckpts[0]], solo_ckpt,
+                       "paxos 2, the resumed tenant")
+
+
+def phase_mux(torch, kernels, table_mod):
+    """Phase 19: (a) the first size past each held range on the fused and
+    classic engines with ``wave_kernel=True``, the torch stages with
+    kernel 1; (b) two same-key spawns through the program cache; (c) the
+    mux: 8 tenants of 2pc 7 and 2 of the registry's paxos, each equal to
+    its solo run, one preempted and resumed in a fresh group, a replay
+    sync-free, kernel 1 on a mid-run mux wave held and timed. Returns its
+    kernels line row."""
+    from stateright_tpu_torch.service import default_registry
+
+    t0 = time.monotonic()
+    for tag, build, knobs, held in _mux_past_sizes():
+        for engine in ("fused", "classic"):
+            _clocked(f"{tag} on the {engine} engine", _mux_past_run, torch,
+                     kernels, tag, build, knobs, held, engine)
+    _log(f"phase 19 (a): {time.monotonic() - t0:.1f} s")
+    _clocked("the program cache's spawns", _mux_cache_spawns, torch,
+             kernels)
+    registry = default_registry()
+    knobs = {"batch_size": BATCH, "checkpoint_every_waves": 1 << 20}
+    with tempfile.TemporaryDirectory(
+            dir=os.path.dirname(os.path.abspath(__file__))) as workdir:
+        row = _clocked("phase 19 (c), 2pc 7", _mux_2pc7, torch, kernels,
+                       table_mod, registry, knobs, workdir)
+        _clocked("phase 19 (c), paxos 2", _mux_paxos, torch, registry,
+                 knobs, workdir)
+    return [row]
+
+
+def _mux_resume(model, key, knobs, ckpt):
+    """A preempted tenant resumed from its checkpoint in a fresh group, to
+    its end, its checkpoint rewritten there."""
+    from stateright_tpu_torch.jit_cache import WaveProgramCache
+    from stateright_tpu_torch.service import MuxGroup
+
+    g = MuxGroup(model, knobs=dict(knobs, batch_size=1_024),
+                 program_cache=WaveProgramCache(), program_key=key)
+    h = g.admit("resumed", checkpoint_path=ckpt, resume_from=ckpt)
+    h.join()
+    g.join(timeout=120)
+    _log(f"the resumed tenant: {h.unique_state_count()} unique / "
+         f"{h.state_count()} states in {g._wave_count} waves")
+    return h
+
+
+def _mux_rows(torch, kernels, table_mod):
+    return _clocked("phase 19", phase_mux, torch, kernels, table_mod)
+
+
 def _modules():
     """The port's modules, from the checkout beside this script."""
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
@@ -5913,7 +6422,7 @@ def _register_rows(holds, runs):
 
 
 class _Children:
-    """Phases 9 to 18 (``later``, in order), each in a process of its own
+    """Phases 9 to 19 (``later``, in order), each in a process of its own
     (``--phases <phase>``) whose log it passes on and whose kernels line's
     rows it returns. After phases 2 to 8 in one process, about half of the
     profiles the register phase took there recorded no device time on the
@@ -5995,7 +6504,7 @@ _PHASE_REFS = {
 #: the phases ``--phases`` can name, in the order they run
 PHASES = ("kernels", "small", "full", "checkpoint", "classic", "registers",
           "corpus", "actors", "sharded_classic", "matmul", "sizes",
-          "fallback", "tiered", "obs")
+          "fallback", "tiered", "obs", "mux")
 
 
 def _parse(argv):
@@ -6038,7 +6547,7 @@ def _main(argv) -> int:
     card = _card_line()
     _log(f"card: {card}")
     # The CPU reference runs of the phases this process runs, made ahead
-    # in worker processes (``_CpuRefs``): phases 9 to 18 run in processes
+    # in worker processes (``_CpuRefs``): phases 9 to 19 run in processes
     # of their own unless one is asked for alone.
     here = phases if len(phases) == 1 else phases & set(PHASES[:5])
     _REFS.ahead(job for phase in PHASES if phase in here
@@ -6079,7 +6588,7 @@ def _main(argv) -> int:
         old["ck"] = _clocked("phase 7", phase_checkpoint, torch, kernels,
                              fused, table_mod, engine, ckpt_mod, TwoPhaseSys,
                              PaxosSys)
-    # Phases 9 to 18 each in a process of its own, unless it is the only
+    # Phases 9 to 19 each in a process of its own, unless it is the only
     # one asked for; the first starts while phase 8 runs.
     alone = len(phases) == 1
     children = _Children(card, [] if alone else
@@ -6095,7 +6604,7 @@ def _main(argv) -> int:
 def _later_phases(torch, kernels, fused, engine, wave_mod, table_mod,
                   ckpt_mod, TwoPhaseSys, PaxosSys, phases, old, card,
                   children, t_start) -> int:
-    """Phases 8 to 19 of ``main``."""
+    """Phases 8 to 20 of ``main``."""
     alone = len(phases) == 1
     if "classic" in phases:
         children.ahead()
@@ -6124,7 +6633,8 @@ def _later_phases(torch, kernels, fused, engine, wave_mod, table_mod,
         "fallback": lambda: _clocked("phase 15", phase_fallback, torch)
         + _clocked("phase 16", phase_host, torch, card),
         "tiered": lambda: _tiered_rows(torch, kernels),
-        "obs": lambda: _obs_rows(torch, kernels, fused)}
+        "obs": lambda: _obs_rows(torch, kernels, fused),
+        "mux": lambda: _mux_rows(torch, kernels, table_mod)}
     for phase in PHASES[5:]:
         if phase not in phases:
             continue

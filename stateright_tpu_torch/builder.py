@@ -119,7 +119,9 @@ class CheckerBuilder:
                        tier_device_bytes: Optional[int] = None,
                        tier_host_bytes: Optional[int] = None,
                        tier_dir: Optional[str] = None,
-                       tier_partitions: Optional[int] = None):
+                       tier_partitions: Optional[int] = None,
+                       program_cache=None,
+                       program_key: Optional[tuple] = None):
         """Spawns a device BFS; call ``join()`` to wait for it.
 
         ``device=None`` means the current CUDA device and raises when
@@ -131,8 +133,13 @@ class CheckerBuilder:
         environment variable, as in JAX (unset, empty or ``"0"`` is off,
         anything else on), and an explicit value wins. On the card it
         needs a model with CUDA device code (``DeviceModel.cuda_model()``)
-        and raises for one without, or for a size its entry point holds
-        no instance of; ``kernel_path()`` says which path ran. Every
+        at a size its entry point holds (and under ``wave_matmul`` its
+        plan form there); for one without, the engine warns once, naming
+        the model, its size and the sizes held, and runs the torch stages
+        with kernel 1, as JAX drops to its XLA path past its kernels'
+        gate (``kernel_path()`` then says ``dedup_kernel``, with
+        ``+matmul`` under a plan). A kernel that fails to build or to
+        launch raises. Every
         model of ``models/`` and ``test_util.py`` has one, at the sizes
         its entry point holds (``CUDA_INSTANCES``): 2pc; the actor
         models on ``csrc/models/actor_net.cuh`` (every network form:
@@ -237,6 +244,15 @@ class CheckerBuilder:
         the cold segments as v5 references, which either package resumes
         with a store or without one.
 
+        ``program_cache`` (a ``jit_cache.WaveProgramCache``) and
+        ``program_key`` (a corpus registry's
+        ``ModelRegistry.program_key``), both given, share what the spawn
+        resolves that binds no buffer (the matmul gate's classification,
+        the size gate, the loaded kernels) between engines of one key, as
+        JAX shares its compiled programs; ``scheduler_stats()
+        ["program_cache"]`` counts the hits and misses. Either alone is
+        ignored, as in JAX.
+
         A configuration with no device form (``device_model()`` raises
         ``DeviceFormUnavailable``: paxos on other than 3 servers, a
         register workload past 4 clients, ABD where request ids collide)
@@ -246,8 +262,8 @@ class CheckerBuilder:
         resolved, so it needs no card. Under ``checkpoint_path``,
         ``resume_from`` or ``fused=True``, which the host BFS cannot
         honour, it raises ``DeviceFormUnavailable`` instead. Nothing else
-        falls back: no card, a kernel that fails, a size the kernels do
-        not hold, ``FusedUnsupported``."""
+        falls back to the host: no card, a kernel that fails,
+        ``FusedUnsupported``."""
         # The engine knobs as passed (every parameter but the engine
         # choice), for the fallback's warning.
         passed = {k: v for k, v in locals().items()
@@ -271,7 +287,8 @@ class CheckerBuilder:
                        wave_matmul=wave_matmul,
                        tier_device_bytes=tier_device_bytes,
                        tier_host_bytes=tier_host_bytes, tier_dir=tier_dir,
-                       tier_partitions=tier_partitions)
+                       tier_partitions=tier_partitions,
+                       program_cache=program_cache, program_key=program_key)
         fused_knobs = _given(arena_capacity=arena_capacity,
                              waves_per_dispatch=waves_per_dispatch,
                              inflight_dispatches=inflight_dispatches)

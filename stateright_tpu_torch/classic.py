@@ -78,8 +78,12 @@ wave is kernel 2's declared cost, or kernel 1's after the torch stages.
 The bytes each wave's outputs took to the host are ``bytes_down``, one a
 wave.
 
-The mux, fault injection and preemption of the JAX engine are not ported
-(ROADMAP A10, A13).
+**Preemption** (``preempt()``, engine :1300-1307): the loop stops at its
+next wave boundary after processing the wave in flight, and ``_run``
+writes the end-of-run checkpoint, a resume image. The mux
+(``service/mux.py``) runs its own wave (``engine.mux_wave``) on this
+engine's per-wave boundary, the reference's ``_MUX_CAPABLE``. Fault
+injection is not ported (ROADMAP A13).
 """
 
 from __future__ import annotations
@@ -96,19 +100,20 @@ import torch
 
 from .engine import (compaction_order, eval_properties,
                      fingerprint_successors, pick_bucket, succ_bucket_ladder)
-from .fused import KERNELS, BfsEngine, _tier_knobs, _u64, checkpoint_name
+from .fused import KERNELS, BfsEngine, _tier_knobs, _u64, snapshot_sections
 from .graphs import DispatchGraphs
 from .hashing import SENTINEL, device_fp64
 from .mesh import _umod
 from .matmul_wave import expand
-from .checkpoint_format import make_header
 from .model import Expectation
 from .path import Path
 from .store.tiered import FrontierRef
 from .table import dedup_and_insert, dedup_cost
 from .wave import wave_cost, wave_megakernel
 
-__all__ = ["CudaBfsChecker", "classic_wave", "classic_regather"]
+__all__ = ["CudaBfsChecker", "classic_wave", "classic_regather",
+           "eval_host_conds", "cleared_ebits", "record_discoveries",
+           "check_error_lane", "fingerprint_chain", "parent_sections"]
 
 #: the waves in flight at most (one processed while the next runs)
 _SLOTS = 2
@@ -221,11 +226,12 @@ class CudaBfsChecker(BfsEngine):
                  cuda_graph: bool = False, checkpoint_path=None,
                  checkpoint_every_waves: int = 64, resume_from=None,
                  async_io=None, wave_matmul=None, device_model=None,
-                 **tier):
+                 program_cache=None, program_key=None, **tier):
         self._configure(builder, device, batch_size, table_capacity,
                         wave_kernel, max_batch_size, checkpoint_path,
                         checkpoint_every_waves, async_io, wave_matmul,
-                        device_model, _tier_knobs(tier))
+                        device_model, _tier_knobs(tier), program_cache,
+                        program_key)
         for p, fn in zip(self._properties, self._prop_fns):
             if fn is None:
                 warnings.warn(
@@ -521,28 +527,9 @@ class CudaBfsChecker(BfsEngine):
         return k2, new_vecs, new_fps, new_parent
 
     def _eval_host_conds(self, conds_out, batch_vecs, rows):
-        """Every property's condition over the batch (engine :1244-1273):
-        the device's where it has a predicate, else the host condition on
-        the decoded rows ``rows``; the unpack and the decode run once a
-        wave, for all host properties."""
-        model = self._model
-        conds: List[np.ndarray] = []
-        dev_i = 0
-        decoded = None
-        for i, fn in enumerate(self._prop_fns):
-            if fn is not None:
-                conds.append(conds_out[dev_i])
-                dev_i += 1
-                continue
-            if decoded is None:
-                unpacked = self._layout.unpack_np(batch_vecs)
-                decoded = [(r, self._dm.decode(unpacked[r])) for r in rows]
-            cond = np.zeros(len(batch_vecs), bool)
-            prop_cond = self._properties[i].condition
-            for r, state in decoded:
-                cond[r] = bool(prop_cond(model, state))
-            conds.append(cond)
-        return conds
+        return eval_host_conds(self._model, self._dm, self._layout,
+                               self._properties, self._prop_fns, conds_out,
+                               batch_vecs, rows)
 
     def _process_wave(self, wave: dict) -> None:
         """Applies a launched wave's outputs to the counts, discoveries,
@@ -640,54 +627,18 @@ class CudaBfsChecker(BfsEngine):
                          tier_device_bytes=self._table_bytes(self._capacity))
 
     def _cleared_ebits(self, conds, batch_ebits: np.ndarray) -> np.ndarray:
-        """The batch's eventually bits with each property's cleared where
-        its row satisfied it: the bits the row's children inherit
-        (bfs.rs:212-222)."""
-        ebits_after = batch_ebits.copy()
-        for i in self._eventually_idx:
-            ebits_after &= ~np.where(conds[i], np.uint32(1 << i),
-                                     np.uint32(0))
-        return ebits_after
+        return cleared_ebits(self._eventually_idx, conds, batch_ebits)
 
     def _record_discoveries(self, conds, valid: np.ndarray,
                             terminal: np.ndarray, ebits_after: np.ndarray,
                             batch_fps: np.ndarray) -> None:
-        """A wave's first hits, in batch order, under the lock:
-        Always/Sometimes at the first failing or matching valid row
-        (bfs.rs:196-211), then each eventually property at the first
-        valid terminal row with its bit still set (bfs.rs:223-226,
-        265-272)."""
-        properties = self._properties
-        for i, prop in enumerate(properties):
-            if prop.name in self._discoveries:
-                continue
-            if prop.expectation is Expectation.ALWAYS:
-                hits = valid & ~conds[i]
-            elif prop.expectation is Expectation.SOMETIMES:
-                hits = valid & conds[i]
-            else:
-                continue
-            rows = np.flatnonzero(hits)
-            if rows.size:
-                self._discoveries[prop.name] = int(batch_fps[rows[0]])
-        for r in np.flatnonzero(terminal & valid & (ebits_after != 0)):
-            for i in self._eventually_idx:
-                name = properties[i].name
-                if (ebits_after[r] >> i) & 1 \
-                        and name not in self._discoveries:
-                    self._discoveries[name] = int(batch_fps[r])
+        """A wave's first hits, under the lock (``record_discoveries``)."""
+        record_discoveries(self._discoveries, self._properties,
+                           self._eventually_idx, conds, valid, terminal,
+                           ebits_after, batch_fps)
 
     def _check_error_lane(self, new_vecs: np.ndarray) -> None:
-        """Raises if a new state set the model's error lane (engine
-        :1568-1580)."""
-        lane = self._dm.error_lane
-        if lane is None or not new_vecs.size:
-            return
-        if self._layout.lane_np(new_vecs, lane).any():
-            raise RuntimeError(
-                f"device model error lane {lane} is set in a generated "
-                "state: an encoding capacity was exceeded (for actor "
-                "models: raise net_slots)")
+        check_error_lane(self._dm, self._layout, new_vecs)
 
     # -- Host loop ---------------------------------------------------------
 
@@ -704,6 +655,13 @@ class CudaBfsChecker(BfsEngine):
         wave_index = last_ckpt = 0
         inflight = None
         while pending or inflight is not None:
+            if self._preempt_due():
+                # Preemption (engine :1300-1307): the wave in flight
+                # inserted its rows, so it is processed, then the loop
+                # stops at this safe point; ``_run`` writes the checkpoint.
+                if inflight is not None:
+                    self._process_wave(inflight)
+                return
             with self._lock:
                 done = (len(self._discoveries) == P
                         or (self._target is not None
@@ -935,39 +893,13 @@ class CudaBfsChecker(BfsEngine):
                 self._parents_consumed += 1
         return self._parents
 
-    def _parent_of(self, fp: int, blocks):
-        """``(found, parent)`` of ``fp``: from the dict, else the first
-        entry of the first of the log's unfolded ``blocks`` that holds
-        it."""
-        if fp in self._parents:
-            return True, self._parents[fp]
-        key = np.uint64(fp)
-        for child, parent, rooted in blocks:
-            hit = np.flatnonzero(child == key)
-            if len(hit):
-                i = hit[0]
-                if rooted is not None and rooted[i]:
-                    return True, None
-                return True, int(parent[i])
-        return False, None
-
     def _fingerprint_chain(self, fp: int) -> List[int]:
         """The fingerprints from a root to ``fp``, walked as JAX's
-        ``_reconstruct_path`` walks its dict, without building it: each
-        link a search of the log, earliest block and row first."""
+        ``_reconstruct_path`` walks its dict, without building it
+        (``fingerprint_chain``)."""
         with self._lock:
             blocks = self._parent_log[self._parents_consumed:]
-        chain: deque = deque()
-        cur = int(fp)
-        while True:
-            found, source = self._parent_of(cur, blocks)
-            if not found:
-                break
-            chain.appendleft(cur)
-            if source is None:
-                break
-            cur = source
-        return list(chain)
+        return fingerprint_chain(fp, blocks, self._parents)
 
     def _reconstruct_path(self, fp: int) -> Path:
         """The path to ``fp`` for the visitor: the dict is built once and
@@ -992,27 +924,16 @@ class CudaBfsChecker(BfsEngine):
 
     def _parent_sections(self):
         """``(child, parent, rooted)`` in the order of JAX's dict: the
-        folded dict, then the log's blocks, each child's first entry kept
-        (a stable dedup, as ``setdefault``)."""
+        folded dict, then the log's blocks (``parent_sections``)."""
         with self._lock:
             items = list(self._parents.items())
             blocks = self._parent_log[self._parents_consumed:]
-        child = [np.fromiter((c for c, _ in items), np.uint64, len(items))]
-        parent = [np.fromiter((0 if p is None else p for _, p in items),
-                              np.uint64, len(items))]
-        rooted = [np.fromiter((p is None for _, p in items), bool,
-                              len(items))]
-        for c, p, r in blocks:
-            child.append(c)
-            parent.append(p)
-            rooted.append(np.zeros(len(c), bool) if r is None else r)
-        child, parent, rooted = (np.concatenate(a) for a in (child, parent,
-                                                             rooted))
-        _, first = np.unique(child, return_index=True)
-        if len(first) < len(child):
-            keep = np.sort(first)
-            child, parent, rooted = child[keep], parent[keep], rooted[keep]
-        return child, parent, rooted
+        folded = (np.fromiter((c for c, _ in items), np.uint64, len(items)),
+                  np.fromiter((0 if p is None else p for _, p in items),
+                              np.uint64, len(items)),
+                  np.fromiter((p is None for _, p in items), bool,
+                              len(items)))
+        return parent_sections([folded] + blocks)
 
     def _pending_blocks(self) -> list:
         """The queue's blocks, in order (engine :563); a block the store
@@ -1025,28 +946,13 @@ class CudaBfsChecker(BfsEngine):
 
     def _snapshot(self) -> dict:
         """The checkpoint's sections at a rest point (engine :571-627)."""
-        child, parent, rooted = self._parent_sections()
-        blocks = self._pending_blocks()
-        layout = self._layout
-        wp = layout.packed_width
+        sections = self._parent_sections()
         visited, refs = self._visited_section()
-        header = make_header(
-            model_name=checkpoint_name(self._model),
-            state_width=self._dm.state_width, state_count=self._state_count,
-            unique_count=self._unique_count,
-            use_symmetry=self._use_symmetry, discoveries=self._discoveries,
-            row_format="packed" if layout.packs else "u32",
-            lane_bits=layout.specs if layout.packs else None,
-            packed_width=wp if layout.packs else None, store=refs)
-        return dict(
-            header=header, visited=visited,
-            pending_vecs=(np.concatenate([b[0] for b in blocks]) if blocks
-                          else np.zeros((0, wp), np.uint32)),
-            pending_fps=(np.concatenate([b[1] for b in blocks]) if blocks
-                         else np.zeros(0, np.uint64)),
-            pending_ebits=(np.concatenate([b[2] for b in blocks]) if blocks
-                           else np.zeros(0, np.uint32)),
-            parent_child=child, parent_parent=parent, parent_rooted=rooted)
+        return snapshot_sections(
+            self._model, self._layout, self._dm.state_width,
+            self._use_symmetry, self._state_count, self._unique_count,
+            self._discoveries, visited, refs, self._pending_blocks(),
+            sections)
 
     # -- Checker API -------------------------------------------------------
 
@@ -1085,11 +991,12 @@ class CudaBfsChecker(BfsEngine):
                                              if e["overflow"]),
                 "occupancy": (round(sum(e["rows"] for e in log) / padded, 4)
                               if padded else 0.0)},
-            "wave_kernel": {"enabled": self._wave_kernel,
+            "wave_kernel": {"enabled": self._wave_kernel_on,
                             "path": self.kernel_path(),
                             "waves_per_round_trip": 1},
             "wave_matmul": self._wave_matmul_stats(),
             "store": self.store_stats(),
+            "program_cache": self._program_cache_stats(),
             "local_dedup": {
                 "successors": succ, "distinct_candidates": cand,
                 "collapse_ratio": (round(1.0 - cand / max(succ, 1), 4)
@@ -1098,6 +1005,127 @@ class CudaBfsChecker(BfsEngine):
                 "captures": g.captures, "replays": g.replays,
                 "capture_sec": g.capture_sec},
             **self._obs_stats()}
+
+
+def eval_host_conds(model, dm, layout, properties, prop_fns, conds_out,
+                    batch_vecs, rows) -> List[np.ndarray]:
+    """Every property's condition over a batch of stored rows
+    ``batch_vecs`` in ``layout`` (engine :1244-1273): the device's
+    (``conds_out``, in order) where it has a predicate, else the host
+    condition on the decoded rows ``rows``; the unpack and the decode run
+    once a wave, for all host properties. The classic engines and the mux
+    (on its rows' model words) share it."""
+    conds: List[np.ndarray] = []
+    dev_i = 0
+    decoded = None
+    for i, fn in enumerate(prop_fns):
+        if fn is not None:
+            conds.append(np.asarray(conds_out[dev_i]))
+            dev_i += 1
+            continue
+        if decoded is None:
+            unpacked = layout.unpack_np(batch_vecs)
+            decoded = [(r, dm.decode(unpacked[r])) for r in rows]
+        cond = np.zeros(len(batch_vecs), bool)
+        prop_cond = properties[i].condition
+        for r, state in decoded:
+            cond[r] = bool(prop_cond(model, state))
+        conds.append(cond)
+    return conds
+
+
+def cleared_ebits(eventually_idx, conds, batch_ebits: np.ndarray
+                  ) -> np.ndarray:
+    """The batch's eventually bits with each property's cleared where its
+    row satisfied it: the bits the row's children inherit
+    (bfs.rs:212-222)."""
+    ebits_after = batch_ebits.copy()
+    for i in eventually_idx:
+        ebits_after &= ~np.where(conds[i], np.uint32(1 << i), np.uint32(0))
+    return ebits_after
+
+
+def record_discoveries(discoveries: Dict[str, int], properties,
+                       eventually_idx, conds, valid: np.ndarray,
+                       terminal: np.ndarray, ebits_after: np.ndarray,
+                       batch_fps: np.ndarray) -> None:
+    """A batch's first hits into ``discoveries``, in batch order:
+    Always/Sometimes at the first failing or matching valid row
+    (bfs.rs:196-211), then each eventually property at the first valid
+    terminal row with its bit still set (bfs.rs:223-226, 265-272)."""
+    for i, prop in enumerate(properties):
+        if prop.name in discoveries:
+            continue
+        if prop.expectation is Expectation.ALWAYS:
+            hits = valid & ~conds[i]
+        elif prop.expectation is Expectation.SOMETIMES:
+            hits = valid & conds[i]
+        else:
+            continue
+        rows = np.flatnonzero(hits)
+        if rows.size:
+            discoveries[prop.name] = int(batch_fps[rows[0]])
+    for r in np.flatnonzero(terminal & valid & (ebits_after != 0)):
+        for i in eventually_idx:
+            name = properties[i].name
+            if (ebits_after[r] >> i) & 1 and name not in discoveries:
+                discoveries[name] = int(batch_fps[r])
+
+
+def check_error_lane(dm, layout, new_vecs: np.ndarray) -> None:
+    """Raises if a new stored row in ``layout`` set the model's error lane
+    (engine :1568-1580)."""
+    lane = dm.error_lane
+    if lane is None or not new_vecs.size:
+        return
+    if layout.lane_np(new_vecs, lane).any():
+        raise RuntimeError(
+            f"device model error lane {lane} is set in a generated "
+            "state: an encoding capacity was exceeded (for actor "
+            "models: raise net_slots)")
+
+
+def fingerprint_chain(fp: int, blocks, parents: Dict[int, Optional[int]]
+                      ) -> List[int]:
+    """The fingerprints from a root to ``fp``, walked as JAX's
+    ``_reconstruct_path`` walks its dict: each link from ``parents`` (a
+    folded dict, None at a root), else the first entry of the earliest of
+    the parent log's ``blocks`` (``(child, parent, rooted or None)``)
+    that holds it."""
+    chain: deque = deque()
+    cur = int(fp)
+    while True:
+        if cur in parents:
+            source = parents[cur]
+        else:
+            key = np.uint64(cur)
+            hit = next(((p[j[0]], r is not None and r[j[0]])
+                        for c, p, r in blocks
+                        for j in [np.flatnonzero(c == key)] if len(j)),
+                       None)
+            if hit is None:
+                break
+            source = None if hit[1] else int(hit[0])
+        chain.appendleft(cur)
+        if source is None:
+            break
+        cur = source
+    return list(chain)
+
+
+def parent_sections(blocks):
+    """``(child, parent, rooted)`` of a parent log's blocks (``(child,
+    parent, rooted or None)``) in order, each child's first entry kept:
+    a stable dedup, as JAX's ``setdefault``."""
+    child = np.concatenate([c for c, _, _ in blocks])
+    parent = np.concatenate([p for _, p, _ in blocks])
+    rooted = np.concatenate([np.zeros(len(c), bool) if r is None else r
+                             for c, _, r in blocks])
+    _, first = np.unique(child, return_index=True)
+    if len(first) < len(child):
+        keep = np.sort(first)
+        child, parent, rooted = child[keep], parent[keep], rooted[keep]
+    return child, parent, rooted
 
 
 #: the most table slots ``_spill_for_headroom`` reads at a time

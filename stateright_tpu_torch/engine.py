@@ -10,7 +10,8 @@ kernel in ``table.py`` and the reference it is held to; the engines
 reach them only through ``table.dedup_and_insert`` and the kernels of
 ``wave``, which take them for CPU tensors alone. The sharded wave's
 sender side takes its first occurrence from ``first_occurrence_sorted``,
-the same function with no synchronisation.
+the same function with no synchronisation. ``mux_wave`` is the
+multiplexer's wave (``service/mux.py``), which inserts through kernel 1.
 
 Hash constants and slot/step functions equal the reference's, so a table
 built by either side is a valid probe structure for the other.
@@ -30,7 +31,7 @@ __all__ = ["batch_bucket_ladder", "pick_bucket", "succ_bucket_ladder",
            "TABLE_MIX",
            "STEP_MIX", "slot_hash", "host_table_insert", "scratch_slots",
            "first_occurrence_candidates", "global_insert",
-           "dedup_and_insert"]
+           "dedup_and_insert", "mux_wave"]
 
 # Fibonacci mixing constant (2^64 / golden ratio): the HIGH bits of
 # fp * TABLE_MIX pick the home slot. STEP_MIX makes the odd double-hashing
@@ -263,3 +264,61 @@ def dedup_and_insert(fps: torch.Tensor, table: torch.Tensor):
     new_mask, full = global_insert(fps, cand, table)
     return (new_mask, cand, new_mask.sum(dtype=torch.int32),
             cand.sum(dtype=torch.int32), full)
+
+
+def mux_wave(dm, vecs: torch.Tensor, valid: torch.Tensor,
+             tag_fps: torch.Tensor, table: torch.Tensor, layout,
+             prop_fns=(), scratch=None):
+    """The multi-tenant wave (the reference's ``build_mux_wave``,
+    ``tpu/engine.py:2123-2210``): one BFS level over a batch drawn from
+    several jobs' queues. ``vecs int32[B, Wp + 1]`` are tenant-lane rows
+    (``layout.with_tenant_lane()``), ``valid bool[B]``, ``tag_fps
+    int64[J]`` each slot's 64-bit tag (int64 bit patterns), ``table
+    int64[C]`` the visited table the tenants share, updated in place.
+    Returns, in the reference's order, ``(conds, terminal, seg_succ,
+    seg_cand, seg_novel, new_count, new_vecs, new_fps, new_dedup,
+    new_parent, full)``.
+
+    Each tenant's dedup fingerprints are XORed with its tag before the
+    dedup, so the one table holds per-(tenant, state) entries and tenants
+    never dedup against each other. The dedup is kernel 1
+    (``table.dedup_and_insert``, with ``scratch``) where JAX runs its XLA
+    ``first_occurrence_candidates`` and ``global_insert``: the port's
+    choice; on the CPU it runs its plain version, which is those two.
+    Path fingerprints stay untagged, and ``new_dedup`` returns the
+    untagged dedup fingerprints of the new rows, each tenant's visited
+    set for its checkpoint. ``seg_succ``, ``seg_cand`` and ``seg_novel``
+    are int64 segment sums over the ``J`` slots. The output rung is the
+    whole ``B * F``: new rows come back compacted in frontier order (a
+    stable compaction, the earliest row of each key first), so each
+    tenant's come in its solo engine's order. Nothing here reads a
+    device value on the host: it can run inside a CUDA graph."""
+    # ``table`` imports this module (the kernel's plain version is here).
+    from .table import dedup_and_insert as dedup_kernel
+
+    J, F = tag_fps.shape[0], dm.max_fanout
+    slots = layout.tenant(vecs).clamp(0, J - 1)
+    rows = layout.unpack(vecs)
+    conds = eval_properties(prop_fns, rows)
+    succ, sflat, _, terminal = expand_frontier(dm, rows, valid)
+    dedup_raw = device_fp64(succ)
+    flat_slots = slots.repeat_interleave(F)
+    tagged = torch.where(sflat, dedup_raw ^ tag_fps[flat_slots],
+                         torch.full_like(dedup_raw, SENTINEL))
+    new_mask, cand_mask, new_count, _, full = dedup_kernel(
+        tagged, table, scratch=scratch)
+
+    def seg_sum(mask):
+        return torch.zeros(J, dtype=torch.int64, device=vecs.device
+                           ).scatter_add_(0, flat_slots, mask.to(torch.int64))
+
+    comp = compaction_order(new_mask)
+    parent = comp // F
+    new_vecs = layout.pack_tenant(succ[comp], slots[parent])
+    # No symmetry in a group: the path and dedup fingerprints are one.
+    new_fps = dedup_raw[comp]
+    conds_out = [c for c in conds if c is not None]
+    return (conds_out, terminal, seg_sum(sflat), seg_sum(cand_mask),
+            seg_sum(new_mask), new_count, new_vecs, new_fps, new_fps,
+            parent.to(torch.int32), full)
+

@@ -64,7 +64,11 @@ the card and its plain version on the CPU:
   fingerprints and the packing, and ``table.dedup_and_insert`` for the
   dedup;
 - with ``wave_kernel=True``, the single-kernel wave
-  ``wave.wave_megakernel``, on the packed batch as it lies in the arena.
+  ``wave.wave_megakernel``, on the packed batch as it lies in the arena,
+  where its entry points hold the model (``wave.wave_kernel_fits``,
+  decided at spawn): past the sizes they hold, the engine warns once and
+  runs the torch stages with kernel 1, as JAX drops to its XLA path past
+  its kernels' VMEM gate.
 
 With ``wave_matmul`` (``matmul_wave.py``) a regular model's expand stage
 runs in its transition-table form either way: ``matmul_expand`` in the
@@ -97,8 +101,9 @@ import hashlib
 import os
 import threading
 import time
+import warnings
 from collections import deque
-from typing import Dict, List
+from typing import Dict, List, NamedTuple
 
 import numpy as np
 import torch
@@ -112,7 +117,7 @@ from .engine import (batch_bucket_ladder, compaction_order, eval_properties,
 from .graphs import DispatchGraphs
 from .hashing import SENTINEL, SENTINEL_U64, host_fp64, to_i64, to_u64
 from .io.async_io import writer_from_config
-from .matmul_wave import expand, gate, wave_matmul_on
+from .matmul_wave import expand, wave_matmul_on
 from .model import Expectation, property_predicates
 from .obs import (prof_from_env, recorder_from_env, tracer_from_env,
                   wave_obs_from_env)
@@ -122,10 +127,12 @@ from .path import Path
 from .store.tiered import load_cold_refs, store_from_config
 from .table import DedupScratch, dedup_and_insert, dedup_cost
 from .visitor import as_visitor
-from .wave import (cuda_model, cuda_plan, sender_megakernel, wave_cost,
-                   wave_megakernel)
+from .wave import (SpawnProgram, sender_megakernel, spawn_program,
+                   wave_cost, wave_megakernel)
 
 __all__ = ["BfsEngine", "FusedCudaBfsChecker", "FusedUnsupported", "KERNELS",
+           "insert_chunked", "CheckpointImage", "read_checkpoint",
+           "snapshot_sections",
            "ST_HEAD", "ST_TAIL", "ST_OCC", "ST_SUCC", "ST_CAND", "ST_TARGET",
            "ST_ERR", "ST_WAVES", "ST_DISC", "ERR_LANE", "ERR_TABLE_FULL"]
 
@@ -157,6 +164,90 @@ def checkpoint_name(model) -> str:
     """The model name a checkpoint header records: the model's
     ``checkpoint_name`` where it sets one, else its class's name."""
     return model.checkpoint_name or type(model).__name__
+
+
+class CheckpointImage(NamedTuple):
+    """A checkpoint as a resume reads it (``read_checkpoint``)."""
+    state_count: int
+    unique_count: int
+    discoveries: Dict[str, int]
+    #: the pending rows, unpacked ``uint32[n, W]``
+    rows: np.ndarray
+    fps: np.ndarray
+    ebits: np.ndarray
+    #: the parent sections ``(child, parent, rooted)``
+    parents: tuple
+    visited: np.ndarray
+
+
+def read_checkpoint(path: str, model, layout, W: int, use_symmetry: bool,
+                    attach_refs=None) -> CheckpointImage:
+    """Reads the checkpoint at ``path`` (engine :755-800) for a run of
+    ``model`` whose rows are ``layout``'s: its header checked, its pending
+    rows (a ``u32`` or ``packed`` file alike) held to the layout. Cold
+    segments a v5 ``store`` section references go to ``attach_refs(refs,
+    base_dir=)`` where given (a store that can evict visited rows), else
+    are read into the visited set (engine :788-812), each checked by its
+    CRCs and its content hash. The engines and the mux's tenants resume
+    through it."""
+    with load_checkpoint(path) as data:
+        header = validate_header(
+            data, model_name=checkpoint_name(model), state_width=W,
+            use_symmetry=use_symmetry)
+        for key, what in _UNPORTED.items():
+            if header.get(key):
+                raise NotImplementedError(
+                    f"checkpoint {path!r} has a {key!r} section, which "
+                    f"{what}; the port cannot resume it")
+        rows = pending_rows(data, header, W)
+        layout.check_fits(rows)
+        fps = np.asarray(data["pending_fps"], np.uint64)
+        ebits = np.asarray(data["pending_ebits"], np.uint32)
+        parents = (np.asarray(data["parent_child"], np.uint64),
+                   np.asarray(data["parent_parent"], np.uint64),
+                   np.asarray(data["parent_rooted"], bool))
+        visited = np.asarray(data["visited"], np.uint64)
+    refs = header.get("store")
+    if refs:
+        base_dir = os.path.dirname(os.path.abspath(path))
+        if attach_refs is not None:
+            attach_refs(refs, base_dir=base_dir)
+        else:
+            cold = load_cold_refs(refs, base_dir=base_dir)
+            if len(cold):
+                visited = np.concatenate([visited, cold])
+    return CheckpointImage(
+        int(header["state_count"]), int(header["unique_count"]),
+        {k: int(v) for k, v in header["discoveries"].items()}, rows, fps,
+        ebits, parents, visited)
+
+
+def snapshot_sections(model, layout, W: int, use_symmetry: bool,
+                      state_count: int, unique_count: int, discoveries,
+                      visited: np.ndarray, refs, blocks, sections) -> dict:
+    """A checkpoint's sections (engine :571-627), each with the
+    reference's name and dtype: the header, the visited set, the queue's
+    ``blocks`` (``(rows in layout, fps, ebits)``, in order) and the
+    parent ``sections`` ``(child, parent, rooted)``. The engines and the
+    mux's tenants snapshot through it."""
+    child, parent, rooted = sections
+    wp = layout.packed_width
+    header = make_header(
+        model_name=checkpoint_name(model), state_width=W,
+        state_count=state_count, unique_count=unique_count,
+        use_symmetry=use_symmetry, discoveries=discoveries,
+        row_format="packed" if layout.packs else "u32",
+        lane_bits=layout.specs if layout.packs else None,
+        packed_width=wp if layout.packs else None, store=refs)
+    return dict(
+        header=header, visited=visited,
+        pending_vecs=(np.concatenate([b[0] for b in blocks]) if blocks
+                      else np.zeros((0, wp), np.uint32)),
+        pending_fps=(np.concatenate([b[1] for b in blocks]) if blocks
+                     else np.zeros(0, np.uint64)),
+        pending_ebits=(np.concatenate([b[2] for b in blocks]) if blocks
+                       else np.zeros(0, np.uint32)),
+        parent_child=child, parent_parent=parent, parent_rooted=rooted)
 
 
 def _u32(t: torch.Tensor) -> np.ndarray:
@@ -196,6 +287,32 @@ def _first_hit(disc, hit, fps):
     return torch.where((disc == SENTINEL) & hit.any(), first, disc)
 
 
+def insert_chunked(keys: torch.Tensor, table: torch.Tensor, scratch,
+                   rows: int):
+    """Inserts the distinct int64 keys ``keys`` (sentinels are not keys)
+    into ``table`` through the dedup kernel with ``scratch``, in ``n``
+    chunks of at most ``rows`` keys, ``n`` a power of two: chunk k is
+    every n-th key from key k, copied contiguous (the keys padded with
+    sentinels to a multiple of n). Not runs of adjacent slots of an old
+    table: the keys of adjacent slots share the high bits of their hash,
+    which also pick their home slots in the scratch, so a run of them
+    piles into a small window of it (``chip_smoke.py``'s rehash case,
+    2^26 slots into 2^27 on an H100: about 20 times slower in runs than
+    in strides). Returns ``(full, n)``: a bool 0-dim tensor on the
+    device, the chunks' ``full`` flags ORed (whether a key found no free
+    slot), and the chunks taken (0 for no keys)."""
+    n = _pow2(-(-keys.shape[0] // rows))
+    pad = -keys.shape[0] % n
+    if pad:
+        keys = torch.cat([keys, keys.new_full((pad,), SENTINEL)])
+    if not keys.numel():
+        return torch.zeros((), dtype=torch.bool, device=table.device), 0
+    cols = keys.view(-1, n)
+    return torch.stack([
+        dedup_and_insert(cols[:, k].contiguous(), table, scratch=scratch)[4]
+        for k in range(n)]).any(), n
+
+
 class FusedUnsupported(TypeError):
     """The model or builder needs a host step a wave (a visitor, or a
     property the host evaluates), which only the classic engine has:
@@ -219,7 +336,8 @@ class BfsEngine(Checker):
     def _configure(self, builder, device: torch.device, batch_size: int,
                    table_capacity: int, wave_kernel: bool, max_batch_size,
                    checkpoint_path, checkpoint_every_waves: int,
-                   async_io, wave_matmul=None, dm=None, tier=None) -> None:
+                   async_io, wave_matmul=None, dm=None, tier=None,
+                   program_cache=None, program_key=None) -> None:
         model = builder._model
         if dm is None:  # not resolved by ``spawn_cuda_bfs`` already
             dm = model.device_model()
@@ -244,20 +362,39 @@ class BfsEngine(Checker):
         self._buckets = batch_bucket_ladder(self._B, max_batch_size)
         self._B_max = self._buckets[-1]
         self._layout = compile_layout(dm.lane_bits(), W)
-        self._wave_kernel = bool(wave_kernel)
-        # The expand stage's transition-table form: the model classified
-        # now (its step probed on this device), as the reference does at
-        # spawn; an irregular one warns once and keeps its step.
+        self._wave_kernel_on = bool(wave_kernel)
         self._wave_matmul_on = wave_matmul_on(wave_matmul)
-        self._matmul_plan = self._matmul_reason = None
-        if self._wave_matmul_on:
-            cls = gate(dm, device)
-            self._matmul_plan, self._matmul_reason = cls.plan, cls.reason
-        if self._wave_kernel and device.type == "cuda":
-            # Both raise before any device work.
-            cuda_model(dm, self._layout)
-            if self._matmul_plan is not None:
-                cuda_plan(dm, self._layout, self._matmul_plan)
+        # What the spawn resolves before any device work, shared through
+        # the program cache where one is armed: the expand stage's
+        # transition-table form (the model classified, its step probed on
+        # this device, as the reference does at spawn; an irregular one
+        # warns once and keeps its step), the kernels' size gate and
+        # their loaded libraries (a failed build raises here).
+        self._prog_cache = program_cache if program_key is not None else None
+        self._prog_key = (tuple(program_key) if program_key is not None
+                          else None)
+        self._prog_hits = self._prog_misses = 0
+        prog = self._spawn_program()
+        cls = prog.classification
+        self._matmul_plan = None if cls is None else cls.plan
+        self._matmul_reason = None if cls is None else cls.reason
+        # Where the kernels hold no instance of the model (or of its plan
+        # form), the waves run the torch stages with kernel 1, as JAX's
+        # drop to its XLA path past its VMEM gate; nothing else moves the
+        # path.
+        self._wave_kernel = self._wave_kernel_on and prog.fits
+        if not prog.fits:
+            warnings.warn(
+                f"wave_kernel=True: {type(dm).__name__}: {prog.reason}; its "
+                f"waves run the torch stages with kernel 1 instead "
+                f"(kernel_path {self.kernel_path()!r})", RuntimeWarning,
+                stacklevel=4)
+        # Cooperative preemption (a job service's DELETE): the wave loop
+        # checks the event at its dispatch boundary, drains what is in
+        # flight and stops at a safe point, so the end-of-run checkpoint
+        # is a valid resume image.
+        self._preempt_evt = threading.Event()
+        self.preempted = False
         self._ebits_all = 0
         for i, p in enumerate(self._properties):
             if p.expectation is Expectation.EVENTUALLY:
@@ -300,6 +437,48 @@ class BfsEngine(Checker):
     def _check_support(self) -> None:
         """Raises for a configuration this engine cannot run (the
         reference's hook of the same name)."""
+
+    #: whether the waves' front half is the sender kernel (kernel 3)
+    #: rather than the wave kernel (kernel 2): the sharded engines
+    _SENDER_KERNEL = False
+
+    #: whether the wave loop polls ``preempt()``: not on the sharded
+    #: engines, as in JAX
+    _POLLS_PREEMPT = True
+
+    def _spawn_program(self) -> SpawnProgram:
+        """``wave.spawn_program`` for this engine, through the program cache
+        when one is armed (``program_cache`` and ``program_key`` both
+        given, as in JAX, ``tpu/engine.py:181-197``). The shared key is
+        JAX's (``engine.py:843-852``): the model key, the engine, the
+        table path, packing, symmetry, ``wave_kernel`` and the matmul
+        knob, then the shape key (the row's lanes, actions and packed
+        words, and the device)."""
+        dm, device = self._dm, self._device
+
+        def build():
+            return spawn_program(dm, self._layout, device,
+                                 self._wave_matmul_on, self._wave_kernel_on,
+                                 self._SENDER_KERNEL)
+
+        if self._prog_cache is None:
+            return build()
+        key = (self._prog_key, self._ENGINE_ID,
+               "cuda" if device.type == "cuda" else "plain",
+               self._layout.packs, self._use_symmetry, self._wave_kernel_on,
+               self._wave_matmul_on, dm.state_width, dm.max_fanout,
+               self._layout.packed_width, str(device))
+        prog, hit = self._prog_cache.get_or_build(key, build)
+        if hit:
+            self._prog_hits += 1
+        else:
+            self._prog_misses += 1
+        return prog
+
+    def _program_cache_stats(self) -> dict:
+        """``scheduler_stats()["program_cache"]`` (engine :1150-1154)."""
+        return {"shared": self._prog_cache is not None,
+                "hits": self._prog_hits, "misses": self._prog_misses}
 
     def _arm_obs(self) -> None:
         """The run telemetry (``obs``; the reference's ``tpu/engine.py``
@@ -436,30 +615,12 @@ class BfsEngine(Checker):
         return _pow2(-(-n // self._scratch_shape()[0]))
 
     def _insert_chunked(self, keys: torch.Tensor, table: torch.Tensor):
-        """Inserts the distinct int64 keys ``keys`` (sentinels are not
-        keys) into ``table`` through the dedup kernel with the engine's
-        scratch, in ``n`` chunks of at most the scratch's rows, ``n`` a
-        power of two: chunk k is every n-th key from key k, copied
-        contiguous (the keys padded with sentinels to a multiple of n).
-        Not runs of adjacent slots of an old table: the keys of adjacent
-        slots share the high bits of their hash, which also pick their
-        home slots in the scratch, so a run of them piles into a small
-        window of it (``chip_smoke.py``'s rehash case, 2^26 slots into
-        2^27 on an H100: about 20 times slower in runs than in strides).
-        Returns a bool 0-dim tensor on the device, the chunks' ``full``
-        flags ORed: whether a key found no free slot."""
-        n = self._chunks(keys.shape[0])
-        pad = -keys.shape[0] % n
-        if pad:
-            keys = torch.cat([keys, keys.new_full((pad,), SENTINEL)])
-        if not keys.numel():
-            return torch.zeros((), dtype=torch.bool, device=table.device)
-        self.table_chunks += n
-        cols = keys.view(-1, n)
-        return torch.stack([
-            dedup_and_insert(cols[:, k].contiguous(), table,
-                             scratch=self._scratch)[4]
-            for k in range(n)]).any()
+        """``insert_chunked`` with the engine's scratch, its chunks counted
+        in ``table_chunks``."""
+        full, chunks = insert_chunked(keys, table, self._scratch,
+                                      self._scratch_shape()[0])
+        self.table_chunks += chunks
+        return full
 
     def _visited_sorted(self) -> np.ndarray:
         """The visited set, ``uint64`` sorted (engine :603-610): the
@@ -614,6 +775,9 @@ class BfsEngine(Checker):
                 "(or wait for the failure) first")
         self._thread.join()
         self._aio.reset()
+        # The preempt event survives a restart (a preempt that raced a
+        # crash still targets the job); only the outcome flag resets.
+        self.preempted = False
         self._io_stall_s = 0.0
         self._error = None
         self._discoveries = {}
@@ -631,48 +795,23 @@ class BfsEngine(Checker):
 
     def _load_checkpoint(self, path: str):
         """Restores the counts, discoveries and host parent map from the
-        checkpoint at ``path`` (engine :755-800) and returns its seed
+        checkpoint at ``path`` (``read_checkpoint``) and returns its seed
         rows as ``_init_rows`` does: the pending rows packed in this
-        engine's layout (a ``u32`` or ``packed`` file alike), their
-        fingerprints and eventually bits, and the visited set. Cold
-        segments a v5 ``store`` section references are attached to this
-        engine's store where it can evict visited rows, else read into
-        the visited set (engine :788-812), each checked by its CRCs and
-        its content hash."""
-        W = self._dm.state_width
-        with load_checkpoint(path) as data:
-            header = validate_header(
-                data, model_name=checkpoint_name(self._model),
-                state_width=W, use_symmetry=self._use_symmetry)
-            for key, what in _UNPORTED.items():
-                if header.get(key):
-                    raise NotImplementedError(
-                        f"checkpoint {path!r} has a {key!r} section, which "
-                        f"{what}; the port cannot resume it")
-            rows = pending_rows(data, header, W)
-            self._layout.check_fits(rows)
-            seed = self._layout.pack_np(rows)
-            fps = np.asarray(data["pending_fps"], np.uint64)
-            ebits = np.asarray(data["pending_ebits"], np.uint32)
-            self._parents = (
-                np.asarray(data["parent_child"], np.uint64),
-                np.asarray(data["parent_parent"], np.uint64),
-                np.asarray(data["parent_rooted"], bool))
-            visited = np.asarray(data["visited"], np.uint64)
-        refs = header.get("store")
-        if refs:
-            base_dir = os.path.dirname(os.path.abspath(path))
-            if self._store.active and self._VISITED_SPILL_CAPABLE:
-                self._store.attach_refs(refs, base_dir=base_dir)
-            else:
-                cold = load_cold_refs(refs, base_dir=base_dir)
-                if len(cold):
-                    visited = np.concatenate([visited, cold])
-        self._state_count = self._base_states = int(header["state_count"])
-        self._unique_count = int(header["unique_count"])
-        self._discoveries = {k: int(v)
-                             for k, v in header["discoveries"].items()}
-        return seed, fps, ebits, visited
+        engine's layout, their fingerprints and eventually bits, and the
+        visited set. Cold segments a v5 ``store`` section references are
+        attached to this engine's store where it can evict visited rows,
+        else read into the visited set."""
+        attach = (self._store.attach_refs if self._store.active
+                  and self._VISITED_SPILL_CAPABLE else None)
+        img = read_checkpoint(path, self._model, self._layout,
+                              self._dm.state_width, self._use_symmetry,
+                              attach)
+        self._parents = img.parents
+        self._state_count = self._base_states = img.state_count
+        self._unique_count = img.unique_count
+        self._discoveries = img.discoveries
+        return (self._layout.pack_np(img.rows), img.fps, img.ebits,
+                img.visited)
 
     def _table_bytes(self, capacity: int) -> int:
         """The visited table's device bytes at ``capacity`` slots (the
@@ -705,10 +844,12 @@ class BfsEngine(Checker):
     def kernel_path(self) -> str:
         """Which successor-path implementation the waves run:
         ``megakernel`` (the single-kernel wave) or ``dedup_kernel``
-        (torch stages around the dedup kernel) on the card, and their
-        plain versions ``megakernel_plain`` or ``dedup_plain`` on the
-        CPU; each with ``+matmul`` when the expand stage runs a matmul
-        plan (the reference's suffix, ``tpu/engine.py`` :925-929)."""
+        (torch stages around the dedup kernel, also with
+        ``wave_kernel=True`` past the sizes the kernels hold) on the
+        card, and their plain versions ``megakernel_plain`` or
+        ``dedup_plain`` on the CPU; each with ``+matmul`` when the expand
+        stage runs a matmul plan (the reference's suffix,
+        ``tpu/engine.py`` :925-929)."""
         on_card = self._device.type == "cuda"
         if self._wave_kernel:
             path = "megakernel" if on_card else "megakernel_plain"
@@ -749,6 +890,27 @@ class BfsEngine(Checker):
                     self._model, self._fingerprint_chain(fp), self._dm)
                 for name, fp in found}
 
+    def preempt(self) -> None:
+        """Requests a cooperative stop (the reference's,
+        ``tpu/engine.py:1874-1884``): the wave loop drains any in-flight
+        dispatch at its next boundary, writes the end-of-run checkpoint
+        (when ``checkpoint_path`` is set: a safe point, so the image is a
+        valid resume source), and stops with ``self.preempted`` True. The
+        run is not failed: ``join()`` returns normally and a later run
+        resumes from the checkpoint bit for bit. Idempotent; a no-op once
+        the run finished. The sharded engines (``_POLLS_PREEMPT`` off) do
+        not poll the flag, as in JAX, so there it is a no-op: a job
+        service schedules onto the classic and fused engines."""
+        self._preempt_evt.set()
+
+    def _preempt_due(self) -> bool:
+        """Whether the loop stops here for a ``preempt()`` (never where
+        ``_POLLS_PREEMPT`` is off)."""
+        if not self._POLLS_PREEMPT or not self._preempt_evt.is_set():
+            return False
+        self.preempted = True
+        return True
+
     def join(self) -> "BfsEngine":
         self._thread.join()
         if self._error is not None:
@@ -771,7 +933,7 @@ class FusedCudaBfsChecker(BfsEngine):
                  cuda_graph: bool = False, checkpoint_path=None,
                  checkpoint_every_waves: int = 64, resume_from=None,
                  async_io=None, wave_matmul=None, device_model=None,
-                 **tier):
+                 program_cache=None, program_key=None, **tier):
         self._K = max(1, int(waves_per_dispatch))
         # Dispatches launched ahead of the oldest one's stats read; safe at
         # any depth, since a dispatch launched past a rest point is a no-op.
@@ -779,7 +941,8 @@ class FusedCudaBfsChecker(BfsEngine):
         self._configure(builder, device, batch_size, table_capacity,
                         wave_kernel, max_batch_size, checkpoint_path,
                         checkpoint_every_waves, async_io, wave_matmul,
-                        device_model, _tier_knobs(tier))
+                        device_model, _tier_knobs(tier), program_cache,
+                        program_key)
         self._arena_capacity = arena_capacity
         self._start(resume_from)
 
@@ -992,6 +1155,11 @@ class FusedCudaBfsChecker(BfsEngine):
         inflight: deque = deque()
         last_ckpt = 0
         while True:
+            if self._preempt_due():
+                # Preemption (fused :641-647): to the epilogue below, which
+                # retires every dispatch in flight; the arena holds their
+                # parents, so the end-of-run checkpoint is a resume image.
+                break
             with self._lock:
                 done = (len(self._discoveries) == P
                         or (self._target is not None
@@ -1320,25 +1488,13 @@ class FusedCudaBfsChecker(BfsEngine):
     def _snapshot(self) -> dict:
         """The checkpoint's sections at a rest point (engine :571-627),
         each with the reference's name and dtype."""
-        child, parent, rooted = self._parent_sections()
-        blocks = self._pending_blocks()
-        layout = self._layout
+        sections = self._parent_sections()
         visited, refs = self._visited_section()
-        header = make_header(
-            model_name=checkpoint_name(self._model),
-            state_width=self._dm.state_width, state_count=self._state_count,
-            unique_count=self._unique_count,
-            use_symmetry=self._use_symmetry, discoveries=self._discoveries,
-            row_format="packed" if layout.packs else "u32",
-            lane_bits=layout.specs if layout.packs else None,
-            packed_width=layout.packed_width if layout.packs else None,
-            store=refs)
-        return dict(header=header, visited=visited,
-                    pending_vecs=np.concatenate([b[0] for b in blocks]),
-                    pending_fps=np.concatenate([b[1] for b in blocks]),
-                    pending_ebits=np.concatenate([b[2] for b in blocks]),
-                    parent_child=child, parent_parent=parent,
-                    parent_rooted=rooted)
+        return snapshot_sections(
+            self._model, self._layout, self._dm.state_width,
+            self._use_symmetry, self._state_count, self._unique_count,
+            self._discoveries, visited, refs, self._pending_blocks(),
+            sections)
 
     def _reset_engine_state(self) -> None:
         """Drops the device state a restart rebuilds (fused :882-893)."""
@@ -1427,6 +1583,7 @@ class FusedCudaBfsChecker(BfsEngine):
             "max_inflight": max((e["inflight"] for e in log), default=0),
             "wave_matmul": self._wave_matmul_stats(),
             "store": self.store_stats(),
+            "program_cache": self._program_cache_stats(),
             "graphs": None if g is None else {
                 "captures": g.captures, "replays": g.replays,
                 "capture_sec": g.capture_sec},

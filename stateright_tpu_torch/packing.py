@@ -1,7 +1,7 @@
 """Model-derived bit-packed row format for the device arena.
 
-The port's copy of ``stateright_tpu/tpu/packing.py`` (without the
-multiplexer's tenant lane). States are computed as ``W`` lanes but most
+The port's copy of ``stateright_tpu/tpu/packing.py``, the multiplexer's
+tenant lane included (``with_tenant_lane``). States are computed as ``W`` lanes but most
 lanes are far narrower than 32 bits (a 2pc RM state is 2 bits), so the
 arena stores each row as ``Wp = ceil(sum(bits) / 32)`` words. The word
 layout equals the reference's bit for bit.
@@ -97,6 +97,29 @@ class PackedLayout:
         #: them (``checkpoint_format.make_header``)
         self.specs = [(l.bits if l.sentinel is None
                        else [l.bits, l.sentinel]) for l in self.lanes]
+        #: set by ``with_tenant_lane`` on derived layouts; a layout
+        #: compiled from a model never has one
+        self.tenant_lane: Optional[_Lane] = None
+
+    def with_tenant_lane(self, bits: int = 16) -> "PackedLayout":
+        """A layout whose packed rows grow one trailing word-aligned lane
+        carrying a tenant (job) slot (the reference's, ``packing.py:157``):
+        the model lanes keep their words, offsets and sentinels, and the
+        tenant lane takes a fresh word after them, so ``packed[..., :-1]``
+        of a tenant row is the row this layout packs."""
+        if self.tenant_lane is not None:
+            raise ValueError("layout already carries a tenant lane")
+        if not 1 <= int(bits) <= 32:
+            raise ValueError(f"tenant lane width {bits} outside 1..32")
+        out = PackedLayout(self.specs, self.width)
+        out.tenant_lane = _Lane(int(bits), out.packed_width, 0, None)
+        out.packed_width += 1
+        return out
+
+    def _tenant_lane(self) -> _Lane:
+        if self.tenant_lane is None:
+            raise ValueError("layout has no tenant lane")
+        return self.tenant_lane
 
     # -- torch codec (device waves) --------------------------------------
 
@@ -133,6 +156,20 @@ class PackedLayout:
     def lane(self, packed: torch.Tensor, lane: int) -> torch.Tensor:
         """One unpacked lane (int64) of packed rows."""
         return self._lane(packed.to(torch.int64) & _M32, self.lanes[lane])
+
+    def tenant(self, packed: torch.Tensor) -> torch.Tensor:
+        """The tenant slot (int64) of tenant-lane rows."""
+        return self._lane(packed.to(torch.int64) & _M32, self._tenant_lane())
+
+    def pack_tenant(self, rows: torch.Tensor,
+                    tags: torch.Tensor) -> torch.Tensor:
+        """``(int64[..., W], int[...]) -> int32[..., Wp + 1]``: the model
+        lanes packed as the base layout packs them, then the tenant slot
+        in the trailing word."""
+        l = self._tenant_lane()
+        words = self.pack(rows)[..., :l.word]
+        tag = _as_int32(tags.to(torch.int64) & l.mask)
+        return torch.cat([words, tag[..., None]], dim=-1)
 
     # -- numpy codec (host cold paths) -----------------------------------
 
@@ -171,6 +208,20 @@ class PackedLayout:
         if l.sentinel is not None:
             f = np.where(f == mask, np.uint32(l.sentinel), f)
         return f
+
+    def tenant_np(self, packed: np.ndarray) -> np.ndarray:
+        """The tenant slot column (``uint32``) of tenant-lane rows."""
+        l = self._tenant_lane()
+        return np.asarray(packed, np.uint32)[..., l.word] & np.uint32(l.mask)
+
+    def pack_tenant_np(self, rows: np.ndarray,
+                       tags: np.ndarray) -> np.ndarray:
+        """``(uint32[..., W], tag[...]) -> uint32[..., Wp + 1]``: the numpy
+        twin of ``pack_tenant``."""
+        l = self._tenant_lane()
+        out = self.pack_np(rows)
+        out[..., l.word] = np.asarray(tags, np.uint32) & np.uint32(l.mask)
+        return out
 
     def check_fits(self, rows: np.ndarray) -> None:
         """Raises if a lane value exceeds its declared width (a wrong

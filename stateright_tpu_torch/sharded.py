@@ -242,6 +242,8 @@ class ShardedCudaBfsChecker(EpochOwnership, CudaBfsChecker):
     per shard."""
 
     _ENGINE_ID = "sharded"
+    _SENDER_KERNEL = True
+    _POLLS_PREEMPT = False
 
     def __init__(self, builder, mesh, batch_size: int = 512,
                  exchange_novel_only=None, pipeline=None, **kwargs):

@@ -97,6 +97,8 @@ class ShardedFusedCudaBfsChecker(EpochOwnership, FusedCudaBfsChecker):
     per shard."""
 
     _ENGINE_ID = "sharded_fused"
+    _SENDER_KERNEL = True
+    _POLLS_PREEMPT = False
 
     def __init__(self, builder, mesh, batch_size: int = 512,
                  exchange_novel_only=None, **kwargs):

@@ -34,7 +34,7 @@ from .engine import dedup_and_insert as dedup_and_insert_plain
 from .engine import scratch_slots
 
 __all__ = ["dedup_and_insert", "dedup_and_insert_plain", "DedupScratch",
-           "scratch_bits", "dedup_cost"]
+           "scratch_bits", "dedup_cost", "load_library"]
 
 _INT32_MAX = (1 << 31) - 1
 
@@ -130,6 +130,12 @@ def _lib() -> ctypes.CDLL:
     p, i = ctypes.c_void_p, ctypes.c_int
     fn.argtypes = [p, ctypes.c_longlong, p, i, p, p, p, i, p, p, p, p]
     return lib
+
+
+def load_library() -> ctypes.CDLL:
+    """Builds ``csrc/table.cu`` (once a build directory) and loads it (once
+    a process); a failed build raises."""
+    return _lib()
 
 
 def dedup_and_insert(fps: torch.Tensor, table: torch.Tensor, scratch=None):

@@ -24,6 +24,10 @@ the model named by ``DeviceModel.cuda_model()`` from
 and ping-pong's and viewstamped replication's; the plain models'), or
 raises: a model with no device code, a layout or a size the
 device code does not take, a failed build or a failed launch all raise.
+The engines ask first (``wave_kernel_fits``, JAX's VMEM gate's place):
+where the entry points hold no instance of the model they run the torch
+stages with kernel 1 instead, as JAX drops to its XLA path, and never
+reach the wrapper with it; a build or a launch that fails still raises.
 Sentinel lanes (the register workloads' network slots) pack and unpack as
 ``packing.py`` does. For CPU tensors
 it runs the plain version, ``wave_megakernel_plain``: the port's own
@@ -46,6 +50,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -54,11 +59,13 @@ from ._build import build_and_load
 from .device_model import held
 from .engine import dedup_and_insert as dedup_and_insert_plain
 from .engine import fingerprint_successors, first_occurrence_candidates
+from . import matmul_wave
 from .matmul_wave import expand
-from .table import DedupScratch, scratch_bits
+from .table import DedupScratch, load_library, scratch_bits
 
 __all__ = ["wave_megakernel", "wave_megakernel_plain", "sender_megakernel",
-           "sender_megakernel_plain", "cuda_model", "cuda_plan", "plan_host",
+           "sender_megakernel_plain", "cuda_model", "cuda_plan",
+           "wave_kernel_fits", "SpawnProgram", "spawn_program", "plan_host",
            "plan_tables", "plan_table_bytes", "wave_cost", "sender_cost",
            "front_ops", "sym_ops"]
 
@@ -278,6 +285,64 @@ def cuda_plan(dm, layout, plan) -> None:
             f"{held(instances)}): run it with wave_matmul=False or "
             "wave_kernel=False on the card")
     plan_host(plan)
+
+
+def wave_kernel_fits(dm, layout, plan=None):
+    """``(ok, reason)``: whether the kernels' entry points hold ``dm`` at
+    its size (``cuda_model``) and, under a matmul ``plan``, its plan form
+    (``cuda_plan``). The place of JAX's VMEM gate (``wave_kernel_ok``,
+    ``pallas_table.py:330-340``): where it says no, an engine runs the
+    torch stages with kernel 1, as JAX drops to its XLA path
+    (``tpu/engine.py:930-943``), and ``reason`` is the refusal's message
+    (the model, its size and the sizes held). Decided from the model's
+    parameters alone: it loads and launches nothing, and catches only
+    the two functions' ``NotImplementedError``."""
+    try:
+        cuda_model(dm, layout)
+        if plan is not None:
+            cuda_plan(dm, layout, plan)
+    except NotImplementedError as e:
+        return False, str(e)
+    return True, None
+
+
+class SpawnProgram(NamedTuple):
+    """What a spawn resolves that binds no buffer, so what engines of one
+    program key share (``jit_cache.WaveProgramCache``): the matmul gate's
+    classification (None with the knob off) and the size gate's verdict
+    (``fits``, ``reason``). The kernels' libraries it loads stay loaded
+    for the process (the launches look their entries up again); the CUDA
+    graphs bind an engine's buffers and stay per engine."""
+    classification: Optional[matmul_wave.MatmulClassification]
+    fits: bool
+    reason: Optional[str]
+
+
+def spawn_program(dm, layout, device: torch.device, wave_matmul: bool,
+                  wave_kernel: bool, sender: bool) -> SpawnProgram:
+    """An engine's ``SpawnProgram`` for ``dm`` on ``device``: the matmul
+    gate's classification when ``wave_matmul`` (the model's step probed
+    on the device); with ``wave_kernel`` on the card the size gate
+    (``wave_kernel_fits``) and, where it fits, kernel 2's entry point
+    (kernel 3's with ``sender``) built and loaded; and on the card kernel
+    1's library, which every path launches. A build that fails raises
+    here, at spawn: only the size gate moves the path."""
+    cls = matmul_wave.gate(dm, device) if wave_matmul else None
+    plan = None if cls is None else cls.plan
+    on_card = device.type == "cuda"
+    fits, reason = True, None
+    if wave_kernel and on_card:
+        fits, reason = wave_kernel_fits(dm, layout, plan)
+    if wave_kernel and on_card and fits:
+        name, params, _ = cuda_model(dm, layout)
+        # The launches' own lookups (``_launcher``), so they find it loaded.
+        plan_form = (True,) if plan is not None else ()
+        (_sender_entry if sender else _entry)(
+            name, _kinds(params), *plan_form, source=_source(name, params))
+    if on_card:
+        load_library()
+    return SpawnProgram(cls, fits, reason)
+
 
 def _device_index(dev: torch.device) -> int:
     """The index of CUDA device ``dev`` (the current one for a bare

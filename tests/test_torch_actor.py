@@ -243,16 +243,24 @@ class _OwnDelivery(PingPongDevice):
         return new_body, handled & (env < 64), outs
 
 
-def test_wave_kernel_refuses_a_subclass_with_its_own_delivery():
+def test_wave_kernel_refuses_a_subclass_with_its_own_delivery(monkeypatch):
+    """The kernels' size gate refuses a model whose delivery their device
+    code does not compute, before any device work; on a CUDA device the
+    engine then warns and runs the torch stages with kernel 1 (the card's
+    gate run here on the CPU's plain versions), unsharded and sharded."""
+    from test_torch_sizes import _card_gate
+
     class Sys(PingPongSys):
         def device_model(self):
             return _OwnDelivery(self.max_nat, lossy=True)
 
-    for spawn in (dict(device="cuda:0"), dict(mesh=["cuda:0"] * 2)):
-        with pytest.raises(NotImplementedError,
-                           match=r"_OwnDelivery has no CUDA.*'deliver'"):
-            Sys(5, lossy=True).checker().spawn_cuda_bfs(wave_kernel=True,
-                                                        **spawn)
+    _card_gate(monkeypatch)
+    for spawn in (dict(device="cpu"), dict(mesh=["cpu"] * 2)):
+        with pytest.warns(RuntimeWarning,
+                          match=r"_OwnDelivery has no CUDA.*'deliver'"):
+            c = Sys(5, lossy=True).checker().spawn_cuda_bfs(
+                wave_kernel=True, batch_size=256, **spawn)
+        assert c.join().kernel_path() == "dedup_plain"
 
 
 # -- The whole slice ----------------------------------------------------------

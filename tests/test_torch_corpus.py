@@ -359,19 +359,26 @@ class _OwnStep(increment.IncrementDevice):
         return succ, valid & (rows[:, :1] < 2)
 
 
-def test_wave_kernel_refuses_a_subclass_with_its_own_step():
-    """On a CUDA device ``wave_kernel=True`` raises at spawn for a model
-    whose step its device code does not compute (no card is needed to
-    reach it); on the CPU it runs the plain version."""
+def test_wave_kernel_refuses_a_subclass_with_its_own_step(monkeypatch):
+    """On a CUDA device the kernels' size gate refuses a model whose step
+    their device code does not compute, before any device work, and the
+    engine warns and runs the torch stages with kernel 1 (the card's gate
+    run here on the CPU's plain versions); on the CPU it runs the plain
+    version."""
+    from test_torch_sizes import _card_gate
 
     class Sys(increment.IncrementModel):
         def device_model(self):
             return _OwnStep(self.thread_count)
 
-    for spawn in (dict(device="cuda:0"), dict(mesh=["cuda:0"] * 2)):
-        with pytest.raises(NotImplementedError,
-                           match=r"_OwnStep has no CUDA.*'step'"):
-            Sys(2).checker().spawn_cuda_bfs(wave_kernel=True, **spawn)
+    _card_gate(monkeypatch)
+    for spawn in (dict(device="cpu"), dict(mesh=["cpu"] * 2)):
+        with pytest.warns(RuntimeWarning,
+                          match=r"_OwnStep has no CUDA.*'step'"):
+            c = Sys(2).checker().spawn_cuda_bfs(wave_kernel=True,
+                                                batch_size=64, **spawn)
+        assert c.join().kernel_path() == "dedup_plain"
+    monkeypatch.undo()
     c = Sys(2).checker().spawn_cuda_bfs(device="cpu", wave_kernel=True,
                                         batch_size=64).join()
     assert c.kernel_path() == "megakernel_plain"

@@ -11,7 +11,9 @@ host engine's ``bfs.py``, ``_market.py``, ``fingerprint.py`` and
 ``semantics.py``, the shared ``host.py``, and the host DFS's ``dfs.py``
 and ``symmetry.py`` and
 the host actor layer's ``actor.py``, and the run telemetry's ``obs/``
-package and ``profiling.py`` among them); a fresh interpreter that checks 2pc at 3 RMs
+package and ``profiling.py``, and the program cache's ``jit_cache.py``
+and the ``service/`` package's registry and mux among
+them); a fresh interpreter that checks 2pc at 3 RMs
 (on the host BFS, on the fused engine,
 with a visitor on the classic engine and on the classic sharded engine,
 and with ``wave_matmul=True``, classified by the port's own
@@ -20,9 +22,9 @@ clients on one server, ABD at 2 clients on two, LinearEquation, increment
 and increment_lock at 2 threads, the 2x3 puzzle, ping-pong at max_nat 5 on
 a lossy network and VSR at 2 replicas through the port on the CPU, 2pc
 at 5 RMs and single-copy at 2 clients with symmetry on the host DFS,
-VSR at 2 replicas on the host BFS, and
+VSR at 2 replicas on the host BFS,
 paxos on 5 servers through a ``spawn_cuda_bfs()`` that falls back to the
-host BFS, and then finds neither ``jax`` nor ``stateright_tpu`` loaded; and
+host BFS, and two tenants of 2pc at 3 RMs in one ``MuxGroup``, and then finds neither ``jax`` nor ``stateright_tpu`` loaded; and
 the entry point's default device, which is CUDA and raises on a box
 without one.
 """
@@ -68,7 +70,9 @@ def test_no_file_of_the_port_imports_jax_or_the_jax_package():
             "semantics.py", "dfs.py", "symmetry.py", "actor.py",
             "host.py", "profiling.py", "obs/__init__.py", "obs/schema.py",
             "obs/tracer.py", "obs/flight.py", "obs/hist.py", "obs/slo.py",
-            "obs/anomaly.py", "obs/prof.py"} <= names
+            "obs/anomaly.py", "obs/prof.py", "jit_cache.py",
+            "service/__init__.py", "service/registry.py",
+            "service/mux.py"} <= names
     for path in files + [os.path.join(_REPO, "chip_smoke.py")]:
         for name in _imports(path):
             assert name.split(".")[0] not in _BANNED, (path, name)
@@ -155,6 +159,13 @@ def test_a_cpu_check_loads_neither_jax_nor_the_jax_package():
         "assert type(c).__name__ == 'BfsChecker', type(c)\n"
         "assert 'falling back to the host BFS' in str(w[0].message)\n"
         "assert (c.unique_state_count(), c.state_count()) == (3465, 8615)\n"
+        "from stateright_tpu_torch.service import MuxGroup, default_registry\n"
+        "m, _ = default_registry().build('twopc')\n"
+        "g = MuxGroup(m, knobs={'batch_size': 32}, device='cpu')\n"
+        "hs = [g.admit(f'j{i}') for i in range(2)]\n"
+        "assert [h.join().unique_state_count() for h in hs] == [288, 288]\n"
+        "g.join(timeout=30)\n"
+        "assert g.closed\n"
         "bad = [m for m in sys.modules\n"
         "       if m.split('.')[0] in ('jax', 'jaxlib', 'stateright_tpu')]\n"
         "assert not bad, bad\n"

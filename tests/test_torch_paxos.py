@@ -412,23 +412,30 @@ class _OwnServer(PaxosDevice):
         return new_lanes, handled & (f.kind != 1), outs
 
 
-@pytest.mark.parametrize("spawn", [dict(device="cuda:0"),
-                                   dict(mesh=["cuda:0"] * 2)],
+@pytest.mark.parametrize("spawn", [dict(device="cpu"),
+                                   dict(mesh=["cpu"] * 2)],
                          ids=["wave", "sender"])
-def test_wave_kernel_refuses_a_paxos_subclass_with_its_own_delivery(spawn):
+def test_wave_kernel_refuses_a_paxos_subclass_with_its_own_delivery(
+        monkeypatch, spawn):
     """A ``PaxosDevice`` subclass that overrides ``server_deliver``
-    without its own ``cuda_model`` has no CUDA step: ``wave_kernel=True``
-    on a CUDA device raises at spawn, before any device work (so no card
-    is needed), and never falls back to the torch stages; on the CPU it
-    runs the plain versions."""
+    without its own ``cuda_model`` has no CUDA step: on a CUDA device the
+    kernels' size gate refuses it before any device work, and the engine
+    warns and runs the torch stages with kernel 1, as JAX's XLA path (the
+    card's gate run here on the CPU's plain versions); on the CPU it runs
+    the plain versions."""
+    from test_torch_sizes import _card_gate
 
     class Sys(PaxosSys):
         def device_model(self):
             return _OwnServer(self.client_count)
 
-    with pytest.raises(NotImplementedError,
-                       match=r"_OwnServer has no CUDA.*\['server_deliver'\]"):
-        Sys(1).checker().spawn_cuda_bfs(wave_kernel=True, **spawn)
+    _card_gate(monkeypatch)
+    with pytest.warns(RuntimeWarning,
+                      match=r"_OwnServer has no CUDA.*\['server_deliver'\]"):
+        c = Sys(1).checker().spawn_cuda_bfs(wave_kernel=True,
+                                            batch_size=128, **spawn)
+    assert c.join().kernel_path() == "dedup_plain"
+    monkeypatch.undo()
     c = Sys(1).checker().spawn_cuda_bfs(device="cpu", wave_kernel=True,
                                         batch_size=128).join()
     assert c.kernel_path() == "megakernel_plain"

@@ -395,19 +395,26 @@ class _OwnServer(SingleCopyDevice):
         return new_lanes, handled & (f.kind != 1), outs
 
 
-def test_wave_kernel_refuses_a_subclass_with_its_own_delivery():
-    """On a CUDA device ``wave_kernel=True`` raises at spawn for a model
-    whose delivery its device code does not compute (no card is needed
-    to reach it); on the CPU it runs the plain version."""
+def test_wave_kernel_refuses_a_subclass_with_its_own_delivery(monkeypatch):
+    """On a CUDA device the kernels' size gate refuses a model whose
+    delivery their device code does not compute, before any device work,
+    and the engine warns and runs the torch stages with kernel 1 (the
+    card's gate run here on the CPU's plain versions); on the CPU it runs
+    the plain version."""
+    from test_torch_sizes import _card_gate
 
     class Sys(SingleCopySys):
         def device_model(self):
             return _OwnServer(self.client_count, self.server_count)
 
-    for spawn in (dict(device="cuda:0"), dict(mesh=["cuda:0"] * 2)):
-        with pytest.raises(NotImplementedError,
-                           match=r"_OwnServer has no CUDA.*server_deliver"):
-            Sys(2).checker().spawn_cuda_bfs(wave_kernel=True, **spawn)
+    _card_gate(monkeypatch)
+    for spawn in (dict(device="cpu"), dict(mesh=["cpu"] * 2)):
+        with pytest.warns(RuntimeWarning,
+                          match=r"_OwnServer has no CUDA.*server_deliver"):
+            c = Sys(2).checker().spawn_cuda_bfs(wave_kernel=True,
+                                                batch_size=64, **spawn)
+        assert c.join().kernel_path() == "dedup_plain"
+    monkeypatch.undo()
     c = Sys(2).checker().spawn_cuda_bfs(device="cpu", wave_kernel=True,
                                         batch_size=64).join()
     assert c.kernel_path() == "megakernel_plain"

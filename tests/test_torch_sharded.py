@@ -474,18 +474,26 @@ class _NoCode(twopc.TwoPhaseDevice):
         return None
 
 
-def test_sender_kernel_on_the_card_never_falls_back():
+def test_sender_kernel_on_the_card_never_falls_back(monkeypatch):
     """Without device code for the model, ``wave_kernel=True`` on a CUDA
-    mesh raises at spawn, before any device work (so no card is needed
-    to reach it); on the CPU the same model runs the plain version."""
+    mesh falls back neither to the CPU nor to the host: the size gate
+    refuses the model before any device work, and the engine warns once
+    and runs the torch stages and the sort in place of the sender kernel
+    (the card's gate run here on the CPU's plain versions); on the CPU
+    the same model runs the plain version."""
+    from test_torch_sizes import _card_gate
 
     class Sys(twopc.TwoPhaseSys):
         def device_model(self):
             return _NoCode(self.rm_count)
 
-    with pytest.raises(NotImplementedError, match="_NoCode has no CUDA"):
-        Sys(2).checker().spawn_cuda_bfs(mesh=["cuda:0"] * 2,
-                                        wave_kernel=True)
+    _card_gate(monkeypatch)
+    with pytest.warns(RuntimeWarning, match="_NoCode has no CUDA"):
+        c = Sys(2).checker().spawn_cuda_bfs(mesh=["cpu"] * 2,
+                                            wave_kernel=True)
+    assert c.join().kernel_path() == "dedup_plain"
+    assert c.unique_state_count() == 56
+    monkeypatch.undo()
     c = Sys(2).checker().spawn_cuda_bfs(mesh=["cpu"] * 2, wave_kernel=True)
     assert c.join().kernel_path() == "sender_plain"
 

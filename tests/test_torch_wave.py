@@ -15,6 +15,7 @@ itself is held to the same plain version on the card by
 """
 
 import os
+import re
 import sys
 
 import numpy as np
@@ -176,21 +177,33 @@ class _SentinelLane(twopc.TwoPhaseDevice):
 @pytest.mark.parametrize("dm_cls, match", [
     (_OwnStep, "_OwnStep has no CUDA step.*overrides \\['step'\\]"),
     (_NoCode, "_NoCode has no CUDA step")])
-def test_wave_kernel_on_the_card_never_falls_back(dm_cls, match):
+def test_wave_kernel_on_the_card_never_falls_back(monkeypatch, dm_cls,
+                                                  match):
     """Without device code for the model, ``wave_kernel=True`` on a CUDA
-    device raises at spawn, before any device work (so no card is
-    needed to reach it); on the CPU the same model runs its plain
-    version."""
+    device falls back neither to the CPU nor to the host: the kernels'
+    size gate refuses the model before any device work, and the engine
+    warns once and runs the torch stages with kernel 1 on the card, as
+    JAX drops to its XLA path (the card's gate is run here on the CPU's
+    plain versions); on the CPU the same model runs its plain version."""
+    from test_torch_sizes import _card_gate
 
     class Sys(twopc.TwoPhaseSys):
         def device_model(self):
             return dm_cls(self.rm_count)
 
-    with pytest.raises(NotImplementedError, match=match):
-        Sys(2).checker().spawn_cuda_bfs(device="cuda:0", wave_kernel=True)
     dm = dm_cls(2)
+    layout = compile_layout(dm.lane_bits(), dm.state_width)
     with pytest.raises(NotImplementedError, match=match):
-        wave.cuda_model(dm, compile_layout(dm.lane_bits(), dm.state_width))
+        wave.cuda_model(dm, layout)
+    ok, reason = wave.wave_kernel_fits(dm, layout)
+    assert not ok and re.search(match, reason)
+    _card_gate(monkeypatch)
+    with pytest.warns(RuntimeWarning, match=match):
+        c = Sys(2).checker().spawn_cuda_bfs(device="cpu", wave_kernel=True)
+    assert c.join().kernel_path() == "dedup_plain"
+    assert c.unique_state_count() == Sys(2).checker().spawn_cuda_bfs(
+        device="cpu").join().unique_state_count()
+    monkeypatch.undo()
     c = Sys(2).checker().spawn_cuda_bfs(device="cpu", wave_kernel=True)
     assert c.join().kernel_path() == "megakernel_plain"
 

@@ -15,13 +15,15 @@ Usage, from the root of a checkout on a machine with an NVIDIA H100:
     python3 chip_smoke.py --phases tiered          # phase 1, then 17
     python3 chip_smoke.py --phases obs             # phase 1, then 18
     python3 chip_smoke.py --phases mux             # phase 1, then 19
+    python3 chip_smoke.py --phases faults          # phase 1, then 20
     python3 chip_smoke.py --phases kernels,full    # phase 1, 2-4 and 6
 
 ``--phases`` takes a comma-separated subset of ``kernels`` (phases 2 to
 4), ``small`` (5), ``full`` (6), ``checkpoint`` (7), ``classic`` (8),
 ``registers`` (9), ``corpus`` (10), ``actors`` (11), ``sharded_classic``
 (12), ``matmul`` (13), ``sizes`` (14), ``fallback`` (15 and 16),
-``tiered`` (17), ``obs`` (18) and ``mux`` (19), runs phase 1 and those,
+``tiered`` (17), ``obs`` (18), ``mux`` (19) and ``faults`` (20), runs
+phase 1 and those,
 in this order,
 and
 prints the kernels line's rows those phases give
@@ -406,7 +408,35 @@ in order; any failure exits non-zero and prints no result line:
     registry's paxos (2 clients, 16,668 unique), tenant 0 preempted at
     the third wave and resumed from its checkpoint in a fresh group, both
     equal to the solo run likewise;
-20. the kernels line, the script's running time, the card line and the
+20. faults and supervised recovery (``resilience/``), with no CPU
+    fallback: (a) 2pc 5 at batch 256 on the wave kernel (kernel 3
+    sharded), two waves a dispatch and a checkpoint a wave, on the four
+    device engines (the sharded ones at n = 4) against the CPU run, then
+    under a ``Supervisor`` ``wave_crash@n=2`` on all four,
+    ``torn_ckpt@n=2`` on the fused and classic engines (resumed from
+    ``.prev``), ``a2a_short@n=2`` and ``a2a_corrupt@n=2`` on the classic
+    sharded one, each exactly its engine's clean run (counts, discovery
+    names and chains) after one recovery, and ``grow_oom@n=1`` at batch 32
+    with ``table_capacity=4096`` and ``max_batch_size=128`` on all four,
+    completed in the engine on a shorter ladder; (b) ``paxos check 3`` on
+    the fused wave kernel at batch 16,384 with ``wave_crash`` two
+    dispatches after its first checkpoint, recovered in place
+    (``restart_from``: one spawn, no kernel library loaded again), exact,
+    beside the clean run's seconds, with the restart's seconds and kernel
+    1's chunk launches for its table, whose build is held to the plain
+    version and timed (the kernels line's ``dedup_and_insert[restart
+    seed]``); (c) a real allocation failure: the caching allocator capped
+    (``set_per_process_memory_fraction``, from an uncapped run's peak) so
+    that the classic engine's first growth of 2pc 5 at ``max_batch_size``
+    262,144 fails with ``torch.OutOfMemoryError``, caught by the OOM
+    degrade (the run exact on a lower rung) or named by the supervisor's
+    ``abort``, the fraction restored after and a short clean run; and
+    whether a dropped graph pool's memory is found without
+    ``empty_cache()``; (d) classic 2pc 4 under JAX's ``_TIER`` budgets with
+    ``spill_fail@n=2``, ``disk_full@n=1`` and ``page_in_torn@n=1``, each
+    supervised, exact and spilled; then a disarmed mid-run 2pc 7 dispatch
+    replayed under ``set_sync_debug_mode("error")``;
+21. the kernels line, the script's running time, the card line and the
     result line.
 
 It imports neither JAX nor ``stateright_tpu``.
@@ -427,6 +457,7 @@ import tempfile
 import threading
 import time
 import traceback
+import warnings
 from collections import deque
 from concurrent.futures import ThreadPoolExecutor
 
@@ -6103,6 +6134,531 @@ def _mux_rows(torch, kernels, table_mod):
     return _clocked("phase 19", phase_mux, torch, kernels, table_mod)
 
 
+# -- Phase 20: faults and supervised recovery --------------------------------
+
+#: phase 20 (a)'s engines on the card (2pc 5, batch 256 a shard)
+FAULT_ENGINES = {
+    "fused": dict(device="cuda:0"),
+    "classic": dict(device="cuda:0", fused=False),
+    "sharded fused": dict(mesh=["cuda:0"] * SHARDS),
+    "sharded classic": dict(mesh=["cuda:0"] * SHARDS, fused=False)}
+#: (a)'s supervised specs and the engines each runs on
+FAULT_MATRIX = (
+    ("wave_crash@n=2", tuple(FAULT_ENGINES)),
+    ("torn_ckpt@n=2", ("fused", "classic")),
+    ("a2a_short@n=2", ("sharded classic",)),
+    ("a2a_corrupt@n=2", ("sharded classic",)))
+#: 2pc 5's and 2pc 4's (unique, states)
+FAULT_2PC5, FAULT_2PC4 = (8_832, 58_146), (1_568, 8_258)
+#: (d)'s classic caps on 2pc 4 (JAX's ``tests/test_resilience.py::_TIER``)
+FAULT_TIER = dict(tier_device_bytes=4096 * 8, tier_host_bytes=4096)
+#: (c)'s top rung: the classic engine's headroom at it needs a 2^25-slot
+#: table for 2pc 5, at the rung below the spawn's 2^24 slots suffice
+FAULT_OOM_LADDER = 262_144
+#: (d)'s specs, each recovered by one retry from the hit named
+FAULT_TIER_SPECS = ("spill_fail@n=2", "disk_full@n=1", "page_in_torn@n=1")
+
+
+def _arm_faults(spec) -> None:
+    """``STpu_FAULTS`` set to ``spec`` (None: unset), fresh counters."""
+    from stateright_tpu_torch.resilience import FAULTS_ENV, reset_fault_plans
+
+    if spec is None:
+        os.environ.pop(FAULTS_ENV, None)
+    else:
+        os.environ[FAULTS_ENV] = spec
+    reset_fault_plans()
+
+
+def _fault_totals(c, chains=True):
+    """Counts, discovery names and (with ``chains``) each discovery's
+    fingerprint chain."""
+    return (c.unique_state_count(), c.state_count(), sorted(c.discoveries()),
+            _chains(c) if chains else None)
+
+
+def _supervised(torch, spawn, ckpt, spec, **sup):
+    """``spawn(checkpoint_path=, resume_from=)`` run under a ``Supervisor``
+    with ``spec`` armed (unset after): ``(supervisor, checker, seconds,
+    the factory's resume_from arguments)``."""
+    from stateright_tpu_torch.resilience import Supervisor
+
+    made = []
+
+    def factory(resume_from=None):
+        made.append(resume_from)
+        return spawn(checkpoint_path=ckpt, resume_from=resume_from)
+
+    _arm_faults(spec)
+    t0 = time.monotonic()
+    try:
+        s = Supervisor(factory, checkpoint_path=ckpt, backoff_s=0.001, **sup)
+        c = s.run()
+        torch.cuda.synchronize()
+    finally:
+        _arm_faults(None)
+    return s, c, time.monotonic() - t0, made
+
+
+def _recovery_line(s) -> str:
+    return "; ".join(
+        f"attempt {r['attempt']}: {r['error'][:90]}, resumed from "
+        f"{os.path.basename(r['resumed_from'] or 'scratch')}, backoff "
+        f"{r['backoff_s']} + jitter {r['jitter_s']} s"
+        for r in s.recoveries)
+
+
+def _faults_matrix(torch, kernels, workdir):
+    """(a): 2pc 5 at batch 256 on the wave kernel (kernel 3 sharded),
+    two waves a dispatch, a checkpoint every wave: each engine's clean
+    card run against the CPU's, then each spec of ``FAULT_MATRIX``
+    supervised, exactly its engine's clean run (counts, discovery names
+    and chains) after one recovery; then ``grow_oom@n=1`` at batch 32 with
+    ``table_capacity=4096`` and ``max_batch_size=128``, completed in the
+    engine with a shorter ladder."""
+    from stateright_tpu_torch.models.twopc import TwoPhaseSys
+
+    cpu = TwoPhaseSys(5).checker().spawn_cuda_bfs(device="cpu",
+                                                  batch_size=256).join()
+    cpu_totals = _fault_totals(cpu)
+    if cpu_totals[:2] != FAULT_2PC5:
+        raise AssertionError(f"2pc 5 on the CPU: {cpu_totals[:2]}")
+
+    def spawner(eng, **fixed):
+        def spawn(**kw):
+            return TwoPhaseSys(5).checker().spawn_cuda_bfs(
+                wave_kernel=True, waves_per_dispatch=2, **eng, **fixed, **kw)
+        return spawn
+
+    clean = {}
+    for name, eng in FAULT_ENGINES.items():
+        for fn in kernels.values():
+            fn.launches = 0
+        t0 = time.monotonic()
+        c = spawner(eng, batch_size=256, checkpoint_every_waves=1)(
+            checkpoint_path=os.path.join(workdir, f"clean {name}.npz")
+        ).join()
+        torch.cuda.synchronize()
+        launches = {k: fn.launches for k, fn in kernels.items()
+                    if fn.launches}
+        clean[name] = _fault_totals(c)
+        sharded = "mesh" in eng
+        if clean[name][:3] != cpu_totals[:3] or (
+                not sharded and clean[name] != cpu_totals):
+            raise AssertionError(f"2pc 5 clean on the {name} engine: "
+                                 f"{clean[name][:3]} against the CPU's")
+        if not launches:
+            raise AssertionError(f"2pc 5 clean on the {name} engine "
+                                 "launched no kernel")
+        _log(f"2pc 5 clean, {name} engine ({c.kernel_path()}): "
+             f"{clean[name][0]} / {clean[name][1]} in "
+             f"{time.monotonic() - t0:.3f} s, launches {launches}")
+    for spec, names in FAULT_MATRIX:
+        for name in names:
+            ckpt = os.path.join(workdir, f"{spec} {name}.npz")
+            s, c, sec, made = _supervised(
+                torch, spawner(FAULT_ENGINES[name], batch_size=256,
+                               checkpoint_every_waves=1), ckpt, spec)
+            got = _fault_totals(c)
+            resumed = s.recoveries[0]["resumed_from"] if s.recoveries \
+                else None
+            if got != clean[name] or len(s.recoveries) != 1:
+                raise AssertionError(
+                    f"{spec} on the {name} engine: {got[:3]} after "
+                    f"{len(s.recoveries)} recoveries")
+            if spec.startswith("torn") and not (
+                    resumed or "").endswith(".prev"):
+                raise AssertionError(f"{spec} on the {name} engine resumed "
+                                     f"from {resumed}, not the .prev file")
+            if spec.startswith("a2a") and "ExchangeIntegrityError" not in \
+                    s.recoveries[0]["error"]:
+                raise AssertionError(f"{spec}: {s.recoveries[0]['error']}")
+            _log(f"{spec} on the {name} engine: exact ({got[0]} / {got[1]}, "
+                 f"chains equal) in {sec:.3f} s, {len(made)} spawn(s); "
+                 + _recovery_line(s))
+    for name, eng in FAULT_ENGINES.items():
+        _arm_faults("grow_oom@n=1")
+        t0 = time.monotonic()
+        try:
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always", RuntimeWarning)
+                c = spawner(eng, batch_size=32, table_capacity=4096,
+                            max_batch_size=128)().join()
+            torch.cuda.synchronize()
+        finally:
+            _arm_faults(None)
+        got = _fault_totals(c, chains="mesh" not in eng)
+        want = clean[name][:3] + (got[3] and clean[name][3],)
+        degraded = [str(w.message) for w in caught
+                    if "degrading the dispatch bucket ladder" in
+                    str(w.message)]
+        if got != want or not c._B_max < 128 or len(degraded) != 1:
+            raise AssertionError(
+                f"grow_oom on the {name} engine: {got[:3]}, B_max "
+                f"{c._B_max}, {len(degraded)} degrade warnings")
+        _log(f"grow_oom@n=1 on the {name} engine: exact in "
+             f"{time.monotonic() - t0:.3f} s, ladder "
+             f"{c._buckets}, {c.rehashes} rehashes to 2^"
+             f"{c._capacity.bit_length() - 1} slots; {degraded[0][:120]}")
+
+
+def _lib_loads():
+    """The kernel libraries' and entry points' loads so far (their caches'
+    misses): a recovery that loads none leaves these as they were."""
+    from stateright_tpu_torch import append, table, wave
+
+    return (table._lib.cache_info().misses, append._lib.cache_info().misses,
+            wave._entry.cache_info().misses,
+            wave._sender_entry.cache_info().misses)
+
+
+def _faults_paxos3(torch, kernels, table_mod, engine, workdir):
+    """(b): ``paxos check 3`` on the fused wave kernel at batch 16,384, a
+    checkpoint every 16 waves' worth of states: a clean run, then the same
+    supervised with ``wave_crash`` two dispatches after its first
+    checkpoint, recovered in place (``restart_from``: no spawn, no kernel
+    library loaded again, the table rebuilt by kernel 1's chunks), exact.
+    The rebuilt table's build is then held to the plain version and timed
+    (``_seed_case``). Returns the kernels line's row."""
+    import numpy as np
+
+    from stateright_tpu_torch.models.paxos import PaxosSys
+
+    knobs = dict(device="cuda:0", batch_size=BATCH, wave_kernel=True,
+                 checkpoint_every_waves=16)
+    t0 = time.monotonic()
+    clean = PaxosSys(3).checker().spawn_cuda_bfs(
+        checkpoint_path=os.path.join(workdir, "paxos3 clean.npz"),
+        **knobs).join()
+    torch.cuda.synchronize()
+    clean_s = time.monotonic() - t0
+    want = _fault_totals(clean)
+    if want[:2] != (PAXOS_UNIQUE, PAXOS_STATES):
+        raise AssertionError(f"paxos 3 clean: {want[:2]}")
+    log = clean.dispatch_log
+    first = next(i for i, e in enumerate(log, 1)
+                 if e["unique"] >= 16 * BATCH)
+    crash_at = min(first + 2, len(log))
+    del clean, log
+    gc.collect()
+    restart = {}
+
+    def spawn(**kw):
+        c = PaxosSys(3).checker().spawn_cuda_bfs(**knobs, **kw)
+        real = c.restart_from
+
+        def timed(path):
+            # The visited set the restart builds its table from (a later
+            # checkpoint overwrites the file).
+            with np.load(path) as f:
+                restart["visited"] = np.array(f["visited"])
+            chunks = c.table_chunks
+            t = time.monotonic()
+            out = real(path)
+            restart.update(s=time.monotonic() - t, path=path,
+                           chunks=c.table_chunks - chunks)
+            return out
+
+        c.restart_from = timed
+        return c
+
+    for fn in kernels.values():
+        fn.launches = 0
+    loads = _lib_loads()
+    s, c, sec, made = _supervised(
+        torch, spawn, os.path.join(workdir, "paxos3.npz"),
+        f"wave_crash@n={crash_at}")
+    launches = {name: fn.launches for name, fn in kernels.items()}
+    got = _fault_totals(c)
+    if got != want or len(s.recoveries) != 1 or made != [None] \
+            or "s" not in restart:
+        raise AssertionError(
+            f"paxos 3 with wave_crash@n={crash_at}: {got[:3]}, "
+            f"{len(s.recoveries)} recoveries, spawns {made}, restart "
+            f"{restart}")
+    if _lib_loads() != loads:
+        raise AssertionError(f"the recovery loaded a kernel library again: "
+                             f"{loads} -> {_lib_loads()}")
+    K, d = c._K, c.dispatches
+    if (launches["dedup_and_insert"] != c.table_chunks
+            or launches["wave_megakernel"] != launches["append_rows"]
+            or not K * d <= launches["wave_megakernel"] <= K * (d + 1)
+            or launches["sender_megakernel"]):
+        raise AssertionError(f"paxos 3 faulted: launches {launches}, "
+                             f"{d} dispatches of {K} waves, "
+                             f"{c.table_chunks} table chunks")
+    _log(f"paxos 3 with wave_crash@n={crash_at} (of {d} dispatches "
+         f"retired; first checkpoint after dispatch {first}): exact "
+         f"({got[0]} / {got[1]}) in {sec:.3f} s against {clean_s:.3f} s "
+         f"clean; restart_from {restart['s']:.3f} s (host) from "
+         f"{os.path.basename(restart['path'])}, its table of "
+         f"{len(restart['visited'])} keys rebuilt by "
+         f"{restart['chunks']} chunk launches of kernel 1; one spawn, no "
+         f"kernel library loaded again ({loads}); launches {launches}; "
+         + _recovery_line(s))
+    visited = restart["visited"]
+    cap = c._B_max * c._F * 2 + 4 * len(visited)
+    cap = 1 << max(12, (cap - 1).bit_length())
+    r = _clocked("kernel 1's hold on the restart's table", _seed_case,
+                 torch, table_mod, engine, c, visited, cap)
+    return _kernel_row("dedup_and_insert[restart seed]", SRC + "table.cu",
+                       PALLAS + "256", launches["dedup_and_insert"], 0, r)
+
+
+def _graph_pool_probe(torch, mb: int = 256):
+    """Whether memory a dropped graph pool held is found by the next
+    allocation under a cap that leaves no room beside it: a graph
+    captured through ``graphs.DispatchGraphs`` (the engines' way) holds
+    ``mb`` MiB in its pool, the graphs are cleared, the cap is set to what
+    is live plus 1.5 such tensors, and one is allocated; only on a
+    ``torch.OutOfMemoryError`` is ``empty_cache()`` called and the
+    allocation tried again. Returns whether it was needed."""
+    from stateright_tpu_torch.fused import KERNELS
+    from stateright_tpu_torch.graphs import DispatchGraphs
+
+    dev = torch.device("cuda:0")
+    n = mb << 18
+    total = torch.cuda.get_device_properties(dev).total_memory
+    static = torch.zeros(n, device=dev)
+    held = {}
+    g = DispatchGraphs(KERNELS)
+    for _ in range(2):
+        g.run("probe", lambda: held.update(out=static * 2))
+        held.clear()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+    dead = torch.cuda.memory_reserved(dev) - torch.cuda.memory_allocated(dev)
+    g.clear()
+    held.clear()
+    gc.collect()
+    after = torch.cuda.memory_reserved(dev) - torch.cuda.memory_allocated(dev)
+    allowed = torch.cuda.memory_allocated(dev) + n * 4 * 3 // 2
+    needed = False
+    try:
+        torch.cuda.set_per_process_memory_fraction(allowed / total, dev)
+        try:
+            x = torch.empty(n, device=dev)
+        except torch.OutOfMemoryError:
+            needed = True
+            torch.cuda.empty_cache()
+            x = torch.empty(n, device=dev)
+        del x
+    finally:
+        torch.cuda.set_per_process_memory_fraction(1.0, dev)
+    del static
+    _log(f"a dropped graph pool: {dead} B reserved beyond the live tensors "
+         f"with the graph, {after} B after the graphs were cleared; a "
+         f"{n * 4} B allocation under a cap of the live bytes plus 1.5 of "
+         f"it {'needed' if needed else 'did not need'} empty_cache()")
+    return needed
+
+
+def _faults_real_oom(torch, workdir):
+    """(c): a real allocation failure. 2pc 5 on the classic engine at
+    batch 256 with ``max_batch_size=262,144``, whose first growth doubles a
+    2^24-slot table (the ladder's top rung sizes the headroom; the next
+    rung needs no growth): an uncapped run's peak sets the cap (the caching
+    allocator's ``set_per_process_memory_fraction``) at what was live plus
+    the peak less 3/4 of the grown table, so that growth's allocation
+    fails with ``torch.OutOfMemoryError``; under a ``Supervisor`` the run
+    either degrades and finishes exact on a lower rung or aborts naming
+    the card's error. The fraction is restored in a ``finally``, a short
+    clean run follows, and the graph-pool probe runs."""
+    from stateright_tpu_torch.models.twopc import TwoPhaseSys
+    from stateright_tpu_torch.resilience import Supervisor
+
+    spawn = dict(device="cuda:0", fused=False, batch_size=256,
+                 max_batch_size=FAULT_OOM_LADDER)
+    dev = torch.device("cuda:0")
+    total = torch.cuda.get_device_properties(dev).total_memory
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    first = TwoPhaseSys(5).checker().spawn_cuda_bfs(**spawn).join()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated(dev) - base
+    grown, rehashes = first._capacity, first.rehashes
+    if rehashes < 1 or _fault_totals(first, False)[:2] != FAULT_2PC5:
+        raise AssertionError(f"the uncapped run: {rehashes} rehashes, "
+                             f"{_fault_totals(first, False)[:2]}")
+    del first
+    gc.collect()
+    torch.cuda.empty_cache()
+    live = torch.cuda.memory_allocated(dev)
+    allowed = live + peak - 3 * (grown * 8) // 4
+    ooms = torch.cuda.memory_stats(dev).get("num_ooms", 0)
+    trace = os.path.join(workdir, "oom.jsonl")
+    os.environ["STpu_TRACE"] = trace
+    outcome = err = c = None
+    sup = Supervisor(lambda resume_from=None: TwoPhaseSys(5).checker()
+                     .spawn_cuda_bfs(**spawn), max_retries=1,
+                     backoff_s=0.001)
+    t0 = time.monotonic()
+    try:
+        torch.cuda.set_per_process_memory_fraction(allowed / total, dev)
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always", RuntimeWarning)
+            try:
+                c = sup.run()
+                torch.cuda.synchronize()
+                outcome = "degrade"
+            except Exception as e:  # noqa: BLE001 — the abort is read below
+                outcome, err = "abort", e
+    finally:
+        torch.cuda.set_per_process_memory_fraction(1.0, dev)
+        os.environ.pop("STpu_TRACE", None)
+    sec = time.monotonic() - t0
+    ooms = torch.cuda.memory_stats(dev).get("num_ooms", 0) - ooms
+    events = [json.loads(line) for line in open(trace)]
+    kinds = [e["type"] for e in events if e["type"] in (
+        "degrade", "recover", "retry", "abort")]
+    degraded = [str(w.message) for w in caught
+                if "degrading the dispatch bucket ladder" in str(w.message)]
+    if ooms < 1:
+        raise AssertionError("the cap made no allocation fail")
+    if outcome == "degrade":
+        got = _fault_totals(c, False)[:2]
+        if (got != FAULT_2PC5 or not c._B_max < FAULT_OOM_LADDER
+                or sup.recoveries or not degraded
+                or "OutOfMemoryError" not in degraded[0]):
+            raise AssertionError(f"the degraded run: {got}, B_max "
+                                 f"{c._B_max}, warnings {degraded[:1]}")
+        _log(f"a real allocation failure, caught by the degrade: the cap "
+             f"{allowed} B ({allowed / total:.6f} of {total} B; uncapped "
+             f"peak {peak} B over {live} B live, growth to 2^"
+             f"{grown.bit_length() - 1} slots), {ooms} OOM(s) in the "
+             f"allocator; exact ({got[0]} / {got[1]}) on the ladder's top "
+             f"rung {c._B_max} in {sec:.3f} s, {c.rehashes} rehashes, "
+             f"table 2^{c._capacity.bit_length() - 1} slots; events "
+             f"{kinds}; {degraded[0][:200]}")
+    else:
+        aborts = [e for e in events if e["type"] == "abort"]
+        if not aborts or "out of memory" not in aborts[-1]["reason"].lower():
+            raise AssertionError(f"the capped run failed without a card "
+                                 f"OOM abort: {err!r}, events {kinds}")
+        _log(f"a real allocation failure, not recovered in the engine: the "
+             f"supervisor's abort after {aborts[-1]['attempts']} retries "
+             f"reads {aborts[-1]['reason'][:200]!r}; {ooms} OOM(s); events "
+             f"{kinds}; {sec:.3f} s; the cap {allowed} B over {live} B "
+             f"live (uncapped peak {peak} B); retries: "
+             + _recovery_line(sup) + "; warnings: "
+             + " | ".join(w[:160] for w in degraded))
+    del c
+    gc.collect()
+    check = TwoPhaseSys(3).checker().spawn_cuda_bfs(device="cuda:0").join()
+    if (check.unique_state_count(), check.state_count()) != (288, 1_146):
+        raise AssertionError("the card after the cap: 2pc 3 "
+                             f"{check.unique_state_count()}")
+    _log("the fraction restored; 2pc 3 after it exact (288 / 1,146)")
+    _graph_pool_probe(torch)
+    return outcome
+
+
+def _faults_tiered(torch, workdir):
+    """(d): classic 2pc 4 at batch 32, ``table_capacity=4096``, under
+    ``FAULT_TIER``, each of ``FAULT_TIER_SPECS`` supervised: exact against
+    the CPU run (counts, discovery names and chains), spilled, recovered
+    by one retry from the point and hit named."""
+    from stateright_tpu_torch.models.twopc import TwoPhaseSys
+
+    want = _fault_totals(TwoPhaseSys(4).checker().spawn_cuda_bfs(
+        device="cpu", fused=False, batch_size=32).join())
+    if want[:2] != FAULT_2PC4:
+        raise AssertionError(f"2pc 4 on the CPU: {want[:2]}")
+    for spec in FAULT_TIER_SPECS:
+        point, _, hit = spec.partition("@n=")
+        tier_dir = os.path.join(workdir, point)
+        os.makedirs(tier_dir)
+
+        def spawn(**kw):
+            return TwoPhaseSys(4).checker().spawn_cuda_bfs(
+                device="cuda:0", fused=False, batch_size=32,
+                table_capacity=4096, tier_dir=tier_dir,
+                checkpoint_every_waves=1, **FAULT_TIER, **kw)
+
+        s, c, sec, _ = _supervised(torch, spawn,
+                                   os.path.join(tier_dir, "c.npz"), spec)
+        st = c.store_stats()
+        error = (f"InjectedFault: injected crash at fault point {point!r} "
+                 f"(hit {hit})")
+        if (_fault_totals(c) != want or not st["spill_bytes"]
+                or [r["error"] for r in s.recoveries] != [error]):
+            raise AssertionError(f"{spec}: {_fault_totals(c)[:3]}, store "
+                                 f"{st}, recoveries {s.recoveries}")
+        _log(f"{spec} on the classic engine, tiered: exact ({want[0]} / "
+             f"{want[1]}) in {sec:.3f} s, spills {st['spills']}, "
+             f"{st['spill_bytes']} B; " + _recovery_line(s))
+
+
+def _faults_sync_check(torch, fused):
+    """A disarmed run's dispatch replayed under
+    ``set_sync_debug_mode("error")``: its fault plan is ``NULL_PLAN``, and
+    the hooks add no host sync."""
+    from stateright_tpu_torch.models.twopc import TwoPhaseSys
+    from stateright_tpu_torch.resilience import NULL_PLAN
+
+    mid = TwoPhaseSys(7).checker().target_state_count(50_000).spawn_cuda_bfs(
+        device="cuda:0", batch_size=4096, wave_kernel=True).join()
+    if mid._faults is not NULL_PLAN:
+        raise AssertionError("a run with STpu_FAULTS unset has a live plan")
+    mid._stats[..., fused.ST_TARGET] = 1 << 62
+    point = _Point(torch, fused, mid)
+    waves, ms, _, host_us, replay = _timed_dispatch(torch, point,
+                                                    sync_check=True)
+    if not replay or not waves:
+        raise AssertionError(f"the sync-checked dispatch: replay {replay}, "
+                             f"{waves} waves")
+    _log(f"2pc 7 mid-run, disarmed: a replay of {waves} waves under "
+         f"set_sync_debug_mode('error') ran sync-free ({ms:.3f} ms, "
+         f"{host_us:.1f} us of host launch)")
+
+
+def phase_faults(torch, kernels, fused, table_mod, engine):
+    """Phase 20: (a) the crash matrix, (b) ``paxos check 3`` recovered in
+    place, (c) a real allocation failure, (d) the tiered store's faults,
+    and a disarmed replay sync-checked. Files in ``_fault_tmp/`` beside
+    the script, removed after. Returns its kernels line row."""
+    import shutil
+
+    workdir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "_fault_tmp")
+    shutil.rmtree(workdir, ignore_errors=True)
+    os.makedirs(workdir)
+    try:
+        _clocked("phase 20 (a)", _faults_matrix, torch, kernels, workdir)
+        row = _clocked("phase 20 (b)", _faults_paxos3, torch, kernels,
+                       table_mod, engine, workdir)
+        _clocked("phase 20 (c)", _faults_real_oom, torch, workdir)
+        _clocked("phase 20 (d)", _faults_tiered, torch, workdir)
+        _clocked("phase 20's sync check", _faults_sync_check, torch, fused)
+    finally:
+        _arm_faults(None)
+        shutil.rmtree(workdir, ignore_errors=True)
+    return [row]
+
+
+def _faults_warm(torch) -> None:
+    """What phase 20's process runs while it waits: a small run on each
+    engine kind it drives, so that its first runs find the kernels
+    loaded."""
+    from stateright_tpu_torch.models.twopc import TwoPhaseSys
+
+    for eng in FAULT_ENGINES.values():
+        TwoPhaseSys(3).checker().spawn_cuda_bfs(
+            batch_size=64, wave_kernel=True, **eng).join()
+    torch.cuda.synchronize()
+    _WARMED.add("faults")
+
+
+def _faults_rows(torch, kernels, fused, table_mod, engine):
+    return _clocked("phase 20", phase_faults, torch, kernels, fused,
+                    table_mod, engine)
+
+
+_WARM["faults"] = _faults_warm
+
+
 def _modules():
     """The port's modules, from the checkout beside this script."""
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
@@ -6422,7 +6978,7 @@ def _register_rows(holds, runs):
 
 
 class _Children:
-    """Phases 9 to 19 (``later``, in order), each in a process of its own
+    """Phases 9 to 20 (``later``, in order), each in a process of its own
     (``--phases <phase>``) whose log it passes on and whose kernels line's
     rows it returns. After phases 2 to 8 in one process, about half of the
     profiles the register phase took there recorded no device time on the
@@ -6504,7 +7060,7 @@ _PHASE_REFS = {
 #: the phases ``--phases`` can name, in the order they run
 PHASES = ("kernels", "small", "full", "checkpoint", "classic", "registers",
           "corpus", "actors", "sharded_classic", "matmul", "sizes",
-          "fallback", "tiered", "obs", "mux")
+          "fallback", "tiered", "obs", "mux", "faults")
 
 
 def _parse(argv):
@@ -6547,7 +7103,7 @@ def _main(argv) -> int:
     card = _card_line()
     _log(f"card: {card}")
     # The CPU reference runs of the phases this process runs, made ahead
-    # in worker processes (``_CpuRefs``): phases 9 to 19 run in processes
+    # in worker processes (``_CpuRefs``): phases 9 to 20 run in processes
     # of their own unless one is asked for alone.
     here = phases if len(phases) == 1 else phases & set(PHASES[:5])
     _REFS.ahead(job for phase in PHASES if phase in here
@@ -6588,7 +7144,7 @@ def _main(argv) -> int:
         old["ck"] = _clocked("phase 7", phase_checkpoint, torch, kernels,
                              fused, table_mod, engine, ckpt_mod, TwoPhaseSys,
                              PaxosSys)
-    # Phases 9 to 19 each in a process of its own, unless it is the only
+    # Phases 9 to 20 each in a process of its own, unless it is the only
     # one asked for; the first starts while phase 8 runs.
     alone = len(phases) == 1
     children = _Children(card, [] if alone else
@@ -6634,7 +7190,9 @@ def _later_phases(torch, kernels, fused, engine, wave_mod, table_mod,
         + _clocked("phase 16", phase_host, torch, card),
         "tiered": lambda: _tiered_rows(torch, kernels),
         "obs": lambda: _obs_rows(torch, kernels, fused),
-        "mux": lambda: _mux_rows(torch, kernels, table_mod)}
+        "mux": lambda: _mux_rows(torch, kernels, table_mod),
+        "faults": lambda: _faults_rows(torch, kernels, fused, table_mod,
+                                       engine)}
     for phase in PHASES[5:]:
         if phase not in phases:
             continue

@@ -9,5 +9,8 @@ package is the reference its tests hold it to. Entry points:
 
 from .builder import CheckerBuilder
 from .model import Expectation, Model, Property
+from .util import DenseNatMap, HashableHashMap, HashableHashSet, VectorClock
 
-__all__ = ["CheckerBuilder", "Expectation", "Model", "Property"]
+__all__ = ["CheckerBuilder", "Expectation", "Model", "Property",
+           "DenseNatMap", "HashableHashMap", "HashableHashSet",
+           "VectorClock"]

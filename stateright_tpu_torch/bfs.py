@@ -17,8 +17,9 @@ terminal, and the bits follow the first path to a state only,
 ``bfs.rs:239-259``). Symmetry is ignored, as in the JAX package.
 
 Its wave events (``STpu_TRACE``, one a worker block, engine id
-``host_bfs``) are ``host.HostChecker``'s. Left out: the JAX engine's
-fault plan, which belongs to the port of ``resilience`` (ROADMAP A13).
+``host_bfs``) are ``host.HostChecker``'s. The fault plan's ``host_crash``
+(``resilience/faults.py``) fires at the top of a check block: the engine
+has no checkpoints, so a ``Supervisor`` recovers it by a full run again.
 """
 
 from __future__ import annotations
@@ -29,6 +30,7 @@ from typing import Dict, List, Optional
 from .fingerprint import fingerprint
 from .host import HostChecker
 from .path import Path
+from .resilience.faults import fault_plan_from_env
 
 __all__ = ["BfsChecker"]
 
@@ -45,13 +47,18 @@ class BfsChecker(HostChecker):
         for s in self._init_states:
             generated.setdefault(fingerprint(s), None)
         self._generated = generated
+        #: the fault plan, or ``NULL_PLAN`` (one attribute check a block)
+        self._faults = fault_plan_from_env()
         self._start(builder, deque((s, fingerprint(s), self._ebits)
                                    for s in self._init_states),
                     deque, _split_off_deque)
 
     def _check_block(self, pending: deque, max_count: int) -> None:
         """Takes up to ``max_count`` states from ``pending`` (the
-        reference's ``check_block``, ``bfs.rs:165-274``)."""
+        reference's ``check_block``, ``bfs.rs:165-274``); JAX's
+        ``host_crash`` first (``checker/bfs.py:95-99``)."""
+        if self._faults.active:
+            self._faults.crash("host_crash", self._tracer)
         model = self._model
         generated = self._generated
         visitor = self._visitor

@@ -25,9 +25,9 @@ place as an aligned array (``store.tiered.map_segment_visited``), and is a
 valid checkpoint shard: ``verify_file`` checks it. The port reads every
 version and writes v5, with a ``store`` section where its tiered store
 (``store/tiered.py``) holds cold segments; an engine refuses a header
-with a v4 section (the elastic workers are not ported). The reference's
-fault plan (``resilience/faults.py``) is not ported, so ``write_atomic``
-injects nothing.
+with a v4 section (the elastic workers are not ported). ``write_atomic``
+holds the fault plan's ``ckpt_crc`` and ``torn_ckpt`` points
+(``resilience/faults.py``), as the reference's does.
 """
 
 from __future__ import annotations
@@ -230,14 +230,45 @@ def write_atomic(path: str, payload: dict, compress: bool = True) -> None:
     """Writes the npz atomically with keep-last-2 rotation: the previous
     file moves to ``path + PREV_SUFFIX`` just before the new one lands,
     so a complete generation is on disk at every instant. Records every
-    section's CRC32 in ``crcs``. A failed write leaves no temp file."""
+    section's CRC32 in ``crcs``. A failed write leaves no temp file.
+
+    The fault plan's two points (the reference's :326-365): under
+    ``ckpt_crc`` a lying disk changes one byte of a nonempty ``visited``
+    after the CRCs were taken, so only a load's CRC check finds it; under
+    ``torn_ckpt`` the writer rotates the last generation to ``.prev``,
+    leaves a truncated prefix of the new file at ``path`` and raises
+    ``InjectedFault``. On the engines' writer thread (``async_io``) the
+    fault raises at the engine's next join."""
+    from .resilience.faults import InjectedFault, fault_plan_from_env
+
     payload = dict(payload)
     payload["crcs"] = _crcs_of(payload)
+    plan = fault_plan_from_env()
+    if (plan.active and np.asarray(payload.get("visited", ())).size
+            and plan.fires("ckpt_crc", key="visited")):
+        # The CRC table keeps the original bytes' sums.
+        corrupt = np.array(payload["visited"], copy=True)
+        corrupt.reshape(-1)[0] ^= np.asarray(1, corrupt.dtype)
+        payload["visited"] = corrupt
     tmp = f"{path}.tmp-{os.getpid()}"
     writer = np.savez_compressed if compress else _savez_aligned
     try:
         with open(tmp, "wb") as f:
             writer(f, **payload)
+        if plan.active and plan.fires("torn_ckpt", path=path):
+            # The writer dies mid-sequence: the last generation has
+            # rotated, and a prefix of the new one is at the final path.
+            if _rotatable(path):
+                os.replace(path, path + PREV_SUFFIX)
+            with open(tmp, "rb") as f:
+                blob = f.read()
+            with open(path, "wb") as f:
+                f.write(blob[:max(8, len(blob) // 3)])
+            os.unlink(tmp)
+            raise InjectedFault(
+                "checkpoint writer died mid-write (injected torn_ckpt): "
+                f"{path!r} holds a truncated snapshot; the previous "
+                f"generation is at {path + PREV_SUFFIX!r}")
         if _rotatable(path):
             os.replace(path, path + PREV_SUFFIX)
         os.replace(tmp, path)

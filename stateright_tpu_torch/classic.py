@@ -82,8 +82,14 @@ wave.
 next wave boundary after processing the wave in flight, and ``_run``
 writes the end-of-run checkpoint, a resume image. The mux
 (``service/mux.py``) runs its own wave (``engine.mux_wave``) on this
-engine's per-wave boundary, the reference's ``_MUX_CAPABLE``. Fault
-injection is not ported (ROADMAP A13).
+engine's per-wave boundary, the reference's ``_MUX_CAPABLE``.
+
+**Faults** (``resilience/``): the fault plan's ``wave_crash`` at the top
+of ``_process_wave`` and ``grow_oom`` at the growth, whose allocation
+failure, real or injected, sheds the ladder's top rung and retries (the
+OOM degrade, ``BfsEngine._handle_grow_failure``); a ``Supervisor``
+recovers a failed run in place (``restart_from``). Not ported: the job
+service that runs each job under a supervisor (ROADMAP A13 (b)).
 """
 
 from __future__ import annotations
@@ -533,7 +539,13 @@ class CudaBfsChecker(BfsEngine):
 
     def _process_wave(self, wave: dict) -> None:
         """Applies a launched wave's outputs to the counts, discoveries,
-        the parent log and the queue (engine :1410-1566)."""
+        the parent log and the queue (engine :1410-1566). The fault plan's
+        ``wave_crash`` comes first (engine :1419-1425): the wave's table
+        insertions are real and its outputs lost, a torn frontier that
+        only a checkpoint repairs."""
+        if self._faults.active:
+            self._faults.crash("wave_crash", self._tracer,
+                               wave=len(self.dispatch_log))
         conds_out, small, terminal, new_vecs, new_fps, new_parent = \
             self._fetch(wave)
         t0 = time.perf_counter()
@@ -726,15 +738,38 @@ class CudaBfsChecker(BfsEngine):
         return table
 
     def _grow_table(self) -> None:
+        """Growth with the OOM degrade (engine :1776-1800): an allocation
+        failure (the card's ``torch.OutOfMemoryError``, or the fault
+        plan's ``grow_oom``) sheds the ladder's top rung and tries again,
+        and the smaller headroom may make the growth needless; at the base
+        rung the failure raises (``_handle_grow_failure``). The classic
+        sharded engine's growth is this one (JAX ``sharded.py:158-190``)."""
+        while True:
+            try:
+                self._grow_requested = self._grow_target()
+                if self._faults.active:
+                    self._faults.crash("grow_oom", self._tracer)
+                # Where the new capacity would pass the tiered store's
+                # device budget, visited partitions spill instead, and
+                # the growth may be needed no more (engine :1780-1795).
+                if self._spill_for_headroom() and not self._needs_growth():
+                    return
+                self._rehash_grown()
+            except Exception as e:  # noqa: BLE001 — a non-OOM raises again
+                self._handle_grow_failure(e)
+                if self._needs_growth():
+                    continue
+            return
+
+    def _rehash_grown(self) -> None:
         """Doubles the capacity until the headroom holds and rehashes the
         table into it once (engine :1802-1818), through the dedup kernel
         in strided chunks with the engine's scratch, as the fused engines
         do (``_insert_chunked``). Every wave graph goes: they hold the old
-        table. Where the new capacity would pass the tiered store's
-        device budget, visited partitions spill instead, and the growth
-        may then be needed no more (engine :1780-1795)."""
-        if self._spill_for_headroom() and not self._needs_growth():
-            return
+        table; the next wave captures its own against the table that is
+        left, the new one or, where its allocation failed, the old one,
+        since ``_table`` and ``_capacity`` change only once the new table
+        is built."""
         self._drop_graphs()
         cap = self._grow_target()
         if self._tracer.enabled:

@@ -124,6 +124,7 @@ from .obs import (prof_from_env, recorder_from_env, tracer_from_env,
 from .obs.prof import elapsed_s, has_record, mark, sum_costs
 from .packing import compile_layout
 from .path import Path
+from .resilience.faults import fault_plan_from_env, is_oom
 from .store.tiered import load_cold_refs, store_from_config
 from .table import DedupScratch, dedup_and_insert, dedup_cost
 from .visitor import as_visitor
@@ -417,6 +418,14 @@ class BfsEngine(Checker):
             meta={"model_name": checkpoint_name(model), "state_width": W,
                   "use_symmetry": self._use_symmetry}, owner=self)
         self._store.attach_async(self._aio)
+        #: the fault plan (``resilience/faults.py``): the live
+        #: ``STpu_FAULTS`` plan or the shared ``NULL_PLAN``; every hook is
+        #: behind ``.active``, one attribute check a dispatch, outside any
+        #: launch (engine :492-497)
+        self._faults = fault_plan_from_env()
+        #: the capacity the last growth asked for (a ``degrade`` event's
+        #: ``requested``)
+        self._grow_requested = 0
 
         # The kernels' scratch for a wave's rows, handed to every call
         # (the table's chunked inserts too) and back clean from each.
@@ -674,6 +683,47 @@ class BfsEngine(Checker):
         s, self._io_stall_s = self._io_stall_s, 0.0
         return round(s, 6)
 
+    # -- The OOM degrade ---------------------------------------------------
+
+    def _degrade_bucket(self, err: BaseException) -> bool:
+        """Drops the top rung of the batch ladder after an allocation
+        failure (engine :1736-1760): narrower dispatches need less table
+        and arena headroom, so the growth is tried again against a smaller
+        need. False at the base rung (nothing left to shed). The ladder
+        alone moves: a wave's slots, scratch and graphs keep their sizes
+        and keys, and a batch never passes the new top rung."""
+        if len(self._buckets) <= 1:
+            return False
+        old = self._B_max
+        self._buckets = self._buckets[:-1]
+        self._B_max = self._buckets[-1]
+        warnings.warn(
+            f"table/arena growth hit an allocation failure "
+            f"({type(err).__name__}: {str(err)[:160]}); degrading the "
+            f"dispatch bucket ladder {old} -> {self._B_max} and retrying",
+            RuntimeWarning)
+        if self._tracer.enabled:
+            # requested / kept: the capacity the failed growth asked for
+            # and the one that exists.
+            self._tracer.event(
+                "degrade", kind="batch_bucket", old=old, new=self._B_max,
+                requested=int(self._grow_requested),
+                kept=int(self._capacity), _flush=True)
+        return True
+
+    def _handle_grow_failure(self, err: BaseException) -> None:
+        """The OOM degrade of every growth site, called from its
+        ``except`` clause (engine :1762-1775): a failure that is not an
+        allocation failure (``is_oom``), or one at the base rung, raises
+        again unchanged; otherwise the ladder degrades and one ``recover``
+        (``kind`` ``grow_degrade``) pairs with the fault."""
+        if not is_oom(err) or not self._degrade_bucket(err):
+            raise err
+        if self._tracer.enabled:
+            self._tracer.event("recover", attempt=1, backoff_s=0.0,
+                               resumed_from=None, kind="grow_degrade",
+                               _flush=True)
+
     # -- Wave events ---------------------------------------------------------
 
     def _prof_key(self, key: tuple) -> str:
@@ -774,6 +824,10 @@ class BfsEngine(Checker):
                 "restart_from() while the checker is running; join() "
                 "(or wait for the failure) first")
         self._thread.join()
+        if self._device.type == "cuda":
+            # The failed run may have left launches in flight on graphs
+            # and tensors the reset drops.
+            torch.cuda.synchronize(self._device)
         self._aio.reset()
         # The preempt event survives a restart (a preempt that raced a
         # crash still targets the job); only the outcome flag resets.
@@ -1236,7 +1290,13 @@ class FusedCudaBfsChecker(BfsEngine):
 
     def _retire(self, entry) -> None:
         """Waits for one launched dispatch's stats, applies them and logs
-        the dispatch's wave event (fused :546-637)."""
+        the dispatch's wave event (fused :546-637). The fault plan's
+        ``wave_crash`` comes first (fused :551-557, sharded_fused
+        :552-556): the dispatch's table and arena writes are real and its
+        stats are lost, a torn frontier that only a checkpoint repairs."""
+        if self._faults.active:
+            self._faults.crash("wave_crash", self._tracer,
+                               wave=len(self.dispatch_log))
         host, copied, meta = entry
         if copied is not None:
             copied.synchronize()
@@ -1346,7 +1406,34 @@ class FusedCudaBfsChecker(BfsEngine):
         Under the tiered store's device budget, an arena that must grow
         past it rolls instead while it has an expanded prefix
         (``_roll_span``, fused :700-750); that keeps the dispatch graphs,
-        which growth drops."""
+        which growth drops.
+
+        An allocation failure (the card's ``torch.OutOfMemoryError`` or
+        the fault plan's ``grow_oom``) sheds the ladder's top rung instead
+        of failing the run (fused :670-766, ``_handle_grow_failure``); the
+        loop's next turn picks a bucket from the shorter ladder and
+        decides again whether to grow. The table and the arena are
+        replaced only once their new tensors exist, so a failed
+        allocation leaves ``_capacity``, ``_ucap`` and the tensors as they
+        were, and the next dispatch captures its graph against them."""
+        try:
+            self._grow_requested = (2 * self._capacity
+                                    if self._table_short(bucket)
+                                    else self._capacity)
+            if self._faults.active:
+                self._faults.crash("grow_oom", self._tracer)
+            self._grow_at(bucket)
+        except Exception as e:  # noqa: BLE001 — a non-OOM raises again
+            self._handle_grow_failure(e)
+
+    def _table_short(self, bucket: int) -> bool:
+        """Whether a dispatch of ``bucket`` rows could pass the table's
+        half load."""
+        return self._occ + bucket * self._F > self._capacity // 2
+
+    def _grow_at(self, bucket: int) -> None:
+        """``_grow``'s doublings and rolls for a dispatch of ``bucket``
+        rows."""
         S = bucket * self._F
         while self._occ + S > self._capacity // 2:
             if self._tracer.enabled:
@@ -1375,11 +1462,10 @@ class FusedCudaBfsChecker(BfsEngine):
                 out[:self._ucap] = a[:self._ucap]
                 return out
 
+            new = (grown(self._vecs, 0), grown(self._fps, SENTINEL),
+                   grown(self._par, SENTINEL), grown(self._ebits, 0))
             with self._lock:
-                self._vecs = grown(self._vecs, 0)
-                self._fps = grown(self._fps, SENTINEL)
-                self._par = grown(self._par, SENTINEL)
-                self._ebits = grown(self._ebits, 0)
+                self._vecs, self._fps, self._par, self._ebits = new
                 self._ucap = ucap
             self.arena_grows += 1
 

@@ -23,11 +23,17 @@ check a dispatch. A port trace validates under ``schema.validate_line``
 here, and under JAX's schema and ``tools/trace_lint.py`` where the JAX
 package is installed.
 
+The resilience family comes from ``resilience/``: ``fault`` from the
+fault plan's firings, ``degrade`` and ``recover`` (``kind``
+``grow_degrade``) from the device engines' OOM degrade, ``recover``
+(``cold_segment_prev``) from the tiered store's torn-segment fallback,
+and ``retry`` and ``abort`` from the ``Supervisor``.
+
 Not ported: ``obs/collect.py`` (``RelayTracer``, ``TraceCollector``),
-which serves the elastic workers (ROADMAP A13); the ``fault`` /
-``recover`` / ``degrade`` / ``abort`` events of the fault plan and the
-OOM degrade (A13), which the port has not; the job, mux and control
-event families (A10, A13); the explorer's ``/.metrics`` (A19).
+which serves the elastic workers (ROADMAP A13 (c)), and with them the
+``worker_lost`` / ``migrate_done`` / ``rebalance`` events; the job, mux
+and control event families (A10, A13 (b)); the explorer's ``/.metrics``
+(A19).
 """
 
 from .anomaly import ANOMALY_ENV, SlowWaveDetector, detector_from_env

@@ -82,8 +82,14 @@ engine.
   record of a wave is the sender kernel's declared cost (with the wave
   kernel on) and the ``n`` owner-side inserts'.
 
-Fault injection (``_inject_exchange_faults`` :456, ROADMAP A13) is not
-ported.
+- **Faults** (``resilience/``): ``wave_crash`` at the top of
+  ``_process_wave`` (JAX fires it at the wave's start, :518),
+  ``a2a_short`` and ``a2a_corrupt`` on the fetched blocks between
+  ``_shard_blocks`` and the integrity check (``_inject_exchange_faults``,
+  :456-490), which raises the fault plan's ``ExchangeIntegrityError``,
+  and the classic engine's growth with its ``grow_oom`` and OOM degrade
+  (:158-190). Not ported: an ownership remap and the elastic workers
+  (ROADMAP A13 (c)).
 """
 
 from __future__ import annotations
@@ -103,6 +109,7 @@ from .matmul_wave import expand
 from .membership import EpochOwnership, OwnerMap
 from .mesh import route_home
 from .model import Expectation
+from .resilience.faults import ExchangeIntegrityError
 from .table import dedup_and_insert, dedup_cost
 from .wave import sender_cost, sender_megakernel
 
@@ -112,14 +119,6 @@ __all__ = ["ShardedCudaBfsChecker", "ExchangeIntegrityError",
 #: the small outputs of a wave, in one int64 vector; each shard's new
 #: rows from ``_NEW``
 (_SUCC, _CAND, _OVERFLOW, _FULL, _NEW) = range(5)
-
-
-class ExchangeIntegrityError(RuntimeError):
-    """The exchange delivered an owner fewer rows than its dedup reported
-    new, or a sentinel fingerprint among them: the port's copy of
-    ``stateright_tpu/resilience/faults.py::ExchangeIntegrityError``. The
-    wave's insertions are in the table, so the run resumes from its last
-    checkpoint."""
 
 
 def sharded_front(dm, mesh, store: torch.Tensor, valid: torch.Tensor,
@@ -511,9 +510,36 @@ class ShardedCudaBfsChecker(EpochOwnership, CudaBfsChecker):
                     f"shard {i}'s new block (corrupt exchange payload); "
                     "resume from the last checkpoint")
 
+    def _inject_exchange_faults(self, blocks: list) -> list:
+        """The fault plan's exchange damage on the fetched blocks (JAX
+        :456-490): ``a2a_short`` drops a block's last row, ``a2a_corrupt``
+        writes the sentinel over a fingerprint; the integrity check then
+        catches either. A fault fires only where a nonempty block exists
+        to damage, so each ``fault`` event has a failure to pair with. The
+        port's blocks are ``(vecs, fps, parent rows)``."""
+        target = next((i for i, b in enumerate(blocks) if len(b[1])), None)
+        if target is None:
+            return blocks
+        if self._faults.fires("a2a_short", self._tracer, shard=target):
+            vecs, fps, parents = blocks[target]
+            blocks[target] = (vecs[:-1], fps[:-1], parents[:-1])
+            # A one-row block is empty now: pick again for the next fault.
+            target = next((i for i, b in enumerate(blocks) if len(b[1])),
+                          None)
+        if target is not None and self._faults.fires(
+                "a2a_corrupt", self._tracer, shard=target):
+            vecs, fps, parents = blocks[target]
+            fps = fps.copy()
+            fps[-1] = SENTINEL_U64
+            blocks[target] = (vecs, fps, parents)
+        return blocks
+
     def _process_wave(self, wave: dict) -> None:
         """Applies a wave's outputs to the counts, discoveries, the parent
         log and the shard queues (JAX :588-774)."""
+        if self._faults.active:
+            self._faults.crash("wave_crash", self._tracer,
+                               wave=len(self.dispatch_log))
         conds_out, small, terminal, new_vecs, new_fps, new_parent = \
             self._fetch(wave)
         t0 = time.perf_counter()
@@ -542,6 +568,8 @@ class ShardedCudaBfsChecker(EpochOwnership, CudaBfsChecker):
                                     self._reconstruct_path(int(batch_fps[r])))
         blocks = self._shard_blocks(K, new_count, new_vecs, new_fps,
                                     new_parent)
+        if self._faults.active:
+            blocks = self._inject_exchange_faults(blocks)
         self._check_exchange(blocks, new_count)
         if self._store.active and self._store.spilled_rows:
             # A spilled state generated again is back in its owner's

@@ -50,8 +50,11 @@ ShardedFusedTpuBfsChecker`` on the port's fused engine (``fused.py``).
   doubling, the profiler's record from the sender kernel's, the ``n``
   inserts' and the append's declared costs.
 
-Fault injection is not ported (ROADMAP A13), and neither is an ownership
-remap (A13).
+- **Faults** (``resilience/``): the fused engine's ``wave_crash`` in
+  ``_retire`` (:552-556) and its growth's ``grow_oom`` and OOM degrade
+  (:678), around this engine's ``_grow_at``; a supervised run resumes in
+  place (``restart_from``). Not ported: an ownership remap and the
+  elastic workers (ROADMAP A13 (c)).
 """
 
 from __future__ import annotations
@@ -382,8 +385,13 @@ class ShardedFusedCudaBfsChecker(EpochOwnership, FusedCudaBfsChecker):
             table_bytes=n * self._capacity * 8,
             io_stall_s=self._take_io_stall(), epoch=self._owner_map.epoch)
 
-    def _grow(self, bucket: int) -> None:
-        """Growth at a rest point (``_run_waves`` :670-766), the dispatch
+    def _table_short(self, bucket: int) -> bool:
+        return (int(self._occs.max()) + self._n * bucket * self._F
+                > self._capacity // 2)
+
+    def _grow_at(self, bucket: int) -> None:
+        """Growth at a rest point (``_run_waves`` :670-766), inside the
+        fused engine's ``_grow`` and its OOM degrade (:678), the dispatch
         graphs dropped where a slice or an arena grows: every table slice
         doubles, each re-inserted
         through the dedup kernel (``_rehash_fn``; JAX in one call a slice,
@@ -420,11 +428,10 @@ class ShardedFusedCudaBfsChecker(EpochOwnership, FusedCudaBfsChecker):
                 out[:, :self._ucap] = a[:, :self._ucap]
                 return out
 
+            new = (grown(self._vecs, 0), grown(self._fps, SENTINEL),
+                   grown(self._par, SENTINEL), grown(self._ebits, 0))
             with self._lock:
-                self._vecs = grown(self._vecs, 0)
-                self._fps = grown(self._fps, SENTINEL)
-                self._par = grown(self._par, SENTINEL)
-                self._ebits = grown(self._ebits, 0)
+                self._vecs, self._fps, self._par, self._ebits = new
                 self._ucap = ucap
             self.arena_grows += 1
 

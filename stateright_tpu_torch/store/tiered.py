@@ -30,10 +30,17 @@ is the arena-span roll (``note_arena_span``).
 
 Its ``spill`` / ``page_in`` / ``pressure`` events go to the owning
 engine's tracer and flight ring (``owner``, read at each event, as the
-reference's ``_event``), at the reference's points. Not ported yet: the
-reference's fault points (``spill_fail``, ``disk_full``, ``page_in_torn``;
-``resilience/faults.py``) inject nothing. Every counter that ``stats()``
-reports is kept.
+reference's ``_event``), at the reference's points. The fault plan's
+points (``resilience/faults.py``) are the reference's: ``spill_fail`` at
+a visited spill before any tier changes, ``disk_full`` at a cold write
+(a partition's segment, with its ``_spilling`` mark released first, or a
+frontier block), and ``page_in_torn`` where a segment lands (truncated:
+the store falls back to the ``.prev`` generation and keeps the rows warm,
+with a ``recover`` event) and where a frontier block is read back (a
+raise, at consumption, never on the prefetch thread). Each fires on the
+thread that runs its site, the background writer's too, whose failure
+raises at the owner's next join. Every counter that ``stats()`` reports
+is kept.
 
 The disarmed store is the shared ``NULL_STORE`` (``active`` False): an
 engine's wave pays one attribute check.
@@ -52,6 +59,7 @@ import numpy as np
 from ..checkpoint_format import (PREV_SUFFIX, content_hash, load_checkpoint,
                                  make_header, verify_file, write_atomic)
 from ..io.async_io import SyncWriter
+from ..resilience.faults import fault_plan_from_env
 
 __all__ = [
     "TIER_DEVICE_ENV", "TIER_HOST_ENV", "TIER_DIR_ENV",
@@ -344,6 +352,7 @@ class TieredStore:
             os.makedirs(segment_dir, exist_ok=True)
         self._P = max(1, int(n_partitions))
         self._meta = dict(meta or {})
+        self._faults = fault_plan_from_env()
         self._lock = threading.Lock()
         self._warm: List[Optional[np.ndarray]] = [None] * self._P
         self._cold: Dict[int, _ColdPart] = {}
@@ -387,13 +396,20 @@ class TieredStore:
 
     # -- Events --------------------------------------------------------------
 
+    def _tracer(self):
+        """The owner's tracer where it is on, else None (a fault then goes
+        to the plan's own tracer)."""
+        owner = None if self._owner is None else self._owner()
+        tracer = getattr(owner, "_tracer", None)
+        return tracer if tracer is not None and tracer.enabled else None
+
     def _event(self, etype: str, **fields) -> None:
         """One event to the owner's tracer (flushed at once, as the
         reference's) and flight ring, where they are on."""
-        owner = None if self._owner is None else self._owner()
-        tracer = getattr(owner, "_tracer", None)
-        if tracer is not None and tracer.enabled:
+        tracer = self._tracer()
+        if tracer is not None:
             tracer.event(etype, _flush=True, **fields)
+        owner = None if self._owner is None else self._owner()
         flight = getattr(owner, "_flight", None)
         if flight is not None and flight.armed:
             flight.record_event(etype, **fields)
@@ -467,7 +483,9 @@ class TieredStore:
     def spill_visited(self, fps: np.ndarray) -> None:
         """Takes evicted device fingerprints into the warm tier, then
         pushes the largest warm partitions to cold segments while the
-        host tier is over its budget."""
+        host tier is over its budget. ``spill_fail`` fires before any tier
+        changes (the reference's :339)."""
+        self._faults.crash("spill_fail", self._tracer(), rows=len(fps))
         fps = np.asarray(fps, np.uint64)
         if not len(fps):
             return
@@ -555,7 +573,20 @@ class TieredStore:
         (its CRCs or its hash fail) falls back to the rotation
         predecessor, itself checked before any parse, and the rows stay
         warm: no fingerprint is lost. ``warm_rows`` are the rows an
-        asynchronous write took at its submission."""
+        asynchronous write took at its submission.
+
+        The fault plan (the reference's :451-520): ``disk_full`` raises
+        before the write, with the partition's ``_spilling`` mark
+        released; ``page_in_torn`` truncates the landed segment, and the
+        read-back's fallback above recovers it (a ``recover`` event,
+        ``kind`` ``cold_segment_prev``)."""
+        tracer = self._tracer()
+        try:
+            self._faults.crash("disk_full", tracer, partition=p)
+        except BaseException:
+            with self._lock:
+                self._spilling.discard(p)
+            raise
         with self._lock:
             warm = self._warm[p] if warm_rows is None else warm_rows
             if warm is None or not len(warm):
@@ -581,6 +612,14 @@ class TieredStore:
             with self._lock:
                 self._spilling.discard(p)
             raise
+        if self._faults.fires("page_in_torn", tracer, mode="torn",
+                              partition=p):
+            # The segment lands torn: a prefix reaches the final path, the
+            # last generation already rotated to ``.prev``.
+            with open(path, "rb") as f:
+                blob = f.read()
+            with open(path, "wb") as f:
+                f.write(blob[:max(8, len(blob) // 3)])
         try:
             verify_file(path)
             got = map_segment_visited(path)
@@ -606,6 +645,10 @@ class TieredStore:
                 else:
                     self._cold.pop(p, None)
                 self._spilling.discard(p)
+            self._event("recover", attempt=1, backoff_s=0.0,
+                        resumed_from=(restored.path if restored
+                                      else None),
+                        kind="cold_segment_prev")
             return
         with self._lock:
             # The cold generation goes in and exactly the rows it holds
@@ -668,7 +711,10 @@ class TieredStore:
 
     def spill_partition_rows(self, p: int, fps: np.ndarray) -> None:
         """Takes one partition's visited rows into the warm tier (cold
-        under host pressure)."""
+        under host pressure); ``spill_fail`` first (the reference's
+        :583)."""
+        self._faults.crash("spill_fail", self._tracer(), partition=p,
+                           rows=len(fps))
         fps = np.asarray(fps, np.uint64)
         if not len(fps):
             return
@@ -756,6 +802,7 @@ class TieredStore:
                         budget=int(self.host_budget))
 
     def _stash_block(self, block) -> FrontierRef:
+        self._faults.crash("disk_full", self._tracer(), kind="frontier")
         arrays = [np.ascontiguousarray(a) for a in block]
         nbytes = sum(a.nbytes for a in arrays)
         with self._lock:
@@ -780,7 +827,12 @@ class TieredStore:
         return FrontierRef(log.path, int(len(block[1])), nbytes, tuple(
             (a.dtype, a.shape) for a in arrays), offset)
 
-    def _read_block(self, ref: FrontierRef):
+    def _read_block(self, ref: FrontierRef, fire_faults: bool = True):
+        """A paged-out block's arrays; ``page_in_torn`` first where
+        ``fire_faults`` (the reference's :691-704)."""
+        if fire_faults:
+            self._faults.crash("page_in_torn", self._tracer(),
+                               path=ref.path)
         try:
             with self._lock:
                 log = self._logs.get(ref.path)
@@ -812,8 +864,10 @@ class TieredStore:
 
             self._executor = ThreadPoolExecutor(
                 max_workers=1, thread_name_prefix="stpu-page")
+        # The fault fires at consumption, not on the reader thread: a read
+        # the run never collects must not hold a fault with no recovery.
         self._prefetched[ref.path, ref.offset] = self._executor.submit(
-            self._read_block, ref)
+            self._read_block, ref, False)
 
     def prefetch_window(self, refs) -> None:
         """``prefetch`` of each of ``refs`` (one read a path)."""
@@ -826,6 +880,8 @@ class TieredStore:
         prefetches ``prefetch`` (a ref or a list of them)."""
         fut = self._prefetched.pop((ref.path, ref.offset), None)
         if fut is not None:
+            self._faults.crash("page_in_torn", self._tracer(),
+                               path=ref.path)
             block = fut.result()
             self._prefetch_hits += 1
         else:

@@ -12,7 +12,8 @@ host engine's ``bfs.py``, ``_market.py``, ``fingerprint.py`` and
 and ``symmetry.py`` and
 the host actor layer's ``actor.py``, and the run telemetry's ``obs/``
 package and ``profiling.py``, and the program cache's ``jit_cache.py``
-and the ``service/`` package's registry and mux among
+and the ``service/`` package's registry and mux, and the
+``resilience/`` package and ``util.py`` among
 them); a fresh interpreter that checks 2pc at 3 RMs
 (on the host BFS, on the fused engine,
 with a visitor on the classic engine and on the classic sharded engine,
@@ -24,7 +25,10 @@ a lossy network and VSR at 2 replicas through the port on the CPU, 2pc
 at 5 RMs and single-copy at 2 clients with symmetry on the host DFS,
 VSR at 2 replicas on the host BFS,
 paxos on 5 servers through a ``spawn_cuda_bfs()`` that falls back to the
-host BFS, and two tenants of 2pc at 3 RMs in one ``MuxGroup``, and then finds neither ``jax`` nor ``stateright_tpu`` loaded; and
+host BFS, and two tenants of 2pc at 3 RMs in one ``MuxGroup``, and 2pc at
+3 RMs on the classic engine under a ``Supervisor`` through an injected
+``wave_crash``, and fingerprints a ``HashableHashSet``, and then finds
+neither ``jax`` nor ``stateright_tpu`` loaded; and
 the entry point's default device, which is CUDA and raises on a box
 without one.
 """
@@ -72,7 +76,9 @@ def test_no_file_of_the_port_imports_jax_or_the_jax_package():
             "obs/tracer.py", "obs/flight.py", "obs/hist.py", "obs/slo.py",
             "obs/anomaly.py", "obs/prof.py", "jit_cache.py",
             "service/__init__.py", "service/registry.py",
-            "service/mux.py"} <= names
+            "service/mux.py", "resilience/__init__.py",
+            "resilience/faults.py", "resilience/supervisor.py",
+            "util.py"} <= names
     for path in files + [os.path.join(_REPO, "chip_smoke.py")]:
         for name in _imports(path):
             assert name.split(".")[0] not in _BANNED, (path, name)
@@ -166,6 +172,23 @@ def test_a_cpu_check_loads_neither_jax_nor_the_jax_package():
         "assert [h.join().unique_state_count() for h in hs] == [288, 288]\n"
         "g.join(timeout=30)\n"
         "assert g.closed\n"
+        "import os, tempfile\n"
+        "from stateright_tpu_torch.resilience import Supervisor\n"
+        "os.environ['STpu_FAULTS'] = 'wave_crash@n=2'\n"
+        "p = os.path.join(tempfile.mkdtemp(), 'c.npz')\n"
+        "sup = Supervisor(lambda resume_from=None: TwoPhaseSys(3).checker()\n"
+        "    .spawn_cuda_bfs(device='cpu', fused=False, batch_size=32,\n"
+        "                    checkpoint_path=p, checkpoint_every_waves=1,\n"
+        "                    resume_from=resume_from),\n"
+        "    checkpoint_path=p, backoff_s=0.001)\n"
+        "c = sup.run()\n"
+        "assert (c.unique_state_count(), c.state_count()) == (288, 1146)\n"
+        "assert len(sup.recoveries) == 1\n"
+        "del os.environ['STpu_FAULTS']\n"
+        "from stateright_tpu_torch.fingerprint import fingerprint\n"
+        "from stateright_tpu_torch.util import HashableHashSet\n"
+        "assert fingerprint(HashableHashSet([1, 2])) == \\\n"
+        "    fingerprint(HashableHashSet([2, 1]))\n"
         "bad = [m for m in sys.modules\n"
         "       if m.split('.')[0] in ('jax', 'jaxlib', 'stateright_tpu')]\n"
         "assert not bad, bad\n"
